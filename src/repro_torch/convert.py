@@ -1,0 +1,46 @@
+"""Carry the JAX package's arrays into the port, given as numpy arrays.
+
+:func:`params_from_jax` turns any tree of numpy arrays (dicts, lists,
+tuples, NamedTuples — a parameter tree, a batch, an estimator or a
+worker-stacked carry) into the same tree of tensors; :func:`state_from_jax`
+does so for the fields of a ``MarinaState``. Taking numpy only keeps the
+port free of any JAX import: the caller converts with ``np.asarray``.
+bfloat16 arrays (numpy's ``ml_dtypes`` extension type) keep their bits.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.marina import MarinaState
+from repro_torch.core.tree_util import tree_map
+
+PyTree = Any
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_from_jax(tree_of_numpy: PyTree, device="cpu") -> PyTree:
+    """Tree of numpy arrays → the same tree of tensors on ``device``."""
+    return tree_map(lambda a: _tensor(a, device), tree_of_numpy)
+
+
+def state_from_jax(params: PyTree, g: PyTree, step: int, h: PyTree = None,
+                   device="cpu") -> MarinaState:
+    """The fields of a reference ``MarinaState`` (as numpy trees) → the
+    port's ``MarinaState``."""
+    return MarinaState(
+        params=params_from_jax(params, device),
+        g=params_from_jax(g, device),
+        step=int(step),
+        h=None if h is None else params_from_jax(h, device),
+    )

@@ -1,0 +1,235 @@
+"""Unbiased quantization operators (Def. 1.1) — port of
+``repro.core.compressors`` for the compressors of the main path.
+
+Every compressor exposes ``omega(d)``, ``expected_density(d)``,
+``payload_bits(d)`` and ``default_p(d)``, and compresses a flat vector under
+an explicit PRNG key (:mod:`repro_torch.prng`), drawing exactly the bits the
+reference draws. :func:`tree_compress` lifts a compressor to pytrees leaf by
+leaf (Block-RandK semantics).
+
+Ported: ``Identity``, ``RandK``, ``BlockRandK``. The other reference
+compressors raise ``NotImplementedError`` in :func:`make_compressor`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.kernels import ref as _ref
+
+from . import flat, wire
+from .tree_util import tree_flatten, tree_leaves
+
+Payload = Any
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Compressor:
+    """Base for stochastic mappings Q: R^d -> R^d (Def. 1.1 when unbiased)."""
+
+    unbiased: bool = dataclasses.field(default=True, init=False)
+    name: str = dataclasses.field(default="base", init=False)
+
+    def omega(self, d: int) -> float:
+        raise NotImplementedError
+
+    def expected_density(self, d: int) -> float:
+        raise NotImplementedError
+
+    def payload_bits(self, d: int) -> float:
+        """Bits per compressed vector of dimension d (32-bit value convention)."""
+        raise NotImplementedError
+
+    def default_p(self, d: int) -> float:
+        """The paper's synchronization probability choice p = ζ_Q/d (Cor. 2.1)."""
+        return min(1.0, max(self.expected_density(d) / max(d, 1), 1e-6))
+
+    def compress(self, key, x: torch.Tensor) -> Payload:
+        raise NotImplementedError
+
+    def decompress(self, payload: Payload, d: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __call__(self, key, x: torch.Tensor) -> torch.Tensor:
+        """Q(x) as a dense vector (compress → decompress round trip)."""
+        return self.decompress(self.compress(key, x), x.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity(Compressor):
+    name: str = dataclasses.field(default="identity", init=False)
+
+    def omega(self, d: int) -> float:
+        return 0.0
+
+    def expected_density(self, d: int) -> float:
+        return float(d)
+
+    def payload_bits(self, d: int) -> float:
+        return 32.0 * d
+
+    def compress(self, key, x):
+        return {"dense": x}
+
+    def decompress(self, payload, d):
+        return payload["dense"]
+
+
+def _randk_indices(key, d: int, k: int, device) -> torch.Tensor:
+    """K uniform indices without replacement: top-K of iid uniform keys,
+    ties to the lower index (as ``lax.top_k``)."""
+    u = torch.from_numpy(prng.uniform(key, (d,)))
+    order = torch.sort(u, descending=True, stable=True).indices[:k]
+    return order.to(device=device, dtype=torch.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Uniform-K sparsification with scaling d/K. ``k`` is an absolute count
+    (``k >= 1``) or a fraction of d (``0 < k < 1``)."""
+
+    k: float = 1
+    name: str = dataclasses.field(default="randk", init=False)
+
+    def k_for(self, d: int) -> int:
+        if self.k < 1:
+            return max(1, int(round(self.k * d)))
+        return min(int(self.k), d)
+
+    def omega(self, d: int) -> float:
+        return d / self.k_for(d) - 1.0
+
+    def expected_density(self, d: int) -> float:
+        return float(self.k_for(d))
+
+    def payload_bits(self, d: int) -> float:
+        return 64.0 * self.k_for(d)  # value (32b) + index (32b) per coordinate
+
+    def compress(self, key, x):
+        d = x.shape[0]
+        k = self.k_for(d)
+        idx = _randk_indices(key, d, k, x.device)
+        scale = torch.tensor(d / k, dtype=x.dtype, device=x.device)
+        return {"values": x[idx] * scale, "indices": idx}
+
+    def decompress(self, payload, d):
+        vals = payload["values"]
+        out = torch.zeros((d,), dtype=vals.dtype, device=vals.device)
+        return out.index_put_((payload["indices"],), vals, accumulate=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockRandK(Compressor):
+    """Seeded blockwise RandK — the wire format of the flat engine.
+
+    ``kb`` coordinates per ``block`` are drawn with replacement by the
+    murmur3 counter RNG and scaled by ``block/kb``; the payload is
+    ``{values, seed}`` (offsets regenerate from the seed), 32 + 32·K bits.
+    ω = block/kb; ζ_Q = nblk·B·(1−(1−1/B)^kb)."""
+
+    kb: int = 8
+    block: int = 1024
+    name: str = dataclasses.field(default="block_randk", init=False)
+
+    def __post_init__(self):
+        if self.block & (self.block - 1):
+            raise ValueError("block must be a power of two")
+        if not 1 <= self.kb <= self.block:
+            raise ValueError("kb must lie in [1, block]")
+
+    def _nblk(self, d: int) -> int:
+        return max(1, -(-d // self.block))
+
+    def omega(self, d: int) -> float:
+        return self.block / self.kb
+
+    def expected_density(self, d: int) -> float:
+        per_block = self.block * (1.0 - (1.0 - 1.0 / self.block) ** self.kb)
+        return float(min(d, self._nblk(d) * per_block))
+
+    def payload_bits(self, d: int) -> float:
+        return wire.seeded_randk_bits(self._nblk(d), self.kb)
+
+    def compress(self, key, x):
+        d = x.shape[0]
+        nblk = self._nblk(d)
+        x2d = torch.nn.functional.pad(x, (0, nblk * self.block - d)).reshape(
+            nblk, self.block)
+        seed = prng.key_to_seed(key)
+        vals, _ = _ref.randk_seeded_ref(x2d, seed, self.kb, self.block / self.kb)
+        return {"values": vals, "seed": seed}
+
+    def decompress(self, payload, d):
+        vals = payload["values"]
+        offs = flat.seeded_offsets(payload["seed"], vals.shape[0], self.block,
+                                   self.kb, device=vals.device)
+        dense = _ref.scatter_accum_ref(vals[None], offs[None], self.block)
+        return dense.reshape(-1)[:d].to(vals.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tree lifting (Block-RandK semantics)
+# ---------------------------------------------------------------------------
+
+
+def tree_compress(comp: Compressor, key, tree: PyTree) -> PyTree:
+    """Compress each leaf with its own key; a single-leaf tree consumes the
+    key directly (no split), as the reference does."""
+    leaves, treedef = tree_flatten(tree)
+    keys = [key] if len(leaves) == 1 else list(prng.split(key, len(leaves)))
+    payloads = [comp.compress(k, leaf.reshape(-1)) for k, leaf in zip(keys, leaves)]
+    return _PayloadTree(treedef, payloads)
+
+
+@dataclasses.dataclass
+class _PayloadTree:
+    """Per-leaf payloads at the leaf positions of the compressed tree."""
+
+    treedef: Any
+    payloads: list
+
+
+def tree_decompress(comp: Compressor, payload_tree: _PayloadTree, like: PyTree
+                    ) -> PyTree:
+    """Inverse of tree_compress; ``like`` supplies leaf shapes and dtypes."""
+    like_leaves = tree_leaves(like)
+    outs = [
+        comp.decompress(p, l.numel()).reshape(l.shape).to(l.dtype)
+        for p, l in zip(payload_tree.payloads, like_leaves)
+    ]
+    return payload_tree.treedef.unflatten(outs)
+
+
+def tree_payload_bits(comp: Compressor, tree: PyTree) -> float:
+    """Per-worker wire bits of one compressed round under per-leaf lifting."""
+    return sum(comp.payload_bits(l.numel()) for l in tree_leaves(tree))
+
+
+def tree_dim(tree: PyTree) -> int:
+    """Total dimension d = Σ leaf sizes."""
+    return sum(int(np.prod(l.shape)) for l in tree_leaves(tree))
+
+
+_NOT_PORTED = ("block_qsgd", "flat_qsgd", "block_natural", "flat_natural",
+               "shared_randk", "permk", "perm_k", "correlated_qsgd",
+               "correlated_q", "cqsgd", "topk", "qsgd", "natural")
+
+
+def make_compressor(name: str, **kw) -> Compressor:
+    """Registry: compressor by name."""
+    name = name.lower()
+    if name in ("identity", "none"):
+        return Identity()
+    if name == "randk":
+        return RandK(**kw)
+    if name in ("block_randk", "flat_randk"):
+        return BlockRandK(**kw)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"compressor {name!r} is not ported yet")
+    raise ValueError(f"unknown compressor {name!r}")

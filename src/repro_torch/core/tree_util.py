@@ -1,0 +1,146 @@
+"""Small pytree algebra used by the optimizer layer.
+
+Parameter trees are nested dicts / lists / tuples / NamedTuples of tensors.
+The leaf order is ``jax.tree.flatten``'s — dict keys are *sorted*, sequences
+keep their order, ``None`` is an empty subtree — because the flat layout
+places leaves at offsets in that order and the seeded RandK offsets must hit
+the same coordinates as in the reference. (``torch.utils._pytree`` keeps dict
+insertion order, so it is not used here.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeDef:
+    """Structure of a pytree: ``kind`` is leaf | none | dict | list | tuple |
+    namedtuple; ``meta`` the sorted dict keys or the NamedTuple class."""
+
+    kind: str
+    meta: Any = None
+    children: tuple = ()
+
+    def flatten_up_to(self, tree: PyTree) -> list:
+        """Leaves of ``tree`` at this structure's leaf positions (the
+        subtrees found there are returned whole)."""
+        out: list = []
+        self._flatten_up_to(tree, out)
+        return out
+
+    def _flatten_up_to(self, tree, out):
+        if self.kind == "leaf":
+            out.append(tree)
+        elif self.kind == "none":
+            return
+        else:
+            subs = [tree[k] for k in self.meta] if self.kind == "dict" else list(tree)
+            if len(subs) != len(self.children):
+                raise ValueError("tree structure mismatch")
+            for c, s in zip(self.children, subs):
+                c._flatten_up_to(s, out)
+
+    def unflatten(self, leaves) -> PyTree:
+        it = iter(leaves)
+        out = self._build(it)
+        if next(it, _SENTINEL) is not _SENTINEL:
+            raise ValueError("too many leaves for this tree structure")
+        return out
+
+    def _build(self, it):
+        if self.kind == "leaf":
+            return next(it)
+        if self.kind == "none":
+            return None
+        subs = [c._build(it) for c in self.children]
+        if self.kind == "dict":
+            return dict(zip(self.meta, subs))
+        if self.kind == "list":
+            return subs
+        if self.kind == "namedtuple":
+            return self.meta(*subs)
+        return tuple(subs)
+
+
+_SENTINEL = object()
+
+
+def tree_structure(tree: PyTree) -> TreeDef:
+    if tree is None:
+        return TreeDef("none")
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        return TreeDef("dict", keys, tuple(tree_structure(tree[k]) for k in keys))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return TreeDef("namedtuple", type(tree), tuple(tree_structure(t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        kind = "list" if isinstance(tree, list) else "tuple"
+        return TreeDef(kind, None, tuple(tree_structure(t) for t in tree))
+    return TreeDef("leaf")
+
+
+def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
+    treedef = tree_structure(tree)
+    return treedef.flatten_up_to(tree), treedef
+
+
+def tree_leaves(tree: PyTree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
+    return treedef.unflatten(leaves)
+
+
+def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    leaves, treedef = tree_flatten(tree)
+    others = [treedef.flatten_up_to(r) for r in rest]
+    return treedef.unflatten([fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_axpy(alpha, x: PyTree, y: PyTree) -> PyTree:
+    """alpha*x + y, the multiply and the add rounded separately."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def mean_axis0(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading (worker) axis: rows summed in f32 from zero in
+    order 0..n−1, then one division by n, cast back to the input dtype."""
+    acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+    for w in range(x.shape[0]):
+        acc += x[w].float()
+    n = torch.tensor(float(x.shape[0]), device=x.device)  # a true division
+    return (acc / n).to(x.dtype)
+
+
+def tree_mean_axis0(a: PyTree) -> PyTree:
+    """Mean over the leading (worker) axis of every leaf."""
+    return tree_map(mean_axis0, a)
+
+
+def tree_sum_sq(a: PyTree):
+    return sum(torch.sum(torch.square(x.float())) for x in tree_leaves(a))
+
+
+def tree_norm(a: PyTree):
+    return torch.sqrt(tree_sum_sq(a))
+
+
+def tree_stack_workers(trees: list) -> PyTree:
+    """Stack a list of per-worker trees into one tree with leading worker dim."""
+    return tree_map(lambda *xs: torch.stack(xs, 0), *trees)
+
+
+def tree_worker_slice(tree: PyTree, i) -> PyTree:
+    return tree_map(lambda x: x[i], tree)
+

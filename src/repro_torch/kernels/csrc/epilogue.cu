@@ -1,0 +1,145 @@
+// Fused server epilogues for Hopper (sm_90a): finish a MARINA round in one
+// sweep over the (nblk, B) buffers — aggregate, g' = g + δ, x' = (−γ)·g' + x.
+//
+// Replaces the Pallas TPU kernels src/repro/kernels/epilogue.py::scatter_epilogue
+// (seeded-RandK payloads, carry compressed rounds) and ::mean_epilogue (packed
+// worker gradients, carry sync rounds). Where the TPU version scatters through
+// one-hot MXU matmuls, scatter_epilogue adds into a shared-memory row.
+//
+// Both are bound by device-memory bytes: each reads g and x (or the n gradient
+// rows and x) once and writes g' and x' once; the arithmetic is a few flops per
+// coordinate. The x update rounds the multiply and the add separately
+// (__fmul_rn, __fadd_rn) — an FMA would differ from the oracle in the last bit.
+//
+// x is f32 or bf16 (XT); g, g' and the accumulation are f32. x' is rounded to
+// XT to nearest even.
+//
+// C interface (loaded with ctypes): each entry point launches on the given
+// stream, does not synchronise, and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "scatter.cuh"
+
+__device__ __forceinline__ float load_x(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float load_x(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store_x(float* p, int64_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void store_x(__nv_bfloat16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// x' = (−γ)·g' + x, rounded separately
+__device__ __forceinline__ float apply_update(float neg_gamma, float g_new, float x) {
+  return __fadd_rn(__fmul_rn(neg_gamma, g_new), x);
+}
+
+// One CTA per block b: scatter-accumulate the n worker payloads in the oracle's
+// order, then g' = g + acc/n and the x update for the block's B coordinates.
+template <typename XT>
+__global__ void scatter_epilogue_kernel(const float* __restrict__ vals,
+                                        const int32_t* __restrict__ offs,
+                                        const float* __restrict__ g,
+                                        const XT* __restrict__ x,
+                                        float* __restrict__ g_out,
+                                        XT* __restrict__ x_out, int n,
+                                        int64_t nblk, int block, int kb,
+                                        float neg_gamma) {
+  extern __shared__ float smem[];
+  float* acc = smem;
+  float* sv = acc + block;
+  int32_t* so = reinterpret_cast<int32_t*>(sv + n * kb);
+  const int64_t b = blockIdx.x;
+  scatter_block(vals, offs, acc, sv, so, n, nblk, block, kb, b);
+  const float fn = (float)n;
+  for (int j = threadIdx.x; j < block; j += blockDim.x) {
+    const int64_t i = b * block + j;
+    const float g_new = __fadd_rn(g[i], __fdiv_rn(acc[j], fn));
+    g_out[i] = g_new;
+    store_x(x_out, i, apply_update(neg_gamma, g_new, load_x(x, i)));
+  }
+}
+
+// One thread per coordinate: g' = (Σ_{w=0..n−1} g_w) / n summed in order from
+// 0, then the x update.
+template <typename XT>
+__global__ void mean_epilogue_kernel(const float* __restrict__ gbufs,
+                                     const XT* __restrict__ x,
+                                     float* __restrict__ g_out,
+                                     XT* __restrict__ x_out, int n,
+                                     int64_t size, float neg_gamma) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const float fn = (float)n;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < size;
+       i += stride) {
+    float acc = 0.0f;
+    for (int w = 0; w < n; ++w) acc = __fadd_rn(acc, gbufs[(int64_t)w * size + i]);
+    const float g_new = __fdiv_rn(acc, fn);
+    g_out[i] = g_new;
+    store_x(x_out, i, apply_update(neg_gamma, g_new, load_x(x, i)));
+  }
+}
+
+template <typename XT>
+static int launch_scatter(const void* vals, const void* offs, const void* g,
+                          const void* x, void* g_out, void* x_out, int n,
+                          long long nblk, int block, int kb, float neg_gamma,
+                          void* stream) {
+  const size_t smem = (size_t)block * sizeof(float) +
+                      (size_t)n * kb * (sizeof(float) + sizeof(int32_t));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        scatter_epilogue_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scatter_epilogue_kernel<XT><<<(unsigned)nblk, 128, smem, (cudaStream_t)stream>>>(
+      (const float*)vals, (const int32_t*)offs, (const float*)g, (const XT*)x,
+      (float*)g_out, (XT*)x_out, n, nblk, block, kb, neg_gamma);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+static int launch_mean(const void* gbufs, const void* x, void* g_out, void* x_out,
+                       int n, long long size, float neg_gamma, void* stream) {
+  const int threads = 256;
+  long long grid = (size + threads - 1) / threads;
+  if (grid > 1048576) grid = 1048576;  // grid-stride loop covers the rest
+  if (grid < 1) grid = 1;
+  mean_epilogue_kernel<XT><<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)gbufs, (const XT*)x, (float*)g_out, (XT*)x_out, n, size,
+      neg_gamma);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int scatter_epilogue_f32(const void* vals, const void* offs,
+                                    const void* g, const void* x, void* g_out,
+                                    void* x_out, int n, long long nblk, int block,
+                                    int kb, float neg_gamma, void* stream) {
+  return launch_scatter<float>(vals, offs, g, x, g_out, x_out, n, nblk, block, kb,
+                               neg_gamma, stream);
+}
+
+extern "C" int scatter_epilogue_bf16(const void* vals, const void* offs,
+                                     const void* g, const void* x, void* g_out,
+                                     void* x_out, int n, long long nblk, int block,
+                                     int kb, float neg_gamma, void* stream) {
+  return launch_scatter<__nv_bfloat16>(vals, offs, g, x, g_out, x_out, n, nblk,
+                                       block, kb, neg_gamma, stream);
+}
+
+extern "C" int mean_epilogue_f32(const void* gbufs, const void* x, void* g_out,
+                                 void* x_out, int n, long long size,
+                                 float neg_gamma, void* stream) {
+  return launch_mean<float>(gbufs, x, g_out, x_out, n, size, neg_gamma, stream);
+}
+
+extern "C" int mean_epilogue_bf16(const void* gbufs, const void* x, void* g_out,
+                                  void* x_out, int n, long long size,
+                                  float neg_gamma, void* stream) {
+  return launch_mean<__nv_bfloat16>(gbufs, x, g_out, x_out, n, size, neg_gamma,
+                                    stream);
+}

@@ -1,0 +1,93 @@
+"""Fused server epilogues: wrappers of the Hopper kernels in
+``csrc/epilogue.cu``.
+
+Ports ``repro.kernels.epilogue::scatter_epilogue`` (carry compressed
+rounds) and ``::mean_epilogue`` (carry sync rounds): aggregate the worker
+payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded separately,
+in x's dtype (f32 or bf16). A wrapper given CUDA tensors launches its kernel
+(or raises); given CPU tensors it returns the plain version from
+:mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from . import ref as _ref
+from .randk import _check_payload, _stream
+
+_X_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check_gx(g2d: torch.Tensor, x2d: torch.Tensor, shape: tuple) -> str:
+    if g2d.dtype != torch.float32 or tuple(g2d.shape) != shape:
+        raise ValueError(f"g must be f32 of shape {shape}")
+    if x2d.dtype not in _X_SUFFIX or tuple(x2d.shape) != shape:
+        raise ValueError(f"x must be f32 or bf16 of shape {shape}")
+    if not (g2d.is_contiguous() and x2d.is_contiguous()):
+        raise ValueError("g and x must be contiguous")
+    if g2d.device != x2d.device:
+        raise ValueError("g and x must be on one device")
+    return _X_SUFFIX[x2d.dtype]
+
+
+def _neg_gamma(gamma: float) -> float:
+    return float(np.float32(-gamma))
+
+
+def scatter_epilogue(values: torch.Tensor, offsets: torch.Tensor,
+                     g2d: torch.Tensor, x2d: torch.Tensor, gamma: float):
+    """Payloads (n, nblk, kb) ×2 + g (nblk, B) f32 + x (nblk, B) →
+    (g' f32, x' x.dtype), scatter-mean and update in one sweep."""
+    if not values.is_cuda:
+        return _ref.scatter_epilogue_ref(values, offsets, g2d, x2d, gamma)
+    n, nblk, kb = values.shape
+    B = g2d.shape[-1]
+    _check_payload(values, offsets)
+    suffix = _check_gx(g2d, x2d, (nblk, B))
+    if g2d.device != values.device:
+        raise ValueError("payloads and buffers must be on one device")
+    g_out = torch.empty_like(g2d)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"scatter_epilogue_{suffix}")(
+        values.data_ptr(), offsets.data_ptr(), g2d.data_ptr(), x2d.data_ptr(),
+        g_out.data_ptr(), x_out.data_ptr(), n, nblk, B, kb, _neg_gamma(gamma),
+        _stream(),
+    )
+    _build.check(err, "scatter_epilogue")
+    scatter_epilogue.launches += 1
+    return g_out, x_out
+
+
+scatter_epilogue.launches = 0
+
+
+def mean_epilogue(gbufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
+    """Packed worker gradients (n, nblk, B) f32 + x (nblk, B) →
+    (g' = worker mean f32, x' x.dtype)."""
+    if not gbufs.is_cuda:
+        return _ref.mean_epilogue_ref(gbufs, x2d, gamma)
+    n, nblk, B = gbufs.shape
+    if gbufs.dtype != torch.float32 or not gbufs.is_contiguous():
+        raise ValueError("gbufs must be a contiguous f32 buffer")
+    if x2d.dtype not in _X_SUFFIX or tuple(x2d.shape) != (nblk, B):
+        raise ValueError(f"x must be f32 or bf16 of shape {(nblk, B)}")
+    if not x2d.is_contiguous() or x2d.device != gbufs.device:
+        raise ValueError("x must be contiguous and on gbufs' device")
+    g_out = torch.empty((nblk, B), dtype=torch.float32, device=gbufs.device)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"mean_epilogue_{_X_SUFFIX[x2d.dtype]}")(
+        gbufs.data_ptr(), x2d.data_ptr(), g_out.data_ptr(), x_out.data_ptr(),
+        n, nblk * B, _neg_gamma(gamma), _stream(),
+    )
+    _build.check(err, "mean_epilogue")
+    mean_epilogue.launches += 1
+    return g_out, x_out
+
+
+mean_epilogue.launches = 0

@@ -1,0 +1,92 @@
+"""Seeded RandK uplink and server scatter-mean: wrappers of the Hopper
+kernels in ``csrc/randk.cu``.
+
+Ports ``repro.kernels.randk::randk_seeded_workers`` and ``::scatter_accum``.
+A wrapper given CUDA tensors launches its kernel (or raises); given CPU
+tensors it returns the plain version from :mod:`repro_torch.kernels.ref`.
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from . import ref as _ref
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_block(B: int) -> None:
+    if B <= 0 or B & (B - 1):
+        raise ValueError(f"block width {B} must be a power of two")
+
+
+def seeds_tensor(seeds, device) -> torch.Tensor:
+    """uint32 seed values → (n,) int32 tensor holding the same bit patterns."""
+    arr = np.asarray(seeds, dtype=np.uint32).reshape(-1).view(np.int32)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def randk_seeded_workers(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
+                         scale: float):
+    """Per-worker seeded RandK: (n, nblk, B) f32 + (n,) int32 seeds →
+    values f32 and offsets int32, both (n, nblk, kb)."""
+    n, nblk, B = x3d.shape
+    _check_block(B)
+    if not x3d.is_cuda:
+        return _ref.randk_seeded_workers_ref(x3d, seeds, kb, scale)
+    if x3d.dtype != torch.float32 or not x3d.is_contiguous():
+        raise ValueError("randk_seeded_workers takes a contiguous f32 buffer")
+    if seeds.dtype != torch.int32 or seeds.shape != (n,) or seeds.device != x3d.device:
+        raise ValueError("seeds must be an (n,) int32 tensor on x's device")
+    if not 1 <= kb <= B:
+        raise ValueError(f"kb={kb} must lie in [1, {B}]")
+    vals = torch.empty((n, nblk, kb), dtype=torch.float32, device=x3d.device)
+    offs = torch.empty((n, nblk, kb), dtype=torch.int32, device=x3d.device)
+    lib = _build.library("randk")
+    err = lib.randk_seeded_workers(
+        x3d.data_ptr(), seeds.data_ptr(), vals.data_ptr(), offs.data_ptr(),
+        n, nblk, B, kb, float(scale), _stream(),
+    )
+    _build.check(err, "randk_seeded_workers")
+    randk_seeded_workers.launches += 1
+    return vals, offs
+
+
+randk_seeded_workers.launches = 0
+
+
+def scatter_accum(values: torch.Tensor, offsets: torch.Tensor,
+                  block: int) -> torch.Tensor:
+    """(n, nblk, kb) f32 values + int32 offsets → (nblk, block) f32 mean over
+    workers; duplicates add in the order w, then t."""
+    n, nblk, kb = values.shape
+    _check_block(block)
+    if not values.is_cuda:
+        return _ref.scatter_accum_ref(values, offsets, block)
+    _check_payload(values, offsets)
+    out = torch.empty((nblk, block), dtype=torch.float32, device=values.device)
+    lib = _build.library("randk")
+    err = lib.scatter_accum(
+        values.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, nblk, block,
+        kb, _stream(),
+    )
+    _build.check(err, "scatter_accum")
+    scatter_accum.launches += 1
+    return out
+
+
+scatter_accum.launches = 0
+
+
+def _check_payload(values: torch.Tensor, offsets: torch.Tensor) -> None:
+    if values.dtype != torch.float32 or offsets.dtype != torch.int32:
+        raise ValueError("payloads are f32 values and int32 offsets")
+    if values.shape != offsets.shape or offsets.device != values.device:
+        raise ValueError("values and offsets must match in shape and device")
+    if not (values.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError("payloads must be contiguous")

@@ -1,0 +1,126 @@
+"""Plain PyTorch versions of the main-path kernels.
+
+Each function is the semantic ground truth for its hand-written CUDA twin
+(``randk.py`` / ``epilogue.py``) and the port of the same-named oracle in
+``repro.kernels.ref``. The kernel wrappers call these only for tensors on the
+CPU; on the card, ``chip_smoke.py`` and the card tests hold the kernels
+against them on the same inputs.
+
+Integer work is exact: the murmur3 hash runs in int64 masked to 32 bits
+(PyTorch lacks ``>>`` and ``+`` for ``uint32`` on the CPU), with the 32-bit
+constant multiplies split into 16-bit halves so no product overflows int64.
+Float accumulations keep the oracle's order (workers 0..n−1, then slots
+0..kb−1), so they are deterministic on every device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MASK = 0xFFFFFFFF
+
+
+def div_n(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n as a true IEEE division. (On CUDA, PyTorch turns a division by a
+    Python scalar into a multiply by its reciprocal, which is not exact for
+    every n; a 0-d tensor divisor on x's device keeps the division.)"""
+    return x / torch.tensor(float(n), dtype=x.dtype, device=x.device)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2^32 for int64 x in [0, 2^32) without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def murmur_bits_ref(seed, ctr: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer over (seed, counter) → uint32 hash, as int64.
+
+    ``seed`` is an int or an int64 tensor broadcastable against ``ctr``,
+    both holding uint32 values."""
+    x = (_mul32(ctr.to(torch.int64) & _MASK, 0x9E3779B9) + seed) & _MASK
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _as_u32_int64(seeds: torch.Tensor) -> torch.Tensor:
+    """int32 / int64 / uint32 seeds → int64 holding the uint32 bit pattern."""
+    return seeds.to(torch.int64) & _MASK
+
+
+def randk_seeded_ref(x2d: torch.Tensor, seed, kb: int, scale: float):
+    """Seeded RandK over one (nblk, B) buffer: offsets from the murmur3
+    counter stream ``b·kb + t``, values ``x[b, off] · scale``."""
+    vals, offs = randk_seeded_workers_ref(
+        x2d[None], torch.as_tensor([int(seed) & _MASK], device=x2d.device), kb, scale
+    )
+    return vals[0], offs[0]
+
+
+def randk_seeded_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
+                             scale: float):
+    """Per-worker seeded RandK: x3d (n, nblk, B) + seeds (n,) → values and
+    int32 offsets, both (n, nblk, kb). Each worker's counters restart at 0."""
+    n, nblk, B = x3d.shape
+    dev = x3d.device
+    ctr = (
+        torch.arange(kb, dtype=torch.int64, device=dev)[None, :]
+        + (torch.arange(nblk, dtype=torch.int64, device=dev) * kb)[:, None]
+    )
+    s = _as_u32_int64(seeds.to(dev)).view(n, 1, 1)
+    bits = murmur_bits_ref(s, ctr[None])
+    offs = (bits & (B - 1)).to(torch.int32)
+    gathered = torch.gather(x3d, 2, offs.to(torch.int64))
+    vals = gathered * torch.tensor(scale, dtype=x3d.dtype, device=dev)
+    return vals, offs
+
+
+def scatter_accum_ref(values: torch.Tensor, offsets: torch.Tensor,
+                      block: int) -> torch.Tensor:
+    """Mean over n workers of scatter-added payloads: (n, nblk, kb) ×2 →
+    (nblk, block). Duplicates accumulate, in the order w = 0..n−1, then
+    t = 0..kb−1; each ``scatter_add_`` call puts one index per row, so no
+    call has a duplicate and the order is fixed on every device."""
+    n, nblk, kb = values.shape
+    out = torch.zeros((nblk, block), dtype=values.dtype, device=values.device)
+    offs = offsets.to(torch.int64)
+    for w in range(n):
+        for t in range(kb):
+            out.scatter_add_(1, offs[w, :, t : t + 1], values[w, :, t : t + 1])
+    return div_n(out, n)
+
+
+def _apply(g_new: torch.Tensor, x2d: torch.Tensor, gamma: float) -> torch.Tensor:
+    """x' = (−γ)·g' + x in f32, the multiply and the add rounded separately,
+    then cast to x's dtype (round to nearest even)."""
+    neg = torch.tensor(-gamma, dtype=torch.float32, device=g_new.device)
+    return (neg * g_new + x2d.float()).to(x2d.dtype)
+
+
+def delta_epilogue_ref(delta2d, g2d, x2d, gamma: float):
+    """Apply an already-dense round delta: g' = g + δ, x' = x − γ·g'."""
+    g_new = g2d.float() + delta2d.float()
+    return g_new, _apply(g_new, x2d, gamma)
+
+
+def mean_epilogue_ref(gbufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
+    """Sync-round epilogue: g' = worker mean of the packed gradients (rows
+    summed in order from zero, then ÷ n), x' = x − γ·g'."""
+    n = gbufs.shape[0]
+    acc = torch.zeros(gbufs.shape[1:], dtype=torch.float32, device=gbufs.device)
+    for w in range(n):
+        acc += gbufs[w].float()
+    g_new = div_n(acc, n)
+    return g_new, _apply(g_new, x2d, gamma)
+
+
+def scatter_epilogue_ref(values, offsets, g2d, x2d, gamma: float):
+    """Seeded-RandK epilogue: scatter-mean the n worker payloads into the
+    round delta, then apply it."""
+    delta = scatter_accum_ref(values.float(), offsets, g2d.shape[-1])
+    return delta_epilogue_ref(delta, g2d, x2d, gamma)

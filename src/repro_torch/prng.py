@@ -1,0 +1,114 @@
+"""threefry2x32 key derivation, bit for bit as ``jax.random`` draws it.
+
+The MARINA round derives all of its randomness from a JAX-style PRNG key:
+``c_k ~ Be(p)`` from ``split`` + ``bernoulli``, the per-worker uint32 kernel
+seeds from ``split`` + ``bits``, and the per-step key from
+``fold_in(PRNGKey(seed), step)``. For the port to reproduce the reference
+trajectory under the same keys, these draws must agree to the bit. This
+module reimplements them under JAX 0.9's defaults (``jax_default_prng_impl =
+threefry2x32``, ``jax_threefry_partitionable = True``).
+
+Keys and draws are tiny host-side values (the per-round work is a handful of
+hashes), so the arithmetic runs in numpy ``uint32``, whose wrap-around
+arithmetic is exact; the results are numpy arrays. A key is a ``(2,)``
+``uint32`` array, a stack of keys ``(..., 2)``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+_U32 = np.uint32
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: np.ndarray, d: int) -> np.ndarray:
+    return (x << _U32(d)) | (x >> _U32(32 - d))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block cipher (20 rounds), elementwise over x1/x2.
+
+    Mirrors ``jax._src.prng._threefry2x32_lowering``."""
+    k1 = np.asarray(k1, _U32)
+    k2 = np.asarray(k2, _U32)
+    shape = np.broadcast_shapes(np.shape(x1), np.shape(x2), k1.shape, k2.shape)
+    x = [
+        np.array(np.broadcast_to(np.asarray(x1, _U32), shape)).reshape(-1),
+        np.array(np.broadcast_to(np.asarray(x2, _U32), shape)).reshape(-1),
+    ]
+    k1 = np.broadcast_to(k1, shape).reshape(-1)
+    k2 = np.broadcast_to(k2, shape).reshape(-1)
+    ks = [k1, k2, k1 ^ k2 ^ _U32(0x1BD11BDA)]
+    x[0] = x[0] + ks[0]
+    x[1] = x[1] + ks[1]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = _rotl(x[1], r)
+            x[1] = x[0] ^ x[1]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
+    return x[0].reshape(shape), x[1].reshape(shape)
+
+
+def _iota_2x32(shape: tuple):
+    """(hi, lo) uint32 halves of a row-major uint64 iota of ``shape``."""
+    n = math.prod(shape)
+    idx = np.arange(n, dtype=np.uint64).reshape(shape)
+    return (idx >> np.uint64(32)).astype(_U32), (idx & np.uint64(0xFFFFFFFF)).astype(_U32)
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed is taken
+    as a 32-bit integer, so the key is ``[0, seed mod 2^32]``."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], _U32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` → ``(num, 2)`` keys (fold-like split)."""
+    key = np.asarray(key, _U32)
+    hi, lo = _iota_2x32((num,))
+    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    return np.stack([b1, b2], axis=-1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: hash of the counter pair (0, data)."""
+    key = np.asarray(key, _U32)
+    b1, b2 = threefry2x32(key[0], key[1], np.zeros(1, _U32),
+                          np.array([int(data) & 0xFFFFFFFF], _U32))
+    return np.array([b1[0], b2[0]], _U32)
+
+
+def bits(key, shape: tuple = ()) -> np.ndarray:
+    """``jax.random.bits(key, shape, uint32)``."""
+    key = np.asarray(key, _U32)
+    shape = tuple(shape)
+    if shape:
+        hi, lo = _iota_2x32(shape)
+    else:
+        hi = lo = np.zeros((), _U32)
+    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    return b1 ^ b2
+
+
+def uniform(key, shape: tuple = ()) -> np.ndarray:
+    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
+    bits become the mantissa of a float in [1, 2), minus one."""
+    b = bits(key, shape)
+    f = ((b >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    return np.maximum(np.float32(0.0), f)
+
+
+def bernoulli(key, p: float, shape: tuple = ()) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``."""
+    return uniform(key, shape) < np.float32(p)
+
+
+def key_to_seed(key) -> int:
+    """PRNG key → uint32 seed for the counter-based kernel RNG
+    (``repro.core.flat.key_to_seed``)."""
+    return int(bits(key))

@@ -1,0 +1,34 @@
+"""Helpers shared by the PyTorch-port parity tests (tests/test_torch_*.py)."""
+
+import numpy as np
+import torch
+
+
+def to_np(x) -> np.ndarray:
+    """Tensor or JAX array → numpy (bf16 as its raw int16 bits)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy()
+        return x.numpy()
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return arr.view(np.int16)
+    return arr
+
+
+def ulp_diff(a, b) -> int:
+    """Largest distance in units in the last place between two float arrays
+    of one dtype (f32, or bf16 given as raw int16 bits by :func:`to_np`),
+    computed on the bit patterns (±0 are one apart only by sign: equal)."""
+    a, b = to_np(a), to_np(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    if a.dtype == np.float32:
+        ia, ib, top = a.view(np.int32), b.view(np.int32), 2**31
+    else:
+        assert a.dtype == b.dtype == np.int16, (a.dtype, b.dtype)
+        ia, ib, top = a, b, 2**15
+    ia, ib = ia.astype(np.int64), ib.astype(np.int64)
+    ka = np.where(ia < 0, -top - ia, ia)
+    kb = np.where(ib < 0, -top - ib, ib)
+    return int(np.max(np.abs(ka - kb))) if ka.size else 0

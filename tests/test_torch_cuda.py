@@ -1,0 +1,88 @@
+"""The four CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``; each test skips with a reason where torch sees no CUDA
+device (the kernels have no CPU or interpret mode). On a machine with an
+NVIDIA GPU and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Imports no JAX: the card's machine runs the port alone.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import epilogue, randk, ref
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(4, 37, 1024, 20), (3, 11, 256, 128), (1, 5, 128, 8)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _ulp(a, b) -> int:
+    bits, top = (torch.int32, 2**31) if a.dtype == torch.float32 else (torch.int16, 2**15)
+    ia, ib = a.view(bits).long(), b.view(bits).long()
+    ka = torch.where(ia < 0, -top - ia, ia)
+    kb = torch.where(ib < 0, -top - ib, ib)
+    return int((ka - kb).abs().max())
+
+
+def _inputs(dev, n, nblk, B, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x3d = torch.randn((n, nblk, B), generator=gen, device=dev)
+    seeds = randk.seeds_tensor(np.array([5, 2**31 + 1, 2**32 - 1, 77][:n], np.uint32), dev)
+    return x3d, seeds, gen
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_randk_and_scatter_accum_on_card(dev, shape):
+    n, nblk, B, kb = shape
+    x3d, seeds, _ = _inputs(dev, n, nblk, B)
+    kernels.reset_launch_counts()
+    v, o = randk.randk_seeded_workers(x3d, seeds, kb, B / kb)
+    vr, orf = ref.randk_seeded_workers_ref(x3d, seeds, kb, B / kb)
+    assert torch.equal(o, orf) and torch.equal(v, vr)
+    s = randk.scatter_accum(v, o, B)
+    assert _ulp(s, ref.scatter_accum_ref(v, o, B)) <= 1
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["randk_seeded_workers"] == 1
+    assert kernels.launch_counts()["scatter_accum"] == 1
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_epilogues_on_card(dev, shape, xdtype):
+    n, nblk, B, kb = shape
+    x3d, seeds, gen = _inputs(dev, n, nblk, B, seed=1)
+    g = torch.randn((nblk, B), generator=gen, device=dev)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    v, o = randk.randk_seeded_workers(x3d, seeds, kb, B / kb)
+    for got, want in (
+        (epilogue.scatter_epilogue(v, o, g, x, 0.0371),
+         ref.scatter_epilogue_ref(v, o, g, x, 0.0371)),
+        (epilogue.mean_epilogue(x3d, x, 0.0371), ref.mean_epilogue_ref(x3d, x, 0.0371)),
+    ):
+        assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+        assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x3d, seeds, _ = _inputs(dev, 2, 3, 128)
+    with pytest.raises(ValueError):
+        randk.randk_seeded_workers(x3d.double(), seeds, 8, 16.0)
+    with pytest.raises(ValueError):
+        randk.randk_seeded_workers(x3d, seeds.long(), 8, 16.0)
+    v, o = randk.randk_seeded_workers(x3d, seeds, 8, 16.0)
+    with pytest.raises(ValueError):
+        epilogue.scatter_epilogue(v, o, torch.zeros(3, 128, device=dev),
+                                  torch.zeros(3, 128, device=dev, dtype=torch.float16), 0.1)

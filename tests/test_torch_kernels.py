@@ -1,0 +1,120 @@
+"""The plain PyTorch versions of the four main-path kernels against the
+reference's oracles (``repro.kernels.ref``) on the same numpy inputs.
+
+Contract (DESIGN.md §4.4 carried across frameworks): offsets bit-equal, RandK
+values bit-equal (one gather, one f32 multiply), scatter / epilogue outputs
+within 1 ulp on the bit patterns, x in f32 and bf16, with a forced-duplicates
+case (kb = B/2). On the CPU every kernel wrapper returns its plain version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import to_np, ulp_diff
+from repro.kernels import ref as jref
+from repro_torch import kernels as tk
+from repro_torch.kernels import ref as tref
+
+SHAPES = [  # (n, nblk, B, kb)
+    (4, 9, 128, 8),
+    (3, 5, 256, 128),   # kb = B/2: many duplicate offsets
+    (1, 4, 1024, 20),
+]
+IDS = ["n4", "dups", "n1"]
+
+
+def _payloads(n, nblk, B, kb, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, nblk, B), dtype=np.float32)
+    seeds = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+    return x, seeds
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_randk_seeded_workers_bit_equal(shape):
+    n, nblk, B, kb = shape
+    x, seeds = _payloads(*shape)
+    jv, jo = jref.randk_seeded_workers_ref(jnp.asarray(x), jnp.asarray(seeds), kb, B / kb)
+    tv, to = tref.randk_seeded_workers_ref(
+        torch.from_numpy(x), tk.randk.seeds_tensor(seeds, "cpu"), kb, B / kb)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # the wrapper on a CPU tensor is the plain version
+    wv, wo = tk.randk.randk_seeded_workers(
+        torch.from_numpy(x), tk.randk.seeds_tensor(seeds, "cpu"), kb, B / kb)
+    assert torch.equal(wv, tv) and torch.equal(wo, to)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_scatter_accum_within_one_ulp(shape):
+    n, nblk, B, kb = shape
+    x, seeds = _payloads(*shape, seed=1)
+    jv, jo = jref.randk_seeded_workers_ref(jnp.asarray(x), jnp.asarray(seeds), kb, B / kb)
+    want = jref.scatter_accum_ref(jv, jo, B)
+    tv, to = torch.tensor(np.asarray(jv)), torch.tensor(np.asarray(jo))
+    got = tref.scatter_accum_ref(tv, to, B)
+    assert ulp_diff(got, want) <= 1
+    assert torch.equal(tk.randk.scatter_accum(tv, to, B), got)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_scatter_epilogue_within_one_ulp(shape, xdtype):
+    n, nblk, B, kb = shape
+    x, seeds = _payloads(*shape, seed=2)
+    rng = np.random.default_rng(3)
+    g = rng.standard_normal((nblk, B), dtype=np.float32)
+    xx = rng.standard_normal((nblk, B), dtype=np.float32)
+    gamma = 0.0371
+    jv, jo = jref.randk_seeded_workers_ref(jnp.asarray(x), jnp.asarray(seeds), kb, B / kb)
+    jx = jnp.asarray(xx).astype(xdtype)
+    jg2, jx2 = jref.scatter_epilogue_ref(jv, jo, jnp.asarray(g), jx, gamma)
+    tx = torch.from_numpy(xx).to(getattr(torch, xdtype))
+    args = (torch.tensor(np.asarray(jv)), torch.tensor(np.asarray(jo)),
+            torch.from_numpy(g), tx, gamma)
+    tg2, tx2 = tref.scatter_epilogue_ref(*args)
+    assert tx2.dtype == tx.dtype and tg2.dtype == torch.float32
+    assert ulp_diff(tg2, jg2) <= 1
+    assert ulp_diff(tx2, jx2) <= 1
+    wg, wx = tk.epilogue.scatter_epilogue(*args)
+    assert torch.equal(wg, tg2) and torch.equal(wx, tx2)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_mean_epilogue_within_one_ulp(n, xdtype):
+    """g' within 1 ulp of the reference; x' within 1 ulp of the reference's
+    own update applied to the port's g'. (XLA computes the reference's
+    worker mean as sum·(1/n); for n = 3 that can move g' by 1 ulp, and x'
+    = x − γ·g' inherits it magnified where x' nearly cancels. For n a
+    power of two the reciprocal is exact and x' is held directly.)"""
+    rng = np.random.default_rng(4 + n)
+    gb = rng.standard_normal((n, 6, 256), dtype=np.float32)
+    gb[:, 0, :7] = -0.0  # signed zeros sum like the reference
+    xx = rng.standard_normal((6, 256), dtype=np.float32)
+    gamma = 0.1
+    jx = jnp.asarray(xx).astype(xdtype)
+    jg2, jx2 = jref.mean_epilogue_ref(jnp.asarray(gb), jx, gamma)
+    tx = torch.from_numpy(xx).to(getattr(torch, xdtype))
+    tg2, tx2 = tref.mean_epilogue_ref(torch.from_numpy(gb), tx, gamma)
+    assert ulp_diff(tg2, jg2) <= 1
+    _, jx_from_tg = jref.delta_epilogue_ref(
+        jnp.zeros_like(jg2), jnp.asarray(tg2.numpy()), jx, gamma)
+    assert ulp_diff(tx2, jx_from_tg) <= 1
+    if n in (1, 4):
+        assert ulp_diff(tx2, jx2) <= 1
+    wg, wx = tk.epilogue.mean_epilogue(torch.from_numpy(gb), tx, gamma)
+    assert torch.equal(wg, tg2) and torch.equal(wx, tx2)
+
+
+def test_launch_counts_untouched_on_cpu():
+    """CPU calls run the plain version and launch nothing."""
+    tk.reset_launch_counts()
+    x, seeds = _payloads(2, 3, 128, 8)
+    v, o = tk.randk.randk_seeded_workers(torch.from_numpy(x),
+                                         tk.randk.seeds_tensor(seeds, "cpu"), 8, 16.0)
+    tk.randk.scatter_accum(v, o, 128)
+    assert tk.launch_counts() == dict.fromkeys(tk.KERNELS, 0)
+    assert to_np(o).dtype == np.int32

@@ -1,0 +1,79 @@
+"""The port's threefry key derivation and counter RNGs are bit-equal to the
+reference's: ``jax.random`` (PRNGKey / split / fold_in / bits / uniform /
+bernoulli), the murmur3 kernel hash, and the flat engine's worker seeds."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.flat import FlatEngine as JFlatEngine
+from repro.core.flat import make_layout as j_make_layout
+from repro.kernels import ref as jref
+from repro_torch import prng
+from repro_torch.core.flat import make_engine, seeded_offsets
+from repro_torch.kernels import ref as tref
+
+SEEDS = [0, 1, 7, 42, 2**16 + 3, 2**31 - 1, 2**31 + 5, 2**32 - 1]
+SHAPES = [(), (1,), (5,), (3, 4), (2, 3, 5)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_split_fold_in_bit_equal(seed):
+    k = jax.random.PRNGKey(seed)
+    kk = prng.PRNGKey(seed)
+    np.testing.assert_array_equal(np.asarray(k), kk)
+    for n in (1, 2, 3, 8):
+        np.testing.assert_array_equal(np.asarray(jax.random.split(k, n)),
+                                      prng.split(kk, n))
+    for data in (0, 1, 5, 0x0D0C, 2**31, 2**32 - 1):
+        np.testing.assert_array_equal(np.asarray(jax.random.fold_in(k, data)),
+                                      prng.fold_in(kk, data))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bits_uniform_bernoulli_bit_equal(shape):
+    for seed in SEEDS[:5]:
+        k = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+        kk = prng.fold_in(prng.PRNGKey(seed), 3)
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.bits(k, shape, jnp.uint32)), prng.bits(kk, shape))
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.uniform(k, shape)), prng.uniform(kk, shape))
+        for p in (0.05, 0.3, 0.5, 0.97):
+            np.testing.assert_array_equal(
+                np.asarray(jax.random.bernoulli(k, p, shape)),
+                prng.bernoulli(kk, p, shape))
+
+
+def test_marina_round_draws_bit_equal():
+    """The exact draw sequence of one MARINA round over many steps: the
+    trainer's step key, the (k_bern, k_q) split, c_k, the worker seeds."""
+    base, tbase = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    jeng = JFlatEngine(layout=j_make_layout(jnp.zeros((300,)), block=128), kb=8,
+                       backend="ref")
+    teng = make_engine({"x": torch.zeros(300)}, kb=8, block=128, device="cpu")
+    for step in range(40):
+        key = jax.random.fold_in(base, step)
+        tkey = prng.fold_in(tbase, step)
+        k_bern, k_q = jax.random.split(key)
+        tk_bern, tk_q = prng.split(tkey)
+        assert bool(jax.random.bernoulli(k_bern, 0.3)) == bool(
+            prng.bernoulli(tk_bern, 0.3))
+        np.testing.assert_array_equal(np.asarray(jeng.worker_seeds(k_q, 4)),
+                                      teng.worker_seeds(tk_q, 4))
+
+
+@pytest.mark.parametrize("seed", [0, 99, 2**31 + 17, 2**32 - 1])
+def test_murmur_bits_and_seeded_offsets_bit_equal(seed):
+    ctr = np.arange(0, 5000, 7, dtype=np.uint32)
+    ctr = np.concatenate([ctr, np.array([2**31, 2**32 - 1], np.uint32)])
+    want = np.asarray(jref.murmur_bits_ref(jnp.uint32(seed), jnp.asarray(ctr)))
+    got = tref.murmur_bits_ref(seed, torch.from_numpy(ctr.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    from repro.core.flat import seeded_offsets as j_seeded_offsets
+
+    np.testing.assert_array_equal(
+        seeded_offsets(seed, 7, 256, 16).numpy(),
+        np.asarray(j_seeded_offsets(jnp.uint32(seed), 7, 256, 16)))
