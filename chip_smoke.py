@@ -21,14 +21,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. main path — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    block_randk kb = 20, B = 1024; 4 steps with ``carry_grads=False`` and 4
-   with ``carry_grads=True``. The launch counts are reset just before and
-   read just after: all four kernels must have run, as many times as the
-   rounds require. The loss is finite and the bits ledger equals the wire
-   formula. Median seconds per step by round type.
+   with ``carry_grads=True``. The launch counts are reset just before each
+   of the two paths and read just after it: each path must launch its own
+   kernels as many times as its rounds require (recompute: RandK and
+   scatter-mean per compressed round; carry: RandK and the scatter epilogue
+   per compressed round, the mean epilogue per sync round). The loss is
+   finite and the bits ledger equals the wire formula. Median seconds per
+   step by round type.
+6. profile — one ``torch.profiler`` trace of a compressed step of a
+   full-width carry run: its device time split into model forward +
+   backward, the port's kernels and the rest, the device's idle share of
+   the step, and the costliest device functions.
 
 The output ends with a JSON report of every phase, the kernel table (one
-JSON line), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+JSON line; ``launches`` sums the two paths, ``launches_by_path`` splits
+them), the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -222,14 +229,15 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train(cfg, params, carry: bool, backend: str = "auto", **kw):
+def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
+          step_hook=None, **kw):
     from repro_torch.train import TrainConfig, Trainer
 
     tc = TrainConfig(method="marina", compressor="block_randk",
                      comp_kwargs={"kb": KB, "block": BLOCK}, gamma=0.02, p=P_SYNC,
-                     n_workers=N_WORKERS, steps=STEPS, log_every=STEPS, seed=SEED,
+                     n_workers=N_WORKERS, steps=steps, log_every=steps, seed=SEED,
                      carry_grads=carry, flat_backend=backend, **kw)
-    return Trainer(cfg, tc, params, device="cuda").run()
+    return Trainer(cfg, tc, params, device="cuda").run(step_hook)
 
 
 def check_small_input(report: dict) -> None:
@@ -259,6 +267,89 @@ def check_small_input(report: dict) -> None:
           f"(max |Δparams| {worst:.3e})", flush=True)
 
 
+def _union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_step(cfg, params, report: dict) -> None:
+    """One ``torch.profiler`` trace of step 1 of a full-width carry run (a
+    compressed round; step 0, a sync round, warms the profiler up), read
+    back from its Chrome trace: the step's device time split into the
+    model's forward + backward (kernels launched inside the trainer's
+    ``train.grad`` span), the port's kernels (by name) and everything else
+    (pack / unpack, stacking copies, tree ops, the finite guard), and the
+    device's idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.train.trainer import SPAN_GRAD, SPAN_STEP
+
+    require(EXPECTED_C_K[:2] == [1, 0], "profile: steps 0, 1 must be sync, compressed")
+    trace = os.path.join(ROOT, "build", "carry_step_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(trace)) as prof:
+        _, hist = train(cfg, params, True, steps=2, step_hook=lambda _: prof.step())
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    trace_mb = os.path.getsize(trace) / 1e6
+    os.remove(trace)
+
+    spans = {SPAN_STEP: [], SPAN_GRAD: []}
+    launch_ts, device = {}, []
+    for e in events:
+        cat, args = e.get("cat", ""), e.get("args", {})
+        if cat == "user_annotation" and e.get("name") in spans:
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch_ts[args["correlation"]] = e["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((e["ts"], e["ts"] + e["dur"], e["name"], args.get("correlation")))
+    require(len(spans[SPAN_STEP]) == 1, f"profile: {len(spans[SPAN_STEP])} step spans")
+    t0, t1 = spans[SPAN_STEP][0]
+    grads = spans[SPAN_GRAD]
+    step_dev = [ev for ev in device if t0 <= ev[0] and ev[1] <= t1]
+    require(step_dev, "profile: no device activity in the compressed step")
+
+    split = {"model_fwd_bwd": 0.0, "port_kernels": 0.0, "other": 0.0}
+    by_name: dict = {}
+    for s, e, name, corr in step_dev:
+        if any(k in name for k in SOURCES):
+            part = "port_kernels"
+        elif any(a <= launch_ts.get(corr, -1.0) <= b for a, b in grads):
+            part = "model_fwd_bwd"
+        else:
+            part = "other"
+        split[part] += e - s
+        key = (part, name[:80])
+        by_name[key] = by_name.get(key, 0.0) + (e - s)
+    busy = _union_us([(s, e) for s, e, _, _ in step_dev])
+    wall = t1 - t0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    report["profile_carry_compressed_step"] = out = {
+        "wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / wall,
+        "device_ms": {k: v / 1e3 for k, v in split.items()},
+        "device_events": len(step_dev), "trace_mb": trace_mb,
+        "step_seconds": hist.step_seconds,
+        "top_device_ms": [[part, name, ms / 1e3] for (part, name), ms in top],
+    }
+    print(f"profile (carry compressed step, traced): wall {out['wall_ms']:.1f} ms, "
+          f"device busy {out['device_busy_ms']:.1f} ms, idle share "
+          f"{out['device_idle_share']:.3f}, device ms {out['device_ms']}", flush=True)
+    for part, name, ms in out["top_device_ms"]:
+        print(f"profile top: {ms:10.3f} ms  {part:14s} {name}", flush=True)
+    del prof, events
+    torch.cuda.empty_cache()
+
+
 def run_main_path(report: dict) -> dict:
     import torch
 
@@ -272,10 +363,23 @@ def run_main_path(report: dict) -> dict:
     d = param_count(params)
     nblk = math.ceil(d / BLOCK)
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    runs = {}
+    n_comp, n_sync = EXPECTED_C_K.count(0), EXPECTED_C_K.count(1)
+    # what each path must launch: recompute rounds sample and scatter-mean
+    # the diffs; carry rounds end in a fused epilogue of either round type
+    expected = {
+        "recompute": {"randk_seeded_workers": n_comp, "scatter_accum": n_comp,
+                      "scatter_epilogue": 0, "mean_epilogue": 0},
+        "carry": {"randk_seeded_workers": n_comp, "scatter_accum": 0,
+                  "scatter_epilogue": n_comp, "mean_epilogue": n_sync},
+    }
+    runs, launches = {}, {}
     for carry in (False, True):
+        path = "carry" if carry else "recompute"
+        kernels.reset_launch_counts()
         state, hist = train(cfg, params, carry)
+        launches[path] = kernels.launch_counts()
+        require(launches[path] == expected[path],
+                f"{path} path launches {launches[path]} != {expected[path]}")
         require(hist.round_sync == EXPECTED_C_K,
                 f"carry={carry}: c_k {hist.round_sync} != {EXPECTED_C_K}")
         require(all(math.isfinite(v) for v in hist.loss), f"carry={carry}: loss not finite")
@@ -287,28 +391,23 @@ def run_main_path(report: dict) -> dict:
         by_type = {}
         for c_k, sec in zip(hist.round_sync, hist.step_seconds):
             by_type.setdefault("sync" if c_k else "compressed", []).append(sec)
-        runs["carry" if carry else "recompute"] = {
+        runs[path] = {
             "loss": hist.loss, "c_k": hist.round_sync,
-            "step_seconds": hist.step_seconds,
+            "step_seconds": hist.step_seconds, "launches": launches[path],
             "median_step_s": {k: statistics.median(v) for k, v in by_type.items()},
         }
-        print(f"main path carry={carry}: loss {hist.loss}, c_k {hist.round_sync}, "
-              f"median s/step {runs['carry' if carry else 'recompute']['median_step_s']}",
+        print(f"main path {path}: loss {hist.loss}, c_k {hist.round_sync}, "
+              f"launches {launches[path]}, median s/step {runs[path]['median_step_s']}",
               flush=True)
         del state, hist
-    counts = kernels.launch_counts()
-    n_comp = EXPECTED_C_K.count(0)
-    n_sync = EXPECTED_C_K.count(1)
-    want = {"randk_seeded_workers": 2 * n_comp, "scatter_accum": n_comp,
-            "scatter_epilogue": n_comp, "mean_epilogue": n_sync}
-    require(counts == want, f"launches {counts} != {want}")
-    report["main_path"] = {"d": d, "nblk": nblk, "runs": runs, "launches": counts,
+    report["main_path"] = {"d": d, "nblk": nblk, "runs": runs,
                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"main path: d={d}, nblk={nblk}, launches {counts}, peak memory "
+    print(f"main path: d={d}, nblk={nblk}, peak memory "
           f"{report['main_path']['peak_mem_gb']:.2f} GB", flush=True)
+    profile_step(cfg, params, report)
     del params
     torch.cuda.empty_cache()
-    return counts
+    return launches
 
 
 def main() -> int:
@@ -337,12 +436,14 @@ def main() -> int:
     nblk = make_layout(shapes, block=BLOCK).nblk
     rows = check_kernels(nblk, card, report)
     check_small_input(report)
-    counts = run_main_path(report)
+    launches = run_main_path(report)
 
     table = []
     for name, (source, replaces) in SOURCES.items():
+        by_path = {path: counts[name] for path, counts in launches.items()}
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": counts[name],
+                      "replaces": replaces, "launches": sum(by_path.values()),
+                      "launches_by_path": by_path,
                       **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                                     "bound_ms", "bound_by", "library_ms")}})
     print("report: " + json.dumps(report))

@@ -9,9 +9,11 @@
   are ``(nblk, kb)`` values whose offsets the server regenerates from one
   uint32 seed; aggregation scatter-accumulates into one ``(nblk, B)`` buffer.
 
-Backends: ``cuda`` runs the hand-written kernels in :mod:`repro_torch.kernels`
-(CUDA tensors only); ``ref`` runs their plain PyTorch versions on any device;
-``auto`` picks ``cuda`` for CUDA tensors and ``ref`` for CPU tensors.
+Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
+(CUDA tensors only) and ``auto`` call the kernel wrappers in
+:mod:`repro_torch.kernels`, which launch the hand-written kernels on CUDA
+tensors and run the plain versions on CPU tensors — so ``auto`` resolves to
+``cuda`` for CUDA tensors and ``ref`` for CPU ones.
 
 Only the ``randk`` sampler is ported; the others raise ``NotImplementedError``.
 Robust aggregators and the compressed downlink are not ported yet (``Marina``
@@ -152,22 +154,6 @@ def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
     return (bits & (block - 1)).to(torch.int32)
 
 
-def block_compress_workers(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
-                           scale: float, backend: str = "auto"):
-    """Per-worker seeded RandK: (n, nblk, B) + (n,) int32 seeds → (n, nblk, kb) ×2."""
-    if resolve_backend(backend, x3d) == "ref":
-        return _ref.randk_seeded_workers_ref(x3d, seeds, kb, scale)
-    return _randk.randk_seeded_workers(x3d, seeds, kb, scale)
-
-
-def block_scatter_mean(values: torch.Tensor, offsets: torch.Tensor, block: int,
-                       backend: str = "auto") -> torch.Tensor:
-    """Scatter-accumulate mean over workers: (n, nblk, kb) ×2 → (nblk, block)."""
-    if resolve_backend(backend, values) == "ref":
-        return _ref.scatter_accum_ref(values, offsets, block)
-    return _randk.scatter_accum(values, offsets, block)
-
-
 # ---------------------------------------------------------------------------
 # The fused engine
 # ---------------------------------------------------------------------------
@@ -212,15 +198,15 @@ class FlatEngine:
     # -- stages -------------------------------------------------------------
     def compress_stacked(self, seeds, bufs: torch.Tensor):
         """(n, nblk, B) + (n,) uint32 seeds → per-worker payloads
-        (values, offsets)."""
-        return block_compress_workers(
-            bufs, _randk.seeds_tensor(seeds, bufs.device), self.kb, self.scale,
-            self.backend,
-        )
+        (values, offsets), both (n, nblk, kb)."""
+        fn = (_ref.randk_seeded_workers_ref if self._plain(bufs)
+              else _randk.randk_seeded_workers)
+        return fn(bufs, _randk.seeds_tensor(seeds, bufs.device), self.kb, self.scale)
 
     def decompress_mean(self, vals: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
         """(n, nblk, kb) payloads → (nblk, B) dense mean over workers."""
-        return block_scatter_mean(vals, offs, self.layout.block, self.backend)
+        fn = _ref.scatter_accum_ref if self._plain(vals) else _randk.scatter_accum
+        return fn(vals, offs, self.layout.block)
 
     # -- the hot path -------------------------------------------------------
     def fused_delta(self, key, diffs: PyTree, n: int) -> PyTree:
@@ -230,7 +216,6 @@ class FlatEngine:
 
     def aggregate(self, key, bufs: torch.Tensor, n: int) -> torch.Tensor:
         """Server-side aggregate over packed diffs: (n, nblk, B) → (nblk, B)."""
-        self._check_device(bufs)
         vals, offs = self.compress_stacked(self.worker_seeds(key, n), bufs)
         return self.decompress_mean(vals, offs)
 
@@ -239,23 +224,23 @@ class FlatEngine:
         """Finish a compressed round in one sweep: sample the uplink payloads
         from the packed diffs, then the fused epilogue (scatter-mean →
         ``g += δ`` → ``x −= γ·g``). Returns ``(g_new f32, x_new)``."""
-        self._check_device(diff_bufs)
         vals, offs = self.compress_stacked(self.worker_seeds(key, n), diff_bufs)
-        if resolve_backend(self.backend, vals) == "ref":
-            return _ref.scatter_epilogue_ref(vals, offs, g2d, x2d, gamma)
-        return _epi.scatter_epilogue(vals, offs, g2d, x2d, gamma)
+        fn = _ref.scatter_epilogue_ref if self._plain(vals) else _epi.scatter_epilogue
+        return fn(vals, offs, g2d, x2d, gamma)
 
     def fused_sync(self, grad_bufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
         """Sync-round epilogue: worker mean of the packed gradients fused with
         the iterate update. Returns (g_new, x_new) like fused_round."""
-        self._check_device(grad_bufs)
-        if resolve_backend(self.backend, grad_bufs) == "ref":
-            return _ref.mean_epilogue_ref(grad_bufs, x2d, gamma)
-        return _epi.mean_epilogue(grad_bufs, x2d, gamma)
+        fn = _ref.mean_epilogue_ref if self._plain(grad_bufs) else _epi.mean_epilogue
+        return fn(grad_bufs, x2d, gamma)
 
-    def _check_device(self, buf: torch.Tensor) -> None:
+    def _plain(self, buf: torch.Tensor) -> bool:
+        """True for backend 'ref'; otherwise the kernel wrappers run. 'cuda'
+        with a CPU buffer raises here."""
         if self.device is not None and buf.device.type != torch.device(self.device).type:
             raise ValueError(f"engine on {self.device} got a buffer on {buf.device}")
+        resolve_backend(self.backend, buf)
+        return self.backend == "ref"
 
 
 def make_engine(params: PyTree, kb: int = 8, block: int = DEFAULT_BLOCK,

@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch import prng
 from repro_torch.core import BlockRandK, Marina, make_compressor, make_engine
@@ -40,6 +41,11 @@ from repro_torch.models import lm_loss
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
+
+#: profiler spans (``torch.profiler.record_function``): one optimizer step,
+#: between its two device synchronisations; one worker's forward + backward
+SPAN_STEP = "train.step"
+SPAN_GRAD = "train.grad"
 
 
 @dataclasses.dataclass
@@ -111,10 +117,11 @@ class Trainer:
             return lm_loss(params, model_cfg, batch["tokens"])
 
         def grad_fn(params, batch):
-            leaves, treedef = tree_flatten(params)
-            leaves = [t.detach().requires_grad_(True) for t in leaves]
-            loss = loss_fn(tree_unflatten(treedef, leaves), batch)
-            return tree_unflatten(treedef, torch.autograd.grad(loss, leaves))
+            with record_function(SPAN_GRAD):
+                leaves, treedef = tree_flatten(params)
+                leaves = [t.detach().requires_grad_(True) for t in leaves]
+                loss = loss_fn(tree_unflatten(treedef, leaves), batch)
+                return tree_unflatten(treedef, torch.autograd.grad(loss, leaves))
 
         self.loss_fn = loss_fn
         self.params0 = tree_map(lambda t: t.to(self.device), init_params)
@@ -144,9 +151,11 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self):
+    def run(self, step_hook: Optional[Callable[[int], None]] = None):
         """Train ``steps`` rounds from ``init_params``. Returns the final
-        :class:`MarinaState` and the :class:`TrainMetrics` history."""
+        :class:`MarinaState` and the :class:`TrainMetrics` history.
+        ``step_hook(step)``, if given, runs after each step's closing
+        synchronisation and before its evaluation (e.g. ``profiler.step``)."""
         tc = self.tcfg
         state = self.method.init(self.params0, self._batches(0, tc.batch_per_worker))
         bits = down = oracle = skipped = 0.0
@@ -168,23 +177,26 @@ class Trainer:
         for step in range(tc.steps):
             self._sync()
             ts = time.perf_counter()
-            key = prng.fold_in(base_key, step)
-            batches = self._batches(step, tc.batch_per_worker)
-            new_state, met = self.method.step(state, key, batches)
-            gnorm = met.grad_est_norm
-            if tc.nonfinite_guard and not _state_finite(new_state):
-                # revert the entire state: finite h/g paired with reverted
-                # params would desynchronize the estimator recursion
-                new_state, gnorm = state, torch.zeros(())
-                skipped += 1.0
-            state = new_state
-            bits += met.bits_per_worker
-            down += met.down_bits
-            oracle += met.oracle_calls
-            self._sync()
+            with record_function(SPAN_STEP):
+                key = prng.fold_in(base_key, step)
+                batches = self._batches(step, tc.batch_per_worker)
+                new_state, met = self.method.step(state, key, batches)
+                gnorm = met.grad_est_norm
+                if tc.nonfinite_guard and not _state_finite(new_state):
+                    # revert the entire state: finite h/g paired with reverted
+                    # params would desynchronize the estimator recursion
+                    new_state, gnorm = state, torch.zeros(())
+                    skipped += 1.0
+                state = new_state
+                bits += met.bits_per_worker
+                down += met.down_bits
+                oracle += met.oracle_calls
+                self._sync()
             hist.step_seconds.append(time.perf_counter() - ts)
             hist.round_sync.append(met.sync_round)
             hist.round_bits.append(met.bits_per_worker)
+            if step_hook is not None:
+                step_hook(step)
             if (step + 1) % tc.log_every == 0 or step == tc.steps - 1:
                 log(step, self.eval_loss(state.params, step), float(gnorm))
         return state, hist

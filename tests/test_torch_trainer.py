@@ -2,7 +2,8 @@
 
 * ``Trainer(..., device="cpu")`` trains a reduced dense LM for 4 steps in
   both round shapes: the loss stays finite and each step's ledger entry is
-  ``wire.seeded_randk_bits`` on compressed rounds, 32·d on sync rounds.
+  ``wire.seeded_randk_bits`` on compressed rounds, 32·d on sync rounds;
+  the step hook sees every step, and a profiler sees the trainer's spans.
 * ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   ``repro`` (checked in a fresh interpreter).
 * Entry points default to the card and raise without one.
@@ -39,7 +40,9 @@ def _tc(carry):
 def test_trainer_cpu_smoke_and_ledger(carry):
     params = init_params(0, CFG, device="cpu")
     tr = Trainer(CFG, _tc(carry), params, device="cpu")
-    state, hist = tr.run()
+    hooked = []
+    state, hist = tr.run(hooked.append)
+    assert hooked == [0, 1, 2, 3]
     d = sum(t.numel() for t in tree_leaves(params))
     nblk = math.ceil(d / 128)
     assert all(math.isfinite(v) for v in hist.loss)
@@ -50,6 +53,20 @@ def test_trainer_cpu_smoke_and_ledger(carry):
     assert hist.bits_cum[-1] == sum(hist.round_bits)
     assert hist.skipped_cum[-1] == 0.0
     assert len(hist.step_seconds) == 4
+
+
+def test_trainer_profiler_spans():
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.trainer import SPAN_GRAD, SPAN_STEP
+
+    tr = Trainer(CFG, _tc(True), init_params(0, CFG, device="cpu"), device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.run()
+    names = [e.name for e in prof.events()]
+    # one step span per step; one gradient span per worker in init and steps
+    assert names.count(SPAN_STEP) == 4
+    assert names.count(SPAN_GRAD) == 2 * (1 + 4)
 
 
 def test_port_imports_no_jax_and_no_reference():
