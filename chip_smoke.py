@@ -8,34 +8,37 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); print the seconds.
-3. kernels — each of the four main-path kernels against its plain PyTorch
-   version on the card, at the production shape of Qwen1.5-0.5B (n = 4
-   workers, nblk = ceil(d / 1024), B = 1024, kb = 20) and at a
-   forced-duplicates shape (kb = B/2), x in f32 and bf16: offsets and RandK
-   values bit-equal, scatter / epilogue outputs within 1 ulp. Median times
-   over 20+ launches (CUDA events) for the kernel, its plain version and,
-   where one exists, the one PyTorch call that computes the same function.
+3. kernels — each of the six main-path kernels against its plain PyTorch
+   version on the card. The four RandK-wire kernels at the production shape
+   of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024), B = 1024,
+   kb = 20) and at a forced-duplicates shape (kb = B/2); the PermK uplink
+   at the production shape and at n = 2 and 8; the delta epilogue at
+   (nblk, B); x in f32 and bf16. Offsets and RandK / PermK values
+   bit-equal, scatter / epilogue outputs within 1 ulp. Median times over
+   20+ launches (CUDA events) for the kernel, its plain version and, where
+   one exists, the one PyTorch call that computes the same function.
 4. small input — a reduced dense LM trained 4 steps on the card through the
    kernels and through their plain versions (``flat_backend="ref"``), both
-   round shapes: the two trajectories agree.
-5. main path — Qwen1.5-0.5B at full width, random init from a seed, through
+   round shapes, for MARINA × block_randk, VR-MARINA × permk and
+   PP-MARINA × block_randk: the two trajectories agree.
+5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
-   block_randk kb = 20, B = 1024; 4 steps with ``carry_grads=False`` and 4
-   with ``carry_grads=True``. The launch counts are reset just before each
-   of the two paths and read just after it: each path must launch its own
-   kernels as many times as its rounds require (recompute: RandK and
-   scatter-mean per compressed round; carry: RandK and the scatter epilogue
-   per compressed round, the mean epilogue per sync round). The loss is
-   finite and the bits ledger equals the wire formula. Median seconds per
-   step by round type.
+   B = 1024, p = 0.5, 4 steps per path, both round shapes
+   (``carry_grads=False`` / ``True``) of MARINA × block_randk (kb = 20),
+   VR-MARINA × permk (minibatches 2 × 256) and PP-MARINA × block_randk
+   (r = 2). The launch counts are reset just before each path and read
+   just after it: each path must launch exactly the kernels its rounds
+   require (``EXPECTED_LAUNCHES``). The loss is finite, no round is
+   skipped, and each round's bits equal the wire formula. Median seconds
+   per step by round type and the peak device memory, per path.
 6. profile — one ``torch.profiler`` trace of a compressed step of a
    full-width carry run: its device time split into model forward +
    backward, the port's kernels and the rest, the device's idle share of
    the step, and the costliest device functions.
 
 The output ends with a JSON report of every phase, the kernel table (one
-JSON line; ``launches`` sums the two paths, ``launches_by_path`` splits
-them), the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -54,9 +57,11 @@ SEED = 0
 P_SYNC = 0.5
 STEPS = 4
 #: c_k of steps 0..3 for seed 0, p = 0.5: jax.random.bernoulli on the first
-#: half of split(fold_in(PRNGKey(0), step)), computed with JAX on the CPU
+#: key of split(fold_in(PRNGKey(0), step)) — and of its 3-way split, which
+#: PP-MARINA draws from — computed with JAX on the CPU
 EXPECTED_C_K = [1, 0, 1, 0]
 KB, BLOCK, N_WORKERS = 20, 1024, 4
+MB_PER_WORKER, R_PARTICIPATING = 2, 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 
@@ -69,6 +74,36 @@ SOURCES = {
                          "src/repro/kernels/epilogue.py:287"),
     "mean_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
                       "src/repro/kernels/epilogue.py:109"),
+    "permk_seeded_workers": ("src/repro_torch/kernels/csrc/permk.cu",
+                             "src/repro/kernels/permk.py:62"),
+    "delta_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+                       "src/repro/kernels/epilogue.py:69"),
+}
+
+#: the main paths: (method, compressor, carry_grads)
+PATHS = {
+    "marina_randk_recompute": ("marina", "block_randk", False),
+    "marina_randk_carry": ("marina", "block_randk", True),
+    "vr_permk_recompute": ("vr_marina", "permk", False),
+    "vr_permk_carry": ("vr_marina", "permk", True),
+    "pp_randk_recompute": ("pp_marina", "block_randk", False),
+    "pp_randk_carry": ("pp_marina", "block_randk", True),
+}
+_NC, _NS = EXPECTED_C_K.count(0), EXPECTED_C_K.count(1)
+#: what each path must launch in its 4 steps: compressed recompute rounds
+#: sample and aggregate the diffs (RandK: scatter-mean kernel; PermK: a plain
+#: inverse-permutation gather); carry rounds end in a fused epilogue of
+#: either round type (the sync one is the mean epilogue)
+EXPECTED_LAUNCHES = {
+    "marina_randk_recompute": {"randk_seeded_workers": _NC, "scatter_accum": _NC},
+    "marina_randk_carry": {"randk_seeded_workers": _NC, "scatter_epilogue": _NC,
+                           "mean_epilogue": _NS},
+    "vr_permk_recompute": {"permk_seeded_workers": _NC},
+    "vr_permk_carry": {"permk_seeded_workers": _NC, "delta_epilogue": _NC,
+                       "mean_epilogue": _NS},
+    "pp_randk_recompute": {"randk_seeded_workers": _NC, "scatter_accum": _NC},
+    "pp_randk_carry": {"randk_seeded_workers": _NC, "scatter_epilogue": _NC,
+                       "mean_epilogue": _NS},
 }
 
 
@@ -224,24 +259,119 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
     return rows
 
 
+NO_LIBRARY = "none (no single PyTorch call computes this function)"
+
+
+def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
+    """The PermK uplink at n = 2, 4, 8 and the delta epilogue, x f32 and
+    bf16, each against its plain version and timed; the table's row is the
+    production shape (n = 4, x f32)."""
+    import torch
+
+    from repro_torch.kernels import epilogue, permk, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows, timings = {}, []
+    seed = 2**31 + 12345
+    for n in (N_WORKERS, 2, 8):
+        x32 = torch.randn((n, nblk, BLOCK), generator=gen, device=dev)
+        for xd in (torch.float32, torch.bfloat16):
+            x3d = x32.to(xd)
+            v, o = permk.permk_seeded_workers(x3d, seed)
+            vr, orf = ref.permk_seeded_workers_ref(x3d, seed)
+            require(torch.equal(o, orf), f"permk n={n} {xd}: offsets differ")
+            require(torch.equal(v, vr), f"permk n={n} {xd}: values differ")
+            del vr, orf
+            elt = x3d.element_size()
+            # must touch: one x value per slot, the values and int32 offsets
+            b_ms, b_by = bound(nblk * BLOCK * (2 * elt + 4), nblk * BLOCK)
+            t = {"kernel": "permk_seeded_workers", "n": n, "x": str(xd),
+                 "ms": median_ms(lambda: permk.permk_seeded_workers(x3d, seed), 25),
+                 "plain_ms": median_ms(lambda: ref.permk_seeded_workers_ref(x3d, seed), 5),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 # what this design moves: every staged row of x read in full
+                 "floor_ms": (x3d.numel() * elt + nblk * BLOCK * (elt + 4))
+                 / HBM_BYTES_PER_S * 1e3,
+                 "library_ms": None, "max_abs_err": 0.0}
+            timings.append(t)
+            print(f"time permk_seeded_workers n={n} x {xd}: kernel {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"floor {t['floor_ms']:.4f} ms, library {NO_LIBRARY} on {card}",
+                  flush=True)
+            if n == N_WORKERS and xd == torch.float32:
+                rows["permk_seeded_workers"] = t
+            del x3d, v, o
+        del x32
+        torch.cuda.empty_cache()
+
+    delta, g, x32 = (torch.randn((nblk, BLOCK), generator=gen, device=dev)
+                     for _ in range(3))
+    for xd in (torch.float32, torch.bfloat16):
+        x = x32.to(xd)
+        out = epilogue.delta_epilogue(delta, g, x, 0.0371)
+        want = ref.delta_epilogue_ref(delta, g, x, 0.0371)
+        require(ulp_diff(out[0], want[0]) <= 1, f"delta_epilogue g' ({xd}) beyond 1 ulp")
+        require(ulp_diff(out[1], want[1]) <= 1, f"delta_epilogue x' ({xd}) beyond 1 ulp")
+        err = max(float((out[0] - want[0]).abs().max()),
+                  float((out[1].float() - want[1].float()).abs().max()))
+        del out, want
+        elt = x.element_size()
+        b_ms, b_by = bound(nblk * BLOCK * (3 * 4 + 2 * elt), 3 * nblk * BLOCK)
+        t = {"kernel": "delta_epilogue", "x": str(xd),
+             "ms": median_ms(lambda: epilogue.delta_epilogue(delta, g, x, 0.0371), 25),
+             "plain_ms": median_ms(lambda: ref.delta_epilogue_ref(delta, g, x, 0.0371), 5),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "max_abs_err": err}
+        timings.append(t)
+        print(f"time delta_epilogue x {xd}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+              f"{err}, library {NO_LIBRARY} on {card}", flush=True)
+        if xd == torch.float32:
+            rows["delta_epilogue"] = t
+    del delta, g, x32, x
+    torch.cuda.empty_cache()
+    report["kernels_permk_delta"] = timings
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the trainer
 # ---------------------------------------------------------------------------
 
 
 def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
-          step_hook=None, **kw):
+          step_hook=None, method: str = "marina", compressor: str = "block_randk",
+          **kw):
     from repro_torch.train import TrainConfig, Trainer
 
-    tc = TrainConfig(method="marina", compressor="block_randk",
-                     comp_kwargs={"kb": KB, "block": BLOCK}, gamma=0.02, p=P_SYNC,
-                     n_workers=N_WORKERS, steps=steps, log_every=steps, seed=SEED,
-                     carry_grads=carry, flat_backend=backend, **kw)
+    comp_kwargs = {"block": BLOCK} if compressor == "permk" else {"kb": KB, "block": BLOCK}
+    tc = TrainConfig(method=method, compressor=compressor, comp_kwargs=comp_kwargs,
+                     gamma=0.02, p=P_SYNC, n_workers=N_WORKERS,
+                     r_participating=R_PARTICIPATING, steps=steps, log_every=steps,
+                     seed=SEED, carry_grads=carry, flat_backend=backend, **kw)
     return Trainer(cfg, tc, params, device="cuda").run(step_hook)
 
 
+def expected_bits(method: str, c_k: int, d: int, nblk: int) -> float:
+    """One round's bits per worker from the wire formulas."""
+    from repro_torch.core import wire
+
+    if method == "pp_marina":
+        zeta = wire.seeded_randk_bits(nblk, KB)
+        total = (wire.pp_sync_total_bits(N_WORKERS, d) if c_k
+                 else wire.pp_uplink_total_bits(R_PARTICIPATING, zeta))
+        return total / N_WORKERS
+    if c_k:
+        return wire.dense_f32_bits(d)
+    if method == "vr_marina":
+        return wire.permk_bits(nblk * BLOCK, N_WORKERS)
+    return wire.seeded_randk_bits(nblk, KB)
+
+
 def check_small_input(report: dict) -> None:
-    """The kernels' trajectory against the plain versions' on a small LM."""
+    """The kernels' trajectory against the plain versions' on a small LM,
+    for every (method, compressor) of the main paths, both round shapes."""
     import torch
 
     from repro_torch.core.tree_util import tree_leaves
@@ -252,15 +382,17 @@ def check_small_input(report: dict) -> None:
                       segments=dense_stack(2), qkv_bias=True,
                       tie_embeddings=True, rope_theta=1_000_000.0)
     worst = 0.0
-    for carry in (False, True):
-        params = init_params(SEED, cfg, device="cuda")
-        s_k, h_k = train(cfg, params, carry, batch_per_worker=2)
-        s_r, h_r = train(cfg, params, carry, "ref", batch_per_worker=2)
+    params = init_params(SEED, cfg, device="cuda")
+    for path, (method, compressor, carry) in PATHS.items():
+        kw = dict(carry=carry, method=method, compressor=compressor,
+                  batch_per_worker=2, mb_per_worker=1)
+        s_k, h_k = train(cfg, params, **kw)
+        s_r, h_r = train(cfg, params, backend="ref", **kw)
         require(h_k.round_sync == h_r.round_sync == EXPECTED_C_K,
-                f"small input: c_k {h_k.round_sync} vs {h_r.round_sync}")
+                f"small input {path}: c_k {h_k.round_sync} vs {h_r.round_sync}")
         for a, b in zip(tree_leaves(s_k.params), tree_leaves(s_r.params)):
             require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
-                    f"small input (carry={carry}): kernels and plain versions diverge")
+                    f"small input {path}: kernels and plain versions diverge")
             worst = max(worst, float((a - b).abs().max()))
     report["small_input_max_abs_param_diff"] = worst
     print(f"small input: kernels' and plain versions' trajectories agree "
@@ -355,55 +487,46 @@ def run_main_path(report: dict) -> dict:
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.core import wire
     from repro_torch.models import init_params, param_count
 
     cfg = get_arch("qwen1.5-0.5b").model
     params = init_params(SEED, cfg, device="cuda")
     d = param_count(params)
     nblk = math.ceil(d / BLOCK)
-    torch.cuda.reset_peak_memory_stats()
-    n_comp, n_sync = EXPECTED_C_K.count(0), EXPECTED_C_K.count(1)
-    # what each path must launch: recompute rounds sample and scatter-mean
-    # the diffs; carry rounds end in a fused epilogue of either round type
-    expected = {
-        "recompute": {"randk_seeded_workers": n_comp, "scatter_accum": n_comp,
-                      "scatter_epilogue": 0, "mean_epilogue": 0},
-        "carry": {"randk_seeded_workers": n_comp, "scatter_accum": 0,
-                  "scatter_epilogue": n_comp, "mean_epilogue": n_sync},
-    }
     runs, launches = {}, {}
-    for carry in (False, True):
-        path = "carry" if carry else "recompute"
+    for path, (method, compressor, carry) in PATHS.items():
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        state, hist = train(cfg, params, carry)
+        state, hist = train(cfg, params, carry, method=method, compressor=compressor,
+                            mb_per_worker=MB_PER_WORKER)
         launches[path] = kernels.launch_counts()
-        require(launches[path] == expected[path],
-                f"{path} path launches {launches[path]} != {expected[path]}")
+        want = {name: EXPECTED_LAUNCHES[path].get(name, 0) for name in kernels.KERNELS}
+        require(launches[path] == want,
+                f"{path} launches {launches[path]} != {want}")
         require(hist.round_sync == EXPECTED_C_K,
-                f"carry={carry}: c_k {hist.round_sync} != {EXPECTED_C_K}")
-        require(all(math.isfinite(v) for v in hist.loss), f"carry={carry}: loss not finite")
-        require(hist.skipped_cum[-1] == 0.0, f"carry={carry}: a round was skipped")
+                f"{path}: c_k {hist.round_sync} != {EXPECTED_C_K}")
+        require(all(math.isfinite(v) for v in hist.loss), f"{path}: loss not finite")
+        require(hist.skipped_cum[-1] == 0.0, f"{path}: a round was skipped")
         for c_k, bits in zip(hist.round_sync, hist.round_bits):
-            want = wire.dense_f32_bits(d) if c_k else wire.seeded_randk_bits(nblk, KB)
-            require(bits == want, f"carry={carry}: ledger {bits} != {want}")
-        require(hist.bits_cum[-1] == sum(hist.round_bits), "ledger sum")
+            want_bits = expected_bits(method, c_k, d, nblk)
+            require(bits == want_bits, f"{path}: ledger {bits} != {want_bits}")
+        require(hist.bits_cum[-1] == sum(hist.round_bits), f"{path}: ledger sum")
         by_type = {}
         for c_k, sec in zip(hist.round_sync, hist.step_seconds):
             by_type.setdefault("sync" if c_k else "compressed", []).append(sec)
         runs[path] = {
-            "loss": hist.loss, "c_k": hist.round_sync,
+            "loss": hist.loss, "c_k": hist.round_sync, "round_bits": hist.round_bits,
             "step_seconds": hist.step_seconds, "launches": launches[path],
             "median_step_s": {k: statistics.median(v) for k, v in by_type.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }
         print(f"main path {path}: loss {hist.loss}, c_k {hist.round_sync}, "
-              f"launches {launches[path]}, median s/step {runs[path]['median_step_s']}",
-              flush=True)
+              f"launches {launches[path]}, median s/step {runs[path]['median_step_s']}, "
+              f"peak memory {runs[path]['peak_mem_gb']:.2f} GB", flush=True)
         del state, hist
-    report["main_path"] = {"d": d, "nblk": nblk, "runs": runs,
-                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"main path: d={d}, nblk={nblk}, peak memory "
-          f"{report['main_path']['peak_mem_gb']:.2f} GB", flush=True)
+        torch.cuda.empty_cache()
+    report["main_path"] = {"d": d, "nblk": nblk, "runs": runs}
+    print(f"main paths: d={d}, nblk={nblk}", flush=True)
     profile_step(cfg, params, report)
     del params
     torch.cuda.empty_cache()
@@ -435,6 +558,7 @@ def main() -> int:
     shapes = init_params(SEED, get_arch("qwen1.5-0.5b").model, device="meta")
     nblk = make_layout(shapes, block=BLOCK).nblk
     rows = check_kernels(nblk, card, report)
+    rows.update(check_permk_delta(nblk, card, report))
     check_small_input(report)
     launches = run_main_path(report)
 
@@ -445,7 +569,8 @@ def main() -> int:
                       "replaces": replaces, "launches": sum(by_path.values()),
                       "launches_by_path": by_path,
                       **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                    "bound_ms", "bound_by", "library_ms")}})
+                                                    "bound_ms", "bound_by", "library_ms",
+                                                    "floor_ms") if k in rows[name]}})
     print("report: " + json.dumps(report))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())

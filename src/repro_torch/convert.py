@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.marina import MarinaState
+from repro_torch.device import default_device
 from repro_torch.core.tree_util import tree_map
 
 PyTree = Any
@@ -29,15 +30,22 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_jax(tree_of_numpy: PyTree, device="cpu") -> PyTree:
-    """Tree of numpy arrays → the same tree of tensors on ``device``."""
+def params_from_jax(tree_of_numpy: PyTree, device=None) -> PyTree:
+    """Tree of numpy arrays → the same tree of tensors on ``device``
+    (``cuda`` unless it names another)."""
+    device = default_device(device)
     return tree_map(lambda a: _tensor(a, device), tree_of_numpy)
 
 
 def state_from_jax(params: PyTree, g: PyTree, step: int, h: PyTree = None,
-                   device="cpu") -> MarinaState:
+                   device=None) -> MarinaState:
     """The fields of a reference ``MarinaState`` (as numpy trees) → the
-    port's ``MarinaState``."""
+    port's ``MarinaState``, for every optimizer of :mod:`repro_torch.core`:
+    ``g`` a tree or the packed (nblk, B) buffer of the fused carry path,
+    ``h`` the worker-stacked carry (VR-MARINA's last gradients, PP-MARINA's
+    full n-row server table) or None. On ``cuda`` unless ``device`` names
+    another."""
+    device = default_device(device)
     return MarinaState(
         params=params_from_jax(params, device),
         g=params_from_jax(g, device),

@@ -1,12 +1,16 @@
-"""repro_torch.core — MARINA on the flat engine (PyTorch port of repro.core)."""
+"""repro_torch.core — MARINA, VR-MARINA and PP-MARINA on the flat engine
+(PyTorch port of repro.core)."""
 
 from .compressors import (
     BlockRandK,
     Compressor,
+    CorrelatedCompressor,
     Identity,
+    PermK,
     RandK,
     make_compressor,
     tree_compress,
+    tree_compress_worker,
     tree_decompress,
     tree_dim,
     tree_payload_bits,
@@ -21,13 +25,21 @@ from .flat import (
     resolve_backend,
     unpack,
 )
-from .marina import Marina, MarinaState, StepMetrics
+from .marina import (
+    Marina,
+    MarinaState,
+    PPMarina,
+    StepMetrics,
+    VRMarina,
+    pp_sample_cohort,
+)
 from .stepsize import marina_gamma
 
 __all__ = [
-    "BlockRandK", "Compressor", "FlatEngine", "FlatLayout", "Identity",
-    "Marina", "MarinaState", "RandK", "StepMetrics", "make_compressor",
-    "make_engine", "make_layout", "marina_gamma", "pack", "pack_stacked",
-    "resolve_backend", "tree_compress", "tree_decompress", "tree_dim",
-    "tree_payload_bits", "unpack",
+    "BlockRandK", "Compressor", "CorrelatedCompressor", "FlatEngine",
+    "FlatLayout", "Identity", "Marina", "MarinaState", "PPMarina", "PermK",
+    "RandK", "StepMetrics", "VRMarina", "make_compressor", "make_engine",
+    "make_layout", "marina_gamma", "pack", "pack_stacked", "pp_sample_cohort",
+    "resolve_backend", "tree_compress", "tree_compress_worker",
+    "tree_decompress", "tree_dim", "tree_payload_bits", "unpack",
 ]

@@ -7,8 +7,10 @@ an explicit PRNG key (:mod:`repro_torch.prng`), drawing exactly the bits the
 reference draws. :func:`tree_compress` lifts a compressor to pytrees leaf by
 leaf (Block-RandK semantics).
 
-Ported: ``Identity``, ``RandK``, ``BlockRandK``. The other reference
-compressors raise ``NotImplementedError`` in :func:`make_compressor`.
+Ported: ``Identity``, ``RandK``, ``BlockRandK`` and the correlated
+collection ``PermK`` (workers share one round key and are told their index:
+:func:`tree_compress_worker`). The other reference compressors raise
+``NotImplementedError`` in :func:`make_compressor`.
 """
 
 from __future__ import annotations
@@ -174,6 +176,95 @@ class BlockRandK(Compressor):
 
 
 # ---------------------------------------------------------------------------
+# Correlated collections (Szlendak et al. 2021)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CorrelatedCompressor(Compressor):
+    """Base for collections {Q_1..Q_n} with *shared* round randomness:
+    workers draw from ONE round key and are told their index
+    (``compress_worker(key, x, wid)``). ``compress(key, x)`` samples a
+    uniform worker index. ``n = 0`` means "set at wiring time" (the trainer
+    sets it to its worker count)."""
+
+    n: int = 0
+
+    def _n(self) -> int:
+        if self.n < 1:
+            raise ValueError(f"{self.name}: worker count not set (n={self.n})")
+        return self.n
+
+    def compress_worker(self, key, x: torch.Tensor, wid: int) -> Payload:
+        raise NotImplementedError
+
+    def compress(self, key, x):
+        k_w, k_q = prng.split(key)
+        wid = int(prng.randint(k_w, (), 0, self._n()))
+        return self.compress_worker(k_q, x, wid)
+
+
+@dataclasses.dataclass(frozen=True)
+class PermK(CorrelatedCompressor):
+    """Perm-K: a shared seeded permutation partitions the coordinates across
+    the n workers; worker i keeps its d/n share scaled by n. The vector is
+    zero-padded to ``(nblk, block)`` and each block permuted by the affine
+    bijection π(t) = (a·t + c) mod B of the flat engine's ``permk`` sampler;
+    worker w owns slots ``[w·B/n, (w+1)·B/n)``. ω = n − 1 per worker,
+    (A, B) = (1, 1) for the collection. Payload: uint32 seed +
+    (nblk·B)/n f32 values. Requires n | B."""
+
+    block: int = 1024
+    name: str = dataclasses.field(default="permk", init=False)
+
+    def __post_init__(self):
+        if self.block & (self.block - 1):
+            raise ValueError("block must be a power of two")
+        if self.n and self.block % self.n:
+            raise ValueError("worker count must divide block")
+
+    def _nblk(self, d: int) -> int:
+        return max(1, -(-d // self.block))
+
+    def omega(self, d: int) -> float:
+        return float(self._n() - 1)
+
+    def expected_density(self, d: int) -> float:
+        return d / self._n()
+
+    def payload_bits(self, d: int) -> float:
+        return 32.0 + 32.0 * self._nblk(d) * self.block / self._n()
+
+    def ab_constants(self, d: int, n: int) -> tuple:
+        if n != self._n():
+            raise ValueError(f"PermK built for n={self.n}, asked for n={n}")
+        return (1.0, 1.0)
+
+    def compress_worker(self, key, x, wid):
+        d = x.shape[0]
+        nblk = self._nblk(d)
+        x2d = torch.nn.functional.pad(x, (0, nblk * self.block - d)).reshape(
+            nblk, self.block)
+        seed = prng.key_to_seed(key)  # SHARED across workers: same key, same π
+        offs = _ref.permk_offsets_ref(seed, nblk, self.block, self._n(), wid,
+                                      x.device)
+        vals = torch.gather(x2d, 1, offs.to(torch.int64)) * torch.tensor(
+            float(self._n()), dtype=x.dtype, device=x.device)
+        return {"values": vals, "seed": seed, "wid": int(wid)}
+
+    def decompress(self, payload, d):
+        vals = payload["values"]
+        offs = _ref.permk_offsets_ref(payload["seed"], vals.shape[0], self.block,
+                                      self._n(), payload["wid"], vals.device)
+        # one scatter_add_ of a permutation per row: no duplicate index, so
+        # the order is fixed and the sums are the reference's scatter-adds
+        dense = torch.zeros((vals.shape[0], self.block), dtype=vals.dtype,
+                            device=vals.device)
+        dense.scatter_add_(1, offs.to(torch.int64), vals)
+        return dense.reshape(-1)[:d]
+
+
+# ---------------------------------------------------------------------------
 # Tree lifting (Block-RandK semantics)
 # ---------------------------------------------------------------------------
 
@@ -184,6 +275,18 @@ def tree_compress(comp: Compressor, key, tree: PyTree) -> PyTree:
     leaves, treedef = tree_flatten(tree)
     keys = [key] if len(leaves) == 1 else list(prng.split(key, len(leaves)))
     payloads = [comp.compress(k, leaf.reshape(-1)) for k, leaf in zip(keys, leaves)]
+    return _PayloadTree(treedef, payloads)
+
+
+def tree_compress_worker(comp: CorrelatedCompressor, key, tree: PyTree,
+                         wid: int) -> PyTree:
+    """:func:`tree_compress` for correlated collections: the round key is
+    shared across workers and the worker index passed through; the same
+    per-leaf key schedule."""
+    leaves, treedef = tree_flatten(tree)
+    keys = [key] if len(leaves) == 1 else list(prng.split(key, len(leaves)))
+    payloads = [comp.compress_worker(k, leaf.reshape(-1), wid)
+                for k, leaf in zip(keys, leaves)]
     return _PayloadTree(treedef, payloads)
 
 
@@ -217,7 +320,7 @@ def tree_dim(tree: PyTree) -> int:
 
 
 _NOT_PORTED = ("block_qsgd", "flat_qsgd", "block_natural", "flat_natural",
-               "shared_randk", "permk", "perm_k", "correlated_qsgd",
+               "shared_randk", "correlated_qsgd",
                "correlated_q", "cqsgd", "topk", "qsgd", "natural")
 
 
@@ -230,6 +333,8 @@ def make_compressor(name: str, **kw) -> Compressor:
         return RandK(**kw)
     if name in ("block_randk", "flat_randk"):
         return BlockRandK(**kw)
+    if name in ("permk", "perm_k"):
+        return PermK(**kw)
     if name in _NOT_PORTED:
         raise NotImplementedError(f"compressor {name!r} is not ported yet")
     raise ValueError(f"unknown compressor {name!r}")

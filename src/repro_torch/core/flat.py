@@ -5,9 +5,15 @@
   ``jax.tree.flatten`` order (:mod:`repro_torch.core.tree_util`), so the
   seeded offsets hit the same coordinates as in the reference.
 * :class:`FlatEngine` — the fused compress → uplink → decompress-mean
-  pipeline over that buffer, with the seeded RandK wire: per-worker payloads
-  are ``(nblk, kb)`` values whose offsets the server regenerates from one
-  uint32 seed; aggregation scatter-accumulates into one ``(nblk, B)`` buffer.
+  pipeline over that buffer, with one of two seeded wires:
+
+  - ``randk``: per-worker payloads are ``(nblk, kb)`` values whose offsets
+    the server regenerates from the worker's uint32 seed; aggregation
+    scatter-accumulates into one ``(nblk, B)`` buffer.
+  - ``permk``: ONE seed shared by all workers draws a per-block affine
+    permutation that partitions every block; worker w uplinks its
+    ``(nblk, B/n)`` share scaled by n, and the server assembles the mean by
+    an inverse-permutation gather (no scatter, no collisions).
 
 Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
 (CUDA tensors only) and ``auto`` call the kernel wrappers in
@@ -15,7 +21,8 @@ Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
 tensors and run the plain versions on CPU tensors — so ``auto`` resolves to
 ``cuda`` for CUDA tensors and ``ref`` for CPU ones.
 
-Only the ``randk`` sampler is ported; the others raise ``NotImplementedError``.
+The ``qsgd``, ``natural`` and ``randk_qsgd`` samplers are not ported yet
+(``NotImplementedError``).
 Robust aggregators and the compressed downlink are not ported yet (``Marina``
 refuses them).
 """
@@ -31,6 +38,7 @@ import torch
 from repro_torch import prng
 from repro_torch.device import default_device
 from repro_torch.kernels import epilogue as _epi
+from repro_torch.kernels import permk as _permk
 from repro_torch.kernels import randk as _randk
 from repro_torch.kernels import ref as _ref
 
@@ -145,13 +153,29 @@ def pack_stacked(layout: FlatLayout, tree: PyTree) -> torch.Tensor:
 
 
 def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
-                   device="cpu") -> torch.Tensor:
+                   device=None) -> torch.Tensor:
     """(nblk, kb) int32 offsets in [0, block) from the murmur3 counter RNG,
-    the ones the seeded kernel samples for ``seed``."""
+    the ones the seeded kernel samples for ``seed``. On ``cuda`` unless
+    ``device`` names another."""
+    device = default_device(device)
     ctr = (torch.arange(kb, dtype=torch.int64, device=device)[None, :]
            + (torch.arange(nblk, dtype=torch.int64, device=device) * kb)[:, None])
     bits = _ref.murmur_bits_ref(int(seed) & 0xFFFFFFFF, ctr)
     return (bits & (block - 1)).to(torch.int32)
+
+
+def block_permk_workers(x3d: torch.Tensor, seed: int, plain: bool = False):
+    """PermK uplink: (n, nblk, B) + ONE shared seed → values / int32 offsets
+    (n, nblk, B/n); the kernel, or its plain version when ``plain``."""
+    if plain:
+        return _ref.permk_seeded_workers_ref(x3d, seed)
+    return _permk.permk_seeded_workers(x3d, seed)
+
+
+#: Scatter-free PermK aggregation: (n, nblk, B/n) payloads → (nblk, B) mean
+#: by an inverse-permutation gather. Plain PyTorch on every backend, as in
+#: the reference: disjoint supports make the mean an assembly, not a sum.
+permk_concat_mean = _ref.permk_concat_mean_ref
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +187,11 @@ def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
 class FlatEngine:
     """Fused compressed-round pipeline over a packed flat buffer.
 
-    Worker w's seed is derived from the round key as the reference derives
-    it (``split`` then ``bits``) and its counter stream restarts at 0.
-    Sampling is with replacement: ω = B/kb."""
+    ``randk``: worker w's seed is derived from the round key as the
+    reference derives it (``split`` then ``bits``) and its counter stream
+    restarts at 0; sampling is with replacement, ω = B/kb. ``permk``: one
+    seed from the round key (``bits``) for all workers; ``kb`` is unused,
+    and the worker count must divide B."""
 
     layout: FlatLayout
     kb: int = 8
@@ -174,12 +200,12 @@ class FlatEngine:
     #: the device the engine's buffers live on (None: whatever it is given)
     device: Any = None
 
-    SAMPLERS = ("randk",)
+    SAMPLERS = ("randk", "permk")
 
     def __post_init__(self):
         if self.sampler not in self.SAMPLERS:
             raise NotImplementedError(
-                f"sampler {self.sampler!r} is not ported yet (only 'randk')")
+                f"sampler {self.sampler!r} is not ported yet (only {self.SAMPLERS})")
         resolve_backend(self.backend)
 
     def worker_seeds(self, key, n: int) -> np.ndarray:
@@ -187,13 +213,33 @@ class FlatEngine:
         return np.array([prng.key_to_seed(k) for k in prng.split(key, n)],
                         dtype=np.uint32)
 
+    def _shared_seed(self, key) -> int:
+        """ONE uint32 seed for the correlated (PermK) sampler."""
+        return prng.key_to_seed(key)
+
     @property
     def scale(self) -> float:
         return self.layout.block / self.kb
 
-    def payload_bits(self) -> float:
-        """Wire bits per worker per compressed round (wire.py)."""
-        return wire.seeded_randk_bits(self.layout.nblk, self.kb)
+    @property
+    def omega(self) -> float:
+        """Def-1.1 ω of one worker's sampler. PermK's is collection-level
+        (n − 1): ask the compressor."""
+        if self.sampler == "permk":
+            raise ValueError("PermK ω is n − 1; ask the compressor")
+        return self.layout.block / self.kb
+
+    def payload_bits(self, n: "int | None" = None) -> float:
+        """Wire bits per worker per compressed round (wire.py). A permk
+        engine needs the worker count: its share is B/n of every block."""
+        lay = self.layout
+        if self.sampler == "permk":
+            if n is None:
+                raise ValueError("permk payload_bits needs the worker count")
+            if lay.block % n:
+                raise ValueError("worker count must divide the block width")
+            return wire.permk_bits(lay.padded, n)
+        return wire.seeded_randk_bits(lay.nblk, self.kb)
 
     # -- stages -------------------------------------------------------------
     def compress_stacked(self, seeds, bufs: torch.Tensor):
@@ -216,14 +262,26 @@ class FlatEngine:
 
     def aggregate(self, key, bufs: torch.Tensor, n: int) -> torch.Tensor:
         """Server-side aggregate over packed diffs: (n, nblk, B) → (nblk, B)."""
+        if self.sampler == "permk":
+            return self._permk_mean(key, bufs)
         vals, offs = self.compress_stacked(self.worker_seeds(key, n), bufs)
         return self.decompress_mean(vals, offs)
+
+    def _permk_mean(self, key, bufs: torch.Tensor) -> torch.Tensor:
+        seed = self._shared_seed(key)  # shared: all workers, one permutation
+        vals, _ = block_permk_workers(bufs, seed, self._plain(bufs))
+        return permk_concat_mean(vals, seed, self.layout.block)
 
     def fused_round(self, key, diff_bufs: torch.Tensor, n: int, g2d: torch.Tensor,
                     x2d: torch.Tensor, gamma: float):
         """Finish a compressed round in one sweep: sample the uplink payloads
         from the packed diffs, then the fused epilogue (scatter-mean →
-        ``g += δ`` → ``x −= γ·g``). Returns ``(g_new f32, x_new)``."""
+        ``g += δ`` → ``x −= γ·g``). Returns ``(g_new f32, x_new)``. PermK
+        rounds assemble the dense delta first and end in the delta epilogue."""
+        if self.sampler == "permk":
+            delta = self._permk_mean(key, diff_bufs)
+            fn = _ref.delta_epilogue_ref if self._plain(delta) else _epi.delta_epilogue
+            return fn(delta, g2d, x2d, gamma)
         vals, offs = self.compress_stacked(self.worker_seeds(key, n), diff_bufs)
         fn = _ref.scatter_epilogue_ref if self._plain(vals) else _epi.scatter_epilogue
         return fn(vals, offs, g2d, x2d, gamma)

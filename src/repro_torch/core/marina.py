@@ -1,4 +1,5 @@
-"""MARINA, Algorithm 1 — port of ``repro.core.marina.Marina``.
+"""MARINA, VR-MARINA and PP-MARINA (Algorithms 1–4) — port of
+``repro.core.marina``.
 
 The algorithm works on *worker-stacked* pytrees: every per-worker quantity
 carries a leading axis of size ``n``. Per-worker gradients are a loop over
@@ -16,6 +17,12 @@ the workers (the reference's ``vmap``), written into one stacked tree.
   epilogue kernel: ``scatter_epilogue`` on compressed rounds,
   ``mean_epilogue`` on sync rounds, and ``g`` lives as a packed (nblk, B)
   buffer.
+* ``VRMarina`` (Alg. 2/3) takes two oracles: full (or b-batch) gradients on
+  sync rounds, b′-minibatch gradients at both points on compressed rounds.
+* ``PPMarina`` (Alg. 4) samples a cohort of r clients per compressed round
+  (``replace`` = i.i.d., else distinct), optionally weights the clients,
+  and with ``carry=True`` keeps a server-side table of every client's last
+  gradient, refreshed only for the sampled rows.
 
 Not ported yet (raise): the compressed downlink, robust aggregators and
 fault injection.
@@ -33,7 +40,9 @@ from repro_torch import prng
 from . import wire
 from .compressors import (
     Compressor,
+    CorrelatedCompressor,
     tree_compress,
+    tree_compress_worker,
     tree_decompress,
     tree_dim,
     tree_payload_bits,
@@ -93,20 +102,31 @@ def _per_worker_grads(grad_fn: GradFn, params: PyTree, batches: PyTree) -> PyTre
 def _compressed_delta(comp: Compressor, engine: "FlatEngine | None", key,
                       diffs: PyTree, like: PyTree, n: int) -> PyTree:
     """One compressed uplink round: (1/n) Σ_i Q(Δ_i). With an engine: the
-    fused flat-buffer pipeline; without: the per-leaf tree path."""
+    fused flat-buffer pipeline; without: the per-leaf tree path, with one
+    key per worker — or, for a correlated collection (PermK), the round key
+    shared by all workers, each told its index."""
     if engine is not None:
         return engine.fused_delta(key, diffs, n)
-    dense = [
-        tree_decompress(comp, tree_compress(comp, k, tree_worker_slice(diffs, w)), like)
-        for w, k in enumerate(prng.split(key, n))
-    ]
+    if isinstance(comp, CorrelatedCompressor):
+        if n != comp.n:
+            raise ValueError(f"{comp.name} collection sized for n={comp.n} but "
+                             f"the round has {n} workers")
+        payloads = [tree_compress_worker(comp, key, tree_worker_slice(diffs, w), w)
+                    for w in range(n)]
+    else:
+        payloads = [tree_compress(comp, k, tree_worker_slice(diffs, w))
+                    for w, k in enumerate(prng.split(key, n))]
+    dense = [tree_decompress(comp, pl, like) for pl in payloads]
     return tree_mean_axis0(tree_stack_workers(dense))
 
 
-def _round_bits(comp: Compressor, engine: "FlatEngine | None", like: PyTree) -> float:
-    """Per-worker uplink bits of one compressed round (the ζ_Q axis)."""
+def _round_bits(comp: Compressor, engine: "FlatEngine | None", like: PyTree,
+                n: int = 1) -> float:
+    """Per-worker uplink bits of one compressed round (the ζ_Q axis). ``n``
+    matters only for partition compressors (PermK): a worker's payload is
+    the d/n share."""
     if engine is not None:
-        return engine.payload_bits()
+        return engine.payload_bits(n)
     return float(tree_payload_bits(comp, like))
 
 
@@ -117,6 +137,66 @@ def _sync_mean(engine: "FlatEngine | None", grads: PyTree) -> PyTree:
         return tree_mean_axis0(grads)
     bufs = pack_stacked(engine.layout, grads)
     return unpack(engine.layout, mean_axis0(bufs))
+
+
+def _carry_finish(m, state: "MarinaState", c_k: bool, k_q, grads: PyTree,
+                  make_diffs: Optional[Callable[[], PyTree]], n: int):
+    """End a carry round: g' = the worker mean of ``grads`` (sync) or
+    g + (1/n) Σ Q(``make_diffs()``) (compressed), then x' = x − γ·g'. With
+    an engine, one fused epilogue over the packed buffers (g stays packed).
+    The diff tree is built here, so on the engine path it is freed once
+    packed. Returns (params', g')."""
+    if m.engine is not None:
+        lay = m.engine.layout
+        x2d = pack(lay, state.params)
+        if c_k:
+            g2d, x_new2d = m.engine.fused_sync(pack_stacked(lay, grads), x2d, m.gamma)
+        else:
+            g2d, x_new2d = m.engine.fused_round(
+                k_q, pack_stacked(lay, make_diffs()), n, state.g, x2d, m.gamma)
+        return unpack(lay, x_new2d), g2d
+    if c_k:
+        g_next = tree_mean_axis0(grads)
+    else:
+        delta = _compressed_delta(m.compressor, None, k_q, make_diffs(),
+                                  state.params, n)
+        g_next = tree_map(torch.add, state.g, delta)
+    return tree_axpy(-m.gamma, g_next, state.params), g_next
+
+
+def _lookahead_init(m, params: PyTree, grads: PyTree, g0: PyTree) -> "MarinaState":
+    """Carry mode's lookahead start: x^1 = x^0 − γ·g^0, h = the per-worker
+    gradients, g packed with an engine."""
+    x1 = tree_axpy(-m.gamma, g0, params)
+    g = pack(m.engine.layout, g0) if m.engine is not None else g0
+    return MarinaState(params=x1, g=g, step=0, h=grads)
+
+
+def _refuse_unported(m) -> None:
+    for name in ("down_compressor", "down_engine", "aggregator", "faults"):
+        if getattr(m, name) is not None:
+            raise NotImplementedError(
+                f"{type(m).__name__}({name}=...) is not ported yet")
+
+
+def _metrics(comp, engine, like: PyTree, gnorm, c_k: bool, oracle: float,
+             n: int) -> StepMetrics:
+    d = tree_dim(like)
+    bits_dense = wire.dense_f32_bits(d)
+    bits = bits_dense if c_k else _round_bits(comp, engine, like, n)
+    down = bits_dense if c_k else wire.downlink_dense_bits(d)
+    return StepMetrics(grad_est_norm=gnorm, bits_per_worker=bits,
+                       sync_round=int(c_k), oracle_calls=oracle, down_bits=down)
+
+
+def _batch_rows(batches: PyTree) -> int:
+    """Per-worker batch size: the second axis of the worker-stacked batch."""
+    return tree_leaves(batches)[0].shape[1]
+
+
+# ---------------------------------------------------------------------------
+# MARINA — Algorithm 1
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -137,30 +217,14 @@ class Marina:
     faults: Any = None
 
     def __post_init__(self):
-        for name in ("down_compressor", "down_engine", "aggregator", "faults"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"Marina({name}=...) is not ported yet")
+        _refuse_unported(self)
 
     def init(self, params: PyTree, batches: PyTree) -> MarinaState:
         grads = _per_worker_grads(self.grad_fn, params, batches)
         g0 = tree_mean_axis0(grads)
         if not self.carry:
             return MarinaState(params=params, g=g0, step=0)
-        x1 = tree_axpy(-self.gamma, g0, params)
-        if self.engine is not None:
-            return MarinaState(params=x1, g=pack(self.engine.layout, g0), step=0,
-                               h=grads)
-        return MarinaState(params=x1, g=g0, step=0, h=grads)
-
-    def _metrics(self, gnorm, c_k: bool, params: PyTree, oracle: float):
-        d = tree_dim(params)
-        bits_dense = wire.dense_f32_bits(d)
-        bits = bits_dense if c_k else _round_bits(self.compressor, self.engine,
-                                                   params)
-        down = bits_dense if c_k else wire.downlink_dense_bits(d)
-        return StepMetrics(grad_est_norm=gnorm, bits_per_worker=bits,
-                           sync_round=int(c_k), oracle_calls=oracle,
-                           down_bits=down)
+        return _lookahead_init(self, params, grads, g0)
 
     # -- seed-shaped rounds (two backprops on compressed rounds) ------------
     def _step_recompute(self, state: MarinaState, key, batches: PyTree):
@@ -182,8 +246,8 @@ class Marina:
                                       state.params, n)
             g_next = tree_map(torch.add, state.g, delta)
 
-        metrics = self._metrics(tree_norm(g_next), c_k, state.params,
-                                1.0 if c_k else 2.0)
+        metrics = _metrics(self.compressor, self.engine, state.params,
+                           tree_norm(g_next), c_k, 1.0 if c_k else 2.0, n)
         return MarinaState(params=x_new, g=g_next, step=state.step + 1), metrics
 
     # -- gradient-carry lookahead rounds (one backprop, fused epilogue) -----
@@ -194,35 +258,282 @@ class Marina:
 
         # the one backprop of the round: state.params is already x^{k+1}
         grads = _per_worker_grads(self.grad_fn, state.params, batches)
+        params, g = _carry_finish(self, state, c_k, k_q, grads,
+                                  lambda: tree_sub(grads, state.h), n)
+        new_state = MarinaState(params=params, g=g, step=state.step + 1, h=grads)
+        return new_state, _metrics(self.compressor, self.engine, state.params,
+                                   tree_norm(g), c_k, 1.0, n)
 
-        if self.engine is not None:
-            lay = self.engine.layout
-            x2d = pack(lay, state.params)
-            if c_k:
-                g2d, x_new2d = self.engine.fused_sync(
-                    pack_stacked(lay, grads), x2d, self.gamma)
-            else:
-                diff_bufs = pack_stacked(lay, tree_sub(grads, state.h))
-                g2d, x_new2d = self.engine.fused_round(
-                    k_q, diff_bufs, n, state.g, x2d, self.gamma)
-                del diff_bufs
-            new_state = MarinaState(params=unpack(lay, x_new2d), g=g2d,
-                                    step=state.step + 1, h=grads)
-            gnorm = tree_norm(g2d)
+    def step(self, state: MarinaState, key, batches: PyTree):
+        if self.carry:
+            return self._step_carry(state, key, batches)
+        return self._step_recompute(state, key, batches)
+
+
+# ---------------------------------------------------------------------------
+# VR-MARINA — Algorithms 2 (finite-sum) and 3 (online)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class VRMarina:
+    """Algorithms 2/3. ``full_grad_fn`` is the oracle of sync rounds (∇f_i,
+    or the b-batch gradient online); ``mb_grad_fn`` the b′-minibatch oracle
+    of compressed rounds, evaluated at both points on the same minibatch.
+    ``carry=True`` carries whatever local gradient the previous round
+    evaluated (full on sync rounds, minibatch on compressed ones): one
+    oracle sweep per round."""
+
+    full_grad_fn: GradFn
+    mb_grad_fn: GradFn
+    compressor: Compressor
+    gamma: float
+    p: float
+    engine: Optional[FlatEngine] = None
+    carry: bool = False
+    down_compressor: Any = None
+    down_engine: Any = None
+    aggregator: Any = None
+    faults: Any = None
+
+    def __post_init__(self):
+        _refuse_unported(self)
+
+    def init(self, params: PyTree, full_batches: PyTree) -> MarinaState:
+        grads = _per_worker_grads(self.full_grad_fn, params, full_batches)
+        g0 = tree_mean_axis0(grads)
+        if not self.carry:
+            return MarinaState(params=params, g=g0, step=0)
+        return _lookahead_init(self, params, grads, g0)
+
+    def _step_recompute(self, state, key, full_batches, mb_batches):
+        n = _num_workers(full_batches)
+        k_bern, k_q = prng.split(key)
+        c_k = bool(prng.bernoulli(k_bern, self.p))
+
+        x_old = state.params
+        x_new = tree_axpy(-self.gamma, state.g, x_old)
+        if c_k:
+            grads = _per_worker_grads(self.full_grad_fn, x_new, full_batches)
+            g_next = _sync_mean(self.engine, grads)
         else:
-            if c_k:
-                g_next = tree_mean_axis0(grads)
-            else:
-                delta = _compressed_delta(self.compressor, None, k_q,
-                                          tree_sub(grads, state.h),
-                                          state.params, n)
-                g_next = tree_map(torch.add, state.g, delta)
-            x_next = tree_axpy(-self.gamma, g_next, state.params)
-            new_state = MarinaState(params=x_next, g=g_next,
-                                    step=state.step + 1, h=grads)
-            gnorm = tree_norm(g_next)
+            # Alg. 2 line 8: the same minibatch at x^{k+1} and x^k
+            g_new = _per_worker_grads(self.mb_grad_fn, x_new, mb_batches)
+            g_prev = _per_worker_grads(self.mb_grad_fn, x_old, mb_batches)
+            diffs = tree_sub(g_new, g_prev)
+            del g_new, g_prev
+            delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
+                                      state.params, n)
+            g_next = tree_map(torch.add, state.g, delta)
 
-        return new_state, self._metrics(gnorm, c_k, state.params, 1.0)
+        oracle = (float(_batch_rows(full_batches)) if c_k
+                  else 2.0 * _batch_rows(mb_batches))
+        metrics = _metrics(self.compressor, self.engine, state.params,
+                           tree_norm(g_next), c_k, oracle, n)
+        return MarinaState(params=x_new, g=g_next, step=state.step + 1), metrics
+
+    def _step_carry(self, state, key, full_batches, mb_batches):
+        n = _num_workers(full_batches)
+        k_bern, k_q = prng.split(key)
+        c_k = bool(prng.bernoulli(k_bern, self.p))
+
+        # the round's ONE oracle sweep, with the oracle of its round type
+        if c_k:
+            grads = _per_worker_grads(self.full_grad_fn, state.params, full_batches)
+        else:
+            grads = _per_worker_grads(self.mb_grad_fn, state.params, mb_batches)
+        params, g = _carry_finish(self, state, c_k, k_q, grads,
+                                  lambda: tree_sub(grads, state.h), n)
+        oracle = (float(_batch_rows(full_batches)) if c_k
+                  else 1.0 * _batch_rows(mb_batches))
+        new_state = MarinaState(params=params, g=g, step=state.step + 1, h=grads)
+        return new_state, _metrics(self.compressor, self.engine, state.params,
+                                   tree_norm(g), c_k, oracle, n)
+
+    def step(self, state: MarinaState, key, full_batches: PyTree,
+             mb_batches: PyTree):
+        if self.carry:
+            return self._step_carry(state, key, full_batches, mb_batches)
+        return self._step_recompute(state, key, full_batches, mb_batches)
+
+
+# ---------------------------------------------------------------------------
+# PP-MARINA — Algorithm 4
+# ---------------------------------------------------------------------------
+
+
+def pp_sample_cohort(k_sel, n: int, r: int, replace: bool) -> list:
+    """PP-MARINA's cohort I'_k (Alg. 4 line 5), drawn as the reference draws
+    it: r i.i.d. uniform client ids (``replace=True``) or the first r of a
+    permutation (r distinct ids)."""
+    if replace:
+        return prng.randint(k_sel, (r,), 0, n).tolist()
+    return prng.permutation(k_sel, n)[:r].tolist()
+
+
+def _weighted_mean_axis0(trees: PyTree, weights: "torch.Tensor | None") -> PyTree:
+    """Σ_i w_i t_i over the leading client axis (the plain mean when w is
+    None)."""
+    if weights is None:
+        return tree_mean_axis0(trees)
+    return tree_map(
+        lambda t: torch.tensordot(weights.to(t.device, t.dtype), t, dims=1), trees)
+
+
+def _scale_rows(trees: PyTree, row_scale: torch.Tensor) -> PyTree:
+    """Scale each leading-axis row of every leaf by ``row_scale`` (r,)."""
+    return tree_map(
+        lambda t: t * row_scale.to(t.device, t.dtype).reshape(
+            (-1,) + (1,) * (t.ndim - 1)), trees)
+
+
+def _take_rows(tree: PyTree, sel: list) -> PyTree:
+    """Rows ``sel`` (repeats allowed) of every leaf's leading axis."""
+    return tree_map(lambda t: t[torch.tensor(sel, device=t.device)], tree)
+
+
+def _pp_carry_refresh(h_old: PyTree, sel: list, grads_sel: PyTree) -> PyTree:
+    """The server table with rows ``sel`` set to the cohort's gradients, in
+    cohort order, one row after another (a repeated client writes the same
+    values twice). A new table: the old one stays valid for a revert."""
+    def refresh(ht, gt):
+        out = ht.clone()
+        for i, row in enumerate(sel):
+            out[row].copy_(gt[i])
+        return out
+
+    return tree_map(refresh, h_old, grads_sel)
+
+
+@dataclasses.dataclass
+class PPMarina:
+    """Algorithm 4 with the federated dials:
+
+    * ``replace`` — the cohort I'_k is r i.i.d. uniform clients (the analysed
+      variant) or, with ``replace=False``, r distinct clients; both keep the
+      1/r server scaling.
+    * ``weights`` — client weights w_i (raw counts are normalised to Σw = 1
+      at construction): sync rounds average with w, compressed rounds
+      pre-scale the sampled differences by n·w_i.
+    * ``carry`` — the server-side carry table: h_i = the gradient of the last
+      round client i took part in (all rows on sync rounds, the sampled rows
+      on compressed ones); one backprop per sampled client, lookahead state.
+
+    The ledger books the fleet totals (n·32d on sync rounds, r·ζ_Q on
+    compressed rounds, ``wire.pp_*``) divided by n."""
+
+    grad_fn: GradFn
+    compressor: Compressor
+    gamma: float
+    p: float
+    r: int
+    engine: Optional[FlatEngine] = None
+    down_compressor: Any = None
+    down_engine: Any = None
+    replace: bool = True
+    weights: Any = None
+    carry: bool = False
+    aggregator: Any = None
+    faults: Any = None
+
+    def __post_init__(self):
+        _refuse_unported(self)
+        if self.weights is not None:
+            w = torch.as_tensor(self.weights, dtype=torch.float32)
+            self.weights = w / torch.sum(w)
+
+    def _cohort(self, k_sel, n: int) -> list:
+        return pp_sample_cohort(k_sel, n, self.r, self.replace)
+
+    def _scaled_diffs(self, diffs: PyTree, sel: list, n: int) -> PyTree:
+        """Pre-compression scaling n·w_i that keeps the 1/r cohort mean
+        unbiased for the weighted mean (none with uniform weights)."""
+        if self.weights is None:
+            return diffs
+        return _scale_rows(diffs, n * self.weights[torch.tensor(sel)])
+
+    def init(self, params: PyTree, batches: PyTree) -> MarinaState:
+        grads = _per_worker_grads(self.grad_fn, params, batches)
+        g0 = _weighted_mean_axis0(grads, self.weights)
+        if not self.carry:
+            return MarinaState(params=params, g=g0, step=0)
+        # the server seeds the full carry table with every client's ∇f_i(x^0)
+        return _lookahead_init(self, params, grads, g0)
+
+    # -- seed-shaped rounds (two backprops per sampled client) --------------
+    def _step_recompute(self, state: MarinaState, key, batches: PyTree):
+        n = _num_workers(batches)
+        k_bern, k_sel, k_q = prng.split(key, 3)
+        c_k = bool(prng.bernoulli(k_bern, self.p))
+
+        x_old = state.params
+        x_new = tree_axpy(-self.gamma, state.g, x_old)
+        if c_k:
+            grads = _per_worker_grads(self.grad_fn, x_new, batches)
+            g_next = (_sync_mean(self.engine, grads) if self.weights is None
+                      else _weighted_mean_axis0(grads, self.weights))
+        else:
+            sel = self._cohort(k_sel, n)
+            sel_batches = _take_rows(batches, sel)
+            g_new = _per_worker_grads(self.grad_fn, x_new, sel_batches)
+            g_prev = _per_worker_grads(self.grad_fn, x_old, sel_batches)
+            diffs = self._scaled_diffs(tree_sub(g_new, g_prev), sel, n)
+            del g_new, g_prev
+            delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
+                                      state.params, self.r)
+            g_next = tree_map(torch.add, state.g, delta)
+
+        new_state = MarinaState(params=x_new, g=g_next, step=state.step + 1)
+        return new_state, self._metrics(c_k, tree_norm(g_next), state.params, n, 2.0)
+
+    # -- carry rounds: ONE backprop per sampled client vs the server table --
+    def _step_carry(self, state: MarinaState, key, batches: PyTree):
+        n = _num_workers(batches)
+        k_bern, k_sel, k_q = prng.split(key, 3)
+        c_k = bool(prng.bernoulli(k_bern, self.p))
+        sel = self._cohort(k_sel, n)
+
+        if c_k:
+            grads = _per_worker_grads(self.grad_fn, state.params, batches)
+            h_new = grads
+            if self.weights is None:
+                params, g = _carry_finish(self, state, True, k_q, grads, None, n)
+            else:
+                g = _weighted_mean_axis0(grads, self.weights)
+                if self.engine is not None:
+                    lay = self.engine.layout
+                    g = pack(lay, g)
+                    params = unpack(lay, pack(lay, state.params) - self.gamma * g)
+                else:
+                    params = tree_axpy(-self.gamma, g, state.params)
+        else:
+            grads_sel = _per_worker_grads(self.grad_fn, state.params,
+                                          _take_rows(batches, sel))
+            # the table keeps the raw client gradients (weights apply at
+            # aggregation), refreshed only for the sampled rows
+            h_new = _pp_carry_refresh(state.h, sel, grads_sel)
+            params, g = _carry_finish(
+                self, state, False, k_q, None,
+                lambda: self._scaled_diffs(
+                    tree_sub(grads_sel, _take_rows(state.h, sel)), sel, n),
+                self.r)
+
+        new_state = MarinaState(params=params, g=g, step=state.step + 1, h=h_new)
+        return new_state, self._metrics(c_k, tree_norm(g), state.params, n, 1.0)
+
+    def _metrics(self, c_k: bool, gnorm, like: PyTree, n: int,
+                 oracle_factor: float) -> StepMetrics:
+        """Fleet-total uplink from the wire helpers, divided by n."""
+        d = tree_dim(like)
+        if c_k:
+            total = wire.pp_sync_total_bits(n, d)
+        else:
+            total = wire.pp_uplink_total_bits(
+                self.r, _round_bits(self.compressor, self.engine, like, self.r))
+        return StepMetrics(
+            grad_est_norm=gnorm, bits_per_worker=total / n, sync_round=int(c_k),
+            oracle_calls=1.0 if c_k else oracle_factor * self.r / n,
+            down_bits=wire.dense_f32_bits(d) if c_k else wire.downlink_dense_bits(d))
 
     def step(self, state: MarinaState, key, batches: PyTree):
         if self.carry:

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import default_device
+
 # sup over z of |d²/dz² (1 − sigmoid(z))²| — numerically ≈ 0.1556
 _ELL_SMOOTH = 0.16
 
@@ -49,9 +51,11 @@ def binclass_smoothness(data: BinClassData) -> float:
 
 def make_synthetic_binclass(seed: int, n_workers: int, m: int, d: int,
                             heterogeneity: float = 1.0,
-                            device="cpu") -> BinClassData:
+                            device=None) -> BinClassData:
     """Heterogeneous synthetic binary classification: worker i's features
-    ~ N(µ_i, Σ_i), labels from a worker-specific noisy linear teacher."""
+    ~ N(µ_i, Σ_i), labels from a worker-specific noisy linear teacher. On
+    ``cuda`` unless ``device`` names another."""
+    device = default_device(device)
     gen = torch.Generator().manual_seed(seed)
     sd = float(np.sqrt(d))
     base = torch.randn((n_workers, m, d), generator=gen) / sd

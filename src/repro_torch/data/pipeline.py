@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch import prng
+from repro_torch.device import default_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +38,10 @@ def _generator(data: HeterogeneousLMData, step: int) -> torch.Generator:
 
 
 def worker_batches(data: HeterogeneousLMData, step: int, batch_per_worker: int,
-                   device="cpu") -> torch.Tensor:
-    """(n_workers, batch, seq_len) int64 tokens for a given global step."""
+                   device=None) -> torch.Tensor:
+    """(n_workers, batch, seq_len) int64 tokens for a given global step, on
+    ``cuda`` unless ``device`` names another."""
+    device = default_device(device)
     gen = _generator(data, step)
     n, V, het = data.n_workers, data.vocab_size, data.heterogeneity
     shape = (n, batch_per_worker)

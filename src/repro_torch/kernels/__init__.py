@@ -3,14 +3,17 @@
 * ``randk.py``    — seeded RandK uplink (`randk_seeded_workers`) and the
                     server scatter-mean (`scatter_accum`), over
                     ``csrc/randk.cu``.
+* ``permk.py``    — PermK uplink with one shared seed
+                    (`permk_seeded_workers`), over ``csrc/permk.cu``.
 * ``epilogue.py`` — fused server epilogues (`scatter_epilogue`,
-                    `mean_epilogue`), over ``csrc/epilogue.cu``.
+                    `delta_epilogue`, `mean_epilogue`), over
+                    ``csrc/epilogue.cu``.
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.
 """
 
-from . import epilogue, randk, ref
+from . import epilogue, permk, randk, ref
 
 #: every kernel wrapper of the main path, by name
 KERNELS = {
@@ -18,6 +21,8 @@ KERNELS = {
     "scatter_accum": randk.scatter_accum,
     "scatter_epilogue": epilogue.scatter_epilogue,
     "mean_epilogue": epilogue.mean_epilogue,
+    "permk_seeded_workers": permk.permk_seeded_workers,
+    "delta_epilogue": epilogue.delta_epilogue,
 }
 
 
@@ -31,5 +36,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "epilogue", "launch_counts", "randk", "ref",
+__all__ = ["KERNELS", "epilogue", "launch_counts", "permk", "randk", "ref",
            "reset_launch_counts"]

@@ -21,24 +21,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("randk", "epilogue")
+SOURCES = ("randk", "permk", "epilogue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint32
 #: argtypes of every exported entry point (all return cudaError_t as int)
 SIGNATURES = {
     "randk": {
         "randk_seeded_workers": (_P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "scatter_accum": (_P, _P, _P, _I, _L, _I, _I, _P),
     },
+    "permk": {
+        "permk_seeded_workers_f32": (_P, _U, _P, _P, _I, _L, _I, _P),
+        "permk_seeded_workers_bf16": (_P, _U, _P, _P, _I, _L, _I, _P),
+    },
     "epilogue": {
         "scatter_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "scatter_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "mean_epilogue_f32": (_P, _P, _P, _P, _I, _L, _F, _P),
         "mean_epilogue_bf16": (_P, _P, _P, _P, _I, _L, _F, _P),
+        "delta_epilogue_f32": (_P, _P, _P, _P, _P, _L, _F, _P),
+        "delta_epilogue_bf16": (_P, _P, _P, _P, _P, _L, _F, _P),
     },
 }
 

@@ -2,13 +2,15 @@
 // sweep over the (nblk, B) buffers — aggregate, g' = g + δ, x' = (−γ)·g' + x.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/epilogue.py::scatter_epilogue
-// (seeded-RandK payloads, carry compressed rounds) and ::mean_epilogue (packed
-// worker gradients, carry sync rounds). Where the TPU version scatters through
-// one-hot MXU matmuls, scatter_epilogue adds into a shared-memory row.
+// (seeded-RandK payloads, carry compressed rounds), ::mean_epilogue (packed
+// worker gradients, carry sync rounds) and ::delta_epilogue (an already-dense
+// round delta: the PermK aggregate on carry compressed rounds). Where the TPU
+// version scatters through one-hot MXU matmuls, scatter_epilogue adds into a
+// shared-memory row.
 //
-// Both are bound by device-memory bytes: each reads g and x (or the n gradient
-// rows and x) once and writes g' and x' once; the arithmetic is a few flops per
-// coordinate. The x update rounds the multiply and the add separately
+// All three are bound by device-memory bytes: each reads g (or the n gradient
+// rows, or δ and g) and x once and writes g' and x' once; the arithmetic is a
+// few flops per coordinate. The x update rounds the multiply and the add separately
 // (__fmul_rn, __fadd_rn) — an FMA would differ from the oracle in the last bit.
 //
 // x is f32 or bf16 (XT); g, g' and the accumulation are f32. x' is rounded to
@@ -83,6 +85,29 @@ __global__ void mean_epilogue_kernel(const float* __restrict__ gbufs,
   }
 }
 
+// One thread per coordinate: g' = g + δ, then the x update.
+template <typename XT>
+__global__ void delta_epilogue_kernel(const float* __restrict__ delta,
+                                      const float* __restrict__ g,
+                                      const XT* __restrict__ x,
+                                      float* __restrict__ g_out,
+                                      XT* __restrict__ x_out, int64_t size,
+                                      float neg_gamma) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < size;
+       i += stride) {
+    const float g_new = __fadd_rn(g[i], delta[i]);
+    g_out[i] = g_new;
+    store_x(x_out, i, apply_update(neg_gamma, g_new, load_x(x, i)));
+  }
+}
+
+static unsigned elementwise_grid(long long size, int threads) {
+  long long grid = (size + threads - 1) / threads;
+  if (grid > 1048576) grid = 1048576;  // grid-stride loop covers the rest
+  return (unsigned)(grid < 1 ? 1 : grid);
+}
+
 template <typename XT>
 static int launch_scatter(const void* vals, const void* offs, const void* g,
                           const void* x, void* g_out, void* x_out, int n,
@@ -105,13 +130,21 @@ static int launch_scatter(const void* vals, const void* offs, const void* g,
 template <typename XT>
 static int launch_mean(const void* gbufs, const void* x, void* g_out, void* x_out,
                        int n, long long size, float neg_gamma, void* stream) {
-  const int threads = 256;
-  long long grid = (size + threads - 1) / threads;
-  if (grid > 1048576) grid = 1048576;  // grid-stride loop covers the rest
-  if (grid < 1) grid = 1;
-  mean_epilogue_kernel<XT><<<(unsigned)grid, threads, 0, (cudaStream_t)stream>>>(
+  mean_epilogue_kernel<XT><<<elementwise_grid(size, 256), 256, 0,
+                             (cudaStream_t)stream>>>(
       (const float*)gbufs, (const XT*)x, (float*)g_out, (XT*)x_out, n, size,
       neg_gamma);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+static int launch_delta(const void* delta, const void* g, const void* x,
+                        void* g_out, void* x_out, long long size, float neg_gamma,
+                        void* stream) {
+  delta_epilogue_kernel<XT><<<elementwise_grid(size, 256), 256, 0,
+                              (cudaStream_t)stream>>>(
+      (const float*)delta, (const float*)g, (const XT*)x, (float*)g_out,
+      (XT*)x_out, size, neg_gamma);
   return (int)cudaGetLastError();
 }
 
@@ -142,4 +175,17 @@ extern "C" int mean_epilogue_bf16(const void* gbufs, const void* x, void* g_out,
                                   float neg_gamma, void* stream) {
   return launch_mean<__nv_bfloat16>(gbufs, x, g_out, x_out, n, size, neg_gamma,
                                     stream);
+}
+
+extern "C" int delta_epilogue_f32(const void* delta, const void* g, const void* x,
+                                  void* g_out, void* x_out, long long size,
+                                  float neg_gamma, void* stream) {
+  return launch_delta<float>(delta, g, x, g_out, x_out, size, neg_gamma, stream);
+}
+
+extern "C" int delta_epilogue_bf16(const void* delta, const void* g, const void* x,
+                                   void* g_out, void* x_out, long long size,
+                                   float neg_gamma, void* stream) {
+  return launch_delta<__nv_bfloat16>(delta, g, x, g_out, x_out, size, neg_gamma,
+                                     stream);
 }

@@ -15,19 +15,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "murmur.cuh"
 #include "scatter.cuh"
-
-// murmur3 finalizer over (seed, counter): the counter-based RNG shared with
-// repro.kernels.ref.murmur_bits_ref. uint32 arithmetic wraps as in the oracle.
-__device__ __forceinline__ uint32_t murmur_bits(uint32_t seed, uint32_t ctr) {
-  uint32_t x = ctr * 0x9E3779B9u + seed;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 // One thread per (w, b, t): offset = murmur(seed_w, b·kb + t) & (B − 1),
 // value = x[w, b, offset] · scale, the multiply rounded once in f32.

@@ -2,8 +2,9 @@
 ``csrc/epilogue.cu``.
 
 Ports ``repro.kernels.epilogue::scatter_epilogue`` (carry compressed
-rounds) and ``::mean_epilogue`` (carry sync rounds): aggregate the worker
-payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded separately,
+RandK rounds), ``::delta_epilogue`` (carry compressed PermK rounds, whose
+aggregate is already dense) and ``::mean_epilogue`` (carry sync rounds):
+aggregate the worker payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded separately,
 in x's dtype (f32 or bf16). A wrapper given CUDA tensors launches its kernel
 (or raises); given CPU tensors it returns the plain version from
 :mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in
@@ -64,6 +65,32 @@ def scatter_epilogue(values: torch.Tensor, offsets: torch.Tensor,
 
 
 scatter_epilogue.launches = 0
+
+
+def delta_epilogue(delta2d: torch.Tensor, g2d: torch.Tensor, x2d: torch.Tensor,
+                   gamma: float):
+    """Dense round delta (nblk, B) f32 + g (nblk, B) f32 + x (nblk, B) →
+    (g' = g + δ f32, x' x.dtype)."""
+    if not delta2d.is_cuda:
+        return _ref.delta_epilogue_ref(delta2d, g2d, x2d, gamma)
+    suffix = _check_gx(g2d, x2d, tuple(delta2d.shape))
+    if delta2d.dtype != torch.float32 or not delta2d.is_contiguous():
+        raise ValueError("delta must be a contiguous f32 buffer")
+    if g2d.device != delta2d.device:
+        raise ValueError("delta and buffers must be on one device")
+    g_out = torch.empty_like(g2d)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"delta_epilogue_{suffix}")(
+        delta2d.data_ptr(), g2d.data_ptr(), x2d.data_ptr(), g_out.data_ptr(),
+        x_out.data_ptr(), delta2d.numel(), _neg_gamma(gamma), _stream(),
+    )
+    _build.check(err, "delta_epilogue")
+    delta_epilogue.launches += 1
+    return g_out, x_out
+
+
+delta_epilogue.launches = 0
 
 
 def mean_epilogue(gbufs: torch.Tensor, x2d: torch.Tensor, gamma: float):

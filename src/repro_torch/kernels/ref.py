@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the main-path kernels.
 
 Each function is the semantic ground truth for its hand-written CUDA twin
-(``randk.py`` / ``epilogue.py``) and the port of the same-named oracle in
+(``randk.py`` / ``permk.py`` / ``epilogue.py``) and the port of the same-named oracle in
 ``repro.kernels.ref``. The kernel wrappers call these only for tensors on the
 CPU; on the card, ``chip_smoke.py`` and the card tests hold the kernels
 against them on the same inputs.
@@ -93,6 +93,73 @@ def scatter_accum_ref(values: torch.Tensor, offsets: torch.Tensor,
         for t in range(kb):
             out.scatter_add_(1, offs[w, :, t : t + 1], values[w, :, t : t + 1])
     return div_n(out, n)
+
+
+# ---------------------------------------------------------------------------
+# PermK: one shared seeded affine permutation per block (disjoint supports)
+# ---------------------------------------------------------------------------
+#
+# Everything after the murmur draw is taken mod B, and B (a power of two)
+# divides 2^32, so the affine map and its inverse run mod B in int64: the
+# products stay below B^2 and the results equal the reference's uint32
+# values masked to B − 1.
+
+
+def affine_perm_params_ref(seed, nblk: int, block: int, device=None):
+    """Per-block affine bijection π_b(t) = (a_b·t + c_b) mod B: a_b forced
+    odd, both from the murmur3 counter RNG at counters (2b, 2b+1).
+    Returns a, c: (nblk,) int64 in [0, B)."""
+    b = torch.arange(nblk, dtype=torch.int64, device=device)
+    a = (murmur_bits_ref(int(seed) & _MASK, 2 * b) | 1) & (block - 1)
+    c = murmur_bits_ref(int(seed) & _MASK, 2 * b + 1) & (block - 1)
+    return a, c
+
+
+def odd_inverse_ref(a: torch.Tensor, block: int) -> torch.Tensor:
+    """Inverse of odd a modulo B (Newton iteration, exact after 5 steps:
+    a is its own inverse mod 8 and each step doubles the correct bits)."""
+    inv = a
+    for _ in range(5):
+        inv = (inv * ((2 - a * inv) & (block - 1))) & (block - 1)
+    return inv
+
+
+def permk_offsets_ref(seed, nblk: int, block: int, n: int, wid: int,
+                      device=None) -> torch.Tensor:
+    """Worker wid's support: int32 offsets (nblk, B/n) — the permuted slots
+    [wid·C, (wid+1)·C), C = B/n; the n workers' supports partition every
+    block."""
+    if block % n:
+        raise ValueError("worker count must divide the block width")
+    chunk = block // n
+    a, c = affine_perm_params_ref(seed, nblk, block, device)
+    t = torch.arange(chunk, dtype=torch.int64, device=device) + int(wid) * chunk
+    return ((a[:, None] * t[None, :] + c[:, None]) & (block - 1)).to(torch.int32)
+
+
+def permk_seeded_workers_ref(x3d: torch.Tensor, seed):
+    """PermK uplink with one shared seed: x3d (n, nblk, B) → values in x's
+    dtype (scaled by n) and int32 offsets, both (n, nblk, B/n)."""
+    n, nblk, B = x3d.shape
+    offs = torch.stack([permk_offsets_ref(seed, nblk, B, n, w, x3d.device)
+                        for w in range(n)])
+    vals = torch.gather(x3d, 2, offs.to(torch.int64))
+    return vals * torch.tensor(float(n), dtype=x3d.dtype, device=x3d.device), offs
+
+
+def permk_concat_mean_ref(values: torch.Tensor, seed, block: int) -> torch.Tensor:
+    """Mean of n PermK payloads (n, nblk, B/n) without a scatter: the chunks
+    concatenate in slot order t = w·C + j and are gathered through the
+    inverse permutation π⁻¹(s) = a⁻¹·(s − c) mod B, then ÷ n. Returns
+    (nblk, B) f32, equal to :func:`scatter_accum_ref` on the same payloads
+    (disjoint supports: no two adds meet)."""
+    n, nblk, chunk = values.shape
+    a, c = affine_perm_params_ref(seed, nblk, block, values.device)
+    s = torch.arange(block, dtype=torch.int64, device=values.device)
+    slot = s[None, :] - c[:, None]  # (nblk, B) int64, updated in place
+    slot.mul_(odd_inverse_ref(a, block)[:, None]).bitwise_and_(block - 1)
+    by_slot = values.permute(1, 0, 2).reshape(nblk, n * chunk)
+    return div_n(torch.gather(by_slot, 1, slot).float(), n)
 
 
 def _apply(g_new: torch.Tensor, x2d: torch.Tensor, gamma: float) -> torch.Tensor:

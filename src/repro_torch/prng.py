@@ -2,8 +2,8 @@
 
 The MARINA round derives all of its randomness from a JAX-style PRNG key:
 ``c_k ~ Be(p)`` from ``split`` + ``bernoulli``, the per-worker uint32 kernel
-seeds from ``split`` + ``bits``, and the per-step key from
-``fold_in(PRNGKey(seed), step)``. For the port to reproduce the reference
+seeds from ``split`` + ``bits``, PP-MARINA's cohort from ``randint`` or
+``permutation``, and the per-step key from ``fold_in(PRNGKey(seed), step)``. For the port to reproduce the reference
 trajectory under the same keys, these draws must agree to the bit. This
 module reimplements them under JAX 0.9's defaults (``jax_default_prng_impl =
 threefry2x32``, ``jax_threefry_partitionable = True``).
@@ -106,6 +106,39 @@ def uniform(key, shape: tuple = ()) -> np.ndarray:
 def bernoulli(key, p: float, shape: tuple = ()) -> np.ndarray:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < float32(p)``."""
     return uniform(key, shape) < np.float32(p)
+
+
+def randint(key, shape: tuple, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` in int32: two
+    ``bits`` streams reduced modulo the span, the high one through the
+    multiplier ``(2^16 mod span)^2 mod span``, all in wrapping uint32."""
+    if not -(2**31) <= minval <= maxval <= 2**31 - 1:
+        raise ValueError("minval and maxval must be int32 values, minval <= maxval")
+    shape = tuple(shape)
+    k1, k2 = split(key)
+    hi = bits(k1, shape).reshape(-1).astype(np.uint64)
+    lo = bits(k2, shape).reshape(-1).astype(np.uint64)
+    span = max(maxval - minval, 1)  # JAX returns minval when maxval <= minval
+    m = 2**16 % span
+    mult = np.uint64(((m * m) & 0xFFFFFFFF) % span)
+    mask = np.uint64(0xFFFFFFFF)
+    off = (((hi % np.uint64(span)) * mult) & mask) + lo % np.uint64(span)
+    off = (off & mask) % np.uint64(span)
+    out = (off.astype(np.int64) + minval + 2**31) % 2**32 - 2**31  # int32 wrap
+    return out.astype(np.int32).reshape(shape)
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int32) reordered by
+    ``ceil(3·ln n / ln(2^32 − 1))`` rounds of a stable sort on fresh ``bits``
+    keys, each round splitting its own subkey."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    key = np.asarray(key, _U32)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(bits(sub, (n,)), kind="stable")]
+    return x
 
 
 def key_to_seed(key) -> int:

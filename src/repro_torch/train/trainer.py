@@ -1,19 +1,24 @@
-"""Training loop wiring MARINA into LM training — port of
-``repro.train.trainer`` for ``method="marina"``.
+"""Training loop wiring the MARINA family into LM training — port of
+``repro.train.trainer`` for ``method`` in ``marina``, ``vr_marina`` (the
+default, as in the reference) and ``pp_marina``.
 
 The trainer simulates the n workers on one device (worker-stacked trees),
-builds the fused flat engine for the ``block_randk`` compressor, and keeps
-the communication ledger in bits actually uplinked. The step key is
-``fold_in(PRNGKey(seed), step)``, as in the reference, so ``c_k`` and the
-worker seeds of every round are the reference's.
+builds the fused flat engine for the ``block_randk`` and ``permk``
+compressors, and keeps the communication ledger in bits actually uplinked.
+VR-MARINA's compressed rounds take b′-minibatches from the data stream at
+step ``10**7 + step``; PP-MARINA samples ``r_participating`` clients. The
+step key is ``fold_in(PRNGKey(seed), step)``, as in the reference, so
+``c_k``, the worker seeds and the cohorts of every round are the
+reference's.
 
 The reference scans chunks of steps on device; here a Python loop runs one
 step at a time (PyTorch is eager) and records each step's wall time and
 round type. With ``nonfinite_guard`` a step whose new state holds any NaN/inf
 is reverted and counted as skipped.
 
-Not ported yet: the other methods (raise), checkpointing, the compressed
-downlink, robust aggregators, fault injection, prefix embeddings (raise).
+Not ported yet: the other methods (``diana``, ``dcgd``, ``ec_sgd``, ``gd``
+raise), checkpointing, the compressed downlink, robust aggregators, fault
+injection, the Dirichlet data dial, prefix embeddings (raise).
 """
 
 from __future__ import annotations
@@ -26,7 +31,16 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import prng
-from repro_torch.core import BlockRandK, Marina, make_compressor, make_engine
+from repro_torch.core import (
+    BlockRandK,
+    CorrelatedCompressor,
+    Marina,
+    PermK,
+    PPMarina,
+    VRMarina,
+    make_compressor,
+    make_engine,
+)
 from repro_torch.core.compressors import tree_dim
 from repro_torch.core.tree_util import (
     tree_flatten,
@@ -50,17 +64,21 @@ SPAN_GRAD = "train.grad"
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The reference's fields that this slice runs; the others (the other
+    """The reference's fields that this port runs; the others (the other
     methods, checkpoints, downlink, aggregators, faults, Dirichlet data) are
     not ported yet."""
 
-    method: str = "marina"             # the only method ported
+    method: str = "vr_marina"          # marina | vr_marina | pp_marina
     compressor: str = "randk"
     comp_kwargs: dict = dataclasses.field(default_factory=lambda: {"k": 0.01})
     gamma: float = 0.05
     p: Optional[float] = None          # None → ζ_Q/d (Cor. 2.1)
     n_workers: int = 4
-    batch_per_worker: int = 8
+    batch_per_worker: int = 8          # b  (sync rounds / full batches)
+    mb_per_worker: int = 2             # b' (VR-MARINA compressed rounds)
+    r_participating: int = 2           # PP-MARINA cohort size r
+    pp_replace: bool = True            # i.i.d. cohort (False: distinct clients)
+    pp_weights: Optional[Any] = None   # client weights (raw counts are fine)
     steps: int = 100
     seed: int = 0
     log_every: int = 10
@@ -99,8 +117,11 @@ def _state_finite(state) -> bool:
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  init_params: PyTree, prefix_len: int = 0, device=None):
-        if train_cfg.method != "marina":
-            raise NotImplementedError(f"method {train_cfg.method!r} is not ported yet")
+        m = train_cfg.method
+        if m in ("diana", "dcgd", "ec_sgd", "gd"):
+            raise NotImplementedError(f"method {m!r} is not ported yet")
+        if m not in ("marina", "vr_marina", "pp_marina"):
+            raise ValueError(f"unknown method {m!r}")
         if prefix_len:
             raise NotImplementedError("prefix embeddings are not ported yet")
         self.device = default_device(device)
@@ -127,6 +148,9 @@ class Trainer:
         self.params0 = tree_map(lambda t: t.to(self.device), init_params)
         d = tree_dim(self.params0)
         comp = make_compressor(train_cfg.compressor, **train_cfg.comp_kwargs)
+        if isinstance(comp, CorrelatedCompressor) and comp.n == 0:
+            # correlated collections are sized by the worker fleet
+            comp = dataclasses.replace(comp, n=train_cfg.n_workers)
         self.p = train_cfg.p if train_cfg.p is not None else comp.default_p(d)
         self.comp = comp
         self.engine = None
@@ -134,12 +158,34 @@ class Trainer:
             self.engine = make_engine(self.params0, kb=comp.kb, block=comp.block,
                                       backend=train_cfg.flat_backend,
                                       device=self.device)
-        self.method = Marina(grad_fn, comp, train_cfg.gamma, self.p, self.engine,
-                             carry=train_cfg.carry_grads)
+        elif isinstance(comp, PermK):
+            self.engine = make_engine(self.params0, block=comp.block,
+                                      backend=train_cfg.flat_backend,
+                                      sampler="permk", device=self.device)
+        tc, carry = train_cfg, train_cfg.carry_grads
+        if m == "marina":
+            self.method = Marina(grad_fn, comp, tc.gamma, self.p, self.engine,
+                                 carry=carry)
+        elif m == "vr_marina":
+            self.method = VRMarina(grad_fn, grad_fn, comp, tc.gamma, self.p,
+                                   self.engine, carry=carry)
+        else:
+            self.method = PPMarina(grad_fn, comp, tc.gamma, self.p,
+                                   tc.r_participating, self.engine,
+                                   replace=tc.pp_replace, weights=tc.pp_weights,
+                                   carry=carry)
 
     # ------------------------------------------------------------------
     def _batches(self, step: int, per_worker: int) -> dict:
         return {"tokens": worker_batches(self.data, step, per_worker, self.device)}
+
+    def _step(self, state, key, step: int):
+        """One optimizer step; VR-MARINA also takes the step's minibatches."""
+        full = self._batches(step, self.tcfg.batch_per_worker)
+        if self.tcfg.method == "vr_marina":
+            mb = self._batches(10**7 + step, self.tcfg.mb_per_worker)
+            return self.method.step(state, key, full, mb)
+        return self.method.step(state, key, full)
 
     def eval_loss(self, params, step: int = 10**6) -> float:
         b = self._batches(step, self.tcfg.batch_per_worker)["tokens"]
@@ -179,8 +225,7 @@ class Trainer:
             ts = time.perf_counter()
             with record_function(SPAN_STEP):
                 key = prng.fold_in(base_key, step)
-                batches = self._batches(step, tc.batch_per_worker)
-                new_state, met = self.method.step(state, key, batches)
+                new_state, met = self._step(state, key, step)
                 gnorm = met.grad_est_norm
                 if tc.nonfinite_guard and not _state_finite(new_state):
                     # revert the entire state: finite h/g paired with reverted

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card.
+"""The six CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import epilogue, randk, ref
+from repro_torch.kernels import epilogue, permk, randk, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +86,55 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         epilogue.scatter_epilogue(v, o, torch.zeros(3, 128, device=dev),
                                   torch.zeros(3, 128, device=dev, dtype=torch.float16), 0.1)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 37, 1024), (8, 5, 1024), (2, 9, 128), (1, 3, 256),
+                                   (64, 2, 1024)], ids=str)
+def test_permk_seeded_workers_on_card(dev, shape, xdtype):
+    """Bit-equal offsets and values (the ×n scale is exact), including a
+    fleet whose rows are staged in several passes (n = 64)."""
+    n, nblk, B = shape
+    x3d = _inputs(dev, n, nblk, B, seed=2)[0].to(xdtype)
+    kernels.reset_launch_counts()
+    for seed in (0, 2**31 + 7, 2**32 - 1):
+        v, o = permk.permk_seeded_workers(x3d, seed)
+        vr, orf = ref.permk_seeded_workers_ref(x3d, seed)
+        assert v.dtype == xdtype and torch.equal(o, orf) and torch.equal(v, vr)
+    # an unaligned view takes the kernel's 4-byte staging path
+    flat = torch.empty(x3d.numel() + 1, dtype=xdtype, device=dev)
+    xv = flat[1:].view(x3d.shape)
+    xv.copy_(x3d)
+    assert torch.equal(permk.permk_seeded_workers(xv, 5)[0],
+                       ref.permk_seeded_workers_ref(xv, 5)[0])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["permk_seeded_workers"] == 4
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_delta_epilogue_on_card(dev, xdtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    delta, g, x = (torch.randn((41, 1024), generator=gen, device=dev) for _ in range(3))
+    x = x.to(xdtype)
+    kernels.reset_launch_counts()
+    got = epilogue.delta_epilogue(delta, g, x, 0.0371)
+    want = ref.delta_epilogue_ref(delta, g, x, 0.0371)
+    assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+    assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["delta_epilogue"] == 1
+
+
+def test_permk_and_delta_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x3d = _inputs(dev, 4, 3, 128)[0]
+    with pytest.raises(ValueError):
+        permk.permk_seeded_workers(x3d.double(), 1)
+    with pytest.raises(ValueError):
+        permk.permk_seeded_workers(x3d[:3], 1)  # 3 workers do not divide 128
+    with pytest.raises(ValueError):
+        permk.permk_seeded_workers(torch.zeros(4, 3, 256, device=dev)[..., ::2], 1)
+    g = torch.zeros(3, 128, device=dev)
+    with pytest.raises(ValueError):
+        epilogue.delta_epilogue(g.double(), g, g, 0.1)
+    with pytest.raises(ValueError):
+        epilogue.delta_epilogue(g, g, g.half(), 0.1)

@@ -1,10 +1,11 @@
-"""The plain PyTorch versions of the four main-path kernels against the
+"""The plain PyTorch versions of the six main-path kernels against the
 reference's oracles (``repro.kernels.ref``) on the same numpy inputs.
 
 Contract (DESIGN.md §4.4 carried across frameworks): offsets bit-equal, RandK
-values bit-equal (one gather, one f32 multiply), scatter / epilogue outputs
-within 1 ulp on the bit patterns, x in f32 and bf16, with a forced-duplicates
-case (kb = B/2). On the CPU every kernel wrapper returns its plain version.
+and PermK values bit-equal (one gather, one multiply), scatter / epilogue
+outputs within 1 ulp on the bit patterns, x in f32 and bf16, with a
+forced-duplicates case (kb = B/2). On the CPU every kernel wrapper returns
+its plain version.
 """
 
 import jax.numpy as jnp
@@ -116,5 +117,88 @@ def test_launch_counts_untouched_on_cpu():
     v, o = tk.randk.randk_seeded_workers(torch.from_numpy(x),
                                          tk.randk.seeds_tensor(seeds, "cpu"), 8, 16.0)
     tk.randk.scatter_accum(v, o, 128)
+    pv, _ = tk.permk.permk_seeded_workers(torch.from_numpy(x), 7)
+    tk.epilogue.delta_epilogue(pv[0].contiguous(), pv[1].contiguous(), pv[0], 0.1)
     assert tk.launch_counts() == dict.fromkeys(tk.KERNELS, 0)
+    assert len(tk.KERNELS) == 6
     assert to_np(o).dtype == np.int32
+
+
+SEED32 = [0, 5, 2**31 + 7, 2**32 - 1]
+
+
+@pytest.mark.parametrize("B", [128, 1024])
+@pytest.mark.parametrize("nblk", [1, 3, 257])
+def test_affine_perm_params_and_inverse_bit_equal(nblk, B):
+    """a, c equal the reference's; the inverse mod B is its uint32 inverse
+    masked to B − 1 and undoes a."""
+    for seed in SEED32:
+        ja, jc = jref.affine_perm_params_ref(jnp.uint32(seed), nblk, B)
+        ta, tc = tref.affine_perm_params_ref(seed, nblk, B)
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja).astype(np.int64))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc).astype(np.int64))
+        inv = tref.odd_inverse_ref(ta, B)
+        np.testing.assert_array_equal(
+            inv.numpy(), np.asarray(jref.odd_inverse_ref(ja)).astype(np.int64) & (B - 1))
+        assert torch.all((inv * ta) & (B - 1) == 1)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [128, 1024])
+@pytest.mark.parametrize("nblk", [1, 3, 257])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_permk_seeded_workers_bit_equal(n, nblk, B, xdtype):
+    rng = np.random.default_rng(n * 1000 + nblk + B)
+    x = rng.standard_normal((n, nblk, B), dtype=np.float32)
+    jx = jnp.asarray(x).astype(xdtype)
+    tx = torch.from_numpy(x).to(getattr(torch, xdtype))
+    for seed in SEED32[1:3]:
+        jv, jo = jref.permk_seeded_workers_ref(jx, jnp.uint32(seed), n)
+        tv, to = tref.permk_seeded_workers_ref(tx, seed)
+        assert tv.dtype == tx.dtype and to.dtype == torch.int32
+        np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+        np.testing.assert_array_equal(to_np(tv), to_np(jv))
+        for w in (0, n - 1):
+            np.testing.assert_array_equal(
+                tref.permk_offsets_ref(seed, nblk, B, n, w).numpy(),
+                np.asarray(jref.permk_offsets_ref(jnp.uint32(seed), nblk, B, n, w)))
+        # the n supports partition every block
+        assert torch.equal(to.permute(1, 0, 2).reshape(nblk, B).sort(dim=1).values,
+                           torch.arange(B, dtype=torch.int32).expand(nblk, B))
+        wv, wo = tk.permk.permk_seeded_workers(tx, seed)
+        assert torch.equal(wv, tv) and torch.equal(wo, to)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_permk_concat_mean_equals_reference_and_scatter(n, xdtype):
+    """The scatter-free aggregate equals the reference's, and the port's own
+    scatter-mean of the same payloads (disjoint supports: no collisions)."""
+    nblk, B, seed = 9, 128, 2**31 + 7
+    x = np.random.default_rng(n).standard_normal((n, nblk, B), dtype=np.float32)
+    jv, jo = jref.permk_seeded_workers_ref(jnp.asarray(x).astype(xdtype),
+                                           jnp.uint32(seed), n)
+    want = jref.permk_concat_mean_ref(jv, jnp.uint32(seed), B)
+    tv = torch.from_numpy(x).to(getattr(torch, xdtype))
+    tv, to = tref.permk_seeded_workers_ref(tv, seed)
+    got = tref.permk_concat_mean_ref(tv, seed, B)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, tref.scatter_accum_ref(tv.float(), to, B))
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_delta_epilogue_within_one_ulp(xdtype):
+    rng = np.random.default_rng(11)
+    delta, g, xx = (rng.standard_normal((7, 256), dtype=np.float32) for _ in range(3))
+    delta[0, :5] = -0.0
+    gamma = 0.0371
+    jx = jnp.asarray(xx).astype(xdtype)
+    jg2, jx2 = jref.delta_epilogue_ref(jnp.asarray(delta), jnp.asarray(g), jx, gamma)
+    args = (torch.from_numpy(delta), torch.from_numpy(g),
+            torch.from_numpy(xx).to(getattr(torch, xdtype)), gamma)
+    tg2, tx2 = tref.delta_epilogue_ref(*args)
+    assert tg2.dtype == torch.float32 and tx2.dtype == args[2].dtype
+    assert ulp_diff(tg2, jg2) <= 1 and ulp_diff(tx2, jx2) <= 1
+    wg, wx = tk.epilogue.delta_epilogue(*args)
+    assert torch.equal(wg, tg2) and torch.equal(wx, tx2)

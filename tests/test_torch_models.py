@@ -11,6 +11,9 @@ parameters carried across by ``convert.params_from_jax``:
   by B/kb: the matmul-order noise of the two gradients is amplified in
   Δ's small entries, so the bound is held per leaf, relative to the leaf's
   largest magnitude; the worst such error measured is 1.5e-5.)
+* 5 carry rounds of ``VRMarina`` on the permk wire (2 workers, minibatches
+  of one sequence) and of ``PPMarina`` on the block_randk wire (4 clients,
+  r = 2, the full carry table carried across), held the same way.
 """
 
 import jax
@@ -21,6 +24,9 @@ import torch
 
 from repro.core import BlockRandK as JBlockRandK
 from repro.core import Marina as JMarina
+from repro.core import PermK as JPermK
+from repro.core import PPMarina as JPPMarina
+from repro.core import VRMarina as JVRMarina
 from repro.core.flat import make_engine as j_make_engine
 from repro.data import HeterogeneousLMData as JData
 from repro.data import worker_batches as j_worker_batches
@@ -30,7 +36,7 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro.models.config import dense_stack as j_dense_stack
 from repro_torch import prng
 from repro_torch.convert import params_from_jax, state_from_jax
-from repro_torch.core import BlockRandK, Marina, make_engine
+from repro_torch.core import BlockRandK, Marina, PermK, PPMarina, VRMarina, make_engine
 from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.models import ModelConfig, dense_stack, lm_loss
 
@@ -59,6 +65,23 @@ def tokens():
     return [np.asarray(fn(s)) for s in range(6)]
 
 
+@pytest.fixture(scope="module")
+def mb_tokens():
+    """The reference's (2 workers, 1, SEQ) minibatches: the trainer's VR
+    stream at steps 10**7 + 0..5."""
+    data = JData(n_workers=2, vocab_size=256, seq_len=SEQ, seed=3)
+    fn = jax.jit(lambda s: j_worker_batches(data, s, 1))
+    return [np.asarray(fn(10**7 + s)) for s in range(6)]
+
+
+@pytest.fixture(scope="module")
+def tokens4():
+    """The reference's (4 clients, 2, SEQ) token batches of steps 0..5."""
+    data = JData(n_workers=4, vocab_size=256, seq_len=SEQ, seed=5)
+    fn = jax.jit(lambda s: j_worker_batches(data, s, 2))
+    return [np.asarray(fn(s)) for s in range(6)]
+
+
 def _torch_grad(params, tokens):
     leaves, treedef = tree_flatten(params)
     leaves = [t.detach().requires_grad_(True) for t in leaves]
@@ -76,7 +99,8 @@ def test_lm_loss_and_grad_match_reference(jparams, tokens):
     toks = tokens[0][0]
     jl, jg = jax.jit(jax.value_and_grad(j_lm_loss), static_argnums=1)(
         jparams, JCFG, jnp.asarray(toks))
-    tl, tg = _torch_grad(params_from_jax(_np_tree(jparams)), torch.tensor(toks))
+    tl, tg = _torch_grad(params_from_jax(_np_tree(jparams), device="cpu"),
+                         torch.tensor(toks))
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     jleaves = jax.tree.leaves(jg)
     assert len(jleaves) == len(tree_leaves(tg))
@@ -85,32 +109,29 @@ def test_lm_loss_and_grad_match_reference(jparams, tokens):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
-def test_lm_marina_rounds_match_reference(jparams, tokens, carry):
-    n, kb, B = 2, 8, 128
-    jgrad = jax.grad(lambda p, b: j_lm_loss(p, JCFG, b["tokens"]))
+_jgrad = jax.grad(lambda p, b: j_lm_loss(p, JCFG, b["tokens"]))
 
-    def tgrad(p, b):
-        return _torch_grad(p, b["tokens"])[1]
 
-    jm = JMarina(jgrad, JBlockRandK(kb=kb, block=B), gamma=0.05, p=0.4,
-                 engine=j_make_engine(jparams, kb=kb, block=B, backend="ref"),
-                 carry=carry)
-    tp = params_from_jax(_np_tree(jparams))
-    tm = Marina(tgrad, BlockRandK(kb=kb, block=B), gamma=0.05, p=0.4,
-                engine=make_engine(tp, kb=kb, block=B, device="cpu"), carry=carry)
-    js = jax.jit(jm.init)(jparams, {"tokens": jnp.asarray(tokens[0])})
-    # start the port from the reference's own state (params, g, h)
+def _tgrad(p, b):
+    return _torch_grad(p, b["tokens"])[1]
+
+
+def _rounds_match(jm, tm, jparams, init_toks, step_toks, rounds=5):
+    """Init the reference on ``init_toks``, carry its state (params, g, h)
+    across, then run both packages under the same keys: round k takes the
+    token batches ``step_toks(k)`` (a tuple, one per oracle). c_k and bits
+    equal; params and g leafwise within 1e-4 of each leaf's scale."""
+    js = jax.jit(jm.init)(jparams, {"tokens": jnp.asarray(init_toks)})
     ts = state_from_jax(_np_tree(js.params), _np_tree(js.g), 0,
-                        None if js.h is None else _np_tree(js.h))
+                        None if js.h is None else _np_tree(js.h), device="cpu")
     jstep = jax.jit(jm.step)
     kinds = set()
-    for k in range(5):
-        toks = tokens[k + 1]
+    for k in range(rounds):
+        toks = step_toks(k)
         key = jax.random.fold_in(jax.random.PRNGKey(7), k)
-        js, jmet = jstep(js, key, {"tokens": jnp.asarray(toks)})
+        js, jmet = jstep(js, key, *({"tokens": jnp.asarray(t)} for t in toks))
         ts, tmet = tm.step(ts, prng.fold_in(prng.PRNGKey(7), k),
-                           {"tokens": torch.tensor(toks)})
+                           *({"tokens": torch.tensor(t)} for t in toks))
         assert tmet.sync_round == int(jmet.sync_round)
         assert tmet.bits_per_worker == float(jmet.bits_per_worker)
         kinds.add(tmet.sync_round)
@@ -119,3 +140,40 @@ def test_lm_marina_rounds_match_reference(jparams, tokens, carry):
         for a, b in zip(tree_leaves(ts.g), jax.tree.leaves(js.g)):
             _close_to_leaf_scale(a, b, 1e-4)
     assert kinds == {0, 1}
+
+
+def _pair(jparams, jm_cls, tm_cls, jcomp, tcomp, sampler, *args, **kw):
+    """The reference optimizer and the port's on the same wire, engines
+    built from the reference's parameters."""
+    kb = {"kb": 8} if sampler == "randk" else {}
+    jeng = j_make_engine(jparams, block=128, backend="ref", sampler=sampler, **kb)
+    tp = params_from_jax(_np_tree(jparams), device="cpu")
+    teng = make_engine(tp, block=128, device="cpu", sampler=sampler, **kb)
+    jm = jm_cls(*args[0], jcomp, gamma=0.05, p=0.4, engine=jeng, **kw)
+    tm = tm_cls(*args[1], tcomp, gamma=0.05, p=0.4, engine=teng, **kw)
+    return jm, tm
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
+def test_lm_marina_rounds_match_reference(jparams, tokens, carry):
+    jm, tm = _pair(jparams, JMarina, Marina, JBlockRandK(kb=8, block=128),
+                   BlockRandK(kb=8, block=128), "randk", (_jgrad,), (_tgrad,),
+                   carry=carry)
+    _rounds_match(jm, tm, jparams, tokens[0], lambda k: (tokens[k + 1],))
+
+
+def test_lm_vr_marina_permk_carry_matches_reference(jparams, tokens, mb_tokens):
+    jm, tm = _pair(jparams, JVRMarina, VRMarina, JPermK(n=2, block=128),
+                   PermK(n=2, block=128), "permk", (_jgrad, _jgrad),
+                   (_tgrad, _tgrad), carry=True)
+    _rounds_match(jm, tm, jparams, tokens[0],
+                  lambda k: (tokens[k + 1], mb_tokens[k + 1]))
+
+
+def test_lm_pp_marina_randk_carry_matches_reference(jparams, tokens4):
+    """r = 2 of 4 clients, i.i.d. cohorts: the server's n-row carry table
+    starts as the reference's own."""
+    jm, tm = _pair(jparams, JPPMarina, PPMarina, JBlockRandK(kb=8, block=128),
+                   BlockRandK(kb=8, block=128), "randk", (_jgrad,), (_tgrad,),
+                   r=2, carry=True)
+    _rounds_match(jm, tm, jparams, tokens4[0], lambda k: (tokens4[k + 1],))

@@ -1,6 +1,7 @@
 """The port's threefry key derivation and counter RNGs are bit-equal to the
 reference's: ``jax.random`` (PRNGKey / split / fold_in / bits / uniform /
-bernoulli), the murmur3 kernel hash, and the flat engine's worker seeds."""
+bernoulli / randint / permutation), PP-MARINA's cohort draws, the murmur3
+kernel hash, and the flat engine's worker seeds."""
 
 import jax
 import jax.numpy as jnp
@@ -9,10 +10,12 @@ import pytest
 import torch
 
 from repro.core.flat import FlatEngine as JFlatEngine
+from repro.core.marina import pp_sample_cohort as j_pp_sample_cohort
 from repro.core.flat import make_layout as j_make_layout
 from repro.kernels import ref as jref
 from repro_torch import prng
 from repro_torch.core.flat import make_engine, seeded_offsets
+from repro_torch.core.marina import pp_sample_cohort
 from repro_torch.kernels import ref as tref
 
 SEEDS = [0, 1, 7, 42, 2**16 + 3, 2**31 - 1, 2**31 + 5, 2**32 - 1]
@@ -75,5 +78,48 @@ def test_murmur_bits_and_seeded_offsets_bit_equal(seed):
     from repro.core.flat import seeded_offsets as j_seeded_offsets
 
     np.testing.assert_array_equal(
-        seeded_offsets(seed, 7, 256, 16).numpy(),
+        seeded_offsets(seed, 7, 256, 16, device="cpu").numpy(),
         np.asarray(j_seeded_offsets(jnp.uint32(seed), 7, 256, 16)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 7, 64])
+def test_randint_and_permutation_bit_equal(n):
+    """int32 draws of ``jax.random.randint`` / ``permutation`` under JAX
+    0.9's defaults, over keys, shapes and spans (n = 64: one sort round;
+    the 2000-long permutation: two)."""
+    for seed in SEEDS[:5]:
+        for data in (0, 3):
+            k = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+            kk = prng.fold_in(prng.PRNGKey(seed), data)
+            for shape in [(), (1,), (5,), (3, 4)]:
+                want = np.asarray(jax.random.randint(k, shape, 0, n))
+                got = prng.randint(kk, shape, 0, n)
+                assert got.dtype == want.dtype == np.int32
+                np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(
+                prng.randint(kk, (6,), -3, n + 70_000),
+                np.asarray(jax.random.randint(k, (6,), -3, n + 70_000)))
+            want = np.asarray(jax.random.permutation(k, n))
+            got = prng.permutation(kk, n)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    k, kk = jax.random.PRNGKey(n), prng.PRNGKey(n)
+    np.testing.assert_array_equal(prng.permutation(kk, 2000),
+                                  np.asarray(jax.random.permutation(k, 2000)))
+
+
+@pytest.mark.parametrize("replace", [True, False], ids=["iid", "distinct"])
+def test_pp_cohort_draws_bit_equal(replace):
+    """PP-MARINA's cohort under the trainer's step keys and the round's
+    (k_bern, k_sel, k_q) split, in both sampling modes."""
+    for n, r in ((4, 2), (7, 3), (16, 16)):
+        for step in range(25):
+            key = jax.random.fold_in(jax.random.PRNGKey(0), step)
+            k_sel = jax.random.split(key, 3)[1]
+            tk_sel = prng.split(prng.fold_in(prng.PRNGKey(0), step), 3)[1]
+            want = np.asarray(j_pp_sample_cohort(k_sel, n, r, replace)).tolist()
+            assert pp_sample_cohort(tk_sel, n, r, replace) == want
+    # the repeated client of the trainer's step 1 at seed 0 (n = 4, r = 2)
+    if replace:
+        assert pp_sample_cohort(prng.split(prng.fold_in(prng.PRNGKey(0), 1), 3)[1],
+                                4, 2, True) == [0, 0]

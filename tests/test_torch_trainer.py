@@ -4,9 +4,13 @@
   both round shapes: the loss stays finite and each step's ledger entry is
   ``wire.seeded_randk_bits`` on compressed rounds, 32·d on sync rounds;
   the step hook sees every step, and a profiler sees the trainer's spans.
+  The same for ``vr_marina`` × permk (ledger ``wire.permk_bits``) and
+  ``pp_marina`` × block_randk (ledger ``wire.pp_*_total_bits`` / n).
 * ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   ``repro`` (checked in a fresh interpreter).
-* Entry points default to the card and raise without one.
+* Entry points default to the card and raise without one: the trainer,
+  model init, the engine, the data stream, the binclass problem, the
+  seeded offsets and the converters from the reference's arrays.
 """
 
 import math
@@ -17,7 +21,11 @@ import sys
 import pytest
 import torch
 
-from repro_torch.core import wire
+from repro_torch.convert import params_from_jax, state_from_jax
+from repro_torch.core import make_engine, wire
+from repro_torch.core.flat import seeded_offsets
+from repro_torch.core.problems import make_synthetic_binclass
+from repro_torch.data import HeterogeneousLMData, worker_batches
 from repro_torch.core.tree_util import tree_leaves
 from repro_torch.models import ModelConfig, dense_stack, init_params
 from repro_torch.train import TrainConfig, Trainer
@@ -29,11 +37,13 @@ CFG = ModelConfig(name="tiny-dense", arch_type="dense", d_model=64, num_heads=4,
                   rope_theta=1_000_000.0)
 
 
-def _tc(carry):
-    return TrainConfig(method="marina", compressor="block_randk",
-                       comp_kwargs={"kb": 8, "block": 128}, gamma=0.05, p=0.5,
-                       n_workers=2, batch_per_worker=2, steps=4, log_every=2,
-                       carry_grads=carry)
+def _tc(carry, method="marina", compressor="block_randk", **kw):
+    comp_kwargs = {"block": 128} if compressor == "permk" else {"kb": 8, "block": 128}
+    kw = {"n_workers": 2, **kw}
+    return TrainConfig(method=method, compressor=compressor,
+                       comp_kwargs=comp_kwargs, gamma=0.05, p=0.5,
+                       batch_per_worker=2, steps=4, log_every=2,
+                       carry_grads=carry, **kw)
 
 
 @pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
@@ -53,6 +63,47 @@ def test_trainer_cpu_smoke_and_ledger(carry):
     assert hist.bits_cum[-1] == sum(hist.round_bits)
     assert hist.skipped_cum[-1] == 0.0
     assert len(hist.step_seconds) == 4
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
+@pytest.mark.parametrize("method", ["vr_marina", "pp_marina"])
+def test_trainer_vr_and_pp_cpu_smoke_and_ledger(method, carry):
+    """VR-MARINA on the permk wire, PP-MARINA (r = 2 of 4) on block_randk:
+    4 steps, finite loss, both round types, ledgers equal to the wire
+    formulas."""
+    if method == "vr_marina":
+        tc = _tc(carry, method, "permk", mb_per_worker=1)
+    else:
+        tc = _tc(carry, method, n_workers=4, r_participating=2)
+    params = init_params(0, CFG, device="cpu")
+    tr = Trainer(CFG, tc, params, device="cpu")
+    assert tr.engine is not None and tr.engine.sampler == (
+        "permk" if method == "vr_marina" else "randk")
+    _, hist = tr.run()
+    d = sum(t.numel() for t in tree_leaves(params))
+    nblk = math.ceil(d / 128)
+    n = tc.n_workers
+    assert all(math.isfinite(v) for v in hist.loss)
+    assert set(hist.round_sync) == {0, 1}
+    for c_k, bits in zip(hist.round_sync, hist.round_bits):
+        if method == "vr_marina":
+            want = wire.dense_f32_bits(d) if c_k else wire.permk_bits(nblk * 128, n)
+        else:
+            want = (wire.pp_sync_total_bits(n, d) if c_k else wire.pp_uplink_total_bits(
+                2, wire.seeded_randk_bits(nblk, 8))) / n
+        assert bits == want
+    assert hist.bits_cum[-1] == sum(hist.round_bits)
+    assert hist.skipped_cum[-1] == 0.0
+
+
+def test_trainer_methods_not_ported_raise():
+    params = init_params(0, CFG, device="cpu")
+    assert TrainConfig().method == "vr_marina"  # the reference's default
+    for method in ("diana", "dcgd", "ec_sgd", "gd"):
+        with pytest.raises(NotImplementedError):
+            Trainer(CFG, _tc(False, method), params, device="cpu")
+    with pytest.raises(ValueError):
+        Trainer(CFG, _tc(False, "adam"), params, device="cpu")
 
 
 def test_trainer_profiler_spans():
@@ -94,3 +145,13 @@ def test_entry_points_default_to_cuda():
         Trainer(CFG, _tc(False), init_params(0, CFG, device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(0, CFG)
+    for call in (
+        lambda: make_engine({"v": torch.zeros(300)}),
+        lambda: make_synthetic_binclass(0, 2, 4, 8),
+        lambda: params_from_jax({"v": [1.0]}),
+        lambda: state_from_jax({"v": [1.0]}, {"v": [0.0]}, 0),
+        lambda: worker_batches(HeterogeneousLMData(2, 256, 8), 0, 1),
+        lambda: seeded_offsets(7, 3, 128, 8),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
