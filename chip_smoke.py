@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. kernels — each of the six main-path kernels against its plain PyTorch
    version on the card. The four RandK-wire kernels at the production shape
    of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024), B = 1024,
-   kb = 20) and at a forced-duplicates shape (kb = B/2); the PermK uplink
+   kb = 20), at PP-MARINA's cohort (n = r = 2) and at a forced-duplicates
+   shape (kb = B/2); the PermK uplink
    at the production shape and at n = 2 and 8; the delta epilogue at
    (nblk, B); x in f32 and bf16. Offsets and RandK / PermK values
    bit-equal, scatter / epilogue outputs within 1 ulp. Median times over
@@ -166,6 +167,19 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
+def randk_shapes(nblk: int) -> dict:
+    """(n, nblk, B, kb) for the RandK-wire kernels: every shape a main path
+    gives them (n is PP's cohort r on its compressed rounds, else the worker
+    count), then a forced-duplicates shape; only the first is timed."""
+    shapes = {"production": (N_WORKERS, nblk, BLOCK, KB)}
+    for method, compressor, _ in PATHS.values():
+        if compressor == "block_randk" and method == "pp_marina":
+            shapes.setdefault(f"cohort_n{R_PARTICIPATING}",
+                              (R_PARTICIPATING, nblk, BLOCK, KB))
+    shapes["duplicates"] = (N_WORKERS, 4096, BLOCK, BLOCK // 2)
+    return shapes
+
+
 def check_kernels(nblk: int, card: str, report: dict) -> dict:
     import torch
 
@@ -174,10 +188,7 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
-    for label, (n, nb, B, kb) in {
-        "production": (N_WORKERS, nblk, BLOCK, KB),
-        "duplicates": (N_WORKERS, 4096, BLOCK, BLOCK // 2),
-    }.items():
+    for label, (n, nb, B, kb) in randk_shapes(nblk).items():
         timed = label == "production"
         x3d = torch.randn((n, nb, B), generator=gen, device=dev)
         seeds = randk.seeds_tensor([1, 2**31 + 7, 2**32 - 1, 12345][:n], dev)
@@ -282,6 +293,7 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
             vr, orf = ref.permk_seeded_workers_ref(x3d, seed)
             require(torch.equal(o, orf), f"permk n={n} {xd}: offsets differ")
             require(torch.equal(v, vr), f"permk n={n} {xd}: values differ")
+            err = float((v.float() - vr.float()).abs().max())
             del vr, orf
             elt = x3d.element_size()
             # must touch: one x value per slot, the values and int32 offsets
@@ -293,7 +305,7 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
                  # what this design moves: every staged row of x read in full
                  "floor_ms": (x3d.numel() * elt + nblk * BLOCK * (elt + 4))
                  / HBM_BYTES_PER_S * 1e3,
-                 "library_ms": None, "max_abs_err": 0.0}
+                 "library_ms": None, "max_abs_err": err}
             timings.append(t)
             print(f"time permk_seeded_workers n={n} x {xd}: kernel {t['ms']:.4f} ms, "
                   f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -569,8 +581,7 @@ def main() -> int:
                       "replaces": replaces, "launches": sum(by_path.values()),
                       "launches_by_path": by_path,
                       **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                    "bound_ms", "bound_by", "library_ms",
-                                                    "floor_ms") if k in rows[name]}})
+                                                    "bound_ms", "bound_by", "library_ms")}})
     print("report: " + json.dumps(report))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())

@@ -164,20 +164,6 @@ def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
     return (bits & (block - 1)).to(torch.int32)
 
 
-def block_permk_workers(x3d: torch.Tensor, seed: int, plain: bool = False):
-    """PermK uplink: (n, nblk, B) + ONE shared seed → values / int32 offsets
-    (n, nblk, B/n); the kernel, or its plain version when ``plain``."""
-    if plain:
-        return _ref.permk_seeded_workers_ref(x3d, seed)
-    return _permk.permk_seeded_workers(x3d, seed)
-
-
-#: Scatter-free PermK aggregation: (n, nblk, B/n) payloads → (nblk, B) mean
-#: by an inverse-permutation gather. Plain PyTorch on every backend, as in
-#: the reference: disjoint supports make the mean an assembly, not a sum.
-permk_concat_mean = _ref.permk_concat_mean_ref
-
-
 # ---------------------------------------------------------------------------
 # The fused engine
 # ---------------------------------------------------------------------------
@@ -268,9 +254,15 @@ class FlatEngine:
         return self.decompress_mean(vals, offs)
 
     def _permk_mean(self, key, bufs: torch.Tensor) -> torch.Tensor:
+        """PermK uplink of every worker under ONE shared seed, then the
+        scatter-free mean: an inverse-permutation gather in plain PyTorch on
+        every backend, as in the reference (disjoint supports make the mean
+        an assembly, not a sum)."""
         seed = self._shared_seed(key)  # shared: all workers, one permutation
-        vals, _ = block_permk_workers(bufs, seed, self._plain(bufs))
-        return permk_concat_mean(vals, seed, self.layout.block)
+        fn = (_ref.permk_seeded_workers_ref if self._plain(bufs)
+              else _permk.permk_seeded_workers)
+        vals, _ = fn(bufs, seed)
+        return _ref.permk_concat_mean_ref(vals, seed, self.layout.block)
 
     def fused_round(self, key, diff_bufs: torch.Tensor, n: int, g2d: torch.Tensor,
                     x2d: torch.Tensor, gamma: float):
