@@ -8,30 +8,34 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); print the seconds.
-3. kernels — each of the six main-path kernels against its plain PyTorch
-   version on the card. The four RandK-wire kernels at the production shape
-   of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024), B = 1024,
-   kb = 20), at PP-MARINA's cohort (n = r = 2) and at a forced-duplicates
-   shape (kb = B/2); the PermK uplink
-   at the production shape and at n = 2 and 8; the delta epilogue at
-   (nblk, B); x in f32 and bf16. Offsets and RandK / PermK values
-   bit-equal, scatter / epilogue outputs within 1 ulp. Median times over
-   20+ launches (CUDA events) for the kernel, its plain version and, where
-   one exists, the one PyTorch call that computes the same function.
+3. kernels — each of the eleven main-path kernels against its plain
+   PyTorch version on the card. The four RandK-wire kernels at the
+   production shape of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024),
+   B = 1024, kb = 20), at PP-MARINA's cohort (n = r = 2) and at a
+   forced-duplicates shape (kb = B/2); the PermK uplink at the production
+   shape and at n = 2 and 8; the delta epilogue at (nblk, B); the five
+   packed-QSGD kernels (s = 7) at every worker count a path gives them
+   (n = 4 for the QSGD uplink, n = 1 for the compressed downlink); x in f32
+   and bf16. Offsets, RandK / PermK values, QSGD levels, norms and nibble
+   words bit-equal, scatter / dequant / epilogue outputs within 1 ulp.
+   Median times over 20+ launches (CUDA events) for the kernel, its plain
+   version and, where one exists, the one PyTorch call that computes the
+   same function.
 4. small input — a reduced dense LM trained 4 steps on the card through the
-   kernels and through their plain versions (``flat_backend="ref"``), both
-   round shapes, for MARINA × block_randk, VR-MARINA × permk and
-   PP-MARINA × block_randk: the two trajectories agree.
+   kernels and through their plain versions (``flat_backend="ref"``) on
+   every main path below: the two trajectories agree.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
    (``carry_grads=False`` / ``True``) of MARINA × block_randk (kb = 20),
-   VR-MARINA × permk (minibatches 2 × 256) and PP-MARINA × block_randk
-   (r = 2). The launch counts are reset just before each path and read
-   just after it: each path must launch exactly the kernels its rounds
-   require (``EXPECTED_LAUNCHES``). The loss is finite, no round is
-   skipped, and each round's bits equal the wire formula. Median seconds
-   per step by round type and the peak device memory, per path.
+   VR-MARINA × permk (minibatches 2 × 256), PP-MARINA × block_randk
+   (r = 2) and MARINA × block_qsgd (s = 7), and MARINA × block_randk under
+   a QSGD downlink (s = 7) in the carry shape. The launch counts are reset
+   just before each path and read just after it: each path must launch
+   exactly the kernels its rounds require (``EXPECTED_LAUNCHES``). The
+   loss is finite, no round is skipped, and each round's up and down bits
+   equal the wire formulas. Median seconds per step by round type and the
+   peak device memory, per path.
 6. profile — one ``torch.profiler`` trace of a compressed step of a
    full-width carry run: its device time split into model forward +
    backward, the port's kernels and the rest, the device's idle share of
@@ -54,6 +58,10 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+#: where every phase runs; ``main`` requires a CUDA device. With "cpu" each
+#: kernel wrapper returns its plain version: tests/test_torch_chip_smoke.py
+#: rehearses the main paths that way at a tiny size.
+DEVICE = "cuda"
 SEED = 0
 P_SYNC = 0.5
 STEPS = 4
@@ -61,7 +69,7 @@ STEPS = 4
 #: key of split(fold_in(PRNGKey(0), step)) — and of its 3-way split, which
 #: PP-MARINA draws from — computed with JAX on the CPU
 EXPECTED_C_K = [1, 0, 1, 0]
-KB, BLOCK, N_WORKERS = 20, 1024, 4
+KB, BLOCK, N_WORKERS, S_LEVELS = 20, 1024, 4, 7
 MB_PER_WORKER, R_PARTICIPATING = 2, 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -79,22 +87,41 @@ SOURCES = {
                              "src/repro/kernels/permk.py:62"),
     "delta_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
                        "src/repro/kernels/epilogue.py:69"),
+    "qsgd_block_workers": ("src/repro_torch/kernels/csrc/quantize.cu",
+                           "src/repro/kernels/quantize.py:162"),
+    "nibble_pack": ("src/repro_torch/kernels/csrc/quantize.cu",
+                    "src/repro/kernels/quantize.py:339"),
+    "nibble_unpack": ("src/repro_torch/kernels/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:369"),
+    "qsgd_dequant_mean": ("src/repro_torch/kernels/csrc/quantize.cu",
+                          "src/repro/kernels/quantize.py:206"),
+    "qsgd_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+                      "src/repro/kernels/epilogue.py:335"),
 }
 
-#: the main paths: (method, compressor, carry_grads)
+#: the main paths: (method, compressor, carry_grads, downlink sampler)
 PATHS = {
-    "marina_randk_recompute": ("marina", "block_randk", False),
-    "marina_randk_carry": ("marina", "block_randk", True),
-    "vr_permk_recompute": ("vr_marina", "permk", False),
-    "vr_permk_carry": ("vr_marina", "permk", True),
-    "pp_randk_recompute": ("pp_marina", "block_randk", False),
-    "pp_randk_carry": ("pp_marina", "block_randk", True),
+    "marina_randk_recompute": ("marina", "block_randk", False, None),
+    "marina_randk_carry": ("marina", "block_randk", True, None),
+    "vr_permk_recompute": ("vr_marina", "permk", False, None),
+    "vr_permk_carry": ("vr_marina", "permk", True, None),
+    "pp_randk_recompute": ("pp_marina", "block_randk", False, None),
+    "pp_randk_carry": ("pp_marina", "block_randk", True, None),
+    "marina_qsgd_recompute": ("marina", "block_qsgd", False, None),
+    "marina_qsgd_carry": ("marina", "block_qsgd", True, None),
+    "marina_randk_downqsgd_carry": ("marina", "block_randk", True, "qsgd"),
 }
+COMP_KWARGS = {"block_randk": {"kb": KB, "block": BLOCK}, "permk": {"block": BLOCK},
+               "block_qsgd": {"s": S_LEVELS, "block": BLOCK}}
 _NC, _NS = EXPECTED_C_K.count(0), EXPECTED_C_K.count(1)
+_QSGD_WIRE = {"qsgd_block_workers": _NC, "nibble_pack": _NC, "nibble_unpack": _NC}
 #: what each path must launch in its 4 steps: compressed recompute rounds
 #: sample and aggregate the diffs (RandK: scatter-mean kernel; PermK: a plain
-#: inverse-permutation gather); carry rounds end in a fused epilogue of
-#: either round type (the sync one is the mean epilogue)
+#: inverse-permutation gather; QSGD: quantize, the 4-bit words there and
+#: back, dequant-mean); carry rounds end in a fused epilogue of either round
+#: type (the sync one is the mean epilogue). Under a downlink, a carry
+#: compressed round aggregates the uplink (scatter-mean), then quantizes the
+#: broadcast (n = 1) and ends in its epilogue.
 EXPECTED_LAUNCHES = {
     "marina_randk_recompute": {"randk_seeded_workers": _NC, "scatter_accum": _NC},
     "marina_randk_carry": {"randk_seeded_workers": _NC, "scatter_epilogue": _NC,
@@ -105,6 +132,11 @@ EXPECTED_LAUNCHES = {
     "pp_randk_recompute": {"randk_seeded_workers": _NC, "scatter_accum": _NC},
     "pp_randk_carry": {"randk_seeded_workers": _NC, "scatter_epilogue": _NC,
                        "mean_epilogue": _NS},
+    "marina_qsgd_recompute": {**_QSGD_WIRE, "qsgd_dequant_mean": _NC},
+    "marina_qsgd_carry": {**_QSGD_WIRE, "qsgd_epilogue": _NC, "mean_epilogue": _NS},
+    "marina_randk_downqsgd_carry": {"randk_seeded_workers": _NC, "scatter_accum": _NC,
+                                    **_QSGD_WIRE, "qsgd_epilogue": _NC,
+                                    "mean_epilogue": _NS},
 }
 
 
@@ -172,7 +204,7 @@ def randk_shapes(nblk: int) -> dict:
     gives them (n is PP's cohort r on its compressed rounds, else the worker
     count), then a forced-duplicates shape; only the first is timed."""
     shapes = {"production": (N_WORKERS, nblk, BLOCK, KB)}
-    for method, compressor, _ in PATHS.values():
+    for method, compressor, _, _ in PATHS.values():
         if compressor == "block_randk" and method == "pp_marina":
             shapes.setdefault(f"cohort_n{R_PARTICIPATING}",
                               (R_PARTICIPATING, nblk, BLOCK, KB))
@@ -185,7 +217,7 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
 
     from repro_torch.kernels import epilogue, randk, ref
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {}
     for label, (n, nb, B, kb) in randk_shapes(nblk).items():
@@ -281,7 +313,7 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
 
     from repro_torch.kernels import epilogue, permk, ref
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, timings = {}, []
     seed = 2**31 + 12345
@@ -347,6 +379,121 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
     return rows
 
 
+def qsgd_worker_counts() -> dict:
+    """{n: label} for the packed-QSGD kernels: every worker count a main path
+    gives them — the QSGD uplink's (PP's cohort r on its compressed rounds,
+    else the worker count) and the compressed downlink's single broadcast
+    payload (n = 1)."""
+    counts = {}
+    for path, (method, compressor, _, downlink) in PATHS.items():
+        if compressor == "block_qsgd":
+            counts.setdefault(R_PARTICIPATING if method == "pp_marina" else N_WORKERS,
+                              path)
+        if downlink == "qsgd":
+            counts.setdefault(1, path)
+    return counts
+
+
+def check_quantize(nblk: int, card: str, report: dict) -> dict:
+    """The five packed-QSGD kernels (s = 7) at every worker count of
+    :func:`qsgd_worker_counts`, x in f32 and bf16, against their plain
+    versions: levels, norms and words bit-equal, the dequantized mean and
+    the epilogue within 1 ulp; each timed at its shape. The table's rows
+    are the production uplink's (n = 4, x f32)."""
+    import torch
+
+    from repro_torch.kernels import epilogue, quantize, randk, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    s, B, gamma = S_LEVELS, BLOCK, 0.0371
+    rows, timings = {}, []
+
+    def timed(name, n, xd, kern, plain, nbytes, flops, err):
+        b_ms, b_by = bound(nbytes, flops)
+        t = {"kernel": name, "n": n, "x": str(xd), "ms": median_ms(kern, 25),
+             "plain_ms": median_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "max_abs_err": err, "bytes": nbytes}
+        timings.append(t)
+        print(f"time {name} n={n} x {xd}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+              f"{err}, library {NO_LIBRARY} on {card}", flush=True)
+        if n == N_WORKERS and xd == torch.float32:
+            rows[name] = t
+
+    for n, path in sorted(qsgd_worker_counts().items(), reverse=True):
+        x32 = torch.randn((n, nblk, B), generator=gen, device=dev)
+        seeds = randk.seeds_tensor([3, 2**31 + 11, 2**32 - 1, 777][:n], dev)
+        size = n * nblk * B
+        g = torch.randn((nblk, B), generator=gen, device=dev)
+        xp32 = torch.randn((nblk, B), generator=gen, device=dev)
+        for xd in (torch.float32, torch.bfloat16):
+            x3d = x32.to(xd)
+            lv, nm = quantize.qsgd_block_workers(x3d, seeds, s)
+            lr, nr = ref.qsgd_block_workers_ref(x3d, seeds, s)
+            require(torch.equal(nm, nr), f"qsgd n={n} {xd}: norms differ")
+            require(torch.equal(lv, lr), f"qsgd n={n} {xd}: levels differ")
+            require(int(lv.abs().max()) <= s, f"qsgd n={n} {xd}: |level| > s")
+            del lr, nr
+            elt = x3d.element_size()
+            timed("qsgd_block_workers", n, xd,
+                  lambda: quantize.qsgd_block_workers(x3d, seeds, s),
+                  lambda: ref.qsgd_block_workers_ref(x3d, seeds, s),
+                  size * (elt + 1) + n * nblk * 4 + n * 4, 6 * size, 0.0)
+            del x3d
+            if xd == torch.float32:  # the 4-bit words and the server side, once per n
+                q2d = lv.reshape(n * nblk, B)
+                words = quantize.nibble_pack(q2d)
+                require(torch.equal(words, ref.nibble_pack_ref(q2d)),
+                        f"nibble_pack n={n}: words differ")
+                back = quantize.nibble_unpack(words, B)
+                require(torch.equal(back, q2d), f"nibble_unpack n={n}: not the levels")
+                require(torch.equal(back, ref.nibble_unpack_ref(words, B)),
+                        f"nibble_unpack n={n}: differs from its plain version")
+                full = torch.randint(-8, 8, (n * nblk, B), generator=gen, device=dev,
+                                     dtype=torch.int8)  # every nibble, −8 included
+                require(torch.equal(quantize.nibble_unpack(quantize.nibble_pack(full), B),
+                                    full), f"nibble words n={n}: [−8, 7] round trip")
+                require(torch.equal(quantize.nibble_pack(full), ref.nibble_pack_ref(full)),
+                        f"nibble_pack n={n}: [−8, 7] words differ")
+                del full, back
+                timed("nibble_pack", n, xd, lambda: quantize.nibble_pack(q2d),
+                      lambda: ref.nibble_pack_ref(q2d), size + size // 2, 0, 0.0)
+                timed("nibble_unpack", n, xd, lambda: quantize.nibble_unpack(words, B),
+                      lambda: ref.nibble_unpack_ref(words, B), size // 2 + size, 0, 0.0)
+                del words
+                dm = quantize.qsgd_dequant_mean(lv, nm, s)
+                dr = ref.qsgd_dequant_mean_ref(lv, nm, s)
+                require(ulp_diff(dm, dr) <= 1, f"qsgd_dequant_mean n={n} beyond 1 ulp")
+                err = float((dm - dr).abs().max())
+                del dm, dr
+                timed("qsgd_dequant_mean", n, xd,
+                      lambda: quantize.qsgd_dequant_mean(lv, nm, s),
+                      lambda: ref.qsgd_dequant_mean_ref(lv, nm, s),
+                      size + n * nblk * 4 + nblk * B * 4, 2 * size + nblk * B, err)
+            xp = xp32.to(xd)
+            out = epilogue.qsgd_epilogue(lv, nm, g, xp, gamma, s)
+            want = ref.qsgd_epilogue_ref(lv, nm, g, xp, gamma, s)
+            require(ulp_diff(out[0], want[0]) <= 1, f"qsgd_epilogue n={n} g' beyond 1 ulp")
+            require(ulp_diff(out[1], want[1]) <= 1,
+                    f"qsgd_epilogue n={n} x' ({xd}) beyond 1 ulp")
+            err = max(float((out[0] - want[0]).abs().max()),
+                      float((out[1].float() - want[1].float()).abs().max()))
+            del out, want
+            timed("qsgd_epilogue", n, xd,
+                  lambda: epilogue.qsgd_epilogue(lv, nm, g, xp, gamma, s),
+                  lambda: ref.qsgd_epilogue_ref(lv, nm, g, xp, gamma, s),
+                  size + n * nblk * 4 + nblk * B * (2 * 4 + 2 * xp.element_size()),
+                  2 * size + 4 * nblk * B, err)
+            del lv, nm, xp
+        print(f"kernels qsgd n={n} (for {path}, nblk={nblk}, B={B}, s={s}): match",
+              flush=True)
+        del x32, g, xp32
+        torch.cuda.empty_cache()
+    report["kernels_qsgd"] = timings
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the trainer
 # ---------------------------------------------------------------------------
@@ -354,31 +501,42 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
 
 def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
           step_hook=None, method: str = "marina", compressor: str = "block_randk",
-          **kw):
+          downlink=None, **kw):
     from repro_torch.train import TrainConfig, Trainer
 
-    comp_kwargs = {"block": BLOCK} if compressor == "permk" else {"kb": KB, "block": BLOCK}
-    tc = TrainConfig(method=method, compressor=compressor, comp_kwargs=comp_kwargs,
-                     gamma=0.02, p=P_SYNC, n_workers=N_WORKERS,
-                     r_participating=R_PARTICIPATING, steps=steps, log_every=steps,
-                     seed=SEED, carry_grads=carry, flat_backend=backend, **kw)
-    return Trainer(cfg, tc, params, device="cuda").run(step_hook)
+    tc = TrainConfig(method=method, compressor=compressor,
+                     comp_kwargs=COMP_KWARGS[compressor], gamma=0.02, p=P_SYNC,
+                     n_workers=N_WORKERS, r_participating=R_PARTICIPATING,
+                     steps=steps, log_every=steps, seed=SEED, carry_grads=carry,
+                     flat_backend=backend, downlink=downlink,
+                     downlink_kwargs={"s": S_LEVELS}, **kw)
+    return Trainer(cfg, tc, params, device=DEVICE).run(step_hook)
 
 
-def expected_bits(method: str, c_k: int, d: int, nblk: int) -> float:
-    """One round's bits per worker from the wire formulas."""
+def expected_bits(method: str, compressor: str, c_k: int, d: int, nblk: int) -> float:
+    """One round's uplink bits per worker from the wire formulas."""
     from repro_torch.core import wire
 
+    zeta = {"block_randk": wire.seeded_randk_bits(nblk, KB),
+            "permk": wire.permk_bits(nblk * BLOCK, N_WORKERS),
+            "block_qsgd": wire.block_qsgd_bits(nblk, BLOCK, S_LEVELS)}[compressor]
     if method == "pp_marina":
-        zeta = wire.seeded_randk_bits(nblk, KB)
         total = (wire.pp_sync_total_bits(N_WORKERS, d) if c_k
                  else wire.pp_uplink_total_bits(R_PARTICIPATING, zeta))
         return total / N_WORKERS
+    return wire.dense_f32_bits(d) if c_k else zeta
+
+
+def expected_down_bits(downlink, c_k: int, d: int, nblk: int) -> float:
+    """One round's downlink bits per worker: the dense estimator on sync
+    rounds and without a downlink, else the broadcast's QSGD payload."""
+    from repro_torch.core import wire
+
     if c_k:
         return wire.dense_f32_bits(d)
-    if method == "vr_marina":
-        return wire.permk_bits(nblk * BLOCK, N_WORKERS)
-    return wire.seeded_randk_bits(nblk, KB)
+    if downlink is None:
+        return wire.downlink_dense_bits(d)
+    return wire.block_qsgd_bits(nblk, BLOCK, S_LEVELS)
 
 
 def check_small_input(report: dict) -> None:
@@ -394,10 +552,10 @@ def check_small_input(report: dict) -> None:
                       segments=dense_stack(2), qkv_bias=True,
                       tie_embeddings=True, rope_theta=1_000_000.0)
     worst = 0.0
-    params = init_params(SEED, cfg, device="cuda")
-    for path, (method, compressor, carry) in PATHS.items():
+    params = init_params(SEED, cfg, device=DEVICE)
+    for path, (method, compressor, carry, downlink) in PATHS.items():
         kw = dict(carry=carry, method=method, compressor=compressor,
-                  batch_per_worker=2, mb_per_worker=1)
+                  downlink=downlink, batch_per_worker=2, mb_per_worker=1)
         s_k, h_k = train(cfg, params, **kw)
         s_r, h_r = train(cfg, params, backend="ref", **kw)
         require(h_k.round_sync == h_r.round_sync == EXPECTED_C_K,
@@ -502,15 +660,15 @@ def run_main_path(report: dict) -> dict:
     from repro_torch.models import init_params, param_count
 
     cfg = get_arch("qwen1.5-0.5b").model
-    params = init_params(SEED, cfg, device="cuda")
+    params = init_params(SEED, cfg, device=DEVICE)
     d = param_count(params)
     nblk = math.ceil(d / BLOCK)
     runs, launches = {}, {}
-    for path, (method, compressor, carry) in PATHS.items():
+    for path, (method, compressor, carry, downlink) in PATHS.items():
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         state, hist = train(cfg, params, carry, method=method, compressor=compressor,
-                            mb_per_worker=MB_PER_WORKER)
+                            downlink=downlink, mb_per_worker=MB_PER_WORKER)
         launches[path] = kernels.launch_counts()
         want = {name: EXPECTED_LAUNCHES[path].get(name, 0) for name in kernels.KERNELS}
         require(launches[path] == want,
@@ -519,15 +677,20 @@ def run_main_path(report: dict) -> dict:
                 f"{path}: c_k {hist.round_sync} != {EXPECTED_C_K}")
         require(all(math.isfinite(v) for v in hist.loss), f"{path}: loss not finite")
         require(hist.skipped_cum[-1] == 0.0, f"{path}: a round was skipped")
-        for c_k, bits in zip(hist.round_sync, hist.round_bits):
-            want_bits = expected_bits(method, c_k, d, nblk)
+        for c_k, bits, down in zip(hist.round_sync, hist.round_bits,
+                                   hist.round_down_bits):
+            want_bits = expected_bits(method, compressor, c_k, d, nblk)
             require(bits == want_bits, f"{path}: ledger {bits} != {want_bits}")
+            want_down = expected_down_bits(downlink, c_k, d, nblk)
+            require(down == want_down, f"{path}: down ledger {down} != {want_down}")
         require(hist.bits_cum[-1] == sum(hist.round_bits), f"{path}: ledger sum")
+        require(hist.down_cum[-1] == sum(hist.round_down_bits), f"{path}: down ledger sum")
         by_type = {}
         for c_k, sec in zip(hist.round_sync, hist.step_seconds):
             by_type.setdefault("sync" if c_k else "compressed", []).append(sec)
         runs[path] = {
             "loss": hist.loss, "c_k": hist.round_sync, "round_bits": hist.round_bits,
+            "round_down_bits": hist.round_down_bits,
             "step_seconds": hist.step_seconds, "launches": launches[path],
             "median_step_s": {k: statistics.median(v) for k, v in by_type.items()},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -571,6 +734,7 @@ def main() -> int:
     nblk = make_layout(shapes, block=BLOCK).nblk
     rows = check_kernels(nblk, card, report)
     rows.update(check_permk_delta(nblk, card, report))
+    rows.update(check_quantize(nblk, card, report))
     check_small_input(report)
     launches = run_main_path(report)
 

@@ -1,7 +1,9 @@
-"""repro_torch.core — MARINA, VR-MARINA and PP-MARINA on the flat engine
+"""repro_torch.core — MARINA, VR-MARINA and PP-MARINA on the flat engine,
+with the RandK, PermK and packed-QSGD wires and the compressed downlink
 (PyTorch port of repro.core)."""
 
 from .compressors import (
+    BlockQSGD,
     BlockRandK,
     Compressor,
     CorrelatedCompressor,
@@ -18,6 +20,7 @@ from .compressors import (
 from .flat import (
     FlatEngine,
     FlatLayout,
+    make_downlink,
     make_engine,
     make_layout,
     pack,
@@ -36,10 +39,11 @@ from .marina import (
 from .stepsize import marina_gamma
 
 __all__ = [
-    "BlockRandK", "Compressor", "CorrelatedCompressor", "FlatEngine",
-    "FlatLayout", "Identity", "Marina", "MarinaState", "PPMarina", "PermK",
-    "RandK", "StepMetrics", "VRMarina", "make_compressor", "make_engine",
-    "make_layout", "marina_gamma", "pack", "pack_stacked", "pp_sample_cohort",
-    "resolve_backend", "tree_compress", "tree_compress_worker",
-    "tree_decompress", "tree_dim", "tree_payload_bits", "unpack",
+    "BlockQSGD", "BlockRandK", "Compressor", "CorrelatedCompressor",
+    "FlatEngine", "FlatLayout", "Identity", "Marina", "MarinaState", "PPMarina",
+    "PermK", "RandK", "StepMetrics", "VRMarina", "make_compressor",
+    "make_downlink", "make_engine", "make_layout", "marina_gamma", "pack",
+    "pack_stacked", "pp_sample_cohort", "resolve_backend", "tree_compress",
+    "tree_compress_worker", "tree_decompress", "tree_dim", "tree_payload_bits",
+    "unpack",
 ]

@@ -7,15 +7,16 @@ an explicit PRNG key (:mod:`repro_torch.prng`), drawing exactly the bits the
 reference draws. :func:`tree_compress` lifts a compressor to pytrees leaf by
 leaf (Block-RandK semantics).
 
-Ported: ``Identity``, ``RandK``, ``BlockRandK`` and the correlated
-collection ``PermK`` (workers share one round key and are told their index:
-:func:`tree_compress_worker`). The other reference compressors raise
+Ported: ``Identity``, ``RandK``, ``BlockRandK``, the packed-wire
+``BlockQSGD`` and the correlated collection ``PermK`` (workers share one
+round key and are told their index: :func:`tree_compress_worker`). The other reference compressors raise
 ``NotImplementedError`` in :func:`make_compressor`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -126,6 +127,13 @@ class RandK(Compressor):
         return out.index_put_((payload["indices"],), vals, accumulate=True)
 
 
+def _pad_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Flat (d,) → zero-padded (ceil(d/block), block)."""
+    nblk = max(1, -(-x.shape[0] // block))
+    return torch.nn.functional.pad(x, (0, nblk * block - x.shape[0])).reshape(
+        nblk, block)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockRandK(Compressor):
     """Seeded blockwise RandK — the wire format of the flat engine.
@@ -159,10 +167,7 @@ class BlockRandK(Compressor):
         return wire.seeded_randk_bits(self._nblk(d), self.kb)
 
     def compress(self, key, x):
-        d = x.shape[0]
-        nblk = self._nblk(d)
-        x2d = torch.nn.functional.pad(x, (0, nblk * self.block - d)).reshape(
-            nblk, self.block)
+        x2d = _pad_blocks(x, self.block)
         seed = prng.key_to_seed(key)
         vals, _ = _ref.randk_seeded_ref(x2d, seed, self.kb, self.block / self.kb)
         return {"values": vals, "seed": seed}
@@ -173,6 +178,58 @@ class BlockRandK(Compressor):
                                    self.kb, device=vals.device)
         dense = _ref.scatter_accum_ref(vals[None], offs[None], self.block)
         return dense.reshape(-1)[:d].to(vals.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockQSGD(Compressor):
+    """Blockwise s-level ℓ2 QSGD — the packed quantization wire.
+
+    The vector is viewed as ``(nblk, block)`` zero-padded blocks, each
+    quantized against its own ℓ2 norm with the murmur3-seeded dither of the
+    flat engine's ``qsgd`` sampler, so both paths draw the same levels. Wire
+    per vector: nblk f32 norms + one level per coordinate, a signed 4-bit
+    nibble for s ≤ 7 (the levels cross the packed words), int8 for s ≤ 127.
+    ω = min(B/s², √B/s); ζ_Q ≤ s(s + √B) per block, capped at B."""
+
+    s: int = 7
+    block: int = 1024
+    name: str = dataclasses.field(default="block_qsgd", init=False)
+
+    def __post_init__(self):
+        if self.block & (self.block - 1):
+            raise ValueError("block must be a power of two")
+        if not 1 <= self.s <= wire.INT8_MAX_S:
+            raise ValueError(f"s={self.s} does not fit the int8 wire")
+
+    def _nblk(self, d: int) -> int:
+        return max(1, -(-d // self.block))
+
+    def omega(self, d: int) -> float:
+        return min(self.block / self.s**2, math.sqrt(self.block) / self.s)
+
+    def expected_density(self, d: int) -> float:
+        per_block = min(self.block, self.s * (self.s + math.sqrt(self.block)))
+        return float(min(d, self._nblk(d) * per_block))
+
+    def payload_bits(self, d: int) -> float:
+        return wire.block_qsgd_bits(self._nblk(d), self.block, self.s)
+
+    def default_p(self, d: int) -> float:
+        """Bits-balanced p = bits_Q / (32d): the expected uplink of sync and
+        compressed rounds equal (ζ_Q ≈ d would make Cor. 2.1's p ≈ 1)."""
+        return min(1.0, max(self.payload_bits(d) / (32.0 * d), 1e-6))
+
+    def compress(self, key, x):
+        x2d = _pad_blocks(x, self.block)
+        levels, norms = _ref.qsgd_block_ref(x2d, prng.key_to_seed(key), self.s)
+        if self.s <= wire.NIBBLE_MAX_S:  # the levels cross the 4-bit words
+            levels = _ref.nibble_unpack_ref(_ref.nibble_pack_ref(levels), self.block)
+        return {"q": levels, "norms": norms}
+
+    def decompress(self, payload, d):
+        dense = _ref.qsgd_dequant_mean_ref(payload["q"][None], payload["norms"][None],
+                                           self.s)
+        return dense.reshape(-1)[:d]
 
 
 # ---------------------------------------------------------------------------
@@ -241,10 +298,8 @@ class PermK(CorrelatedCompressor):
         return (1.0, 1.0)
 
     def compress_worker(self, key, x, wid):
-        d = x.shape[0]
-        nblk = self._nblk(d)
-        x2d = torch.nn.functional.pad(x, (0, nblk * self.block - d)).reshape(
-            nblk, self.block)
+        x2d = _pad_blocks(x, self.block)
+        nblk = x2d.shape[0]
         seed = prng.key_to_seed(key)  # SHARED across workers: same key, same π
         offs = _ref.permk_offsets_ref(seed, nblk, self.block, self._n(), wid,
                                       x.device)
@@ -319,7 +374,7 @@ def tree_dim(tree: PyTree) -> int:
     return sum(int(np.prod(l.shape)) for l in tree_leaves(tree))
 
 
-_NOT_PORTED = ("block_qsgd", "flat_qsgd", "block_natural", "flat_natural",
+_NOT_PORTED = ("block_natural", "flat_natural",
                "shared_randk", "correlated_qsgd",
                "correlated_q", "cqsgd", "topk", "qsgd", "natural")
 
@@ -333,6 +388,8 @@ def make_compressor(name: str, **kw) -> Compressor:
         return RandK(**kw)
     if name in ("block_randk", "flat_randk"):
         return BlockRandK(**kw)
+    if name in ("block_qsgd", "flat_qsgd"):
+        return BlockQSGD(**kw)
     if name in ("permk", "perm_k"):
         return PermK(**kw)
     if name in _NOT_PORTED:

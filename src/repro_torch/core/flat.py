@@ -5,7 +5,7 @@
   ``jax.tree.flatten`` order (:mod:`repro_torch.core.tree_util`), so the
   seeded offsets hit the same coordinates as in the reference.
 * :class:`FlatEngine` — the fused compress → uplink → decompress-mean
-  pipeline over that buffer, with one of two seeded wires:
+  pipeline over that buffer, with one of three seeded wires:
 
   - ``randk``: per-worker payloads are ``(nblk, kb)`` values whose offsets
     the server regenerates from the worker's uint32 seed; aggregation
@@ -14,6 +14,15 @@
     permutation that partitions every block; worker w uplinks its
     ``(nblk, B/n)`` share scaled by n, and the server assembles the mean by
     an inverse-permutation gather (no scatter, no collisions).
+  - ``qsgd``: blockwise s-level ℓ2 QSGD on the packed wire; worker w's
+    levels (int8, |level| ≤ s) and per-block f32 norms come from its uint32
+    seed's murmur3 dither, cross the 4-bit nibble words when s ≤ 7, and the
+    server dequantizes and averages them.
+
+  A second engine over the same layout (:func:`make_downlink`) compresses
+  the server's broadcast: ``fused_round(down=…)`` and
+  :meth:`FlatEngine.roundtrip_worker` send the aggregated round delta
+  through it as one payload (n = 1).
 
 Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
 (CUDA tensors only) and ``auto`` call the kernel wrappers in
@@ -21,10 +30,9 @@ Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
 tensors and run the plain versions on CPU tensors — so ``auto`` resolves to
 ``cuda`` for CUDA tensors and ``ref`` for CPU ones.
 
-The ``qsgd``, ``natural`` and ``randk_qsgd`` samplers are not ported yet
-(``NotImplementedError``).
-Robust aggregators and the compressed downlink are not ported yet (``Marina``
-refuses them).
+The ``natural`` and ``randk_qsgd`` samplers are not ported yet
+(``NotImplementedError``), nor are robust aggregators (``Marina`` refuses
+them).
 """
 
 from __future__ import annotations
@@ -39,11 +47,12 @@ from repro_torch import prng
 from repro_torch.device import default_device
 from repro_torch.kernels import epilogue as _epi
 from repro_torch.kernels import permk as _permk
+from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import randk as _randk
 from repro_torch.kernels import ref as _ref
 
 from . import wire
-from .tree_util import TreeDef, tree_flatten
+from .tree_util import TreeDef, tree_flatten, tree_map
 
 PyTree = Any
 
@@ -164,6 +173,25 @@ def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
     return (bits & (block - 1)).to(torch.int32)
 
 
+def nibble_roundtrip(levels: torch.Tensor, block: int,
+                     backend: str = "auto") -> torch.Tensor:
+    """Push (n, nblk, B) int8 levels through the 4-bit wire: pack eight to a
+    32-bit word, then unpack with sign extension. The identity on levels in
+    [−8, 7]; running it keeps the pipeline honest about what the wire
+    carries. Backends as for the engine: 'ref' runs the plain versions, the
+    others the kernel wrappers."""
+    n, nblk, B = levels.shape
+    if B != block:
+        raise ValueError(f"levels last dim {B} != wire block width {block}")
+    resolve_backend(backend, levels)  # 'cuda' with a CPU tensor raises
+    if backend == "ref":
+        pack_fn, unpack_fn = _ref.nibble_pack_ref, _ref.nibble_unpack_ref
+    else:
+        pack_fn, unpack_fn = _quant.nibble_pack, _quant.nibble_unpack
+    words = pack_fn(levels.reshape(n * nblk, B))
+    return unpack_fn(words, B).reshape(n, nblk, B)
+
+
 # ---------------------------------------------------------------------------
 # The fused engine
 # ---------------------------------------------------------------------------
@@ -177,21 +205,25 @@ class FlatEngine:
     reference derives it (``split`` then ``bits``) and its counter stream
     restarts at 0; sampling is with replacement, ω = B/kb. ``permk``: one
     seed from the round key (``bits``) for all workers; ``kb`` is unused,
-    and the worker count must divide B."""
+    and the worker count must divide B. ``qsgd``: per-worker seeds as for
+    randk, ``s`` levels; ``kb`` is unused."""
 
     layout: FlatLayout
     kb: int = 8
     backend: str = "auto"
     sampler: str = "randk"
+    s: int = 7              # quantization levels of the qsgd sampler
     #: the device the engine's buffers live on (None: whatever it is given)
     device: Any = None
 
-    SAMPLERS = ("randk", "permk")
+    SAMPLERS = ("randk", "permk", "qsgd")
 
     def __post_init__(self):
         if self.sampler not in self.SAMPLERS:
             raise NotImplementedError(
                 f"sampler {self.sampler!r} is not ported yet (only {self.SAMPLERS})")
+        if self.sampler == "qsgd" and not 1 <= self.s <= wire.INT8_MAX_S:
+            raise ValueError(f"s={self.s} does not fit the int8 wire")
         resolve_backend(self.backend)
 
     def worker_seeds(self, key, n: int) -> np.ndarray:
@@ -211,9 +243,12 @@ class FlatEngine:
     def omega(self) -> float:
         """Def-1.1 ω of one worker's sampler. PermK's is collection-level
         (n − 1): ask the compressor."""
+        B = self.layout.block
         if self.sampler == "permk":
             raise ValueError("PermK ω is n − 1; ask the compressor")
-        return self.layout.block / self.kb
+        if self.sampler == "qsgd":
+            return min(B / self.s**2, float(np.sqrt(B)) / self.s)
+        return B / self.kb
 
     def payload_bits(self, n: "int | None" = None) -> float:
         """Wire bits per worker per compressed round (wire.py). A permk
@@ -225,6 +260,8 @@ class FlatEngine:
             if lay.block % n:
                 raise ValueError("worker count must divide the block width")
             return wire.permk_bits(lay.padded, n)
+        if self.sampler == "qsgd":
+            return wire.block_qsgd_bits(lay.nblk, lay.block, self.s)
         return wire.seeded_randk_bits(lay.nblk, self.kb)
 
     # -- stages -------------------------------------------------------------
@@ -250,6 +287,11 @@ class FlatEngine:
         """Server-side aggregate over packed diffs: (n, nblk, B) → (nblk, B)."""
         if self.sampler == "permk":
             return self._permk_mean(key, bufs)
+        if self.sampler == "qsgd":
+            levels, norms = self._qsgd_payloads(key, bufs, n)
+            fn = (_ref.qsgd_dequant_mean_ref if self._plain(levels)
+                  else _quant.qsgd_dequant_mean)
+            return fn(levels, norms, self.s)
         vals, offs = self.compress_stacked(self.worker_seeds(key, n), bufs)
         return self.decompress_mean(vals, offs)
 
@@ -264,12 +306,43 @@ class FlatEngine:
         vals, _ = fn(bufs, seed)
         return _ref.permk_concat_mean_ref(vals, seed, self.layout.block)
 
+    def _qsgd_payloads(self, key, bufs: torch.Tensor, n: int):
+        """Every worker's QSGD payload (levels, norms), the levels through the
+        4-bit words when s ≤ 7."""
+        seeds = _randk.seeds_tensor(self.worker_seeds(key, n), bufs.device)
+        fn = (_ref.qsgd_block_workers_ref if self._plain(bufs)
+              else _quant.qsgd_block_workers)
+        levels, norms = fn(bufs, seeds, self.s)
+        if self.s <= wire.NIBBLE_MAX_S:
+            levels = nibble_roundtrip(levels, self.layout.block, self.backend)
+        return levels, norms
+
     def fused_round(self, key, diff_bufs: torch.Tensor, n: int, g2d: torch.Tensor,
-                    x2d: torch.Tensor, gamma: float):
+                    x2d: torch.Tensor, gamma: float, down: "FlatEngine | None" = None,
+                    down_key=None):
         """Finish a compressed round in one sweep: sample the uplink payloads
-        from the packed diffs, then the fused epilogue (scatter-mean →
-        ``g += δ`` → ``x −= γ·g``). Returns ``(g_new f32, x_new)``. PermK
-        rounds assemble the dense delta first and end in the delta epilogue."""
+        from the packed diffs, then the fused epilogue (scatter-mean or
+        dequant-mean → ``g += δ`` → ``x −= γ·g``). Returns
+        ``(g_new f32, x_new)``. PermK rounds assemble the dense delta first
+        and end in the delta epilogue.
+
+        With ``down`` (an engine over the same layout) the round is
+        bidirectional: the uplink aggregates to the dense δ_up, the server
+        broadcasts Q_down(δ_up) under ``down_key``, and the epilogue
+        consumes that single payload (n = 1)."""
+        if down is not None:
+            if (down.layout.block, down.layout.nblk) != (self.layout.block,
+                                                          self.layout.nblk):
+                raise ValueError("the downlink engine must share the uplink layout")
+            if down.sampler == "permk":
+                raise ValueError("PermK is a partition across n receivers; a broadcast "
+                                 "downlink has one payload: use randk or qsgd")
+            delta = self.aggregate(key, diff_bufs, n)
+            return down.fused_round(down_key, delta[None], 1, g2d, x2d, gamma)
+        if self.sampler == "qsgd":
+            levels, norms = self._qsgd_payloads(key, diff_bufs, n)
+            fn = _ref.qsgd_epilogue_ref if self._plain(levels) else _epi.qsgd_epilogue
+            return fn(levels, norms, g2d, x2d, gamma, self.s)
         if self.sampler == "permk":
             delta = self._permk_mean(key, diff_bufs)
             fn = _ref.delta_epilogue_ref if self._plain(delta) else _epi.delta_epilogue
@@ -284,6 +357,11 @@ class FlatEngine:
         fn = _ref.mean_epilogue_ref if self._plain(grad_bufs) else _epi.mean_epilogue
         return fn(grad_bufs, x2d, gamma)
 
+    def roundtrip_worker(self, key, tree: PyTree) -> PyTree:
+        """Q(x) of one payload through the whole pipeline (n = 1): the
+        compressed downlink's broadcast of a dense tree."""
+        return self.fused_delta(key, tree_map(lambda t: t[None], tree), 1)
+
     def _plain(self, buf: torch.Tensor) -> bool:
         """True for backend 'ref'; otherwise the kernel wrappers run. 'cuda'
         with a CPU buffer raises here."""
@@ -295,9 +373,19 @@ class FlatEngine:
 
 def make_engine(params: PyTree, kb: int = 8, block: int = DEFAULT_BLOCK,
                 backend: str = "auto", dtype=torch.float32,
-                sampler: str = "randk", device=None) -> FlatEngine:
+                sampler: str = "randk", s: int = 7, device=None) -> FlatEngine:
     """Engine for a parameter tree: layout once, fused pipeline forever.
     Runs on ``cuda`` unless ``device`` names another (raises without a card)."""
     return FlatEngine(layout=make_layout(params, block=block, dtype=dtype),
-                      kb=kb, backend=backend, sampler=sampler,
+                      kb=kb, backend=backend, sampler=sampler, s=s,
                       device=default_device(device))
+
+
+def make_downlink(engine: FlatEngine, sampler: str = "qsgd",
+                  kb: "int | None" = None, s: "int | None" = None) -> FlatEngine:
+    """Downlink engine sharing ``engine``'s layout, backend and device: the
+    server's compressor of Q_down(g^{k+1} − g^k). PermK is refused at use
+    time (a broadcast has one payload, not an n-partition)."""
+    return dataclasses.replace(engine, sampler=sampler,
+                               kb=engine.kb if kb is None else kb,
+                               s=engine.s if s is None else s)

@@ -24,8 +24,15 @@ the workers (the reference's ``vmap``), written into one stacked tree.
   and with ``carry=True`` keeps a server-side table of every client's last
   gradient, refreshed only for the sampled rows.
 
-Not ported yet (raise): the compressed downlink, robust aggregators and
-fault injection.
+* The compressed downlink (``down_engine``, a second flat engine over the
+  uplink's layout from :func:`repro_torch.core.flat.make_downlink`): on
+  compressed rounds the server broadcasts Q_down(δ_up) under the key
+  ``fold_in(key, _DOWN_FOLD)`` — the round's (k_bern, k_q) split is
+  untouched — and ``StepMetrics.down_bits`` books its payload instead of
+  the dense 32d broadcast.
+
+Not ported yet (raise): a per-leaf tree ``down_compressor``, robust
+aggregators and fault injection.
 """
 
 from __future__ import annotations
@@ -62,6 +69,11 @@ from .tree_util import (
 
 PyTree = Any
 GradFn = Callable[[PyTree, PyTree], PyTree]  # (params, batch) -> grad tree
+
+#: fold_in constant deriving the downlink key from the step key without
+#: perturbing the (k_bern, k_q) split: a downlink run draws the same uplink
+#: randomness as a run without one
+_DOWN_FOLD = 0x0D0C
 
 
 class StepMetrics(NamedTuple):
@@ -120,6 +132,24 @@ def _compressed_delta(comp: Compressor, engine: "FlatEngine | None", key,
     return tree_mean_axis0(tree_stack_workers(dense))
 
 
+def _down_roundtrip(down_engine: "FlatEngine | None", key, delta: PyTree) -> PyTree:
+    """The compressed downlink on the aggregated round delta: the server
+    broadcasts Q_down(δ_up) and every worker decompresses it — since
+    g^{k+1} − g^k = δ_up, this is the compressed estimator difference. The
+    identity without a downlink (dense broadcast)."""
+    if down_engine is None:
+        return delta
+    return down_engine.roundtrip_worker(key, delta)
+
+
+def _down_round_bits(down_engine: "FlatEngine | None", d: int) -> float:
+    """Bits each worker receives on a compressed round: the downlink's one
+    payload, or the dense 32d estimator without one."""
+    if down_engine is None:
+        return wire.downlink_dense_bits(d)
+    return down_engine.payload_bits(1)
+
+
 def _round_bits(comp: Compressor, engine: "FlatEngine | None", like: PyTree,
                 n: int = 1) -> float:
     """Per-worker uplink bits of one compressed round (the ζ_Q axis). ``n``
@@ -140,12 +170,13 @@ def _sync_mean(engine: "FlatEngine | None", grads: PyTree) -> PyTree:
 
 
 def _carry_finish(m, state: "MarinaState", c_k: bool, k_q, grads: PyTree,
-                  make_diffs: Optional[Callable[[], PyTree]], n: int):
+                  make_diffs: Optional[Callable[[], PyTree]], n: int, k_down):
     """End a carry round: g' = the worker mean of ``grads`` (sync) or
-    g + (1/n) Σ Q(``make_diffs()``) (compressed), then x' = x − γ·g'. With
-    an engine, one fused epilogue over the packed buffers (g stays packed).
-    The diff tree is built here, so on the engine path it is freed once
-    packed. Returns (params', g')."""
+    g + (1/n) Σ Q(``make_diffs()``) (compressed, through the downlink under
+    ``k_down`` if there is one), then x' = x − γ·g'. With an engine, one
+    fused epilogue over the packed buffers (g stays packed). The diff tree
+    is built here, so on the engine path it is freed once packed. Returns
+    (params', g')."""
     if m.engine is not None:
         lay = m.engine.layout
         x2d = pack(lay, state.params)
@@ -153,13 +184,15 @@ def _carry_finish(m, state: "MarinaState", c_k: bool, k_q, grads: PyTree,
             g2d, x_new2d = m.engine.fused_sync(pack_stacked(lay, grads), x2d, m.gamma)
         else:
             g2d, x_new2d = m.engine.fused_round(
-                k_q, pack_stacked(lay, make_diffs()), n, state.g, x2d, m.gamma)
+                k_q, pack_stacked(lay, make_diffs()), n, state.g, x2d, m.gamma,
+                down=m.down_engine, down_key=k_down)
         return unpack(lay, x_new2d), g2d
     if c_k:
         g_next = tree_mean_axis0(grads)
     else:
         delta = _compressed_delta(m.compressor, None, k_q, make_diffs(),
                                   state.params, n)
+        delta = _down_roundtrip(m.down_engine, k_down, delta)
         g_next = tree_map(torch.add, state.g, delta)
     return tree_axpy(-m.gamma, g_next, state.params), g_next
 
@@ -172,19 +205,33 @@ def _lookahead_init(m, params: PyTree, grads: PyTree, g0: PyTree) -> "MarinaStat
     return MarinaState(params=x1, g=g, step=0, h=grads)
 
 
+def _check_downlink_config(m) -> None:
+    """A fused carry round consumes the downlink payload inside the epilogue
+    kernel, which speaks only the flat wire formats: a per-leaf
+    ``down_compressor`` cannot slot in there, and skipping it would book
+    compressed down-bits for a dense broadcast."""
+    if m.carry and m.engine is not None and (
+            m.down_compressor is not None and m.down_engine is None):
+        raise ValueError(
+            "carry=True with a flat engine needs a down_engine for the "
+            "compressed downlink (make_downlink(engine, ...)); a per-leaf "
+            "down_compressor only fits the tree paths")
+
+
 def _refuse_unported(m) -> None:
-    for name in ("down_compressor", "down_engine", "aggregator", "faults"):
+    _check_downlink_config(m)
+    for name in ("down_compressor", "aggregator", "faults"):
         if getattr(m, name) is not None:
             raise NotImplementedError(
                 f"{type(m).__name__}({name}=...) is not ported yet")
 
 
-def _metrics(comp, engine, like: PyTree, gnorm, c_k: bool, oracle: float,
+def _metrics(m, like: PyTree, gnorm, c_k: bool, oracle: float,
              n: int) -> StepMetrics:
     d = tree_dim(like)
     bits_dense = wire.dense_f32_bits(d)
-    bits = bits_dense if c_k else _round_bits(comp, engine, like, n)
-    down = bits_dense if c_k else wire.downlink_dense_bits(d)
+    bits = bits_dense if c_k else _round_bits(m.compressor, m.engine, like, n)
+    down = bits_dense if c_k else _down_round_bits(m.down_engine, d)
     return StepMetrics(grad_est_norm=gnorm, bits_per_worker=bits,
                        sync_round=int(c_k), oracle_calls=oracle, down_bits=down)
 
@@ -244,10 +291,12 @@ class Marina:
             del g_new, g_prev
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
                                       state.params, n)
+            delta = _down_roundtrip(self.down_engine,
+                                    prng.fold_in(key, _DOWN_FOLD), delta)
             g_next = tree_map(torch.add, state.g, delta)
 
-        metrics = _metrics(self.compressor, self.engine, state.params,
-                           tree_norm(g_next), c_k, 1.0 if c_k else 2.0, n)
+        metrics = _metrics(self, state.params, tree_norm(g_next), c_k,
+                           1.0 if c_k else 2.0, n)
         return MarinaState(params=x_new, g=g_next, step=state.step + 1), metrics
 
     # -- gradient-carry lookahead rounds (one backprop, fused epilogue) -----
@@ -259,10 +308,10 @@ class Marina:
         # the one backprop of the round: state.params is already x^{k+1}
         grads = _per_worker_grads(self.grad_fn, state.params, batches)
         params, g = _carry_finish(self, state, c_k, k_q, grads,
-                                  lambda: tree_sub(grads, state.h), n)
+                                  lambda: tree_sub(grads, state.h), n,
+                                  prng.fold_in(key, _DOWN_FOLD))
         new_state = MarinaState(params=params, g=g, step=state.step + 1, h=grads)
-        return new_state, _metrics(self.compressor, self.engine, state.params,
-                                   tree_norm(g), c_k, 1.0, n)
+        return new_state, _metrics(self, state.params, tree_norm(g), c_k, 1.0, n)
 
     def step(self, state: MarinaState, key, batches: PyTree):
         if self.carry:
@@ -324,12 +373,13 @@ class VRMarina:
             del g_new, g_prev
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
                                       state.params, n)
+            delta = _down_roundtrip(self.down_engine,
+                                    prng.fold_in(key, _DOWN_FOLD), delta)
             g_next = tree_map(torch.add, state.g, delta)
 
         oracle = (float(_batch_rows(full_batches)) if c_k
                   else 2.0 * _batch_rows(mb_batches))
-        metrics = _metrics(self.compressor, self.engine, state.params,
-                           tree_norm(g_next), c_k, oracle, n)
+        metrics = _metrics(self, state.params, tree_norm(g_next), c_k, oracle, n)
         return MarinaState(params=x_new, g=g_next, step=state.step + 1), metrics
 
     def _step_carry(self, state, key, full_batches, mb_batches):
@@ -343,12 +393,12 @@ class VRMarina:
         else:
             grads = _per_worker_grads(self.mb_grad_fn, state.params, mb_batches)
         params, g = _carry_finish(self, state, c_k, k_q, grads,
-                                  lambda: tree_sub(grads, state.h), n)
+                                  lambda: tree_sub(grads, state.h), n,
+                                  prng.fold_in(key, _DOWN_FOLD))
         oracle = (float(_batch_rows(full_batches)) if c_k
                   else 1.0 * _batch_rows(mb_batches))
         new_state = MarinaState(params=params, g=g, step=state.step + 1, h=grads)
-        return new_state, _metrics(self.compressor, self.engine, state.params,
-                                   tree_norm(g), c_k, oracle, n)
+        return new_state, _metrics(self, state.params, tree_norm(g), c_k, oracle, n)
 
     def step(self, state: MarinaState, key, full_batches: PyTree,
              mb_batches: PyTree):
@@ -481,6 +531,8 @@ class PPMarina:
             del g_new, g_prev
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
                                       state.params, self.r)
+            delta = _down_roundtrip(self.down_engine,
+                                    prng.fold_in(key, _DOWN_FOLD), delta)
             g_next = tree_map(torch.add, state.g, delta)
 
         new_state = MarinaState(params=x_new, g=g_next, step=state.step + 1)
@@ -497,7 +549,8 @@ class PPMarina:
             grads = _per_worker_grads(self.grad_fn, state.params, batches)
             h_new = grads
             if self.weights is None:
-                params, g = _carry_finish(self, state, True, k_q, grads, None, n)
+                params, g = _carry_finish(self, state, True, k_q, grads, None, n,
+                                          None)
             else:
                 g = _weighted_mean_axis0(grads, self.weights)
                 if self.engine is not None:
@@ -516,7 +569,7 @@ class PPMarina:
                 self, state, False, k_q, None,
                 lambda: self._scaled_diffs(
                     tree_sub(grads_sel, _take_rows(state.h, sel)), sel, n),
-                self.r)
+                self.r, prng.fold_in(key, _DOWN_FOLD))
 
         new_state = MarinaState(params=params, g=g, step=state.step + 1, h=h_new)
         return new_state, self._metrics(c_k, tree_norm(g), state.params, n, 1.0)
@@ -533,7 +586,8 @@ class PPMarina:
         return StepMetrics(
             grad_est_norm=gnorm, bits_per_worker=total / n, sync_round=int(c_k),
             oracle_calls=1.0 if c_k else oracle_factor * self.r / n,
-            down_bits=wire.dense_f32_bits(d) if c_k else wire.downlink_dense_bits(d))
+            down_bits=(wire.dense_f32_bits(d) if c_k
+                       else _down_round_bits(self.down_engine, d)))
 
     def step(self, state: MarinaState, key, batches: PyTree):
         if self.carry:

@@ -5,15 +5,20 @@
                     ``csrc/randk.cu``.
 * ``permk.py``    — PermK uplink with one shared seed
                     (`permk_seeded_workers`), over ``csrc/permk.cu``.
+* ``quantize.py`` — packed QSGD wire: blockwise QSGD uplink
+                    (`qsgd_block_workers`), dequantize-and-mean
+                    (`qsgd_dequant_mean`) and the 4-bit words
+                    (`nibble_pack`, `nibble_unpack`), over
+                    ``csrc/quantize.cu``.
 * ``epilogue.py`` — fused server epilogues (`scatter_epilogue`,
-                    `delta_epilogue`, `mean_epilogue`), over
-                    ``csrc/epilogue.cu``.
+                    `delta_epilogue`, `qsgd_epilogue`, `mean_epilogue`),
+                    over ``csrc/epilogue.cu``.
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.
 """
 
-from . import epilogue, permk, randk, ref
+from . import epilogue, permk, quantize, randk, ref
 
 #: every kernel wrapper of the main path, by name
 KERNELS = {
@@ -23,6 +28,11 @@ KERNELS = {
     "mean_epilogue": epilogue.mean_epilogue,
     "permk_seeded_workers": permk.permk_seeded_workers,
     "delta_epilogue": epilogue.delta_epilogue,
+    "qsgd_block_workers": quantize.qsgd_block_workers,
+    "nibble_pack": quantize.nibble_pack,
+    "nibble_unpack": quantize.nibble_unpack,
+    "qsgd_dequant_mean": quantize.qsgd_dequant_mean,
+    "qsgd_epilogue": epilogue.qsgd_epilogue,
 }
 
 
@@ -36,5 +46,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "epilogue", "launch_counts", "permk", "randk", "ref",
-           "reset_launch_counts"]
+__all__ = ["KERNELS", "epilogue", "launch_counts", "permk", "quantize", "randk",
+           "ref", "reset_launch_counts"]

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("randk", "permk", "epilogue")
+SOURCES = ("randk", "permk", "quantize", "epilogue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -39,6 +39,13 @@ SIGNATURES = {
         "permk_seeded_workers_f32": (_P, _U, _P, _P, _I, _L, _I, _P),
         "permk_seeded_workers_bf16": (_P, _U, _P, _P, _I, _L, _I, _P),
     },
+    "quantize": {
+        "qsgd_block_workers_f32": (_P, _P, _P, _P, _I, _L, _I, _I, _P),
+        "qsgd_block_workers_bf16": (_P, _P, _P, _P, _I, _L, _I, _I, _P),
+        "qsgd_dequant_mean": (_P, _P, _P, _I, _L, _I, _I, _P),
+        "nibble_pack": (_P, _P, _L, _P),
+        "nibble_unpack": (_P, _P, _L, _P),
+    },
     "epilogue": {
         "scatter_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "scatter_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
@@ -46,6 +53,8 @@ SIGNATURES = {
         "mean_epilogue_bf16": (_P, _P, _P, _P, _I, _L, _F, _P),
         "delta_epilogue_f32": (_P, _P, _P, _P, _P, _L, _F, _P),
         "delta_epilogue_bf16": (_P, _P, _P, _P, _P, _L, _F, _P),
+        "qsgd_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
+        "qsgd_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
     },
 }
 

@@ -3,15 +3,20 @@
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/epilogue.py::scatter_epilogue
 // (seeded-RandK payloads, carry compressed rounds), ::mean_epilogue (packed
-// worker gradients, carry sync rounds) and ::delta_epilogue (an already-dense
-// round delta: the PermK aggregate on carry compressed rounds). Where the TPU
+// worker gradients, carry sync rounds), ::delta_epilogue (an already-dense
+// round delta: the PermK aggregate on carry compressed rounds) and
+// ::qsgd_epilogue (packed-QSGD payloads: int8 levels + per-block norms, the
+// QSGD uplink's and the compressed downlink's carry rounds). Where the TPU
 // version scatters through one-hot MXU matmuls, scatter_epilogue adds into a
 // shared-memory row.
 //
-// All three are bound by device-memory bytes: each reads g (or the n gradient
-// rows, or δ and g) and x once and writes g' and x' once; the arithmetic is a
-// few flops per coordinate. The x update rounds the multiply and the add separately
-// (__fmul_rn, __fadd_rn) — an FMA would differ from the oracle in the last bit.
+// All four are bound by device-memory bytes: each reads g (or the n gradient
+// rows, or δ and g, or the n int8 payloads and g) and x once and writes g' and
+// x' once; the arithmetic is a few flops per coordinate (qsgd_epilogue adds an
+// IEEE divide per worker per 4 coordinates and one per coordinate, whose
+// instruction time is not small beside its bytes: PERF.md). The x update rounds the
+// multiply and the add separately (__fmul_rn, __fadd_rn) — an FMA would differ
+// from the oracle in the last bit.
 //
 // x is f32 or bf16 (XT); g, g' and the accumulation are f32. x' is rounded to
 // XT to nearest even.
@@ -23,6 +28,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant.cuh"
 #include "scatter.cuh"
 
 __device__ __forceinline__ float load_x(const float* p, int64_t i) { return p[i]; }
@@ -102,6 +108,32 @@ __global__ void delta_epilogue_kernel(const float* __restrict__ delta,
   }
 }
 
+// One thread per 4 coordinates: the dequantize-and-mean of qsgd_dequant_mean
+// (quant.cuh), then g' = g + acc/n and the x update.
+template <typename XT>
+__global__ void qsgd_epilogue_kernel(const int8_t* __restrict__ levels,
+                                     const float* __restrict__ norms,
+                                     const float* __restrict__ g,
+                                     const XT* __restrict__ x,
+                                     float* __restrict__ g_out,
+                                     XT* __restrict__ x_out, int n, int64_t nblk,
+                                     int block, float s, float neg_gamma) {
+  const int64_t size = nblk * block;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const float fn = (float)n;
+  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < size / 4;
+       q += stride) {
+    const int64_t i0 = 4 * q;
+    float acc[4];
+    dequant_sum4(levels, norms, n, nblk, size, i0 / block, i0, s, acc);
+    for (int k = 0; k < 4; ++k) {
+      const float g_new = __fadd_rn(g[i0 + k], __fdiv_rn(acc[k], fn));
+      g_out[i0 + k] = g_new;
+      store_x(x_out, i0 + k, apply_update(neg_gamma, g_new, load_x(x, i0 + k)));
+    }
+  }
+}
+
 static unsigned elementwise_grid(long long size, int threads) {
   long long grid = (size + threads - 1) / threads;
   if (grid > 1048576) grid = 1048576;  // grid-stride loop covers the rest
@@ -148,6 +180,18 @@ static int launch_delta(const void* delta, const void* g, const void* x,
   return (int)cudaGetLastError();
 }
 
+template <typename XT>
+static int launch_qsgd(const void* levels, const void* norms, const void* g,
+                       const void* x, void* g_out, void* x_out, int n,
+                       long long nblk, int block, int s, float neg_gamma,
+                       void* stream) {
+  qsgd_epilogue_kernel<XT><<<elementwise_grid(nblk * block / 4, 256), 256, 0,
+                             (cudaStream_t)stream>>>(
+      (const int8_t*)levels, (const float*)norms, (const float*)g, (const XT*)x,
+      (float*)g_out, (XT*)x_out, n, nblk, block, (float)s, neg_gamma);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int scatter_epilogue_f32(const void* vals, const void* offs,
                                     const void* g, const void* x, void* g_out,
                                     void* x_out, int n, long long nblk, int block,
@@ -188,4 +232,20 @@ extern "C" int delta_epilogue_bf16(const void* delta, const void* g, const void*
                                    float neg_gamma, void* stream) {
   return launch_delta<__nv_bfloat16>(delta, g, x, g_out, x_out, size, neg_gamma,
                                      stream);
+}
+
+extern "C" int qsgd_epilogue_f32(const void* levels, const void* norms, const void* g,
+                                 const void* x, void* g_out, void* x_out, int n,
+                                 long long nblk, int block, int s, float neg_gamma,
+                                 void* stream) {
+  return launch_qsgd<float>(levels, norms, g, x, g_out, x_out, n, nblk, block, s,
+                            neg_gamma, stream);
+}
+
+extern "C" int qsgd_epilogue_bf16(const void* levels, const void* norms, const void* g,
+                                  const void* x, void* g_out, void* x_out, int n,
+                                  long long nblk, int block, int s, float neg_gamma,
+                                  void* stream) {
+  return launch_qsgd<__nv_bfloat16>(levels, norms, g, x, g_out, x_out, n, nblk, block,
+                                    s, neg_gamma, stream);
 }

@@ -1,6 +1,6 @@
 // murmur3 finalizer over (seed, counter): the counter-based RNG shared with
 // repro.kernels.ref.murmur_bits_ref. uint32 arithmetic wraps as in the oracle.
-// Included by randk.cu and permk.cu; each is compiled on its own.
+// Included by randk.cu, permk.cu and quantize.cu; each is compiled on its own.
 #pragma once
 #include <stdint.h>
 

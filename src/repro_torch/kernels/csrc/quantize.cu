@@ -1,0 +1,209 @@
+// Packed QSGD wire for Hopper (sm_90a): blockwise s-level QSGD uplink, the
+// server's dequantize-and-mean, and the 4-bit nibble words the levels cross
+// the wire in.
+//
+// Replaces the Pallas TPU kernels src/repro/kernels/quantize.py::
+// qsgd_block_workers, ::qsgd_dequant_mean, ::nibble_pack and ::nibble_unpack.
+// The TPU versions sweep one (1, B) VMEM tile per grid step in order; here
+// every (worker, block) row or group of coordinates is its own CTA or thread,
+// in no order, and nothing carries over between them.
+//
+// All four are bound by device-memory bytes: a few operations per byte
+// moved. qsgd_block_workers reads x (f32 or bf16) once and writes int8
+// levels and one f32 norm per row; the block's norm is reduced in registers
+// and shared memory, so x is never read twice. Its murmur3 hash, IEEE
+// divide and floor per coordinate take instruction time of the same order as
+// its bytes (PERF.md). qsgd_dequant_mean reads the n int8 payloads and writes
+// one f32 accumulator. The nibble kernels move 8 int8 to or from one 32-bit
+// word per thread.
+//
+// Floating-point order (the plain versions in ref.py repeat it exactly):
+// * the block norm: thread t squares its 4 contiguous elements and adds them
+//   left to right; each warp adds its 32 partials in a halving tree
+//   (shfl_down by 16, 8, 4, 2, 1); warp 0 adds the warps' sums in a halving
+//   tree; then an IEEE square root;
+// * the level: floor((s·|x|) / safe + u), each operation rounded once
+//   (__fmul_rn, __fdiv_rn, __fadd_rn; no reciprocal, no FMA);
+// * the dequant-mean: from 0, worker by worker, acc + level·(norm_w / s),
+//   then acc / n, each rounded once.
+//
+// C interface (loaded with ctypes): each entry point launches on the given
+// stream, does not synchronise, and returns cudaGetLastError(). The wrappers
+// check shapes, types and 16-byte alignment.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "murmur.cuh"
+#include "quant.cuh"
+
+// 4 contiguous elements of x as f32 (one 16-byte or 8-byte load)
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  v[0] = __low2float(a); v[1] = __high2float(a);
+  v[2] = __low2float(b); v[3] = __high2float(b);
+}
+
+// One CTA of B/4 threads per (w, b) row: the row's norm, then its B levels.
+template <typename XT>
+__global__ void qsgd_block_workers_kernel(const XT* __restrict__ x,
+                                          const int32_t* __restrict__ seeds,
+                                          int8_t* __restrict__ levels,
+                                          float* __restrict__ norms,
+                                          int64_t nblk, int block, float s) {
+  __shared__ float warp_sums[32];
+  __shared__ float row_norm;
+  const int64_t row = blockIdx.x;  // w·nblk + b
+  const int64_t b = row % nblk;
+  const int w = (int)(row / nblk);
+  const int t = threadIdx.x;
+  float v[4];
+  load4(x + row * block + 4 * t, v);
+
+  float p = __fmul_rn(v[0], v[0]);
+  p = __fadd_rn(p, __fmul_rn(v[1], v[1]));
+  p = __fadd_rn(p, __fmul_rn(v[2], v[2]));
+  p = __fadd_rn(p, __fmul_rn(v[3], v[3]));
+  for (int h = 16; h > 0; h >>= 1) p = __fadd_rn(p, __shfl_down_sync(0xffffffffu, p, h));
+  const int warps = blockDim.x >> 5;
+  if ((t & 31) == 0) warp_sums[t >> 5] = p;
+  __syncthreads();
+  if (t < 32) {
+    float q = t < warps ? warp_sums[t] : 0.0f;
+    for (int h = warps >> 1; h > 0; h >>= 1) q = __fadd_rn(q, __shfl_down_sync(0xffffffffu, q, h));
+    if (t == 0) {
+      row_norm = __fsqrt_rn(q);
+      norms[row] = row_norm;
+    }
+  }
+  __syncthreads();
+  const float norm = row_norm;
+  const float safe = norm > 0.0f ? norm : 1.0f;
+  // seeds arrive as int32 and are reinterpreted, not converted
+  const uint32_t seed = (uint32_t)seeds[w];
+  const uint32_t ctr0 = (uint32_t)(b * block + 4 * t);
+  char4 q;
+  q.x = qsgd_level(v[0], s, safe, murmur_bits(seed, ctr0));
+  q.y = qsgd_level(v[1], s, safe, murmur_bits(seed, ctr0 + 1u));
+  q.z = qsgd_level(v[2], s, safe, murmur_bits(seed, ctr0 + 2u));
+  q.w = qsgd_level(v[3], s, safe, murmur_bits(seed, ctr0 + 3u));
+  reinterpret_cast<char4*>(levels + row * block)[t] = q;
+}
+
+// One thread per 4 coordinates: the workers' payloads dequantized and
+// summed in order, ÷ n.
+__global__ void qsgd_dequant_mean_kernel(const int8_t* __restrict__ levels,
+                                         const float* __restrict__ norms,
+                                         float* __restrict__ out, int n,
+                                         int64_t nblk, int block, float s) {
+  const int64_t size = nblk * block;
+  const int64_t quads = size / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const float fn = (float)n;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += stride) {
+    float acc[4];
+    dequant_sum4(levels, norms, n, nblk, size, 4 * i / block, 4 * i, s, acc);
+    float4 o;
+    o.x = __fdiv_rn(acc[0], fn);
+    o.y = __fdiv_rn(acc[1], fn);
+    o.z = __fdiv_rn(acc[2], fn);
+    o.w = __fdiv_rn(acc[3], fn);
+    reinterpret_cast<float4*>(out)[i] = o;
+  }
+}
+
+// One thread per word: 8 int8 levels in [−8, 7] → one uint32, level t's
+// two's-complement nibble at bits [4t, 4t+4).
+__global__ void nibble_pack_kernel(const int8_t* __restrict__ q,
+                                   uint32_t* __restrict__ words, int64_t nwords) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nwords;
+       i += stride) {
+    const uint2 g = reinterpret_cast<const uint2*>(q)[i];
+    uint32_t word = 0;
+    for (int t = 0; t < 4; ++t) {
+      word |= ((g.x >> (8 * t)) & 0xFu) << (4 * t);
+      word |= ((g.y >> (8 * t)) & 0xFu) << (4 * t + 16);
+    }
+    words[i] = word;
+  }
+}
+
+// One thread per word: the inverse, each nibble sign-extended (8..15 → −8..−1).
+__global__ void nibble_unpack_kernel(const uint32_t* __restrict__ words,
+                                     int8_t* __restrict__ q, int64_t nwords) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nwords;
+       i += stride) {
+    const uint32_t word = words[i];
+    uint2 g = {0u, 0u};
+    for (int t = 0; t < 4; ++t) {
+      // shift the nibble to the top of an int32, then arithmetic-shift back
+      const uint32_t lo = (uint32_t)((int32_t)(word << (28 - 4 * t)) >> 28) & 0xFFu;
+      const uint32_t hi = (uint32_t)((int32_t)(word << (12 - 4 * t)) >> 28) & 0xFFu;
+      g.x |= lo << (8 * t);
+      g.y |= hi << (8 * t);
+    }
+    reinterpret_cast<uint2*>(q)[i] = g;
+  }
+}
+
+static unsigned grid_for(long long work, int threads) {
+  long long grid = (work + threads - 1) / threads;
+  if (grid > 1048576) grid = 1048576;  // grid-stride loops cover the rest
+  return (unsigned)(grid < 1 ? 1 : grid);
+}
+
+template <typename XT>
+static int launch_qsgd(const void* x, const void* seeds, void* levels, void* norms,
+                       int n, long long nblk, int block, int s, void* stream) {
+  qsgd_block_workers_kernel<XT><<<(unsigned)(n * nblk), block / 4, 0,
+                                  (cudaStream_t)stream>>>(
+      (const XT*)x, (const int32_t*)seeds, (int8_t*)levels, (float*)norms, nblk,
+      block, (float)s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qsgd_block_workers_f32(const void* x, const void* seeds, void* levels,
+                                      void* norms, int n, long long nblk, int block,
+                                      int s, void* stream) {
+  return launch_qsgd<float>(x, seeds, levels, norms, n, nblk, block, s, stream);
+}
+
+extern "C" int qsgd_block_workers_bf16(const void* x, const void* seeds, void* levels,
+                                       void* norms, int n, long long nblk, int block,
+                                       int s, void* stream) {
+  return launch_qsgd<__nv_bfloat16>(x, seeds, levels, norms, n, nblk, block, s,
+                                    stream);
+}
+
+extern "C" int qsgd_dequant_mean(const void* levels, const void* norms, void* out,
+                                 int n, long long nblk, int block, int s,
+                                 void* stream) {
+  qsgd_dequant_mean_kernel<<<grid_for(nblk * block / 4, 256), 256, 0,
+                             (cudaStream_t)stream>>>(
+      (const int8_t*)levels, (const float*)norms, (float*)out, n, nblk, block,
+      (float)s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nibble_pack(const void* q, void* words, long long nwords, void* stream) {
+  nibble_pack_kernel<<<grid_for(nwords, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)q, (uint32_t*)words, nwords);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nibble_unpack(const void* words, void* q, long long nwords,
+                             void* stream) {
+  nibble_unpack_kernel<<<grid_for(nwords, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (int8_t*)q, nwords);
+  return (int)cudaGetLastError();
+}

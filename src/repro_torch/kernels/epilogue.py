@@ -3,8 +3,9 @@
 
 Ports ``repro.kernels.epilogue::scatter_epilogue`` (carry compressed
 RandK rounds), ``::delta_epilogue`` (carry compressed PermK rounds, whose
-aggregate is already dense) and ``::mean_epilogue`` (carry sync rounds):
-aggregate the worker payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded separately,
+aggregate is already dense), ``::qsgd_epilogue`` (carry compressed rounds of
+the packed QSGD wire, uplink or downlink) and ``::mean_epilogue`` (carry sync
+rounds): aggregate the worker payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded separately,
 in x's dtype (f32 or bf16). A wrapper given CUDA tensors launches its kernel
 (or raises); given CPU tensors it returns the plain version from
 :mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in
@@ -18,6 +19,7 @@ import torch
 
 from . import _build
 from . import ref as _ref
+from .quantize import check_cuda_buffers, check_payload, check_qsgd_block
 from .randk import _check_payload, _stream
 
 _X_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -118,3 +120,30 @@ def mean_epilogue(gbufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
 
 
 mean_epilogue.launches = 0
+
+
+def qsgd_epilogue(levels: torch.Tensor, norms: torch.Tensor, g2d: torch.Tensor,
+                  x2d: torch.Tensor, gamma: float, s: int):
+    """QSGD payloads (n, nblk, B) int8 + (n, nblk) f32 + g (nblk, B) f32 + x
+    (nblk, B) → (g' = g + dequantized mean f32, x' x.dtype)."""
+    if not levels.is_cuda:
+        return _ref.qsgd_epilogue_ref(levels, norms, g2d, x2d, gamma, s)
+    n, nblk, B = levels.shape
+    check_qsgd_block(B, nblk, s)
+    check_payload(levels, norms)
+    suffix = _check_gx(g2d, x2d, (nblk, B))
+    check_cuda_buffers(levels, norms, g2d, x2d)
+    g_out = torch.empty_like(g2d)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"qsgd_epilogue_{suffix}")(
+        levels.data_ptr(), norms.data_ptr(), g2d.data_ptr(), x2d.data_ptr(),
+        g_out.data_ptr(), x_out.data_ptr(), n, nblk, B, int(s), _neg_gamma(gamma),
+        _stream(),
+    )
+    _build.check(err, "qsgd_epilogue")
+    qsgd_epilogue.launches += 1
+    return g_out, x_out
+
+
+qsgd_epilogue.launches = 0

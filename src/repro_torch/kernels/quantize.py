@@ -1,0 +1,148 @@
+"""Packed QSGD wire: wrappers of the Hopper kernels in ``csrc/quantize.cu``.
+
+Ports ``repro.kernels.quantize::qsgd_block_workers`` (blockwise s-level
+QSGD uplink: int8 levels + one f32 norm per block), ``::qsgd_dequant_mean``
+(the server's dequantize-and-mean) and ``::nibble_pack`` / ``::nibble_unpack``
+(the 4-bit wire: eight two's-complement nibbles per 32-bit word). A wrapper
+given CUDA tensors launches its kernel (or raises); given CPU tensors it
+returns the plain version from :mod:`repro_torch.kernels.ref`. Each wrapper
+counts its launches in ``<wrapper>.launches``.
+
+The words are uint32 bit patterns held in int32 tensors (PyTorch's uint32
+lacks the shifts and adds the plain versions need). The kernels take
+contiguous tensors whose data start on a 16-byte boundary (every tensor
+PyTorch allocates does) and blocks of 128 to 4096 coordinates.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import ref as _ref
+from .randk import _check_block, _stream
+
+_X_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_cuda_buffers(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous, 16-byte aligned and on the
+    first one's device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the QSGD kernels take contiguous, 16-byte aligned tensors")
+        if t.device != dev:
+            raise ValueError("the QSGD kernels take tensors on one device")
+
+
+def check_qsgd_block(B: int, nblk: int, s: int) -> None:
+    """Shapes the QSGD kernels take: one CTA of B/4 threads per block, the
+    dither counter b·B + j in uint32, levels |l| ≤ s in int8."""
+    _check_block(B)
+    if not 128 <= B <= 4096:
+        raise ValueError(f"block width {B} must lie in [128, 4096] for the kernels")
+    if nblk * B > 2**32:
+        raise ValueError("the dither counter b·B + j must fit in 32 bits")
+    if not 1 <= s <= 127:
+        raise ValueError(f"s={s} does not fit the int8 wire")
+
+
+def check_payload(levels: torch.Tensor, norms: torch.Tensor) -> None:
+    n, nblk, _ = levels.shape
+    if levels.dtype != torch.int8 or norms.dtype != torch.float32:
+        raise ValueError("QSGD payloads are int8 levels and f32 norms")
+    if tuple(norms.shape) != (n, nblk):
+        raise ValueError(f"norms must have shape {(n, nblk)}")
+
+
+def qsgd_block_workers(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
+    """Per-worker blockwise QSGD: (n, nblk, B) f32 or bf16 + (n,) int32 seeds
+    → levels (n, nblk, B) int8 and norms (n, nblk) f32."""
+    n, nblk, B = x3d.shape
+    if not x3d.is_cuda:
+        return _ref.qsgd_block_workers_ref(x3d, seeds, s)
+    check_qsgd_block(B, nblk, s)
+    if x3d.dtype not in _X_SUFFIX:
+        raise ValueError("qsgd_block_workers takes an f32 or bf16 buffer")
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (n,):
+        raise ValueError("seeds must be an (n,) int32 tensor")
+    check_cuda_buffers(x3d, seeds)
+    levels = torch.empty((n, nblk, B), dtype=torch.int8, device=x3d.device)
+    norms = torch.empty((n, nblk), dtype=torch.float32, device=x3d.device)
+    lib = _build.library("quantize")
+    err = getattr(lib, f"qsgd_block_workers_{_X_SUFFIX[x3d.dtype]}")(
+        x3d.data_ptr(), seeds.data_ptr(), levels.data_ptr(), norms.data_ptr(),
+        n, nblk, B, int(s), _stream(),
+    )
+    _build.check(err, "qsgd_block_workers")
+    qsgd_block_workers.launches += 1
+    return levels, norms
+
+
+qsgd_block_workers.launches = 0
+
+
+def qsgd_dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch.Tensor:
+    """Dequantize-and-mean of n QSGD payloads: (n, nblk, B) int8 + (n, nblk)
+    f32 → (nblk, B) f32."""
+    n, nblk, B = levels.shape
+    if not levels.is_cuda:
+        return _ref.qsgd_dequant_mean_ref(levels, norms, s)
+    check_qsgd_block(B, nblk, s)
+    check_payload(levels, norms)
+    check_cuda_buffers(levels, norms)
+    out = torch.empty((nblk, B), dtype=torch.float32, device=levels.device)
+    lib = _build.library("quantize")
+    err = lib.qsgd_dequant_mean(levels.data_ptr(), norms.data_ptr(), out.data_ptr(),
+                                n, nblk, B, int(s), _stream())
+    _build.check(err, "qsgd_dequant_mean")
+    qsgd_dequant_mean.launches += 1
+    return out
+
+
+qsgd_dequant_mean.launches = 0
+
+
+def nibble_pack(q2d: torch.Tensor) -> torch.Tensor:
+    """(rows, B) int8 levels in [−8, 7] → (rows, B/8) words (uint32 bit
+    patterns in int32), level t of each 8 at bits [4t, 4t+4)."""
+    rows, B = q2d.shape
+    if B % 8:
+        raise ValueError(f"block width {B} must pack into whole 32-bit words")
+    if not q2d.is_cuda:
+        return _ref.nibble_pack_ref(q2d)
+    if q2d.dtype != torch.int8:
+        raise ValueError("nibble_pack takes int8 levels")
+    check_cuda_buffers(q2d)
+    words = torch.empty((rows, B // 8), dtype=torch.int32, device=q2d.device)
+    lib = _build.library("quantize")
+    err = lib.nibble_pack(q2d.data_ptr(), words.data_ptr(), words.numel(), _stream())
+    _build.check(err, "nibble_pack")
+    nibble_pack.launches += 1
+    return words
+
+
+nibble_pack.launches = 0
+
+
+def nibble_unpack(words: torch.Tensor, block: int) -> torch.Tensor:
+    """(rows, B/8) words → (rows, B) int8, each nibble sign-extended; the
+    inverse of :func:`nibble_pack` on levels in [−8, 7]."""
+    rows, nw = words.shape
+    if nw * 8 != block:
+        raise ValueError(f"{nw} words per row do not hold {block} levels")
+    if not words.is_cuda:
+        return _ref.nibble_unpack_ref(words, block)
+    if words.dtype != torch.int32:
+        raise ValueError("nibble_unpack takes the words as int32 bit patterns")
+    check_cuda_buffers(words)
+    q = torch.empty((rows, block), dtype=torch.int8, device=words.device)
+    lib = _build.library("quantize")
+    err = lib.nibble_unpack(words.data_ptr(), q.data_ptr(), words.numel(), _stream())
+    _build.check(err, "nibble_unpack")
+    nibble_unpack.launches += 1
+    return q
+
+
+nibble_unpack.launches = 0

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the main-path kernels.
 
 Each function is the semantic ground truth for its hand-written CUDA twin
-(``randk.py`` / ``permk.py`` / ``epilogue.py``) and the port of the same-named oracle in
-``repro.kernels.ref``. The kernel wrappers call these only for tensors on the
+(``randk.py`` / ``permk.py`` / ``quantize.py`` / ``epilogue.py``) and the
+port of the same-named oracle in ``repro.kernels.ref``. The kernel wrappers call these only for tensors on the
 CPU; on the card, ``chip_smoke.py`` and the card tests hold the kernels
 against them on the same inputs.
 
@@ -10,7 +10,9 @@ Integer work is exact: the murmur3 hash runs in int64 masked to 32 bits
 (PyTorch lacks ``>>`` and ``+`` for ``uint32`` on the CPU), with the 32-bit
 constant multiplies split into 16-bit halves so no product overflows int64.
 Float accumulations keep the oracle's order (workers 0..n−1, then slots
-0..kb−1), so they are deterministic on every device.
+0..kb−1), so they are deterministic on every device. The one order the
+reference does not fix — XLA's sum of squares behind a QSGD block norm — is
+fixed here to the kernel's (:func:`qsgd_block_norms_ref`).
 """
 
 from __future__ import annotations
@@ -190,4 +192,132 @@ def scatter_epilogue_ref(values, offsets, g2d, x2d, gamma: float):
     """Seeded-RandK epilogue: scatter-mean the n worker payloads into the
     round delta, then apply it."""
     delta = scatter_accum_ref(values.float(), offsets, g2d.shape[-1])
+    return delta_epilogue_ref(delta, g2d, x2d, gamma)
+
+
+# ---------------------------------------------------------------------------
+# Packed quantization wire: blockwise QSGD and the 4-bit nibble words
+# ---------------------------------------------------------------------------
+
+#: rows of (nblk, B) processed at a time by the QSGD plain versions: bounds
+#: their int64 hash temporaries at full model width (results do not depend
+#: on it — every row is independent)
+_ROW_CHUNK = 1 << 16
+
+
+def uniform_from_bits_ref(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 hash bits (held in int64) → f32 uniform in [0, 1): (bits >> 8)
+    < 2^24 converts exactly and the 2^-24 scale is exact."""
+    return (bits >> 8).to(torch.float32) * 2.0**-24
+
+
+def qsgd_block_norms_ref(x3d: torch.Tensor) -> torch.Tensor:
+    """ℓ2 norm of every (w, b) row of (n, nblk, B), in the kernel's order:
+    thread t squares its 4 contiguous elements and adds them left to right,
+    each warp of (up to) 32 threads adds its partials in a halving tree
+    (p_i + p_{i+h}, h = 16, 8, …, 1), the warps' sums are added in a halving
+    tree in turn, and the square root is IEEE. Returns (n, nblk) f32. (The
+    reference sums with XLA's reduction, whose order is not specified: see
+    ROADMAP C.)"""
+    n, nblk, B = x3d.shape
+    if B % 4:
+        raise ValueError(f"block width {B} must be a multiple of 4")
+    x = x3d.to(torch.float32)
+    sq = x * x
+    p = ((sq[..., 0::4] + sq[..., 1::4]) + sq[..., 2::4]) + sq[..., 3::4]
+    lanes = min(B // 4, 32)
+    p = p.reshape(n, nblk, B // 4 // lanes, lanes)
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    p = p[..., 0]
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    return torch.sqrt(p[..., 0])
+
+
+def qsgd_quantize_ref(x3d: torch.Tensor, norms: torch.Tensor, seeds: torch.Tensor,
+                      s: int) -> torch.Tensor:
+    """The quantize step of blockwise QSGD against given block norms:
+    ``sign(x)·⌊s·|x| / safe + u⌋`` as int8, safe = norm (1 where it is 0),
+    each operation rounded once (multiply, divide, add), with the dither u
+    from worker w's murmur3 stream at counters b·B + j. x3d (n, nblk, B),
+    norms (n, nblk), seeds (n,) → levels (n, nblk, B) int8."""
+    n, nblk, B = x3d.shape
+    dev = x3d.device
+    out = torch.empty((n, nblk, B), dtype=torch.int8, device=dev)
+    s_seeds = _as_u32_int64(seeds.to(dev))
+    safe = torch.where(norms > 0, norms, torch.ones_like(norms)).to(torch.float32)
+    j = torch.arange(B, dtype=torch.int64, device=dev)
+    for b0 in range(0, nblk, _ROW_CHUNK):
+        b1 = min(nblk, b0 + _ROW_CHUNK)
+        ctr = torch.arange(b0, b1, dtype=torch.int64, device=dev)[:, None] * B + j
+        for w in range(n):
+            u = uniform_from_bits_ref(murmur_bits_ref(s_seeds[w], ctr))
+            x = x3d[w, b0:b1].to(torch.float32)
+            level = torch.floor((x.abs() * float(s)) / safe[w, b0:b1, None] + u)
+            out[w, b0:b1] = (torch.sign(x) * level).to(torch.int8)
+    return out
+
+
+def qsgd_block_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
+    """Per-worker blockwise s-level ℓ2 QSGD: (n, nblk, B) f32 / bf16 + (n,)
+    seeds → (levels (n, nblk, B) int8, norms (n, nblk) f32). Each block is
+    quantized against its own norm; every worker's counters restart at 0."""
+    norms = qsgd_block_norms_ref(x3d)
+    return qsgd_quantize_ref(x3d, norms, seeds, s), norms
+
+
+def qsgd_block_ref(x2d: torch.Tensor, seed, s: int):
+    """Single-worker :func:`qsgd_block_workers_ref`: (nblk, B) + one seed →
+    (levels (nblk, B) int8, norms (nblk,) f32)."""
+    levels, norms = qsgd_block_workers_ref(
+        x2d[None], torch.as_tensor([int(seed) & _MASK], device=x2d.device), s)
+    return levels[0], norms[0]
+
+
+def qsgd_dequant_mean_ref(levels: torch.Tensor, norms: torch.Tensor,
+                          s: int) -> torch.Tensor:
+    """Dequantize-and-mean: (n, nblk, B) int8 + (n, nblk) f32 → (nblk, B)
+    f32. From zero, worker by worker in order, ``acc + level·(norm_w / s)``
+    (the divide, the multiply and the add each rounded), then ``acc / n``."""
+    n = levels.shape[0]
+    scale = norms.to(torch.float32) / torch.tensor(float(s), device=norms.device)
+    acc = torch.zeros(levels.shape[1:], dtype=torch.float32, device=levels.device)
+    for w in range(n):
+        acc += levels[w].to(torch.float32) * scale[w, :, None]
+    return div_n(acc, n)
+
+
+def nibble_pack_ref(q2d: torch.Tensor) -> torch.Tensor:
+    """(rows, B) int8 levels in [−8, 7] → (rows, B/8) words: level t of each
+    group of 8 is a two's-complement nibble at bits [4t, 4t+4). The words
+    are uint32 bit patterns held in int32 (PyTorch's uint32 lacks the ops)."""
+    rows, B = q2d.shape
+    if B % 8:
+        raise ValueError(f"block width {B} must pack into whole 32-bit words")
+    nib = (q2d.to(torch.int64) & 0xF).reshape(rows, B // 8, 8)
+    word = nib[..., 0]
+    for t in range(1, 8):
+        word = word | (nib[..., t] << (4 * t))
+    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+
+
+def nibble_unpack_ref(words: torch.Tensor, block: int) -> torch.Tensor:
+    """(rows, B/8) words (uint32 bits in int32) → (rows, B) int8, each
+    nibble sign-extended (8..15 → −8..−1); inverse of :func:`nibble_pack_ref`
+    on levels in [−8, 7]."""
+    rows, nw = words.shape
+    if nw * 8 != block:
+        raise ValueError(f"{nw} words per row do not hold {block} levels")
+    w = words.to(torch.int64) & _MASK
+    nib = torch.stack([(w >> (4 * t)) & 0xF for t in range(8)], dim=-1)
+    return torch.where(nib >= 8, nib - 16, nib).to(torch.int8).reshape(rows, block)
+
+
+def qsgd_epilogue_ref(levels, norms, g2d, x2d, gamma: float, s: int):
+    """Packed-QSGD epilogue: the dequantize-and-mean of the n payloads as in
+    :func:`qsgd_dequant_mean_ref`, then g' = g + δ and x' = x − γ·g'."""
+    delta = qsgd_dequant_mean_ref(levels, norms, s)
     return delta_epilogue_ref(delta, g2d, x2d, gamma)

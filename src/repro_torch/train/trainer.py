@@ -3,8 +3,11 @@
 default, as in the reference) and ``pp_marina``.
 
 The trainer simulates the n workers on one device (worker-stacked trees),
-builds the fused flat engine for the ``block_randk`` and ``permk``
-compressors, and keeps the communication ledger in bits actually uplinked.
+builds the fused flat engine for the ``block_randk``, ``permk`` and
+``block_qsgd`` compressors, and keeps the communication ledger in bits
+actually uplinked and received. ``downlink`` (``"qsgd"`` or ``"randk"``,
+with ``downlink_kwargs`` ``s`` / ``kb``) compresses the server's broadcast
+through a second engine over the uplink's layout.
 VR-MARINA's compressed rounds take b′-minibatches from the data stream at
 step ``10**7 + step``; PP-MARINA samples ``r_participating`` clients. The
 step key is ``fold_in(PRNGKey(seed), step)``, as in the reference, so
@@ -17,8 +20,9 @@ round type. With ``nonfinite_guard`` a step whose new state holds any NaN/inf
 is reverted and counted as skipped.
 
 Not ported yet: the other methods (``diana``, ``dcgd``, ``ec_sgd``, ``gd``
-raise), checkpointing, the compressed downlink, robust aggregators, fault
-injection, the Dirichlet data dial, prefix embeddings (raise).
+raise), checkpointing, a downlink without a flat engine (a per-leaf tree
+compressor), robust aggregators, fault injection, the Dirichlet data dial,
+prefix embeddings (raise).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch.profiler import record_function
 
 from repro_torch import prng
 from repro_torch.core import (
+    BlockQSGD,
     BlockRandK,
     CorrelatedCompressor,
     Marina,
@@ -39,6 +44,7 @@ from repro_torch.core import (
     PPMarina,
     VRMarina,
     make_compressor,
+    make_downlink,
     make_engine,
 )
 from repro_torch.core.compressors import tree_dim
@@ -56,6 +62,8 @@ from repro_torch.models.config import ModelConfig
 
 PyTree = Any
 
+MARINA_FAMILY = ("marina", "vr_marina", "pp_marina")
+
 #: profiler spans (``torch.profiler.record_function``): one optimizer step,
 #: between its two device synchronisations; one worker's forward + backward
 SPAN_STEP = "train.step"
@@ -65,8 +73,8 @@ SPAN_GRAD = "train.grad"
 @dataclasses.dataclass
 class TrainConfig:
     """The reference's fields that this port runs; the others (the other
-    methods, checkpoints, downlink, aggregators, faults, Dirichlet data) are
-    not ported yet."""
+    methods, checkpoints, aggregators, faults, Dirichlet data) are not
+    ported yet."""
 
     method: str = "vr_marina"          # marina | vr_marina | pp_marina
     compressor: str = "randk"
@@ -84,6 +92,10 @@ class TrainConfig:
     log_every: int = 10
     flat_backend: str = "auto"         # kernel backend for the flat engine
     carry_grads: bool = False
+    # compressed downlink: the sampler of Q_down(g^{k+1} − g^k) over the flat
+    # engine's layout ("qsgd" | "randk"; None = dense broadcast)
+    downlink: Optional[str] = None
+    downlink_kwargs: dict = dataclasses.field(default_factory=dict)
     # revert a round whose new state holds any NaN/inf and count it skipped
     nonfinite_guard: bool = True
 
@@ -98,10 +110,11 @@ class TrainMetrics:
     oracle_cum: list = dataclasses.field(default_factory=list)
     wall: list = dataclasses.field(default_factory=list)
     skipped_cum: list = dataclasses.field(default_factory=list)
-    #: per optimizer step (not per log point): c_k, the bits booked, and the
-    #: step's wall seconds, ended by a device synchronisation
+    #: per optimizer step (not per log point): c_k, the bits booked up and
+    #: down, and the step's wall seconds, ended by a device synchronisation
     round_sync: list = dataclasses.field(default_factory=list)
     round_bits: list = dataclasses.field(default_factory=list)
+    round_down_bits: list = dataclasses.field(default_factory=list)
     step_seconds: list = dataclasses.field(default_factory=list)
 
 
@@ -118,9 +131,13 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  init_params: PyTree, prefix_len: int = 0, device=None):
         m = train_cfg.method
+        if train_cfg.downlink is not None and m not in MARINA_FAMILY:
+            # refuse rather than broadcast dense while the user believes the
+            # downlink is compressed
+            raise ValueError(f"downlink is a marina-family mode, not {m!r}")
         if m in ("diana", "dcgd", "ec_sgd", "gd"):
             raise NotImplementedError(f"method {m!r} is not ported yet")
-        if m not in ("marina", "vr_marina", "pp_marina"):
+        if m not in MARINA_FAMILY:
             raise ValueError(f"unknown method {m!r}")
         if prefix_len:
             raise NotImplementedError("prefix embeddings are not ported yet")
@@ -162,18 +179,40 @@ class Trainer:
             self.engine = make_engine(self.params0, block=comp.block,
                                       backend=train_cfg.flat_backend,
                                       sampler="permk", device=self.device)
-        tc, carry = train_cfg, train_cfg.carry_grads
+        elif isinstance(comp, BlockQSGD):
+            self.engine = make_engine(self.params0, block=comp.block,
+                                      backend=train_cfg.flat_backend,
+                                      sampler="qsgd", s=comp.s, device=self.device)
+        self.down_engine = self._downlink(train_cfg)
+        tc, carry, down = train_cfg, train_cfg.carry_grads, self.down_engine
         if m == "marina":
             self.method = Marina(grad_fn, comp, tc.gamma, self.p, self.engine,
-                                 carry=carry)
+                                 carry=carry, down_engine=down)
         elif m == "vr_marina":
             self.method = VRMarina(grad_fn, grad_fn, comp, tc.gamma, self.p,
-                                   self.engine, carry=carry)
+                                   self.engine, carry=carry, down_engine=down)
         else:
             self.method = PPMarina(grad_fn, comp, tc.gamma, self.p,
                                    tc.r_participating, self.engine,
-                                   replace=tc.pp_replace, weights=tc.pp_weights,
-                                   carry=carry)
+                                   down_engine=down, replace=tc.pp_replace,
+                                   weights=tc.pp_weights, carry=carry)
+
+    def _downlink(self, tc: TrainConfig):
+        """The downlink engine over the uplink engine's layout (the name is
+        its sampler), or None for the dense broadcast."""
+        if tc.downlink is None:
+            return None
+        if self.engine is None:
+            raise NotImplementedError(
+                "a downlink without a flat engine (a per-leaf tree compressor) "
+                "is not ported yet")
+        name = tc.downlink.removeprefix("block_")
+        if name not in ("randk", "qsgd", "natural"):
+            raise ValueError(f"downlink {tc.downlink!r} is not broadcastable "
+                             "(permk partitions across receivers)")
+        dkw = tc.downlink_kwargs
+        return make_downlink(self.engine, sampler=name, kb=dkw.get("kb"),
+                             s=dkw.get("s"))
 
     # ------------------------------------------------------------------
     def _batches(self, step: int, per_worker: int) -> dict:
@@ -240,6 +279,7 @@ class Trainer:
             hist.step_seconds.append(time.perf_counter() - ts)
             hist.round_sync.append(met.sync_round)
             hist.round_bits.append(met.bits_per_worker)
+            hist.round_down_bits.append(met.down_bits)
             if step_hook is not None:
                 step_hook(step)
             if (step + 1) % tc.log_every == 0 or step == tc.steps - 1:

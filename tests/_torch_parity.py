@@ -1,7 +1,20 @@
 """Helpers shared by the PyTorch-port parity tests (tests/test_torch_*.py)."""
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test file's torch work on one thread (imported by each port test
+    file, where it applies to every test). The tier-1 suite runs six pytest
+    workers at once; a torch op spread over every core in each of them makes
+    the workers contend until small ops run tens of times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_np(x) -> np.ndarray:

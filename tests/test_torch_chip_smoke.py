@@ -1,0 +1,54 @@
+"""``chip_smoke.py``'s main paths rehearsed on the CPU at a tiny size.
+
+The script's card run checks that each of its nine paths launches exactly
+``EXPECTED_LAUNCHES``, draws c_k = 1, 0, 1, 0 and books the wire formulas'
+up and down bits every round. Here ``run_main_path`` runs with a reduced
+dense LM on the CPU (``chip_smoke.DEVICE = "cpu"``; the profile phase and
+the device-memory counters stubbed), every kernel wrapper counting a launch
+where it returns its plain version, so a drift between those expectations
+and the code shows without a card.
+"""
+
+import os
+import sys
+
+import torch
+
+import repro_torch.configs as configs
+from _torch_parity import one_torch_thread  # noqa: F401
+from repro_torch import kernels
+from repro_torch.kernels import epilogue, permk, quantize, randk
+from repro_torch.models import ModelConfig, dense_stack
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
+TINY = ModelConfig(name="tiny-dense", arch_type="dense", d_model=64, num_heads=4,
+                   num_kv_heads=2, d_ff=128, vocab_size=256, segments=dense_stack(1),
+                   qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0)
+
+
+def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "profile_step", lambda *a: None)
+    monkeypatch.setattr(configs, "get_arch",
+                        lambda name: type("Arch", (), {"model": TINY}))
+    for name in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    for mod in (epilogue, permk, quantize, randk):
+        for name, fn in kernels.KERNELS.items():
+            if getattr(mod, name, None) is fn:
+                def counted(*a, _fn=fn, **k):
+                    out = _fn(*a, **k)
+                    _fn.launches += 1
+                    return out
+                monkeypatch.setattr(mod, name, counted)
+    report = {}
+    launches = chip_smoke.run_main_path(report)  # raises SmokeFailure on a drift
+    kernels.reset_launch_counts()
+    assert set(launches) == set(chip_smoke.PATHS)
+    for path, counts in launches.items():
+        assert {k: v for k, v in counts.items() if v} == chip_smoke.EXPECTED_LAUNCHES[path]
+    runs = report["main_path"]["runs"]
+    assert all(run["c_k"] == chip_smoke.EXPECTED_C_K for run in runs.values())

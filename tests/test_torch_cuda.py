@@ -1,4 +1,4 @@
-"""The six CUDA kernels against their plain PyTorch versions on the card.
+"""The eleven CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import epilogue, permk, randk, ref
+from repro_torch.kernels import epilogue, permk, quantize, randk, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -138,3 +138,115 @@ def test_permk_and_delta_wrappers_refuse_what_the_kernels_do_not_take(dev):
         epilogue.delta_epilogue(g.double(), g, g, 0.1)
     with pytest.raises(ValueError):
         epilogue.delta_epilogue(g, g, g.half(), 0.1)
+
+
+QSHAPES = [(4, 37, 1024), (1, 5, 128), (3, 11, 256), (2, 3, 4096)]
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", QSHAPES, ids=str)
+def test_qsgd_block_workers_on_card(dev, shape, xdtype):
+    """Levels and norms bit-equal to the plain version (it repeats the
+    kernel's order of the norm's sum), with zeros, −0.0 and an all-zero
+    block, for s = 1, 7 and 127."""
+    n, nblk, B = shape
+    x3d, seeds, _ = _inputs(dev, n, nblk, B, seed=4)
+    x3d[0, 0, :5] = 0.0
+    x3d[0, 0, 5:9] = -0.0
+    x3d[-1, -1] = 0.0
+    x3d = (x3d * 3.0).to(xdtype)
+    kernels.reset_launch_counts()
+    for s in (1, 7, 127):
+        lv, nm = quantize.qsgd_block_workers(x3d, seeds, s)
+        lr, nr = ref.qsgd_block_workers_ref(x3d, seeds, s)
+        assert lv.dtype == torch.int8 and nm.dtype == torch.float32
+        assert torch.equal(nm, nr) and torch.equal(lv, lr)
+        assert int(lv.abs().max()) <= s
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qsgd_block_workers"] == 3
+
+
+@pytest.mark.parametrize("shape", [(37, 1024), (5, 128), (1, 8)], ids=str)
+def test_nibble_pack_and_unpack_on_card(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randint(-8, 8, shape, generator=gen, device=dev, dtype=torch.int8)
+    kernels.reset_launch_counts()
+    words = quantize.nibble_pack(q)
+    assert words.dtype == torch.int32 and torch.equal(words, ref.nibble_pack_ref(q))
+    back = quantize.nibble_unpack(words, shape[1])
+    assert torch.equal(back, q) and torch.equal(back, ref.nibble_unpack_ref(words, shape[1]))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["nibble_pack"] == counts["nibble_unpack"] == 1
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", QSHAPES, ids=str)
+def test_qsgd_dequant_mean_and_epilogue_on_card(dev, shape, xdtype):
+    n, nblk, B = shape
+    x3d, seeds, gen = _inputs(dev, n, nblk, B, seed=6)
+    g = torch.randn((nblk, B), generator=gen, device=dev)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    kernels.reset_launch_counts()
+    for s in (3, 7, 15):
+        lv, nm = quantize.qsgd_block_workers(x3d, seeds, s)
+        assert _ulp(quantize.qsgd_dequant_mean(lv, nm, s),
+                    ref.qsgd_dequant_mean_ref(lv, nm, s)) <= 1
+        got = epilogue.qsgd_epilogue(lv, nm, g, x, 0.0371, s)
+        want = ref.qsgd_epilogue_ref(lv, nm, g, x, 0.0371, s)
+        assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+        assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["qsgd_dequant_mean"] == counts["qsgd_epilogue"] == 3
+
+
+def test_qsgd_engine_and_downlink_on_card(dev):
+    """The qsgd engine's aggregate and fused round, and a RandK round under
+    a QSGD downlink, through the kernels equal the plain versions'."""
+    from repro_torch import prng
+    from repro_torch.core import make_downlink, make_engine
+
+    tree = {"w": torch.zeros(40, 70), "b": torch.zeros(500)}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for sampler in ("qsgd", "randk"):
+        eng = make_engine(tree, kb=8, block=256, device=dev, sampler=sampler, s=7)
+        plain = make_engine(tree, kb=8, block=256, device=dev, sampler=sampler, s=7,
+                            backend="ref")
+        down = make_downlink(eng, sampler="qsgd") if sampler == "randk" else None
+        down_plain = make_downlink(plain, sampler="qsgd") if sampler == "randk" else None
+        lay = eng.layout
+        bufs = torch.randn((3, lay.nblk, lay.block), generator=gen, device=dev)
+        g = torch.randn((lay.nblk, lay.block), generator=gen, device=dev)
+        x = torch.randn((lay.nblk, lay.block), generator=gen, device=dev)
+        key = prng.PRNGKey(42)
+        assert torch.equal(eng.aggregate(key, bufs, 3), plain.aggregate(key, bufs, 3))
+        got = eng.fused_round(key, bufs, 3, g, x, 0.05, down=down, down_key=key)
+        want = plain.fused_round(key, bufs, 3, g, x, 0.05, down=down_plain, down_key=key)
+        assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()
+
+
+def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x3d, seeds, _ = _inputs(dev, 2, 3, 128)
+    with pytest.raises(ValueError):
+        quantize.qsgd_block_workers(x3d.double(), seeds, 7)
+    with pytest.raises(ValueError):
+        quantize.qsgd_block_workers(x3d[..., :64].contiguous(), seeds, 7)  # B < 128
+    with pytest.raises(ValueError):
+        quantize.qsgd_block_workers(x3d, seeds, 200)  # beyond int8
+    flat = torch.empty(x3d.numel() + 1, device=dev)
+    with pytest.raises(ValueError):
+        quantize.qsgd_block_workers(flat[1:].view(x3d.shape), seeds, 7)  # misaligned
+    lv, nm = quantize.qsgd_block_workers(x3d, seeds, 7)
+    with pytest.raises(ValueError):
+        quantize.qsgd_dequant_mean(lv.float(), nm, 7)
+    with pytest.raises(ValueError):
+        quantize.qsgd_dequant_mean(lv, nm[:1], 7)
+    with pytest.raises(ValueError):
+        quantize.nibble_pack(lv.reshape(6, 128).int())
+    with pytest.raises(ValueError):
+        quantize.nibble_unpack(quantize.nibble_pack(lv.reshape(6, 128)), 64)
+    g = torch.zeros(3, 128, device=dev)
+    with pytest.raises(ValueError):
+        epilogue.qsgd_epilogue(lv, nm, g, g.half(), 0.1, 7)

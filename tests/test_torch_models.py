@@ -14,6 +14,13 @@ parameters carried across by ``convert.params_from_jax``:
 * 5 carry rounds of ``VRMarina`` on the permk wire (2 workers, minibatches
   of one sequence) and of ``PPMarina`` on the block_randk wire (4 clients,
   r = 2, the full carry table carried across), held the same way.
+* 5 carry rounds of ``Marina`` on the packed QSGD wire (s = 7) and on
+  block_randk under a QSGD downlink, held round by round from the
+  reference's state (a level flip, once made, would move every later
+  round — ROADMAP C): c_k, up and down bits equal; params and g leafwise
+  within 1e-4 of the leaf's scale except at flagged coordinates, which lie
+  within one quantization step (γ times it for params) and number at most
+  1e-3 of all.
 """
 
 import jax
@@ -22,11 +29,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401
 from repro.core import BlockRandK as JBlockRandK
 from repro.core import Marina as JMarina
 from repro.core import PermK as JPermK
 from repro.core import PPMarina as JPPMarina
 from repro.core import VRMarina as JVRMarina
+from repro.core import BlockQSGD as JBlockQSGD
+from repro.core.flat import make_downlink as j_make_downlink
 from repro.core.flat import make_engine as j_make_engine
 from repro.data import HeterogeneousLMData as JData
 from repro.data import worker_batches as j_worker_batches
@@ -36,7 +46,17 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro.models.config import dense_stack as j_dense_stack
 from repro_torch import prng
 from repro_torch.convert import params_from_jax, state_from_jax
-from repro_torch.core import BlockRandK, Marina, PermK, PPMarina, VRMarina, make_engine
+from repro_torch.core import (
+    BlockQSGD,
+    BlockRandK,
+    Marina,
+    PermK,
+    PPMarina,
+    VRMarina,
+    make_downlink,
+    make_engine,
+)
+from repro_torch.core import flat as tflat
 from repro_torch.core.tree_util import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.models import ModelConfig, dense_stack, lm_loss
 
@@ -177,3 +197,67 @@ def test_lm_pp_marina_randk_carry_matches_reference(jparams, tokens4):
                    BlockRandK(kb=8, block=128), "randk", (_jgrad,), (_tgrad,),
                    r=2, carry=True)
     _rounds_match(jm, tm, jparams, tokens4[0], lambda k: (tokens4[k + 1],))
+
+
+def _leaf_close_except_flips(a, b, rtol, step) -> int:
+    """Within rtol of the leaf's scale, except at flagged coordinates, which
+    must lie within ``step`` of the reference; returns how many."""
+    a, b = a.numpy().astype(np.float64), np.asarray(b, np.float64)
+    tol = rtol * (float(np.max(np.abs(b))) if b.size else 0.0)
+    err = np.abs(a - b)
+    flagged = err > tol
+    assert (err[flagged] <= step * (1 + 1e-4) + tol).all(), (err.max(), tol, step)
+    return int(flagged.sum())
+
+
+@pytest.mark.parametrize("wire_kind", ["qsgd", "downlink"])
+def test_lm_marina_quantized_carry_rounds_match_reference(jparams, tokens, wire_kind,
+                                                           monkeypatch):
+    tp = params_from_jax(_np_tree(jparams), device="cpu")
+    if wire_kind == "qsgd":
+        jc, tc = JBlockQSGD(s=7, block=128), BlockQSGD(s=7, block=128)
+        jeng = j_make_engine(jparams, block=128, backend="ref", sampler="qsgd", s=7)
+        teng = make_engine(tp, block=128, device="cpu", sampler="qsgd", s=7)
+        jdown = tdown = None
+    else:
+        jc, tc = JBlockRandK(kb=8, block=128), BlockRandK(kb=8, block=128)
+        jeng = j_make_engine(jparams, kb=8, block=128, backend="ref")
+        teng = make_engine(tp, kb=8, block=128, device="cpu")
+        jdown = j_make_downlink(jeng, sampler="qsgd", s=7)
+        tdown = make_downlink(teng, sampler="qsgd", s=7)
+    gamma = 0.05
+    jm = JMarina(_jgrad, jc, gamma=gamma, p=0.4, engine=jeng, carry=True,
+                 down_engine=jdown)
+    tm = Marina(_tgrad, tc, gamma=gamma, p=0.4, engine=teng, carry=True,
+                down_engine=tdown)
+    steps = []
+    payloads = tflat.FlatEngine._qsgd_payloads
+
+    def recording(self, key, bufs, n):
+        levels, norms = payloads(self, key, bufs, n)
+        steps.append(float(norms.max()) / (self.s * n))
+        return levels, norms
+
+    monkeypatch.setattr(tflat.FlatEngine, "_qsgd_payloads", recording)
+    js = jax.jit(jm.init)(jparams, {"tokens": jnp.asarray(tokens[0])})
+    jstep = jax.jit(jm.step)
+    kinds, flagged, compared = set(), 0, 0
+    for k in range(5):
+        ts = state_from_jax(_np_tree(js.params), _np_tree(js.g), k, _np_tree(js.h),
+                            device="cpu")
+        steps.clear()
+        key = jax.random.fold_in(jax.random.PRNGKey(7), k)
+        js, jmet = jstep(js, key, {"tokens": jnp.asarray(tokens[k + 1])})
+        ts, tmet = tm.step(ts, prng.fold_in(prng.PRNGKey(7), k),
+                           {"tokens": torch.tensor(tokens[k + 1])})
+        assert (tmet.sync_round, tmet.bits_per_worker, tmet.down_bits) == (
+            int(jmet.sync_round), float(jmet.bits_per_worker), float(jmet.down_bits))
+        kinds.add(tmet.sync_round)
+        step = sum(steps)
+        for a, b in zip(tree_leaves(ts.params), jax.tree.leaves(js.params)):
+            flagged += _leaf_close_except_flips(a, b, 1e-4, gamma * step)
+            compared += a.numel()
+        flagged += _leaf_close_except_flips(ts.g, js.g, 1e-4, step)
+        compared += ts.g.numel()
+    assert kinds == {0, 1}
+    assert flagged <= 1e-3 * compared

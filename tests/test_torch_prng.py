@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401
 from repro.core.flat import FlatEngine as JFlatEngine
 from repro.core.marina import pp_sample_cohort as j_pp_sample_cohort
 from repro.core.flat import make_layout as j_make_layout

@@ -5,7 +5,11 @@
   ``wire.seeded_randk_bits`` on compressed rounds, 32·d on sync rounds;
   the step hook sees every step, and a profiler sees the trainer's spans.
   The same for ``vr_marina`` × permk (ledger ``wire.permk_bits``) and
-  ``pp_marina`` × block_randk (ledger ``wire.pp_*_total_bits`` / n).
+  ``pp_marina`` × block_randk (ledger ``wire.pp_*_total_bits`` / n), and
+  for all three on the packed QSGD wire (``wire.block_qsgd_bits``) and with
+  a QSGD downlink, whose per-step down ledger is the Q_down payload on
+  compressed rounds and 32·d on sync rounds; the downlink's refusals (non
+  marina-family methods, PermK, no flat engine).
 * ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   ``repro`` (checked in a fresh interpreter).
 * Entry points default to the card and raise without one: the trainer,
@@ -21,6 +25,7 @@ import sys
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401
 from repro_torch.convert import params_from_jax, state_from_jax
 from repro_torch.core import make_engine, wire
 from repro_torch.core.flat import seeded_offsets
@@ -38,7 +43,8 @@ CFG = ModelConfig(name="tiny-dense", arch_type="dense", d_model=64, num_heads=4,
 
 
 def _tc(carry, method="marina", compressor="block_randk", **kw):
-    comp_kwargs = {"block": 128} if compressor == "permk" else {"kb": 8, "block": 128}
+    comp_kwargs = {"permk": {"block": 128}, "block_qsgd": {"s": 7, "block": 128}}.get(
+        compressor, {"kb": 8, "block": 128})
     kw = {"n_workers": 2, **kw}
     return TrainConfig(method=method, compressor=compressor,
                        comp_kwargs=comp_kwargs, gamma=0.05, p=0.5,
@@ -94,6 +100,74 @@ def test_trainer_vr_and_pp_cpu_smoke_and_ledger(method, carry):
         assert bits == want
     assert hist.bits_cum[-1] == sum(hist.round_bits)
     assert hist.skipped_cum[-1] == 0.0
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
+@pytest.mark.parametrize("method", ["marina", "vr_marina", "pp_marina"])
+@pytest.mark.parametrize("wire_kind", ["block_qsgd", "downlink"])
+def test_trainer_qsgd_and_downlink_cpu_smoke_and_ledger(wire_kind, method, carry):
+    """The packed QSGD uplink, or a RandK uplink under a QSGD downlink: 4
+    steps, finite loss, both round types, up and down ledgers per step equal
+    to the wire formulas."""
+    kw = dict(n_workers=4, r_participating=2, mb_per_worker=1)
+    if wire_kind == "block_qsgd":
+        tc = _tc(carry, method, "block_qsgd", **kw)
+    else:
+        tc = _tc(carry, method, downlink="qsgd", downlink_kwargs={"s": 7}, **kw)
+    params = init_params(0, CFG, device="cpu")
+    tr = Trainer(CFG, tc, params, device="cpu")
+    _, hist = tr.run()
+    d = sum(t.numel() for t in tree_leaves(params))
+    nblk = math.ceil(d / 128)
+    qsgd = wire.block_qsgd_bits(nblk, 128, 7)
+    up_q = qsgd if wire_kind == "block_qsgd" else wire.seeded_randk_bits(nblk, 8)
+    down_q = qsgd if wire_kind == "downlink" else wire.downlink_dense_bits(d)
+    assert tr.engine.sampler == ("qsgd" if wire_kind == "block_qsgd" else "randk")
+    assert (tr.down_engine is None) == (wire_kind == "block_qsgd")
+    assert all(math.isfinite(v) for v in hist.loss)
+    assert set(hist.round_sync) == {0, 1}
+    for c_k, up, down in zip(hist.round_sync, hist.round_bits, hist.round_down_bits):
+        if method == "pp_marina":
+            want = (wire.pp_sync_total_bits(4, d) if c_k
+                    else wire.pp_uplink_total_bits(2, up_q)) / 4
+        else:
+            want = wire.dense_f32_bits(d) if c_k else up_q
+        assert up == want
+        assert down == (wire.dense_f32_bits(d) if c_k else down_q)
+    assert hist.bits_cum[-1] == sum(hist.round_bits)
+    assert hist.down_cum[-1] == sum(hist.round_down_bits)
+    assert hist.skipped_cum[-1] == 0.0
+
+
+def test_trainer_block_qsgd_default_p_is_bits_balanced():
+    from repro_torch.core import BlockQSGD
+
+    params = init_params(0, CFG, device="cpu")
+    tc = _tc(False, compressor="block_qsgd")
+    tc.p = None
+    tr = Trainer(CFG, tc, params, device="cpu")
+    d = sum(t.numel() for t in tree_leaves(params))
+    assert tr.p == BlockQSGD(s=7, block=128).default_p(d)
+    assert (tr.engine.sampler, tr.engine.s) == ("qsgd", 7)
+
+
+def test_trainer_downlink_refusals():
+    """A downlink refuses loudly where it cannot be wired: on methods
+    outside the MARINA family (the broadcast would stay dense while the user
+    believes it compressed), for PermK (a partition, not a broadcast), and
+    without a flat engine (a per-leaf tree downlink is not ported yet)."""
+    params = init_params(0, CFG, device="cpu")
+    for method in ("diana", "dcgd", "ec_sgd", "gd"):
+        with pytest.raises(ValueError, match="downlink"):
+            Trainer(CFG, _tc(False, method, downlink="qsgd"), params, device="cpu")
+    with pytest.raises(ValueError, match="broadcastable"):
+        Trainer(CFG, _tc(False, downlink="permk"), params, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Trainer(CFG, _tc(False, downlink="natural"), params, device="cpu")
+    tc = _tc(False, downlink="qsgd")
+    tc.compressor, tc.comp_kwargs = "randk", {"k": 0.01}  # the per-leaf tree path
+    with pytest.raises(NotImplementedError, match="flat engine"):
+        Trainer(CFG, tc, params, device="cpu")
 
 
 def test_trainer_methods_not_ported_raise():
