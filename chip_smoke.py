@@ -8,29 +8,38 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); print the seconds.
-3. kernels — each of the eleven main-path kernels against its plain
+3. kernels — each of the fourteen main-path kernels against its plain
    PyTorch version on the card. The four RandK-wire kernels at the
    production shape of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024),
    B = 1024, kb = 20), at PP-MARINA's cohort (n = r = 2) and at a
    forced-duplicates shape (kb = B/2); the PermK uplink at the production
    shape and at n = 2 and 8; the delta epilogue at (nblk, B); the five
    packed-QSGD kernels (s = 7) at every worker count a path gives them
-   (n = 4 for the QSGD uplink, n = 1 for the compressed downlink); x in f32
-   and bf16. Offsets, RandK / PermK values, QSGD levels, norms and nibble
-   words bit-equal, scatter / dequant / epilogue outputs within 1 ulp.
+   (n = 4 for the QSGD uplink, n = 1 for the compressed downlink); the
+   three natural-compression kernels at n = 4 and n = 1 and on one small
+   input of edge values (zeros, subnormals, exact powers of two and the
+   floats just below them); x in f32 and bf16. Offsets, RandK / PermK
+   values, QSGD levels, norms, nibble words, natural codes and scales
+   bit-equal, scatter / dequant / epilogue outputs within 1 ulp.
    Median times over 20+ launches (CUDA events) for the kernel, its plain
    version and, where one exists, the one PyTorch call that computes the
    same function.
 4. small input — a reduced dense LM trained 4 steps on the card through the
    kernels and through their plain versions (``flat_backend="ref"``) on
-   every main path below: the two trajectories agree.
+   every main path below, and on MARINA over the ``randk_qsgd`` engine
+   (RandK kernels around a plain K-sized QSGD stage) in both round shapes:
+   the two trajectories agree. Then the paper's baselines on the same LM,
+   4 steps each on the per-leaf tree path (no kernel): DIANA ×
+   block_natural, DCGD × block_randk, EC-SGD × topk and GD, each with a
+   finite loss and ``tree_payload_bits`` booked every round.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
    (``carry_grads=False`` / ``True``) of MARINA × block_randk (kb = 20),
    VR-MARINA × permk (minibatches 2 × 256), PP-MARINA × block_randk
-   (r = 2) and MARINA × block_qsgd (s = 7), and MARINA × block_randk under
-   a QSGD downlink (s = 7) in the carry shape. The launch counts are reset
+   (r = 2), MARINA × block_qsgd (s = 7) and MARINA × block_natural, and
+   MARINA × block_randk under a QSGD downlink (s = 7) and under a natural
+   downlink in the carry shape. The launch counts are reset
    just before each path and read just after it: each path must launch
    exactly the kernels its rounds require (``EXPECTED_LAUNCHES``). The
    loss is finite, no round is skipped, and each round's up and down bits
@@ -97,6 +106,12 @@ SOURCES = {
                           "src/repro/kernels/quantize.py:206"),
     "qsgd_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
                       "src/repro/kernels/epilogue.py:335"),
+    "natural_block_workers": ("src/repro_torch/kernels/csrc/quantize.cu",
+                              "src/repro/kernels/quantize.py:258"),
+    "natural_dequant_mean": ("src/repro_torch/kernels/csrc/quantize.cu",
+                             "src/repro/kernels/quantize.py:302"),
+    "natural_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+                         "src/repro/kernels/epilogue.py:387"),
 }
 
 #: the main paths: (method, compressor, carry_grads, downlink sampler)
@@ -110,18 +125,26 @@ PATHS = {
     "marina_qsgd_recompute": ("marina", "block_qsgd", False, None),
     "marina_qsgd_carry": ("marina", "block_qsgd", True, None),
     "marina_randk_downqsgd_carry": ("marina", "block_randk", True, "qsgd"),
+    "marina_natural_recompute": ("marina", "block_natural", False, None),
+    "marina_natural_carry": ("marina", "block_natural", True, None),
+    "marina_randk_downnatural_carry": ("marina", "block_randk", True, "natural"),
 }
 COMP_KWARGS = {"block_randk": {"kb": KB, "block": BLOCK}, "permk": {"block": BLOCK},
-               "block_qsgd": {"s": S_LEVELS, "block": BLOCK}}
+               "block_qsgd": {"s": S_LEVELS, "block": BLOCK},
+               "block_natural": {"block": BLOCK}, "topk": {"k": 0.01}, "identity": {}}
+#: the paper's baselines on the small input: (method, compressor)
+BASELINES = (("diana", "block_natural"), ("dcgd", "block_randk"), ("ec_sgd", "topk"),
+             ("gd", "identity"))
 _NC, _NS = EXPECTED_C_K.count(0), EXPECTED_C_K.count(1)
 _QSGD_WIRE = {"qsgd_block_workers": _NC, "nibble_pack": _NC, "nibble_unpack": _NC}
 #: what each path must launch in its 4 steps: compressed recompute rounds
 #: sample and aggregate the diffs (RandK: scatter-mean kernel; PermK: a plain
 #: inverse-permutation gather; QSGD: quantize, the 4-bit words there and
-#: back, dequant-mean); carry rounds end in a fused epilogue of either round
-#: type (the sync one is the mean epilogue). Under a downlink, a carry
-#: compressed round aggregates the uplink (scatter-mean), then quantizes the
-#: broadcast (n = 1) and ends in its epilogue.
+#: back, dequant-mean; natural: quantize, decode-and-mean); carry rounds end
+#: in a fused epilogue of either round type (the sync one is the mean
+#: epilogue). Under a downlink, a carry compressed round aggregates the
+#: uplink (scatter-mean), then quantizes the broadcast (n = 1) and ends in
+#: its epilogue.
 EXPECTED_LAUNCHES = {
     "marina_randk_recompute": {"randk_seeded_workers": _NC, "scatter_accum": _NC},
     "marina_randk_carry": {"randk_seeded_workers": _NC, "scatter_epilogue": _NC,
@@ -137,6 +160,14 @@ EXPECTED_LAUNCHES = {
     "marina_randk_downqsgd_carry": {"randk_seeded_workers": _NC, "scatter_accum": _NC,
                                     **_QSGD_WIRE, "qsgd_epilogue": _NC,
                                     "mean_epilogue": _NS},
+    "marina_natural_recompute": {"natural_block_workers": _NC,
+                                 "natural_dequant_mean": _NC},
+    "marina_natural_carry": {"natural_block_workers": _NC, "natural_epilogue": _NC,
+                             "mean_epilogue": _NS},
+    "marina_randk_downnatural_carry": {"randk_seeded_workers": _NC,
+                                       "scatter_accum": _NC,
+                                       "natural_block_workers": _NC,
+                                       "natural_epilogue": _NC, "mean_epilogue": _NS},
 }
 
 
@@ -379,24 +410,42 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
     return rows
 
 
-def qsgd_worker_counts() -> dict:
-    """{n: label} for the packed-QSGD kernels: every worker count a main path
-    gives them — the QSGD uplink's (PP's cohort r on its compressed rounds,
-    else the worker count) and the compressed downlink's single broadcast
-    payload (n = 1)."""
+def worker_counts(compressor: str, downlink: str) -> dict:
+    """{n: label} for a packed wire's kernels: every worker count a main path
+    gives them — the uplink's (PP's cohort r on its compressed rounds, else
+    the worker count) for ``compressor``, and the compressed downlink's single
+    broadcast payload (n = 1) for ``downlink``."""
     counts = {}
-    for path, (method, compressor, _, downlink) in PATHS.items():
-        if compressor == "block_qsgd":
+    for path, (method, comp, _, down) in PATHS.items():
+        if comp == compressor:
             counts.setdefault(R_PARTICIPATING if method == "pp_marina" else N_WORKERS,
                               path)
-        if downlink == "qsgd":
+        if down == downlink:
             counts.setdefault(1, path)
     return counts
 
 
+def time_kernel(rows: dict, timings: list, card: str, name: str, n: int, xd,
+                kern, plain, nbytes: float, flops: float, err: float) -> None:
+    """Time a kernel and its plain version at one (n, x dtype); the table's
+    row is the production uplink's (n = 4, x f32)."""
+    import torch
+
+    b_ms, b_by = bound(nbytes, flops)
+    t = {"kernel": name, "n": n, "x": str(xd), "ms": median_ms(kern, 25),
+         "plain_ms": median_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None, "max_abs_err": err, "bytes": nbytes}
+    timings.append(t)
+    print(f"time {name} n={n} x {xd}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+          f"{err}, library {NO_LIBRARY} on {card}", flush=True)
+    if n == N_WORKERS and xd == torch.float32:
+        rows[name] = t
+
+
 def check_quantize(nblk: int, card: str, report: dict) -> dict:
     """The five packed-QSGD kernels (s = 7) at every worker count of
-    :func:`qsgd_worker_counts`, x in f32 and bf16, against their plain
+    ``worker_counts("block_qsgd", "qsgd")``, x in f32 and bf16, against their plain
     versions: levels, norms and words bit-equal, the dequantized mean and
     the epilogue within 1 ulp; each timed at its shape. The table's rows
     are the production uplink's (n = 4, x f32)."""
@@ -409,19 +458,10 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
     s, B, gamma = S_LEVELS, BLOCK, 0.0371
     rows, timings = {}, []
 
-    def timed(name, n, xd, kern, plain, nbytes, flops, err):
-        b_ms, b_by = bound(nbytes, flops)
-        t = {"kernel": name, "n": n, "x": str(xd), "ms": median_ms(kern, 25),
-             "plain_ms": median_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None, "max_abs_err": err, "bytes": nbytes}
-        timings.append(t)
-        print(f"time {name} n={n} x {xd}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
-              f"{err}, library {NO_LIBRARY} on {card}", flush=True)
-        if n == N_WORKERS and xd == torch.float32:
-            rows[name] = t
+    def timed(*args):
+        time_kernel(rows, timings, card, *args)
 
-    for n, path in sorted(qsgd_worker_counts().items(), reverse=True):
+    for n, path in sorted(worker_counts("block_qsgd", "qsgd").items(), reverse=True):
         x32 = torch.randn((n, nblk, B), generator=gen, device=dev)
         seeds = randk.seeds_tensor([3, 2**31 + 11, 2**32 - 1, 777][:n], dev)
         size = n * nblk * B
@@ -494,6 +534,111 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
     return rows
 
 
+def natural_edge_input(dev, B: int):
+    """(2, 4, B) f32 rows of the natural wire's edge values: exact powers of
+    two from 2^-126 to 2^120 (built from bits), the floats just below them,
+    their negatives, zeros, −0.0 and subnormals; an all-subnormal row, a row
+    whose max lies near 2^-100 (its smallest codes decode below 2^-126), an
+    all-zero row, and normal rows spread over 40 octaves."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn((2, 4, B), generator=gen, device=dev)
+    x *= ref.pow2_ref(torch.randint(-20, 20, (2, 4, 1), generator=gen, device=dev))
+    pw = ref.pow2_ref(torch.arange(-126, 121, 7, device=dev))
+    edge = torch.cat([pw, torch.nextafter(pw, torch.zeros_like(pw)), -pw,
+                      torch.tensor([0.0, -0.0, 1e-40, -3e-39, 2.0**-149], device=dev)])
+    x[0, 0, :edge.numel()] = edge
+    x[0, 1] = 1e-39
+    x[0, 2] = torch.randn(B, generator=gen, device=dev) * 2.0**-100
+    x[1, 3] = 0.0
+    return x
+
+
+def check_natural(nblk: int, card: str, report: dict) -> dict:
+    """The three natural-compression kernels at every worker count of
+    ``worker_counts("block_natural", "natural")`` (full width) and on the edge-value input,
+    x in f32 and bf16, against their plain versions: codes and scales
+    bit-equal, the decode-and-mean and the epilogue within 1 ulp; each timed
+    at its full-width shape. The table's rows are the production uplink's
+    (n = 4, x f32)."""
+    import torch
+
+    from repro_torch.kernels import epilogue, quantize, randk, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B, gamma = BLOCK, 0.0371
+    rows, timings = {}, []
+
+    def timed(*args):
+        time_kernel(rows, timings, card, *args)
+
+    def match(label, x3d, seeds, g, xp):
+        """Every natural kernel on these inputs against its plain version;
+        returns the payload and the two outputs' max_abs_err."""
+        codes, scales = quantize.natural_block_workers(x3d, seeds)
+        cr, sr = ref.natural_block_workers_ref(x3d, seeds)
+        require(torch.equal(scales, sr), f"natural {label}: scales differ")
+        require(torch.equal(codes, cr), f"natural {label}: codes differ")
+        del cr, sr
+        dm = quantize.natural_dequant_mean(codes, scales)
+        dr = ref.natural_dequant_mean_ref(codes, scales)
+        require(ulp_diff(dm, dr) <= 1, f"natural_dequant_mean {label} beyond 1 ulp")
+        err_dm = float((dm - dr).abs().max())
+        del dm, dr
+        out = epilogue.natural_epilogue(codes, scales, g, xp, gamma)
+        want = ref.natural_epilogue_ref(codes, scales, g, xp, gamma)
+        require(ulp_diff(out[0], want[0]) <= 1, f"natural_epilogue {label} g' beyond 1 ulp")
+        require(ulp_diff(out[1], want[1]) <= 1, f"natural_epilogue {label} x' beyond 1 ulp")
+        err_ep = max(float((out[0] - want[0]).abs().max()),
+                     float((out[1].float() - want[1].float()).abs().max()))
+        return codes, scales, err_dm, err_ep
+
+    edge = natural_edge_input(dev, B)
+    eseeds = randk.seeds_tensor([9, 2**32 - 2], dev)
+    eg = torch.randn((4, B), generator=gen, device=dev)
+    for xd in (torch.float32, torch.bfloat16):
+        match(f"edge values x {xd}", edge.to(xd), eseeds, eg, eg.to(xd))
+    print("kernels natural edge values (n=2, nblk=4): match", flush=True)
+
+    for n, path in sorted(worker_counts("block_natural", "natural").items(),
+                          reverse=True):
+        x32 = torch.randn((n, nblk, B), generator=gen, device=dev)
+        seeds = randk.seeds_tensor([13, 2**31 + 5, 2**32 - 3, 4242][:n], dev)
+        size = n * nblk * B
+        g = torch.randn((nblk, B), generator=gen, device=dev)
+        xp32 = torch.randn((nblk, B), generator=gen, device=dev)
+        for xd in (torch.float32, torch.bfloat16):
+            x3d, xp = x32.to(xd), xp32.to(xd)
+            codes, scales, err_dm, err_ep = match(f"n={n} x {xd}", x3d, seeds, g, xp)
+            elt = x3d.element_size()
+            timed("natural_block_workers", n, xd,
+                  lambda: quantize.natural_block_workers(x3d, seeds),
+                  lambda: ref.natural_block_workers_ref(x3d, seeds),
+                  size * (elt + 1) + n * nblk * 4 + n * 4, 6 * size, 0.0)
+            del x3d
+            if xd == torch.float32:  # the decode-and-mean reads no x: once per n
+                timed("natural_dequant_mean", n, xd,
+                      lambda: quantize.natural_dequant_mean(codes, scales),
+                      lambda: ref.natural_dequant_mean_ref(codes, scales),
+                      size + n * nblk * 4 + nblk * B * 4, 2 * size + nblk * B, err_dm)
+            timed("natural_epilogue", n, xd,
+                  lambda: epilogue.natural_epilogue(codes, scales, g, xp, gamma),
+                  lambda: ref.natural_epilogue_ref(codes, scales, g, xp, gamma),
+                  size + n * nblk * 4 + nblk * B * (2 * 4 + 2 * xp.element_size()),
+                  2 * size + 4 * nblk * B, err_ep)
+            del codes, scales, xp
+        print(f"kernels natural n={n} (for {path}, nblk={nblk}, B={B}): match",
+              flush=True)
+        del x32, g, xp32
+        torch.cuda.empty_cache()
+    report["kernels_natural"] = timings
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the trainer
 # ---------------------------------------------------------------------------
@@ -501,7 +646,12 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
 
 def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
           step_hook=None, method: str = "marina", compressor: str = "block_randk",
-          downlink=None, **kw):
+          downlink=None, sampler=None, **kw):
+    """Train ``steps`` steps through the port's ``Trainer``. ``sampler``
+    swaps the trainer's flat engine for one of that sampler over the same
+    layout (``randk_qsgd``, which no compressor name selects)."""
+    import dataclasses
+
     from repro_torch.train import TrainConfig, Trainer
 
     tc = TrainConfig(method=method, compressor=compressor,
@@ -510,7 +660,11 @@ def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
                      steps=steps, log_every=steps, seed=SEED, carry_grads=carry,
                      flat_backend=backend, downlink=downlink,
                      downlink_kwargs={"s": S_LEVELS}, **kw)
-    return Trainer(cfg, tc, params, device=DEVICE).run(step_hook)
+    tr = Trainer(cfg, tc, params, device=DEVICE)
+    if sampler is not None:
+        engine = dataclasses.replace(tr.engine, sampler=sampler, s=S_LEVELS)
+        tr.method = dataclasses.replace(tr.method, engine=engine)
+    return tr.run(step_hook)
 
 
 def expected_bits(method: str, compressor: str, c_k: int, d: int, nblk: int) -> float:
@@ -519,7 +673,8 @@ def expected_bits(method: str, compressor: str, c_k: int, d: int, nblk: int) -> 
 
     zeta = {"block_randk": wire.seeded_randk_bits(nblk, KB),
             "permk": wire.permk_bits(nblk * BLOCK, N_WORKERS),
-            "block_qsgd": wire.block_qsgd_bits(nblk, BLOCK, S_LEVELS)}[compressor]
+            "block_qsgd": wire.block_qsgd_bits(nblk, BLOCK, S_LEVELS),
+            "block_natural": wire.block_natural_bits(nblk, BLOCK)}[compressor]
     if method == "pp_marina":
         total = (wire.pp_sync_total_bits(N_WORKERS, d) if c_k
                  else wire.pp_uplink_total_bits(R_PARTICIPATING, zeta))
@@ -529,21 +684,27 @@ def expected_bits(method: str, compressor: str, c_k: int, d: int, nblk: int) -> 
 
 def expected_down_bits(downlink, c_k: int, d: int, nblk: int) -> float:
     """One round's downlink bits per worker: the dense estimator on sync
-    rounds and without a downlink, else the broadcast's QSGD payload."""
+    rounds and without a downlink, else the broadcast's QSGD or natural
+    payload."""
     from repro_torch.core import wire
 
     if c_k:
         return wire.dense_f32_bits(d)
     if downlink is None:
         return wire.downlink_dense_bits(d)
+    if downlink == "natural":
+        return wire.block_natural_bits(nblk, BLOCK)
     return wire.block_qsgd_bits(nblk, BLOCK, S_LEVELS)
 
 
 def check_small_input(report: dict) -> None:
     """The kernels' trajectory against the plain versions' on a small LM,
-    for every (method, compressor) of the main paths, both round shapes."""
+    for every (method, compressor) of the main paths and for MARINA over the
+    ``randk_qsgd`` engine, both round shapes; then the baselines."""
     import torch
 
+    from repro_torch import kernels
+    from repro_torch.core import make_compressor, make_engine, tree_payload_bits, wire
     from repro_torch.core.tree_util import tree_leaves
     from repro_torch.models import ModelConfig, dense_stack, init_params
 
@@ -553,20 +714,56 @@ def check_small_input(report: dict) -> None:
                       tie_embeddings=True, rope_theta=1_000_000.0)
     worst = 0.0
     params = init_params(SEED, cfg, device=DEVICE)
-    for path, (method, compressor, carry, downlink) in PATHS.items():
-        kw = dict(carry=carry, method=method, compressor=compressor,
-                  downlink=downlink, batch_per_worker=2, mb_per_worker=1)
-        s_k, h_k = train(cfg, params, **kw)
-        s_r, h_r = train(cfg, params, backend="ref", **kw)
+    runs = [(path, dict(carry=carry, method=method, compressor=compressor,
+                        downlink=downlink), None)
+            for path, (method, compressor, carry, downlink) in PATHS.items()]
+    runs += [(f"marina_randk_qsgd_{'carry' if carry else 'recompute'}",
+              dict(carry=carry, method="marina", compressor="block_randk"),
+              "randk_qsgd") for carry in (False, True)]
+    for path, kw, sampler in runs:
+        kw.update(batch_per_worker=2, mb_per_worker=1)
+        kernels.reset_launch_counts()
+        s_k, h_k = train(cfg, params, sampler=sampler, **kw)
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        s_r, h_r = train(cfg, params, backend="ref", sampler=sampler, **kw)
         require(h_k.round_sync == h_r.round_sync == EXPECTED_C_K,
                 f"small input {path}: c_k {h_k.round_sync} vs {h_r.round_sync}")
+        require(h_k.round_bits == h_r.round_bits, f"small input {path}: ledgers differ")
         for a, b in zip(tree_leaves(s_k.params), tree_leaves(s_r.params)):
             require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
                     f"small input {path}: kernels and plain versions diverge")
             worst = max(worst, float((a - b).abs().max()))
+        if sampler == "randk_qsgd":  # the RandK kernels around the plain stage
+            want = ({"randk_seeded_workers": 2, "scatter_epilogue": 2, "mean_epilogue": 2}
+                    if kw["carry"] else {"randk_seeded_workers": 2, "scatter_accum": 2})
+            require(launched == want, f"small input {path}: launches {launched}")
+            lay = make_engine(params, kb=KB, block=BLOCK, device=DEVICE).layout
+            want_bits = wire.randk_qsgd_bits(lay.nblk, KB, S_LEVELS)
+            require(h_k.round_bits[1] == want_bits,
+                    f"small input {path}: ledger {h_k.round_bits[1]} != {want_bits}")
     report["small_input_max_abs_param_diff"] = worst
-    print(f"small input: kernels' and plain versions' trajectories agree "
-          f"(max |Δparams| {worst:.3e})", flush=True)
+    print(f"small input: kernels' and plain versions' trajectories agree on "
+          f"{len(runs)} paths (max |Δparams| {worst:.3e})", flush=True)
+
+    base = {}
+    for method, compressor in BASELINES:
+        kernels.reset_launch_counts()
+        _, hist = train(cfg, params, carry=False, method=method, compressor=compressor,
+                        batch_per_worker=2)
+        require(all(math.isfinite(v) for v in hist.loss),
+                f"baseline {method} x {compressor}: loss not finite")
+        require(hist.skipped_cum[-1] == 0.0, f"baseline {method}: a round was skipped")
+        # GD's identity payload is the dense 32·d
+        want = tree_payload_bits(make_compressor(compressor, **COMP_KWARGS[compressor]),
+                                 params)
+        require(hist.round_bits == [want] * STEPS,
+                f"baseline {method} x {compressor}: ledger {hist.round_bits} != {want}")
+        require(not any(kernels.launch_counts().values()),
+                f"baseline {method}: the tree path launched a kernel")
+        base[f"{method}_{compressor}"] = {"loss": hist.loss, "round_bits": hist.round_bits}
+        print(f"small input baseline {method} x {compressor}: loss {hist.loss}, "
+              f"bits/round {want}", flush=True)
+    report["small_input_baselines"] = base
 
 
 def _union_us(intervals) -> float:
@@ -735,6 +932,7 @@ def main() -> int:
     rows = check_kernels(nblk, card, report)
     rows.update(check_permk_delta(nblk, card, report))
     rows.update(check_quantize(nblk, card, report))
+    rows.update(check_natural(nblk, card, report))
     check_small_input(report)
     launches = run_main_path(report)
 

@@ -8,9 +8,11 @@ reference draws. :func:`tree_compress` lifts a compressor to pytrees leaf by
 leaf (Block-RandK semantics).
 
 Ported: ``Identity``, ``RandK``, ``BlockRandK``, the packed-wire
-``BlockQSGD`` and the correlated collection ``PermK`` (workers share one
-round key and are told their index: :func:`tree_compress_worker`). The other reference compressors raise
-``NotImplementedError`` in :func:`make_compressor`.
+``BlockQSGD`` and ``BlockNatural``, the per-leaf ``QSGD`` and
+``NaturalCompression``, the biased ``TopK`` (for EC-SGD) and the correlated
+collection ``PermK`` (workers share one round key and are told their index:
+:func:`tree_compress_worker`). The correlated ``CorrelatedQ`` and
+``SharedRandK`` raise ``NotImplementedError`` in :func:`make_compressor`.
 """
 
 from __future__ import annotations
@@ -232,6 +234,50 @@ class BlockQSGD(Compressor):
         return dense.reshape(-1)[:d]
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockNatural(Compressor):
+    """Blockwise natural compression (Horváth et al. 2019) on the packed wire.
+
+    |x| rounds stochastically to a power of two (unbiased, ω = 1/8) under
+    the murmur3 dither of the flat engine's ``natural`` sampler, so both
+    paths draw the same codes. Wire per vector: per block one f32 reference
+    scale (the power of two just above the block's max) and one int8
+    ``sign·(exponent-delta + 1)`` code per coordinate; magnitudes 2^126 or
+    more below the block's max, and subnormals, encode as 0."""
+
+    block: int = 1024
+    name: str = dataclasses.field(default="block_natural", init=False)
+
+    def __post_init__(self):
+        if self.block & (self.block - 1):
+            raise ValueError("block must be a power of two")
+
+    def _nblk(self, d: int) -> int:
+        return max(1, -(-d // self.block))
+
+    def omega(self, d: int) -> float:
+        return 1.0 / 8.0
+
+    def expected_density(self, d: int) -> float:
+        return float(d)
+
+    def payload_bits(self, d: int) -> float:
+        return wire.block_natural_bits(self._nblk(d), self.block)
+
+    def default_p(self, d: int) -> float:
+        """Bits-balanced p (as :meth:`BlockQSGD.default_p`): ζ_Q = d would
+        give the degenerate p = 1; the int8 wire gives p ≈ 1/4."""
+        return min(1.0, max(self.payload_bits(d) / (32.0 * d), 1e-6))
+
+    def compress(self, key, x):
+        x2d = _pad_blocks(x, self.block)
+        codes, scales = _ref.natural_block_ref(x2d, prng.key_to_seed(key))
+        return {"q": codes, "scales": scales}
+
+    def decompress(self, payload, d):
+        return _ref.natural_decode_ref(payload["q"], payload["scales"]).reshape(-1)[:d]
+
+
 # ---------------------------------------------------------------------------
 # Correlated collections (Szlendak et al. 2021)
 # ---------------------------------------------------------------------------
@@ -320,6 +366,122 @@ class PermK(CorrelatedCompressor):
 
 
 # ---------------------------------------------------------------------------
+# TopK (biased, for EC-SGD), per-leaf QSGD and natural compression
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Greedy magnitude selection. Biased: E[Q(x)] ≠ x; contractive with
+    δ = K/d. Only valid inside error feedback (EC-SGD). Equal magnitudes are
+    taken lowest index first, as ``lax.top_k`` takes them (``torch.topk``
+    does not promise an order among ties)."""
+
+    k: float = 1
+    unbiased: bool = dataclasses.field(default=False, init=False)
+    name: str = dataclasses.field(default="topk", init=False)
+
+    def k_for(self, d: int) -> int:
+        if self.k < 1:
+            return max(1, int(round(self.k * d)))
+        return min(int(self.k), d)
+
+    def omega(self, d: int) -> float:  # not a Def-1.1 quantization
+        raise ValueError("TopK is biased; it has no ω. Use delta().")
+
+    def delta(self, d: int) -> float:
+        """Contraction factor: E‖Q(x) − x‖² ≤ (1 − δ)‖x‖²."""
+        return self.k_for(d) / d
+
+    def expected_density(self, d: int) -> float:
+        return float(self.k_for(d))
+
+    def payload_bits(self, d: int) -> float:
+        return 64.0 * self.k_for(d)
+
+    def compress(self, key, x):
+        del key  # deterministic
+        idx = torch.sort(x.abs(), descending=True, stable=True).indices[:self.k_for(x.shape[0])]
+        return {"values": x[idx], "indices": idx.to(torch.int32)}
+
+    def decompress(self, payload, d):
+        vals = payload["values"]
+        out = torch.zeros((d,), dtype=vals.dtype, device=vals.device)
+        return out.index_put_((payload["indices"].long(),), vals, accumulate=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class QSGD(Compressor):
+    """Stochastic s-level ℓ2 quantization against the vector's global norm:
+    Q(x)_j = ‖x‖·sign(x_j)·⌊s|x_j|/‖x‖ + u_j⌋ / s, u_j ~ U[0, 1) drawn as
+    the reference draws it (``uniform(key, (d,))``). ω = min(d/s², √d/s).
+    Payload: one f32 norm + one int8 level per coordinate (s ≤ 127). The
+    norm is torch's sum of squares, whose order XLA's need not share."""
+
+    s: int = 1
+    name: str = dataclasses.field(default="qsgd", init=False)
+
+    def __post_init__(self):
+        if not 1 <= self.s <= 127:
+            raise ValueError("levels must fit the int8 payload")
+
+    def omega(self, d: int) -> float:
+        return min(d / self.s**2, math.sqrt(d) / self.s)
+
+    def expected_density(self, d: int) -> float:
+        return float(min(d, self.s * (self.s + math.sqrt(d))))
+
+    def payload_bits(self, d: int) -> float:
+        return wire.qsgd_global_bits(d, self.s)
+
+    def compress(self, key, x):
+        xf = x.float()
+        norm = torch.sqrt(torch.sum(xf * xf))
+        safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+        u = torch.from_numpy(prng.uniform(key, tuple(x.shape))).to(x.device)
+        level = torch.floor((xf.abs() * float(self.s)) / safe + u)
+        return {"q": (torch.sign(xf) * level).to(torch.int8), "norm": norm}
+
+    def decompress(self, payload, d):
+        return payload["norm"] * payload["q"].to(torch.float32) / float(self.s)
+
+
+@dataclasses.dataclass(frozen=True)
+class NaturalCompression(Compressor):
+    """C_nat: |x| rounded to a power of two, up with probability
+    (|x| − 2^e)/2^e so E[Q(x)] = x, the coin ``bernoulli(key, p)`` as the
+    reference draws it. ω = 1/8, density d, 32 + 8d bits on a byte-aligned
+    wire. Exponents come from the float's bits and powers of two are built
+    from bits (exact; the reference's XLA log2 / exp2 approximate them), and
+    subnormals count as zero, as XLA on the CPU flushes them."""
+
+    name: str = dataclasses.field(default="natural", init=False)
+
+    def omega(self, d: int) -> float:
+        return 1.0 / 8.0
+
+    def expected_density(self, d: int) -> float:
+        return float(d)
+
+    def payload_bits(self, d: int) -> float:
+        return wire.natural_tree_bits(d)
+
+    def compress(self, key, x):
+        xf = x.float()
+        ax = xf.abs()
+        keep = ax >= _ref.TINY
+        lo = _ref.pow2_ref(torch.where(keep, _ref.float_exponent_ref(ax), 0))
+        prob_up = torch.where(keep, (ax - lo) / lo, torch.zeros_like(ax))
+        up = torch.from_numpy(prng.uniform(key, tuple(x.shape))).to(x.device) < prob_up
+        mag = torch.where(up, 2.0 * lo, lo)
+        q = torch.where(keep, torch.sign(xf) * mag, torch.zeros_like(xf))
+        return {"dense": q.to(x.dtype)}
+
+    def decompress(self, payload, d):
+        return payload["dense"]
+
+
+# ---------------------------------------------------------------------------
 # Tree lifting (Block-RandK semantics)
 # ---------------------------------------------------------------------------
 
@@ -364,6 +526,11 @@ def tree_decompress(comp: Compressor, payload_tree: _PayloadTree, like: PyTree
     return payload_tree.treedef.unflatten(outs)
 
 
+def tree_omega(comp: Compressor, tree: PyTree) -> float:
+    """Effective ω of the leafwise compressor = max over leaves (worst case)."""
+    return max(comp.omega(l.numel()) for l in tree_leaves(tree))
+
+
 def tree_payload_bits(comp: Compressor, tree: PyTree) -> float:
     """Per-worker wire bits of one compressed round under per-leaf lifting."""
     return sum(comp.payload_bits(l.numel()) for l in tree_leaves(tree))
@@ -374,9 +541,7 @@ def tree_dim(tree: PyTree) -> int:
     return sum(int(np.prod(l.shape)) for l in tree_leaves(tree))
 
 
-_NOT_PORTED = ("block_natural", "flat_natural",
-               "shared_randk", "correlated_qsgd",
-               "correlated_q", "cqsgd", "topk", "qsgd", "natural")
+_NOT_PORTED = ("shared_randk", "correlated_qsgd", "correlated_q", "cqsgd")
 
 
 def make_compressor(name: str, **kw) -> Compressor:
@@ -390,8 +555,16 @@ def make_compressor(name: str, **kw) -> Compressor:
         return BlockRandK(**kw)
     if name in ("block_qsgd", "flat_qsgd"):
         return BlockQSGD(**kw)
+    if name in ("block_natural", "flat_natural"):
+        return BlockNatural(**kw)
     if name in ("permk", "perm_k"):
         return PermK(**kw)
+    if name == "topk":
+        return TopK(**kw)
+    if name == "qsgd":
+        return QSGD(**kw)
+    if name == "natural":
+        return NaturalCompression()
     if name in _NOT_PORTED:
         raise NotImplementedError(f"compressor {name!r} is not ported yet")
     raise ValueError(f"unknown compressor {name!r}")

@@ -5,7 +5,7 @@
   ``jax.tree.flatten`` order (:mod:`repro_torch.core.tree_util`), so the
   seeded offsets hit the same coordinates as in the reference.
 * :class:`FlatEngine` — the fused compress → uplink → decompress-mean
-  pipeline over that buffer, with one of three seeded wires:
+  pipeline over that buffer, with one of five seeded wires:
 
   - ``randk``: per-worker payloads are ``(nblk, kb)`` values whose offsets
     the server regenerates from the worker's uint32 seed; aggregation
@@ -18,6 +18,16 @@
     levels (int8, |level| ≤ s) and per-block f32 norms come from its uint32
     seed's murmur3 dither, cross the 4-bit nibble words when s ≤ 7, and the
     server dequantizes and averages them.
+  - ``natural``: blockwise natural compression (ω = 1/8); |x| rounds
+    stochastically to a power of two under the same dither stream, and
+    worker w uplinks one int8 exponent-delta code per coordinate and one f32
+    power-of-two scale per block; the server decodes and averages them.
+  - ``randk_qsgd``: the RandK wire's kb coordinates per block, QSGD-quantized
+    against the per-block norm of the sampled values (dither counters at
+    ``DITHER_CTR_OFFSET``). The gather and the scatter-mean (or scatter
+    epilogue) are the RandK kernels; the K-sized quantize and dequantize in
+    between are plain PyTorch on the buffers' device, as in the reference,
+    which has no kernel for that stage either.
 
   A second engine over the same layout (:func:`make_downlink`) compresses
   the server's broadcast: ``fused_round(down=…)`` and
@@ -30,9 +40,8 @@ Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
 tensors and run the plain versions on CPU tensors — so ``auto`` resolves to
 ``cuda`` for CUDA tensors and ``ref`` for CPU ones.
 
-The ``natural`` and ``randk_qsgd`` samplers are not ported yet
-(``NotImplementedError``), nor are robust aggregators (``Marina`` refuses
-them).
+Robust aggregators are not ported yet (``Marina`` refuses them), nor is
+``worker_dense``, the per-worker decode they need.
 """
 
 from __future__ import annotations
@@ -206,23 +215,24 @@ class FlatEngine:
     restarts at 0; sampling is with replacement, ω = B/kb. ``permk``: one
     seed from the round key (``bits``) for all workers; ``kb`` is unused,
     and the worker count must divide B. ``qsgd``: per-worker seeds as for
-    randk, ``s`` levels; ``kb`` is unused."""
+    randk, ``s`` levels; ``kb`` is unused. ``natural``: per-worker seeds;
+    ``kb`` and ``s`` are unused. ``randk_qsgd``: per-worker seeds, ``kb``
+    coordinates per block, ``s`` levels."""
 
     layout: FlatLayout
     kb: int = 8
     backend: str = "auto"
     sampler: str = "randk"
-    s: int = 7              # quantization levels of the qsgd sampler
+    s: int = 7              # quantization levels of the qsgd-family samplers
     #: the device the engine's buffers live on (None: whatever it is given)
     device: Any = None
 
-    SAMPLERS = ("randk", "permk", "qsgd")
+    SAMPLERS = ("randk", "permk", "qsgd", "natural", "randk_qsgd")
 
     def __post_init__(self):
         if self.sampler not in self.SAMPLERS:
-            raise NotImplementedError(
-                f"sampler {self.sampler!r} is not ported yet (only {self.SAMPLERS})")
-        if self.sampler == "qsgd" and not 1 <= self.s <= wire.INT8_MAX_S:
+            raise ValueError(f"unknown sampler {self.sampler!r} (one of {self.SAMPLERS})")
+        if self.sampler in ("qsgd", "randk_qsgd") and not 1 <= self.s <= wire.INT8_MAX_S:
             raise ValueError(f"s={self.s} does not fit the int8 wire")
         resolve_backend(self.backend)
 
@@ -242,12 +252,18 @@ class FlatEngine:
     @property
     def omega(self) -> float:
         """Def-1.1 ω of one worker's sampler. PermK's is collection-level
-        (n − 1): ask the compressor."""
+        (n − 1): ask the compressor. Composition: 1 + ω multiplies over
+        independent stages, the QSGD stage acting on the kb sampled values."""
         B = self.layout.block
         if self.sampler == "permk":
             raise ValueError("PermK ω is n − 1; ask the compressor")
         if self.sampler == "qsgd":
             return min(B / self.s**2, float(np.sqrt(B)) / self.s)
+        if self.sampler == "natural":
+            return 1.0 / 8.0
+        if self.sampler == "randk_qsgd":
+            w_q = min(self.kb / self.s**2, float(np.sqrt(self.kb)) / self.s)
+            return (1.0 + B / self.kb) * (1.0 + w_q) - 1.0
         return B / self.kb
 
     def payload_bits(self, n: "int | None" = None) -> float:
@@ -262,6 +278,10 @@ class FlatEngine:
             return wire.permk_bits(lay.padded, n)
         if self.sampler == "qsgd":
             return wire.block_qsgd_bits(lay.nblk, lay.block, self.s)
+        if self.sampler == "natural":
+            return wire.block_natural_bits(lay.nblk, lay.block)
+        if self.sampler == "randk_qsgd":
+            return wire.randk_qsgd_bits(lay.nblk, self.kb, self.s)
         return wire.seeded_randk_bits(lay.nblk, self.kb)
 
     # -- stages -------------------------------------------------------------
@@ -292,7 +312,12 @@ class FlatEngine:
             fn = (_ref.qsgd_dequant_mean_ref if self._plain(levels)
                   else _quant.qsgd_dequant_mean)
             return fn(levels, norms, self.s)
-        vals, offs = self.compress_stacked(self.worker_seeds(key, n), bufs)
+        if self.sampler == "natural":
+            codes, scales = self._natural_payloads(key, bufs, n)
+            fn = (_ref.natural_dequant_mean_ref if self._plain(codes)
+                  else _quant.natural_dequant_mean)
+            return fn(codes, scales)
+        vals, offs = self._sampled_payloads(key, bufs, n)
         return self.decompress_mean(vals, offs)
 
     def _permk_mean(self, key, bufs: torch.Tensor) -> torch.Tensor:
@@ -317,6 +342,26 @@ class FlatEngine:
             levels = nibble_roundtrip(levels, self.layout.block, self.backend)
         return levels, norms
 
+    def _natural_payloads(self, key, bufs: torch.Tensor, n: int):
+        """Every worker's natural payload (codes, scales)."""
+        seeds = _randk.seeds_tensor(self.worker_seeds(key, n), bufs.device)
+        fn = (_ref.natural_block_workers_ref if self._plain(bufs)
+              else _quant.natural_block_workers)
+        return fn(bufs, seeds)
+
+    def _sampled_payloads(self, key, bufs: torch.Tensor, n: int):
+        """Every worker's RandK payload (values, offsets) through the RandK
+        kernel; for ``randk_qsgd`` the values then cross the QSGD stage (K
+        int8 levels and nblk norms per worker, plain PyTorch: the stage
+        touches kb ≪ B values per block) and come back dequantized."""
+        seeds = self.worker_seeds(key, n)
+        vals, offs = self.compress_stacked(seeds, bufs)
+        if self.sampler == "randk_qsgd":
+            levels, norms = _ref.qsgd_sampled_quantize_ref(
+                vals, _randk.seeds_tensor(seeds, vals.device), self.s)
+            vals = _ref.randk_qsgd_dequant_ref(levels, norms, self.s)
+        return vals, offs
+
     def fused_round(self, key, diff_bufs: torch.Tensor, n: int, g2d: torch.Tensor,
                     x2d: torch.Tensor, gamma: float, down: "FlatEngine | None" = None,
                     down_key=None):
@@ -324,7 +369,8 @@ class FlatEngine:
         from the packed diffs, then the fused epilogue (scatter-mean or
         dequant-mean → ``g += δ`` → ``x −= γ·g``). Returns
         ``(g_new f32, x_new)``. PermK rounds assemble the dense delta first
-        and end in the delta epilogue.
+        and end in the delta epilogue; ``randk_qsgd`` rounds end in the
+        scatter epilogue on the dequantized values.
 
         With ``down`` (an engine over the same layout) the round is
         bidirectional: the uplink aggregates to the dense δ_up, the server
@@ -336,18 +382,23 @@ class FlatEngine:
                 raise ValueError("the downlink engine must share the uplink layout")
             if down.sampler == "permk":
                 raise ValueError("PermK is a partition across n receivers; a broadcast "
-                                 "downlink has one payload: use randk or qsgd")
+                                 "downlink has one payload: use randk, qsgd or natural")
             delta = self.aggregate(key, diff_bufs, n)
             return down.fused_round(down_key, delta[None], 1, g2d, x2d, gamma)
         if self.sampler == "qsgd":
             levels, norms = self._qsgd_payloads(key, diff_bufs, n)
             fn = _ref.qsgd_epilogue_ref if self._plain(levels) else _epi.qsgd_epilogue
             return fn(levels, norms, g2d, x2d, gamma, self.s)
+        if self.sampler == "natural":
+            codes, scales = self._natural_payloads(key, diff_bufs, n)
+            fn = (_ref.natural_epilogue_ref if self._plain(codes)
+                  else _epi.natural_epilogue)
+            return fn(codes, scales, g2d, x2d, gamma)
         if self.sampler == "permk":
             delta = self._permk_mean(key, diff_bufs)
             fn = _ref.delta_epilogue_ref if self._plain(delta) else _epi.delta_epilogue
             return fn(delta, g2d, x2d, gamma)
-        vals, offs = self.compress_stacked(self.worker_seeds(key, n), diff_bufs)
+        vals, offs = self._sampled_payloads(key, diff_bufs, n)
         fn = _ref.scatter_epilogue_ref if self._plain(vals) else _epi.scatter_epilogue
         return fn(vals, offs, g2d, x2d, gamma)
 

@@ -48,6 +48,7 @@ from . import wire
 from .compressors import (
     Compressor,
     CorrelatedCompressor,
+    Identity,
     tree_compress,
     tree_compress_worker,
     tree_decompress,
@@ -593,3 +594,8 @@ class PPMarina:
         if self.carry:
             return self._step_carry(state, key, batches)
         return self._step_recompute(state, key, batches)
+
+
+def make_gd(grad_fn: GradFn, gamma: float) -> Marina:
+    """GD = MARINA with identity quantization (paper §2)."""
+    return Marina(grad_fn=grad_fn, compressor=Identity(), gamma=gamma, p=1.0)

@@ -5,14 +5,16 @@
                     ``csrc/randk.cu``.
 * ``permk.py``    — PermK uplink with one shared seed
                     (`permk_seeded_workers`), over ``csrc/permk.cu``.
-* ``quantize.py`` — packed QSGD wire: blockwise QSGD uplink
+* ``quantize.py`` — packed quantization wire: blockwise QSGD uplink
                     (`qsgd_block_workers`), dequantize-and-mean
-                    (`qsgd_dequant_mean`) and the 4-bit words
-                    (`nibble_pack`, `nibble_unpack`), over
-                    ``csrc/quantize.cu``.
+                    (`qsgd_dequant_mean`), the 4-bit words
+                    (`nibble_pack`, `nibble_unpack`) and blockwise
+                    natural compression (`natural_block_workers`,
+                    `natural_dequant_mean`), over ``csrc/quantize.cu``.
 * ``epilogue.py`` — fused server epilogues (`scatter_epilogue`,
-                    `delta_epilogue`, `qsgd_epilogue`, `mean_epilogue`),
-                    over ``csrc/epilogue.cu``.
+                    `delta_epilogue`, `qsgd_epilogue`,
+                    `natural_epilogue`, `mean_epilogue`), over
+                    ``csrc/epilogue.cu``.
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.
@@ -33,6 +35,9 @@ KERNELS = {
     "nibble_unpack": quantize.nibble_unpack,
     "qsgd_dequant_mean": quantize.qsgd_dequant_mean,
     "qsgd_epilogue": epilogue.qsgd_epilogue,
+    "natural_block_workers": quantize.natural_block_workers,
+    "natural_dequant_mean": quantize.natural_dequant_mean,
+    "natural_epilogue": epilogue.natural_epilogue,
 }
 
 

@@ -45,6 +45,9 @@ SIGNATURES = {
         "qsgd_dequant_mean": (_P, _P, _P, _I, _L, _I, _I, _P),
         "nibble_pack": (_P, _P, _L, _P),
         "nibble_unpack": (_P, _P, _L, _P),
+        "natural_block_workers_f32": (_P, _P, _P, _P, _I, _L, _I, _P),
+        "natural_block_workers_bf16": (_P, _P, _P, _P, _I, _L, _I, _P),
+        "natural_dequant_mean": (_P, _P, _P, _I, _L, _I, _P),
     },
     "epilogue": {
         "scatter_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
@@ -55,6 +58,8 @@ SIGNATURES = {
         "delta_epilogue_bf16": (_P, _P, _P, _P, _P, _L, _F, _P),
         "qsgd_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "qsgd_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
+        "natural_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _P),
+        "natural_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _P),
     },
 }
 

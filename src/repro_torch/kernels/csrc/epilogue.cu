@@ -6,15 +6,19 @@
 // worker gradients, carry sync rounds), ::delta_epilogue (an already-dense
 // round delta: the PermK aggregate on carry compressed rounds) and
 // ::qsgd_epilogue (packed-QSGD payloads: int8 levels + per-block norms, the
-// QSGD uplink's and the compressed downlink's carry rounds). Where the TPU
+// QSGD uplink's and the compressed downlink's carry rounds) and
+// ::natural_epilogue (natural-compression payloads: int8 exponent-delta codes
+// + per-block power-of-two scales, the same two uses). Where the TPU
 // version scatters through one-hot MXU matmuls, scatter_epilogue adds into a
 // shared-memory row.
 //
-// All four are bound by device-memory bytes: each reads g (or the n gradient
+// All five are bound by device-memory bytes: each reads g (or the n gradient
 // rows, or δ and g, or the n int8 payloads and g) and x once and writes g' and
 // x' once; the arithmetic is a few flops per coordinate (qsgd_epilogue adds an
 // IEEE divide per worker per 4 coordinates and one per coordinate, whose
-// instruction time is not small beside its bytes: PERF.md). The x update rounds the
+// instruction time is not small beside its bytes: PERF.md; natural_epilogue
+// decodes each code with one multiply by a power of two built from bits, and
+// divides once per coordinate). The x update rounds the
 // multiply and the add separately (__fmul_rn, __fadd_rn) — an FMA would differ
 // from the oracle in the last bit.
 //
@@ -126,6 +130,32 @@ __global__ void qsgd_epilogue_kernel(const int8_t* __restrict__ levels,
     const int64_t i0 = 4 * q;
     float acc[4];
     dequant_sum4(levels, norms, n, nblk, size, i0 / block, i0, s, acc);
+    for (int k = 0; k < 4; ++k) {
+      const float g_new = __fadd_rn(g[i0 + k], __fdiv_rn(acc[k], fn));
+      g_out[i0 + k] = g_new;
+      store_x(x_out, i0 + k, apply_update(neg_gamma, g_new, load_x(x, i0 + k)));
+    }
+  }
+}
+
+// One thread per 4 coordinates: the n natural payloads decoded and summed in
+// order (quant.cuh), then g' = g + acc/n and the x update.
+template <typename XT>
+__global__ void natural_epilogue_kernel(const int8_t* __restrict__ codes,
+                                        const float* __restrict__ scales,
+                                        const float* __restrict__ g,
+                                        const XT* __restrict__ x,
+                                        float* __restrict__ g_out,
+                                        XT* __restrict__ x_out, int n, int64_t nblk,
+                                        int block, float neg_gamma) {
+  const int64_t size = nblk * block;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const float fn = (float)n;
+  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < size / 4;
+       q += stride) {
+    const int64_t i0 = 4 * q;
+    float acc[4];
+    natural_sum4(codes, scales, n, nblk, size, i0 / block, i0, acc);
     for (int k = 0; k < 4; ++k) {
       const float g_new = __fadd_rn(g[i0 + k], __fdiv_rn(acc[k], fn));
       g_out[i0 + k] = g_new;
@@ -248,4 +278,31 @@ extern "C" int qsgd_epilogue_bf16(const void* levels, const void* norms, const v
                                   void* stream) {
   return launch_qsgd<__nv_bfloat16>(levels, norms, g, x, g_out, x_out, n, nblk, block,
                                     s, neg_gamma, stream);
+}
+
+template <typename XT>
+static int launch_natural(const void* codes, const void* scales, const void* g,
+                          const void* x, void* g_out, void* x_out, int n,
+                          long long nblk, int block, float neg_gamma, void* stream) {
+  natural_epilogue_kernel<XT><<<elementwise_grid(nblk * block / 4, 256), 256, 0,
+                                (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const float*)scales, (const float*)g, (const XT*)x,
+      (float*)g_out, (XT*)x_out, n, nblk, block, neg_gamma);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int natural_epilogue_f32(const void* codes, const void* scales, const void* g,
+                                    const void* x, void* g_out, void* x_out, int n,
+                                    long long nblk, int block, float neg_gamma,
+                                    void* stream) {
+  return launch_natural<float>(codes, scales, g, x, g_out, x_out, n, nblk, block,
+                               neg_gamma, stream);
+}
+
+extern "C" int natural_epilogue_bf16(const void* codes, const void* scales,
+                                     const void* g, const void* x, void* g_out,
+                                     void* x_out, int n, long long nblk, int block,
+                                     float neg_gamma, void* stream) {
+  return launch_natural<__nv_bfloat16>(codes, scales, g, x, g_out, x_out, n, nblk,
+                                       block, neg_gamma, stream);
 }

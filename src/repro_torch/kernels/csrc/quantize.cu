@@ -1,21 +1,28 @@
-// Packed QSGD wire for Hopper (sm_90a): blockwise s-level QSGD uplink, the
-// server's dequantize-and-mean, and the 4-bit nibble words the levels cross
-// the wire in.
+// Packed quantization wire for Hopper (sm_90a): blockwise s-level QSGD
+// uplink, the server's dequantize-and-mean, the 4-bit nibble words the levels
+// cross the wire in, and blockwise natural compression (power-of-two
+// stochastic rounding, int8 exponent-delta codes) with its decode-and-mean.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/quantize.py::
-// qsgd_block_workers, ::qsgd_dequant_mean, ::nibble_pack and ::nibble_unpack.
+// qsgd_block_workers, ::qsgd_dequant_mean, ::nibble_pack, ::nibble_unpack,
+// ::natural_block_workers and ::natural_dequant_mean.
 // The TPU versions sweep one (1, B) VMEM tile per grid step in order; here
 // every (worker, block) row or group of coordinates is its own CTA or thread,
 // in no order, and nothing carries over between them.
 //
-// All four are bound by device-memory bytes: a few operations per byte
+// All six are bound by device-memory bytes: a few operations per byte
 // moved. qsgd_block_workers reads x (f32 or bf16) once and writes int8
 // levels and one f32 norm per row; the block's norm is reduced in registers
 // and shared memory, so x is never read twice. Its murmur3 hash, IEEE
 // divide and floor per coordinate take instruction time of the same order as
 // its bytes (PERF.md). qsgd_dequant_mean reads the n int8 payloads and writes
 // one f32 accumulator. The nibble kernels move 8 int8 to or from one 32-bit
-// word per thread.
+// word per thread. natural_block_workers, like the QSGD uplink, reads x once
+// and writes int8 codes and one f32 scale per row: the row's max |x| is
+// reduced in registers and shared memory (a max is exact in any order), and
+// each coordinate then costs an exponent read from its bits, one exact
+// subtraction and division, and a murmur3 hash. natural_dequant_mean reads
+// the n int8 payloads and writes one f32 accumulator.
 //
 // Floating-point order (the plain versions in ref.py repeat it exactly):
 // * the block norm: thread t squares its 4 contiguous elements and adds them
@@ -25,7 +32,9 @@
 // * the level: floor((s·|x|) / safe + u), each operation rounded once
 //   (__fmul_rn, __fdiv_rn, __fadd_rn; no reciprocal, no FMA);
 // * the dequant-mean: from 0, worker by worker, acc + level·(norm_w / s),
-//   then acc / n, each rounded once.
+//   then acc / n, each rounded once;
+// * natural codes and decoding: quant.cuh (natural_code, natural_value);
+//   the decode-and-mean sums from 0 in worker order, then acc / n.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). The wrappers
@@ -120,6 +129,73 @@ __global__ void qsgd_dequant_mean_kernel(const int8_t* __restrict__ levels,
   }
 }
 
+// One CTA of B/4 threads per (w, b) row: the row's max |x| (subnormals
+// flushed), then its B codes and the scale 2^e_ref.
+template <typename XT>
+__global__ void natural_block_workers_kernel(const XT* __restrict__ x,
+                                             const int32_t* __restrict__ seeds,
+                                             int8_t* __restrict__ codes,
+                                             float* __restrict__ scales,
+                                             int64_t nblk, int block) {
+  __shared__ float warp_max[32];
+  __shared__ int row_e_ref;
+  const int64_t row = blockIdx.x;  // w·nblk + b
+  const int64_t b = row % nblk;
+  const int w = (int)(row / nblk);
+  const int t = threadIdx.x;
+  float v[4];
+  load4(x + row * block + 4 * t, v);
+
+  float m = fmaxf(fmaxf(natural_abs(v[0]), natural_abs(v[1])),
+                  fmaxf(natural_abs(v[2]), natural_abs(v[3])));
+  for (int h = 16; h > 0; h >>= 1) m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, h));
+  const int warps = blockDim.x >> 5;
+  if ((t & 31) == 0) warp_max[t >> 5] = m;
+  __syncthreads();
+  if (t < 32) {
+    float q = t < warps ? warp_max[t] : 0.0f;
+    for (int h = 16; h > 0; h >>= 1) q = fmaxf(q, __shfl_down_sync(0xffffffffu, q, h));
+    if (t == 0) {
+      row_e_ref = natural_e_ref(q);
+      scales[row] = pow2_exact(row_e_ref);
+    }
+  }
+  __syncthreads();
+  const int e_ref = row_e_ref;
+  // seeds arrive as int32 and are reinterpreted, not converted
+  const uint32_t seed = (uint32_t)seeds[w];
+  const uint32_t ctr0 = (uint32_t)(b * block + 4 * t);
+  char4 c;
+  c.x = natural_code(v[0], e_ref, murmur_bits(seed, ctr0));
+  c.y = natural_code(v[1], e_ref, murmur_bits(seed, ctr0 + 1u));
+  c.z = natural_code(v[2], e_ref, murmur_bits(seed, ctr0 + 2u));
+  c.w = natural_code(v[3], e_ref, murmur_bits(seed, ctr0 + 3u));
+  reinterpret_cast<char4*>(codes + row * block)[t] = c;
+}
+
+// One thread per 4 coordinates: the workers' codes decoded and summed in
+// order, ÷ n.
+__global__ void natural_dequant_mean_kernel(const int8_t* __restrict__ codes,
+                                            const float* __restrict__ scales,
+                                            float* __restrict__ out, int n,
+                                            int64_t nblk, int block) {
+  const int64_t size = nblk * block;
+  const int64_t quads = size / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const float fn = (float)n;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += stride) {
+    float acc[4];
+    natural_sum4(codes, scales, n, nblk, size, 4 * i / block, 4 * i, acc);
+    float4 o;
+    o.x = __fdiv_rn(acc[0], fn);
+    o.y = __fdiv_rn(acc[1], fn);
+    o.z = __fdiv_rn(acc[2], fn);
+    o.w = __fdiv_rn(acc[3], fn);
+    reinterpret_cast<float4*>(out)[i] = o;
+  }
+}
+
 // One thread per word: 8 int8 levels in [−8, 7] → one uint32, level t's
 // two's-complement nibble at bits [4t, 4t+4).
 __global__ void nibble_pack_kernel(const int8_t* __restrict__ q,
@@ -205,5 +281,36 @@ extern "C" int nibble_unpack(const void* words, void* q, long long nwords,
                              void* stream) {
   nibble_unpack_kernel<<<grid_for(nwords, 256), 256, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, (int8_t*)q, nwords);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+static int launch_natural(const void* x, const void* seeds, void* codes, void* scales,
+                          int n, long long nblk, int block, void* stream) {
+  natural_block_workers_kernel<XT><<<(unsigned)(n * nblk), block / 4, 0,
+                                     (cudaStream_t)stream>>>(
+      (const XT*)x, (const int32_t*)seeds, (int8_t*)codes, (float*)scales, nblk,
+      block);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int natural_block_workers_f32(const void* x, const void* seeds, void* codes,
+                                         void* scales, int n, long long nblk,
+                                         int block, void* stream) {
+  return launch_natural<float>(x, seeds, codes, scales, n, nblk, block, stream);
+}
+
+extern "C" int natural_block_workers_bf16(const void* x, const void* seeds,
+                                          void* codes, void* scales, int n,
+                                          long long nblk, int block, void* stream) {
+  return launch_natural<__nv_bfloat16>(x, seeds, codes, scales, n, nblk, block,
+                                       stream);
+}
+
+extern "C" int natural_dequant_mean(const void* codes, const void* scales, void* out,
+                                    int n, long long nblk, int block, void* stream) {
+  natural_dequant_mean_kernel<<<grid_for(nblk * block / 4, 256), 256, 0,
+                                (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const float*)scales, (float*)out, n, nblk, block);
   return (int)cudaGetLastError();
 }

@@ -3,10 +3,11 @@
 
 Ports ``repro.kernels.epilogue::scatter_epilogue`` (carry compressed
 RandK rounds), ``::delta_epilogue`` (carry compressed PermK rounds, whose
-aggregate is already dense), ``::qsgd_epilogue`` (carry compressed rounds of
-the packed QSGD wire, uplink or downlink) and ``::mean_epilogue`` (carry sync
-rounds): aggregate the worker payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded separately,
-in x's dtype (f32 or bf16). A wrapper given CUDA tensors launches its kernel
+aggregate is already dense), ``::qsgd_epilogue`` and ``::natural_epilogue``
+(carry compressed rounds of the packed QSGD and natural wires, uplink or
+downlink) and ``::mean_epilogue`` (carry sync rounds): aggregate the worker
+payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded
+separately, in x's dtype (f32 or bf16). A wrapper given CUDA tensors launches its kernel
 (or raises); given CPU tensors it returns the plain version from
 :mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in
 ``<wrapper>.launches``.
@@ -19,7 +20,12 @@ import torch
 
 from . import _build
 from . import ref as _ref
-from .quantize import check_cuda_buffers, check_payload, check_qsgd_block
+from .quantize import (
+    check_cuda_buffers,
+    check_natural_block,
+    check_payload,
+    check_qsgd_block,
+)
 from .randk import _check_payload, _stream
 
 _X_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -147,3 +153,29 @@ def qsgd_epilogue(levels: torch.Tensor, norms: torch.Tensor, g2d: torch.Tensor,
 
 
 qsgd_epilogue.launches = 0
+
+
+def natural_epilogue(codes: torch.Tensor, scales: torch.Tensor, g2d: torch.Tensor,
+                     x2d: torch.Tensor, gamma: float):
+    """Natural payloads (n, nblk, B) int8 + (n, nblk) f32 + g (nblk, B) f32 +
+    x (nblk, B) → (g' = g + decoded mean f32, x' x.dtype)."""
+    if not codes.is_cuda:
+        return _ref.natural_epilogue_ref(codes, scales, g2d, x2d, gamma)
+    n, nblk, B = codes.shape
+    check_natural_block(B, nblk)
+    check_payload(codes, scales)
+    suffix = _check_gx(g2d, x2d, (nblk, B))
+    check_cuda_buffers(codes, scales, g2d, x2d)
+    g_out = torch.empty_like(g2d)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"natural_epilogue_{suffix}")(
+        codes.data_ptr(), scales.data_ptr(), g2d.data_ptr(), x2d.data_ptr(),
+        g_out.data_ptr(), x_out.data_ptr(), n, nblk, B, _neg_gamma(gamma), _stream(),
+    )
+    _build.check(err, "natural_epilogue")
+    natural_epilogue.launches += 1
+    return g_out, x_out
+
+
+natural_epilogue.launches = 0

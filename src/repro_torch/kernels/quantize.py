@@ -49,11 +49,19 @@ def check_qsgd_block(B: int, nblk: int, s: int) -> None:
 
 
 def check_payload(levels: torch.Tensor, norms: torch.Tensor) -> None:
+    """int8 codes (n, nblk, B) with one f32 per (w, b) row: the QSGD levels
+    and norms, or the natural codes and scales."""
     n, nblk, _ = levels.shape
     if levels.dtype != torch.int8 or norms.dtype != torch.float32:
-        raise ValueError("QSGD payloads are int8 levels and f32 norms")
+        raise ValueError("quantized payloads are int8 codes and f32 row scales")
     if tuple(norms.shape) != (n, nblk):
-        raise ValueError(f"norms must have shape {(n, nblk)}")
+        raise ValueError(f"row scales must have shape {(n, nblk)}")
+
+
+def check_natural_block(B: int, nblk: int) -> None:
+    """Shapes the natural kernels take: those of the QSGD kernels (one CTA of
+    B/4 threads per block, the dither counter b·B + j in uint32)."""
+    check_qsgd_block(B, nblk, 1)
 
 
 def qsgd_block_workers(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
@@ -146,3 +154,51 @@ def nibble_unpack(words: torch.Tensor, block: int) -> torch.Tensor:
 
 
 nibble_unpack.launches = 0
+
+
+def natural_block_workers(x3d: torch.Tensor, seeds: torch.Tensor):
+    """Per-worker blockwise natural compression: (n, nblk, B) f32 or bf16 +
+    (n,) int32 seeds → codes (n, nblk, B) int8 and scales (n, nblk) f32."""
+    n, nblk, B = x3d.shape
+    if not x3d.is_cuda:
+        return _ref.natural_block_workers_ref(x3d, seeds)
+    check_natural_block(B, nblk)
+    if x3d.dtype not in _X_SUFFIX:
+        raise ValueError("natural_block_workers takes an f32 or bf16 buffer")
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (n,):
+        raise ValueError("seeds must be an (n,) int32 tensor")
+    check_cuda_buffers(x3d, seeds)
+    codes = torch.empty((n, nblk, B), dtype=torch.int8, device=x3d.device)
+    scales = torch.empty((n, nblk), dtype=torch.float32, device=x3d.device)
+    lib = _build.library("quantize")
+    err = getattr(lib, f"natural_block_workers_{_X_SUFFIX[x3d.dtype]}")(
+        x3d.data_ptr(), seeds.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        n, nblk, B, _stream(),
+    )
+    _build.check(err, "natural_block_workers")
+    natural_block_workers.launches += 1
+    return codes, scales
+
+
+natural_block_workers.launches = 0
+
+
+def natural_dequant_mean(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Decode-and-mean of n natural payloads: (n, nblk, B) int8 + (n, nblk)
+    f32 → (nblk, B) f32."""
+    n, nblk, B = codes.shape
+    if not codes.is_cuda:
+        return _ref.natural_dequant_mean_ref(codes, scales)
+    check_natural_block(B, nblk)
+    check_payload(codes, scales)
+    check_cuda_buffers(codes, scales)
+    out = torch.empty((nblk, B), dtype=torch.float32, device=codes.device)
+    lib = _build.library("quantize")
+    err = lib.natural_dequant_mean(codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                   n, nblk, B, _stream())
+    _build.check(err, "natural_dequant_mean")
+    natural_dequant_mean.launches += 1
+    return out
+
+
+natural_dequant_mean.launches = 0

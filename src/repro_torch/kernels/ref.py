@@ -321,3 +321,196 @@ def qsgd_epilogue_ref(levels, norms, g2d, x2d, gamma: float, s: int):
     :func:`qsgd_dequant_mean_ref`, then g' = g + δ and x' = x − γ·g'."""
     delta = qsgd_dequant_mean_ref(levels, norms, s)
     return delta_epilogue_ref(delta, g2d, x2d, gamma)
+
+
+# ---------------------------------------------------------------------------
+# Natural compression on the packed wire (Horváth et al. 2019)
+# ---------------------------------------------------------------------------
+#
+# Powers of two are exact here: an exponent is read from the float's bits and
+# 2^k is built from bits, never through log2 / exp2 (the reference's XLA
+# versions of both are approximations: ROADMAP C). Magnitudes below 2^-126
+# (subnormals) count as zero, on input and after decoding, as on the TPU and
+# in XLA on the CPU, which flush them.
+
+#: the smallest normal f32; below it a magnitude is flushed to zero
+TINY = 2.0**-126
+
+
+def pow2_ref(k: torch.Tensor) -> torch.Tensor:
+    """2^k as f32 for integer k in [−126, 128] (int32 or int64), built from
+    the exponent bits (k = 128 gives inf, as exp2 does)."""
+    return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def float_exponent_ref(ax: torch.Tensor) -> torch.Tensor:
+    """⌊log2 ax⌋ as int32 for normal positive f32 ax: the biased exponent
+    bits minus 127 (the exact value, where XLA's log2 can be off by one)."""
+    return (ax.view(torch.int32) >> 23) - 127
+
+
+def _worker_row_chunks(x3d: torch.Tensor, seeds: torch.Tensor):
+    """Yield (w, b0, b1, x, u): worker w's rows [b0, b1) of x3d as f32 and
+    their dither u from w's murmur3 stream at counters b·B + j, in chunks of
+    ``_ROW_CHUNK`` rows."""
+    n, nblk, B = x3d.shape
+    dev = x3d.device
+    s_seeds = _as_u32_int64(seeds.to(dev))
+    j = torch.arange(B, dtype=torch.int64, device=dev)
+    for b0 in range(0, nblk, _ROW_CHUNK):
+        b1 = min(nblk, b0 + _ROW_CHUNK)
+        ctr = torch.arange(b0, b1, dtype=torch.int64, device=dev)[:, None] * B + j
+        for w in range(n):
+            u = uniform_from_bits_ref(murmur_bits_ref(s_seeds[w], ctr))
+            yield w, b0, b1, x3d[w, b0:b1].to(torch.float32), u
+
+
+def natural_exponents_ref(x: torch.Tensor):
+    """The exponents natural compression quantizes against, for rows of B
+    coordinates: per coordinate e = ⌊log2 |x|⌋ (int32; 0 where
+    |x| < 2^-126) and per row e_ref = ⌊log2 max|x|⌋ + 1 (1 for a row of
+    zeros). x (…, B) f32 or bf16 → (e (…, B), e_ref (…)), both int32."""
+    ax = x.to(torch.float32).abs()
+    ax = torch.where(ax >= TINY, ax, torch.zeros_like(ax))
+    e = torch.where(ax > 0, float_exponent_ref(ax), 0)
+    mx = ax.amax(dim=-1)
+    e_ref = torch.where(mx > 0, float_exponent_ref(mx), 0) + 1
+    return e, e_ref
+
+
+def _natural_codes(x: torch.Tensor, u: torch.Tensor, e: torch.Tensor,
+                   e_ref: torch.Tensor) -> torch.Tensor:
+    """Codes of rows x (rows, B) f32 given the dither and the exponents."""
+    ax = x.abs()
+    keep = ax >= TINY
+    ew = torch.where(keep, e.to(torch.int32), 0)
+    lo = pow2_ref(ew)
+    p_up = torch.where(keep, (ax - lo) / lo, torch.zeros_like(ax))
+    delta = e_ref.to(torch.int32)[:, None] - (ew + (u < p_up).to(torch.int32))
+    code = torch.where(x < 0, -(delta + 1), delta + 1)
+    return torch.where(keep & (delta <= 126), code, 0).to(torch.int8)
+
+
+def natural_quantize_ref(x3d: torch.Tensor, seeds: torch.Tensor, e: torch.Tensor,
+                         e_ref: torch.Tensor) -> torch.Tensor:
+    """The quantize step of blockwise natural compression given the
+    exponents (e per coordinate, e_ref per row; integer or integral float
+    tensors): with lo = 2^e, p_up = (|x| − lo) / lo (the subtraction and the
+    division each rounded; both exact), the dither u from worker w's murmur3
+    stream at counters b·B + j, e_q = e + [u < p_up] and delta = e_ref − e_q,
+    the code is sign(x)·(delta + 1) as int8 — 0 where |x| < 2^-126 or
+    delta > 126. x3d (n, nblk, B), seeds (n,) → codes (n, nblk, B) int8."""
+    out = torch.empty(x3d.shape, dtype=torch.int8, device=x3d.device)
+    for w, b0, b1, x, u in _worker_row_chunks(x3d, seeds):
+        out[w, b0:b1] = _natural_codes(x, u, e[w, b0:b1], e_ref[w, b0:b1])
+    return out
+
+
+def natural_block_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor):
+    """Per-worker blockwise natural compression: (n, nblk, B) f32 / bf16 +
+    (n,) seeds → (codes (n, nblk, B) int8, scales (n, nblk) f32). |x| is
+    rounded to 2^e or 2^(e+1), up with probability (|x| − 2^e)/2^e (so
+    E = |x|); the code is the exponent's distance below the row's reference
+    scale 2^e_ref, e_ref = ⌊log2 max|x|⌋ + 1, as sign·(delta + 1)."""
+    n, nblk, _ = x3d.shape
+    codes = torch.empty(x3d.shape, dtype=torch.int8, device=x3d.device)
+    e_refs = torch.empty((n, nblk), dtype=torch.int32, device=x3d.device)
+    for w, b0, b1, x, u in _worker_row_chunks(x3d, seeds):
+        e, e_refs[w, b0:b1] = natural_exponents_ref(x)
+        codes[w, b0:b1] = _natural_codes(x, u, e, e_refs[w, b0:b1])
+    return codes, pow2_ref(e_refs)
+
+
+def natural_block_ref(x2d: torch.Tensor, seed):
+    """Single-worker :func:`natural_block_workers_ref`: (nblk, B) + one seed
+    → (codes (nblk, B) int8, scales (nblk,) f32)."""
+    codes, scales = natural_block_workers_ref(
+        x2d[None], torch.as_tensor([int(seed) & _MASK], device=x2d.device))
+    return codes[0], scales[0]
+
+
+def natural_decode_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(…, B) int8 codes + (…) f32 scales → dense f32: sign(c)·scale·2^-(|c|−1),
+    the product rounded once and flushed to 0 below 2^-126; 0 where c = 0."""
+    a = codes.to(torch.int32).abs()
+    mag = scales.to(torch.float32)[..., None] * pow2_ref(torch.clamp(1 - a, min=-126))
+    mag = torch.where((a > 0) & (mag >= TINY), mag, torch.zeros_like(mag))
+    return torch.where(codes < 0, -mag, mag)
+
+
+def natural_dequant_mean_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Decode-and-mean of n natural payloads: (n, nblk, B) int8 + (n, nblk)
+    f32 → (nblk, B) f32, summed from zero in worker order, then ÷ n."""
+    n = codes.shape[0]
+    acc = torch.zeros(codes.shape[1:], dtype=torch.float32, device=codes.device)
+    for w in range(n):
+        acc += natural_decode_ref(codes[w], scales[w])
+    return div_n(acc, n)
+
+
+def natural_epilogue_ref(codes, scales, g2d, x2d, gamma: float):
+    """Natural-compression epilogue: the decode-and-mean of
+    :func:`natural_dequant_mean_ref`, then g' = g + δ and x' = x − γ·g'."""
+    delta = natural_dequant_mean_ref(codes, scales)
+    return delta_epilogue_ref(delta, g2d, x2d, gamma)
+
+
+# ---------------------------------------------------------------------------
+# RandK∘QSGD composition: the K-sized stage between the RandK kernels
+# ---------------------------------------------------------------------------
+
+#: dither counters of the composition's QSGD stage start here, so they never
+#: meet the RandK index stream (b·kb + t) of the same seed
+DITHER_CTR_OFFSET = 0x40000000
+
+
+def randk_qsgd_norms_ref(vals: torch.Tensor) -> torch.Tensor:
+    """ℓ2 norm of every (w, b) row of the sampled values (n, nblk, kb): the
+    squares added left to right over the kb slots, then an IEEE square root
+    (a fixed order on every device; the reference's XLA sum has none)."""
+    v = vals.to(torch.float32)
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    for t in range(v.shape[-1]):
+        acc += v[..., t] * v[..., t]
+    return torch.sqrt(acc)
+
+
+def qsgd_sampled_quantize_ref(vals: torch.Tensor, seeds: torch.Tensor, s: int,
+                              norms: "torch.Tensor | None" = None):
+    """QSGD stage of the composition on already-sampled values (n, nblk, kb):
+    ``sign(v)·⌊s·|v| / safe + u⌋`` against the per-row norm of the sampled
+    vector (``norms``, else :func:`randk_qsgd_norms_ref`), u from worker w's
+    murmur3 stream at counters DITHER_CTR_OFFSET + b·kb + t. Returns
+    (levels (n, nblk, kb) int8, norms (n, nblk) f32)."""
+    n, nblk, kb = vals.shape
+    dev = vals.device
+    if norms is None:
+        norms = randk_qsgd_norms_ref(vals)
+    ctr = (torch.arange(kb, dtype=torch.int64, device=dev)[None, :]
+           + (torch.arange(nblk, dtype=torch.int64, device=dev) * kb)[:, None]
+           + DITHER_CTR_OFFSET)
+    u = uniform_from_bits_ref(murmur_bits_ref(_as_u32_int64(seeds.to(dev)).view(n, 1, 1),
+                                              ctr[None]))
+    v = vals.to(torch.float32)
+    safe = torch.where(norms > 0, norms, torch.ones_like(norms)).to(torch.float32)
+    level = torch.floor((v.abs() * float(s)) / safe[..., None] + u)
+    return (torch.sign(v) * level).to(torch.int8), norms
+
+
+def randk_qsgd_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
+                           scale: float, s: int):
+    """RandK∘QSGD uplink: seeded RandK keeps kb coordinates per block (scaled
+    by ``scale``), then QSGD quantizes only those. Returns (levels int8,
+    offsets int32, norms f32) of shapes (n, nblk, kb) ×2 and (n, nblk)."""
+    vals, offs = randk_seeded_workers_ref(x3d, seeds, kb, scale)
+    levels, norms = qsgd_sampled_quantize_ref(vals, seeds, s)
+    return levels, offs, norms
+
+
+def randk_qsgd_dequant_ref(levels: torch.Tensor, norms: torch.Tensor,
+                           s: int) -> torch.Tensor:
+    """Composition payload → f32 values for the scatter-mean: (n, nblk, kb)
+    int8 + (n, nblk) f32 → levels·(norm / s), the divide and the multiply
+    each rounded."""
+    scale = norms.to(torch.float32) / torch.tensor(float(s), device=norms.device)
+    return levels.to(torch.float32) * scale[..., None]

@@ -1,13 +1,19 @@
-"""Training loop wiring the MARINA family into LM training — port of
-``repro.train.trainer`` for ``method`` in ``marina``, ``vr_marina`` (the
-default, as in the reference) and ``pp_marina``.
+"""Training loop wiring the MARINA family and the paper's baselines into LM
+training — port of ``repro.train.trainer`` for ``method`` in ``marina``,
+``vr_marina`` (the default, as in the reference), ``pp_marina``, ``diana``,
+``dcgd``, ``ec_sgd`` and ``gd``.
 
 The trainer simulates the n workers on one device (worker-stacked trees),
-builds the fused flat engine for the ``block_randk``, ``permk`` and
-``block_qsgd`` compressors, and keeps the communication ledger in bits
-actually uplinked and received. ``downlink`` (``"qsgd"`` or ``"randk"``,
-with ``downlink_kwargs`` ``s`` / ``kb``) compresses the server's broadcast
-through a second engine over the uplink's layout.
+builds the fused flat engine for the ``block_randk``, ``permk``,
+``block_qsgd`` and ``block_natural`` compressors (MARINA family; the
+baselines compress on the per-leaf tree path, as in the reference), and
+keeps the communication ledger in bits actually uplinked and received.
+``downlink`` (``"qsgd"``, ``"randk"`` or ``"natural"``, with
+``downlink_kwargs`` ``s`` / ``kb``) compresses the server's broadcast
+through a second engine over the uplink's layout; it and ``carry_grads``
+are MARINA-family dials, refused elsewhere. DIANA's shift stepsize is
+``diana_alpha``, by default 1/(1 + ω) of the compressor's worst leaf (0.5
+for a biased one).
 VR-MARINA's compressed rounds take b′-minibatches from the data stream at
 step ``10**7 + step``; PP-MARINA samples ``r_participating`` clients. The
 step key is ``fold_in(PRNGKey(seed), step)``, as in the reference, so
@@ -19,10 +25,9 @@ step at a time (PyTorch is eager) and records each step's wall time and
 round type. With ``nonfinite_guard`` a step whose new state holds any NaN/inf
 is reverted and counted as skipped.
 
-Not ported yet: the other methods (``diana``, ``dcgd``, ``ec_sgd``, ``gd``
-raise), checkpointing, a downlink without a flat engine (a per-leaf tree
-compressor), robust aggregators, fault injection, the Dirichlet data dial,
-prefix embeddings (raise).
+Not ported yet: checkpointing, a downlink without a flat engine (a
+per-leaf tree compressor), robust aggregators, fault injection, the
+Dirichlet data dial, prefix embeddings (raise).
 """
 
 from __future__ import annotations
@@ -36,18 +41,25 @@ from torch.profiler import record_function
 
 from repro_torch import prng
 from repro_torch.core import (
+    DCGD,
+    ECSGD,
+    BlockNatural,
     BlockQSGD,
     BlockRandK,
     CorrelatedCompressor,
+    Diana,
     Marina,
     PermK,
     PPMarina,
     VRMarina,
+    diana_alpha,
     make_compressor,
     make_downlink,
     make_engine,
+    make_gd,
+    tree_dim,
+    tree_omega,
 )
-from repro_torch.core.compressors import tree_dim
 from repro_torch.core.tree_util import (
     tree_flatten,
     tree_leaves,
@@ -63,6 +75,8 @@ from repro_torch.models.config import ModelConfig
 PyTree = Any
 
 MARINA_FAMILY = ("marina", "vr_marina", "pp_marina")
+#: baselines whose ``init`` takes the parameters alone
+PARAMS_ONLY_INIT = ("diana", "dcgd", "ec_sgd")
 
 #: profiler spans (``torch.profiler.record_function``): one optimizer step,
 #: between its two device synchronisations; one worker's forward + backward
@@ -72,11 +86,10 @@ SPAN_GRAD = "train.grad"
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The reference's fields that this port runs; the others (the other
-    methods, checkpoints, aggregators, faults, Dirichlet data) are not
-    ported yet."""
+    """The reference's fields that this port runs; the others (checkpoints,
+    aggregators, faults, Dirichlet data) are not ported yet."""
 
-    method: str = "vr_marina"          # marina | vr_marina | pp_marina
+    method: str = "vr_marina"          # marina|vr_marina|pp_marina|diana|dcgd|ec_sgd|gd
     compressor: str = "randk"
     comp_kwargs: dict = dataclasses.field(default_factory=lambda: {"k": 0.01})
     gamma: float = 0.05
@@ -90,10 +103,11 @@ class TrainConfig:
     steps: int = 100
     seed: int = 0
     log_every: int = 10
+    diana_alpha: Optional[float] = None  # None → 1/(1+ω), ω of the worst leaf
     flat_backend: str = "auto"         # kernel backend for the flat engine
     carry_grads: bool = False
     # compressed downlink: the sampler of Q_down(g^{k+1} − g^k) over the flat
-    # engine's layout ("qsgd" | "randk"; None = dense broadcast)
+    # engine's layout ("qsgd" | "randk" | "natural"; None = dense broadcast)
     downlink: Optional[str] = None
     downlink_kwargs: dict = dataclasses.field(default_factory=dict)
     # revert a round whose new state holds any NaN/inf and count it skipped
@@ -119,9 +133,11 @@ class TrainMetrics:
 
 
 def _state_finite(state) -> bool:
-    """Every floating tensor of the optimizer state is all-finite."""
-    leaves = [t for t in tree_leaves([state.params, state.g, state.h])
-              if torch.is_floating_point(t)]
+    """Every floating tensor of the optimizer state (params, estimator g,
+    carried h, DIANA's shifts, EC-SGD's errors, …) is all-finite."""
+    parts = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    leaves = [t for t in tree_leaves(parts)
+              if isinstance(t, torch.Tensor) and torch.is_floating_point(t)]
     if not leaves:
         return True
     return bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
@@ -131,14 +147,14 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  init_params: PyTree, prefix_len: int = 0, device=None):
         m = train_cfg.method
+        if m not in MARINA_FAMILY + PARAMS_ONLY_INIT + ("gd",):
+            raise ValueError(f"unknown method {m!r}")
         if train_cfg.downlink is not None and m not in MARINA_FAMILY:
             # refuse rather than broadcast dense while the user believes the
             # downlink is compressed
             raise ValueError(f"downlink is a marina-family mode, not {m!r}")
-        if m in ("diana", "dcgd", "ec_sgd", "gd"):
-            raise NotImplementedError(f"method {m!r} is not ported yet")
-        if m not in MARINA_FAMILY:
-            raise ValueError(f"unknown method {m!r}")
+        if train_cfg.carry_grads and m not in MARINA_FAMILY:
+            raise ValueError(f"carry_grads is a marina-family mode, not {m!r}")
         if prefix_len:
             raise NotImplementedError("prefix embeddings are not ported yet")
         self.device = default_device(device)
@@ -183,6 +199,10 @@ class Trainer:
             self.engine = make_engine(self.params0, block=comp.block,
                                       backend=train_cfg.flat_backend,
                                       sampler="qsgd", s=comp.s, device=self.device)
+        elif isinstance(comp, BlockNatural):
+            self.engine = make_engine(self.params0, block=comp.block,
+                                      backend=train_cfg.flat_backend,
+                                      sampler="natural", device=self.device)
         self.down_engine = self._downlink(train_cfg)
         tc, carry, down = train_cfg, train_cfg.carry_grads, self.down_engine
         if m == "marina":
@@ -191,11 +211,25 @@ class Trainer:
         elif m == "vr_marina":
             self.method = VRMarina(grad_fn, grad_fn, comp, tc.gamma, self.p,
                                    self.engine, carry=carry, down_engine=down)
-        else:
+        elif m == "pp_marina":
             self.method = PPMarina(grad_fn, comp, tc.gamma, self.p,
                                    tc.r_participating, self.engine,
                                    down_engine=down, replace=tc.pp_replace,
                                    weights=tc.pp_weights, carry=carry)
+        elif m == "gd":
+            self.method = make_gd(grad_fn, tc.gamma)
+        elif m == "diana":
+            alpha = tc.diana_alpha
+            if alpha is None:
+                # the per-leaf lifted compressor's worst-leaf ω, not ω of the
+                # whole tree's dimension (as the reference)
+                alpha = (diana_alpha(max(tree_omega(comp, self.params0), 1e-9))
+                         if comp.unbiased else 0.5)
+            self.method = Diana(grad_fn, comp, tc.gamma, alpha, tc.n_workers)
+        elif m == "dcgd":
+            self.method = DCGD(grad_fn, comp, tc.gamma, tc.n_workers)
+        else:
+            self.method = ECSGD(grad_fn, comp, tc.gamma, tc.n_workers)
 
     def _downlink(self, tc: TrainConfig):
         """The downlink engine over the uplink engine's layout (the name is
@@ -242,7 +276,10 @@ class Trainer:
         ``step_hook(step)``, if given, runs after each step's closing
         synchronisation and before its evaluation (e.g. ``profiler.step``)."""
         tc = self.tcfg
-        state = self.method.init(self.params0, self._batches(0, tc.batch_per_worker))
+        if tc.method in PARAMS_ONLY_INIT:
+            state = self.method.init(self.params0)
+        else:
+            state = self.method.init(self.params0, self._batches(0, tc.batch_per_worker))
         bits = down = oracle = skipped = 0.0
         hist = TrainMetrics()
         t0 = time.time()
@@ -257,7 +294,8 @@ class Trainer:
             hist.wall.append(time.time() - t0)
             hist.skipped_cum.append(skipped)
 
-        log(-1, self.eval_loss(state.params, 0), float(tree_norm(state.g)))
+        log(-1, self.eval_loss(state.params, 0),
+            float(tree_norm(state.g)) if hasattr(state, "g") else 0.0)
         base_key = prng.PRNGKey(tc.seed)
         for step in range(tc.steps):
             self._sync()

@@ -1,12 +1,15 @@
-"""``chip_smoke.py``'s main paths rehearsed on the CPU at a tiny size.
+"""``chip_smoke.py``'s phases rehearsed on the CPU at a tiny size.
 
-The script's card run checks that each of its nine paths launches exactly
+The script's card run checks that each of its twelve paths launches exactly
 ``EXPECTED_LAUNCHES``, draws c_k = 1, 0, 1, 0 and books the wire formulas'
 up and down bits every round. Here ``run_main_path`` runs with a reduced
 dense LM on the CPU (``chip_smoke.DEVICE = "cpu"``; the profile phase and
 the device-memory counters stubbed), every kernel wrapper counting a launch
 where it returns its plain version, so a drift between those expectations
-and the code shows without a card.
+and the code shows without a card. The small-input phase (the randk_qsgd
+engine's launches and ledger, the baselines' ledgers) and the natural
+kernel phase (shapes, edge values, the timing table, with a host clock in
+place of the CUDA events) are rehearsed the same way.
 """
 
 import os
@@ -28,14 +31,9 @@ TINY = ModelConfig(name="tiny-dense", arch_type="dense", d_model=64, num_heads=4
                    qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0)
 
 
-def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
-    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
-    monkeypatch.setattr(chip_smoke, "profile_step", lambda *a: None)
-    monkeypatch.setattr(configs, "get_arch",
-                        lambda name: type("Arch", (), {"model": TINY}))
-    for name in ("reset_peak_memory_stats", "empty_cache"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+def _count_plain_launches(monkeypatch):
+    """Every kernel wrapper counts a launch where it returns its plain
+    version on CPU tensors."""
     for mod in (epilogue, permk, quantize, randk):
         for name, fn in kernels.KERNELS.items():
             if getattr(mod, name, None) is fn:
@@ -44,6 +42,17 @@ def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
                     _fn.launches += 1
                     return out
                 monkeypatch.setattr(mod, name, counted)
+
+
+def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "profile_step", lambda *a: None)
+    monkeypatch.setattr(configs, "get_arch",
+                        lambda name: type("Arch", (), {"model": TINY}))
+    for name in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    _count_plain_launches(monkeypatch)
     report = {}
     launches = chip_smoke.run_main_path(report)  # raises SmokeFailure on a drift
     kernels.reset_launch_counts()
@@ -52,3 +61,35 @@ def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
         assert {k: v for k, v in counts.items() if v} == chip_smoke.EXPECTED_LAUNCHES[path]
     runs = report["main_path"]["runs"]
     assert all(run["c_k"] == chip_smoke.EXPECTED_C_K for run in runs.values())
+
+
+def test_small_input_phase_runs_as_chip_smoke_expects(monkeypatch):
+    """Every main path and the randk_qsgd engine agree with their plain
+    versions (on the CPU both are the plain versions; the launch counts and
+    ledgers are what is checked), and each baseline books
+    ``tree_payload_bits`` every round without a launch."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    _count_plain_launches(monkeypatch)
+    report = {}
+    chip_smoke.check_small_input(report)  # raises SmokeFailure on a drift
+    kernels.reset_launch_counts()
+    assert set(report["small_input_baselines"]) == {
+        f"{m}_{c}" for m, c in chip_smoke.BASELINES}
+
+
+def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
+    """The natural kernel phase's shapes, edge-value input, bounds and table
+    rows, with a host clock in place of the CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    report = {}
+    rows = chip_smoke.check_natural(3, "cpu", report)
+    assert set(rows) == {"natural_block_workers", "natural_dequant_mean",
+                         "natural_epilogue"}
+    for row in rows.values():
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+        assert row["max_abs_err"] == 0.0
+    counts = {(t["kernel"], t["n"]) for t in report["kernels_natural"]}
+    assert counts == {(k, n) for n in (4, 1) for k in rows}
+    assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)

@@ -1,4 +1,4 @@
-"""The eleven CUDA kernels against their plain PyTorch versions on the card.
+"""The fourteen CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -250,3 +250,110 @@ def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(dev):
     g = torch.zeros(3, 128, device=dev)
     with pytest.raises(ValueError):
         epilogue.qsgd_epilogue(lv, nm, g, g.half(), 0.1, 7)
+
+
+def _natural_inputs(dev, n, nblk, B, xdtype, seed):
+    """Random rows over many octaves with the natural wire's edge values:
+    zeros, −0.0, subnormals, exact powers of two and the floats just below
+    them, an all-zero row, an all-subnormal row, and a row whose max is near
+    2^-100 (its smallest codes decode below 2^-126)."""
+    x3d, seeds, gen = _inputs(dev, n, nblk, B, seed=seed)
+    x3d = x3d * torch.exp2(torch.randint(-20, 20, (n, nblk, 1), generator=gen,
+                                         device=dev).float())
+    pw = ref.pow2_ref(torch.arange(-126, 127, 7, device=dev))  # exact powers
+    edge = torch.cat([pw, torch.nextafter(pw, torch.zeros_like(pw)), -pw,
+                      torch.tensor([0.0, -0.0, 1e-40, -3e-39, 2.0**-149], device=dev)])
+    x3d[0, 0, :edge.numel()] = edge[:B]
+    x3d[-1, -1] = 0.0
+    if nblk > 2:
+        x3d[0, 1] = 1e-39
+        x3d[0, 2] = torch.randn(B, generator=gen, device=dev) * 2.0**-100
+    return x3d.to(xdtype), seeds, gen
+
+
+NSHAPES = [(4, 37, 1024), (1, 5, 128), (3, 11, 256), (2, 3, 4096)]
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", NSHAPES, ids=str)
+def test_natural_block_workers_on_card(dev, shape, xdtype):
+    """Codes and scales bit-equal to the plain version, edge values included;
+    codes in [−127, 127], scales exact powers of two."""
+    n, nblk, B = shape
+    x3d, seeds, _ = _natural_inputs(dev, n, nblk, B, xdtype, seed=8)
+    kernels.reset_launch_counts()
+    codes, scales = quantize.natural_block_workers(x3d, seeds)
+    cr, sr = ref.natural_block_workers_ref(x3d, seeds)
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    assert torch.equal(scales, sr) and torch.equal(codes, cr)
+    assert int(codes.int().abs().max()) <= 127
+    assert torch.equal(torch.frexp(scales).mantissa, torch.full_like(scales, 0.5))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["natural_block_workers"] == 1
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", NSHAPES, ids=str)
+def test_natural_dequant_mean_and_epilogue_on_card(dev, shape, xdtype):
+    """Decode-and-mean and the epilogue within 1 ulp of the plain versions
+    (the same order of adds: bit-equal is expected)."""
+    n, nblk, B = shape
+    x3d, seeds, gen = _natural_inputs(dev, n, nblk, B, torch.float32, seed=9)
+    g = torch.randn((nblk, B), generator=gen, device=dev)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    kernels.reset_launch_counts()
+    codes, scales = quantize.natural_block_workers(x3d, seeds)
+    assert _ulp(quantize.natural_dequant_mean(codes, scales),
+                ref.natural_dequant_mean_ref(codes, scales)) <= 1
+    got = epilogue.natural_epilogue(codes, scales, g, x, 0.0371)
+    want = ref.natural_epilogue_ref(codes, scales, g, x, 0.0371)
+    assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+    assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["natural_dequant_mean"] == counts["natural_epilogue"] == 1
+
+
+def test_natural_and_randk_qsgd_engines_on_card(dev):
+    """The natural and randk_qsgd engines' aggregate and fused round, and a
+    RandK round under a natural downlink, through the kernels equal the
+    plain versions'."""
+    from repro_torch import prng
+    from repro_torch.core import make_downlink, make_engine
+
+    tree = {"w": torch.zeros(40, 70), "b": torch.zeros(500)}
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for sampler in ("natural", "randk_qsgd", "randk"):
+        eng = make_engine(tree, kb=8, block=256, device=dev, sampler=sampler, s=7)
+        plain = make_engine(tree, kb=8, block=256, device=dev, sampler=sampler, s=7,
+                            backend="ref")
+        down = make_downlink(eng, sampler="natural") if sampler == "randk" else None
+        down_plain = make_downlink(plain, sampler="natural") if sampler == "randk" else None
+        lay = eng.layout
+        bufs = torch.randn((3, lay.nblk, lay.block), generator=gen, device=dev)
+        g = torch.randn((lay.nblk, lay.block), generator=gen, device=dev)
+        x = torch.randn((lay.nblk, lay.block), generator=gen, device=dev)
+        key = prng.PRNGKey(43)
+        assert _ulp(eng.aggregate(key, bufs, 3), plain.aggregate(key, bufs, 3)) <= 1
+        got = eng.fused_round(key, bufs, 3, g, x, 0.05, down=down, down_key=key)
+        want = plain.fused_round(key, bufs, 3, g, x, 0.05, down=down_plain, down_key=key)
+        assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()
+
+
+def test_natural_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x3d, seeds, _ = _inputs(dev, 2, 3, 128)
+    with pytest.raises(ValueError):
+        quantize.natural_block_workers(x3d.double(), seeds)
+    with pytest.raises(ValueError):
+        quantize.natural_block_workers(x3d[..., :64].contiguous(), seeds)  # B < 128
+    with pytest.raises(ValueError):
+        quantize.natural_block_workers(x3d, seeds[:1])
+    codes, scales = quantize.natural_block_workers(x3d, seeds)
+    with pytest.raises(ValueError):
+        quantize.natural_dequant_mean(codes.float(), scales)
+    with pytest.raises(ValueError):
+        quantize.natural_dequant_mean(codes, scales[:1])
+    g = torch.zeros(3, 128, device=dev)
+    with pytest.raises(ValueError):
+        epilogue.natural_epilogue(codes, scales, g, g.half(), 0.1)

@@ -149,8 +149,8 @@ def test_backend_resolution_and_device_rules():
             tflat.make_engine(tree)  # the default device is cuda: no quiet CPU
         with pytest.raises(RuntimeError):
             init_params(0, get_arch("qwen1.5-0.5b").model)
-    with pytest.raises(NotImplementedError):
-        tflat.make_engine(tree, device="cpu", sampler="natural")
+    with pytest.raises(ValueError):  # every reference sampler is ported
+        tflat.make_engine(tree, device="cpu", sampler="topk")
 
 
 def _permk_engines(nblk, B):
