@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); print the seconds.
-3. kernels — each of the fourteen main-path kernels against its plain
+3. kernels — each of the sixteen main-path kernels against its plain
    PyTorch version on the card. The four RandK-wire kernels at the
    production shape of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024),
    B = 1024, kb = 20), at PP-MARINA's cohort (n = r = 2) and at a
@@ -18,9 +18,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    (n = 4 for the QSGD uplink, n = 1 for the compressed downlink); the
    three natural-compression kernels at n = 4 and n = 1 and on one small
    input of edge values (zeros, subnormals, exact powers of two and the
-   floats just below them); x in f32 and bf16. Offsets, RandK / PermK
-   values, QSGD levels, norms, nibble words, natural codes and scales
-   bit-equal, scatter / dequant / epilogue outputs within 1 ulp.
+   floats just below them); the two trimmed epilogues at n = 4 (window
+   [1, 3)), n = 2 ([0, 2)), n = 5 (the median [2, 3)) and n = 8 ([2, 6)),
+   rows and x in f32 and bf16, and on one small input with a NaN row, ±inf,
+   ties and ±0; x in f32 and bf16. Offsets, RandK / PermK values, QSGD
+   levels, norms, nibble words, natural codes and scales bit-equal,
+   scatter / dequant / epilogue outputs within 1 ulp, the trimmed
+   epilogues' g' and x' bit-equal (the sign of zero included).
    Median times over 20+ launches (CUDA events) for the kernel, its plain
    version and, where one exists, the one PyTorch call that computes the
    same function.
@@ -31,7 +35,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    the two trajectories agree. Then the paper's baselines on the same LM,
    4 steps each on the per-leaf tree path (no kernel): DIANA ×
    block_natural, DCGD × block_randk, EC-SGD × topk and GD, each with a
-   finite loss and ``tree_payload_bits`` booked every round.
+   finite loss and ``tree_payload_bits`` booked every round. Then the
+   robust and fault dials through kernels and plain versions: MARINA ×
+   block_qsgd recompute under trimmed_mean f = 1 and sign_flip (its carry
+   shape is a main path), MARINA × block_natural carry under krum and under
+   norm_clip, MARINA × block_randk carry with ``drop`` (the ledger books
+   (n − f)/n of ζ); and ``DeadlineMarina`` on the tree path with one client
+   always late, bit-identical to MARINA carry with that client dropped and
+   its bits scaled by the arrivals.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
@@ -39,7 +50,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    VR-MARINA × permk (minibatches 2 × 256), PP-MARINA × block_randk
    (r = 2), MARINA × block_qsgd (s = 7) and MARINA × block_natural, and
    MARINA × block_randk under a QSGD downlink (s = 7) and under a natural
-   downlink in the carry shape. The launch counts are reset
+   downlink in the carry shape, and two robust carry paths: MARINA ×
+   block_qsgd under trimmed_mean f = 1 with 1 of 4 clients sign-flipping
+   ×10, and PP-MARINA × block_natural (r = 2) under coordinate_median with
+   1 of 4 clients mean-shifting. The launch counts are reset
    just before each path and read just after it: each path must launch
    exactly the kernels its rounds require (``EXPECTED_LAUNCHES``). The
    loss is finite, no round is skipped, and each round's up and down bits
@@ -112,6 +126,10 @@ SOURCES = {
                              "src/repro/kernels/quantize.py:302"),
     "natural_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
                          "src/repro/kernels/epilogue.py:387"),
+    "trimmed_delta_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+                               "src/repro/kernels/epilogue.py:185"),
+    "trimmed_sync_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
+                              "src/repro/kernels/epilogue.py:227"),
 }
 
 #: the main paths: (method, compressor, carry_grads, downlink sampler)
@@ -128,6 +146,16 @@ PATHS = {
     "marina_natural_recompute": ("marina", "block_natural", False, None),
     "marina_natural_carry": ("marina", "block_natural", True, None),
     "marina_randk_downnatural_carry": ("marina", "block_randk", True, "natural"),
+    "marina_qsgd_trimmed_carry": ("marina", "block_qsgd", True, None),
+    "pp_natural_median_carry": ("pp_marina", "block_natural", True, None),
+}
+#: the robust paths' aggregator and fault dials (TrainConfig fields)
+ROBUST = {
+    "marina_qsgd_trimmed_carry": dict(aggregator="trimmed_mean", aggregator_f=1,
+                                      faults="sign_flip", faults_frac=0.25,
+                                      faults_scale=10.0),
+    "pp_natural_median_carry": dict(aggregator="coordinate_median", faults="mean_shift",
+                                    faults_frac=0.25, faults_scale=1.0),
 }
 COMP_KWARGS = {"block_randk": {"kb": KB, "block": BLOCK}, "permk": {"block": BLOCK},
                "block_qsgd": {"s": S_LEVELS, "block": BLOCK},
@@ -168,6 +196,33 @@ EXPECTED_LAUNCHES = {
                                        "scatter_accum": _NC,
                                        "natural_block_workers": _NC,
                                        "natural_epilogue": _NC, "mean_epilogue": _NS},
+    # robust carry rounds decode every worker's payload (the uplink kernels)
+    # and end in a trimmed epilogue of either round type
+    "marina_qsgd_trimmed_carry": {**_QSGD_WIRE, "trimmed_delta_epilogue": _NC,
+                                  "trimmed_sync_epilogue": _NS},
+    "pp_natural_median_carry": {"natural_block_workers": _NC,
+                                "trimmed_delta_epilogue": _NC,
+                                "trimmed_sync_epilogue": _NS},
+}
+#: the small-input robust and fault runs: (trainer dials, launches). Recompute
+#: rounds aggregate robustly in plain PyTorch, as the reference does; Krum and
+#: norm-clip end both round types in the delta epilogue; a drop run is the
+#: mean's RandK carry path
+SMALL_ROBUST = {
+    "marina_qsgd_trimmed_recompute": (
+        dict(carry=False, method="marina", compressor="block_qsgd",
+             **ROBUST["marina_qsgd_trimmed_carry"]), _QSGD_WIRE),
+    "marina_natural_krum_carry": (
+        dict(carry=True, method="marina", compressor="block_natural", aggregator="krum",
+             aggregator_f=1), {"natural_block_workers": _NC, "delta_epilogue": _NC + _NS}),
+    "marina_natural_normclip_carry": (
+        dict(carry=True, method="marina", compressor="block_natural",
+             aggregator="norm_clip"),
+        {"natural_block_workers": _NC, "delta_epilogue": _NC + _NS}),
+    "marina_randk_drop_carry": (
+        dict(carry=True, method="marina", compressor="block_randk", faults="drop",
+             faults_frac=0.25),
+        {"randk_seeded_workers": _NC, "scatter_epilogue": _NC, "mean_epilogue": _NS}),
 }
 
 
@@ -639,6 +694,109 @@ def check_natural(nblk: int, card: str, report: dict) -> dict:
     return rows
 
 
+#: (n, lo, hi) of the trimmed epilogues: the production sync round under
+#: trimmed_mean f = 1, PP-MARINA's cohort under the median (r = 2), the odd
+#: median, and a four-value window (where the sum order matters)
+TRIM_WINDOWS = ((N_WORKERS, 1, 3), (R_PARTICIPATING, 0, 2), (5, 2, 3), (8, 2, 6))
+#: blocks of the two windows no main path runs (n = 5, 8): 2^16 × B values
+TRIM_SMALL_NBLK = 1 << 16
+
+
+def trimmed_edge_rows(dev, n: int, B: int):
+    """(n, 4, B) f32 rows of the trimmed epilogues' edge values: ties across
+    workers, ±0 across workers, ±inf, and a NaN row (block 2 of worker 0)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5 + n)
+    rows = torch.randn((n, 4, B), generator=gen, device=dev)
+    rows[1, :, : B // 4] = rows[0, :, : B // 4]
+    rows[:, 0, :16] = 0.0
+    rows[: n // 2, 0, :16] = -0.0
+    rows[0, 0, 16:24] = -0.0
+    rows[n - 1, 1, :8] = float("inf")
+    rows[0, 1, 8:16] = float("-inf")
+    rows[0, 2] = float("nan")
+    return rows
+
+
+def check_trimmed(nblk: int, card: str, report: dict) -> dict:
+    """The two trimmed epilogues at every window of ``TRIM_WINDOWS`` (n = 4
+    and 2 at full width, n = 5 and 8 over ``TRIM_SMALL_NBLK`` blocks) and on
+    the edge rows, rows and x in f32 and bf16, against their plain versions:
+    g' and x' bit-equal, the sign of zero included. Timed at n = 4 and 2
+    (rows and x f32); the table's rows are the production shape's (n = 4)."""
+    import torch
+
+    from repro_torch.kernels import epilogue, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B, gamma = BLOCK, 0.0371
+    rows_out, timings = {}, []
+
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+    def calls(rows, g, x, lo, hi):
+        return {
+            "trimmed_delta_epilogue": (
+                lambda: epilogue.trimmed_delta_epilogue(rows, g, x, gamma, lo, hi),
+                lambda: ref.trimmed_delta_epilogue_ref(rows, g, x, gamma, lo, hi)),
+            "trimmed_sync_epilogue": (
+                lambda: epilogue.trimmed_sync_epilogue(rows, x, gamma, lo, hi),
+                lambda: ref.trimmed_sync_epilogue_ref(rows, x, gamma, lo, hi)),
+        }
+
+    def match(label, rows, g, x, lo, hi) -> dict:
+        """Each kernel against its plain version; {name: max |Δ| of g', x'}
+        (NaN where an input row holds a non-finite value)."""
+        err = {}
+        for name, (kern, plain) in calls(rows, g, x, lo, hi).items():
+            out, want = kern(), plain()
+            require(torch.equal(bits(out[0]), bits(want[0])),
+                    f"{name} {label}: g' differs from its plain version")
+            require(torch.equal(bits(out[1]), bits(want[1])),
+                    f"{name} {label}: x' differs from its plain version")
+            err[name] = max(float((out[0] - want[0]).abs().max()),
+                            float((out[1].float() - want[1].float()).abs().max()))
+            del out, want
+        return err
+
+    for n, lo, hi in TRIM_WINDOWS:
+        edge = trimmed_edge_rows(dev, n, B)
+        eg = torch.randn((4, B), generator=gen, device=dev)
+        eg[0, :32] = -0.0
+        for bd in (torch.float32, torch.bfloat16):
+            for xd in (torch.float32, torch.bfloat16):
+                match(f"edge rows n={n} [{lo}, {hi}) {bd} x {xd}", edge.to(bd), eg,
+                      eg.to(xd), lo, hi)
+    print("kernels trimmed edge rows (NaN row, ±inf, ties, ±0): match", flush=True)
+
+    for n, lo, hi in TRIM_WINDOWS:
+        nb = nblk if n in (N_WORKERS, R_PARTICIPATING) else TRIM_SMALL_NBLK
+        rows32 = torch.randn((n, nb, B), generator=gen, device=dev)
+        g = torch.randn((nb, B), generator=gen, device=dev)
+        x32 = torch.randn((nb, B), generator=gen, device=dev)
+        for bd in (torch.float32, torch.bfloat16):
+            rows = rows32.to(bd)
+            for xd in (torch.float32, torch.bfloat16):
+                e = match(f"n={n} [{lo}, {hi}) {bd} x {xd}", rows, g, x32.to(xd), lo, hi)
+                if bd == xd == torch.float32:
+                    err = e
+            del rows
+        if nb == nblk:
+            ops = n * (n - 1) // 2 + (hi - lo) + 3  # compare-selects, sum, ÷, update
+            for name, (kern, plain) in calls(rows32, g, x32, lo, hi).items():
+                io = n + (4 if name == "trimmed_delta_epilogue" else 3)
+                time_kernel(rows_out, timings, card, name, n, torch.float32, kern, plain,
+                            io * 4 * nb * B, ops * nb * B, err[name])
+        print(f"kernels trimmed n={n} [{lo}, {hi}) (nblk={nb}, B={B}): match", flush=True)
+        del rows32, g, x32
+        torch.cuda.empty_cache()
+    report["kernels_trimmed"] = timings
+    return rows_out
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the trainer
 # ---------------------------------------------------------------------------
@@ -704,6 +862,8 @@ def check_small_input(report: dict) -> None:
     import torch
 
     from repro_torch import kernels
+    import numpy as np
+
     from repro_torch.core import make_compressor, make_engine, tree_payload_bits, wire
     from repro_torch.core.tree_util import tree_leaves
     from repro_torch.models import ModelConfig, dense_stack, init_params
@@ -715,7 +875,7 @@ def check_small_input(report: dict) -> None:
     worst = 0.0
     params = init_params(SEED, cfg, device=DEVICE)
     runs = [(path, dict(carry=carry, method=method, compressor=compressor,
-                        downlink=downlink), None)
+                        downlink=downlink, **ROBUST.get(path, {})), None)
             for path, (method, compressor, carry, downlink) in PATHS.items()]
     runs += [(f"marina_randk_qsgd_{'carry' if carry else 'recompute'}",
               dict(carry=carry, method="marina", compressor="block_randk"),
@@ -764,6 +924,80 @@ def check_small_input(report: dict) -> None:
         print(f"small input baseline {method} x {compressor}: loss {hist.loss}, "
               f"bits/round {want}", flush=True)
     report["small_input_baselines"] = base
+
+    robust = {}
+    for path, (kw, want) in SMALL_ROBUST.items():
+        kernels.reset_launch_counts()
+        s_k, h_k = train(cfg, params, batch_per_worker=2, **kw)
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        s_r, h_r = train(cfg, params, backend="ref", batch_per_worker=2, **kw)
+        require(launched == want, f"small input {path}: launches {launched} != {want}")
+        require(h_k.round_sync == h_r.round_sync == EXPECTED_C_K,
+                f"small input {path}: c_k {h_k.round_sync}")
+        require(h_k.round_bits == h_r.round_bits, f"small input {path}: ledgers differ")
+        require(all(math.isfinite(v) for v in h_k.loss) and h_k.skipped_cum[-1] == 0.0,
+                f"small input {path}: loss {h_k.loss}, skipped {h_k.skipped_cum[-1]}")
+        for a, b in zip(tree_leaves(s_k.params), tree_leaves(s_r.params)):
+            require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                    f"small input {path}: kernels and plain versions diverge")
+        if kw.get("faults") == "drop":  # (n − f)/n of ζ, in float32 as the reference
+            lay = make_engine(params, kb=KB, block=BLOCK, device=DEVICE).layout
+            zeta = np.float32(wire.seeded_randk_bits(lay.nblk, KB))
+            want_bits = float(zeta * np.float32((N_WORKERS - 1) / N_WORKERS))
+            require(all(b == want_bits for c, b in zip(h_k.round_sync, h_k.round_bits)
+                        if not c), f"small input {path}: drop ledger {h_k.round_bits}")
+        robust[path] = {"loss": h_k.loss, "round_bits": h_k.round_bits,
+                        "launches": launched}
+        print(f"small input robust {path}: loss {h_k.loss}, launches {launched}, "
+              f"kernels and plain versions agree", flush=True)
+    report["small_input_robust"] = robust
+    check_deadline(cfg, params, report)
+
+
+def check_deadline(cfg, params, report: dict) -> None:
+    """``DeadlineMarina`` on the tree path (BlockRandK per leaf) of the small
+    LM, client 0 always past the deadline (tau_max = 0): bit-identical to
+    MARINA carry with client 0 dropped, and its compressed rounds book
+    (n − 1)·ζ/n."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels, prng
+    from repro_torch.core import (DeadlineMarina, Marina, RoundTimeModel, make_compressor,
+                                  tree_payload_bits)
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+
+    tr = Trainer(cfg, TrainConfig(method="marina", n_workers=N_WORKERS, seed=SEED),
+                 params, device=DEVICE)
+    grad_fn = tr.method.grad_fn
+    comp = make_compressor("block_randk", **COMP_KWARGS["block_randk"])
+    times = RoundTimeModel(dist="fixed", mean_s=1.0, slow_ids=(0,), slow_factor=8.0)
+    dm = DeadlineMarina(grad_fn, comp, 0.02, P_SYNC, deadline=2.0, times=times)
+    ref = Marina(grad_fn, comp, 0.02, P_SYNC, carry=True, faults=dm.static_miss_faults())
+    zeta = tree_payload_bits(comp, params)
+    kernels.reset_launch_counts()
+    batches = tr._batches(0, 2)
+    s_d, s_m = dm.init(params, batches), ref.init(params, batches)
+    for step in range(STEPS):
+        key = prng.fold_in(prng.PRNGKey(SEED), step)
+        batches = tr._batches(step + 1, 2)
+        s_d, m_d = dm.step(s_d, key, batches)
+        s_m, m_m = ref.step(s_m, key, batches)
+        require(m_d.sync_round == EXPECTED_C_K[step], f"deadline: c_k at step {step}")
+        require(m_d.bits_per_worker == m_m.bits_per_worker,
+                f"deadline: ledger {m_d.bits_per_worker} != drop's {m_m.bits_per_worker}")
+        if not m_d.sync_round:
+            require(m_d.uploaded == N_WORKERS - 1, f"deadline: {m_d.uploaded} uploads")
+            want = float(np.float32(np.float32(N_WORKERS - 1) * np.float32(zeta))
+                         * np.float32(1.0 / N_WORKERS))
+            require(m_d.bits_per_worker == want, f"deadline: ledger {m_d.bits_per_worker}")
+        for a, b in zip(tree_leaves(s_d.params), tree_leaves(s_m.params)):
+            require(torch.equal(a, b), "deadline: params differ from the drop run")
+    require(not any(kernels.launch_counts().values()), "deadline: the tree path launched")
+    report["small_input_deadline"] = {"zeta": zeta, "uploaded_compressed": N_WORKERS - 1}
+    print(f"small input deadline: DeadlineMarina ≡ MARINA carry with client 0 dropped "
+          f"({STEPS} steps), compressed rounds book (n−1)·ζ/n of ζ = {zeta}", flush=True)
 
 
 def _union_us(intervals) -> float:
@@ -865,7 +1099,8 @@ def run_main_path(report: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         state, hist = train(cfg, params, carry, method=method, compressor=compressor,
-                            downlink=downlink, mb_per_worker=MB_PER_WORKER)
+                            downlink=downlink, mb_per_worker=MB_PER_WORKER,
+                            **ROBUST.get(path, {}))
         launches[path] = kernels.launch_counts()
         want = {name: EXPECTED_LAUNCHES[path].get(name, 0) for name in kernels.KERNELS}
         require(launches[path] == want,
@@ -933,6 +1168,7 @@ def main() -> int:
     rows.update(check_permk_delta(nblk, card, report))
     rows.update(check_quantize(nblk, card, report))
     rows.update(check_natural(nblk, card, report))
+    rows.update(check_trimmed(nblk, card, report))
     check_small_input(report)
     launches = run_main_path(report)
 

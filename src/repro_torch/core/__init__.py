@@ -1,7 +1,12 @@
 """repro_torch.core — MARINA, VR-MARINA and PP-MARINA on the flat engine,
-with the RandK, PermK, packed-QSGD, natural and RandK∘QSGD wires and the
-compressed downlink, and the paper's baselines (DIANA, VR-DIANA, DCGD,
-EC-SGD, GD) on the per-leaf tree path (PyTorch port of repro.core)."""
+with the RandK, PermK, packed-QSGD, natural and RandK∘QSGD wires, the
+compressed downlink, Byzantine-robust aggregation and client fault
+injection, deadline-cohort MARINA, and the paper's baselines (DIANA,
+VR-DIANA, DCGD, EC-SGD, GD) on the per-leaf tree path (PyTorch port of
+repro.core)."""
+
+from .aggregators import RULES, ServerAggregator
+from .async_rounds import AsyncMarinaState, AsyncStepMetrics, DeadlineMarina
 
 from .baselines import (
     DCGD,
@@ -13,6 +18,7 @@ from .baselines import (
     VRDiana,
     VRDianaState,
 )
+from .faults import ATTACKS, FaultSpec, flip_binclass_labels
 from .compressors import (
     QSGD,
     BlockNatural,
@@ -53,9 +59,22 @@ from .marina import (
     make_gd,
     pp_sample_cohort,
 )
-from .stepsize import diana_alpha, diana_gamma, marina_gamma
+from .roundtime import TIME_FOLD, RoundTimeModel
+from .stepsize import (
+    async_marina_gamma,
+    diana_alpha,
+    diana_gamma,
+    marina_gamma,
+    robust_marina_gamma,
+    robust_n_eff,
+    robust_pp_marina_gamma,
+)
 
 __all__ = [
+    "ATTACKS", "AsyncMarinaState", "AsyncStepMetrics", "DeadlineMarina", "FaultSpec",
+    "RULES", "RoundTimeModel", "ServerAggregator", "TIME_FOLD", "async_marina_gamma",
+    "flip_binclass_labels", "robust_marina_gamma", "robust_n_eff",
+    "robust_pp_marina_gamma",
     "DCGD", "DCGDState", "Diana", "DianaState", "ECSGD", "ECSGDState", "QSGD",
     "BlockNatural", "BlockQSGD", "BlockRandK", "Compressor",
     "CorrelatedCompressor", "FlatEngine", "FlatLayout", "Identity", "Marina",

@@ -40,8 +40,12 @@ Backends: ``ref`` runs the plain PyTorch versions on any device; ``cuda``
 tensors and run the plain versions on CPU tensors — so ``auto`` resolves to
 ``cuda`` for CUDA tensors and ``ref`` for CPU ones.
 
-Robust aggregators are not ported yet (``Marina`` refuses them), nor is
-``worker_dense``, the per-worker decode they need.
+A robust ``aggregator`` (:class:`repro_torch.core.aggregators.ServerAggregator`)
+replaces the mean by its rule over the per-worker decoded rows
+(:meth:`FlatEngine.worker_dense`); on carry rounds the coordinate-wise rules
+end in the ``trimmed_delta_epilogue`` / ``trimmed_sync_epilogue`` kernels,
+Krum and norm-clip in the delta epilogue. PermK refuses: its workers
+partition the coordinates.
 """
 
 from __future__ import annotations
@@ -297,14 +301,44 @@ class FlatEngine:
         fn = _ref.scatter_accum_ref if self._plain(vals) else _randk.scatter_accum
         return fn(vals, offs, self.layout.block)
 
-    # -- the hot path -------------------------------------------------------
-    def fused_delta(self, key, diffs: PyTree, n: int) -> PyTree:
-        """Compressed-round aggregate: worker-stacked diff tree → mean Q tree."""
-        bufs = pack_stacked(self.layout, diffs)
-        return unpack(self.layout, self.aggregate(key, bufs, n))
+    # -- per-worker dense decode (robust aggregation) -----------------------
+    def worker_dense(self, key, bufs: torch.Tensor, n: int) -> torch.Tensor:
+        """Each worker's payload decoded densely: (n, nblk, B) diffs → (n, nblk,
+        B) f32 rows Q_i(Δ_i), from the seeds and payloads :meth:`aggregate`
+        uses. QSGD: the uplink kernel, the 4-bit words for s ≤ 7, then
+        levels·(norm/s); natural: the uplink kernel, then the plain decode;
+        RandK (and RandK∘QSGD): the RandK kernel (and the plain K-sized QSGD
+        stage), then one scatter-mean kernel per worker at n = 1. PermK
+        raises: its workers partition the coordinates, so there is no
+        per-coordinate sample to aggregate robustly."""
+        if self.sampler == "permk":
+            raise ValueError("PermK partitions coordinates across workers; robust "
+                             "aggregation is undefined on its payloads")
+        if self.sampler == "qsgd":
+            levels, norms = self._qsgd_payloads(key, bufs, n)
+            return levels.float().mul_(_ref.div_n(norms, self.s)[..., None])
+        if self.sampler == "natural":  # worker by worker: the decode's temporaries
+            codes, scales = self._natural_payloads(key, bufs, n)
+            rows = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+            for w in range(codes.shape[0]):
+                rows[w] = _ref.natural_decode_ref(codes[w], scales[w])
+            return rows
+        vals, offs = self._sampled_payloads(key, bufs, n)
+        return torch.stack([self.decompress_mean(vals[w : w + 1], offs[w : w + 1])
+                            for w in range(vals.shape[0])])
 
-    def aggregate(self, key, bufs: torch.Tensor, n: int) -> torch.Tensor:
-        """Server-side aggregate over packed diffs: (n, nblk, B) → (nblk, B)."""
+    # -- the hot path -------------------------------------------------------
+    def fused_delta(self, key, diffs: PyTree, n: int, aggregator=None) -> PyTree:
+        """Compressed-round aggregate: worker-stacked diff tree → mean Q tree
+        (or the robust ``aggregator``'s rule over the decoded rows)."""
+        bufs = pack_stacked(self.layout, diffs)
+        return unpack(self.layout, self.aggregate(key, bufs, n, aggregator))
+
+    def aggregate(self, key, bufs: torch.Tensor, n: int, aggregator=None) -> torch.Tensor:
+        """Server-side aggregate over packed diffs: (n, nblk, B) → (nblk, B).
+        A robust ``aggregator`` combines :meth:`worker_dense`'s rows."""
+        if aggregator is not None and aggregator.robust:
+            return aggregator.combine_rows(self.worker_dense(key, bufs, n))
         if self.sampler == "permk":
             return self._permk_mean(key, bufs)
         if self.sampler == "qsgd":
@@ -364,7 +398,7 @@ class FlatEngine:
 
     def fused_round(self, key, diff_bufs: torch.Tensor, n: int, g2d: torch.Tensor,
                     x2d: torch.Tensor, gamma: float, down: "FlatEngine | None" = None,
-                    down_key=None):
+                    down_key=None, aggregator=None):
         """Finish a compressed round in one sweep: sample the uplink payloads
         from the packed diffs, then the fused epilogue (scatter-mean or
         dequant-mean → ``g += δ`` → ``x −= γ·g``). Returns
@@ -375,7 +409,13 @@ class FlatEngine:
         With ``down`` (an engine over the same layout) the round is
         bidirectional: the uplink aggregates to the dense δ_up, the server
         broadcasts Q_down(δ_up) under ``down_key``, and the epilogue
-        consumes that single payload (n = 1)."""
+        consumes that single payload (n = 1).
+
+        A robust ``aggregator`` decodes the worker rows (:meth:`worker_dense`)
+        and ends in the trimmed epilogue (trimmed mean, median) or, for Krum
+        and norm-clip, in the delta epilogue on its combined row; under a
+        downlink the uplink aggregate is past the rule before it is
+        broadcast."""
         if down is not None:
             if (down.layout.block, down.layout.nblk) != (self.layout.block,
                                                           self.layout.nblk):
@@ -383,8 +423,18 @@ class FlatEngine:
             if down.sampler == "permk":
                 raise ValueError("PermK is a partition across n receivers; a broadcast "
                                  "downlink has one payload: use randk, qsgd or natural")
-            delta = self.aggregate(key, diff_bufs, n)
+            delta = self.aggregate(key, diff_bufs, n, aggregator)
             return down.fused_round(down_key, delta[None], 1, g2d, x2d, gamma)
+        if aggregator is not None and aggregator.robust:
+            rows = self.worker_dense(key, diff_bufs, n)
+            if aggregator.coordinatewise:
+                fn = (_ref.trimmed_delta_epilogue_ref if self._plain(rows)
+                      else _epi.trimmed_delta_epilogue)
+                return fn(rows, g2d, x2d, gamma, *aggregator.trim_bounds(n))
+            delta = aggregator.combine_rows(rows)
+            del rows
+            fn = _ref.delta_epilogue_ref if self._plain(delta) else _epi.delta_epilogue
+            return fn(delta, g2d, x2d, gamma)
         if self.sampler == "qsgd":
             levels, norms = self._qsgd_payloads(key, diff_bufs, n)
             fn = _ref.qsgd_epilogue_ref if self._plain(levels) else _epi.qsgd_epilogue
@@ -402,9 +452,22 @@ class FlatEngine:
         fn = _ref.scatter_epilogue_ref if self._plain(vals) else _epi.scatter_epilogue
         return fn(vals, offs, g2d, x2d, gamma)
 
-    def fused_sync(self, grad_bufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
+    def fused_sync(self, grad_bufs: torch.Tensor, x2d: torch.Tensor, gamma: float,
+                   aggregator=None):
         """Sync-round epilogue: worker mean of the packed gradients fused with
-        the iterate update. Returns (g_new, x_new) like fused_round."""
+        the iterate update. Returns (g_new, x_new) like fused_round. A robust
+        ``aggregator`` replaces the mean: the trimmed sync epilogue for the
+        coordinate-wise rules; Krum and norm-clip combine the rows first and
+        end in the delta epilogue with g = 0."""
+        if aggregator is not None and aggregator.robust:
+            n = grad_bufs.shape[0]
+            if aggregator.coordinatewise:
+                fn = (_ref.trimmed_sync_epilogue_ref if self._plain(grad_bufs)
+                      else _epi.trimmed_sync_epilogue)
+                return fn(grad_bufs, x2d, gamma, *aggregator.trim_bounds(n))
+            g_agg = aggregator.combine_rows(grad_bufs)
+            fn = _ref.delta_epilogue_ref if self._plain(g_agg) else _epi.delta_epilogue
+            return fn(g_agg, torch.zeros_like(g_agg), x2d, gamma)
         fn = _ref.mean_epilogue_ref if self._plain(grad_bufs) else _epi.mean_epilogue
         return fn(grad_bufs, x2d, gamma)
 

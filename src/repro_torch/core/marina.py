@@ -31,8 +31,18 @@ the workers (the reference's ``vmap``), written into one stacked tree.
   untouched — and ``StepMetrics.down_bits`` books its payload instead of
   the dense 32d broadcast.
 
-Not ported yet (raise): a per-leaf tree ``down_compressor``, robust
-aggregators and fault injection.
+* ``aggregator`` (:class:`repro_torch.core.aggregators.ServerAggregator`)
+  replaces the server mean by a Byzantine-robust rule on both round types;
+  on the flat engine's carry rounds the coordinate-wise rules end in the
+  ``trimmed_delta_epilogue`` / ``trimmed_sync_epilogue`` kernels. ``faults``
+  (:class:`repro_torch.core.faults.FaultSpec`) rewrites the faulty clients'
+  uplinked payloads under the key ``fold_in(key, _FAULT_FOLD)``; ``drop``
+  needs ``carry=True``: a dropped client's row is zero on the wire, its
+  anchor h_i stays, and the ledger books only the uploads that arrived. The
+  carry table keeps the honest gradients. Robust rules are refused on PermK
+  and with client weights, ``drop`` under a robust rule.
+
+Not ported yet (raises): a per-leaf tree ``down_compressor``.
 """
 
 from __future__ import annotations
@@ -40,10 +50,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import prng
 
+from . import faults as fault_lib
 from . import wire
 from .compressors import (
     Compressor,
@@ -75,6 +87,10 @@ GradFn = Callable[[PyTree, PyTree], PyTree]  # (params, batch) -> grad tree
 #: perturbing the (k_bern, k_q) split: a downlink run draws the same uplink
 #: randomness as a run without one
 _DOWN_FOLD = 0x0D0C
+
+#: fold_in constant deriving the fault-injection key (the garbage attack's
+#: noise) from the step key, leaving the (k_bern, k_sel, k_q) split as it is
+_FAULT_FOLD = 0xFA17
 
 
 class StepMetrics(NamedTuple):
@@ -113,13 +129,14 @@ def _per_worker_grads(grad_fn: GradFn, params: PyTree, batches: PyTree) -> PyTre
 
 
 def _compressed_delta(comp: Compressor, engine: "FlatEngine | None", key,
-                      diffs: PyTree, like: PyTree, n: int) -> PyTree:
+                      diffs: PyTree, like: PyTree, n: int, aggregator=None) -> PyTree:
     """One compressed uplink round: (1/n) Σ_i Q(Δ_i). With an engine: the
     fused flat-buffer pipeline; without: the per-leaf tree path, with one
     key per worker — or, for a correlated collection (PermK), the round key
-    shared by all workers, each told its index."""
+    shared by all workers, each told its index. A robust ``aggregator``
+    replaces the mean by its rule over the decompressed payloads."""
     if engine is not None:
-        return engine.fused_delta(key, diffs, n)
+        return engine.fused_delta(key, diffs, n, aggregator)
     if isinstance(comp, CorrelatedCompressor):
         if n != comp.n:
             raise ValueError(f"{comp.name} collection sized for n={comp.n} but "
@@ -129,8 +146,10 @@ def _compressed_delta(comp: Compressor, engine: "FlatEngine | None", key,
     else:
         payloads = [tree_compress(comp, k, tree_worker_slice(diffs, w))
                     for w, k in enumerate(prng.split(key, n))]
-    dense = [tree_decompress(comp, pl, like) for pl in payloads]
-    return tree_mean_axis0(tree_stack_workers(dense))
+    dense = tree_stack_workers([tree_decompress(comp, pl, like) for pl in payloads])
+    if _robust(aggregator):
+        return aggregator.combine_stacked(dense)
+    return tree_mean_axis0(dense)
 
 
 def _down_roundtrip(down_engine: "FlatEngine | None", key, delta: PyTree) -> PyTree:
@@ -161,9 +180,15 @@ def _round_bits(comp: Compressor, engine: "FlatEngine | None", like: PyTree,
     return float(tree_payload_bits(comp, like))
 
 
-def _sync_mean(engine: "FlatEngine | None", grads: PyTree) -> PyTree:
-    """Sync-round mean: over the packed (n, nblk, B) buffer with an engine,
-    leaf by leaf otherwise."""
+def _sync_aggregate(engine: "FlatEngine | None", aggregator, grads: PyTree,
+                    weights: "torch.Tensor | None" = None) -> PyTree:
+    """Sync-round server aggregate: the robust rule when one is configured,
+    else the mean — over the packed (n, nblk, B) buffer with an engine, leaf
+    by leaf otherwise, and weighted when client weights are set."""
+    if _robust(aggregator):
+        return aggregator.combine_stacked(grads)
+    if weights is not None:
+        return _weighted_mean_axis0(grads, weights)
     if engine is None:
         return tree_mean_axis0(grads)
     bufs = pack_stacked(engine.layout, grads)
@@ -172,30 +197,48 @@ def _sync_mean(engine: "FlatEngine | None", grads: PyTree) -> PyTree:
 
 def _carry_finish(m, state: "MarinaState", c_k: bool, k_q, grads: PyTree,
                   make_diffs: Optional[Callable[[], PyTree]], n: int, k_down):
-    """End a carry round: g' = the worker mean of ``grads`` (sync) or
-    g + (1/n) Σ Q(``make_diffs()``) (compressed, through the downlink under
-    ``k_down`` if there is one), then x' = x − γ·g'. With an engine, one
-    fused epilogue over the packed buffers (g stays packed). The diff tree
-    is built here, so on the engine path it is freed once packed. Returns
-    (params', g')."""
+    """End a carry round: g' = the server aggregate of the uplinked
+    ``grads`` (sync) or g + the aggregate of Q(``make_diffs()``)
+    (compressed, through the downlink under ``k_down`` if there is one),
+    then x' = x − γ·g'. With an engine, one fused epilogue over the packed
+    buffers (g stays packed). The diff tree is built here, so on the engine
+    path it is freed once packed. Returns (params', g')."""
+    agg = m.aggregator
     if m.engine is not None:
         lay = m.engine.layout
         x2d = pack(lay, state.params)
         if c_k:
-            g2d, x_new2d = m.engine.fused_sync(pack_stacked(lay, grads), x2d, m.gamma)
+            g2d, x_new2d = m.engine.fused_sync(pack_stacked(lay, grads), x2d, m.gamma,
+                                               aggregator=agg)
         else:
             g2d, x_new2d = m.engine.fused_round(
                 k_q, pack_stacked(lay, make_diffs()), n, state.g, x2d, m.gamma,
-                down=m.down_engine, down_key=k_down)
+                down=m.down_engine, down_key=k_down, aggregator=agg)
         return unpack(lay, x_new2d), g2d
     if c_k:
-        g_next = tree_mean_axis0(grads)
+        g_next = _sync_aggregate(None, agg, grads)
     else:
         delta = _compressed_delta(m.compressor, None, k_q, make_diffs(),
-                                  state.params, n)
+                                  state.params, n, agg)
         delta = _down_roundtrip(m.down_engine, k_down, delta)
         g_next = tree_map(torch.add, state.g, delta)
     return tree_axpy(-m.gamma, g_next, state.params), g_next
+
+
+def _carry_uplink(m, state: "MarinaState", key, c_k: bool, k_q, grads: PyTree,
+                  n: int):
+    """A full-fleet carry round (MARINA, VR-MARINA) from this round's honest
+    gradients: the faulted sync uplink, or the faulted diffs against h, into
+    :func:`_carry_finish`."""
+    k_f = prng.fold_in(key, _FAULT_FOLD)
+    ids = list(range(n))
+    if c_k:
+        return _carry_finish(m, state, True, k_q,
+                             _sync_faults(m.faults, k_f, grads, ids, n), None, n, None)
+    return _carry_finish(
+        m, state, False, k_q, None,
+        lambda: _uplink_faults(m.faults, k_f, tree_sub(grads, state.h), ids, n), n,
+        prng.fold_in(key, _DOWN_FOLD))
 
 
 def _lookahead_init(m, params: PyTree, grads: PyTree, g0: PyTree) -> "MarinaState":
@@ -221,17 +264,111 @@ def _check_downlink_config(m) -> None:
 
 def _refuse_unported(m) -> None:
     _check_downlink_config(m)
-    for name in ("down_compressor", "aggregator", "faults"):
-        if getattr(m, name) is not None:
-            raise NotImplementedError(
-                f"{type(m).__name__}({name}=...) is not ported yet")
+    _check_robust_config(m)
+    if m.down_compressor is not None:
+        raise NotImplementedError(
+            f"{type(m).__name__}(down_compressor=...) is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Robust aggregation and fault injection
+# ---------------------------------------------------------------------------
+
+
+def _robust(aggregator) -> bool:
+    """True when a ServerAggregator with a rule other than the mean is set."""
+    return aggregator is not None and aggregator.robust
+
+
+def _check_robust_config(m) -> None:
+    """Refuse what has no defined meaning: a robust rule on a partition
+    compressor (PermK gives each coordinate to one worker) or with client
+    weights (the rules select and trim, they do not weight); ``drop``
+    without the carry table (the server has no row to substitute) or under
+    a robust rule (the zero-row substitution is exact only for the mean)."""
+    agg = m.aggregator
+    if _robust(agg):
+        if isinstance(m.compressor, CorrelatedCompressor):
+            raise ValueError(
+                f"robust rule {agg.rule!r} is undefined on the correlated partition "
+                f"compressor {m.compressor.name}: each coordinate reaches the server "
+                "from exactly one worker")
+        if m.engine is not None and m.engine.sampler == "permk":
+            raise ValueError(f"robust rule {agg.rule!r} is undefined on the permk "
+                             "engine wire: the workers partition the coordinates")
+        if getattr(m, "weights", None) is not None:
+            raise ValueError("client weights only make sense for mean aggregation; "
+                             "robust rules select or trim rows instead of weighting them")
+    flt = m.faults
+    if flt is not None and flt.attack == "drop":
+        if not m.carry:
+            raise ValueError(
+                "faults='drop' substitutes the server-side carry row h_i for the "
+                f"missing upload: carry=True is required; construct "
+                f"{type(m).__name__}(..., carry=True) or drop the FaultSpec")
+        if _robust(agg):
+            raise ValueError(
+                "faults='drop' relies on mean aggregation: the zero-row carry "
+                f"substitution is not defined under the {agg.rule!r} rule")
+
+
+def _uplink_faults(faults, key, trees: PyTree, ids, n: int) -> PyTree:
+    """Compressed-round payload faults: attacks rewrite their rows; dropped
+    rows are zero (Δ̂_i = 0: the server's anchor h_i stands in)."""
+    if faults is None:
+        return trees
+    if faults.attack == "drop":
+        return fault_lib.zero_rows(trees, faults.byz_mask(ids, n))
+    return fault_lib.inject(faults, key, trees, ids, n)
+
+
+def _sync_faults(faults, key, trees: PyTree, ids, n: int) -> PyTree:
+    """Sync-round payload faults: the attacks apply, ``drop`` does not (the
+    sync round is the rendezvous every client attends)."""
+    if faults is None:
+        return trees
+    return fault_lib.inject(faults, key, trees, ids, n)
+
+
+def _uplink_bits_scale(faults, n: int) -> float:
+    """The share of the fleet whose compressed upload arrived: (n − f)/n
+    under ``drop``, else 1."""
+    if faults is not None and faults.attack == "drop":
+        return (n - faults.n_faulty(n)) / n
+    return 1.0
+
+
+def _counted_bits(uploaded: int, zeta: float, n: int) -> float:
+    """uploaded·ζ/n as the reference books a round whose uploads it counted
+    (PP-MARINA's drops, deadline rounds): in float32, the division by n
+    compiled by XLA into a multiply by float32(1/n)."""
+    f32 = np.float32
+    return float(f32(f32(uploaded) * f32(zeta)) * f32(1.0 / n))
+
+
+def _carry_refresh(h_old: PyTree, grads: PyTree, faults, c_k: bool, n: int) -> PyTree:
+    """The next carry h: this round's gradients, except a dropped client's
+    row on a compressed round, which keeps the anchor both sides last
+    agreed on."""
+    if c_k or faults is None or faults.attack != "drop" or faults.n_faulty(n) == 0:
+        return grads
+    keep_old = faults.byz_mask(list(range(n)), n)
+    return tree_map(lambda ho, gn: torch.where(
+        keep_old.to(gn.device).reshape((n,) + (1,) * (gn.ndim - 1)),
+        ho.to(gn.dtype), gn), h_old, grads)
 
 
 def _metrics(m, like: PyTree, gnorm, c_k: bool, oracle: float,
              n: int) -> StepMetrics:
     d = tree_dim(like)
     bits_dense = wire.dense_f32_bits(d)
-    bits = bits_dense if c_k else _round_bits(m.compressor, m.engine, like, n)
+    bits = bits_dense
+    if not c_k:
+        bits = _round_bits(m.compressor, m.engine, like, n)
+        up_scale = _uplink_bits_scale(m.faults, n)
+        if up_scale != 1.0:
+            # float32, as the reference books it
+            bits = float(np.float32(bits) * np.float32(up_scale))
     down = bits_dense if c_k else _down_round_bits(m.down_engine, d)
     return StepMetrics(grad_est_norm=gnorm, bits_per_worker=bits,
                        sync_round=int(c_k), oracle_calls=oracle, down_bits=down)
@@ -279,19 +416,23 @@ class Marina:
         n = _num_workers(batches)
         k_bern, k_q = prng.split(key)
         c_k = bool(prng.bernoulli(k_bern, self.p))
+        k_f = prng.fold_in(key, _FAULT_FOLD)
+        ids = list(range(n))
 
         x_old = state.params
         x_new = tree_axpy(-self.gamma, state.g, x_old)  # Alg. 1 line 7
         if c_k:
             grads = _per_worker_grads(self.grad_fn, x_new, batches)
-            g_next = _sync_mean(self.engine, grads)
+            grads = _sync_faults(self.faults, k_f, grads, ids, n)
+            g_next = _sync_aggregate(self.engine, self.aggregator, grads)
         else:
             g_new = _per_worker_grads(self.grad_fn, x_new, batches)
             g_prev = _per_worker_grads(self.grad_fn, x_old, batches)
             diffs = tree_sub(g_new, g_prev)
             del g_new, g_prev
+            diffs = _uplink_faults(self.faults, k_f, diffs, ids, n)
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
-                                      state.params, n)
+                                      state.params, n, self.aggregator)
             delta = _down_roundtrip(self.down_engine,
                                     prng.fold_in(key, _DOWN_FOLD), delta)
             g_next = tree_map(torch.add, state.g, delta)
@@ -308,10 +449,10 @@ class Marina:
 
         # the one backprop of the round: state.params is already x^{k+1}
         grads = _per_worker_grads(self.grad_fn, state.params, batches)
-        params, g = _carry_finish(self, state, c_k, k_q, grads,
-                                  lambda: tree_sub(grads, state.h), n,
-                                  prng.fold_in(key, _DOWN_FOLD))
-        new_state = MarinaState(params=params, g=g, step=state.step + 1, h=grads)
+        params, g = _carry_uplink(self, state, key, c_k, k_q, grads, n)
+        # h keeps the honest gradients (a faulty client lies on the wire)
+        new_state = MarinaState(params=params, g=g, step=state.step + 1,
+                                h=_carry_refresh(state.h, grads, self.faults, c_k, n))
         return new_state, _metrics(self, state.params, tree_norm(g), c_k, 1.0, n)
 
     def step(self, state: MarinaState, key, batches: PyTree):
@@ -361,19 +502,24 @@ class VRMarina:
         k_bern, k_q = prng.split(key)
         c_k = bool(prng.bernoulli(k_bern, self.p))
 
+        k_f = prng.fold_in(key, _FAULT_FOLD)
+        ids = list(range(n))
+
         x_old = state.params
         x_new = tree_axpy(-self.gamma, state.g, x_old)
         if c_k:
             grads = _per_worker_grads(self.full_grad_fn, x_new, full_batches)
-            g_next = _sync_mean(self.engine, grads)
+            grads = _sync_faults(self.faults, k_f, grads, ids, n)
+            g_next = _sync_aggregate(self.engine, self.aggregator, grads)
         else:
             # Alg. 2 line 8: the same minibatch at x^{k+1} and x^k
             g_new = _per_worker_grads(self.mb_grad_fn, x_new, mb_batches)
             g_prev = _per_worker_grads(self.mb_grad_fn, x_old, mb_batches)
             diffs = tree_sub(g_new, g_prev)
             del g_new, g_prev
+            diffs = _uplink_faults(self.faults, k_f, diffs, ids, n)
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
-                                      state.params, n)
+                                      state.params, n, self.aggregator)
             delta = _down_roundtrip(self.down_engine,
                                     prng.fold_in(key, _DOWN_FOLD), delta)
             g_next = tree_map(torch.add, state.g, delta)
@@ -393,12 +539,11 @@ class VRMarina:
             grads = _per_worker_grads(self.full_grad_fn, state.params, full_batches)
         else:
             grads = _per_worker_grads(self.mb_grad_fn, state.params, mb_batches)
-        params, g = _carry_finish(self, state, c_k, k_q, grads,
-                                  lambda: tree_sub(grads, state.h), n,
-                                  prng.fold_in(key, _DOWN_FOLD))
+        params, g = _carry_uplink(self, state, key, c_k, k_q, grads, n)
         oracle = (float(_batch_rows(full_batches)) if c_k
                   else 1.0 * _batch_rows(mb_batches))
-        new_state = MarinaState(params=params, g=g, step=state.step + 1, h=grads)
+        new_state = MarinaState(params=params, g=g, step=state.step + 1,
+                                h=_carry_refresh(state.h, grads, self.faults, c_k, n))
         return new_state, _metrics(self, state.params, tree_norm(g), c_k, oracle, n)
 
     def step(self, state: MarinaState, key, full_batches: PyTree,
@@ -443,14 +588,21 @@ def _take_rows(tree: PyTree, sel: list) -> PyTree:
     return tree_map(lambda t: t[torch.tensor(sel, device=t.device)], tree)
 
 
-def _pp_carry_refresh(h_old: PyTree, sel: list, grads_sel: PyTree) -> PyTree:
+def _pp_carry_refresh(h_old: PyTree, sel: list, grads_sel: PyTree, faults,
+                      n: int) -> PyTree:
     """The server table with rows ``sel`` set to the cohort's gradients, in
     cohort order, one row after another (a repeated client writes the same
-    values twice). A new table: the old one stays valid for a revert."""
+    values twice) — except a dropped client's row, which the server never
+    received and keeps. A new table: the old one stays valid for a revert."""
+    dropped = [False] * len(sel)
+    if faults is not None and faults.attack == "drop":
+        dropped = faults.byz_mask(sel, n).tolist()
+
     def refresh(ht, gt):
         out = ht.clone()
         for i, row in enumerate(sel):
-            out[row].copy_(gt[i])
+            if not dropped[i]:
+                out[row].copy_(gt[i])
         return out
 
     return tree_map(refresh, h_old, grads_sel)
@@ -516,13 +668,14 @@ class PPMarina:
         n = _num_workers(batches)
         k_bern, k_sel, k_q = prng.split(key, 3)
         c_k = bool(prng.bernoulli(k_bern, self.p))
+        k_f = prng.fold_in(key, _FAULT_FOLD)
 
         x_old = state.params
         x_new = tree_axpy(-self.gamma, state.g, x_old)
         if c_k:
             grads = _per_worker_grads(self.grad_fn, x_new, batches)
-            g_next = (_sync_mean(self.engine, grads) if self.weights is None
-                      else _weighted_mean_axis0(grads, self.weights))
+            grads = _sync_faults(self.faults, k_f, grads, list(range(n)), n)
+            g_next = _sync_aggregate(self.engine, self.aggregator, grads, self.weights)
         else:
             sel = self._cohort(k_sel, n)
             sel_batches = _take_rows(batches, sel)
@@ -530,8 +683,9 @@ class PPMarina:
             g_prev = _per_worker_grads(self.grad_fn, x_old, sel_batches)
             diffs = self._scaled_diffs(tree_sub(g_new, g_prev), sel, n)
             del g_new, g_prev
+            diffs = _uplink_faults(self.faults, k_f, diffs, sel, n)
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
-                                      state.params, self.r)
+                                      state.params, self.r, self.aggregator)
             delta = _down_roundtrip(self.down_engine,
                                     prng.fold_in(key, _DOWN_FOLD), delta)
             g_next = tree_map(torch.add, state.g, delta)
@@ -544,16 +698,22 @@ class PPMarina:
         n = _num_workers(batches)
         k_bern, k_sel, k_q = prng.split(key, 3)
         c_k = bool(prng.bernoulli(k_bern, self.p))
+        k_f = prng.fold_in(key, _FAULT_FOLD)
         sel = self._cohort(k_sel, n)
+        # the ledger books only the uploads that arrived
+        uploaded = None
+        if self.faults is not None and self.faults.attack == "drop":
+            uploaded = self.r - int(self.faults.byz_mask(sel, n).sum())
 
         if c_k:
             grads = _per_worker_grads(self.grad_fn, state.params, batches)
-            h_new = grads
+            h_new = grads  # the table keeps the honest gradients
+            g_up = _sync_faults(self.faults, k_f, grads, list(range(n)), n)
             if self.weights is None:
-                params, g = _carry_finish(self, state, True, k_q, grads, None, n,
+                params, g = _carry_finish(self, state, True, k_q, g_up, None, n,
                                           None)
             else:
-                g = _weighted_mean_axis0(grads, self.weights)
+                g = _weighted_mean_axis0(g_up, self.weights)
                 if self.engine is not None:
                     lay = self.engine.layout
                     g = pack(lay, g)
@@ -565,27 +725,32 @@ class PPMarina:
                                           _take_rows(batches, sel))
             # the table keeps the raw client gradients (weights apply at
             # aggregation), refreshed only for the sampled rows
-            h_new = _pp_carry_refresh(state.h, sel, grads_sel)
+            h_new = _pp_carry_refresh(state.h, sel, grads_sel, self.faults, n)
             params, g = _carry_finish(
                 self, state, False, k_q, None,
-                lambda: self._scaled_diffs(
-                    tree_sub(grads_sel, _take_rows(state.h, sel)), sel, n),
+                lambda: _uplink_faults(self.faults, k_f, self._scaled_diffs(
+                    tree_sub(grads_sel, _take_rows(state.h, sel)), sel, n), sel, n),
                 self.r, prng.fold_in(key, _DOWN_FOLD))
 
         new_state = MarinaState(params=params, g=g, step=state.step + 1, h=h_new)
-        return new_state, self._metrics(c_k, tree_norm(g), state.params, n, 1.0)
+        return new_state, self._metrics(c_k, tree_norm(g), state.params, n, 1.0,
+                                        uploaded)
 
     def _metrics(self, c_k: bool, gnorm, like: PyTree, n: int,
-                 oracle_factor: float) -> StepMetrics:
-        """Fleet-total uplink from the wire helpers, divided by n."""
+                 oracle_factor: float, uploaded: "int | None" = None) -> StepMetrics:
+        """Fleet-total uplink from the wire helpers, divided by n: r·ζ_Q on
+        compressed rounds, or uploaded·ζ_Q when dropped cohort members never
+        delivered theirs."""
         d = tree_dim(like)
+        zeta = _round_bits(self.compressor, self.engine, like, self.r)
         if c_k:
-            total = wire.pp_sync_total_bits(n, d)
+            bits = wire.pp_sync_total_bits(n, d) / n
+        elif uploaded is None:
+            bits = wire.pp_uplink_total_bits(self.r, zeta) / n
         else:
-            total = wire.pp_uplink_total_bits(
-                self.r, _round_bits(self.compressor, self.engine, like, self.r))
+            bits = _counted_bits(uploaded, zeta, n)
         return StepMetrics(
-            grad_est_norm=gnorm, bits_per_worker=total / n, sync_round=int(c_k),
+            grad_est_norm=gnorm, bits_per_worker=bits, sync_round=int(c_k),
             oracle_calls=1.0 if c_k else oracle_factor * self.r / n,
             down_bits=(wire.dense_f32_bits(d) if c_k
                        else _down_round_bits(self.down_engine, d)))

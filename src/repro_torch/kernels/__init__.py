@@ -13,8 +13,9 @@
                     `natural_dequant_mean`), over ``csrc/quantize.cu``.
 * ``epilogue.py`` — fused server epilogues (`scatter_epilogue`,
                     `delta_epilogue`, `qsgd_epilogue`,
-                    `natural_epilogue`, `mean_epilogue`), over
-                    ``csrc/epilogue.cu``.
+                    `natural_epilogue`, `mean_epilogue`) and the robust
+                    trimmed pair (`trimmed_delta_epilogue`,
+                    `trimmed_sync_epilogue`), over ``csrc/epilogue.cu``.
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.
@@ -38,6 +39,8 @@ KERNELS = {
     "natural_block_workers": quantize.natural_block_workers,
     "natural_dequant_mean": quantize.natural_dequant_mean,
     "natural_epilogue": epilogue.natural_epilogue,
+    "trimmed_delta_epilogue": epilogue.trimmed_delta_epilogue,
+    "trimmed_sync_epilogue": epilogue.trimmed_sync_epilogue,
 }
 
 

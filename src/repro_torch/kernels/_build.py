@@ -60,6 +60,10 @@ SIGNATURES = {
         "qsgd_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "natural_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _P),
         "natural_epilogue_bf16": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _F, _P),
+        **{f"trimmed_delta_epilogue_{b}_{x}": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P)
+           for b in ("f32", "bf16") for x in ("f32", "bf16")},
+        **{f"trimmed_sync_epilogue_{b}_{x}": (_P, _P, _P, _P, _I, _L, _I, _I, _F, _P)
+           for b in ("f32", "bf16") for x in ("f32", "bf16")},
     },
 }
 

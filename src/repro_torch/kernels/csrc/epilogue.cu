@@ -8,7 +8,10 @@
 // ::qsgd_epilogue (packed-QSGD payloads: int8 levels + per-block norms, the
 // QSGD uplink's and the compressed downlink's carry rounds) and
 // ::natural_epilogue (natural-compression payloads: int8 exponent-delta codes
-// + per-block power-of-two scales, the same two uses). Where the TPU
+// + per-block power-of-two scales, the same two uses), and the robust pair
+// ::trimmed_delta_epilogue / ::trimmed_sync_epilogue (the coordinate-wise
+// trimmed mean or median of n per-worker rows, carry compressed / sync
+// rounds under a trimmed_mean or coordinate_median aggregator). Where the TPU
 // version scatters through one-hot MXU matmuls, scatter_epilogue adds into a
 // shared-memory row.
 //
@@ -18,7 +21,8 @@
 // IEEE divide per worker per 4 coordinates and one per coordinate, whose
 // instruction time is not small beside its bytes: PERF.md; natural_epilogue
 // decodes each code with one multiply by a power of two built from bits, and
-// divides once per coordinate). The x update rounds the
+// divides once per coordinate; the trimmed pair sorts n values per
+// coordinate in registers). The x update rounds the
 // multiply and the add separately (__fmul_rn, __fadd_rn) — an FMA would differ
 // from the oracle in the last bit.
 //
@@ -164,6 +168,73 @@ __global__ void natural_epilogue_kernel(const int8_t* __restrict__ codes,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Coordinate-wise trimmed mean over the worker rows
+//
+// One thread per coordinate: its n worker values, read at stride size from
+// rows of f32 or bf16 (coalesced across the warp), are held in registers
+// (n is a template parameter, 1..kTrimMaxN). As in the plain version
+// (ref.trimmed_mean_rows_ref), NaN becomes +inf, an odd-even transposition
+// network of n stages sorts the values with compare-selects that order −0
+// below +0 (XLA's min / max; fminf / fmaxf follow another rule), and the
+// window [lo, hi) is summed in sorted order from r[lo], then divided by
+// hi − lo. The TPU kernel instead ranks the values and sums the kept ones in
+// worker order, which rounds differently when hi − lo > 2.
+// ---------------------------------------------------------------------------
+
+constexpr int kTrimMaxN = 16;
+
+__device__ __forceinline__ void compare_exchange(float& a, float& b) {
+  const bool keep = a < b || (a == b && (__float_as_uint(a) >> 31));
+  const float lo = keep ? a : b;
+  const float hi = keep ? b : a;
+  a = lo;
+  b = hi;
+}
+
+template <int N, typename BT>
+__device__ __forceinline__ float trimmed_coord(const BT* __restrict__ bufs,
+                                               int64_t size, int64_t i, int lo,
+                                               int hi) {
+  float r[N];
+#pragma unroll
+  for (int w = 0; w < N; ++w) {
+    const float v = load_x(bufs, (int64_t)w * size + i);
+    r[w] = isnan(v) ? __int_as_float(0x7f800000) : v;
+  }
+#pragma unroll
+  for (int stage = 0; stage < N; ++stage) {
+#pragma unroll
+    for (int j = stage % 2; j < N - 1; j += 2) compare_exchange(r[j], r[j + 1]);
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (j == lo) acc = r[j];
+    else if (j > lo && j < hi) acc = __fadd_rn(acc, r[j]);
+  }
+  return __fdiv_rn(acc, (float)(hi - lo));
+}
+
+// g' = g + trimmed mean (g given: carry compressed rounds) or the trimmed mean
+// itself (g null: sync rounds), then the x update.
+template <int N, typename BT, typename XT>
+__global__ void trimmed_epilogue_kernel(const BT* __restrict__ bufs,
+                                        const float* __restrict__ g,
+                                        const XT* __restrict__ x,
+                                        float* __restrict__ g_out,
+                                        XT* __restrict__ x_out, int64_t size,
+                                        int lo, int hi, float neg_gamma) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < size;
+       i += stride) {
+    const float t = trimmed_coord<N>(bufs, size, i, lo, hi);
+    const float g_new = g != nullptr ? __fadd_rn(g[i], t) : t;
+    g_out[i] = g_new;
+    store_x(x_out, i, apply_update(neg_gamma, g_new, load_x(x, i)));
+  }
+}
+
 static unsigned elementwise_grid(long long size, int threads) {
   long long grid = (size + threads - 1) / threads;
   if (grid > 1048576) grid = 1048576;  // grid-stride loop covers the rest
@@ -306,3 +377,48 @@ extern "C" int natural_epilogue_bf16(const void* codes, const void* scales,
   return launch_natural<__nv_bfloat16>(codes, scales, g, x, g_out, x_out, n, nblk,
                                        block, neg_gamma, stream);
 }
+
+template <typename BT, typename XT>
+static int launch_trimmed(const void* bufs, const void* g, const void* x,
+                          void* g_out, void* x_out, int n, long long size, int lo,
+                          int hi, float neg_gamma, void* stream) {
+  if (n < 1 || n > kTrimMaxN || lo < 0 || lo >= hi || hi > n)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = elementwise_grid(size, 256);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n) {
+#define TRIM_CASE(N)                                                            \
+  case N:                                                                       \
+    trimmed_epilogue_kernel<N, BT, XT><<<grid, 256, 0, st>>>(                   \
+        (const BT*)bufs, (const float*)g, (const XT*)x, (float*)g_out,          \
+        (XT*)x_out, size, lo, hi, neg_gamma);                                   \
+    break;
+    TRIM_CASE(1) TRIM_CASE(2) TRIM_CASE(3) TRIM_CASE(4) TRIM_CASE(5) TRIM_CASE(6)
+    TRIM_CASE(7) TRIM_CASE(8) TRIM_CASE(9) TRIM_CASE(10) TRIM_CASE(11)
+    TRIM_CASE(12) TRIM_CASE(13) TRIM_CASE(14) TRIM_CASE(15) TRIM_CASE(16)
+#undef TRIM_CASE
+  }
+  return (int)cudaGetLastError();
+}
+
+// bufs (n, size) in BT, g (size) f32, x (size) in XT → g', x'
+#define TRIMMED_ENTRY(BNAME, BT, XNAME, XT)                                         \
+  extern "C" int trimmed_delta_epilogue_##BNAME##_##XNAME(                          \
+      const void* bufs, const void* g, const void* x, void* g_out, void* x_out,   \
+      int n, long long size, int lo, int hi, float neg_gamma, void* stream) {      \
+    if (g == nullptr) return (int)cudaErrorInvalidValue;                          \
+    return launch_trimmed<BT, XT>(bufs, g, x, g_out, x_out, n, size, lo, hi,       \
+                                  neg_gamma, stream);                             \
+  }                                                                               \
+  extern "C" int trimmed_sync_epilogue_##BNAME##_##XNAME(                           \
+      const void* bufs, const void* x, void* g_out, void* x_out, int n,           \
+      long long size, int lo, int hi, float neg_gamma, void* stream) {             \
+    return launch_trimmed<BT, XT>(bufs, nullptr, x, g_out, x_out, n, size, lo, hi, \
+                                  neg_gamma, stream);                             \
+  }
+
+TRIMMED_ENTRY(f32, float, f32, float)
+TRIMMED_ENTRY(f32, float, bf16, __nv_bfloat16)
+TRIMMED_ENTRY(bf16, __nv_bfloat16, f32, float)
+TRIMMED_ENTRY(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+#undef TRIMMED_ENTRY

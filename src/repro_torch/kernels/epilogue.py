@@ -5,7 +5,9 @@ Ports ``repro.kernels.epilogue::scatter_epilogue`` (carry compressed
 RandK rounds), ``::delta_epilogue`` (carry compressed PermK rounds, whose
 aggregate is already dense), ``::qsgd_epilogue`` and ``::natural_epilogue``
 (carry compressed rounds of the packed QSGD and natural wires, uplink or
-downlink) and ``::mean_epilogue`` (carry sync rounds): aggregate the worker
+downlink), ``::mean_epilogue`` (carry sync rounds) and the robust pair
+``::trimmed_delta_epilogue`` / ``::trimmed_sync_epilogue`` (carry rounds
+under a coordinate-wise trimmed mean or median): aggregate the worker
 payloads, ``g' = g + δ`` in f32, and ``x' = (−γ)·g' + x`` rounded
 separately, in x's dtype (f32 or bf16). A wrapper given CUDA tensors launches its kernel
 (or raises); given CPU tensors it returns the plain version from
@@ -179,3 +181,71 @@ def natural_epilogue(codes: torch.Tensor, scales: torch.Tensor, g2d: torch.Tenso
 
 
 natural_epilogue.launches = 0
+
+
+#: the most worker rows the trimmed kernels take (a template parameter there)
+TRIM_MAX_N = 16
+
+
+def _check_trimmed(bufs: torch.Tensor, x2d: torch.Tensor, lo: int, hi: int) -> str:
+    """Shape, dtype, layout and window checks of the trimmed kernels; returns
+    the entry point's dtype suffix."""
+    n, nblk, B = bufs.shape
+    if not 1 <= n <= TRIM_MAX_N:
+        raise ValueError(f"the trimmed kernels take 1..{TRIM_MAX_N} worker rows, not {n}")
+    if not 0 <= lo < hi <= n:
+        raise ValueError(f"trim window [{lo}, {hi}) invalid for n={n}")
+    if bufs.dtype not in _X_SUFFIX or not bufs.is_contiguous():
+        raise ValueError("bufs must be a contiguous f32 or bf16 buffer")
+    if x2d.dtype not in _X_SUFFIX or tuple(x2d.shape) != (nblk, B):
+        raise ValueError(f"x must be f32 or bf16 of shape {(nblk, B)}")
+    if not x2d.is_contiguous() or x2d.device != bufs.device:
+        raise ValueError("x must be contiguous and on bufs' device")
+    return f"{_X_SUFFIX[bufs.dtype]}_{_X_SUFFIX[x2d.dtype]}"
+
+
+def trimmed_delta_epilogue(bufs: torch.Tensor, g2d: torch.Tensor, x2d: torch.Tensor,
+                           gamma: float, lo: int, hi: int):
+    """Per-worker dense rows (n, nblk, B) f32 or bf16 + g (nblk, B) f32 + x →
+    (g' = g + trimmed mean over the rank window [lo, hi) f32, x' x.dtype)."""
+    if not bufs.is_cuda:
+        return _ref.trimmed_delta_epilogue_ref(bufs, g2d, x2d, gamma, lo, hi)
+    suffix = _check_trimmed(bufs, x2d, lo, hi)
+    _check_gx(g2d, x2d, tuple(x2d.shape))
+    n, nblk, B = bufs.shape
+    g_out = torch.empty_like(g2d)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"trimmed_delta_epilogue_{suffix}")(
+        bufs.data_ptr(), g2d.data_ptr(), x2d.data_ptr(), g_out.data_ptr(),
+        x_out.data_ptr(), n, nblk * B, int(lo), int(hi), _neg_gamma(gamma), _stream(),
+    )
+    _build.check(err, "trimmed_delta_epilogue")
+    trimmed_delta_epilogue.launches += 1
+    return g_out, x_out
+
+
+trimmed_delta_epilogue.launches = 0
+
+
+def trimmed_sync_epilogue(bufs: torch.Tensor, x2d: torch.Tensor, gamma: float,
+                          lo: int, hi: int):
+    """Packed worker gradients (n, nblk, B) f32 or bf16 + x (nblk, B) →
+    (g' = trimmed mean over the rank window [lo, hi) f32, x' x.dtype)."""
+    if not bufs.is_cuda:
+        return _ref.trimmed_sync_epilogue_ref(bufs, x2d, gamma, lo, hi)
+    suffix = _check_trimmed(bufs, x2d, lo, hi)
+    n, nblk, B = bufs.shape
+    g_out = torch.empty((nblk, B), dtype=torch.float32, device=bufs.device)
+    x_out = torch.empty_like(x2d)
+    lib = _build.library("epilogue")
+    err = getattr(lib, f"trimmed_sync_epilogue_{suffix}")(
+        bufs.data_ptr(), x2d.data_ptr(), g_out.data_ptr(), x_out.data_ptr(), n,
+        nblk * B, int(lo), int(hi), _neg_gamma(gamma), _stream(),
+    )
+    _build.check(err, "trimmed_sync_epilogue")
+    trimmed_sync_epilogue.launches += 1
+    return g_out, x_out
+
+
+trimmed_sync_epilogue.launches = 0

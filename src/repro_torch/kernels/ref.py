@@ -196,6 +196,58 @@ def scatter_epilogue_ref(values, offsets, g2d, x2d, gamma: float):
 
 
 # ---------------------------------------------------------------------------
+# Coordinate-wise trimmed mean (and median) over the worker rows
+# ---------------------------------------------------------------------------
+
+
+def _compare_exchange(a: torch.Tensor, b: torch.Tensor):
+    """(min, max) of two f32 tensors elementwise with −0 ordered below +0, as
+    XLA's ``minimum`` / ``maximum`` order them (``torch.minimum(0., -0.)`` is
+    +0). No NaN reaches here."""
+    keep = (a < b) | ((a == b) & torch.signbit(a))
+    return torch.where(keep, a, b), torch.where(keep, b, a)
+
+
+def trimmed_mean_rows_ref(rows: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Coordinate-wise trimmed mean over the worker axis: (n, …) → (…) f32.
+
+    Per coordinate the n worker values (NaN replaced by +inf, so it sorts to
+    the end) are sorted by an odd-even transposition network of n stages,
+    and the window ``[lo, hi)`` is summed in sorted order from ``r[lo]``,
+    then divided by ``hi − lo``. ``(f, n − f)`` is the f-trimmed mean; the
+    median bounds of :meth:`ServerAggregator.trim_bounds` make it the
+    coordinate-wise median. The network, the NaN rule and the sum order are
+    those of ``repro.kernels.ref.trimmed_mean_rows_ref``; −0 sorts below +0,
+    as XLA's min / max order them."""
+    n = rows.shape[0]
+    if not 0 <= lo < hi <= n:
+        raise ValueError(f"trim window [{lo}, {hi}) invalid for n={n}")
+    x = rows.float()
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x)
+    r = list(x.unbind(0))
+    for stage in range(n):
+        for i in range(stage % 2, n - 1, 2):
+            r[i], r[i + 1] = _compare_exchange(r[i], r[i + 1])
+    acc = r[lo].clone()
+    for i in range(lo + 1, hi):
+        acc += r[i]
+    return div_n(acc, hi - lo)
+
+
+def trimmed_delta_epilogue_ref(bufs, g2d, x2d, gamma: float, lo: int, hi: int):
+    """Robust compressed-round epilogue: g' = g + trimmed mean of the
+    per-worker rows (n, nblk, B) f32 or bf16, x' = x − γ·g'."""
+    return delta_epilogue_ref(trimmed_mean_rows_ref(bufs, lo, hi), g2d, x2d, gamma)
+
+
+def trimmed_sync_epilogue_ref(bufs, x2d, gamma: float, lo: int, hi: int):
+    """Robust sync-round epilogue: g' = trimmed mean of the packed worker
+    gradients, x' = x − γ·g'."""
+    g_new = trimmed_mean_rows_ref(bufs, lo, hi)
+    return g_new, _apply(g_new, x2d, gamma)
+
+
+# ---------------------------------------------------------------------------
 # Packed quantization wire: blockwise QSGD and the 4-bit nibble words
 # ---------------------------------------------------------------------------
 

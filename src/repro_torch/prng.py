@@ -3,7 +3,9 @@
 The MARINA round derives all of its randomness from a JAX-style PRNG key:
 ``c_k ~ Be(p)`` from ``split`` + ``bernoulli``, the per-worker uint32 kernel
 seeds from ``split`` + ``bits``, PP-MARINA's cohort from ``randint`` or
-``permutation``, and the per-step key from ``fold_in(PRNGKey(seed), step)``. For the port to reproduce the reference
+``permutation``, and the per-step key from ``fold_in(PRNGKey(seed), step)``, the ``garbage`` fault's noise from
+``normal`` and the simulated round times from ``normal`` or
+``exponential``. For the port to reproduce the reference
 trajectory under the same keys, these draws must agree to the bit. This
 module reimplements them under JAX 0.9's defaults (``jax_default_prng_impl =
 threefry2x32``, ``jax_threefry_partitionable = True``).
@@ -139,6 +141,66 @@ def permutation(key, n: int) -> np.ndarray:
         key, sub = split(key)
         x = x[np.argsort(bits(sub, (n,)), kind="stable")]
     return x
+
+
+#: XLA's float32 ``erf_inv`` (Giles' single-precision approximation): the
+#: polynomial's coefficients in w = −log1p(−x²), for w < 5 and w ≥ 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+               1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+               2.83297682)
+
+
+def _log1p_f32(x: np.ndarray) -> np.ndarray:
+    """log1p of float32 values, correctly rounded to float32 (through
+    float64). XLA's own log1p is an approximation within 1 ulp of it."""
+    return np.log1p(x.astype(np.float64)).astype(np.float32)
+
+
+def _fma_f32(a, b, c) -> np.ndarray:
+    """a·b + c of float32 values rounded once to float32, as XLA's fused
+    multiply-add on the CPU: the product is exact in float64."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _erf_inv_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv``: the polynomial in w evaluated with fused
+    multiply-adds, as XLA compiles it on the CPU; ±1 map to ±inf."""
+    f32 = np.float32
+    x = x.astype(f32)
+    with np.errstate(divide="ignore", invalid="ignore"):  # x = ±1: w = inf
+        w = -_log1p_f32(-(x * x))
+        small = w < f32(5.0)
+        w = np.where(small, w - f32(2.5), np.sqrt(w) - f32(3.0)).astype(f32)
+        coef = lambda i: np.where(small, f32(_ERFINV_LT5[i]), f32(_ERFINV_GE5[i]))
+        p = coef(0)
+        for i in range(1, len(_ERFINV_LT5)):
+            p = _fma_f32(p, w, coef(i))
+        return np.where(np.abs(x) == f32(1.0), x * f32(np.inf), (p * x).astype(f32))
+
+
+def normal(key, shape: tuple = ()) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in float32: ``√2·erf_inv(u)`` with u
+    uniform on (−1, 1) (``uniform``'s bits, scaled by (1 − lo) and shifted by
+    lo = nextafter(−1, 0)). Every step up to the logarithm is bit-equal to
+    JAX's; XLA's log1p is an approximation within 1 ulp of the correctly
+    rounded one used here, so a value may differ from JAX's by a few ulp
+    (≤ 3 over the parity sweep)."""
+    f32 = np.float32
+    lo = np.nextafter(f32(-1.0), f32(0.0))
+    b = bits(key, shape)
+    floats = ((b >> _U32(9)) | _U32(0x3F800000)).view(f32) - f32(1.0)
+    u = np.maximum(lo, (floats * (f32(1.0) - lo) + lo).astype(f32))
+    return (f32(np.sqrt(2)) * _erf_inv_f32(u)).astype(f32)
+
+
+def exponential(key, shape: tuple = ()) -> np.ndarray:
+    """``jax.random.exponential(key, shape)`` in float32: −log1p(−u) of
+    ``uniform``. Within 1 ulp of JAX's (its log1p is an approximation)."""
+    return -_log1p_f32(-uniform(key, shape))
 
 
 def key_to_seed(key) -> int:

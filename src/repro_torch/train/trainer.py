@@ -11,7 +11,11 @@ keeps the communication ledger in bits actually uplinked and received.
 ``downlink`` (``"qsgd"``, ``"randk"`` or ``"natural"``, with
 ``downlink_kwargs`` ``s`` / ``kb``) compresses the server's broadcast
 through a second engine over the uplink's layout; it and ``carry_grads``
-are MARINA-family dials, refused elsewhere. DIANA's shift stepsize is
+are MARINA-family dials, refused elsewhere, as are ``aggregator`` (a rule
+of :data:`repro_torch.core.aggregators.RULES`, with ``aggregator_f``) and
+``faults`` (an attack of :data:`repro_torch.core.faults.ATTACKS`, with
+``faults_frac`` and ``faults_scale``), which build a ``ServerAggregator`` /
+``FaultSpec`` only when they differ from "mean" / "none". DIANA's shift stepsize is
 ``diana_alpha``, by default 1/(1 + ω) of the compressor's worst leaf (0.5
 for a biased one).
 VR-MARINA's compressed rounds take b′-minibatches from the data stream at
@@ -23,11 +27,11 @@ reference's.
 The reference scans chunks of steps on device; here a Python loop runs one
 step at a time (PyTorch is eager) and records each step's wall time and
 round type. With ``nonfinite_guard`` a step whose new state holds any NaN/inf
-is reverted and counted as skipped.
+(a ``nan`` attack under the plain mean) is reverted and counted as skipped.
 
 Not ported yet: checkpointing, a downlink without a flat engine (a
-per-leaf tree compressor), robust aggregators, fault injection, the
-Dirichlet data dial, prefix embeddings (raise).
+per-leaf tree compressor), the Dirichlet data dial, prefix embeddings
+(raise).
 """
 
 from __future__ import annotations
@@ -48,9 +52,11 @@ from repro_torch.core import (
     BlockRandK,
     CorrelatedCompressor,
     Diana,
+    FaultSpec,
     Marina,
     PermK,
     PPMarina,
+    ServerAggregator,
     VRMarina,
     diana_alpha,
     make_compressor,
@@ -87,7 +93,7 @@ SPAN_GRAD = "train.grad"
 @dataclasses.dataclass
 class TrainConfig:
     """The reference's fields that this port runs; the others (checkpoints,
-    aggregators, faults, Dirichlet data) are not ported yet."""
+    Dirichlet data) are not ported yet."""
 
     method: str = "vr_marina"          # marina|vr_marina|pp_marina|diana|dcgd|ec_sgd|gd
     compressor: str = "randk"
@@ -110,6 +116,14 @@ class TrainConfig:
     # engine's layout ("qsgd" | "randk" | "natural"; None = dense broadcast)
     downlink: Optional[str] = None
     downlink_kwargs: dict = dataclasses.field(default_factory=dict)
+    # Byzantine-robust server aggregation and client faults (MARINA family):
+    # a GAR name with its assumed Byzantine count, an attack with its faulty
+    # fraction and amplitude; "mean" / "none" leave the honest path as it is
+    aggregator: str = "mean"
+    aggregator_f: int = 0
+    faults: str = "none"
+    faults_frac: float = 0.0
+    faults_scale: float = 1.0
     # revert a round whose new state holds any NaN/inf and count it skipped
     nonfinite_guard: bool = True
 
@@ -155,6 +169,14 @@ class Trainer:
             raise ValueError(f"downlink is a marina-family mode, not {m!r}")
         if train_cfg.carry_grads and m not in MARINA_FAMILY:
             raise ValueError(f"carry_grads is a marina-family mode, not {m!r}")
+        # None when the dial is the honest default, as in the reference
+        agg = (ServerAggregator(train_cfg.aggregator, f=train_cfg.aggregator_f)
+               if train_cfg.aggregator != "mean" else None)
+        fspec = (FaultSpec(train_cfg.faults, frac=train_cfg.faults_frac,
+                           scale=train_cfg.faults_scale)
+                 if train_cfg.faults != "none" else None)
+        if (agg is not None or fspec is not None) and m not in MARINA_FAMILY:
+            raise ValueError(f"aggregator/faults are marina-family dials, not {m!r}")
         if prefix_len:
             raise NotImplementedError("prefix embeddings are not ported yet")
         self.device = default_device(device)
@@ -207,15 +229,18 @@ class Trainer:
         tc, carry, down = train_cfg, train_cfg.carry_grads, self.down_engine
         if m == "marina":
             self.method = Marina(grad_fn, comp, tc.gamma, self.p, self.engine,
-                                 carry=carry, down_engine=down)
+                                 carry=carry, down_engine=down, aggregator=agg,
+                                 faults=fspec)
         elif m == "vr_marina":
             self.method = VRMarina(grad_fn, grad_fn, comp, tc.gamma, self.p,
-                                   self.engine, carry=carry, down_engine=down)
+                                   self.engine, carry=carry, down_engine=down,
+                                   aggregator=agg, faults=fspec)
         elif m == "pp_marina":
             self.method = PPMarina(grad_fn, comp, tc.gamma, self.p,
                                    tc.r_participating, self.engine,
                                    down_engine=down, replace=tc.pp_replace,
-                                   weights=tc.pp_weights, carry=carry)
+                                   weights=tc.pp_weights, carry=carry,
+                                   aggregator=agg, faults=fspec)
         elif m == "gd":
             self.method = make_gd(grad_fn, tc.gamma)
         elif m == "diana":

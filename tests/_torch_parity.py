@@ -45,3 +45,17 @@ def ulp_diff(a, b) -> int:
     ka = np.where(ia < 0, -top - ia, ia)
     kb = np.where(ib < 0, -top - ib, ib)
     return int(np.max(np.abs(ka - kb))) if ka.size else 0
+
+
+def close_except_flips(got, want, step, rtol, atol_scale=False) -> int:
+    """Within rtol / atol 1e-6 (or rtol of the largest magnitude, with
+    ``atol_scale``), except at flagged coordinates, which must lie within
+    ``step`` (one quantization step); returns how many were flagged."""
+    got = np.asarray(got, np.float64).reshape(-1)
+    want = np.asarray(want, np.float64).reshape(-1)
+    err = np.abs(got - want)
+    tol = rtol * np.abs(want).max() if atol_scale else 1e-6 + rtol * np.abs(want)
+    flagged = err > tol
+    assert (err[flagged] <= step * (1 + 1e-4)
+            + np.broadcast_to(tol, err.shape)[flagged]).all(), (err[flagged].max(), step)
+    return int(flagged.sum())

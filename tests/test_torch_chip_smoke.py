@@ -1,15 +1,16 @@
 """``chip_smoke.py``'s phases rehearsed on the CPU at a tiny size.
 
-The script's card run checks that each of its twelve paths launches exactly
+The script's card run checks that each of its fourteen paths launches exactly
 ``EXPECTED_LAUNCHES``, draws c_k = 1, 0, 1, 0 and books the wire formulas'
 up and down bits every round. Here ``run_main_path`` runs with a reduced
 dense LM on the CPU (``chip_smoke.DEVICE = "cpu"``; the profile phase and
 the device-memory counters stubbed), every kernel wrapper counting a launch
 where it returns its plain version, so a drift between those expectations
 and the code shows without a card. The small-input phase (the randk_qsgd
-engine's launches and ledger, the baselines' ledgers) and the natural
-kernel phase (shapes, edge values, the timing table, with a host clock in
-place of the CUDA events) are rehearsed the same way.
+engine's launches and ledger, the baselines' ledgers, the robust and fault
+runs' launches and the drop ledger, the deadline contract) and the natural
+and trimmed kernel phases (shapes, edge values, the timing table, with a
+host clock in place of the CUDA events) are rehearsed the same way.
 """
 
 import os
@@ -75,6 +76,8 @@ def test_small_input_phase_runs_as_chip_smoke_expects(monkeypatch):
     kernels.reset_launch_counts()
     assert set(report["small_input_baselines"]) == {
         f"{m}_{c}" for m, c in chip_smoke.BASELINES}
+    assert set(report["small_input_robust"]) == set(chip_smoke.SMALL_ROBUST)
+    assert report["small_input_deadline"]["uploaded_compressed"] == chip_smoke.N_WORKERS - 1
 
 
 def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
@@ -91,5 +94,25 @@ def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
         assert row["max_abs_err"] == 0.0
     counts = {(t["kernel"], t["n"]) for t in report["kernels_natural"]}
-    assert counts == {(k, n) for n in (4, 1) for k in rows}
+    # every worker count a main path gives them: the uplink (4), PP-MARINA's
+    # cohort (2, under the median) and the downlink's one payload (1)
+    assert counts == {(k, n) for n in (4, 2, 1) for k in rows}
     assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)
+
+
+def test_trimmed_kernel_phase_runs_at_a_tiny_width(monkeypatch):
+    """The trimmed kernel phase's windows, edge rows, bounds and table rows,
+    with a host clock in place of the CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "TRIM_SMALL_NBLK", 2)
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    report = {}
+    rows = chip_smoke.check_trimmed(3, "cpu", report)
+    assert set(rows) == {"trimmed_delta_epilogue", "trimmed_sync_epilogue"}
+    for row in rows.values():
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+        assert row["max_abs_err"] == 0.0
+    timed = {(t["kernel"], t["n"]) for t in report["kernels_trimmed"]}
+    assert timed == {(k, n) for n in (4, 2) for k in rows}
+    assert rows["trimmed_delta_epilogue"]["bytes"] == (4 + 4) * 4 * 3 * chip_smoke.BLOCK

@@ -1,4 +1,4 @@
-"""The fourteen CUDA kernels against their plain PyTorch versions on the card.
+"""The sixteen CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -357,3 +357,108 @@ def test_natural_wrappers_refuse_what_the_kernels_do_not_take(dev):
     g = torch.zeros(3, 128, device=dev)
     with pytest.raises(ValueError):
         epilogue.natural_epilogue(codes, scales, g, g.half(), 0.1)
+
+
+# ---------------------------------------------------------------------------
+# The robust pair: coordinate-wise trimmed mean / median epilogues
+# ---------------------------------------------------------------------------
+
+#: (n, lo, hi): the production sync round under trimmed_mean f = 1, PP's
+#: cohort (n = r = 2), the odd median, a four-value window (the sum order
+#: matters), one row, and the largest n the kernels take
+TRIM_WINDOWS = [(4, 1, 3), (2, 0, 2), (5, 2, 3), (8, 2, 6), (1, 0, 1), (16, 3, 13),
+                (6, 0, 6)]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Raw bit patterns, so −0 and +0 (and NaN payloads) compare unequal."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _trim_edge_rows(dev, n, nblk, B, gen):
+    """Normal rows plus the trimmed kernels' edge values: a NaN row (where
+    the window starts past it), ±inf, ties across workers and ±0."""
+    rows = torch.randn((n, nblk, B), generator=gen, device=dev)
+    if n > 1:
+        rows[1, :, : B // 4] = rows[0, :, : B // 4]          # ties
+    rows[:, 0, :16] = 0.0
+    rows[: n // 2, 0, :16] = -0.0                           # ±0 across workers
+    rows[0, 0, 16:24] = -0.0
+    rows[n - 1, 1, :8] = float("inf")
+    rows[0, 1, 8:16] = float("-inf")
+    rows[0, 2 % nblk] = float("nan")                          # a NaN row
+    return rows
+
+
+@pytest.mark.parametrize("bdtype", [torch.float32, torch.bfloat16], ids=["b_f32", "b_bf16"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("window", TRIM_WINDOWS, ids=str)
+def test_trimmed_epilogues_on_card(dev, window, xdtype, bdtype):
+    n, lo, hi = window
+    nblk, B = 7, 1024
+    gen = torch.Generator(device=dev).manual_seed(n * 100 + lo)
+    rows = _trim_edge_rows(dev, n, nblk, B, gen).to(bdtype)
+    g = torch.randn((nblk, B), generator=gen, device=dev)
+    g[0, :32] = -0.0
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    kernels.reset_launch_counts()
+    for got, want in (
+        (epilogue.trimmed_delta_epilogue(rows, g, x, 0.0371, lo, hi),
+         ref.trimmed_delta_epilogue_ref(rows, g, x, 0.0371, lo, hi)),
+        (epilogue.trimmed_sync_epilogue(rows, x, 0.0371, lo, hi),
+         ref.trimmed_sync_epilogue_ref(rows, x, 0.0371, lo, hi)),
+    ):
+        assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        assert torch.equal(_bits(got[1]), _bits(want[1]))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["trimmed_delta_epilogue"] == counts["trimmed_sync_epilogue"] == 1
+
+
+def test_trimmed_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rows = torch.zeros((4, 3, 128), device=dev)
+    g = torch.zeros((3, 128), device=dev)
+    for lo, hi in ((2, 2), (-1, 2), (0, 5)):
+        with pytest.raises(ValueError, match="window"):
+            epilogue.trimmed_sync_epilogue(rows, g, 0.1, lo, hi)
+    with pytest.raises(ValueError, match="worker rows"):
+        epilogue.trimmed_sync_epilogue(torch.zeros((17, 3, 128), device=dev), g, 0.1, 1, 3)
+    with pytest.raises(ValueError, match="bufs"):
+        epilogue.trimmed_sync_epilogue(rows.half(), g, 0.1, 1, 3)
+    with pytest.raises(ValueError, match="bufs"):
+        epilogue.trimmed_delta_epilogue(rows.transpose(1, 2), g, g, 0.1, 1, 3)
+    with pytest.raises(ValueError, match="g must"):
+        epilogue.trimmed_delta_epilogue(rows, g.bfloat16(), g, 0.1, 1, 3)
+    with pytest.raises(ValueError, match="x must"):
+        epilogue.trimmed_delta_epilogue(rows, g, g[:2], 0.1, 1, 3)
+
+
+@pytest.mark.parametrize("sampler", ["qsgd", "natural", "randk", "randk_qsgd"])
+def test_robust_engine_rounds_on_card(dev, sampler):
+    """The flat engine under every robust rule, through the kernels, agrees
+    with its plain versions (backend "ref") on the card within 1 ulp, as the
+    scatter kernels do: each worker's decoded rows, the recompute
+    aggregate, the carry round and the sync round."""
+    from repro_torch import prng
+    from repro_torch.core import ServerAggregator, make_engine
+
+    tree = {"w": torch.zeros(40, 70), "b": torch.zeros(500)}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    eng = make_engine(tree, kb=8, block=256, device=dev, sampler=sampler, s=7)
+    plain = make_engine(tree, kb=8, block=256, device=dev, sampler=sampler, s=7,
+                        backend="ref")
+    lay, n, key = eng.layout, 4, prng.PRNGKey(44)
+    bufs = torch.randn((n, lay.nblk, lay.block), generator=gen, device=dev)
+    g = torch.randn((lay.nblk, lay.block), generator=gen, device=dev)
+    x = torch.randn((lay.nblk, lay.block), generator=gen, device=dev)
+    assert _ulp(eng.worker_dense(key, bufs, n), plain.worker_dense(key, bufs, n)) <= 1
+    for agg in (ServerAggregator("trimmed_mean", 1), ServerAggregator("coordinate_median"),
+                ServerAggregator("krum", 1), ServerAggregator("norm_clip")):
+        assert _ulp(eng.aggregate(key, bufs, n, agg), plain.aggregate(key, bufs, n, agg)) <= 1
+        for got, want in ((eng.fused_round(key, bufs, n, g, x, 0.05, aggregator=agg),
+                           plain.fused_round(key, bufs, n, g, x, 0.05, aggregator=agg)),
+                          (eng.fused_sync(bufs, x, 0.05, aggregator=agg),
+                           plain.fused_sync(bufs, x, 0.05, aggregator=agg))):
+            assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    torch.cuda.synchronize()

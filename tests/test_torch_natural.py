@@ -50,7 +50,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_torch_thread, ulp_diff  # noqa: F401
+from _torch_parity import close_except_flips, one_torch_thread, ulp_diff  # noqa: F401
 from repro.core import BlockNatural as JBlockNatural
 from repro.core import BlockRandK as JBlockRandK
 from repro.core import Marina as JMarina
@@ -493,7 +493,7 @@ def test_natural_wrappers_launch_nothing_on_cpu():
     tk.quantize.natural_dequant_mean(codes, scales)
     tk.epilogue.natural_epilogue(codes, scales, g, g, 0.1)
     assert not any(tk.launch_counts().values())
-    assert len(tk.KERNELS) == 14
+    assert len(tk.KERNELS) == 16
 
 
 # ---------------------------------------------------------------------------
@@ -549,19 +549,6 @@ def _recording_steps(monkeypatch):
     return steps
 
 
-def _close_except_flips(got, want, step, rtol, atol_scale=False) -> int:
-    """Within rtol / atol 1e-6 (or rtol of the largest magnitude), except at
-    flagged coordinates, which must lie within ``step``; returns the count."""
-    got = np.asarray(got, np.float64).reshape(-1)
-    want = np.asarray(want, np.float64).reshape(-1)
-    err = np.abs(got - want)
-    tol = (rtol * np.abs(want).max() if atol_scale else 1e-6 + rtol * np.abs(want))
-    flagged = err > tol
-    assert (err[flagged] <= step * (1 + 1e-4) + np.broadcast_to(tol, err.shape)[flagged]).all(), (
-        err[flagged].max(), step)
-    return int(flagged.sum())
-
-
 @pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
 @pytest.mark.parametrize("wire_kind", ["natural", "randk_qsgd", "downnatural"])
 def test_binclass_marina_rounds_match_reference_round_by_round(binclass, wire_kind, carry,
@@ -589,8 +576,8 @@ def test_binclass_marina_rounds_match_reference_round_by_round(binclass, wire_ki
         kinds.add(tmet.sync_round)
         assert bool(steps) == (not tmet.sync_round)
         step = sum(steps)
-        flagged += _close_except_flips(ts.params.numpy(), js.params, 0.5 * step, 1e-5)
-        flagged += _close_except_flips(np.asarray(ts.g).reshape(-1)[:D],
+        flagged += close_except_flips(ts.params.numpy(), js.params, 0.5 * step, 1e-5)
+        flagged += close_except_flips(np.asarray(ts.g).reshape(-1)[:D],
                                        np.asarray(js.g).reshape(-1)[:D], step, 1e-5)
         compared += 2 * D
     assert kinds == {0, 1}
@@ -652,10 +639,10 @@ def test_lm_marina_rounds_match_reference_round_by_round(lm, wire_kind, carry, m
         kinds.add(tmet.sync_round)
         step = sum(steps)
         for a, b in zip(tree_leaves(ts.params), jax.tree.leaves(js.params)):
-            flagged += _close_except_flips(a.numpy(), b, gamma * step, 1e-4, atol_scale=True)
+            flagged += close_except_flips(a.numpy(), b, gamma * step, 1e-4, atol_scale=True)
             compared += a.numel()
         for a, b in zip(tree_leaves(ts.g), jax.tree.leaves(js.g)):
-            flagged += _close_except_flips(a.numpy(), b, step, 1e-4, atol_scale=True)
+            flagged += close_except_flips(a.numpy(), b, step, 1e-4, atol_scale=True)
             compared += a.numel()
     assert kinds == {0, 1}
     assert flagged <= FLIP_SHARE * compared

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_torch_thread  # noqa: F401
+from _torch_parity import one_torch_thread, ulp_diff  # noqa: F401
 from repro.core.flat import FlatEngine as JFlatEngine
 from repro.core.marina import pp_sample_cohort as j_pp_sample_cohort
 from repro.core.flat import make_layout as j_make_layout
@@ -124,3 +124,24 @@ def test_pp_cohort_draws_bit_equal(replace):
     if replace:
         assert pp_sample_cohort(prng.split(prng.fold_in(prng.PRNGKey(0), 1), 3)[1],
                                 4, 2, True) == [0, 0]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(4096,)], ids=str)
+def test_normal_and_exponential_within_their_ulp_bounds(shape):
+    """``prng.normal`` replays XLA's float32 erf_inv (its fused multiply-adds
+    included) on JAX's own uniform bits; only the log1p inside differs (XLA
+    approximates it, the port rounds it correctly), so a value may lie a few
+    ulp from ``jax.random.normal``'s: ≤ 3 over this sweep. ``exponential``
+    is −log1p(−u): ≤ 1 ulp."""
+    for seed in SEEDS:
+        k = jax.random.fold_in(jax.random.PRNGKey(seed), 0xFA17)
+        kk = prng.fold_in(prng.PRNGKey(seed), 0xFA17)
+        z, jz = prng.normal(kk, shape), np.asarray(jax.random.normal(k, shape))
+        e, je = prng.exponential(kk, shape), np.asarray(jax.random.exponential(k, shape))
+        assert z.shape == jz.shape == shape and z.dtype == jz.dtype == np.float32
+        assert e.shape == shape and e.dtype == np.float32
+        assert ulp_diff(z, jz) <= 3 and ulp_diff(e, je) <= 1
+    edge = np.asarray([-1.0, np.nextafter(np.float32(-1), np.float32(0)), 0.0, 0.5, 1.0],
+                      np.float32)
+    np.testing.assert_array_equal(prng._erf_inv_f32(edge)[[0, 2, 4]],
+                                  np.asarray(jax.lax.erf_inv(jnp.asarray(edge)))[[0, 2, 4]])

@@ -17,11 +17,13 @@
   seeded offsets and the converters from the reference's arrays.
 """
 
+import dataclasses
 import math
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -230,3 +232,55 @@ def test_entry_points_default_to_cuda():
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_trainer_nan_guard_skips_poisoned_rounds():
+    """A ``nan`` client under the plain mean: the guard reverts each poisoned
+    round and counts it, and the state stays finite (the reference's
+    ``test_trainer_nan_guard_skips_poisoned_rounds``); the robust dials are
+    MARINA-family only."""
+    cfg = ModelConfig(name="rg", arch_type="dense", d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=64, segments=dense_stack(1))
+    params = init_params(0, cfg, device="cpu")
+    tc = TrainConfig(method="marina", compressor="qsgd", comp_kwargs={"s": 7}, gamma=0.02,
+                     n_workers=4, steps=8, log_every=4, faults="nan", faults_frac=0.25)
+    st, hist = Trainer(cfg, tc, params, device="cpu").run()
+    assert hist.skipped_cum[-1] > 0
+    assert math.isfinite(hist.loss[-1])
+    assert all(torch.isfinite(t).all() for t in tree_leaves(st.params))
+    for kw in ({"faults": "nan"}, {"aggregator": "krum"}):
+        with pytest.raises(ValueError, match="marina-family"):
+            Trainer(cfg, dataclasses.replace(tc, **{"method": "dcgd", "faults": "none", **kw}),
+                    params, device="cpu")
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
+def test_trainer_robust_dials_build_and_run(carry):
+    """aggregator / faults build a ServerAggregator / FaultSpec only when they
+    differ from the honest defaults; a trimmed-mean run under sign_flip on the
+    packed QSGD engine stays finite and books the wire formulas, a drop run
+    (carry) books (n − f)/n of ζ on compressed rounds."""
+    from repro_torch.core import FaultSpec, ServerAggregator
+
+    params = init_params(0, CFG, device="cpu")
+    honest = Trainer(CFG, _tc(carry, compressor="block_qsgd", n_workers=3), params,
+                     device="cpu")
+    assert honest.method.aggregator is None and honest.method.faults is None
+    tc = _tc(carry, compressor="block_qsgd", n_workers=3, aggregator="trimmed_mean",
+             aggregator_f=1, faults="sign_flip", faults_frac=0.34, faults_scale=10.0)
+    tr = Trainer(CFG, tc, params, device="cpu")
+    assert tr.method.aggregator == ServerAggregator("trimmed_mean", 1)
+    assert tr.method.faults == FaultSpec("sign_flip", frac=0.34, scale=10.0)
+    _, hist = tr.run()
+    d = sum(t.numel() for t in tree_leaves(params))
+    nblk = math.ceil(d / 128)
+    assert all(math.isfinite(v) for v in hist.loss) and hist.skipped_cum[-1] == 0.0
+    for c_k, bits in zip(hist.round_sync, hist.round_bits):
+        assert bits == (wire.dense_f32_bits(d) if c_k else wire.block_qsgd_bits(nblk, 128, 7))
+    if carry:
+        tc = _tc(True, n_workers=4, faults="drop", faults_frac=0.25)
+        _, hist = Trainer(CFG, tc, params, device="cpu").run()
+        zeta = wire.seeded_randk_bits(nblk, 8)
+        for c_k, bits in zip(hist.round_sync, hist.round_bits):
+            assert bits == (wire.dense_f32_bits(d) if c_k
+                            else float(np.float32(zeta) * np.float32(0.75)))
