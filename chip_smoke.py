@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); print the seconds.
-3. kernels — each of the sixteen main-path kernels against its plain
+3. kernels — each of the nineteen main-path kernels against its plain
    PyTorch version on the card. The four RandK-wire kernels at the
    production shape of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024),
    B = 1024, kb = 20), at PP-MARINA's cohort (n = r = 2) and at a
@@ -25,6 +25,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    levels, norms, nibble words, natural codes and scales bit-equal,
    scatter / dequant / epilogue outputs within 1 ulp, the trimmed
    epilogues' g' and x' bit-equal (the sign of zero included).
+   The serving kernels: ``absmax_quant_rows`` / ``absmax_dequant_rows``
+   bit-equal at decode's and prefill's row counts of the serve shape
+   (W = 64), at R = 2^20 (W = 128) and on edge rows (a zero row, .5 ties,
+   ±0, ±127·scale), rows f32 and bf16; ``paged_attn_decode`` at the serve
+   shape (8 slots, H = KV = 16, hd = 64, 36 pages of 16) and a GQA stress
+   shape (64 slots, H = 64, KV = 8, hd = 128, 256 pages of 16, n_valid in
+   [1, 4096]), f32 and bf16, within |Δ| ≤ 1e-5·max|v| (f32) or one bf16 ulp
+   of each output row's largest magnitude (bf16), with
+   ``scaled_dot_product_attention`` on the pre-gathered dense cache printed
+   beside it as a comparison.
    Median times over 20+ launches (CUDA events) for the kernel, its plain
    version and, where one exists, the one PyTorch call that computes the
    same function.
@@ -42,7 +52,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    norm_clip, MARINA × block_randk carry with ``drop`` (the ledger books
    (n − f)/n of ζ); and ``DeadlineMarina`` on the tree path with one client
    always late, bit-identical to MARINA carry with that client dropped and
-   its bits scaled by the arrivals.
+   its bits scaled by the arrivals. Then serving on a 2-layer reduced GQA
+   LM (H = 4, KV = 2): prefix sharing with COW splits, and an undersized
+   pool that preempts and swaps, f32 and int8 pages, each through the
+   kernels and through their plain versions with identical token streams.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
@@ -63,6 +76,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    full-width carry run: its device time split into model forward +
    backward, the port's kernels and the rest, the device's idle share of
    the step, and the costliest device functions.
+7. serve paths — ``repro_torch.launch.serve`` on the same model, greedy:
+   16 requests (512:64, 128:16, 64:8, 256:32, four times), 8 slots, 16-token pages,
+   128-token prefill chunks — ``serve_continuous`` (f32 pages),
+   ``serve_continuous_q8`` (int8 pages) and ``serve_static`` (batches of 8,
+   dense cache, no kernel). Launch counts are exact functions of the
+   ``ServeReport`` (``serve_launches``). Each continuous path runs again
+   through the plain versions: f32-page streams equal except where the
+   plain run's top-2 logit margin at the diverging token is below 1e-3,
+   int8-page streams identical. Tokens/s, first-token and completion p50 /
+   p99, median decode-step ms, steps, chunks and peak memory per path.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -71,12 +94,14 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -96,6 +121,7 @@ KB, BLOCK, N_WORKERS, S_LEVELS = 20, 1024, 4, 7
 MB_PER_WORKER, R_PARTICIPATING = 2, 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16, dense tensor cores
 
 SOURCES = {
     "randk_seeded_workers": ("src/repro_torch/kernels/csrc/randk.cu",
@@ -130,6 +156,12 @@ SOURCES = {
                                "src/repro/kernels/epilogue.py:185"),
     "trimmed_sync_epilogue": ("src/repro_torch/kernels/csrc/epilogue.cu",
                               "src/repro/kernels/epilogue.py:227"),
+    "absmax_quant_rows": ("src/repro_torch/kernels/csrc/quantize.cu",
+                          "src/repro/kernels/quantize.py:403"),
+    "absmax_dequant_rows": ("src/repro_torch/kernels/csrc/quantize.cu",
+                            "src/repro/kernels/quantize.py:434"),
+    "paged_attn_decode": ("src/repro_torch/kernels/csrc/paged.cu",
+                          "src/repro/kernels/paged.py:76"),
 }
 
 #: the main paths: (method, compressor, carry_grads, downlink sampler)
@@ -225,6 +257,31 @@ SMALL_ROBUST = {
         {"randk_seeded_workers": _NC, "scatter_epilogue": _NC, "mean_epilogue": _NS}),
 }
 
+#: the serve paths: Qwen1.5-0.5B at full width and depth, f32 params from
+#: ``init_params(SEED)``, greedy; 16 requests (four of each prompt:gen pair),
+#: 8 slots, 16-token pages, 128-token prefill chunks, static batches of 8
+SERVE_SPEC = ",".join(["512:64,128:16,64:8,256:32"] * 4)
+SERVE_SLOTS, SERVE_PAGE, SERVE_CHUNK, SERVE_BATCH = 8, 16, 128, 8
+#: path → int8 pages (None: the static dense-cache baseline)
+SERVE_PATHS = {"serve_continuous": False, "serve_continuous_q8": True, "serve_static": None}
+#: a divergence between the kernel and plain f32-page streams is accepted only
+#: where the plain run's top-2 logit margin was below this
+SERVE_TIE_MARGIN = 1e-3
+#: paged_attn_decode shapes: (S, H, KV, hd, P, max_pages); the serve shape
+#: (Qwen1.5-0.5B, 8 slots, 36 pages of 16) and a GQA stress shape
+#: (Qwen3-32B's attention, 64 slots of up to 4096 positions)
+PAGED_SHAPES = {"serve": (SERVE_SLOTS, 16, 16, 64, SERVE_PAGE, 36),
+                "gqa_stress": (64, 64, 8, 128, 16, 256)}
+#: absmax row shapes (R, W): decode's R = S·KV and prefill's R = chunk·KV at
+#: the serve width, and R = 2^20 at W = 128
+ABSMAX_SHAPES = {"serve_decode": (SERVE_SLOTS * 16, 64),
+                 "serve_prefill": (SERVE_CHUNK * 16, 64), "large": (1 << 20, 128)}
+#: small-input serve runs: (prompt:gen pairs with shared stems, engine dials)
+SERVE_SMALL = {
+    "share_prefix": ("42:8,20:4,46:6,42:5", dict(slots=2, share_prefix=True)),
+    "preempt": ("24:12,9:14,30:10,12:16", dict(slots=3, npage=12)),
+}
+
 
 class SmokeFailure(Exception):
     pass
@@ -274,9 +331,10 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_OPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1083,6 +1141,396 @@ def profile_step(cfg, params, report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# serving: the paged-attention and int8 KV-row kernels, the serve paths
+# ---------------------------------------------------------------------------
+
+
+def paged_inputs(dev, gen, S, H, KV, hd, P, maxp, dtype):
+    """q, the k / v pools, block tables (a seeded permutation of the pages)
+    and n_valid seeded in [1, max_pages·P] with both ends present."""
+    import torch
+
+    npage = 1 + S * maxp
+    q = torch.randn((S, H, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((npage, P, KV, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((npage, P, KV, hd), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(npage - 1, generator=gen, device=dev) + 1
+    tables = perm.to(torch.int32).reshape(S, maxp).contiguous()
+    n_valid = torch.randint(1, maxp * P + 1, (S,), generator=gen, device=dev)
+    n_valid[0], n_valid[-1] = 1, maxp * P
+    return q, kp, vp, tables, n_valid.to(torch.int32)
+
+
+def paged_bytes(n_valid, H, KV, hd, elt) -> float:
+    """The bytes the paged attention must move: the valid K and V rows, q
+    and the output."""
+    return float(n_valid.sum()) * KV * hd * elt * 2 + 2 * len(n_valid) * H * hd * elt
+
+
+def absmax_edge_rows(dev, W: int):
+    """(6, W) f32 rows: zero, exact .5 ties, ±0, ±127·scale and tiny values."""
+    import torch
+
+    rows = torch.zeros((6, W), device=dev)
+    rows[1] = 127.0
+    rows[1, ::2] = torch.arange(W // 2, device=dev) % 127 + 0.5
+    rows[2, : W // 2] = -0.0
+    rows[3] = torch.linspace(-254.0, 254.0, W, device=dev)
+    rows[4] = 2.5 * torch.sign(torch.arange(W, device=dev) % 3 - 1.0)
+    rows[4, 0] = 317.5
+    rows[5] = 1e-30 * (torch.arange(W, device=dev) - W / 2)
+    return rows
+
+
+def check_serve_kernels(card: str, report: dict) -> dict:
+    """Rows 22–24 against their plain versions on the card: the int8 KV-row
+    pair bit-equal at every shape of ``ABSMAX_SHAPES`` and on the edge rows,
+    rows f32 and bf16; ``paged_attn_decode`` at ``PAGED_SHAPES`` in f32 and
+    bf16, held to |Δ| ≤ 1e-5·max|v| (f32) or one bf16 ulp of max|out| (bf16).
+    Each is timed; the table rows are the serve path's shapes (dequant: the
+    int8 decode read's S·L·KV rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged, quantize, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rows, timings = {}, []
+
+    def timed(name, label, dtype, kern, plain, lib, nbytes, flops, err, ops_per_s):
+        b_ms, b_by = bound(nbytes, flops, ops_per_s)
+        t = {"kernel": name, "shape": label, "dtype": str(dtype), "ms": median_ms(kern, 25),
+             "plain_ms": median_ms(plain, 5), "library_ms": median_ms(lib, 25) if lib else None,
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "bytes": nbytes}
+        timings.append(t)
+        print(f"time {name} {label} {dtype}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), max_abs_err {err} on {card}", flush=True)
+        return t
+
+    # int8 KV rows
+    for W in (64, 128):
+        for xd in (torch.float32, torch.bfloat16):
+            x = absmax_edge_rows(dev, W).to(xd)
+            c, sc = quantize.absmax_quant_rows(x)
+            cr, sr = ref.absmax_quant_rows_ref(x)
+            require(torch.equal(c, cr) and torch.equal(sc.view(torch.int32),
+                                                       sr.view(torch.int32)),
+                    f"absmax_quant_rows edge rows W={W} {xd} differ")
+            require(torch.equal(quantize.absmax_dequant_rows(c, sc).view(torch.int32),
+                                ref.absmax_dequant_rows_ref(c, sc).view(torch.int32)),
+                    f"absmax_dequant_rows edge rows W={W} differ")
+    print("kernels absmax edge rows (W = 64, 128; f32, bf16): bit-equal", flush=True)
+    for label, (R, W) in ABSMAX_SHAPES.items():
+        x32 = torch.randn((R, W), generator=gen, device=dev) * 3
+        for xd in (torch.float32, torch.bfloat16):
+            x = x32.to(xd)
+            c, sc = quantize.absmax_quant_rows(x)
+            cr, sr = ref.absmax_quant_rows_ref(x)
+            require(torch.equal(c, cr) and torch.equal(sc, sr),
+                    f"absmax_quant_rows {label} {xd} differ")
+            elt = x.element_size()
+            t = timed("absmax_quant_rows", label, xd, lambda: quantize.absmax_quant_rows(x),
+                      lambda: ref.absmax_quant_rows_ref(x), None, R * W * (elt + 1) + 4 * R,
+                      3 * R * W, 0.0, F32_OPS_PER_S)
+            if label == "serve_decode" and xd == torch.float32:
+                rows["absmax_quant_rows"] = t
+        d = quantize.absmax_dequant_rows(c, sc)
+        require(torch.equal(d.view(torch.int32),
+                            ref.absmax_dequant_rows_ref(c, sc).view(torch.int32)),
+                f"absmax_dequant_rows {label} differ")
+        timed("absmax_dequant_rows", label, torch.int8,
+              lambda: quantize.absmax_dequant_rows(c, sc),
+              lambda: ref.absmax_dequant_rows_ref(c, sc),
+              lambda: torch.mul(c, sc[:, None]), R * W * 5 + 4 * R, R * W, 0.0,
+              F32_OPS_PER_S)
+        del x32, x, c, sc, cr, sr, d
+    S, H, KV, hd, P, maxp = PAGED_SHAPES["serve"]
+    R = S * maxp * P * KV  # the int8 decode read: every gathered row
+    c = torch.randint(-127, 128, (R, hd), generator=gen, device=dev).to(torch.int8)
+    sc = torch.rand((R,), generator=gen, device=dev)
+    require(torch.equal(quantize.absmax_dequant_rows(c, sc),
+                        ref.absmax_dequant_rows_ref(c, sc)), "absmax_dequant_rows read differ")
+    rows["absmax_dequant_rows"] = timed(
+        "absmax_dequant_rows", "serve_decode_read", torch.int8,
+        lambda: quantize.absmax_dequant_rows(c, sc),
+        lambda: ref.absmax_dequant_rows_ref(c, sc), lambda: torch.mul(c, sc[:, None]),
+        R * hd * 5 + 4 * R, R * hd, 0.0, F32_OPS_PER_S)
+    del c, sc
+
+    # paged attention
+    for label, (S, H, KV, hd, P, maxp) in PAGED_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, kp, vp, tables, n_valid = paged_inputs(dev, gen, S, H, KV, hd, P, maxp, dt)
+            out = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
+            want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs()
+            err = float(diff.max())
+            if dt == torch.float32:
+                limit = 1e-5 * float(vp.abs().max())
+                ok = err <= limit
+            else:  # one bf16 ulp of the output row's largest magnitude
+                top = want.float().abs().amax(dim=-1, keepdim=True)
+                ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(2.0**-126))) - 7)
+                ok = bool((diff <= ulp).all())
+                limit = float((diff / ulp).max())
+            require(ok, f"paged_attn_decode {label} {dt}: max |Δ| {err} beyond the bound "
+                        f"({limit})")
+            print(f"kernels paged_attn_decode {label} {dt} (S={S}, H={H}, KV={KV}, hd={hd}, "
+                  f"P={P}, max_pages={maxp}, Σn_valid={int(n_valid.sum())}): max |Δ| {err}, "
+                  f"bound measure {limit}, bit-equal share "
+                  f"{float((diff == 0).float().mean()):.4f}", flush=True)
+            del out, want, diff
+            torch.cuda.empty_cache()
+            elt = q.element_size()
+            nbytes = paged_bytes(n_valid, H, KV, hd, elt)
+            flops = 4.0 * float(n_valid.sum()) * H * hd
+            t = timed("paged_attn_decode", label, dt,
+                      lambda: paged.paged_attn_decode(q, kp, vp, tables, n_valid),
+                      lambda: ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid), None,
+                      nbytes, flops, err,
+                      F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S)
+            # yardstick only: SDPA over the pre-gathered dense cache (gather excluded)
+            kd = ref.paged_gather_ref(kp, tables).transpose(1, 2).contiguous()
+            vd = ref.paged_gather_ref(vp, tables).transpose(1, 2).contiguous()
+            mask = (torch.arange(maxp * P, device=dev)[None, :]
+                    < n_valid[:, None])[:, None, None, :]
+            t["sdpa_dense_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True), 25)
+            print(f"compare paged_attn_decode {label} {dt}: scaled_dot_product_attention "
+                  f"on the pre-gathered dense cache (gather excluded) "
+                  f"{t['sdpa_dense_ms']:.4f} ms vs the kernel {t['ms']:.4f} ms", flush=True)
+            if label == "serve" and dt == torch.float32:
+                rows["paged_attn_decode"] = t
+            del q, kp, vp, tables, n_valid, kd, vd, mask
+            torch.cuda.empty_cache()
+    report["kernels_serve"] = timings
+    return rows
+
+
+def serve_launches(path: str, rep: dict) -> dict:
+    """What a serve path must launch: the paged attention once per layer of
+    every decode step on f32 pages; on int8 pages the row quantizer twice
+    (k, v) per layer of every prefill chunk and decode step and the
+    dequantizer twice per layer of every decode step; nothing on the static
+    dense-cache path."""
+    layers = rep["n_layers"]
+    if path == "serve_continuous":
+        return {"paged_attn_decode": layers * rep["decode_steps"]}
+    if path == "serve_continuous_q8":
+        return {"absmax_quant_rows": 2 * layers * (rep["prefill_chunks"] + rep["decode_steps"]),
+                "absmax_dequant_rows": 2 * layers * rep["decode_steps"]}
+    return {}
+
+
+def plain_streams(params, cfg, pairs, serve_kw: dict) -> tuple[list, dict]:
+    """The continuous engine over the plain versions (``backend="ref"``),
+    with its prefill and decode steps rebuilt to keep the logits (as the
+    reference's serving tests do): every request's greedy stream and, per
+    generated token, the top-2 logit margin of the logits that chose it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import paged_decode_step, paged_prefill_chunk
+
+    kw = dict(serve_kw)
+    reqs = serve.make_workload(cfg, pairs)
+    layout = serve.paged_layout(reqs, slots=kw.pop("slots"), page_size=kw.pop("page_size"),
+                                npage=kw.pop("npage", None))
+    eng = serve.build_engine(params, cfg, layout, backend="ref", **kw)
+    dev = params["embed"].device
+    margins: dict = {}
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    def greedy(lg):
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        return (torch.argmax(lg, dim=-1).to(torch.int32).cpu().numpy(),
+                (top[..., 0] - top[..., 1]).cpu().tolist())
+
+    @torch.inference_mode()
+    def prefill_fn(cache, toks, start, row, nv):
+        req = min((r for r in eng.sched.active if r.prefilling), key=lambda r: r.t_admit)
+        lg, cache = paged_prefill_chunk(params, cfg, cache, tensor(toks), int(start),
+                                        tensor(row), int(nv), backend="ref")
+        tok, m = greedy(lg)
+        if req.prefill_done + int(nv) == req.prompt_len:
+            margins.setdefault(req.rid, []).append(m)
+        return tok, cache
+
+    @torch.inference_mode()
+    def decode_fn(cache, toks, lengths, tables):
+        slots = list(eng.sched.slots)
+        lg, cache = paged_decode_step(params, cfg, cache, tensor(toks), tensor(lengths),
+                                      tensor(tables), backend="ref")
+        out, m = greedy(lg)
+        for s, req in enumerate(slots):
+            if req is not None and req.decoding and lengths[s] > 0:
+                margins.setdefault(req.rid, []).append(m[s])
+        return out, cache
+
+    eng.prefill_fn, eng.decode_fn = prefill_fn, decode_fn
+    eng.run(reqs)
+    eng.sched.pool.check_conservation(eng.sched.tables)
+    return [r.generated for r in reqs], margins
+
+
+def compare_streams(label: str, got: list, want: list, margins: dict | None) -> list:
+    """Identical streams (``margins`` None), or identical up to the first
+    token where the plain run's top-2 margin was below SERVE_TIE_MARGIN (that
+    request is not compared further). Returns the divergences."""
+    diverged = []
+    for rid, (a, b) in enumerate(zip(got, want)):
+        require(len(a) == len(b), f"{label}: request {rid} lengths {len(a)} != {len(b)}")
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        m = None if margins is None else margins[rid][j]
+        print(f"{label}: request {rid} diverges at token {j}; plain top-2 margin {m}",
+              flush=True)
+        require(m is not None and m < SERVE_TIE_MARGIN,
+                f"{label}: request {rid} diverges at token {j} (margin {m})")
+        diverged.append({"rid": rid, "token": j, "margin": m})
+    return diverged
+
+
+def run_serve_paths(report: dict) -> dict:
+    """The three serve paths at full width and depth, each with its launch
+    counts reset just before and read just after; the continuous paths then
+    run again through the plain versions and their streams are compared."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = get_arch("qwen1.5-0.5b").model
+    params = init_params(SEED, cfg, device=DEVICE)
+    pairs = serve.parse_requests(SERVE_SPEC)
+    kw = dict(slots=SERVE_SLOTS, page_size=SERVE_PAGE, chunk=SERVE_CHUNK)
+    runs, launches = {}, {}
+    for path, quantized in SERVE_PATHS.items():
+        reqs = serve.make_workload(cfg, pairs)
+        decode_s = []
+        steps = serve.build_paged_steps(params, cfg)
+
+        def timed_decode(*a, _fn=steps["decode"]):
+            t0 = time.perf_counter()
+            out = _fn(*a)  # ends in a copy of the tokens to the host
+            decode_s.append(time.perf_counter() - t0)
+            return out
+
+        steps["decode"] = timed_decode
+        gc.collect()  # e.g. the comparison engine's pool: its steps close over it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        if quantized is None:
+            rep = serve.run_static(params, cfg, reqs, batch=SERVE_BATCH)
+        else:
+            rep = serve.run_continuous(params, cfg, reqs, quantized=quantized, steps=steps,
+                                       **kw).to_dict()
+        torch.cuda.synchronize()
+        launches[path] = kernels.launch_counts()
+        rep["n_layers"] = cfg.num_layers
+        rep["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rep["median_decode_step_ms"] = (statistics.median(decode_s) * 1e3 if decode_s
+                                        else None)
+        want = {name: serve_launches(path, rep).get(name, 0) for name in kernels.KERNELS}
+        require(launches[path] == want, f"{path} launches {launches[path]} != {want}")
+        require(rep["n_requests"] == len(pairs) and rep["total_new_tokens"]
+                == sum(g for _, g in pairs), f"{path}: {rep}")
+        for r, (p, g) in zip(reqs, pairs):
+            require(len(r.generated) == g and all(0 <= t < cfg.vocab_size
+                                                  for t in r.generated),
+                    f"{path}: request {r.rid} stream {r.generated}")
+        if quantized is not None:
+            got = [r.generated for r in reqs]
+            want_streams, margins = plain_streams(params, cfg, pairs,
+                                                  dict(kw, quantized=quantized))
+            rep["diverged"] = compare_streams(path, got, want_streams,
+                                              None if quantized else margins)
+        runs[path] = rep
+        print(f"serve path {path}: tokens/s {rep['tokens_per_s']:.1f}, first token p50 / "
+              f"p99 {rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} ms, "
+              f"completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
+              f"{rep['completion_p99_ms']:.1f} ms, median decode step "
+              f"{rep['median_decode_step_ms']} ms, decode_steps {rep.get('decode_steps')}, "
+              f"prefill_chunks {rep.get('prefill_chunks')}, peak memory "
+              f"{rep['peak_mem_gb']:.2f} GB, launches "
+              f"{ {k: v for k, v in launches[path].items() if v} }", flush=True)
+        del reqs
+        torch.cuda.empty_cache()
+    static = runs["serve_static"]["tokens_per_s"]
+    for path in ("serve_continuous", "serve_continuous_q8"):
+        runs[path]["tokens_per_s_over_static"] = runs[path]["tokens_per_s"] / static
+        print(f"serve {path} / serve_static tokens/s: "
+              f"{runs[path]['tokens_per_s_over_static']:.3f}", flush=True)
+    report["serve_paths"] = runs
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_small_cfg():
+    """The 2-layer reduced GQA LM of the small-input serve runs: Qwen1.5-0.5B's
+    family at d_model 128 with 2 kv heads for 4 query heads."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import reduced
+
+    return dataclasses.replace(reduced(get_arch("qwen1.5-0.5b").model, layers=2,
+                                       d_model=128), num_kv_heads=2)
+
+
+def check_serve_small_input(report: dict) -> None:
+    """Prefix sharing (COW) and an undersized pool (preemption and swap) on a
+    reduced GQA LM, f32 and int8 pages: kernels and plain versions give
+    identical streams, the pool's audit passes, and the runs shared, split
+    and preempted."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = serve_small_cfg()
+    params = init_params(SEED, cfg, device=DEVICE)
+    out = {}
+    for label, (spec, dials) in SERVE_SMALL.items():
+        pairs = serve.parse_requests(spec)
+        for quantized in (False, True):
+            streams, reps = [], []
+            for backend in ("auto", "ref"):
+                reqs = serve.make_workload(cfg, pairs)
+                if label == "share_prefix":  # requests 2, 3 extend / repeat 0's prompt
+                    reqs[2].prompt[:reqs[0].prompt_len] = reqs[0].prompt
+                    reqs[3].prompt[:] = reqs[0].prompt
+                kernels.reset_launch_counts()
+                rep = serve.run_continuous(params, cfg, reqs, page_size=4, chunk=8,
+                                           quantized=quantized, backend=backend, **dials)
+                launched = {k: v for k, v in kernels.launch_counts().items() if v}
+                require(bool(launched) == (backend == "auto"),
+                        f"small serve {label}: launches {launched} ({backend})")
+                streams.append([r.generated for r in reqs])
+                reps.append(rep.to_dict())
+            key = f"{label}_{'q8' if quantized else 'f32'}"
+            require(streams[0] == streams[1], f"small serve {key}: streams differ")
+            require(reps[0]["cow_splits"] > 0 if label == "share_prefix"
+                    else reps[0]["preemptions"] > 0, f"small serve {key}: {reps[0]}")
+            out[key] = {k: reps[0][k] for k in ("decode_steps", "prefill_chunks",
+                                                "shared_tokens", "cow_splits",
+                                                "preemptions", "swapped_pages")}
+            print(f"small input serve {key}: kernels' and plain streams identical, "
+                  f"{out[key]}", flush=True)
+    report["small_input_serve"] = out
+
+
 def run_main_path(report: dict) -> dict:
     import torch
 
@@ -1169,8 +1617,11 @@ def main() -> int:
     rows.update(check_quantize(nblk, card, report))
     rows.update(check_natural(nblk, card, report))
     rows.update(check_trimmed(nblk, card, report))
+    rows.update(check_serve_kernels(card, report))
     check_small_input(report)
+    check_serve_small_input(report)
     launches = run_main_path(report)
+    launches.update(run_serve_paths(report))
 
     table = []
     for name, (source, replaces) in SOURCES.items():

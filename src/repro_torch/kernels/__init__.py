@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the compression hot path + plain versions.
+"""Hand-written Hopper kernels of the compression and serving hot paths +
+plain versions.
 
 * ``randk.py``    — seeded RandK uplink (`randk_seeded_workers`) and the
                     server scatter-mean (`scatter_accum`), over
@@ -10,20 +11,25 @@
                     (`qsgd_dequant_mean`), the 4-bit words
                     (`nibble_pack`, `nibble_unpack`) and blockwise
                     natural compression (`natural_block_workers`,
-                    `natural_dequant_mean`), over ``csrc/quantize.cu``.
+                    `natural_dequant_mean`) and the int8 KV-page rows
+                    (`absmax_quant_rows`, `absmax_dequant_rows`), over
+                    ``csrc/quantize.cu``.
 * ``epilogue.py`` — fused server epilogues (`scatter_epilogue`,
                     `delta_epilogue`, `qsgd_epilogue`,
                     `natural_epilogue`, `mean_epilogue`) and the robust
                     trimmed pair (`trimmed_delta_epilogue`,
                     `trimmed_sync_epilogue`), over ``csrc/epilogue.cu``.
+* ``paged.py``    — paged-KV decode attention (`paged_attn_decode`), over
+                    ``csrc/paged.cu``, and the int8-page route
+                    (`paged_attn_decode_q8`).
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.
 """
 
-from . import epilogue, permk, quantize, randk, ref
+from . import epilogue, paged, permk, quantize, randk, ref
 
-#: every kernel wrapper of the main path, by name
+#: every kernel wrapper of the main paths, by name
 KERNELS = {
     "randk_seeded_workers": randk.randk_seeded_workers,
     "scatter_accum": randk.scatter_accum,
@@ -41,6 +47,9 @@ KERNELS = {
     "natural_epilogue": epilogue.natural_epilogue,
     "trimmed_delta_epilogue": epilogue.trimmed_delta_epilogue,
     "trimmed_sync_epilogue": epilogue.trimmed_sync_epilogue,
+    "absmax_quant_rows": quantize.absmax_quant_rows,
+    "absmax_dequant_rows": quantize.absmax_dequant_rows,
+    "paged_attn_decode": paged.paged_attn_decode,
 }
 
 
@@ -54,5 +63,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "epilogue", "launch_counts", "permk", "quantize", "randk",
+__all__ = ["KERNELS", "epilogue", "launch_counts", "paged", "permk", "quantize", "randk",
            "ref", "reset_launch_counts"]

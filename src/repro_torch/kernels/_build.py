@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("randk", "permk", "quantize", "epilogue")
+SOURCES = ("randk", "permk", "quantize", "epilogue", "paged")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +48,9 @@ SIGNATURES = {
         "natural_block_workers_f32": (_P, _P, _P, _P, _I, _L, _I, _P),
         "natural_block_workers_bf16": (_P, _P, _P, _P, _I, _L, _I, _P),
         "natural_dequant_mean": (_P, _P, _P, _I, _L, _I, _P),
+        "absmax_quant_rows_f32": (_P, _P, _P, _L, _I, _P),
+        "absmax_quant_rows_bf16": (_P, _P, _P, _L, _I, _P),
+        "absmax_dequant_rows": (_P, _P, _P, _L, _I, _P),
     },
     "epilogue": {
         "scatter_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
@@ -64,6 +67,10 @@ SIGNATURES = {
            for b in ("f32", "bf16") for x in ("f32", "bf16")},
         **{f"trimmed_sync_epilogue_{b}_{x}": (_P, _P, _P, _P, _I, _L, _I, _I, _F, _P)
            for b in ("f32", "bf16") for x in ("f32", "bf16")},
+    },
+    "paged": {
+        f"paged_attn_decode_{t}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)
+        for t in ("f32", "bf16")
     },
 }
 

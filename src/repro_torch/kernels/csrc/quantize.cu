@@ -1,11 +1,14 @@
 // Packed quantization wire for Hopper (sm_90a): blockwise s-level QSGD
 // uplink, the server's dequantize-and-mean, the 4-bit nibble words the levels
 // cross the wire in, and blockwise natural compression (power-of-two
-// stochastic rounding, int8 exponent-delta codes) with its decode-and-mean.
+// stochastic rounding, int8 exponent-delta codes) with its decode-and-mean,
+// and the serving engine's int8 KV-page rows (per-row absmax quantize and its
+// dequantize).
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/quantize.py::
 // qsgd_block_workers, ::qsgd_dequant_mean, ::nibble_pack, ::nibble_unpack,
-// ::natural_block_workers and ::natural_dequant_mean.
+// ::natural_block_workers, ::natural_dequant_mean, ::absmax_quant_rows and
+// ::absmax_dequant_rows.
 // The TPU versions sweep one (1, B) VMEM tile per grid step in order; here
 // every (worker, block) row or group of coordinates is its own CTA or thread,
 // in no order, and nothing carries over between them.
@@ -22,7 +25,11 @@
 // reduced in registers and shared memory (a max is exact in any order), and
 // each coordinate then costs an exponent read from its bits, one exact
 // subtraction and division, and a murmur3 hash. natural_dequant_mean reads
-// the n int8 payloads and writes one f32 accumulator.
+// the n int8 payloads and writes one f32 accumulator. absmax_quant_rows
+// reads each KV row (W = 32·NPL values, one warp per row) once into
+// registers, takes the row's max |x| with warp shuffles (exact in any order)
+// and writes W int8 codes and one f32 scale; absmax_dequant_rows is one
+// multiply per code, 4 codes per thread.
 //
 // Floating-point order (the plain versions in ref.py repeat it exactly):
 // * the block norm: thread t squares its 4 contiguous elements and adds them
@@ -34,7 +41,10 @@
 // * the dequant-mean: from 0, worker by worker, acc + level·(norm_w / s),
 //   then acc / n, each rounded once;
 // * natural codes and decoding: quant.cuh (natural_code, natural_value);
-//   the decode-and-mean sums from 0 in worker order, then acc / n.
+//   the decode-and-mean sums from 0 in worker order, then acc / n;
+// * absmax rows: scale = amax·f32(1/127) (__fmul_rn by the constant's exact
+//   bits, never 1.0f/127.0f), code = rintf(x / safe) (__fdiv_rn, round half
+//   to even), safe = 1 where the scale is 0; dequant = code·scale.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). The wrappers
@@ -232,6 +242,68 @@ __global__ void nibble_unpack_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// f32(1/127) as numpy rounds the double 1/127: bit pattern 0x3C010204
+#define ABSMAX_INV127_BITS 0x3C010204u
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One warp per (row of W = 32·NPL values), rows grid-strided: lane l holds
+// the row's values l, l + 32, … (each load and store is contiguous across the
+// warp). The max keeps a NaN, as jnp.max does.
+template <typename XT, int NPL>
+__global__ void absmax_quant_rows_kernel(const XT* __restrict__ x,
+                                         int8_t* __restrict__ codes,
+                                         float* __restrict__ scales, int64_t rows) {
+  constexpr int W = 32 * NPL;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const float inv127 = __uint_as_float(ABSMAX_INV127_BITS);
+  for (int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < rows;
+       r += warps) {
+    const XT* xr = x + r * W;
+    float v[NPL];
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k) {
+      v[k] = to_f32(xr[k * 32 + lane]);
+      const float a = fabsf(v[k]);
+      amax = (a > amax || a != a) ? a : amax;
+    }
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, amax, h);
+      amax = (o > amax || o != o) ? o : amax;
+    }
+    const float scale = __fmul_rn(amax, inv127);
+    const float safe = scale > 0.0f ? scale : 1.0f;
+#pragma unroll
+    for (int k = 0; k < NPL; ++k)
+      codes[r * W + k * 32 + lane] = (int8_t)(int)rintf(__fdiv_rn(v[k], safe));
+    if (lane == 0) scales[r] = scale;
+  }
+}
+
+// One thread per 4 codes of a row (W % 4 == 0): out = code·scale.
+__global__ void absmax_dequant_rows_kernel(const int8_t* __restrict__ codes,
+                                           const float* __restrict__ scales,
+                                           float* __restrict__ out, int64_t rows,
+                                           int width) {
+  const int64_t quads = rows * width / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += stride) {
+    const float s = scales[4 * i / width];
+    const char4 c = reinterpret_cast<const char4*>(codes)[i];
+    float4 o;
+    o.x = __fmul_rn((float)c.x, s);
+    o.y = __fmul_rn((float)c.y, s);
+    o.z = __fmul_rn((float)c.z, s);
+    o.w = __fmul_rn((float)c.w, s);
+    reinterpret_cast<float4*>(out)[i] = o;
+  }
+}
+
 static unsigned grid_for(long long work, int threads) {
   long long grid = (work + threads - 1) / threads;
   if (grid > 1048576) grid = 1048576;  // grid-stride loops cover the rest
@@ -312,5 +384,39 @@ extern "C" int natural_dequant_mean(const void* codes, const void* scales, void*
   natural_dequant_mean_kernel<<<grid_for(nblk * block / 4, 256), 256, 0,
                                 (cudaStream_t)stream>>>(
       (const int8_t*)codes, (const float*)scales, (float*)out, n, nblk, block);
+  return (int)cudaGetLastError();
+}
+
+template <typename XT>
+static int launch_absmax(const void* x, void* codes, void* scales, long long rows,
+                         int width, void* stream) {
+  const unsigned grid = grid_for(rows * 32, 256);  // 8 rows (warps) per CTA
+  cudaStream_t st = (cudaStream_t)stream;
+  const XT* xp = (const XT*)x;
+  switch (width) {
+    case 32: absmax_quant_rows_kernel<XT, 1><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
+    case 64: absmax_quant_rows_kernel<XT, 2><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
+    case 128: absmax_quant_rows_kernel<XT, 4><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
+    case 256: absmax_quant_rows_kernel<XT, 8><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int absmax_quant_rows_f32(const void* x, void* codes, void* scales,
+                                     long long rows, int width, void* stream) {
+  return launch_absmax<float>(x, codes, scales, rows, width, stream);
+}
+
+extern "C" int absmax_quant_rows_bf16(const void* x, void* codes, void* scales,
+                                      long long rows, int width, void* stream) {
+  return launch_absmax<__nv_bfloat16>(x, codes, scales, rows, width, stream);
+}
+
+extern "C" int absmax_dequant_rows(const void* codes, const void* scales, void* out,
+                                   long long rows, int width, void* stream) {
+  absmax_dequant_rows_kernel<<<grid_for(rows * width / 4, 256), 256, 0,
+                               (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const float*)scales, (float*)out, rows, width);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,93 @@
+"""Paged-KV decode attention: the wrapper of the Hopper kernel in
+``csrc/paged.cu`` and the int8-page route.
+
+Ports ``repro.kernels.paged::paged_attn_decode`` (one-query GQA attention
+over the KV pages a block table names) and ``::paged_attn_decode_q8``. A
+wrapper given CUDA tensors launches its kernel (or raises); given CPU tensors
+it returns the plain version from :mod:`repro_torch.kernels.ref`. The kernel
+counts its launches in ``paged_attn_decode.launches``.
+
+The int8 route is not a kernel in the reference either (a gather, a
+dequantize of the gathered rows, then the plain attention): here the gathered
+``(S·L·KV, hd)`` rows go through the ``absmax_dequant_rows`` kernel, the same
+one multiply per element as the reference's ``kgf * ks[..., None]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from . import quantize
+from . import ref as _ref
+from .randk import _stream
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: head widths and GQA group sizes (H / KV) the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)
+GROUPS = (1, 2, 4, 8)
+
+
+def check_paged_shapes(q, kpages, vpages, tables, n_valid) -> None:
+    """Raise unless the kernel takes these operands."""
+    S, H, hd = q.shape
+    P, KV = kpages.shape[1], kpages.shape[2]
+    if kpages.shape != vpages.shape or kpages.shape[3] != hd:
+        raise ValueError("k / v pages must both be (npage, P, KV, hd) with q's hd")
+    if hd not in HEAD_DIMS or H % KV or H // KV not in GROUPS:
+        raise ValueError(f"hd {hd} and H / KV = {H}/{KV} must lie in {HEAD_DIMS} "
+                         f"and {GROUPS} for the kernel")
+    if not (q.dtype == kpages.dtype == vpages.dtype) or q.dtype not in _SUFFIX:
+        raise ValueError("q and the pages must share one dtype, f32 or bf16")
+    if tables.dtype != torch.int32 or tables.dim() != 2 or tables.shape[0] != S:
+        raise ValueError(f"tables must be an (S, max_pages) int32 tensor with S = {S}")
+    if n_valid.dtype != torch.int32 or tuple(n_valid.shape) != (S,):
+        raise ValueError(f"n_valid must be an ({S},) int32 tensor")
+    if P < 1 or tables.shape[1] * P >= 2**31:
+        raise ValueError("max_pages·P must fit in int32")
+    for t in (q, kpages, vpages, tables, n_valid):
+        if not t.is_contiguous() or t.data_ptr() % 16 or t.device != q.device:
+            raise ValueError("the paged kernel takes contiguous, 16-byte aligned "
+                             "tensors on one device")
+
+
+def paged_attn_decode(q: torch.Tensor, kpages: torch.Tensor, vpages: torch.Tensor,
+                      tables: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Block-table-gather single-query attention: q (S, H, hd); pages (npage,
+    P, KV, hd); tables (S, max_pages) int32 (page 0 = null); n_valid (S,)
+    int32 valid positions per slot, the current token included → (S, H, hd)
+    in v's dtype."""
+    if not q.is_cuda:
+        return _ref.paged_attn_decode_ref(q, kpages, vpages, tables, n_valid)
+    check_paged_shapes(q, kpages, vpages, tables, n_valid)
+    S, H, hd = q.shape
+    P, KV = kpages.shape[1], kpages.shape[2]
+    maxp = tables.shape[1]
+    out = torch.empty((S, H, hd), dtype=vpages.dtype, device=q.device)
+    scratch = torch.empty((S, H, maxp * P), dtype=torch.float32, device=q.device)
+    lib = _build.library("paged")
+    err = getattr(lib, f"paged_attn_decode_{_SUFFIX[q.dtype]}")(
+        q.data_ptr(), kpages.data_ptr(), vpages.data_ptr(), tables.data_ptr(),
+        n_valid.data_ptr(), scratch.data_ptr(), out.data_ptr(), S, H, KV, P, maxp, hd,
+        _ref.attn_scale(hd), _stream())
+    _build.check(err, "paged_attn_decode")
+    paged_attn_decode.launches += 1
+    return out
+
+
+paged_attn_decode.launches = 0
+
+
+def paged_attn_decode_q8(q, kq, vq, k_scale, v_scale, tables, n_valid) -> torch.Tensor:
+    """int8-page decode attention: gather the int8 pages (kq / vq (npage, P,
+    KV, hd)) and their f32 scales ((npage, P, KV)) through the block tables,
+    dequantize the gathered (S·L·KV, hd) rows with ``absmax_dequant_rows``,
+    then the f32 attention of the plain version."""
+    kg, vg = _ref.paged_gather_ref(kq, tables), _ref.paged_gather_ref(vq, tables)
+    S, L, KV, hd = kg.shape
+    ks = _ref.paged_gather_ref(k_scale, tables).reshape(-1)
+    vs = _ref.paged_gather_ref(v_scale, tables).reshape(-1)
+    k = quantize.absmax_dequant_rows(kg.reshape(-1, hd), ks)
+    v = quantize.absmax_dequant_rows(vg.reshape(-1, hd), vs)
+    return _ref.paged_attend_ref(q, k.reshape(S, L, KV, hd), v.reshape(S, L, KV, hd),
+                                 n_valid)

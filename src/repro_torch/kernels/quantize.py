@@ -1,9 +1,13 @@
-"""Packed QSGD wire: wrappers of the Hopper kernels in ``csrc/quantize.cu``.
+"""Packed quantization wires: wrappers of the Hopper kernels in
+``csrc/quantize.cu``.
 
 Ports ``repro.kernels.quantize::qsgd_block_workers`` (blockwise s-level
 QSGD uplink: int8 levels + one f32 norm per block), ``::qsgd_dequant_mean``
-(the server's dequantize-and-mean) and ``::nibble_pack`` / ``::nibble_unpack``
-(the 4-bit wire: eight two's-complement nibbles per 32-bit word). A wrapper
+(the server's dequantize-and-mean), ``::nibble_pack`` / ``::nibble_unpack``
+(the 4-bit wire: eight two's-complement nibbles per 32-bit word), the
+natural wire (``::natural_block_workers``, ``::natural_dequant_mean``) and
+the serving engine's int8 KV-page rows (``::absmax_quant_rows``,
+``::absmax_dequant_rows``). A wrapper
 given CUDA tensors launches its kernel (or raises); given CPU tensors it
 returns the plain version from :mod:`repro_torch.kernels.ref`. Each wrapper
 counts its launches in ``<wrapper>.launches``.
@@ -31,9 +35,9 @@ def check_cuda_buffers(*tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the QSGD kernels take contiguous, 16-byte aligned tensors")
+            raise ValueError("the quantize kernels take contiguous, 16-byte aligned tensors")
         if t.device != dev:
-            raise ValueError("the QSGD kernels take tensors on one device")
+            raise ValueError("the quantize kernels take tensors on one device")
 
 
 def check_qsgd_block(B: int, nblk: int, s: int) -> None:
@@ -202,3 +206,61 @@ def natural_dequant_mean(codes: torch.Tensor, scales: torch.Tensor) -> torch.Ten
 
 
 natural_dequant_mean.launches = 0
+
+
+#: KV-row widths the absmax kernels take: one warp per row, W/32 per lane
+ABSMAX_WIDTHS = (32, 64, 128, 256)
+
+
+def absmax_quant_rows(x2d: torch.Tensor):
+    """Per-row symmetric absmax int8: (R, W) f32 or bf16 → codes int8 (R, W)
+    and scales f32 (R,), bit-equal to the plain version (the int8 KV-page
+    write)."""
+    R, W = x2d.shape
+    if not x2d.is_cuda:
+        return _ref.absmax_quant_rows_ref(x2d)
+    if W not in ABSMAX_WIDTHS:
+        raise ValueError(f"row width {W} must be one of {ABSMAX_WIDTHS} for the kernel")
+    if x2d.dtype not in _X_SUFFIX:
+        raise ValueError("absmax_quant_rows takes f32 or bf16 rows")
+    check_cuda_buffers(x2d)
+    codes = torch.empty((R, W), dtype=torch.int8, device=x2d.device)
+    scales = torch.empty((R,), dtype=torch.float32, device=x2d.device)
+    if R == 0:
+        return codes, scales
+    lib = _build.library("quantize")
+    err = getattr(lib, f"absmax_quant_rows_{_X_SUFFIX[x2d.dtype]}")(
+        x2d.data_ptr(), codes.data_ptr(), scales.data_ptr(), R, W, _stream())
+    _build.check(err, "absmax_quant_rows")
+    absmax_quant_rows.launches += 1
+    return codes, scales
+
+
+absmax_quant_rows.launches = 0
+
+
+def absmax_dequant_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(R, W) int8 codes + (R,) f32 scales → (R, W) f32 rows, code·scale
+    (the int8 KV-page read)."""
+    R, W = codes.shape
+    if not codes.is_cuda:
+        return _ref.absmax_dequant_rows_ref(codes, scales)
+    if W % 4:
+        raise ValueError(f"row width {W} must be a multiple of 4 for the kernel")
+    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError("absmax_dequant_rows takes int8 codes and f32 scales")
+    if tuple(scales.shape) != (R,):
+        raise ValueError(f"scales must have shape {(R,)}")
+    check_cuda_buffers(codes, scales)
+    out = torch.empty((R, W), dtype=torch.float32, device=codes.device)
+    if R == 0:
+        return out
+    lib = _build.library("quantize")
+    err = lib.absmax_dequant_rows(codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                                  R, W, _stream())
+    _build.check(err, "absmax_dequant_rows")
+    absmax_dequant_rows.launches += 1
+    return out
+
+
+absmax_dequant_rows.launches = 0

@@ -566,3 +566,95 @@ def randk_qsgd_dequant_ref(levels: torch.Tensor, norms: torch.Tensor,
     each rounded."""
     scale = norms.to(torch.float32) / torch.tensor(float(s), device=norms.device)
     return levels.to(torch.float32) * scale[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache: block-table-gather attention and int8 page rows
+# ---------------------------------------------------------------------------
+
+#: masking sentinel, as in ``models/attention.py``: exp(−1e30 − m) is exactly
+#: 0.0 in f32, so a masked position contributes an exact zero
+NEG_INF = -1e30
+
+#: f32(1/127) with numpy's bits: the double 1/127 rounded once to float (the
+#: reference's ``jnp.float32(1.0 / 127.0)``, bit pattern 0x3C010204)
+ABSMAX_INV127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def attn_scale(hd: int) -> float:
+    """The reference's ``1.0 / jnp.sqrt(hd)``: an f32 square root, then an
+    f32 division (exact as a Python float)."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+
+
+def softmax_ref(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: the max, exp(l − m), the sum,
+    then a true division."""
+    e = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def paged_gather_ref(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """(npage, P, ...) pool + (S, max_pages) int32 tables → (S, max_pages·P,
+    ...) per-slot flat cache views; token t of slot s lands at flat row t."""
+    g = pages[tables.long()]                    # (S, maxp, P, ...)
+    S, maxp, P = g.shape[:3]
+    return g.reshape(S, maxp * P, *g.shape[3:])
+
+
+def paged_attend_ref(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
+                     n_valid: torch.Tensor) -> torch.Tensor:
+    """Single-query attention over gathered per-slot caches: q (S, H, hd),
+    k_flat / v_flat (S, L, KV, hd), n_valid (S,) int32 valid positions per
+    slot (the current token included). GQA repeat, f32 logits scaled by
+    1/√hd, positions ≥ n_valid masked to −1e30, softmax, weights rounded to
+    v's dtype, output in v's dtype."""
+    S, H, hd = q.shape
+    L, KV = k_flat.shape[1], k_flat.shape[2]
+    rep = H // KV
+    k_e = torch.repeat_interleave(k_flat, rep, dim=2) if rep > 1 else k_flat
+    v_e = torch.repeat_interleave(v_flat, rep, dim=2) if rep > 1 else v_flat
+    logits = torch.einsum("shd,skhd->shk", q, k_e).float() * attn_scale(hd)
+    valid = torch.arange(L, device=q.device)[None, :] < n_valid.to(q.device)[:, None]
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    w = softmax_ref(logits)
+    return torch.einsum("shk,skhd->shd", w.to(v_e.dtype), v_e)
+
+
+def paged_attn_decode_ref(q: torch.Tensor, kpages: torch.Tensor, vpages: torch.Tensor,
+                          tables: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Gather the pages through the block tables, then one-shot masked
+    attention: q (S, H, hd); pages (npage, P, KV, hd); tables (S, max_pages)
+    int32; n_valid (S,) int32 → (S, H, hd) in v's dtype."""
+    return paged_attend_ref(q, paged_gather_ref(kpages, tables),
+                            paged_gather_ref(vpages, tables), n_valid)
+
+
+def absmax_quant_rows_ref(x2d: torch.Tensor):
+    """Symmetric absmax int8 per row: (R, W) f32 / bf16 → codes int8 (R, W)
+    and scales f32 (R,); scale = max|x|·f32(1/127) (a reciprocal multiply,
+    as the reference), code = round-half-even(x / safe), safe = 1 where the
+    scale is 0. The max is exact in any order, so codes and scales are
+    bit-equal on every device."""
+    x = x2d.to(torch.float32)
+    scale = torch.amax(torch.abs(x), dim=1) * ABSMAX_INV127
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return torch.round(x / safe[:, None]).to(torch.int8), scale
+
+
+def absmax_dequant_rows_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(R, W) int8 codes + (R,) f32 scales → (R, W) f32: one multiply."""
+    return codes.to(torch.float32) * scales[:, None]
+
+
+def paged_attn_decode_q8_ref(q, kq, vq, k_scale, v_scale, tables, n_valid):
+    """int8-page decode attention: gather the int8 pages (kq / vq (npage, P,
+    KV, hd)) and their f32 scales ((npage, P, KV)) through the block tables,
+    dequantize only the gathered (S·L·KV, hd) rows, then the f32 attention
+    of :func:`paged_attend_ref`."""
+    kg, vg = paged_gather_ref(kq, tables), paged_gather_ref(vq, tables)
+    S, L, KV, hd = kg.shape
+    k = absmax_dequant_rows_ref(kg.reshape(-1, hd), paged_gather_ref(k_scale, tables).reshape(-1))
+    v = absmax_dequant_rows_ref(vg.reshape(-1, hd), paged_gather_ref(v_scale, tables).reshape(-1))
+    return paged_attend_ref(q, k.reshape(S, L, KV, hd), v.reshape(S, L, KV, hd), n_valid)

@@ -1,11 +1,29 @@
-"""repro_torch.models — the dense LM training path (port of repro.models)."""
+"""repro_torch.models — the dense LM: training, dense-cache decode and the
+paged serving steps (port of repro.models)."""
 
-from .config import LayerSpec, ModelConfig, Segment, dense_stack
+from .config import LayerSpec, MLAConfig, MoEConfig, ModelConfig, Segment, dense_stack, reduced
 from repro_torch.device import default_device
 
-from .model import forward, init_params, lm_loss, param_count
+from .model import (
+    decode_step,
+    forward,
+    init_cache,
+    init_paged_cache,
+    init_params,
+    lm_loss,
+    paged_copy_pages,
+    paged_decode_step,
+    paged_gather_pages,
+    paged_prefill_chunk,
+    paged_scatter_pages,
+    param_count,
+    prefill,
+)
 
 __all__ = [
-    "LayerSpec", "ModelConfig", "Segment", "default_device", "dense_stack",
-    "forward", "init_params", "lm_loss", "param_count",
+    "LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "Segment", "default_device",
+    "dense_stack", "reduced", "decode_step", "forward", "init_cache",
+    "init_paged_cache", "init_params", "lm_loss", "paged_copy_pages",
+    "paged_decode_step", "paged_gather_pages", "paged_prefill_chunk",
+    "paged_scatter_pages", "param_count", "prefill",
 ]

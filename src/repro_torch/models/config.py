@@ -125,3 +125,58 @@ class ModelConfig:
 
 def dense_stack(n: int, mixer: Mixer = "attn", ff: FF = "mlp") -> tuple[Segment, ...]:
     return (Segment(period=(LayerSpec(mixer=mixer, ff=ff),), repeat=n),)
+
+
+def reduced(cfg: ModelConfig, layers: int = 2, d_model: int = 256) -> ModelConfig:
+    """Build the CPU-smoke-test variant of the same family (≤4 experts, tiny d).
+
+    Every segment's structure survives (the period is preserved; only repeats,
+    widths and expert counts shrink) so the smoke test exercises the same block
+    types as the full config.
+    """
+    scale = d_model / cfg.d_model
+    heads = max(2, min(4, cfg.num_heads))
+    kv = max(1, min(heads, cfg.num_kv_heads if cfg.num_kv_heads < cfg.num_heads else heads))
+    segs = []
+    remaining = layers
+    for s in cfg.segments:
+        if remaining <= 0:
+            break
+        period = s.period[: max(1, min(len(s.period), remaining))]
+        rep = max(1, min(s.repeat, -(-remaining // len(period))))
+        rep = min(rep, max(1, remaining // len(period)) or 1)
+        segs.append(Segment(period=period, repeat=rep))
+        remaining -= len(period) * rep
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(
+            cfg.moe,
+            num_experts=min(4, cfg.moe.num_experts),
+            top_k=min(2, cfg.moe.top_k),
+            d_expert=max(32, int(cfg.moe.d_expert * scale)),
+            num_shared=min(1, cfg.moe.num_shared),
+            # generous capacity so CPU smoke/decode tests are drop-free
+            # (capacity drops are legitimate train/serve skew at scale)
+            capacity_factor=4.0,
+        )
+    mla = None
+    if cfg.mla is not None:
+        mla = MLAConfig(
+            q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+            qk_rope_head_dim=16, v_head_dim=32,
+        )
+    return dataclasses.replace(
+        cfg,
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=None if cfg.head_dim is None else max(16, d_model // heads),
+        d_ff=max(32, int(cfg.d_ff * scale)) if cfg.d_ff else 0,
+        vocab_size=512,
+        segments=tuple(segs),
+        moe=moe,
+        mla=mla,
+        lru_width=None,
+        window=16,
+        mtp_depth=min(cfg.mtp_depth, 1),
+    )

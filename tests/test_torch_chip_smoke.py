@@ -21,7 +21,7 @@ import torch
 import repro_torch.configs as configs
 from _torch_parity import one_torch_thread  # noqa: F401
 from repro_torch import kernels
-from repro_torch.kernels import epilogue, permk, quantize, randk
+from repro_torch.kernels import epilogue, paged, permk, quantize, randk
 from repro_torch.models import ModelConfig, dense_stack
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,7 +35,7 @@ TINY = ModelConfig(name="tiny-dense", arch_type="dense", d_model=64, num_heads=4
 def _count_plain_launches(monkeypatch):
     """Every kernel wrapper counts a launch where it returns its plain
     version on CPU tensors."""
-    for mod in (epilogue, permk, quantize, randk):
+    for mod in (epilogue, paged, permk, quantize, randk):
         for name, fn in kernels.KERNELS.items():
             if getattr(mod, name, None) is fn:
                 def counted(*a, _fn=fn, **k):
@@ -116,3 +116,100 @@ def test_trimmed_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     timed = {(t["kernel"], t["n"]) for t in report["kernels_trimmed"]}
     assert timed == {(k, n) for n in (4, 2) for k in rows}
     assert rows["trimmed_delta_epilogue"]["bytes"] == (4 + 4) * 4 * 3 * chip_smoke.BLOCK
+
+
+TINY_GQA = ModelConfig(name="tiny-gqa", arch_type="dense", d_model=64, num_heads=4,
+                       num_kv_heads=2, d_ff=128, vocab_size=256, segments=dense_stack(2),
+                       qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0)
+
+
+def _serve_on_cpu(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    for name in ("reset_peak_memory_stats", "empty_cache", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    _count_plain_launches(monkeypatch)
+
+
+def test_serve_kernel_phase_runs_at_a_tiny_shape(monkeypatch):
+    """The serving kernels' phase: edge rows, shapes, bounds, the SDPA
+    comparison and the table rows, with a host clock for the CUDA events."""
+    _serve_on_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "PAGED_SHAPES", {"serve": (3, 4, 4, 64, 4, 5),
+                                                     "gqa_stress": (4, 8, 1, 128, 4, 6)})
+    monkeypatch.setattr(chip_smoke, "ABSMAX_SHAPES", {"serve_decode": (12, 64),
+                                                      "large": (40, 128)})
+    report = {}
+    rows = chip_smoke.check_serve_kernels("cpu", report)
+    kernels.reset_launch_counts()
+    assert set(rows) == {"absmax_quant_rows", "absmax_dequant_rows", "paged_attn_decode"}
+    for row in rows.values():
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert rows["paged_attn_decode"]["max_abs_err"] == 0.0  # plain against plain
+    timed = {(t["kernel"], t["shape"]) for t in report["kernels_serve"]}
+    assert ("paged_attn_decode", "gqa_stress") in timed
+    assert ("absmax_dequant_rows", "serve_decode_read") in timed
+    assert all("sdpa_dense_ms" in t for t in report["kernels_serve"]
+               if t["kernel"] == "paged_attn_decode")
+    assert {"absmax_quant_rows", "absmax_dequant_rows",
+            "paged_attn_decode"} <= set(chip_smoke.SOURCES)
+
+
+def test_serve_paths_launch_what_chip_smoke_expects(monkeypatch):
+    """The three serve paths on a tiny GQA LM: exact launch counts from the
+    ServeReport, every stream's length, and the kernel-vs-plain stream
+    comparison (plain against plain here: identical)."""
+    _serve_on_cpu(monkeypatch)
+    monkeypatch.setattr(configs, "get_arch",
+                        lambda name: type("Arch", (), {"model": TINY_GQA}))
+    monkeypatch.setattr(chip_smoke, "SERVE_SPEC", "12:5,5:3,9:4,3:2,7:6")
+    monkeypatch.setattr(chip_smoke, "SERVE_SLOTS", 3)
+    monkeypatch.setattr(chip_smoke, "SERVE_PAGE", 4)
+    monkeypatch.setattr(chip_smoke, "SERVE_CHUNK", 4)
+    monkeypatch.setattr(chip_smoke, "SERVE_BATCH", 2)
+    report = {}
+    launches = chip_smoke.run_serve_paths(report)
+    kernels.reset_launch_counts()
+    assert set(launches) == set(chip_smoke.SERVE_PATHS)
+    runs = report["serve_paths"]
+    assert launches["serve_continuous"]["paged_attn_decode"] == \
+        2 * runs["serve_continuous"]["decode_steps"] > 0
+    q8 = runs["serve_continuous_q8"]
+    assert launches["serve_continuous_q8"]["absmax_quant_rows"] == \
+        4 * (q8["prefill_chunks"] + q8["decode_steps"])
+    assert not any(launches["serve_static"].values())
+    assert runs["serve_continuous"]["diverged"] == [] == q8["diverged"]
+
+
+def test_serve_small_input_phase_runs(monkeypatch):
+    """Prefix sharing and preemption runs on the reduced GQA LM split pages,
+    preempt and give identical streams (kernels and plain versions are both
+    plain here; the launches and the pool audit are what is checked)."""
+    _serve_on_cpu(monkeypatch)
+    report = {}
+    chip_smoke.check_serve_small_input(report)
+    kernels.reset_launch_counts()
+    out = report["small_input_serve"]
+    assert set(out) == {f"{k}_{q}" for k in chip_smoke.SERVE_SMALL for q in ("f32", "q8")}
+    assert out["share_prefix_f32"]["shared_tokens"] > 0
+    assert out["preempt_q8"]["swapped_pages"] > 0
+
+
+def test_compare_streams_accepts_only_near_ties():
+    """A kernel stream may leave the plain one only at a token whose plain
+    top-2 margin was below SERVE_TIE_MARGIN; int8 streams (no margins) must
+    be identical."""
+    want = [[1, 2, 3], [4, 5, 6]]
+    assert chip_smoke.compare_streams("x", [[1, 2, 3], [4, 5, 6]], want, None) == []
+    got = [[1, 2, 3], [4, 9, 9]]
+    tie = {0: [1.0] * 3, 1: [1.0, 0.5 * chip_smoke.SERVE_TIE_MARGIN, 1.0]}
+    assert chip_smoke.compare_streams("x", got, want, tie) == [
+        {"rid": 1, "token": 1, "margin": 0.5 * chip_smoke.SERVE_TIE_MARGIN}]
+    wide = {0: [1.0] * 3, 1: [1.0, 2 * chip_smoke.SERVE_TIE_MARGIN, 1.0]}
+    for margins in (wide, None):
+        try:
+            chip_smoke.compare_streams("x", got, want, margins)
+        except chip_smoke.SmokeFailure:
+            continue
+        raise AssertionError("a divergence past a clear margin was accepted")

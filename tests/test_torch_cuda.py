@@ -1,4 +1,4 @@
-"""The sixteen CUDA kernels against their plain PyTorch versions on the card.
+"""The nineteen CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import epilogue, permk, quantize, randk, ref
+from repro_torch.kernels import epilogue, paged, permk, quantize, randk, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -462,3 +462,164 @@ def test_robust_engine_rounds_on_card(dev, sampler):
                            plain.fused_sync(bufs, x, 0.05, aggregator=agg))):
             assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# serving: the int8 KV rows and the paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _absmax_edge(dev, W):
+    rows = torch.zeros((5, W), device=dev)
+    rows[1] = 127.0
+    rows[1, ::2] = torch.arange(W // 2, device=dev) % 127 + 0.5
+    rows[2, : W // 2] = -0.0
+    rows[3] = torch.linspace(-254.0, 254.0, W, device=dev)
+    rows[4] = 2.5 * torch.sign(torch.arange(W, device=dev) % 3 - 1.0)
+    return rows
+
+
+@pytest.mark.parametrize("R,W", [(1, 32), (128, 64), (2048, 64), (777, 128), (33, 256)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=str)
+def test_absmax_rows_bit_equal_on_card(dev, R, W, xdtype):
+    gen = torch.Generator(device=dev).manual_seed(R + W)
+    x = torch.randn((R, W), generator=gen, device=dev) * 5
+    if R >= 5:
+        x[:5] = _absmax_edge(dev, W)
+    x = x.to(xdtype)
+    kernels.reset_launch_counts()
+    c, s = quantize.absmax_quant_rows(x)
+    cr, sr = ref.absmax_quant_rows_ref(x)
+    assert torch.equal(c, cr) and torch.equal(_bits(s), _bits(sr))
+    d = quantize.absmax_dequant_rows(c, s)
+    assert torch.equal(_bits(d), _bits(ref.absmax_dequant_rows_ref(c, s)))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["absmax_quant_rows"] == counts["absmax_dequant_rows"] == 1
+
+
+def test_absmax_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    with pytest.raises(ValueError, match="row width"):
+        quantize.absmax_quant_rows(torch.zeros((4, 48), device=dev))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        quantize.absmax_quant_rows(torch.zeros((4, 64), device=dev).half())
+    with pytest.raises(ValueError, match="row width"):
+        quantize.absmax_dequant_rows(torch.zeros((4, 6), dtype=torch.int8, device=dev),
+                                     torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match="scales must"):
+        quantize.absmax_dequant_rows(torch.zeros((4, 64), dtype=torch.int8, device=dev),
+                                     torch.zeros(5, device=dev))
+
+
+def _paged(dev, S, H, KV, hd, P, maxp, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    npage = 1 + S * maxp
+    q = torch.randn((S, H, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((npage, P, KV, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((npage, P, KV, hd), generator=gen, device=dev).to(dtype)
+    tables = (torch.randperm(npage - 1, generator=gen, device=dev) + 1).to(torch.int32)
+    tables = tables.reshape(S, maxp).contiguous()
+    n_valid = torch.randint(1, maxp * P + 1, (S,), generator=gen, device=dev)
+    n_valid[0] = 1
+    n_valid[-1] = maxp * P
+    return q, kp, vp, tables, n_valid.to(torch.int32)
+
+
+def _within_paged_bound(out, want, vp):
+    """f32: |Δ| ≤ 1e-5·max|v|; bf16: one bf16 ulp of each output row's
+    largest magnitude (ROADMAP C)."""
+    diff = (out.float() - want.float()).abs()
+    if out.dtype == torch.float32:
+        return bool((diff <= 1e-5 * vp.float().abs().max()).all())
+    top = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(2.0**-126)
+    return bool((diff <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all())
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 2, 32, 4, 5), (8, 16, 16, 64, 16, 36),
+                                   (5, 64, 8, 128, 16, 12), (2, 8, 8, 64, 8, 3)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_paged_attn_decode_within_bound_on_card(dev, shape, dtype):
+    q, kp, vp, tables, n_valid = _paged(dev, *shape, dtype)
+    kernels.reset_launch_counts()
+    out = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
+    want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _within_paged_bound(out, want, vp)
+    assert kernels.launch_counts()["paged_attn_decode"] == 1
+
+
+def test_paged_attn_decode_null_page_and_all_masked_rows(dev):
+    """Garbage (inf / NaN) in the null page past n_valid is never read; a
+    slot with n_valid = 0 averages its whole row, as the reference does."""
+    q, kp, vp, tables, n_valid = _paged(dev, 3, 4, 2, 64, 4, 4, torch.float32, seed=3)
+    tables[1, 2:] = 0
+    n_valid[1] = 7
+    # the plain version multiplies masked positions by a zero weight, so it
+    # sees finite garbage; the kernel must not read the null page at all
+    want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
+    kp[0], vp[0] = float("inf"), float("nan")
+    out = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
+    assert torch.isfinite(out).all() and _within_paged_bound(out, want, vp[1:])
+    n_valid[0] = 0
+    kp[0], vp[0] = 0.5, 0.25
+    out = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
+    want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
+    assert _within_paged_bound(out, want, vp)
+
+
+def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, kp, vp, tables, n_valid = _paged(dev, 2, 4, 2, 32, 4, 3, torch.float32)
+    with pytest.raises(ValueError, match="hd"):
+        paged.paged_attn_decode(q[..., :16].contiguous(), kp[..., :16].contiguous(),
+                                vp[..., :16].contiguous(), tables, n_valid)
+    with pytest.raises(ValueError, match="one dtype"):
+        paged.paged_attn_decode(q.bfloat16(), kp, vp, tables, n_valid)
+    with pytest.raises(ValueError, match="int32"):
+        paged.paged_attn_decode(q, kp, vp, tables.long(), n_valid)
+    with pytest.raises(ValueError, match="H / KV"):
+        paged.paged_attn_decode(torch.zeros((2, 6, 32), device=dev), kp, vp, tables, n_valid)
+
+
+def test_paged_q8_route_on_card(dev):
+    """The int8 route through the dequant kernel equals its plain version
+    bit for bit (the attention after the dequant is the same torch code)."""
+    q, kp, vp, tables, n_valid = _paged(dev, 4, 8, 2, 64, 8, 5, torch.float32, seed=5)
+    kc, ks = ref.absmax_quant_rows_ref(kp.reshape(-1, 64))
+    vc, vs = ref.absmax_quant_rows_ref(vp.reshape(-1, 64))
+    args = (q, kc.reshape(kp.shape), vc.reshape(vp.shape), ks.reshape(kp.shape[:3]),
+            vs.reshape(vp.shape[:3]), tables, n_valid)
+    kernels.reset_launch_counts()
+    out = paged.paged_attn_decode_q8(*args)
+    assert torch.equal(out, ref.paged_attn_decode_q8_ref(*args))
+    assert kernels.launch_counts()["absmax_dequant_rows"] == 2
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_serve_on_card_matches_plain_versions(dev, quantized):
+    """A reduced GQA LM served continuously on the card through the kernels
+    and through their plain versions: identical greedy streams (a near tie
+    aside, which this seed does not hit), one launch per layer and step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import ModelConfig, dense_stack, init_params
+
+    cfg = ModelConfig(name="tiny-gqa", arch_type="dense", d_model=128, num_heads=4,
+                      num_kv_heads=2, d_ff=256, vocab_size=512, segments=dense_stack(2),
+                      qk_norm=True, head_dim=32)
+    params = init_params(0, cfg, device=dev)
+    pairs = serve.parse_requests("9:6,3:4,14:5,6:7,2:3")
+    streams = []
+    for backend in ("auto", "ref"):
+        reqs = serve.make_workload(cfg, pairs)
+        kernels.reset_launch_counts()
+        rep = serve.run_continuous(params, cfg, reqs, slots=3, page_size=4, chunk=4,
+                                   quantized=quantized, backend=backend, npage=8)
+        counts = kernels.launch_counts()
+        if backend == "auto" and quantized:
+            assert counts["absmax_dequant_rows"] == 4 * rep.decode_steps
+        elif backend == "auto":
+            assert counts["paged_attn_decode"] == 2 * rep.decode_steps
+        else:
+            assert not any(counts.values())
+        streams.append([r.generated for r in reqs])
+    assert streams[0] == streams[1]

@@ -245,4 +245,4 @@ def test_quantize_wrappers_launch_nothing_on_cpu():
     tk.quantize.qsgd_dequant_mean(lv, nm, 7)
     tk.epilogue.qsgd_epilogue(lv, nm, torch.zeros(3, 128), torch.zeros(3, 128), 0.1, 7)
     counts = tk.launch_counts()
-    assert len(counts) == 16 and not any(counts.values())
+    assert len(counts) == 19 and not any(counts.values())
