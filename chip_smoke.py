@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device — require CUDA; print the card's name and power limit.
 2. build — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together); print the seconds.
-3. kernels — each of the nineteen main-path kernels against its plain
-   PyTorch version on the card. The four RandK-wire kernels at the
+3. kernels — each of the twenty-four kernels against its plain PyTorch
+   version on the card. The four RandK-wire kernels at the
    production shape of Qwen1.5-0.5B (n = 4 workers, nblk = ceil(d / 1024),
    B = 1024, kb = 20), at PP-MARINA's cohort (n = r = 2) and at a
    forced-duplicates shape (kb = B/2); the PermK uplink at the production
@@ -34,7 +34,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    [1, 4096]), f32 and bf16, within |Δ| ≤ 1e-5·max|v| (f32) or one bf16 ulp
    of each output row's largest magnitude (bf16), with
    ``scaled_dot_product_attention`` on the pre-gathered dense cache printed
-   beside it as a comparison.
+   beside it as a comparison. The flat-vector wire's five kernels at full
+   width (nblk = ceil(d / 1024), B = 1024, kb = 20, s = 7), x f32 and bf16:
+   ``randk_gather`` at jittered host offsets and ``randk_seeded`` under one
+   seed (offsets and values bit-equal), ``block_sumsq`` (bit-equal, the
+   blockwise norm's order), ``qsgd_quantize`` against the global norm and a
+   ``jax.random.uniform`` dither (levels bit-equal) and ``qsgd_dequantize``
+   (bit-equal), each on small edge inputs too (±0, ±inf, zero rows, a zero
+   norm, |x| = norm, exact ties).
    Median times over 20+ launches (CUDA events) for the kernel, its plain
    version and, where one exists, the one PyTorch call that computes the
    same function.
@@ -56,6 +63,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    LM (H = 4, KV = 2): prefix sharing with COW splits, and an undersized
    pool that preempts and swaps, f32 and int8 pages, each through the
    kernels and through their plain versions with identical token streams.
+   Last, the per-leaf wires (``SMALL_LEAFWISE``): MARINA × shared_randk,
+   × correlated_qsgd (n = 4) and × block_randk under a per-leaf QSGD
+   downlink (s = 7), recompute rounds, kernels against plain versions, each
+   ledger ``tree_payload_bits`` of its per-leaf compressor.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
@@ -76,7 +87,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    full-width carry run: its device time split into model forward +
    backward, the port's kernels and the rest, the device's idle share of
    the step, and the costliest device functions.
-7. serve paths — ``repro_torch.launch.serve`` on the same model, greedy:
+7. wire — the flat-vector wire on the same model: n = 4 worker gradients
+   from the trainer's step-0 batches (8 × 256 tokens each), packed into
+   (4, nblk, 1024) f32; per worker ``ops.randk_compress`` (kb = 20), then
+   ``ops.randk_decompress_mean`` over the 4 payloads; ``flat.block_compress``
+   under ``flat.key_to_seed`` seeds, then ``flat.block_gather`` at its
+   offsets; ``ops.qsgd_compress`` (s = 7), then ``ops.qsgd_decompress``,
+   averaged. Launches exactly ``WIRE_LAUNCHES``; the seeded payloads equal
+   ``randk_seeded_workers``' rows and ``flat.seeded_offsets``; the gather at
+   those offsets returns them; |level| ≤ s; the decompressed RandK payload
+   is x·B/kb where nonzero; the wire bits are ``wire.py``'s; the same run
+   through the plain versions on the card gives identical outputs. Seconds
+   per call and peak memory.
+8. serve paths — ``repro_torch.launch.serve`` on the same model, greedy:
    16 requests (512:64, 128:16, 64:8, 256:32, four times), 8 slots, 16-token pages,
    128-token prefill chunks — ``serve_continuous`` (f32 pages),
    ``serve_continuous_q8`` (int8 pages) and ``serve_static`` (batches of 8,
@@ -162,6 +185,16 @@ SOURCES = {
                             "src/repro/kernels/quantize.py:434"),
     "paged_attn_decode": ("src/repro_torch/kernels/csrc/paged.cu",
                           "src/repro/kernels/paged.py:76"),
+    "randk_gather": ("src/repro_torch/kernels/csrc/randk.cu",
+                     "src/repro/kernels/randk.py:48"),
+    "randk_seeded": ("src/repro_torch/kernels/csrc/randk.cu",
+                     "src/repro/kernels/randk.py:152"),
+    "block_sumsq": ("src/repro_torch/kernels/csrc/quantize.cu",
+                    "src/repro/kernels/quantize.py:66"),
+    "qsgd_quantize": ("src/repro_torch/kernels/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:90"),
+    "qsgd_dequantize": ("src/repro_torch/kernels/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:118"),
 }
 
 #: the main paths: (method, compressor, carry_grads, downlink sampler)
@@ -191,7 +224,8 @@ ROBUST = {
 }
 COMP_KWARGS = {"block_randk": {"kb": KB, "block": BLOCK}, "permk": {"block": BLOCK},
                "block_qsgd": {"s": S_LEVELS, "block": BLOCK},
-               "block_natural": {"block": BLOCK}, "topk": {"k": 0.01}, "identity": {}}
+               "block_natural": {"block": BLOCK}, "topk": {"k": 0.01}, "identity": {},
+               "shared_randk": {"k": 0.05}, "correlated_qsgd": {"s": S_LEVELS}}
 #: the paper's baselines on the small input: (method, compressor)
 BASELINES = (("diana", "block_natural"), ("dcgd", "block_randk"), ("ec_sgd", "topk"),
              ("gd", "identity"))
@@ -862,10 +896,12 @@ def check_trimmed(nblk: int, card: str, report: dict) -> dict:
 
 def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
           step_hook=None, method: str = "marina", compressor: str = "block_randk",
-          downlink=None, sampler=None, **kw):
+          downlink=None, sampler=None, down_compressor=None, **kw):
     """Train ``steps`` steps through the port's ``Trainer``. ``sampler``
     swaps the trainer's flat engine for one of that sampler over the same
-    layout (``randk_qsgd``, which no compressor name selects)."""
+    layout (``randk_qsgd``, which no compressor name selects);
+    ``down_compressor`` gives the optimizer a per-leaf downlink beside its
+    flat engine (the trainer builds a downlink engine there)."""
     import dataclasses
 
     from repro_torch.train import TrainConfig, Trainer
@@ -880,6 +916,8 @@ def train(cfg, params, carry: bool, backend: str = "auto", steps: int = STEPS,
     if sampler is not None:
         engine = dataclasses.replace(tr.engine, sampler=sampler, s=S_LEVELS)
         tr.method = dataclasses.replace(tr.method, engine=engine)
+    if down_compressor is not None:
+        tr.method = dataclasses.replace(tr.method, down_compressor=down_compressor)
     return tr.run(step_hook)
 
 
@@ -1010,6 +1048,71 @@ def check_small_input(report: dict) -> None:
               f"kernels and plain versions agree", flush=True)
     report["small_input_robust"] = robust
     check_deadline(cfg, params, report)
+    check_leafwise(cfg, params, report)
+
+
+#: the per-leaf runs of the small-input phase: (trainer dials, per-leaf
+#: downlink or None, launches). SharedRandK and CorrelatedQ compress leaf by
+#: leaf in plain PyTorch (no kernel, as in the reference); the block_randk
+#: engine uplinks through the RandK kernels and the broadcast crosses a
+#: per-leaf QSGD downlink
+SMALL_LEAFWISE = {
+    "marina_shared_randk_recompute": (dict(compressor="shared_randk"), None, {}),
+    "marina_correlated_qsgd_recompute": (dict(compressor="correlated_qsgd"), None, {}),
+    "marina_randk_downleafqsgd_recompute": (
+        dict(compressor="block_randk"), "qsgd",
+        {"randk_seeded_workers": _NC, "scatter_accum": _NC}),
+}
+
+
+def check_leafwise(cfg, params, report: dict) -> None:
+    """MARINA on the per-leaf tree wires (recompute rounds, n = 4) through
+    the kernels and through the plain versions: SharedRandK, CorrelatedQ,
+    and block_randk under a per-leaf QSGD downlink (s = 7). Finite losses,
+    c_k, the launches of ``SMALL_LEAFWISE``, the uplink and downlink
+    ledgers (``tree_payload_bits`` of the per-leaf compressor), and the two
+    trajectories agree."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import make_compressor, make_layout, tree_payload_bits, wire
+    from repro_torch.core.tree_util import tree_leaves
+
+    d = sum(t.numel() for t in tree_leaves(params))
+    nblk = make_layout(params, block=BLOCK).nblk
+    out = {}
+    for path, (dials, down, want) in SMALL_LEAFWISE.items():
+        down_comp = make_compressor(down, s=S_LEVELS) if down else None
+        kw = dict(carry=False, method="marina", batch_per_worker=2,
+                  down_compressor=down_comp, **dials)
+        kernels.reset_launch_counts()
+        s_k, h_k = train(cfg, params, **kw)
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        s_r, h_r = train(cfg, params, backend="ref", **kw)
+        require(launched == want, f"small input {path}: launches {launched} != {want}")
+        require(h_k.round_sync == h_r.round_sync == EXPECTED_C_K,
+                f"small input {path}: c_k {h_k.round_sync}")
+        require(all(math.isfinite(v) for v in h_k.loss) and h_k.skipped_cum[-1] == 0.0,
+                f"small input {path}: loss {h_k.loss}, skipped {h_k.skipped_cum[-1]}")
+        comp = dials["compressor"]
+        up = (wire.seeded_randk_bits(nblk, KB) if comp == "block_randk" else
+              tree_payload_bits(make_compressor(comp, **COMP_KWARGS[comp]), params))
+        down_bits = (tree_payload_bits(down_comp, params) if down_comp is not None
+                     else wire.downlink_dense_bits(d))
+        for c_k, bits, dbits in zip(h_k.round_sync, h_k.round_bits, h_k.round_down_bits):
+            require(bits == (wire.dense_f32_bits(d) if c_k else up),
+                    f"small input {path}: ledger {bits}")
+            require(dbits == (wire.dense_f32_bits(d) if c_k else down_bits),
+                    f"small input {path}: down ledger {dbits}")
+        require(h_k.round_bits == h_r.round_bits, f"small input {path}: ledgers differ")
+        for a, b in zip(tree_leaves(s_k.params), tree_leaves(s_r.params)):
+            require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                    f"small input {path}: kernels and plain versions diverge")
+        out[path] = {"loss": h_k.loss, "round_bits": h_k.round_bits,
+                     "round_down_bits": h_k.round_down_bits, "launches": launched}
+        print(f"small input per-leaf {path}: loss {h_k.loss}, bits {h_k.round_bits}, "
+              f"down bits {h_k.round_down_bits}, launches {launched}", flush=True)
+    report["small_input_leafwise"] = out
 
 
 def check_deadline(cfg, params, report: dict) -> None:
@@ -1139,6 +1242,351 @@ def profile_step(cfg, params, report: dict) -> None:
         print(f"profile top: {ms:10.3f} ms  {part:14s} {name}", flush=True)
     del prof, events
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the flat-vector wire: its five kernels, then the wire phase
+# ---------------------------------------------------------------------------
+
+#: what the wire phase launches: per worker, ops.randk_compress (one gather
+#: at the jittered offsets), flat.block_compress (the seeded gather) then
+#: flat.block_gather at its offsets (a second gather), ops.qsgd_compress
+#: (Σx², then the levels) and ops.qsgd_decompress; one scatter-mean over the
+#: n RandK payloads
+WIRE_LAUNCHES = {"randk_gather": 2 * N_WORKERS, "randk_seeded": N_WORKERS,
+                 "scatter_accum": 1, "block_sumsq": N_WORKERS,
+                 "qsgd_quantize": N_WORKERS, "qsgd_dequantize": N_WORKERS}
+
+
+def bits_equal(a, b) -> bool:
+    """Equal shapes, dtypes and bit patterns (signed zeros told apart)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = torch.int32 if a.dtype == torch.float32 else torch.int16
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def check_wire_edges(dev) -> None:
+    """The five flat-wire kernels on small edge inputs, against their plain
+    versions bit for bit and against the values they must give: ±0, ±inf and
+    the block's first and last slots for the gathers; zero rows and one
+    nonzero for Σx²; a zero norm, |x| = norm and exact ties (floor arguments
+    m + 0.5 + 0.5 = m + 1 and one ulp below) for the levels; a zero norm and
+    every level for the dequantize."""
+    import torch
+
+    from repro_torch.kernels import quantize, randk, ref
+
+    B, kb, s = 128, 8, S_LEVELS
+    inf = float("inf")
+    x = torch.zeros((3, B), device=dev)
+    x[0, :4] = torch.tensor([-0.0, inf, -inf, 2.5])
+    x[1, -1] = -3.0
+    x[2] = torch.linspace(-4, 4, B, device=dev)
+    offs = torch.tensor([[0, 1, 2, 3, 5, 64, 126, B - 1]] * 3, dtype=torch.int32, device=dev)
+    for xd in (torch.float32, torch.bfloat16):
+        xx = x.to(xd)
+        got = randk.randk_gather(xx, offs, B / kb)
+        require(bits_equal(got, ref.randk_block_compress_ref(xx, offs, B / kb)),
+                f"randk_gather edges ({xd}) differ from the plain version")
+        require(bits_equal(got[0, :2], torch.tensor([-0.0, inf], dtype=xd, device=dev)),
+                f"randk_gather edges ({xd}): -0 or inf not kept")
+        for seed in (0, 2**32 - 1):
+            v, o = randk.randk_seeded(xx, seed, kb, B / kb)
+            vr, orf = ref.randk_seeded_ref(xx, seed, kb, B / kb)
+            require(torch.equal(o, orf) and bits_equal(v, vr),
+                    f"randk_seeded edges ({xd}, seed {seed}) differ")
+        z = torch.zeros((3, B), dtype=xd, device=dev)
+        z[1, 7] = -3.0
+        z[2] = -0.0
+        sq = quantize.block_sumsq(z)
+        require(bits_equal(sq, ref.block_sumsq_ref(z)) and sq.tolist() == [0.0, 9.0, 0.0],
+                f"block_sumsq edges ({xd}): {sq.tolist()}")
+    # levels against norm 7 and s = 7: the floor argument is |x| + u exactly
+    m = torch.arange(7, device=dev, dtype=torch.float32)
+    half = torch.full_like(m, 0.5)
+    below = torch.nextafter(half, torch.zeros_like(half))
+    xq = torch.cat([m + 0.5, -(m + 0.5), m + 0.5, torch.tensor([7.0, -7.0, 0.0], device=dev)])
+    uq = torch.cat([half, half, below, torch.tensor([0.999, 0.999, 0.999], device=dev)])
+    pad = (-xq.numel()) % 4
+    xq = torch.nn.functional.pad(xq, (0, pad))[None]
+    uq = torch.nn.functional.pad(uq, (0, pad))[None]
+    # one ulp below 0.5 the sum still rounds to m + 1 once m + 1 > 1 (the
+    # add is rounded before the floor, as in the plain version)
+    want = torch.cat([m + 1, -(m + 1), torch.floor((m + 0.5) + below),
+                      torch.tensor([7.0, -7.0, 0.0], device=dev)])
+    for norm in (7.0, 0.0):
+        nt = torch.tensor(norm, device=dev)
+        for xd in (torch.float32, torch.bfloat16):
+            q = quantize.qsgd_quantize(xq.to(xd).contiguous(), uq, nt, s)
+            require(torch.equal(q, ref.qsgd_quantize_ref(xq.to(xd), uq, nt, s)),
+                    f"qsgd_quantize edges (norm {norm}, {xd}) differ")
+            if norm == 7.0:
+                require(torch.equal(q[0, :want.numel()].float(), want),
+                        f"qsgd_quantize ties: {q[0].tolist()}")
+        lv = torch.arange(-s, s + 1, device=dev, dtype=torch.int8)
+        lv = torch.nn.functional.pad(lv, (0, (-lv.numel()) % 4))[None]
+        dq = quantize.qsgd_dequantize(lv, nt, s)
+        require(bits_equal(dq, ref.qsgd_dequantize_ref(lv, nt, s)),
+                f"qsgd_dequantize edges (norm {norm}) differ")
+        if norm == 7.0:
+            require(torch.equal(dq, lv.float()), "qsgd_dequantize: norm = s gives the levels")
+    print("kernels flat wire: edge inputs match", flush=True)
+
+
+def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
+    """The flat-vector wire's five kernels at full width (nblk blocks of
+    B = 1024, kb = 20 host or seeded offsets per block, s = 7), x in f32
+    and bf16, against their plain versions: offsets, gathered values, Σx²,
+    levels and dequantized values bit-equal; then the edge inputs. Each is
+    timed with its plain version and, where one PyTorch call computes the
+    same function, that call. The table's rows are x f32."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import ops, quantize, randk, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    B, kb, s = BLOCK, KB, S_LEVELS
+    scale = B / kb
+    key = prng.PRNGKey(SEED + 6)
+    size, slots = nblk * B, nblk * kb
+    rows, timings = {}, []
+
+    def timed(name, xd, kern, plain, lib, nbytes, flops, err, **extra):
+        b_ms, b_by = bound(nbytes, flops)
+        t = {"kernel": name, "x": str(xd), "ms": median_ms(kern, 25),
+             "plain_ms": median_ms(plain, 5),
+             "library_ms": median_ms(lib, 25) if lib is not None else None,
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "bytes": nbytes,
+             **extra}
+        timings.append(t)
+        lib_text = f"{t['library_ms']} ms" if lib is not None else NO_LIBRARY
+        more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items())
+        print(f"time {name} x {xd}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}){more}, library {lib_text} on {card}",
+              flush=True)
+        if xd == torch.float32:
+            rows[name] = t
+
+    offsets = ops.jittered_offsets(key, nblk, B, kb, device=dev)
+    u2d = prng.uniform(prng.fold_in(key, 1), (nblk, B), device=dev)
+    x32 = torch.randn((nblk, B), generator=gen, device=dev)
+    seed = 2**31 + 99
+    for xd in (torch.float32, torch.bfloat16):
+        x = x32.to(xd)
+        elt = x.element_size()
+        # a gathered value pulls its whole 32-byte sector of x
+        floor = {"sector_floor_ms": slots * (32 + 4 + elt) / HBM_BYTES_PER_S * 1e3}
+        v = randk.randk_gather(x, offsets, scale)
+        require(bits_equal(v, ref.randk_block_compress_ref(x, offsets, scale)),
+                f"randk_gather ({xd}) differs from its plain version")
+        timed("randk_gather", xd, lambda: randk.randk_gather(x, offsets, scale),
+              lambda: ref.randk_block_compress_ref(x, offsets, scale), None,
+              slots * (4 + 2 * elt), slots, 0.0, **floor)
+        v, o = randk.randk_seeded(x, seed, kb, scale)
+        vr, orf = ref.randk_seeded_ref(x, seed, kb, scale)
+        require(torch.equal(o, orf), f"randk_seeded ({xd}): offsets differ")
+        require(bits_equal(v, vr), f"randk_seeded ({xd}): values differ")
+        del v, o, vr, orf
+        timed("randk_seeded", xd, lambda: randk.randk_seeded(x, seed, kb, scale),
+              lambda: ref.randk_seeded_ref(x, seed, kb, scale), None,
+              slots * (4 + 2 * elt), slots, 0.0, **floor)
+
+        sq = quantize.block_sumsq(x)
+        require(bits_equal(sq, ref.block_sumsq_ref(x)), f"block_sumsq ({xd}) differs")
+        timed("block_sumsq", xd, lambda: quantize.block_sumsq(x),
+              lambda: ref.block_sumsq_ref(x), lambda: torch.einsum("ij,ij->i", x, x),
+              size * elt + nblk * 4, 2 * size, 0.0)
+        norm = ops.global_norm(sq)
+        q = quantize.qsgd_quantize(x, u2d, norm, s)
+        require(torch.equal(q, ref.qsgd_quantize_ref(x, u2d, norm, s)),
+                f"qsgd_quantize ({xd}): levels differ")
+        require(int(q.abs().max()) <= s, f"qsgd_quantize ({xd}): |level| > s")
+        timed("qsgd_quantize", xd, lambda: quantize.qsgd_quantize(x, u2d, norm, s),
+              lambda: ref.qsgd_quantize_ref(x, u2d, norm, s), None,
+              size * (elt + 4 + 1), 5 * size, 0.0)
+        if xd == torch.float32:  # the dequantize reads int8 whatever x was
+            dq = quantize.qsgd_dequantize(q, norm, s)
+            require(bits_equal(dq, ref.qsgd_dequantize_ref(q, norm, s)),
+                    "qsgd_dequantize differs from its plain version")
+            qscale = norm / torch.tensor(float(s), device=dev)
+            require(bits_equal(dq, torch.mul(q, qscale)), "qsgd_dequantize != q·(norm/s)")
+            del dq
+            timed("qsgd_dequantize", xd, lambda: quantize.qsgd_dequantize(q, norm, s),
+                  lambda: ref.qsgd_dequantize_ref(q, norm, s),
+                  lambda: torch.mul(q, qscale), size * (1 + 4), size, 0.0)
+        del x, sq, q
+        torch.cuda.empty_cache()
+    del x32, u2d, offsets
+    torch.cuda.empty_cache()
+    check_wire_edges(dev)
+    report["kernels_wire"] = timings
+    return rows
+
+
+def _sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def wire_round(x3d, d: int, keys: list, seeds: list, backend: str, secs: dict) -> dict:
+    """The flat-vector wire on n packed worker gradients x3d (n, nblk, B)
+    under ``backend``: per worker, ``ops.randk_compress`` (kb = 20) of the
+    flat gradient, then ``ops.randk_decompress_mean`` over the n payloads;
+    ``flat.block_compress`` under the worker's seed, then
+    ``flat.block_gather`` at the offsets it returned; ``ops.qsgd_compress``
+    (s = 7), then ``ops.qsgd_decompress``, averaged. Each call's host seconds
+    (to a synchronize) go into ``secs``; returns every output."""
+    import torch
+
+    from repro_torch.core import flat
+    from repro_torch.kernels import ops, ref
+
+    def call(label, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        secs.setdefault(label, []).append(time.perf_counter() - t0)
+        return res
+
+    n = x3d.shape[0]
+    scale = BLOCK / KB
+    out = {k: [] for k in ("vals", "offs", "bvals", "boffs", "gvals", "q", "norm")}
+    for w in range(n):
+        xw = x3d[w].reshape(-1)[:d]
+        v, o = call("randk_compress",
+                    lambda: ops.randk_compress(xw, keys[w][0], KB, BLOCK, backend))
+        out["vals"].append(v)
+        out["offs"].append(o)
+    out["dense"] = call("randk_decompress_mean", lambda: ops.randk_decompress_mean(
+        torch.stack(out["vals"]), torch.stack(out["offs"]), d, BLOCK, backend))
+    for w in range(n):
+        bv, bo = call("block_compress",
+                      lambda: flat.block_compress(x3d[w], seeds[w], KB, scale, backend))
+        out["bvals"].append(bv)
+        out["boffs"].append(bo)
+        out["gvals"].append(call("block_gather",
+                                 lambda: flat.block_gather(x3d[w], bo, scale, backend)))
+    acc = None
+    for w in range(n):
+        xw = x3d[w].reshape(-1)[:d]
+        q, nm = call("qsgd_compress", lambda: ops.qsgd_compress(xw, keys[w][1], S_LEVELS,
+                                                                 BLOCK, backend))
+        deq = call("qsgd_decompress",
+                   lambda: ops.qsgd_decompress(q, nm, S_LEVELS, d, BLOCK, backend))
+        acc = deq if acc is None else acc + deq
+        out["q"].append(q)
+        out["norm"].append(nm)
+    out["qsgd_mean"] = ref.div_n(acc, n)
+    return out
+
+
+def run_wire_path(report: dict) -> dict:
+    """The wire phase: full-width Qwen1.5-0.5B from ``SEED``, n = 4 worker
+    gradients from the trainer's step-0 batches (8 × 256 tokens each),
+    packed into (n, nblk, B) f32, through :func:`wire_round` on the kernels
+    (launch counts reset just before, read just after: ``WIRE_LAUNCHES``)
+    and again through the plain versions on the card, which must give
+    identical outputs. Also: each seeded payload is row w of
+    ``randk_seeded_workers`` and ``flat.seeded_offsets``, the gather at its
+    offsets returns it, |level| ≤ s, a worker's decompressed RandK payload
+    is x·B/kb where it is nonzero, and the wire bits are ``wire.py``'s."""
+    import torch
+
+    from repro_torch import kernels, prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import flat, make_compressor, make_layout, pack_stacked, wire
+    from repro_torch.core.marina import _per_worker_grads
+    from repro_torch.kernels import ops, randk, ref
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainConfig, Trainer
+
+    dev = torch.device(DEVICE)
+    cfg = get_arch("qwen1.5-0.5b").model
+    params = init_params(SEED, cfg, device=DEVICE)
+    tr = Trainer(cfg, TrainConfig(method="marina", compressor="block_randk",
+                                  comp_kwargs=COMP_KWARGS["block_randk"],
+                                  n_workers=N_WORKERS, seed=SEED), params, device=DEVICE)
+    lay = make_layout(params, block=BLOCK)
+    d, nblk = lay.d, lay.nblk
+    x3d = pack_stacked(lay, _per_worker_grads(tr.method.grad_fn, params,
+                                              tr._batches(0, tr.tcfg.batch_per_worker)))
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    wkeys = prng.split(prng.fold_in(prng.PRNGKey(SEED), 0), N_WORKERS)
+    sub = [prng.split(k, 3) for k in wkeys]
+    keys = [(k[0], k[1]) for k in sub]
+    seeds = [flat.key_to_seed(k[2]) for k in sub]
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    secs: dict = {}
+    out = wire_round(x3d, d, keys, seeds, "auto", secs)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {name: WIRE_LAUNCHES.get(name, 0) for name in kernels.KERNELS}
+    require(counts == want, f"wire launches {counts} != {want}")
+
+    # the checks below launch kernels to compare; they are not the path's
+    scale = BLOCK / KB
+    wv, wo = randk.randk_seeded_workers(x3d, randk.seeds_tensor(seeds, dev), KB, scale)
+    for w in range(N_WORKERS):
+        require(torch.equal(out["boffs"][w], wo[w]) and bits_equal(out["bvals"][w], wv[w]),
+                f"wire: block_compress of worker {w} != randk_seeded_workers row {w}")
+        require(torch.equal(out["boffs"][w], flat.seeded_offsets(seeds[w], nblk, BLOCK, KB,
+                                                                 device=dev)),
+                f"wire: worker {w}'s offsets != flat.seeded_offsets")
+        require(bits_equal(out["gvals"][w], out["bvals"][w]),
+                f"wire: block_gather at worker {w}'s offsets != its payload")
+        require(int(out["q"][w].abs().max()) <= S_LEVELS, f"wire: worker {w} |level| > s")
+    del wv, wo
+    one = ops.randk_decompress_mean(out["vals"][0][None], out["offs"][0][None], d)
+    nz = one != 0
+    require(bits_equal(one[nz], ref.scale_values(x3d[0].reshape(-1)[:d][nz], scale)),
+            "wire: randk_decompress_mean's nonzeros != x·B/kb")
+    require(int(nz.sum()) <= nblk * KB, "wire: more nonzeros than sampled slots")
+    del one, nz
+    x64 = torch.sqrt(torch.sum(x3d[0].double() ** 2))
+    norm_rel = float(abs(out["norm"][0].double() - x64) / x64)
+    require(norm_rel <= 2.0**-22, f"wire: global norm off by {norm_rel} (relative)")
+    bits = {"randk_compress": make_compressor("randk", k=nblk * KB).payload_bits(d),
+            "block_compress": flat.seeded_payload_bits(nblk, KB),
+            "qsgd_compress": wire.qsgd_global_bits(d, S_LEVELS)}
+    require(bits["randk_compress"] == 32 * (out["vals"][0].numel() + out["offs"][0].numel()),
+            f"wire: randk payload bits {bits['randk_compress']}")
+    require(bits["block_compress"] == wire.SEED_BITS + 32 * out["bvals"][0].numel(),
+            f"wire: seeded payload bits {bits['block_compress']}")
+    require(bits["qsgd_compress"] == wire.F32_BITS + wire.qsgd_level_bits(S_LEVELS) * d,
+            f"wire: qsgd payload bits {bits['qsgd_compress']}")
+
+    kernels.reset_launch_counts()
+    plain = wire_round(x3d, d, keys, seeds, "ref", {})
+    require(not any(kernels.launch_counts().values()), "wire: the plain run launched")
+    for name, got in out.items():
+        ref_v = plain[name]
+        same = (all(bits_equal(a, b) for a, b in zip(got, ref_v)) if isinstance(got, list)
+                else bits_equal(got, ref_v))
+        require(same, f"wire: {name} differs between the kernels and the plain versions")
+    del plain, out
+    per_call = {k: statistics.median(v) for k, v in secs.items()}
+    report["wire"] = {"d": d, "nblk": nblk, "launches": counts, "seconds_per_call": per_call,
+                      "peak_mem_gb": peak, "norm_rel_err_vs_f64": norm_rel, "bits": bits}
+    print(f"wire: d={d}, nblk={nblk}, launches {dict((k, v) for k, v in counts.items() if v)}, "
+          f"median s/call {per_call}, peak memory {peak:.2f} GB, bits/worker {bits}; "
+          f"kernels and plain versions identical", flush=True)
+    del x3d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wire": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -1618,9 +2066,11 @@ def main() -> int:
     rows.update(check_natural(nblk, card, report))
     rows.update(check_trimmed(nblk, card, report))
     rows.update(check_serve_kernels(card, report))
+    rows.update(check_wire_kernels(nblk, card, report))
     check_small_input(report)
     check_serve_small_input(report)
     launches = run_main_path(report)
+    launches.update(run_wire_path(report))
     launches.update(run_serve_paths(report))
 
     table = []

@@ -7,12 +7,16 @@ an explicit PRNG key (:mod:`repro_torch.prng`), drawing exactly the bits the
 reference draws. :func:`tree_compress` lifts a compressor to pytrees leaf by
 leaf (Block-RandK semantics).
 
-Ported: ``Identity``, ``RandK``, ``BlockRandK``, the packed-wire
-``BlockQSGD`` and ``BlockNatural``, the per-leaf ``QSGD`` and
-``NaturalCompression``, the biased ``TopK`` (for EC-SGD) and the correlated
-collection ``PermK`` (workers share one round key and are told their index:
-:func:`tree_compress_worker`). The correlated ``CorrelatedQ`` and
-``SharedRandK`` raise ``NotImplementedError`` in :func:`make_compressor`.
+Every compressor of the reference: ``Identity``, ``RandK``,
+``SharedRandK`` (one index key for every worker of a round),
+``BlockRandK``, the packed-wire ``BlockQSGD`` and ``BlockNatural``, the
+per-leaf ``QSGD`` and ``NaturalCompression``, the biased ``TopK`` (for
+EC-SGD) and the correlated collections ``PermK`` and ``CorrelatedQ``
+(workers share one round key and are told their index:
+:func:`tree_compress_worker`). ``ab_constants(d, n)`` gives the (A, B) of
+the AB-inequality for an n-worker collection. Per-coordinate draws (RandK's
+keys, the QSGD and natural dithers, CorrelatedQ's strata) are made on the
+vector's device, bit-equal to ``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ class Compressor:
         """The paper's synchronization probability choice p = ζ_Q/d (Cor. 2.1)."""
         return min(1.0, max(self.expected_density(d) / max(d, 1), 1e-6))
 
+    def ab_constants(self, d: int, n: int) -> tuple:
+        """(A, B) of the AB-inequality for n independent copies of this Q:
+        E‖(1/n)Σ Q_i(x_i) − x̄‖² ≤ A·(1/n)Σ‖x_i‖² − B·‖x̄‖² holds with
+        ((1 + ω)/n, 1/n), whose A − B = ω/n recovers Thm 2.1. Correlated
+        collections override it."""
+        w = self.omega(d)
+        return ((1.0 + w) / n, 1.0 / n)
+
     def compress(self, key, x: torch.Tensor) -> Payload:
         raise NotImplementedError
 
@@ -89,9 +101,8 @@ class Identity(Compressor):
 def _randk_indices(key, d: int, k: int, device) -> torch.Tensor:
     """K uniform indices without replacement: top-K of iid uniform keys,
     ties to the lower index (as ``lax.top_k``)."""
-    u = torch.from_numpy(prng.uniform(key, (d,)))
-    order = torch.sort(u, descending=True, stable=True).indices[:k]
-    return order.to(device=device, dtype=torch.int64)
+    u = prng.uniform(key, (d,), device=device)
+    return torch.sort(u, descending=True, stable=True).indices[:k]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +138,21 @@ class RandK(Compressor):
         vals = payload["values"]
         out = torch.zeros((d,), dtype=vals.dtype, device=vals.device)
         return out.index_put_((payload["indices"],), vals, accumulate=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedRandK(RandK):
+    """RandK whose workers share the round's index key: identical masks, so
+    the workers' payloads sum on the same K indices. Each worker is still an
+    unbiased ω = d/K − 1 quantization; the shared mask forfeits the 1/n
+    variance averaging."""
+
+    name: str = dataclasses.field(default="shared_randk", init=False)
+
+    def ab_constants(self, d: int, n: int) -> tuple:
+        """(1/n)Σ Q_M(x_i) = Q_M(x̄) for one mask M, so the aggregation
+        error is at most ω‖x̄‖² ≤ ω·(1/n)Σ‖x_i‖²: (A, B) = (ω, 0)."""
+        return (self.omega(d), 0.0)
 
 
 def _pad_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -365,6 +391,61 @@ class PermK(CorrelatedCompressor):
         return dense.reshape(-1)[:d]
 
 
+@dataclasses.dataclass(frozen=True)
+class CorrelatedQ(CorrelatedCompressor):
+    """Correlated s-level quantization: each worker stochastically rounds
+    s·x/‖x‖ with a dither stratified across the collection, u_ij =
+    frac(v_j + (wid + r_j)/n), v and r shared (one round key for every
+    worker). Marginally u_ij ~ U[0, 1), so each worker is an unbiased
+    ω = d/(4s²) quantization; jointly the n dithers of a coordinate form a
+    stratified grid. (A, B) = (ω, 0): the correlation-free bound (the
+    cross-worker covariance can be positive for heterogeneous inputs). The
+    division by n is a true one (the reference's XLA may multiply by 1/n
+    under ``jit``: the same for n a power of two, ROADMAP C)."""
+
+    s: int = 4
+    name: str = dataclasses.field(default="correlated_qsgd", init=False)
+
+    def __post_init__(self):
+        if not 1 <= self.s <= 63:
+            raise ValueError("levels must fit int8 with the sign folded in")
+
+    def omega(self, d: int) -> float:
+        return d / (4.0 * self.s**2)
+
+    def expected_density(self, d: int) -> float:
+        return float(d)
+
+    def payload_bits(self, d: int) -> float:
+        return wire.correlated_q_bits(d, self.s)
+
+    def ab_constants(self, d: int, n: int) -> tuple:
+        return (self.omega(d), 0.0)
+
+    def quantize_worker(self, key, x: torch.Tensor, wid: int,
+                        norm: torch.Tensor) -> torch.Tensor:
+        """Worker ``wid``'s int8 levels ⌊s·x / safe + u⌋ against a given norm
+        (safe = norm, 1 where it is 0), each operation rounded once."""
+        n = self._n()
+        xf = x.to(torch.float32)
+        safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+        k_v, k_r = prng.split(key)
+        v = prng.uniform(k_v, tuple(x.shape), device=x.device)
+        r = prng.randint(k_r, tuple(x.shape), 0, n, device=x.device)
+        u = torch.remainder(v + (float(wid) + r.to(torch.float32)) / torch.tensor(
+            float(n), device=x.device), 1.0)
+        level = torch.floor((xf * float(self.s)) / safe + u)
+        return level.to(torch.int8)
+
+    def compress_worker(self, key, x, wid):
+        xf = x.to(torch.float32)
+        norm = torch.sqrt(torch.sum(xf * xf))
+        return {"q": self.quantize_worker(key, x, wid, norm), "norm": norm}
+
+    def decompress(self, payload, d):
+        return payload["norm"] * payload["q"].to(torch.float32) / float(self.s)
+
+
 # ---------------------------------------------------------------------------
 # TopK (biased, for EC-SGD), per-leaf QSGD and natural compression
 # ---------------------------------------------------------------------------
@@ -438,7 +519,7 @@ class QSGD(Compressor):
         xf = x.float()
         norm = torch.sqrt(torch.sum(xf * xf))
         safe = torch.where(norm > 0, norm, torch.ones_like(norm))
-        u = torch.from_numpy(prng.uniform(key, tuple(x.shape))).to(x.device)
+        u = prng.uniform(key, tuple(x.shape), device=x.device)
         level = torch.floor((xf.abs() * float(self.s)) / safe + u)
         return {"q": (torch.sign(xf) * level).to(torch.int8), "norm": norm}
 
@@ -472,7 +553,7 @@ class NaturalCompression(Compressor):
         keep = ax >= _ref.TINY
         lo = _ref.pow2_ref(torch.where(keep, _ref.float_exponent_ref(ax), 0))
         prob_up = torch.where(keep, (ax - lo) / lo, torch.zeros_like(ax))
-        up = torch.from_numpy(prng.uniform(key, tuple(x.shape))).to(x.device) < prob_up
+        up = prng.uniform(key, tuple(x.shape), device=x.device) < prob_up
         mag = torch.where(up, 2.0 * lo, lo)
         q = torch.where(keep, torch.sign(xf) * mag, torch.zeros_like(xf))
         return {"dense": q.to(x.dtype)}
@@ -526,6 +607,11 @@ def tree_decompress(comp: Compressor, payload_tree: _PayloadTree, like: PyTree
     return payload_tree.treedef.unflatten(outs)
 
 
+def tree_roundtrip(comp: Compressor, key, tree: PyTree) -> PyTree:
+    """Q applied leafwise, returning a dense tree (compress → decompress)."""
+    return tree_decompress(comp, tree_compress(comp, key, tree), tree)
+
+
 def tree_omega(comp: Compressor, tree: PyTree) -> float:
     """Effective ω of the leafwise compressor = max over leaves (worst case)."""
     return max(comp.omega(l.numel()) for l in tree_leaves(tree))
@@ -536,12 +622,17 @@ def tree_payload_bits(comp: Compressor, tree: PyTree) -> float:
     return sum(comp.payload_bits(l.numel()) for l in tree_leaves(tree))
 
 
+def tree_ab_constants(comp: Compressor, tree: PyTree, n: int) -> tuple:
+    """Collection (A, B) of the leafwise-lifted compressor: the worst leaf's
+    A and the smallest leaf's B bound the whole tree (the AB-inequality adds
+    over orthogonal coordinate blocks)."""
+    pairs = [comp.ab_constants(l.numel(), n) for l in tree_leaves(tree)]
+    return (max(a for a, _ in pairs), min(b for _, b in pairs))
+
+
 def tree_dim(tree: PyTree) -> int:
     """Total dimension d = Σ leaf sizes."""
     return sum(int(np.prod(l.shape)) for l in tree_leaves(tree))
-
-
-_NOT_PORTED = ("shared_randk", "correlated_qsgd", "correlated_q", "cqsgd")
 
 
 def make_compressor(name: str, **kw) -> Compressor:
@@ -557,14 +648,16 @@ def make_compressor(name: str, **kw) -> Compressor:
         return BlockQSGD(**kw)
     if name in ("block_natural", "flat_natural"):
         return BlockNatural(**kw)
+    if name == "shared_randk":
+        return SharedRandK(**kw)
     if name in ("permk", "perm_k"):
         return PermK(**kw)
+    if name in ("correlated_qsgd", "correlated_q", "cqsgd"):
+        return CorrelatedQ(**kw)
     if name == "topk":
         return TopK(**kw)
     if name == "qsgd":
         return QSGD(**kw)
     if name == "natural":
         return NaturalCompression()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"compressor {name!r} is not ported yet")
     raise ValueError(f"unknown compressor {name!r}")

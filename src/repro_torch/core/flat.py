@@ -170,7 +170,8 @@ def pack_stacked(layout: FlatLayout, tree: PyTree) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Backend-switched block primitives
+# Backend-switched block primitives (what the launch layer calls; the
+# engine below calls the wrappers itself)
 # ---------------------------------------------------------------------------
 
 
@@ -184,6 +185,101 @@ def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
            + (torch.arange(nblk, dtype=torch.int64, device=device) * kb)[:, None])
     bits = _ref.murmur_bits_ref(int(seed) & 0xFFFFFFFF, ctr)
     return (bits & (block - 1)).to(torch.int32)
+
+
+def _kernel(backend: str, tensor: torch.Tensor, wrapper, plain):
+    """The kernel wrapper, or its plain version under backend 'ref' ('cuda'
+    with a CPU tensor raises); on CPU tensors the wrappers return their plain
+    versions themselves."""
+    resolve_backend(backend, tensor)
+    return plain if backend == "ref" else wrapper
+
+
+def block_compress(x2d: torch.Tensor, seed: int, kb: int, scale: float,
+                   backend: str = "auto"):
+    """Seeded RandK over one block buffer under one uint32 seed: (nblk, B) →
+    values (x's dtype) and int32 offsets, both (nblk, kb); the offsets are
+    :func:`seeded_offsets` of the seed."""
+    fn = _kernel(backend, x2d, _randk.randk_seeded, _ref.randk_seeded_ref)
+    return fn(x2d, int(seed) & 0xFFFFFFFF, kb, scale)
+
+
+def block_compress_workers(x3d: torch.Tensor, seeds, kb: int, scale: float,
+                           backend: str = "auto"):
+    """Per-worker seeded RandK: (n, nblk, B) f32 + (n,) uint32 seeds →
+    values and offsets, both (n, nblk, kb)."""
+    fn = _kernel(backend, x3d, _randk.randk_seeded_workers, _ref.randk_seeded_workers_ref)
+    return fn(x3d, _randk.seeds_tensor(seeds, x3d.device), kb, scale)
+
+
+def block_gather(x2d: torch.Tensor, offsets: torch.Tensor, scale: float,
+                 backend: str = "auto") -> torch.Tensor:
+    """Gather and scale at host-supplied offsets: (nblk, B), (nblk, kb) int32
+    → (nblk, kb) in x's dtype."""
+    fn = _kernel(backend, x2d, _randk.randk_gather, _ref.randk_block_compress_ref)
+    return fn(x2d, offsets, scale)
+
+
+def block_scatter_mean(values: torch.Tensor, offsets: torch.Tensor, block: int,
+                       backend: str = "auto") -> torch.Tensor:
+    """Scatter-accumulate mean over workers: (n, nblk, kb) ×2 → (nblk, block)
+    f32; the only dense buffer is the one accumulator."""
+    fn = _kernel(backend, values, _randk.scatter_accum, _ref.scatter_accum_ref)
+    return fn(values, offsets, block)
+
+
+def block_permk_workers(x3d: torch.Tensor, seed: int, backend: str = "auto"):
+    """PermK uplink under ONE shared seed: (n, nblk, B) → values and offsets
+    (n, nblk, B/n); the n workers' offsets partition every block."""
+    fn = _kernel(backend, x3d, _permk.permk_seeded_workers, _ref.permk_seeded_workers_ref)
+    return fn(x3d, int(seed) & 0xFFFFFFFF)
+
+
+def permk_concat_mean(values: torch.Tensor, seed: int, block: int,
+                      backend: str = "auto") -> torch.Tensor:
+    """Scatter-free PermK aggregation: (n, nblk, B/n) payloads → (nblk, B)
+    mean by concatenation and an inverse-permutation gather (plain PyTorch
+    on every backend, as in the reference)."""
+    resolve_backend(backend, values)
+    return _ref.permk_concat_mean_ref(values, int(seed) & 0xFFFFFFFF, block)
+
+
+def block_qsgd_workers(x3d: torch.Tensor, seeds, s: int, backend: str = "auto"):
+    """Blockwise QSGD uplink: (n, nblk, B) + (n,) seeds → levels (n, nblk,
+    B) int8 and per-block norms (n, nblk) f32."""
+    fn = _kernel(backend, x3d, _quant.qsgd_block_workers, _ref.qsgd_block_workers_ref)
+    return fn(x3d, _randk.seeds_tensor(seeds, x3d.device), s)
+
+
+def block_qsgd_dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int,
+                            backend: str = "auto") -> torch.Tensor:
+    """Dequantize-and-mean: (n, nblk, B) int8 + (n, nblk) f32 → (nblk, B) f32."""
+    fn = _kernel(backend, levels, _quant.qsgd_dequant_mean, _ref.qsgd_dequant_mean_ref)
+    return fn(levels, norms, s)
+
+
+def block_natural_workers(x3d: torch.Tensor, seeds, backend: str = "auto"):
+    """Blockwise natural-compression uplink: (n, nblk, B) + (n,) seeds →
+    codes (n, nblk, B) int8 and scales (n, nblk) f32."""
+    fn = _kernel(backend, x3d, _quant.natural_block_workers, _ref.natural_block_workers_ref)
+    return fn(x3d, _randk.seeds_tensor(seeds, x3d.device))
+
+
+def block_natural_dequant_mean(codes: torch.Tensor, scales: torch.Tensor,
+                               backend: str = "auto") -> torch.Tensor:
+    """Decode-and-mean of natural payloads → (nblk, B) f32."""
+    fn = _kernel(backend, codes, _quant.natural_dequant_mean, _ref.natural_dequant_mean_ref)
+    return fn(codes, scales)
+
+
+def key_to_seed(key) -> int:
+    """PRNG key → uint32 seed for the counter-based kernel RNG."""
+    return prng.key_to_seed(key)
+
+
+def seeded_payload_bits(nblk: int, kb: int) -> float:
+    """Wire bits of one seeded-RandK payload (:mod:`repro_torch.core.wire`)."""
+    return wire.seeded_randk_bits(nblk, kb)
 
 
 def nibble_roundtrip(levels: torch.Tensor, block: int,

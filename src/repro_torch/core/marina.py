@@ -25,11 +25,13 @@ the workers (the reference's ``vmap``), written into one stacked tree.
   gradient, refreshed only for the sampled rows.
 
 * The compressed downlink (``down_engine``, a second flat engine over the
-  uplink's layout from :func:`repro_torch.core.flat.make_downlink`): on
-  compressed rounds the server broadcasts Q_down(δ_up) under the key
-  ``fold_in(key, _DOWN_FOLD)`` — the round's (k_bern, k_q) split is
-  untouched — and ``StepMetrics.down_bits`` books its payload instead of
-  the dense 32d broadcast.
+  uplink's layout from :func:`repro_torch.core.flat.make_downlink`, or
+  ``down_compressor``, a per-leaf tree compressor): on compressed rounds
+  the server broadcasts Q_down(δ_up) under the key ``fold_in(key,
+  _DOWN_FOLD)`` — the round's (k_bern, k_q) split is untouched — and
+  ``StepMetrics.down_bits`` books its payload instead of the dense 32d
+  broadcast. A fused carry round with an engine takes only a
+  ``down_engine`` (its epilogue kernel speaks the flat wire formats).
 
 * ``aggregator`` (:class:`repro_torch.core.aggregators.ServerAggregator`)
   replaces the server mean by a Byzantine-robust rule on both round types;
@@ -41,8 +43,6 @@ the workers (the reference's ``vmap``), written into one stacked tree.
   anchor h_i stays, and the ledger books only the uploads that arrived. The
   carry table keeps the honest gradients. Robust rules are refused on PermK
   and with client weights, ``drop`` under a robust rule.
-
-Not ported yet (raises): a per-leaf tree ``down_compressor``.
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ from .compressors import (
     Compressor,
     CorrelatedCompressor,
     Identity,
+    SharedRandK,
     tree_compress,
     tree_compress_worker,
     tree_decompress,
@@ -132,8 +133,9 @@ def _compressed_delta(comp: Compressor, engine: "FlatEngine | None", key,
                       diffs: PyTree, like: PyTree, n: int, aggregator=None) -> PyTree:
     """One compressed uplink round: (1/n) Σ_i Q(Δ_i). With an engine: the
     fused flat-buffer pipeline; without: the per-leaf tree path, with one
-    key per worker — or, for a correlated collection (PermK), the round key
-    shared by all workers, each told its index. A robust ``aggregator``
+    key per worker — except SharedRandK, whose workers all use the round key
+    (one mask), and the correlated collections (PermK, CorrelatedQ), where
+    every worker gets the round key and its index. A robust ``aggregator``
     replaces the mean by its rule over the decompressed payloads."""
     if engine is not None:
         return engine.fused_delta(key, diffs, n, aggregator)
@@ -144,30 +146,39 @@ def _compressed_delta(comp: Compressor, engine: "FlatEngine | None", key,
         payloads = [tree_compress_worker(comp, key, tree_worker_slice(diffs, w), w)
                     for w in range(n)]
     else:
+        keys = [key] * n if isinstance(comp, SharedRandK) else prng.split(key, n)
         payloads = [tree_compress(comp, k, tree_worker_slice(diffs, w))
-                    for w, k in enumerate(prng.split(key, n))]
+                    for w, k in enumerate(keys)]
     dense = tree_stack_workers([tree_decompress(comp, pl, like) for pl in payloads])
     if _robust(aggregator):
         return aggregator.combine_stacked(dense)
     return tree_mean_axis0(dense)
 
 
-def _down_roundtrip(down_engine: "FlatEngine | None", key, delta: PyTree) -> PyTree:
+def _down_roundtrip(down_comp: "Compressor | None", down_engine: "FlatEngine | None",
+                    key, delta: PyTree, like: PyTree) -> PyTree:
     """The compressed downlink on the aggregated round delta: the server
     broadcasts Q_down(δ_up) and every worker decompresses it — since
-    g^{k+1} − g^k = δ_up, this is the compressed estimator difference. The
-    identity without a downlink (dense broadcast)."""
-    if down_engine is None:
-        return delta
-    return down_engine.roundtrip_worker(key, delta)
+    g^{k+1} − g^k = δ_up, this is the compressed estimator difference.
+    Through the downlink engine, else the per-leaf compressor (``like``
+    gives the leaves' shapes and dtypes); the identity without either
+    (dense broadcast)."""
+    if down_engine is not None:
+        return down_engine.roundtrip_worker(key, delta)
+    if down_comp is not None:
+        return tree_decompress(down_comp, tree_compress(down_comp, key, delta), like)
+    return delta
 
 
-def _down_round_bits(down_engine: "FlatEngine | None", d: int) -> float:
+def _down_round_bits(down_comp: "Compressor | None", down_engine: "FlatEngine | None",
+                     like: PyTree, d: int) -> float:
     """Bits each worker receives on a compressed round: the downlink's one
     payload, or the dense 32d estimator without one."""
-    if down_engine is None:
-        return wire.downlink_dense_bits(d)
-    return down_engine.payload_bits(1)
+    if down_engine is not None:
+        return down_engine.payload_bits(1)
+    if down_comp is not None:
+        return float(tree_payload_bits(down_comp, like))
+    return wire.downlink_dense_bits(d)
 
 
 def _round_bits(comp: Compressor, engine: "FlatEngine | None", like: PyTree,
@@ -220,7 +231,8 @@ def _carry_finish(m, state: "MarinaState", c_k: bool, k_q, grads: PyTree,
     else:
         delta = _compressed_delta(m.compressor, None, k_q, make_diffs(),
                                   state.params, n, agg)
-        delta = _down_roundtrip(m.down_engine, k_down, delta)
+        delta = _down_roundtrip(m.down_compressor, m.down_engine, k_down, delta,
+                                state.params)
         g_next = tree_map(torch.add, state.g, delta)
     return tree_axpy(-m.gamma, g_next, state.params), g_next
 
@@ -262,12 +274,9 @@ def _check_downlink_config(m) -> None:
             "down_compressor only fits the tree paths")
 
 
-def _refuse_unported(m) -> None:
+def _check_config(m) -> None:
     _check_downlink_config(m)
     _check_robust_config(m)
-    if m.down_compressor is not None:
-        raise NotImplementedError(
-            f"{type(m).__name__}(down_compressor=...) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +378,8 @@ def _metrics(m, like: PyTree, gnorm, c_k: bool, oracle: float,
         if up_scale != 1.0:
             # float32, as the reference books it
             bits = float(np.float32(bits) * np.float32(up_scale))
-    down = bits_dense if c_k else _down_round_bits(m.down_engine, d)
+    down = bits_dense if c_k else _down_round_bits(m.down_compressor, m.down_engine,
+                                                    like, d)
     return StepMetrics(grad_est_norm=gnorm, bits_per_worker=bits,
                        sync_round=int(c_k), oracle_calls=oracle, down_bits=down)
 
@@ -402,7 +412,7 @@ class Marina:
     faults: Any = None
 
     def __post_init__(self):
-        _refuse_unported(self)
+        _check_config(self)
 
     def init(self, params: PyTree, batches: PyTree) -> MarinaState:
         grads = _per_worker_grads(self.grad_fn, params, batches)
@@ -433,8 +443,8 @@ class Marina:
             diffs = _uplink_faults(self.faults, k_f, diffs, ids, n)
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
                                       state.params, n, self.aggregator)
-            delta = _down_roundtrip(self.down_engine,
-                                    prng.fold_in(key, _DOWN_FOLD), delta)
+            delta = _down_roundtrip(self.down_compressor, self.down_engine,
+                                    prng.fold_in(key, _DOWN_FOLD), delta, state.params)
             g_next = tree_map(torch.add, state.g, delta)
 
         metrics = _metrics(self, state.params, tree_norm(g_next), c_k,
@@ -488,7 +498,7 @@ class VRMarina:
     faults: Any = None
 
     def __post_init__(self):
-        _refuse_unported(self)
+        _check_config(self)
 
     def init(self, params: PyTree, full_batches: PyTree) -> MarinaState:
         grads = _per_worker_grads(self.full_grad_fn, params, full_batches)
@@ -520,8 +530,8 @@ class VRMarina:
             diffs = _uplink_faults(self.faults, k_f, diffs, ids, n)
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
                                       state.params, n, self.aggregator)
-            delta = _down_roundtrip(self.down_engine,
-                                    prng.fold_in(key, _DOWN_FOLD), delta)
+            delta = _down_roundtrip(self.down_compressor, self.down_engine,
+                                    prng.fold_in(key, _DOWN_FOLD), delta, state.params)
             g_next = tree_map(torch.add, state.g, delta)
 
         oracle = (float(_batch_rows(full_batches)) if c_k
@@ -640,7 +650,7 @@ class PPMarina:
     faults: Any = None
 
     def __post_init__(self):
-        _refuse_unported(self)
+        _check_config(self)
         if self.weights is not None:
             w = torch.as_tensor(self.weights, dtype=torch.float32)
             self.weights = w / torch.sum(w)
@@ -686,8 +696,8 @@ class PPMarina:
             diffs = _uplink_faults(self.faults, k_f, diffs, sel, n)
             delta = _compressed_delta(self.compressor, self.engine, k_q, diffs,
                                       state.params, self.r, self.aggregator)
-            delta = _down_roundtrip(self.down_engine,
-                                    prng.fold_in(key, _DOWN_FOLD), delta)
+            delta = _down_roundtrip(self.down_compressor, self.down_engine,
+                                    prng.fold_in(key, _DOWN_FOLD), delta, state.params)
             g_next = tree_map(torch.add, state.g, delta)
 
         new_state = MarinaState(params=x_new, g=g_next, step=state.step + 1)
@@ -753,7 +763,8 @@ class PPMarina:
             grad_est_norm=gnorm, bits_per_worker=bits, sync_round=int(c_k),
             oracle_calls=1.0 if c_k else oracle_factor * self.r / n,
             down_bits=(wire.dense_f32_bits(d) if c_k
-                       else _down_round_bits(self.down_engine, d)))
+                       else _down_round_bits(self.down_compressor, self.down_engine,
+                                             like, d)))
 
     def step(self, state: MarinaState, key, batches: PyTree):
         if self.carry:

@@ -1,8 +1,10 @@
-"""Hand-written Hopper kernels of the compression and serving hot paths +
-plain versions.
+"""Hand-written Hopper kernels of the compression and serving hot paths and
+of the flat-vector wire, with their plain versions.
 
-* ``randk.py``    — seeded RandK uplink (`randk_seeded_workers`) and the
-                    server scatter-mean (`scatter_accum`), over
+* ``randk.py``    — seeded RandK uplink (`randk_seeded_workers`), the
+                    server scatter-mean (`scatter_accum`) and the
+                    flat-vector gathers (`randk_gather` at host-supplied
+                    offsets, `randk_seeded` under one seed), over
                     ``csrc/randk.cu``.
 * ``permk.py``    — PermK uplink with one shared seed
                     (`permk_seeded_workers`), over ``csrc/permk.cu``.
@@ -11,9 +13,11 @@ plain versions.
                     (`qsgd_dequant_mean`), the 4-bit words
                     (`nibble_pack`, `nibble_unpack`) and blockwise
                     natural compression (`natural_block_workers`,
-                    `natural_dequant_mean`) and the int8 KV-page rows
-                    (`absmax_quant_rows`, `absmax_dequant_rows`), over
-                    ``csrc/quantize.cu``.
+                    `natural_dequant_mean`), the int8 KV-page rows
+                    (`absmax_quant_rows`, `absmax_dequant_rows`) and the
+                    two-pass global-norm QSGD of the flat-vector wire
+                    (`block_sumsq`, `qsgd_quantize`, `qsgd_dequantize`),
+                    over ``csrc/quantize.cu``.
 * ``epilogue.py`` — fused server epilogues (`scatter_epilogue`,
                     `delta_epilogue`, `qsgd_epilogue`,
                     `natural_epilogue`, `mean_epilogue`) and the robust
@@ -22,6 +26,9 @@ plain versions.
 * ``paged.py``    — paged-KV decode attention (`paged_attn_decode`), over
                     ``csrc/paged.cu``, and the int8-page route
                     (`paged_attn_decode_q8`).
+* ``ops.py``      — the flat-vector wire (`randk_compress`,
+                    `randk_decompress_mean`, `qsgd_compress`,
+                    `qsgd_decompress`) over those wrappers.
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.
@@ -29,7 +36,7 @@ plain versions.
 
 from . import epilogue, paged, permk, quantize, randk, ref
 
-#: every kernel wrapper of the main paths, by name
+#: every kernel wrapper, by name
 KERNELS = {
     "randk_seeded_workers": randk.randk_seeded_workers,
     "scatter_accum": randk.scatter_accum,
@@ -50,6 +57,11 @@ KERNELS = {
     "absmax_quant_rows": quantize.absmax_quant_rows,
     "absmax_dequant_rows": quantize.absmax_dequant_rows,
     "paged_attn_decode": paged.paged_attn_decode,
+    "randk_gather": randk.randk_gather,
+    "randk_seeded": randk.randk_seeded,
+    "block_sumsq": quantize.block_sumsq,
+    "qsgd_quantize": quantize.qsgd_quantize,
+    "qsgd_dequantize": quantize.qsgd_dequantize,
 }
 
 

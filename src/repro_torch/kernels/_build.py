@@ -34,6 +34,9 @@ SIGNATURES = {
     "randk": {
         "randk_seeded_workers": (_P, _P, _P, _P, _I, _L, _I, _I, _F, _P),
         "scatter_accum": (_P, _P, _P, _I, _L, _I, _I, _P),
+        **{f"randk_gather_{t}": (_P, _P, _P, _L, _I, _I, _F, _P) for t in ("f32", "bf16")},
+        **{f"randk_seeded_{t}": (_P, _U, _P, _P, _L, _I, _I, _F, _P)
+           for t in ("f32", "bf16")},
     },
     "permk": {
         "permk_seeded_workers_f32": (_P, _U, _P, _P, _I, _L, _I, _P),
@@ -51,6 +54,9 @@ SIGNATURES = {
         "absmax_quant_rows_f32": (_P, _P, _P, _L, _I, _P),
         "absmax_quant_rows_bf16": (_P, _P, _P, _L, _I, _P),
         "absmax_dequant_rows": (_P, _P, _P, _L, _I, _P),
+        **{f"block_sumsq_{t}": (_P, _P, _L, _I, _P) for t in ("f32", "bf16")},
+        **{f"qsgd_quantize_{t}": (_P, _P, _P, _P, _L, _I, _P) for t in ("f32", "bf16")},
+        "qsgd_dequantize": (_P, _P, _P, _L, _I, _P),
     },
     "epilogue": {
         "scatter_epilogue_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _F, _P),

@@ -5,13 +5,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// sign(x)·floor((s·|x|) / safe + u) as int8, u = (bits >> 8)·2^-24 exactly
-__device__ __forceinline__ signed char qsgd_level(float x, float s, float safe,
-                                                  uint32_t bits) {
-  const float u = __fmul_rn((float)(bits >> 8), 5.9604644775390625e-08f);
+// sign(x)·floor((s·|x|) / safe + u) as int8
+__device__ __forceinline__ signed char qsgd_level_u(float x, float s, float safe,
+                                                    float u) {
   const float level = floorf(__fadd_rn(__fdiv_rn(__fmul_rn(s, fabsf(x)), safe), u));
   const int l = (int)level;
   return (signed char)(x > 0.0f ? l : (x < 0.0f ? -l : 0));
+}
+
+// the same with the dither u = (bits >> 8)·2^-24 exactly
+__device__ __forceinline__ signed char qsgd_level(float x, float s, float safe,
+                                                  uint32_t bits) {
+  return qsgd_level_u(x, s, safe, __fmul_rn((float)(bits >> 8), 5.9604644775390625e-08f));
 }
 
 // acc[k] = Σ_{w=0..n−1} level[w, i0 + k]·(norm[w, b] / s), k < 4, summed in

@@ -3,12 +3,14 @@
 // cross the wire in, and blockwise natural compression (power-of-two
 // stochastic rounding, int8 exponent-delta codes) with its decode-and-mean,
 // and the serving engine's int8 KV-page rows (per-row absmax quantize and its
+// dequantize), and the two-pass global-norm QSGD of the flat-vector wire
+// (Σx² per block, the levels against one norm and a host dither, the
 // dequantize).
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/quantize.py::
 // qsgd_block_workers, ::qsgd_dequant_mean, ::nibble_pack, ::nibble_unpack,
-// ::natural_block_workers, ::natural_dequant_mean, ::absmax_quant_rows and
-// ::absmax_dequant_rows.
+// ::natural_block_workers, ::natural_dequant_mean, ::absmax_quant_rows,
+// ::absmax_dequant_rows, ::block_sumsq, ::qsgd_quantize and ::qsgd_dequantize.
 // The TPU versions sweep one (1, B) VMEM tile per grid step in order; here
 // every (worker, block) row or group of coordinates is its own CTA or thread,
 // in no order, and nothing carries over between them.
@@ -29,13 +31,17 @@
 // reads each KV row (W = 32·NPL values, one warp per row) once into
 // registers, takes the row's max |x| with warp shuffles (exact in any order)
 // and writes W int8 codes and one f32 scale; absmax_dequant_rows is one
-// multiply per code, 4 codes per thread.
+// multiply per code, 4 codes per thread. block_sumsq reads x once (one CTA
+// per block, the blockwise norm's reduction) and writes one f32 per block;
+// qsgd_quantize reads x and the f32 dither and writes int8, 4 coordinates
+// per thread; qsgd_dequantize reads int8 and writes f32.
 //
 // Floating-point order (the plain versions in ref.py repeat it exactly):
-// * the block norm: thread t squares its 4 contiguous elements and adds them
-//   left to right; each warp adds its 32 partials in a halving tree
-//   (shfl_down by 16, 8, 4, 2, 1); warp 0 adds the warps' sums in a halving
-//   tree; then an IEEE square root;
+// * the block norm and block_sumsq: thread t squares its 4 contiguous
+//   elements and adds them left to right; each warp adds its 32 partials in
+//   a halving tree (shfl_down by 16, 8, 4, 2, 1); warp 0 adds the warps' sums
+//   in a halving tree (zero-padded to a power of two); then, for the norm,
+//   an IEEE square root;
 // * the level: floor((s·|x|) / safe + u), each operation rounded once
 //   (__fmul_rn, __fdiv_rn, __fadd_rn; no reciprocal, no FMA);
 // * the dequant-mean: from 0, worker by worker, acc + level·(norm_w / s),
@@ -70,6 +76,31 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[2] = __low2float(b); v[3] = __high2float(b);
 }
 
+// Σ of the squares of a row held 4 per thread by a CTA of B/4 threads (B a
+// multiple of 128), in the fixed order: each thread adds its 4 squares left
+// to right, each warp its 32 partials in a halving tree (shfl_down by 16, 8,
+// 4, 2, 1), then warp 0 the warps' sums in a halving tree, zero-padded to a
+// power of two. The result is valid in thread 0.
+__device__ __forceinline__ float block_sumsq4(const float v[4], float* warp_sums) {
+  const int t = threadIdx.x;
+  float p = __fmul_rn(v[0], v[0]);
+  p = __fadd_rn(p, __fmul_rn(v[1], v[1]));
+  p = __fadd_rn(p, __fmul_rn(v[2], v[2]));
+  p = __fadd_rn(p, __fmul_rn(v[3], v[3]));
+  for (int h = 16; h > 0; h >>= 1) p = __fadd_rn(p, __shfl_down_sync(0xffffffffu, p, h));
+  const int warps = blockDim.x >> 5;
+  if ((t & 31) == 0) warp_sums[t >> 5] = p;
+  __syncthreads();
+  float q = 0.0f;
+  if (t < 32) {
+    q = t < warps ? warp_sums[t] : 0.0f;
+    int width = 1;
+    while (width < warps) width <<= 1;
+    for (int h = width >> 1; h > 0; h >>= 1) q = __fadd_rn(q, __shfl_down_sync(0xffffffffu, q, h));
+  }
+  return q;
+}
+
 // One CTA of B/4 threads per (w, b) row: the row's norm, then its B levels.
 template <typename XT>
 __global__ void qsgd_block_workers_kernel(const XT* __restrict__ x,
@@ -86,21 +117,10 @@ __global__ void qsgd_block_workers_kernel(const XT* __restrict__ x,
   float v[4];
   load4(x + row * block + 4 * t, v);
 
-  float p = __fmul_rn(v[0], v[0]);
-  p = __fadd_rn(p, __fmul_rn(v[1], v[1]));
-  p = __fadd_rn(p, __fmul_rn(v[2], v[2]));
-  p = __fadd_rn(p, __fmul_rn(v[3], v[3]));
-  for (int h = 16; h > 0; h >>= 1) p = __fadd_rn(p, __shfl_down_sync(0xffffffffu, p, h));
-  const int warps = blockDim.x >> 5;
-  if ((t & 31) == 0) warp_sums[t >> 5] = p;
-  __syncthreads();
-  if (t < 32) {
-    float q = t < warps ? warp_sums[t] : 0.0f;
-    for (int h = warps >> 1; h > 0; h >>= 1) q = __fadd_rn(q, __shfl_down_sync(0xffffffffu, q, h));
-    if (t == 0) {
-      row_norm = __fsqrt_rn(q);
-      norms[row] = row_norm;
-    }
+  const float sumsq = block_sumsq4(v, warp_sums);
+  if (t == 0) {
+    row_norm = __fsqrt_rn(sumsq);
+    norms[row] = row_norm;
   }
   __syncthreads();
   const float norm = row_norm;
@@ -304,6 +324,68 @@ __global__ void absmax_dequant_rows_kernel(const int8_t* __restrict__ codes,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Two-pass global-norm QSGD (the flat-vector wire, ops.py): Σx² per block,
+// then the levels against one norm and a host-supplied dither, and the
+// dequantize. The norm sqrt(Σ_b sumsq_b) is taken between the passes,
+// outside any kernel; it arrives here as a device scalar.
+// ---------------------------------------------------------------------------
+
+// One CTA of B/4 threads per block: out[b] = Σ_j x[b, j]², in block_sumsq4's
+// order (that of the blockwise norm, without the square root).
+template <typename XT>
+__global__ void block_sumsq_kernel(const XT* __restrict__ x, float* __restrict__ out,
+                                   int block) {
+  __shared__ float warp_sums[32];
+  const int64_t row = blockIdx.x;
+  float v[4];
+  load4(x + row * block + 4 * threadIdx.x, v);
+  const float sumsq = block_sumsq4(v, warp_sums);
+  if (threadIdx.x == 0) out[row] = sumsq;
+}
+
+// One thread per 4 coordinates: sign(x)·floor((s·|x|) / safe + u) as int8,
+// safe = norm (1 where it is 0), each operation rounded once.
+template <typename XT>
+__global__ void qsgd_quantize_kernel(const XT* __restrict__ x, const float* __restrict__ u,
+                                     const float* __restrict__ norm,
+                                     int8_t* __restrict__ q, int64_t quads, float s) {
+  const float nv = *norm;
+  const float safe = nv > 0.0f ? nv : 1.0f;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += stride) {
+    float v[4];
+    load4(x + 4 * i, v);
+    const float4 d = reinterpret_cast<const float4*>(u)[i];
+    char4 l;
+    l.x = qsgd_level_u(v[0], s, safe, d.x);
+    l.y = qsgd_level_u(v[1], s, safe, d.y);
+    l.z = qsgd_level_u(v[2], s, safe, d.z);
+    l.w = qsgd_level_u(v[3], s, safe, d.w);
+    reinterpret_cast<char4*>(q)[i] = l;
+  }
+}
+
+// One thread per 4 levels: out = level·(norm / s), the divide and the
+// multiply each rounded.
+__global__ void qsgd_dequantize_kernel(const int8_t* __restrict__ q,
+                                       const float* __restrict__ norm,
+                                       float* __restrict__ out, int64_t quads, float s) {
+  const float scale = __fdiv_rn(*norm, s);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += stride) {
+    const char4 l = reinterpret_cast<const char4*>(q)[i];
+    float4 o;
+    o.x = __fmul_rn((float)l.x, scale);
+    o.y = __fmul_rn((float)l.y, scale);
+    o.z = __fmul_rn((float)l.z, scale);
+    o.w = __fmul_rn((float)l.w, scale);
+    reinterpret_cast<float4*>(out)[i] = o;
+  }
+}
+
 static unsigned grid_for(long long work, int threads) {
   long long grid = (work + threads - 1) / threads;
   if (grid > 1048576) grid = 1048576;  // grid-stride loops cover the rest
@@ -418,5 +500,49 @@ extern "C" int absmax_dequant_rows(const void* codes, const void* scales, void* 
   absmax_dequant_rows_kernel<<<grid_for(rows * width / 4, 256), 256, 0,
                                (cudaStream_t)stream>>>(
       (const int8_t*)codes, (const float*)scales, (float*)out, rows, width);
+  return (int)cudaGetLastError();
+}
+
+
+template <typename XT>
+static int launch_block_sumsq(const void* x, void* out, long long nblk, int block,
+                              void* stream) {
+  block_sumsq_kernel<XT><<<(unsigned)nblk, block / 4, 0, (cudaStream_t)stream>>>(
+      (const XT*)x, (float*)out, block);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int block_sumsq_f32(const void* x, void* out, long long nblk, int block,
+                               void* stream) {
+  return launch_block_sumsq<float>(x, out, nblk, block, stream);
+}
+
+extern "C" int block_sumsq_bf16(const void* x, void* out, long long nblk, int block,
+                                void* stream) {
+  return launch_block_sumsq<__nv_bfloat16>(x, out, nblk, block, stream);
+}
+
+template <typename XT>
+static int launch_qsgd_quantize(const void* x, const void* u, const void* norm, void* q,
+                                long long size, int s, void* stream) {
+  qsgd_quantize_kernel<XT><<<grid_for(size / 4, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const XT*)x, (const float*)u, (const float*)norm, (int8_t*)q, size / 4, (float)s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qsgd_quantize_f32(const void* x, const void* u, const void* norm, void* q,
+                                 long long size, int s, void* stream) {
+  return launch_qsgd_quantize<float>(x, u, norm, q, size, s, stream);
+}
+
+extern "C" int qsgd_quantize_bf16(const void* x, const void* u, const void* norm, void* q,
+                                  long long size, int s, void* stream) {
+  return launch_qsgd_quantize<__nv_bfloat16>(x, u, norm, q, size, s, stream);
+}
+
+extern "C" int qsgd_dequantize(const void* q, const void* norm, void* out, long long size,
+                               int s, void* stream) {
+  qsgd_dequantize_kernel<<<grid_for(size / 4, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)q, (const float*)norm, (float*)out, size / 4, (float)s);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,24 @@
 // Seeded RandK uplink and server scatter-mean for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels src/repro/kernels/randk.py::randk_seeded_workers
-// and ::scatter_accum. The TPU versions move irregular indices through the MXU as
-// one-hot matmuls; here an indexed load (gather) and an indexed shared-memory add
-// (scatter) take their place.
+// Replaces the Pallas TPU kernels src/repro/kernels/randk.py::randk_seeded_workers,
+// ::scatter_accum, ::randk_gather and ::randk_seeded. The TPU versions move
+// irregular indices through the MXU as one-hot matmuls; here an indexed load
+// (gather) and an indexed shared-memory add (scatter) take their place. (The
+// one-hot matmul also turns a gathered −0 into +0 and spreads a ±inf or NaN
+// anywhere in the block to every gathered value; the indexed load gathers
+// exactly, as the reference's oracle does: ROADMAP C.)
 //
-// Both kernels are bound by device-memory bytes, not operations: the gather reads
-// one f32 per sampled slot from a 4 KiB block and writes a value and an offset;
-// the scatter reads n·kb payload pairs per block and writes one (B,) row.
+// All are bound by device-memory bytes, not operations: a gather reads one
+// value per sampled slot from a 4 KiB block (a 32-byte sector in practice) and
+// writes a value and an offset, or reads the offset; the scatter reads n·kb
+// payload pairs per block and writes one (B,) row. randk_gather and
+// randk_seeded take x in f32 or bf16 and multiply in f32, rounding the
+// product once to x's type, as the Pallas bodies do.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +66,48 @@ __global__ void scatter_accum_kernel(const float* __restrict__ vals,
     out[b * block + j] = __fdiv_rn(acc[j], fn);
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// One thread per (b, t) of the host-supplied offsets: value = x[b, off]·scale,
+// the product in f32 rounded once to x's type. An offset outside [0, B) reads
+// nothing and gives NaN.
+template <typename XT>
+__global__ void randk_gather_kernel(const XT* __restrict__ x,
+                                    const int32_t* __restrict__ offs,
+                                    XT* __restrict__ vals, int64_t total, int block,
+                                    int kb, float scale) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const int32_t off = offs[i];
+    const float v = (off >= 0 && off < block)
+                        ? __fmul_rn(to_f32(x[(i / kb) * block + off]), scale)
+                        : __int_as_float(0x7fc00000);
+    store_as(vals + i, v);
+  }
+}
+
+// One thread per (b, t) of one buffer under one seed: offset =
+// murmur(seed, b·kb + t) & (B − 1) — the counter is the flat index i, wrapped
+// to 32 bits as in the oracle — and value = x[b, offset]·scale as above.
+template <typename XT>
+__global__ void randk_seeded_kernel(const XT* __restrict__ x, uint32_t seed,
+                                    XT* __restrict__ vals, int32_t* __restrict__ offs,
+                                    int64_t total, int block, int kb, float scale) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const uint32_t off = murmur_bits(seed, (uint32_t)i) & (uint32_t)(block - 1);
+    store_as(vals + i, __fmul_rn(to_f32(x[(i / kb) * block + off]), scale));
+    offs[i] = (int32_t)off;
+  }
+}
+
 static int grid_for(int64_t total, int threads) {
   int64_t g = (total + threads - 1) / threads;
   if (g > 1048576) g = 1048576;  // grid-stride loop covers the rest
@@ -90,4 +139,48 @@ extern "C" int scatter_accum(const void* vals, const void* offs, void* out, int 
   scatter_accum_kernel<<<(unsigned)nblk, 128, smem, (cudaStream_t)stream>>>(
       (const float*)vals, (const int32_t*)offs, (float*)out, n, nblk, block, kb);
   return (int)cudaGetLastError();
+}
+
+
+template <typename XT>
+static int launch_gather(const void* x, const void* offs, void* vals, long long nblk,
+                         int block, int kb, float scale, void* stream) {
+  const int64_t total = (int64_t)nblk * kb;
+  randk_gather_kernel<XT><<<grid_for(total, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const XT*)x, (const int32_t*)offs, (XT*)vals, total, block, kb, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int randk_gather_f32(const void* x, const void* offs, void* vals,
+                                long long nblk, int block, int kb, float scale,
+                                void* stream) {
+  return launch_gather<float>(x, offs, vals, nblk, block, kb, scale, stream);
+}
+
+extern "C" int randk_gather_bf16(const void* x, const void* offs, void* vals,
+                                 long long nblk, int block, int kb, float scale,
+                                 void* stream) {
+  return launch_gather<__nv_bfloat16>(x, offs, vals, nblk, block, kb, scale, stream);
+}
+
+template <typename XT>
+static int launch_seeded(const void* x, uint32_t seed, void* vals, void* offs,
+                         long long nblk, int block, int kb, float scale, void* stream) {
+  const int64_t total = (int64_t)nblk * kb;
+  randk_seeded_kernel<XT><<<grid_for(total, 256), 256, 0, (cudaStream_t)stream>>>(
+      (const XT*)x, seed, (XT*)vals, (int32_t*)offs, total, block, kb, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int randk_seeded_f32(const void* x, uint32_t seed, void* vals, void* offs,
+                                long long nblk, int block, int kb, float scale,
+                                void* stream) {
+  return launch_seeded<float>(x, seed, vals, offs, nblk, block, kb, scale, stream);
+}
+
+extern "C" int randk_seeded_bf16(const void* x, uint32_t seed, void* vals, void* offs,
+                                 long long nblk, int block, int kb, float scale,
+                                 void* stream) {
+  return launch_seeded<__nv_bfloat16>(x, seed, vals, offs, nblk, block, kb, scale,
+                                      stream);
 }

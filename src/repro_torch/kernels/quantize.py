@@ -5,9 +5,11 @@ Ports ``repro.kernels.quantize::qsgd_block_workers`` (blockwise s-level
 QSGD uplink: int8 levels + one f32 norm per block), ``::qsgd_dequant_mean``
 (the server's dequantize-and-mean), ``::nibble_pack`` / ``::nibble_unpack``
 (the 4-bit wire: eight two's-complement nibbles per 32-bit word), the
-natural wire (``::natural_block_workers``, ``::natural_dequant_mean``) and
+natural wire (``::natural_block_workers``, ``::natural_dequant_mean``),
 the serving engine's int8 KV-page rows (``::absmax_quant_rows``,
-``::absmax_dequant_rows``). A wrapper
+``::absmax_dequant_rows``) and the two-pass global-norm QSGD of the
+flat-vector wire (``::block_sumsq``, ``::qsgd_quantize``,
+``::qsgd_dequantize``). A wrapper
 given CUDA tensors launches its kernel (or raises); given CPU tensors it
 returns the plain version from :mod:`repro_torch.kernels.ref`. Each wrapper
 counts its launches in ``<wrapper>.launches``.
@@ -24,9 +26,8 @@ import torch
 
 from . import _build
 from . import ref as _ref
+from .randk import X_SUFFIX as _X_SUFFIX
 from .randk import _check_block, _stream
-
-_X_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def check_cuda_buffers(*tensors: torch.Tensor) -> None:
@@ -264,3 +265,91 @@ def absmax_dequant_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tens
 
 
 absmax_dequant_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Two-pass global-norm QSGD (the flat-vector wire, ``ops.py``)
+# ---------------------------------------------------------------------------
+
+
+def _check_flat_qsgd(x2d: torch.Tensor, s: "int | None" = None) -> None:
+    """Shapes the global-norm QSGD kernels take: 4 coordinates per thread
+    (B % 4 == 0), and for ``block_sumsq`` one CTA of B/4 threads per block."""
+    if x2d.shape[1] % 4:
+        raise ValueError(f"block width {x2d.shape[1]} must be a multiple of 4")
+    if s is not None and not 1 <= s <= 126:
+        raise ValueError(f"s={s} does not fit the int8 levels (|level| ≤ s + 1)")
+
+
+def block_sumsq(x2d: torch.Tensor) -> torch.Tensor:
+    """Σx² of every block: (nblk, B) f32 or bf16 → (nblk,) f32, in the order
+    of the blockwise norm (pass 1 of the global-norm QSGD)."""
+    nblk, B = x2d.shape
+    if not x2d.is_cuda:
+        return _ref.block_sumsq_ref(x2d)
+    if B % 128 or not 128 <= B <= 4096:
+        raise ValueError(f"block width {B} must be a multiple of 128 in [128, 4096]")
+    if x2d.dtype not in _X_SUFFIX:
+        raise ValueError("block_sumsq takes an f32 or bf16 buffer")
+    check_cuda_buffers(x2d)
+    out = torch.empty((nblk,), dtype=torch.float32, device=x2d.device)
+    lib = _build.library("quantize")
+    err = getattr(lib, f"block_sumsq_{_X_SUFFIX[x2d.dtype]}")(
+        x2d.data_ptr(), out.data_ptr(), nblk, B, _stream())
+    _build.check(err, "block_sumsq")
+    block_sumsq.launches += 1
+    return out
+
+
+block_sumsq.launches = 0
+
+
+def qsgd_quantize(x2d: torch.Tensor, u2d: torch.Tensor, norm: torch.Tensor,
+                  s: int) -> torch.Tensor:
+    """Pass 2: (nblk, B) f32 or bf16 x, (nblk, B) f32 dither u and the global
+    norm (a 0-d f32 tensor) → (nblk, B) int8 levels ``sign(x)·⌊s·|x| / safe +
+    u⌋``, safe = norm (1 where it is 0)."""
+    _check_flat_qsgd(x2d, s)
+    if tuple(u2d.shape) != tuple(x2d.shape):
+        raise ValueError(f"dither {tuple(u2d.shape)} does not match x {tuple(x2d.shape)}")
+    if not x2d.is_cuda:
+        return _ref.qsgd_quantize_ref(x2d, u2d, norm, s)
+    if x2d.dtype not in _X_SUFFIX or u2d.dtype != torch.float32:
+        raise ValueError("qsgd_quantize takes f32 or bf16 x and an f32 dither")
+    if norm.dtype != torch.float32 or norm.numel() != 1:
+        raise ValueError("the norm is one f32 value")
+    check_cuda_buffers(x2d, u2d, norm)
+    q = torch.empty(x2d.shape, dtype=torch.int8, device=x2d.device)
+    lib = _build.library("quantize")
+    err = getattr(lib, f"qsgd_quantize_{_X_SUFFIX[x2d.dtype]}")(
+        x2d.data_ptr(), u2d.data_ptr(), norm.data_ptr(), q.data_ptr(), x2d.numel(),
+        int(s), _stream())
+    _build.check(err, "qsgd_quantize")
+    qsgd_quantize.launches += 1
+    return q
+
+
+qsgd_quantize.launches = 0
+
+
+def qsgd_dequantize(q2d: torch.Tensor, norm: torch.Tensor, s: int) -> torch.Tensor:
+    """(nblk, B) int8 levels and the global norm (0-d f32) → (nblk, B) f32
+    ``level·(norm / s)``."""
+    _check_flat_qsgd(q2d, s)
+    if not q2d.is_cuda:
+        return _ref.qsgd_dequantize_ref(q2d, norm, s)
+    if q2d.dtype != torch.int8:
+        raise ValueError("qsgd_dequantize takes int8 levels")
+    if norm.dtype != torch.float32 or norm.numel() != 1:
+        raise ValueError("the norm is one f32 value")
+    check_cuda_buffers(q2d, norm)
+    out = torch.empty(q2d.shape, dtype=torch.float32, device=q2d.device)
+    lib = _build.library("quantize")
+    err = lib.qsgd_dequantize(q2d.data_ptr(), norm.data_ptr(), out.data_ptr(),
+                              q2d.numel(), int(s), _stream())
+    _build.check(err, "qsgd_dequantize")
+    qsgd_dequantize.launches += 1
+    return out
+
+
+qsgd_dequantize.launches = 0

@@ -1,10 +1,12 @@
-"""Seeded RandK uplink and server scatter-mean: wrappers of the Hopper
-kernels in ``csrc/randk.cu``.
+"""Seeded RandK uplink, server scatter-mean and the flat-vector gathers:
+wrappers of the Hopper kernels in ``csrc/randk.cu``.
 
-Ports ``repro.kernels.randk::randk_seeded_workers`` and ``::scatter_accum``.
-A wrapper given CUDA tensors launches its kernel (or raises); given CPU
-tensors it returns the plain version from :mod:`repro_torch.kernels.ref`.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Ports ``repro.kernels.randk::randk_seeded_workers``, ``::scatter_accum``,
+``::randk_gather`` (host-supplied offsets) and ``::randk_seeded`` (one
+buffer, one seed). A wrapper given CUDA tensors launches its kernel (or
+raises); given CPU tensors it returns the plain version from
+:mod:`repro_torch.kernels.ref`. Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ import torch
 
 from . import _build
 from . import ref as _ref
+
+#: entry-point suffix by x dtype, for the kernels that take f32 or bf16
+X_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _stream() -> int:
@@ -26,7 +31,10 @@ def _check_block(B: int) -> None:
 
 
 def seeds_tensor(seeds, device) -> torch.Tensor:
-    """uint32 seed values → (n,) int32 tensor holding the same bit patterns."""
+    """uint32 seed values (a sequence, a numpy array or a tensor) → (n,)
+    int32 tensor on ``device`` holding the same bit patterns."""
+    if isinstance(seeds, torch.Tensor):
+        return (seeds.reshape(-1).to(torch.int64) & 0xFFFFFFFF).to(device).to(torch.int32)
     arr = np.asarray(seeds, dtype=np.uint32).reshape(-1).view(np.int32)
     return torch.from_numpy(arr.copy()).to(device)
 
@@ -90,3 +98,65 @@ def _check_payload(values: torch.Tensor, offsets: torch.Tensor) -> None:
         raise ValueError("values and offsets must match in shape and device")
     if not (values.is_contiguous() and offsets.is_contiguous()):
         raise ValueError("payloads must be contiguous")
+
+
+def _check_gather(x2d: torch.Tensor, kb: int) -> None:
+    nblk, B = x2d.shape
+    if not 1 <= kb <= B:
+        raise ValueError(f"kb={kb} must lie in [1, {B}]")
+    if x2d.dtype not in X_SUFFIX:
+        raise ValueError("the RandK gathers take an f32 or bf16 buffer")
+
+
+def randk_gather(x2d: torch.Tensor, offsets: torch.Tensor, scale: float) -> torch.Tensor:
+    """Gather host-supplied offsets and scale: (nblk, B) f32 or bf16 +
+    (nblk, kb) int32 offsets in [0, B) → (nblk, kb) ``x[b, off]·scale`` in
+    x's dtype (the product in f32, rounded once)."""
+    nblk, kb = offsets.shape
+    _check_gather(x2d, kb)
+    if x2d.shape[0] != nblk:
+        raise ValueError(f"offsets {tuple(offsets.shape)} do not match x {tuple(x2d.shape)}")
+    if not x2d.is_cuda:
+        return _ref.randk_block_compress_ref(x2d, offsets, scale)
+    if offsets.dtype != torch.int32 or offsets.device != x2d.device:
+        raise ValueError("offsets must be an int32 tensor on x's device")
+    if not (x2d.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError("randk_gather takes contiguous tensors")
+    vals = torch.empty((nblk, kb), dtype=x2d.dtype, device=x2d.device)
+    lib = _build.library("randk")
+    err = getattr(lib, f"randk_gather_{X_SUFFIX[x2d.dtype]}")(
+        x2d.data_ptr(), offsets.data_ptr(), vals.data_ptr(), nblk, x2d.shape[1], kb,
+        float(scale), _stream())
+    _build.check(err, "randk_gather")
+    randk_gather.launches += 1
+    return vals
+
+
+randk_gather.launches = 0
+
+
+def randk_seeded(x2d: torch.Tensor, seed: int, kb: int, scale: float):
+    """Seeded RandK over one (nblk, B) f32 or bf16 buffer under one uint32
+    seed: offsets ``murmur3(seed, b·kb + t) & (B − 1)`` (int32) and values
+    ``x[b, off]·scale`` in x's dtype, both (nblk, kb)."""
+    nblk, B = x2d.shape
+    _check_block(B)
+    _check_gather(x2d, kb)
+    if nblk * kb > 2**32:
+        raise ValueError("the counter b·kb + t must fit in 32 bits")
+    if not x2d.is_cuda:
+        return _ref.randk_seeded_ref(x2d, seed, kb, scale)
+    if not x2d.is_contiguous():
+        raise ValueError("randk_seeded takes a contiguous buffer")
+    vals = torch.empty((nblk, kb), dtype=x2d.dtype, device=x2d.device)
+    offs = torch.empty((nblk, kb), dtype=torch.int32, device=x2d.device)
+    lib = _build.library("randk")
+    err = getattr(lib, f"randk_seeded_{X_SUFFIX[x2d.dtype]}")(
+        x2d.data_ptr(), int(seed) & 0xFFFFFFFF, vals.data_ptr(), offs.data_ptr(), nblk, B,
+        kb, float(scale), _stream())
+    _build.check(err, "randk_seeded")
+    randk_seeded.launches += 1
+    return vals, offs
+
+
+randk_seeded.launches = 0

@@ -55,9 +55,27 @@ def _as_u32_int64(seeds: torch.Tensor) -> torch.Tensor:
     return seeds.to(torch.int64) & _MASK
 
 
+def scale_values(gathered: torch.Tensor, scale: float) -> torch.Tensor:
+    """``gathered · scale`` as the Pallas RandK bodies compute it: the
+    product in f32 (the gathered value times f32(scale)), rounded once to
+    the input's dtype. For f32 input this is also the reference oracle's
+    product; for bf16 the oracle first rounds the scale to bf16 (ROADMAP C)."""
+    return (gathered.to(torch.float32) * torch.tensor(
+        scale, dtype=torch.float32, device=gathered.device)).to(gathered.dtype)
+
+
+def randk_block_compress_ref(x2d: torch.Tensor, offsets: torch.Tensor,
+                             scale: float) -> torch.Tensor:
+    """Gather host-supplied offsets and scale: x2d (nblk, B), offsets
+    (nblk, kb) int32 in [0, B) → (nblk, kb) ``x[b, off] · scale`` in x's
+    dtype (the plain version of ``randk_gather``)."""
+    return scale_values(torch.gather(x2d, 1, offsets.to(torch.int64)), scale)
+
+
 def randk_seeded_ref(x2d: torch.Tensor, seed, kb: int, scale: float):
     """Seeded RandK over one (nblk, B) buffer: offsets from the murmur3
-    counter stream ``b·kb + t``, values ``x[b, off] · scale``."""
+    counter stream ``b·kb + t``, values ``x[b, off] · scale`` (the plain
+    version of ``randk_seeded``)."""
     vals, offs = randk_seeded_workers_ref(
         x2d[None], torch.as_tensor([int(seed) & _MASK], device=x2d.device), kb, scale
     )
@@ -77,8 +95,7 @@ def randk_seeded_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
     s = _as_u32_int64(seeds.to(dev)).view(n, 1, 1)
     bits = murmur_bits_ref(s, ctr[None])
     offs = (bits & (B - 1)).to(torch.int32)
-    gathered = torch.gather(x3d, 2, offs.to(torch.int64))
-    vals = gathered * torch.tensor(scale, dtype=x3d.dtype, device=dev)
+    vals = scale_values(torch.gather(x3d, 2, offs.to(torch.int64)), scale)
     return vals, offs
 
 
@@ -263,34 +280,46 @@ def uniform_from_bits_ref(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * 2.0**-24
 
 
-def qsgd_block_norms_ref(x3d: torch.Tensor) -> torch.Tensor:
-    """ℓ2 norm of every (w, b) row of (n, nblk, B), in the kernel's order:
-    thread t squares its 4 contiguous elements and adds them left to right,
-    each warp of (up to) 32 threads adds its partials in a halving tree
-    (p_i + p_{i+h}, h = 16, 8, …, 1), the warps' sums are added in a halving
-    tree in turn, and the square root is IEEE. Returns (n, nblk) f32. (The
-    reference sums with XLA's reduction, whose order is not specified: see
-    ROADMAP C.)"""
+def _sumsq_kernel_order(x3d: torch.Tensor) -> torch.Tensor:
+    """Σx² of every (w, b) row of (n, nblk, B) in f32, in the kernels'
+    order: thread t squares its 4 contiguous elements and adds them left to
+    right, each warp of (up to) 32 threads adds its partials in a halving
+    tree (p_i + p_{i+h}, h = 16, 8, …, 1), and the warps' sums are added in
+    a halving tree in turn, zero-padded to a power of two (adding +0 to a
+    sum of squares is exact). Returns (n, nblk) f32."""
     n, nblk, B = x3d.shape
-    if B % 4:
-        raise ValueError(f"block width {B} must be a multiple of 4")
+    lanes = min(B // 4, 32)
+    if B % 4 or (B // 4) % lanes or B // 4 // lanes > 32:
+        raise ValueError(f"block width {B} must be a multiple of 4, and of 128 above 128, "
+                         "with at most 32 warps")
     x = x3d.to(torch.float32)
     sq = x * x
     p = ((sq[..., 0::4] + sq[..., 1::4]) + sq[..., 2::4]) + sq[..., 3::4]
-    lanes = min(B // 4, 32)
     p = p.reshape(n, nblk, B // 4 // lanes, lanes)
     while p.shape[-1] > 1:
         h = p.shape[-1] // 2
         p = p[..., :h] + p[..., h:]
     p = p[..., 0]
+    warps = p.shape[-1]
+    width = 1 << (warps - 1).bit_length()
+    if width != warps:
+        p = torch.nn.functional.pad(p, (0, width - warps))
     while p.shape[-1] > 1:
         h = p.shape[-1] // 2
         p = p[..., :h] + p[..., h:]
-    return torch.sqrt(p[..., 0])
+    return p[..., 0]
 
 
-def qsgd_quantize_ref(x3d: torch.Tensor, norms: torch.Tensor, seeds: torch.Tensor,
-                      s: int) -> torch.Tensor:
+def qsgd_block_norms_ref(x3d: torch.Tensor) -> torch.Tensor:
+    """ℓ2 norm of every (w, b) row of (n, nblk, B): the IEEE square root of
+    :func:`_sumsq_kernel_order`'s Σx² (the kernel's fixed order). Returns
+    (n, nblk) f32. (The reference sums with XLA's reduction, whose order is
+    not specified: see ROADMAP C.)"""
+    return torch.sqrt(_sumsq_kernel_order(x3d))
+
+
+def qsgd_block_quantize_ref(x3d: torch.Tensor, norms: torch.Tensor,
+                            seeds: torch.Tensor, s: int) -> torch.Tensor:
     """The quantize step of blockwise QSGD against given block norms:
     ``sign(x)·⌊s·|x| / safe + u⌋`` as int8, safe = norm (1 where it is 0),
     each operation rounded once (multiply, divide, add), with the dither u
@@ -307,10 +336,50 @@ def qsgd_quantize_ref(x3d: torch.Tensor, norms: torch.Tensor, seeds: torch.Tenso
         ctr = torch.arange(b0, b1, dtype=torch.int64, device=dev)[:, None] * B + j
         for w in range(n):
             u = uniform_from_bits_ref(murmur_bits_ref(s_seeds[w], ctr))
-            x = x3d[w, b0:b1].to(torch.float32)
-            level = torch.floor((x.abs() * float(s)) / safe[w, b0:b1, None] + u)
-            out[w, b0:b1] = (torch.sign(x) * level).to(torch.int8)
+            out[w, b0:b1] = _qsgd_levels(x3d[w, b0:b1], u, safe[w, b0:b1, None], s)
     return out
+
+
+def _qsgd_levels(x: torch.Tensor, u: torch.Tensor, safe: torch.Tensor,
+                 s: int) -> torch.Tensor:
+    """``sign(x)·⌊(s·|x|) / safe + u⌋`` as int8, each operation rounded once."""
+    x = x.to(torch.float32)
+    level = torch.floor((x.abs() * float(s)) / safe + u)
+    return (torch.sign(x) * level).to(torch.int8)
+
+
+# -- the two-pass global-norm QSGD (the flat-vector wire, ``ops.py``) --------
+
+
+def block_sumsq_ref(x2d: torch.Tensor) -> torch.Tensor:
+    """Σx² of every block of (nblk, B) f32 / bf16, in f32 and in the order of
+    :func:`qsgd_block_norms_ref` (the kernel's), without the square root:
+    pass 1 of the global-norm QSGD. Returns (nblk,) f32."""
+    return _sumsq_kernel_order(x2d[None])[0]
+
+
+def qsgd_quantize_ref(x2d: torch.Tensor, u2d: torch.Tensor, norm: torch.Tensor,
+                      s: int) -> torch.Tensor:
+    """Pass 2 of the global-norm QSGD: ``sign(x)·⌊s·|x| / safe + u⌋`` as int8
+    against ONE norm (a 0-d f32 tensor), safe = norm (1 where it is 0), with
+    the host-supplied dither u2d (nblk, B) f32; each operation rounded once.
+    x2d (nblk, B) f32 / bf16 → (nblk, B) int8."""
+    nblk, _ = x2d.shape
+    norm = norm.to(device=x2d.device, dtype=torch.float32)
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    out = torch.empty(x2d.shape, dtype=torch.int8, device=x2d.device)
+    for b0 in range(0, nblk, _ROW_CHUNK):
+        b1 = min(nblk, b0 + _ROW_CHUNK)
+        out[b0:b1] = _qsgd_levels(x2d[b0:b1], u2d[b0:b1], safe, s)
+    return out
+
+
+def qsgd_dequantize_ref(q2d: torch.Tensor, norm: torch.Tensor, s: int) -> torch.Tensor:
+    """``level · (norm / s)`` in f32: the divide (a true one) and the multiply
+    each rounded. q2d (nblk, B) int8 → (nblk, B) f32."""
+    scale = norm.to(device=q2d.device, dtype=torch.float32) / torch.tensor(
+        float(s), device=q2d.device)
+    return q2d.to(torch.float32) * scale
 
 
 def qsgd_block_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
@@ -318,7 +387,7 @@ def qsgd_block_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
     seeds → (levels (n, nblk, B) int8, norms (n, nblk) f32). Each block is
     quantized against its own norm; every worker's counters restart at 0."""
     norms = qsgd_block_norms_ref(x3d)
-    return qsgd_quantize_ref(x3d, norms, seeds, s), norms
+    return qsgd_block_quantize_ref(x3d, norms, seeds, s), norms
 
 
 def qsgd_block_ref(x2d: torch.Tensor, seed, s: int):

@@ -10,10 +10,18 @@ trajectory under the same keys, these draws must agree to the bit. This
 module reimplements them under JAX 0.9's defaults (``jax_default_prng_impl =
 threefry2x32``, ``jax_threefry_partitionable = True``).
 
-Keys and draws are tiny host-side values (the per-round work is a handful of
-hashes), so the arithmetic runs in numpy ``uint32``, whose wrap-around
-arithmetic is exact; the results are numpy arrays. A key is a ``(2,)``
-``uint32`` array, a stack of keys ``(..., 2)``.
+Keys and most draws are tiny host-side values (the per-round work is a
+handful of hashes), so the arithmetic runs in numpy ``uint32``, whose
+wrap-around arithmetic is exact; the results are numpy arrays. A key is a
+``(2,)`` ``uint32`` array, a stack of keys ``(..., 2)``.
+
+``bits``, ``uniform`` and ``randint`` also draw on a device
+(``device=...``): the flat-vector wire needs one dither or offset per
+coordinate of a full model (``kernels/ops.py``), where the host arrays would
+take minutes and tens of GB. There the cipher runs in PyTorch ``int64``
+masked to 32 bits (PyTorch's ``uint32`` lacks ``+`` and ``>>`` on the CPU),
+in chunks of the counter range, and returns tensors bit-equal to the numpy
+draws.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 _U32 = np.uint32
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -85,8 +94,11 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array([b1[0], b2[0]], _U32)
 
 
-def bits(key, shape: tuple = ()) -> np.ndarray:
-    """``jax.random.bits(key, shape, uint32)``."""
+def bits(key, shape: tuple = (), device=None):
+    """``jax.random.bits(key, shape, uint32)``: a numpy uint32 array, or with
+    ``device`` an int64 tensor on it holding the uint32 values."""
+    if device is not None:
+        return _device_draw(key, shape, device, torch.int64, lambda b: b)
     key = np.asarray(key, _U32)
     shape = tuple(shape)
     if shape:
@@ -97,9 +109,12 @@ def bits(key, shape: tuple = ()) -> np.ndarray:
     return b1 ^ b2
 
 
-def uniform(key, shape: tuple = ()) -> np.ndarray:
+def uniform(key, shape: tuple = (), device=None):
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
-    bits become the mantissa of a float in [1, 2), minus one."""
+    bits become the mantissa of a float in [1, 2), minus one. A numpy
+    array, or with ``device`` a tensor on it."""
+    if device is not None:
+        return _device_draw(key, shape, device, torch.float32, _uniform_from_bits_t)
     b = bits(key, shape)
     f = ((b >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - np.float32(1.0)
     return np.maximum(np.float32(0.0), f)
@@ -110,14 +125,17 @@ def bernoulli(key, p: float, shape: tuple = ()) -> np.ndarray:
     return uniform(key, shape) < np.float32(p)
 
 
-def randint(key, shape: tuple, minval: int, maxval: int) -> np.ndarray:
+def randint(key, shape: tuple, minval: int, maxval: int, device=None):
     """``jax.random.randint(key, shape, minval, maxval)`` in int32: two
     ``bits`` streams reduced modulo the span, the high one through the
-    multiplier ``(2^16 mod span)^2 mod span``, all in wrapping uint32."""
+    multiplier ``(2^16 mod span)^2 mod span``, all in wrapping uint32. A
+    numpy array, or with ``device`` a tensor on it."""
     if not -(2**31) <= minval <= maxval <= 2**31 - 1:
         raise ValueError("minval and maxval must be int32 values, minval <= maxval")
     shape = tuple(shape)
     k1, k2 = split(key)
+    if device is not None:
+        return _device_randint(k1, k2, shape, minval, maxval, device)
     hi = bits(k1, shape).reshape(-1).astype(np.uint64)
     lo = bits(k2, shape).reshape(-1).astype(np.uint64)
     span = max(maxval - minval, 1)  # JAX returns minval when maxval <= minval
@@ -128,6 +146,82 @@ def randint(key, shape: tuple, minval: int, maxval: int) -> np.ndarray:
     off = (off & mask) % np.uint64(span)
     out = (off.astype(np.int64) + minval + 2**31) % 2**32 - 2**31  # int32 wrap
     return out.astype(np.int32).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Device draws: the same cipher in int64 tensors, chunk by chunk
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+#: counters per chunk of a device draw: bounds its int64 temporaries
+#: (results do not depend on it — every counter is hashed on its own)
+_CHUNK = 1 << 23
+
+
+def _threefry2x32_t(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+    """:func:`threefry2x32` on int64 tensors of uint32 values, every sum
+    masked to 32 bits; x1 and x2 are overwritten."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = x1.add_(ks[0]).bitwise_and_(_M32)
+    x1 = x2.add_(ks[1]).bitwise_and_(_M32)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0.add_(x1).bitwise_and_(_M32)
+            x1 = (x1 << r).bitwise_and_(_M32).bitwise_or_(x1 >> (32 - r))
+            x1.bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M32)
+    return x0, x1
+
+
+def _bits_chunk(key, c0: int, c1: int, device) -> torch.Tensor:
+    """``bits`` of the flat counters [c0, c1) as int64 uint32 values."""
+    key = np.asarray(key, _U32)
+    idx = torch.arange(c0, c1, dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32_t(int(key[0]), int(key[1]), idx >> 32, idx & _M32)
+    return b1.bitwise_xor_(b2)
+
+
+def _device_draw(key, shape: tuple, device, dtype, finish) -> torch.Tensor:
+    """A draw of ``shape`` on ``device``: ``finish`` maps each chunk's bits
+    to the output values."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    out = torch.empty((n,), dtype=dtype, device=device)
+    for c0 in range(0, n, _CHUNK):
+        c1 = min(n, c0 + _CHUNK)
+        out[c0:c1] = finish(_bits_chunk(key, c0, c1, device))
+    return out.reshape(shape)
+
+
+def _uniform_from_bits_t(b: torch.Tensor) -> torch.Tensor:
+    """uniform's float32 from int64 uint32 bits: mantissa bits → [1, 2) − 1."""
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f, 0.0)
+
+
+def _mul32_t(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2^32 for int64 x in [0, 2^32) and c < 2^32, the constant
+    split into 16-bit halves so no product overflows int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _device_randint(k1, k2, shape: tuple, minval: int, maxval: int, device):
+    """:func:`randint` on ``device`` from its two subkeys."""
+    n = math.prod(shape)
+    span = max(maxval - minval, 1)
+    m = 2**16 % span
+    mult = ((m * m) & _M32) % span
+    out = torch.empty((n,), dtype=torch.int32, device=device)
+    for c0 in range(0, n, _CHUNK):
+        c1 = min(n, c0 + _CHUNK)
+        hi = _bits_chunk(k1, c0, c1, device)
+        lo = _bits_chunk(k2, c0, c1, device)
+        off = ((_mul32_t(hi % span, mult) + lo % span) & _M32) % span
+        out[c0:c1] = ((off + minval + 2**31) % 2**32 - 2**31).to(torch.int32)
+    return out.reshape(shape)
 
 
 def permutation(key, n: int) -> np.ndarray:

@@ -8,9 +8,11 @@ builds the fused flat engine for the ``block_randk``, ``permk``,
 ``block_qsgd`` and ``block_natural`` compressors (MARINA family; the
 baselines compress on the per-leaf tree path, as in the reference), and
 keeps the communication ledger in bits actually uplinked and received.
-``downlink`` (``"qsgd"``, ``"randk"`` or ``"natural"``, with
-``downlink_kwargs`` ``s`` / ``kb``) compresses the server's broadcast
-through a second engine over the uplink's layout; it and ``carry_grads``
+``downlink`` compresses the server's broadcast: with a flat engine through
+a second engine over the uplink's layout (``"qsgd"``, ``"randk"`` or
+``"natural"``, with ``downlink_kwargs`` ``s`` / ``kb``), without one
+through the named per-leaf compressor (``make_compressor(downlink,
+**downlink_kwargs)``); it and ``carry_grads``
 are MARINA-family dials, refused elsewhere, as are ``aggregator`` (a rule
 of :data:`repro_torch.core.aggregators.RULES`, with ``aggregator_f``) and
 ``faults`` (an attack of :data:`repro_torch.core.faults.ATTACKS`, with
@@ -29,8 +31,7 @@ step at a time (PyTorch is eager) and records each step's wall time and
 round type. With ``nonfinite_guard`` a step whose new state holds any NaN/inf
 (a ``nan`` attack under the plain mean) is reverted and counted as skipped.
 
-Not ported yet: checkpointing, a downlink without a flat engine (a
-per-leaf tree compressor), the Dirichlet data dial, prefix embeddings
+Not ported yet: checkpointing, the Dirichlet data dial, prefix embeddings
 (raise).
 """
 
@@ -113,7 +114,8 @@ class TrainConfig:
     flat_backend: str = "auto"         # kernel backend for the flat engine
     carry_grads: bool = False
     # compressed downlink: the sampler of Q_down(g^{k+1} − g^k) over the flat
-    # engine's layout ("qsgd" | "randk" | "natural"; None = dense broadcast)
+    # engine's layout ("qsgd" | "randk" | "natural"), or without an engine a
+    # per-leaf compressor's name; None = dense broadcast
     downlink: Optional[str] = None
     downlink_kwargs: dict = dataclasses.field(default_factory=dict)
     # Byzantine-robust server aggregation and client faults (MARINA family):
@@ -225,22 +227,21 @@ class Trainer:
             self.engine = make_engine(self.params0, block=comp.block,
                                       backend=train_cfg.flat_backend,
                                       sampler="natural", device=self.device)
-        self.down_engine = self._downlink(train_cfg)
-        tc, carry, down = train_cfg, train_cfg.carry_grads, self.down_engine
+        self.down_engine, self.down_comp = self._downlink(train_cfg)
+        tc, carry = train_cfg, train_cfg.carry_grads
+        down = dict(down_compressor=self.down_comp, down_engine=self.down_engine)
         if m == "marina":
             self.method = Marina(grad_fn, comp, tc.gamma, self.p, self.engine,
-                                 carry=carry, down_engine=down, aggregator=agg,
-                                 faults=fspec)
+                                 carry=carry, aggregator=agg, faults=fspec, **down)
         elif m == "vr_marina":
             self.method = VRMarina(grad_fn, grad_fn, comp, tc.gamma, self.p,
-                                   self.engine, carry=carry, down_engine=down,
-                                   aggregator=agg, faults=fspec)
+                                   self.engine, carry=carry, aggregator=agg,
+                                   faults=fspec, **down)
         elif m == "pp_marina":
             self.method = PPMarina(grad_fn, comp, tc.gamma, self.p,
                                    tc.r_participating, self.engine,
-                                   down_engine=down, replace=tc.pp_replace,
-                                   weights=tc.pp_weights, carry=carry,
-                                   aggregator=agg, faults=fspec)
+                                   replace=tc.pp_replace, weights=tc.pp_weights,
+                                   carry=carry, aggregator=agg, faults=fspec, **down)
         elif m == "gd":
             self.method = make_gd(grad_fn, tc.gamma)
         elif m == "diana":
@@ -257,21 +258,21 @@ class Trainer:
             self.method = ECSGD(grad_fn, comp, tc.gamma, tc.n_workers)
 
     def _downlink(self, tc: TrainConfig):
-        """The downlink engine over the uplink engine's layout (the name is
-        its sampler), or None for the dense broadcast."""
+        """(downlink engine, per-leaf downlink compressor): with a flat
+        engine, a second engine over its layout (the name is its sampler);
+        without one, the named tree compressor; (None, None) for the dense
+        broadcast."""
         if tc.downlink is None:
-            return None
+            return None, None
+        dkw = tc.downlink_kwargs
         if self.engine is None:
-            raise NotImplementedError(
-                "a downlink without a flat engine (a per-leaf tree compressor) "
-                "is not ported yet")
+            return None, make_compressor(tc.downlink, **dkw)
         name = tc.downlink.removeprefix("block_")
         if name not in ("randk", "qsgd", "natural"):
             raise ValueError(f"downlink {tc.downlink!r} is not broadcastable "
                              "(permk partitions across receivers)")
-        dkw = tc.downlink_kwargs
         return make_downlink(self.engine, sampler=name, kb=dkw.get("kb"),
-                             s=dkw.get("s"))
+                             s=dkw.get("s")), None
 
     # ------------------------------------------------------------------
     def _batches(self, step: int, per_worker: int) -> dict:

@@ -10,7 +10,10 @@ and the code shows without a card. The small-input phase (the randk_qsgd
 engine's launches and ledger, the baselines' ledgers, the robust and fault
 runs' launches and the drop ledger, the deadline contract) and the natural
 and trimmed kernel phases (shapes, edge values, the timing table, with a
-host clock in place of the CUDA events) are rehearsed the same way.
+host clock in place of the CUDA events) are rehearsed the same way, and so
+are the per-leaf wires of the small-input phase (SharedRandK, CorrelatedQ,
+a per-leaf QSGD downlink), the flat-wire kernel phase and the wire phase
+(``WIRE_LAUNCHES``, the seeded payloads, the gathers, the plain run).
 """
 
 import os
@@ -78,6 +81,7 @@ def test_small_input_phase_runs_as_chip_smoke_expects(monkeypatch):
         f"{m}_{c}" for m, c in chip_smoke.BASELINES}
     assert set(report["small_input_robust"]) == set(chip_smoke.SMALL_ROBUST)
     assert report["small_input_deadline"]["uploaded_compressed"] == chip_smoke.N_WORKERS - 1
+    assert set(report["small_input_leafwise"]) == set(chip_smoke.SMALL_LEAFWISE)
 
 
 def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
@@ -213,3 +217,45 @@ def test_compare_streams_accepts_only_near_ties():
         except chip_smoke.SmokeFailure:
             continue
         raise AssertionError("a divergence past a clear margin was accepted")
+
+
+def test_wire_kernel_phase_runs_at_a_tiny_width(monkeypatch):
+    """The flat-wire kernel phase: full-width shapes cut to 3 blocks, the
+    edge inputs, bounds and table rows, with a host clock in place of the
+    CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    report = {}
+    rows = chip_smoke.check_wire_kernels(3, "cpu", report)
+    assert set(rows) == {"randk_gather", "randk_seeded", "block_sumsq", "qsgd_quantize",
+                         "qsgd_dequantize"}
+    for row in rows.values():
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+        assert row["max_abs_err"] == 0.0
+    assert rows["randk_gather"]["bytes"] == 3 * chip_smoke.KB * 12
+    assert rows["block_sumsq"]["library_ms"] == 1.0
+    assert rows["randk_seeded"]["library_ms"] is None
+    timed = {(t["kernel"], t["x"]) for t in report["kernels_wire"]}
+    assert len(timed) == 9  # the dequantize reads int8 levels: timed once
+    assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)
+
+
+def test_wire_path_launches_what_chip_smoke_expects(monkeypatch):
+    """The wire phase on a reduced LM: exactly ``WIRE_LAUNCHES``, the seeded
+    payloads, gathers, levels, nonzeros and wire bits as the card run checks
+    them, and the plain run identical."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(configs, "get_arch",
+                        lambda name: type("Arch", (), {"model": TINY}))
+    for name in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    _count_plain_launches(monkeypatch)
+    report = {}
+    launches = chip_smoke.run_wire_path(report)  # raises SmokeFailure on a drift
+    kernels.reset_launch_counts()
+    assert {k: v for k, v in launches["wire"].items() if v} == chip_smoke.WIRE_LAUNCHES
+    assert set(report["wire"]["seconds_per_call"]) == {
+        "randk_compress", "randk_decompress_mean", "block_compress", "block_gather",
+        "qsgd_compress", "qsgd_decompress"}

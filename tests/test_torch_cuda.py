@@ -1,4 +1,4 @@
-"""The nineteen CUDA kernels against their plain PyTorch versions on the card.
+"""The twenty-four CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -623,3 +623,106 @@ def test_serve_on_card_matches_plain_versions(dev, quantized):
             assert not any(counts.values())
         streams.append([r.generated for r in reqs])
     assert streams[0] == streams[1]
+
+
+# -- the flat-vector wire: randk_gather, randk_seeded, block_sumsq,
+#    qsgd_quantize, qsgd_dequantize ----------------------------------------
+
+WIRE_SHAPES = [(37, 1024, 20), (11, 256, 16), (5, 128, 8), (3, 384, 24)]
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WIRE_SHAPES, ids=str)
+def test_flat_wire_gathers_bit_equal_on_card(dev, shape, xdtype):
+    nblk, B, kb = shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    x[0, :3] = torch.tensor([-0.0, float("inf"), -float("inf")])
+    offs = torch.randint(0, B, (nblk, kb), generator=gen, device=dev, dtype=torch.int32)
+    offs[0, :3] = torch.tensor([0, 1, 2], dtype=torch.int32)
+    kernels.reset_launch_counts()
+    got = randk.randk_gather(x, offs, B / kb)
+    assert torch.equal(_bits(got), _bits(ref.randk_block_compress_ref(x, offs, B / kb)))
+    seeded = 3 if B & (B - 1) == 0 else 0  # the seeded offsets mask by B − 1
+    for seed in (0, 2**31 + 3, 2**32 - 1)[:seeded]:
+        v, o = randk.randk_seeded(x, seed, kb, B / kb)
+        vr, orf = ref.randk_seeded_ref(x, seed, kb, B / kb)
+        assert torch.equal(o, orf) and torch.equal(_bits(v), _bits(vr))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["randk_gather"] == 1
+    assert kernels.launch_counts()["randk_seeded"] == seeded
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WIRE_SHAPES, ids=str)
+def test_global_norm_qsgd_bit_equal_on_card(dev, shape, xdtype):
+    nblk, B, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = (3 * torch.randn((nblk, B), generator=gen, device=dev)).to(xdtype)
+    x[0] = 0.0
+    u = torch.rand((nblk, B), generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    sq = quantize.block_sumsq(x)
+    assert torch.equal(_bits(sq), _bits(ref.block_sumsq_ref(x))) and float(sq[0]) == 0.0
+    norm = torch.sqrt(torch.sum(sq.double())).float()
+    for s in (1, 7, 15):
+        # a zero norm (safe = 1) only at s = 1: s·|x| + u must fit int8
+        for nv in (norm, torch.zeros_like(norm))[:2 if s == 1 else 1]:
+            q = quantize.qsgd_quantize(x, u, nv, s)
+            assert torch.equal(q, ref.qsgd_quantize_ref(x, u, nv, s))
+            d = quantize.qsgd_dequantize(q, nv, s)
+            assert torch.equal(_bits(d), _bits(ref.qsgd_dequantize_ref(q, nv, s)))
+    assert int(quantize.qsgd_quantize(x, u, norm, 7).abs().max()) <= 7
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["block_sumsq"] == 1
+    assert kernels.launch_counts()["qsgd_quantize"] == 5
+
+
+def test_flat_wire_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 256), device=dev)
+    offs = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="power of two"):
+        randk.randk_seeded(torch.zeros((4, 384), device=dev), 1, 8, 1.0)
+    with pytest.raises(ValueError, match="int32"):
+        randk.randk_gather(x, offs.long(), 1.0)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        randk.randk_seeded(x.double(), 1, 8, 1.0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        quantize.block_sumsq(torch.zeros((4, 64), device=dev))
+    with pytest.raises(ValueError, match="one f32 value"):
+        quantize.qsgd_quantize(x, x, torch.zeros(2, device=dev), 7)
+    with pytest.raises(ValueError, match="int8"):
+        quantize.qsgd_dequantize(x, torch.tensor(1.0, device=dev), 7)
+
+
+def test_flat_wire_ops_on_card_match_plain_versions(dev):
+    """``ops`` and the flat block primitives through the kernels against
+    ``backend="ref"`` on the card, bit for bit."""
+    from repro_torch import prng
+    from repro_torch.core import flat
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    d = 5 * 1024 + 300
+    x = torch.randn((d,), generator=gen, device=dev)
+    key = prng.PRNGKey(3)
+    for backend in ("auto", "cuda"):
+        v, o = ops.randk_compress(x, key, 20, 1024, backend)
+        vr, orf = ops.randk_compress(x, key, 20, 1024, "ref")
+        assert torch.equal(o, orf) and torch.equal(v, vr)
+        dense = ops.randk_decompress_mean(v[None], o[None], d, 1024, backend)
+        assert torch.equal(dense, ops.randk_decompress_mean(vr[None], orf[None], d, 1024, "ref"))
+        q, n = ops.qsgd_compress(x, key, 7, 1024, backend)
+        qr, nr = ops.qsgd_compress(x, key, 7, 1024, "ref")
+        assert torch.equal(q, qr) and torch.equal(n, nr)
+        assert torch.equal(ops.qsgd_decompress(q, n, 7, d, 1024, backend),
+                           ops.qsgd_decompress(qr, nr, 7, d, 1024, "ref"))
+        x2d = ops.pad_to_blocks(x, 1024)
+        bv, bo = flat.block_compress(x2d, 12345, 20, 51.2, backend)
+        bvr, bor = flat.block_compress(x2d, 12345, 20, 51.2, "ref")
+        assert torch.equal(bo, bor) and torch.equal(bv, bvr)
+        assert torch.equal(flat.block_gather(x2d, bo, 51.2, backend), bv)

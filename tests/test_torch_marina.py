@@ -408,7 +408,7 @@ def test_no_downlink_books_dense_broadcast(data):
 def test_downlink_refusals():
     """carry + engine consumes the downlink inside the epilogue kernel: a
     per-leaf down_compressor there is refused (ValueError, as in the
-    reference); elsewhere a tree down_compressor is not ported yet."""
+    reference); elsewhere a tree down_compressor is taken."""
     _, _, comp, eng = _wire("engine_randk")
     tree_down = RandK(k=16)
     for make in (lambda **kw: Marina(binclass_grad, comp, 0.05, 0.3, **kw),
@@ -416,6 +416,6 @@ def test_downlink_refusals():
                  lambda **kw: PPMarina(binclass_grad, comp, 0.05, 0.3, 2, **kw)):
         with pytest.raises(ValueError, match="down_engine"):
             make(engine=eng, carry=True, down_compressor=tree_down)
-        with pytest.raises(NotImplementedError):
-            make(engine=eng, carry=False, down_compressor=tree_down)
+        assert make(engine=eng, carry=False, down_compressor=tree_down).down_compressor \
+            is tree_down
         make(engine=eng, carry=True, down_engine=make_downlink(eng))

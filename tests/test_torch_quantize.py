@@ -131,7 +131,7 @@ def test_qsgd_block_workers_matches_reference(n, s, xdtype):
     assert ulp_diff(tn, jn) <= NORM_ULP
     assert int(tl.abs().max()) <= s
     # the quantize step alone, fed the reference's norms: bit-equal
-    tq = tref.qsgd_quantize_ref(tx, _t(np.asarray(jn)), tseeds, s)
+    tq = tref.qsgd_block_quantize_ref(tx, _t(np.asarray(jn)), tseeds, s)
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jl))
     # with the port's own norms: flips only next to an integer, counted
     arg = _floor_arg(np.asarray(jx.astype(jnp.float32)), np.asarray(jn), seeds, s)
@@ -245,4 +245,4 @@ def test_quantize_wrappers_launch_nothing_on_cpu():
     tk.quantize.qsgd_dequant_mean(lv, nm, 7)
     tk.epilogue.qsgd_epilogue(lv, nm, torch.zeros(3, 128), torch.zeros(3, 128), 0.1, 7)
     counts = tk.launch_counts()
-    assert len(counts) == 19 and not any(counts.values())
+    assert len(counts) == 24 and not any(counts.values())

@@ -719,8 +719,8 @@ def test_config_refusals_match_reference():
     with pytest.raises(ValueError, match="weights"):
         PPMarina(lambda x, b: x, RandK(k=4), 0.1, 0.5, r=2, weights=[1.0, 2.0],
                  aggregator=ServerAggregator("krum", f=0))
-    with pytest.raises(NotImplementedError, match="down_compressor"):
-        Marina(lambda x, b: x, RandK(k=4), 0.1, 0.5, down_compressor=RandK(k=4))
+    # a per-leaf downlink is no refusal (as in the reference)
+    Marina(lambda x, b: x, RandK(k=4), 0.1, 0.5, down_compressor=RandK(k=4))
 
 
 def test_robust_n_eff_and_gamma_equal_reference():

@@ -9,7 +9,8 @@
   for all three on the packed QSGD wire (``wire.block_qsgd_bits``) and with
   a QSGD downlink, whose per-step down ledger is the Q_down payload on
   compressed rounds and 32·d on sync rounds; the downlink's refusals (non
-  marina-family methods, PermK, no flat engine).
+  marina-family methods, PermK), and without a flat engine the per-leaf
+  compressor it names.
 * ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   ``repro`` (checked in a fresh interpreter).
 * Entry points default to the card and raise without one: the trainer,
@@ -156,8 +157,8 @@ def test_trainer_block_qsgd_default_p_is_bits_balanced():
 def test_trainer_downlink_refusals():
     """A downlink refuses loudly where it cannot be wired: on methods
     outside the MARINA family (the broadcast would stay dense while the user
-    believes it compressed), for PermK (a partition, not a broadcast), and
-    without a flat engine (a per-leaf tree downlink is not ported yet)."""
+    believes it compressed) and for PermK over an engine (a partition, not a
+    broadcast). Without a flat engine it is the named per-leaf compressor."""
     params = init_params(0, CFG, device="cpu")
     for method in ("diana", "dcgd", "ec_sgd", "gd"):
         with pytest.raises(ValueError, match="downlink"):
@@ -168,8 +169,9 @@ def test_trainer_downlink_refusals():
     assert tr.down_engine.sampler == "natural"  # ported: no refusal
     tc = _tc(False, downlink="qsgd")
     tc.compressor, tc.comp_kwargs = "randk", {"k": 0.01}  # the per-leaf tree path
-    with pytest.raises(NotImplementedError, match="flat engine"):
-        Trainer(CFG, tc, params, device="cpu")
+    tr = Trainer(CFG, tc, params, device="cpu")
+    assert tr.down_engine is None and tr.down_comp.name == "qsgd"
+    assert tr.method.down_compressor is tr.down_comp
 
 
 def test_trainer_methods_not_ported_raise():
