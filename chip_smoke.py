@@ -28,10 +28,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    The serving kernels: ``absmax_quant_rows`` / ``absmax_dequant_rows``
    bit-equal at decode's and prefill's row counts of the serve shape
    (W = 64), at R = 2^20 (W = 128) and on edge rows (a zero row, .5 ties,
-   ±0, ±127·scale), rows f32 and bf16; ``paged_attn_decode`` at the serve
+   ±0, ±127·scale), rows f32 and bf16, and ``absmax_dequant_rows`` at every
+   width of ``DEQUANT_WIDTHS`` (its shift path and its tail branch);
+   ``paged_attn_decode`` at the serve
    shape (8 slots, H = KV = 16, hd = 64, 36 pages of 16) and a GQA stress
    shape (64 slots, H = 64, KV = 8, hd = 128, 256 pages of 16, n_valid in
-   [1, 4096]), f32 and bf16, within |Δ| ≤ 1e-5·max|v| (f32) or one bf16 ulp
+   [1, 4096]), f32 and bf16, and at the cluster split's edges
+   (``paged_edge_n_valid``), within |Δ| ≤ 1e-5·max|v| (f32) or one bf16 ulp
    of each output row's largest magnitude (bf16), with
    ``scaled_dot_product_attention`` on the pre-gathered dense cache printed
    beside it as a comparison. The flat-vector wire's five kernels at full
@@ -42,9 +45,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``jax.random.uniform`` dither (levels bit-equal) and ``qsgd_dequantize``
    (bit-equal), each on small edge inputs too (±0, ±inf, zero rows, a zero
    norm, |x| = norm, exact ties).
-   Median times over 20+ launches (CUDA events) for the kernel, its plain
-   version and, where one exists, the one PyTorch call that computes the
-   same function.
+   For the kernel, its plain version and, where one exists, the one PyTorch
+   call that computes the same function: the median single-call time (CUDA
+   events around each of 25 calls; 5 for the plain version) and the
+   back-to-back time (events around 25 calls in a row, ÷ 25); for the
+   serving kernels also the device time from a ``torch.profiler`` trace
+   (the kernels' own durations), and the ``absmax_dequant_rows`` wrapper's
+   host microseconds, piece by piece (``dequant_host_us``).
 4. small input — a reduced dense LM trained 4 steps on the card through the
    kernels and through their plain versions (``flat_backend="ref"``) on
    every main path below, and on MARINA over the ``randk_qsgd`` engine
@@ -308,6 +315,10 @@ PAGED_SHAPES = {"serve": (SERVE_SLOTS, 16, 16, 64, SERVE_PAGE, 36),
                 "gqa_stress": (64, 64, 8, 128, 16, 256)}
 #: absmax row shapes (R, W): decode's R = S·KV and prefill's R = chunk·KV at
 #: the serve width, and R = 2^20 at W = 128
+#: absmax_dequant_rows widths checked bit for bit: every power of two of the
+#: shift path (the serve path gives it 64, 128), and the tail branch's
+#: multiples of 4 that are not powers of two or are below 16
+DEQUANT_WIDTHS = (16, 32, 64, 128, 256, 4, 8, 36, 100)
 ABSMAX_SHAPES = {"serve_decode": (SERVE_SLOTS * 16, 64),
                  "serve_prefill": (SERVE_CHUNK * 16, 64), "large": (1 << 20, 128)}
 #: small-input serve runs: (prompt:gen pairs with shared stems, engine dials)
@@ -348,7 +359,9 @@ def ulp_diff(a, b) -> int:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median of ``reps`` single-call times, each between two CUDA events."""
+    """Median of ``reps`` single-call times, each between two CUDA events:
+    what one call costs a caller that waits for it, the wrapper's host work
+    included where it outlasts the device's."""
     import torch
 
     fn()
@@ -363,6 +376,65 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, n: int = 25) -> float:
+    """CUDA events around ``n`` calls in a row after a warm-up call, ÷ n: the
+    device time per call where the host keeps ahead of the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = 25):
+    """Device time per call from a ``torch.profiler`` trace of ``n`` calls:
+    the kernels' own durations (CUPTI), summed, ÷ n — no host time and no
+    gaps between launches, which the back-to-back time still holds where a
+    call's host work outlasts its kernel. None where the trace shows no
+    device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / n / 1e3 if us else None
+
+
+def times(kern, plain, lib=None) -> dict:
+    """The kernel's, its plain version's and the library call's single-call
+    medians (25, 5 and 25 calls) and back-to-back times (25 calls; the plain
+    version as many as fit in ~250 ms, at least 3)."""
+    t = {"ms": median_ms(kern, 25), "b2b_ms": back_to_back_ms(kern),
+         "plain_ms": median_ms(plain, 5), "library_ms": None, "library_b2b_ms": None}
+    t["plain_b2b_ms"] = back_to_back_ms(plain, max(3, min(25, int(250 / max(t["plain_ms"],
+                                                                          1e-3)))))
+    if lib is not None:
+        t["library_ms"], t["library_b2b_ms"] = median_ms(lib, 25), back_to_back_ms(lib)
+    return t
+
+
+def times_text(t: dict) -> str:
+    """One line's worth of a ``times`` dict."""
+    lib = (f", library {t['library_ms']:.4f} ms (back-to-back {t['library_b2b_ms']:.4f})"
+           if t["library_ms"] is not None else "")
+    return (f"kernel {t['ms']:.4f} ms (back-to-back {t['b2b_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms (back-to-back {t['plain_b2b_ms']:.4f}){lib}")
 
 
 def bound(bytes_moved: float, flops: float,
@@ -465,16 +537,11 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
                 (n + 3) * nb * B * 4, (n + 3) * nb * B),
         }
         for name, (kern, plain, lib, nbytes, flops) in cells.items():
-            ms = median_ms(kern, 25)
-            plain_ms = median_ms(plain, 5)
-            lib_ms = median_ms(lib, 25) if lib is not None else None
             b_ms, b_by = bound(nbytes, flops)
-            rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                          "bound_ms": b_ms, "bound_by": b_by,
+            rows[name] = {**times(kern, plain, lib), "bound_ms": b_ms, "bound_by": b_by,
                           "max_abs_err": err[name], "bytes": nbytes}
-            print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {lib_ms} ms, bound {b_ms:.4f} ms ({b_by}) on {card}",
-                  flush=True)
+            print(f"time {name}: {times_text(rows[name])}, bound {b_ms:.4f} ms ({b_by}) "
+                  f"on {card}", flush=True)
         del x3d, v, o, vr, orf, g, x32, x, flat_idx, zeros
         torch.cuda.empty_cache()
     return rows
@@ -509,16 +576,15 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
             # must touch: one x value per slot, the values and int32 offsets
             b_ms, b_by = bound(nblk * BLOCK * (2 * elt + 4), nblk * BLOCK)
             t = {"kernel": "permk_seeded_workers", "n": n, "x": str(xd),
-                 "ms": median_ms(lambda: permk.permk_seeded_workers(x3d, seed), 25),
-                 "plain_ms": median_ms(lambda: ref.permk_seeded_workers_ref(x3d, seed), 5),
+                 **times(lambda: permk.permk_seeded_workers(x3d, seed),
+                         lambda: ref.permk_seeded_workers_ref(x3d, seed)),
                  "bound_ms": b_ms, "bound_by": b_by,
                  # what this design moves: every staged row of x read in full
                  "floor_ms": (x3d.numel() * elt + nblk * BLOCK * (elt + 4))
-                 / HBM_BYTES_PER_S * 1e3,
-                 "library_ms": None, "max_abs_err": err}
+                 / HBM_BYTES_PER_S * 1e3, "max_abs_err": err}
             timings.append(t)
-            print(f"time permk_seeded_workers n={n} x {xd}: kernel {t['ms']:.4f} ms, "
-                  f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            print(f"time permk_seeded_workers n={n} x {xd}: {times_text(t)}, "
+                  f"bound {b_ms:.4f} ms ({b_by}), "
                   f"floor {t['floor_ms']:.4f} ms, library {NO_LIBRARY} on {card}",
                   flush=True)
             if n == N_WORKERS and xd == torch.float32:
@@ -541,13 +607,12 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
         elt = x.element_size()
         b_ms, b_by = bound(nblk * BLOCK * (3 * 4 + 2 * elt), 3 * nblk * BLOCK)
         t = {"kernel": "delta_epilogue", "x": str(xd),
-             "ms": median_ms(lambda: epilogue.delta_epilogue(delta, g, x, 0.0371), 25),
-             "plain_ms": median_ms(lambda: ref.delta_epilogue_ref(delta, g, x, 0.0371), 5),
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-             "max_abs_err": err}
+             **times(lambda: epilogue.delta_epilogue(delta, g, x, 0.0371),
+                     lambda: ref.delta_epilogue_ref(delta, g, x, 0.0371)),
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
         timings.append(t)
-        print(f"time delta_epilogue x {xd}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+        print(f"time delta_epilogue x {xd}: {times_text(t)}, bound {b_ms:.4f} ms "
+              f"({b_by}), max_abs_err "
               f"{err}, library {NO_LIBRARY} on {card}", flush=True)
         if xd == torch.float32:
             rows["delta_epilogue"] = t
@@ -579,12 +644,11 @@ def time_kernel(rows: dict, timings: list, card: str, name: str, n: int, xd,
     import torch
 
     b_ms, b_by = bound(nbytes, flops)
-    t = {"kernel": name, "n": n, "x": str(xd), "ms": median_ms(kern, 25),
-         "plain_ms": median_ms(plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-         "library_ms": None, "max_abs_err": err, "bytes": nbytes}
+    t = {"kernel": name, "n": n, "x": str(xd), **times(kern, plain), "bound_ms": b_ms,
+         "bound_by": b_by, "max_abs_err": err, "bytes": nbytes}
     timings.append(t)
-    print(f"time {name} n={n} x {xd}: kernel {t['ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+    print(f"time {name} n={n} x {xd}: {times_text(t)}, bound {b_ms:.4f} ms ({b_by}), "
+          f"max_abs_err "
           f"{err}, library {NO_LIBRARY} on {card}", flush=True)
     if n == N_WORKERS and xd == torch.float32:
         rows[name] = t
@@ -1360,17 +1424,14 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
 
     def timed(name, xd, kern, plain, lib, nbytes, flops, err, **extra):
         b_ms, b_by = bound(nbytes, flops)
-        t = {"kernel": name, "x": str(xd), "ms": median_ms(kern, 25),
-             "plain_ms": median_ms(plain, 5),
-             "library_ms": median_ms(lib, 25) if lib is not None else None,
+        t = {"kernel": name, "x": str(xd), **times(kern, plain, lib),
              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "bytes": nbytes,
              **extra}
         timings.append(t)
-        lib_text = f"{t['library_ms']} ms" if lib is not None else NO_LIBRARY
+        lib_text = "" if lib is not None else f", library {NO_LIBRARY}"
         more = "".join(f", {k} {v:.4f} ms" for k, v in extra.items())
-        print(f"time {name} x {xd}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}){more}, library {lib_text} on {card}",
-              flush=True)
+        print(f"time {name} x {xd}: {times_text(t)}, bound {b_ms:.4f} ms ({b_by})"
+              f"{more}{lib_text} on {card}", flush=True)
         if xd == torch.float32:
             rows[name] = t
 
@@ -1616,6 +1677,42 @@ def paged_bytes(n_valid, H, KV, hd, elt) -> float:
     return float(n_valid.sum()) * KV * hd * elt * 2 + 2 * len(n_valid) * H * hd * elt
 
 
+def paged_within_bound(out, want, vp) -> tuple[bool, float, float, float]:
+    """ROADMAP C's bound: f32 |Δ| ≤ 1e-5·max|v|; bf16 |Δ| ≤ one bf16 ulp of
+    each output row's largest magnitude. (ok, max |Δ|, the bound (f32) or
+    the largest |Δ| / ulp (bf16), the bit-equal share)."""
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    if out.dtype == torch.float32:
+        limit = 1e-5 * float(vp.abs().max())
+        ok = err <= limit
+    else:
+        top = want.float().abs().amax(dim=-1, keepdim=True)
+        ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(2.0**-126))) - 7)
+        ok = bool((diff <= ulp).all())
+        limit = float((diff / ulp).max())
+    return ok, err, limit, float((diff == 0).float().mean())
+
+
+def paged_edge_n_valid(dev, gen, S: int, P: int, maxp: int, C: int):
+    """n_valid at the cluster split's edges, then seeded: 1 (every other
+    rank empty), 0 (uniform over the row), past L (clamped), C pages (a
+    split boundary: each rank one page) and one past it, a page boundary, a
+    negative count, L, one past a page boundary."""
+    import torch
+
+    L = maxp * P
+    edge = [1, 0, L + 100, C * P, C * P + 1, P, -3, L, P + 1]
+    n = torch.randint(1, L + 1, (S,), generator=gen, device=dev)
+    k = min(S, len(edge))
+    n[:k] = torch.tensor(edge[:k], device=dev)
+    return n.to(torch.int32)
+
+
 def absmax_edge_rows(dev, W: int):
     """(6, W) f32 rows: zero, exact .5 ties, ±0, ±127·scale and tiny values."""
     import torch
@@ -1629,6 +1726,53 @@ def absmax_edge_rows(dev, W: int):
     rows[4, 0] = 317.5
     rows[5] = 1e-30 * (torch.arange(W, device=dev) - W / 2)
     return rows
+
+
+def dequant_host_us(c, sc) -> dict:
+    """Host µs per call of the ``absmax_dequant_rows`` wrapper and of each
+    piece of host work such a wrapper can do (a generic buffer check,
+    ``torch.empty`` or ``new_empty``, a library lookup, ``current_stream()``
+    with or without the device index; the wrapper does ``new_empty`` and
+    ``current_stream(index)``), beside ``torch.mul``: the median of 5 runs
+    of 200 calls on the host clock, the device synchronized before each
+    run."""
+    import torch
+
+    from repro_torch.kernels import _build, quantize
+
+    R, W = c.shape
+    out = torch.empty((R, W), dtype=torch.float32, device=c.device)
+    entry = _build.entry("quantize", "absmax_dequant_rows")
+    stream = torch.cuda.current_stream().cuda_stream
+    idx = c.get_device()
+    c1, sc1 = c[:128].contiguous(), sc[:128].contiguous()
+    parts = {
+        "wrapper": lambda: quantize.absmax_dequant_rows(c, sc),
+        "wrapper (128 rows)": lambda: quantize.absmax_dequant_rows(c1, sc1),
+        "torch.mul": lambda: torch.mul(c, sc[:, None]),
+        "check_cuda_buffers": lambda: quantize.check_cuda_buffers(c, sc),
+        "torch.empty": lambda: torch.empty((R, W), dtype=torch.float32, device=c.device),
+        "new_empty": lambda: c.new_empty((R, W), dtype=torch.float32),
+        "data_ptr x3": lambda: (c.data_ptr(), sc.data_ptr(), out.data_ptr()),
+        "library lookup": lambda: getattr(_build.library("quantize"), "absmax_dequant_rows"),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(idx).cuda_stream,
+        "ctypes call": lambda: entry(c.data_ptr(), sc.data_ptr(), out.data_ptr(), R, W,
+                                     stream),
+    }
+    res = {}
+    for name, fn in parts.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            runs.append((time.perf_counter() - t0) / 200 * 1e6)
+        res[name] = statistics.median(runs)
+    torch.cuda.synchronize()
+    return res
 
 
 def check_serve_kernels(card: str, report: dict) -> dict:
@@ -1649,12 +1793,13 @@ def check_serve_kernels(card: str, report: dict) -> dict:
 
     def timed(name, label, dtype, kern, plain, lib, nbytes, flops, err, ops_per_s):
         b_ms, b_by = bound(nbytes, flops, ops_per_s)
-        t = {"kernel": name, "shape": label, "dtype": str(dtype), "ms": median_ms(kern, 25),
-             "plain_ms": median_ms(plain, 5), "library_ms": median_ms(lib, 25) if lib else None,
+        t = {"kernel": name, "shape": label, "dtype": str(dtype), **times(kern, plain, lib),
+             "device_ms": device_ms(kern),
+             "library_device_ms": device_ms(lib) if lib is not None else None,
              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "bytes": nbytes}
         timings.append(t)
-        print(f"time {name} {label} {dtype}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, bound {b_ms:.4f} ms "
+        print(f"time {name} {label} {dtype}: {times_text(t)}, device (profiler) "
+              f"{t['device_ms']} ms (library {t['library_device_ms']}), bound {b_ms:.4f} ms "
               f"({b_by}), max_abs_err {err} on {card}", flush=True)
         return t
 
@@ -1671,6 +1816,14 @@ def check_serve_kernels(card: str, report: dict) -> dict:
                                 ref.absmax_dequant_rows_ref(c, sc).view(torch.int32)),
                     f"absmax_dequant_rows edge rows W={W} differ")
     print("kernels absmax edge rows (W = 64, 128; f32, bf16): bit-equal", flush=True)
+    for W in DEQUANT_WIDTHS:  # the shift path, and the tail branch (a partial last thread)
+        c = torch.randint(-128, 128, (333, W), generator=gen, device=dev).to(torch.int8)
+        sc = torch.randn((333,), generator=gen, device=dev)
+        require(torch.equal(quantize.absmax_dequant_rows(c, sc).view(torch.int32),
+                            ref.absmax_dequant_rows_ref(c, sc).view(torch.int32)),
+                f"absmax_dequant_rows W={W} differs")
+    print(f"kernels absmax_dequant_rows W in {DEQUANT_WIDTHS} (333 rows): bit-equal",
+          flush=True)
     for label, (R, W) in ABSMAX_SHAPES.items():
         x32 = torch.randn((R, W), generator=gen, device=dev) * 3
         for xd in (torch.float32, torch.bfloat16):
@@ -1706,32 +1859,36 @@ def check_serve_kernels(card: str, report: dict) -> dict:
         lambda: quantize.absmax_dequant_rows(c, sc),
         lambda: ref.absmax_dequant_rows_ref(c, sc), lambda: torch.mul(c, sc[:, None]),
         R * hd * 5 + 4 * R, R * hd, 0.0, F32_OPS_PER_S)
+    if DEVICE == "cuda":
+        report["absmax_dequant_host_us"] = dequant_host_us(c, sc)
+        print("host µs per call, absmax_dequant_rows at the decode read: "
+              + json.dumps(report["absmax_dequant_host_us"]), flush=True)
     del c, sc
 
     # paged attention
     for label, (S, H, KV, hd, P, maxp) in PAGED_SHAPES.items():
         for dt in (torch.float32, torch.bfloat16):
             q, kp, vp, tables, n_valid = paged_inputs(dev, gen, S, H, KV, hd, P, maxp, dt)
+            C, smem = paged.launch_plan(S, KV, hd, H // KV, P, maxp, q.element_size())
             out = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
             want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
-            torch.cuda.synchronize()
-            diff = (out.float() - want.float()).abs()
-            err = float(diff.max())
-            if dt == torch.float32:
-                limit = 1e-5 * float(vp.abs().max())
-                ok = err <= limit
-            else:  # one bf16 ulp of the output row's largest magnitude
-                top = want.float().abs().amax(dim=-1, keepdim=True)
-                ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(2.0**-126))) - 7)
-                ok = bool((diff <= ulp).all())
-                limit = float((diff / ulp).max())
+            ok, err, limit, same = paged_within_bound(out, want, vp)
             require(ok, f"paged_attn_decode {label} {dt}: max |Δ| {err} beyond the bound "
                         f"({limit})")
             print(f"kernels paged_attn_decode {label} {dt} (S={S}, H={H}, KV={KV}, hd={hd}, "
-                  f"P={P}, max_pages={maxp}, Σn_valid={int(n_valid.sum())}): max |Δ| {err}, "
-                  f"bound measure {limit}, bit-equal share "
-                  f"{float((diff == 0).float().mean()):.4f}", flush=True)
-            del out, want, diff
+                  f"P={P}, max_pages={maxp}, Σn_valid={int(n_valid.sum())}; cluster {C}, "
+                  f"{smem} B shared): max |Δ| {err}, bound measure {limit}, bit-equal "
+                  f"share {same:.4f}", flush=True)
+            edge = paged_edge_n_valid(dev, gen, S, P, maxp, C)
+            out = paged.paged_attn_decode(q, kp, vp, tables, edge)
+            want = ref.paged_attn_decode_ref(q, kp, vp, tables, edge)
+            e_ok, e_err, e_limit, _ = paged_within_bound(out, want, vp)
+            require(e_ok, f"paged_attn_decode {label} {dt} edge n_valid "
+                          f"{edge.tolist()[:9]}: max |Δ| {e_err} beyond the bound ({e_limit})")
+            print(f"kernels paged_attn_decode {label} {dt} edge n_valid "
+                  f"{edge.tolist()[:9]}: max |Δ| {e_err}, bound measure {e_limit}",
+                  flush=True)
+            del out, want, edge
             torch.cuda.empty_cache()
             elt = q.element_size()
             nbytes = paged_bytes(n_valid, H, KV, hd, elt)
@@ -1741,16 +1898,24 @@ def check_serve_kernels(card: str, report: dict) -> dict:
                       lambda: ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid), None,
                       nbytes, flops, err,
                       F32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S)
+            t.update(cluster=C, smem_bytes=smem)
             # yardstick only: SDPA over the pre-gathered dense cache (gather excluded)
             kd = ref.paged_gather_ref(kp, tables).transpose(1, 2).contiguous()
             vd = ref.paged_gather_ref(vp, tables).transpose(1, 2).contiguous()
             mask = (torch.arange(maxp * P, device=dev)[None, :]
                     < n_valid[:, None])[:, None, None, :]
-            t["sdpa_dense_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True), 25)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q[:, :, None, :], kd, vd,
+                                                      attn_mask=mask, enable_gqa=True)
+
+            t["sdpa_dense_ms"], t["sdpa_dense_b2b_ms"] = median_ms(sdpa, 25), back_to_back_ms(sdpa)
+            t["sdpa_dense_device_ms"] = device_ms(sdpa)
             print(f"compare paged_attn_decode {label} {dt}: scaled_dot_product_attention "
                   f"on the pre-gathered dense cache (gather excluded) "
-                  f"{t['sdpa_dense_ms']:.4f} ms vs the kernel {t['ms']:.4f} ms", flush=True)
+                  f"{t['sdpa_dense_ms']:.4f} ms (back-to-back {t['sdpa_dense_b2b_ms']:.4f}, "
+                  f"device {t['sdpa_dense_device_ms']}) vs the kernel {t['ms']:.4f} ms "
+                  f"(back-to-back {t['b2b_ms']:.4f}, device {t['device_ms']})", flush=True)
             if label == "serve" and dt == torch.float32:
                 rows["paged_attn_decode"] = t
             del q, kp, vp, tables, n_valid, kd, vd, mask
@@ -2054,9 +2219,10 @@ def main() -> int:
     secs, logs = _build.build_all()
     report["build_seconds"] = secs
     print(f"build: {secs:.2f} s for {len(logs)} sources", flush=True)
-    for name, log in logs.items():  # registers, shared memory, spills
+    for name, log in logs.items():  # registers, shared memory, spills (paged: by kernel)
+        keep = ("Used", "spill", "entry function") if name == "paged" else ("Used", "spill")
         print("\n".join(f"ptxas {name}: {line.strip()}" for line in log.splitlines()
-                        if "Used" in line or "spill" in line), flush=True)
+                        if any(k in line for k in keep)), flush=True)
 
     shapes = init_params(SEED, get_arch("qwen1.5-0.5b").model, device="meta")
     nblk = make_layout(shapes, block=BLOCK).nblk
@@ -2079,8 +2245,9 @@ def main() -> int:
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": sum(by_path.values()),
                       "launches_by_path": by_path,
-                      **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                    "bound_ms", "bound_by", "library_ms")}})
+                      **{k: rows[name][k] for k in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "b2b_ms", "plain_b2b_ms", "library_b2b_ms")}})
     print("report: " + json.dumps(report))
     print(json.dumps({"kernels": table}))
     print(nvidia_smi_line())

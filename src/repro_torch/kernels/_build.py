@@ -12,6 +12,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -75,7 +76,8 @@ SIGNATURES = {
            for b in ("f32", "bf16") for x in ("f32", "bf16")},
     },
     "paged": {
-        f"paged_attn_decode_{t}": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)
+        f"paged_attn_decode_{t}": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                   _P)
         for t in ("f32", "bf16")
     },
 }
@@ -142,6 +144,13 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, fn: str):
+    """The bound C entry point ``fn`` of ``csrc/<name>.cu``, looked up once
+    (a wrapper called per layer and decode step skips the lookup)."""
+    return getattr(library(name), fn)
 
 
 def check(err: int, what: str) -> None:

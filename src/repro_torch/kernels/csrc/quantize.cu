@@ -31,7 +31,8 @@
 // reads each KV row (W = 32·NPL values, one warp per row) once into
 // registers, takes the row's max |x| with warp shuffles (exact in any order)
 // and writes W int8 codes and one f32 scale; absmax_dequant_rows is one
-// multiply per code, 4 codes per thread. block_sumsq reads x once (one CTA
+// multiply per code, 16 codes per thread (see its section). block_sumsq
+// reads x once (one CTA
 // per block, the blockwise norm's reduction) and writes one f32 per block;
 // qsgd_quantize reads x and the f32 dither and writes int8, 4 coordinates
 // per thread; qsgd_dequantize reads int8 and writes f32.
@@ -262,6 +263,21 @@ __global__ void nibble_unpack_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The serving engine's int8 KV-page rows. absmax_dequant_rows replaces
+// src/repro/kernels/quantize.py::absmax_dequant_rows (there one (bm, W) VMEM
+// tile per grid step, one multiply by the row's broadcast scale). Bound:
+// device-memory bytes, 5 per code (1 read, 4 written) and 4 per row: it does
+// one multiply per 5 bytes. The design reads 16 codes a thread with one
+// 16-byte load and writes them as four float4 stores, so a warp moves 512
+// contiguous bytes in and 2 KB out per instruction; the row comes from a
+// 32-bit shift (W a power of two) and its scale is read once per 16 codes.
+// At decode's sizes (a few MB) a call is over in microseconds, and the
+// wrapper's host work (kernels/quantize.py) is what a caller waits for.
+// There is no sum: out = code·scale, one __fmul_rn, bit-equal to the plain
+// version in any order.
+// ---------------------------------------------------------------------------
+
 // f32(1/127) as numpy rounds the double 1/127: bit pattern 0x3C010204
 #define ABSMAX_INV127_BITS 0x3C010204u
 
@@ -304,24 +320,74 @@ __global__ void absmax_quant_rows_kernel(const XT* __restrict__ x,
   }
 }
 
-// One thread per 4 codes of a row (W % 4 == 0): out = code·scale.
+// out = code·scale, one __fmul_rn per element (bit-equal to the plain
+// version). One thread per 16 codes: one 16-byte load, four float4 stores.
+// W = 2^shift ≥ 16 (every width the serve path gives it): the 16 codes lie in
+// one row, found by a 32-bit shift, and its scale is read once; a full warp
+// trades words and scales with shuffles so that each of its four stores
+// writes 512 contiguous bytes (a thread's own 64 bytes, stored as they are,
+// would leave every 32-byte sector half written by each of two stores). Any
+// other W (a multiple of 4): the tail branch finds each group of 4 codes'
+// row by a 32-bit division, and the last thread's 16 codes may be fewer.
+__device__ __forceinline__ float4 dequant4(uint32_t w, float s) {
+  float4 o;
+  o.x = __fmul_rn((float)(int8_t)w, s);
+  o.y = __fmul_rn((float)(int8_t)(w >> 8), s);
+  o.z = __fmul_rn((float)(int8_t)(w >> 16), s);
+  o.w = __fmul_rn((float)(int8_t)(w >> 24), s);
+  return o;
+}
+
 __global__ void absmax_dequant_rows_kernel(const int8_t* __restrict__ codes,
                                            const float* __restrict__ scales,
-                                           float* __restrict__ out, int64_t rows,
-                                           int width) {
-  const int64_t quads = rows * width / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
-       i += stride) {
-    const float s = scales[4 * i / width];
-    const char4 c = reinterpret_cast<const char4*>(codes)[i];
-    float4 o;
-    o.x = __fmul_rn((float)c.x, s);
-    o.y = __fmul_rn((float)c.y, s);
-    o.z = __fmul_rn((float)c.z, s);
-    o.w = __fmul_rn((float)c.w, s);
-    reinterpret_cast<float4*>(out)[i] = o;
+                                           float* __restrict__ out, uint32_t groups,
+                                           uint32_t quads, uint32_t row_quads, int shift) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t lane = threadIdx.x & 31;
+  const uint32_t first = i - lane;  // the warp's first group
+  if (first >= groups) return;
+  if (shift >= 4 && first + 32 <= groups) {
+    // A full warp: lane l holds codes 16l .. 16l + 15 of the warp's 512 (one
+    // 16-byte load) and its row's scale; store k writes float4 32k + l of the
+    // warp's 128 (coalesced), which is word l mod 4 of lane 8k + l / 4.
+    const uint4 c = reinterpret_cast<const uint4*>(codes)[i];
+    const float s = scales[i >> (shift - 4)];
+    float4* o = reinterpret_cast<float4*>(out) + 4 * (size_t)first;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int src = 8 * k + (int)(lane >> 2);
+      const uint32_t x = __shfl_sync(0xffffffffu, c.x, src);
+      const uint32_t y = __shfl_sync(0xffffffffu, c.y, src);
+      const uint32_t z = __shfl_sync(0xffffffffu, c.z, src);
+      const uint32_t w = __shfl_sync(0xffffffffu, c.w, src);
+      const float sk = __shfl_sync(0xffffffffu, s, src);
+      const uint32_t sel = lane & 3;
+      o[32 * k + lane] = dequant4(sel == 0 ? x : sel == 1 ? y : sel == 2 ? z : w, sk);
+    }
+    return;
   }
+  if (i >= groups) return;
+  float4* o = reinterpret_cast<float4*>(out) + 4 * (size_t)i;
+  if (shift >= 4) {  // the last, partial warp
+    const float s = scales[i >> (shift - 4)];
+    const uint4 c = reinterpret_cast<const uint4*>(codes)[i];
+    o[0] = dequant4(c.x, s);
+    o[1] = dequant4(c.y, s);
+    o[2] = dequant4(c.z, s);
+    o[3] = dequant4(c.w, s);
+    return;
+  }
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(codes);
+  if ((uint64_t)4 * i + 4 <= quads) {
+    const uint4 c = reinterpret_cast<const uint4*>(codes)[i];
+    o[0] = dequant4(c.x, scales[(4 * i) / row_quads]);
+    o[1] = dequant4(c.y, scales[(4 * i + 1) / row_quads]);
+    o[2] = dequant4(c.z, scales[(4 * i + 2) / row_quads]);
+    o[3] = dequant4(c.w, scales[(4 * i + 3) / row_quads]);
+    return;
+  }
+  for (uint32_t k = 4 * i; k < quads; ++k)
+    reinterpret_cast<float4*>(out)[k] = dequant4(words[k], scales[k / row_quads]);
 }
 
 // ---------------------------------------------------------------------------
@@ -495,11 +561,19 @@ extern "C" int absmax_quant_rows_bf16(const void* x, void* codes, void* scales,
   return launch_absmax<__nv_bfloat16>(x, codes, scales, rows, width, stream);
 }
 
+// rows·width < 2^34 (the wrapper checks it: the f32 output alone would
+// exceed the card's memory), so every index below fits in 32 bits.
 extern "C" int absmax_dequant_rows(const void* codes, const void* scales, void* out,
                                    long long rows, int width, void* stream) {
-  absmax_dequant_rows_kernel<<<grid_for(rows * width / 4, 256), 256, 0,
-                               (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const float*)scales, (float*)out, rows, width);
+  const long long quads = rows * width / 4;
+  const uint32_t groups = (uint32_t)((quads + 3) / 4);
+  int shift = -1;
+  if (width >= 16 && (width & (width - 1)) == 0)
+    for (shift = 0; (1 << shift) < width; ++shift) {
+    }
+  absmax_dequant_rows_kernel<<<(groups + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)codes, (const float*)scales, (float*)out, groups, (uint32_t)quads,
+      (uint32_t)(width / 4), shift);
   return (int)cudaGetLastError();
 }
 

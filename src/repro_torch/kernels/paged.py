@@ -7,6 +7,11 @@ wrapper given CUDA tensors launches its kernel (or raises); given CPU tensors
 it returns the plain version from :mod:`repro_torch.kernels.ref`. The kernel
 counts its launches in ``paged_attn_decode.launches``.
 
+The kernel serves each (slot, kv-head) pair with a cluster of C CTAs that
+split the slot's pages; :func:`launch_plan` picks C and the shared memory
+from the static shape, and :func:`smem_bytes` / :func:`rank_pages` repeat
+the kernel's layout and split, so the CPU tests hold them.
+
 The int8 route is not a kernel in the reference either (a gather, a
 dequantize of the gathered rows, then the plain attention): here the gathered
 ``(S·L·KV, hd)`` rows go through the ``absmax_dequant_rows`` kernel, the same
@@ -15,17 +20,79 @@ one multiply per element as the reference's ``kgf * ks[..., None]``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from . import quantize
 from . import ref as _ref
-from .randk import _stream
+from .randk import _stream_on
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: head widths and GQA group sizes (H / KV) the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 GROUPS = (1, 2, 4, 8)
+#: the kernel's layout (csrc/paged.cu): positions per staged tile, tiles in
+#: the ring, bytes of the max / sum exchange area, the shared memory one CTA
+#: may use on the H100
+TILE, STAGES, SMALL, SMEM_LIMIT = 32, 2, 512, 232_448
+#: threads a CTA with f32 pages (each holds one float of the split sums)
+F32_THREADS = 256
+#: cluster sizes (the portable maximum is 8); a cluster is doubled while a
+#: rank could hold more than ``RANK_POSITIONS`` positions or the grid would
+#: hold fewer than ``FILL_CTAS`` CTAs (about four per SM of the H100's 132),
+#: as tuned on the H100 (PERF.md, the kernel table)
+CLUSTER_SIZES = (1, 2, 4, 8)
+RANK_POSITIONS, FILL_CTAS = 512, 512
+
+
+def smem_bytes(elt: int, hd: int, rep: int, P: int, maxp: int, C: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/paged.cu::paged_smem_bytes):
+    a ring of ``STAGES`` tiles of rows padded by 16 bytes, the partial output
+    and (f32) q and one float for each of the 256 threads' split sums, the
+    exchange area, the slot's table row, the rank's logits (each head's row
+    padded to a multiple of 4)."""
+    ppr = -(-maxp // C)
+    f32 = 4 * (rep * hd + F32_THREADS) if elt == 4 else 0
+    return (STAGES * TILE * (hd * elt + 16) + 4 * rep * hd + f32 + SMALL
+            + 16 * -(-maxp // 4) + 16 * rep * -(-ppr * P // 4))
+
+
+def rank_pages(pages: int, C: int) -> list[tuple[int, int]]:
+    """The pages [p0, p1) of a slot's block table that each rank of a
+    cluster of C serves, as the kernel splits them: the ``pages`` =
+    ceil(n_valid / P) pages that hold valid positions (n_valid clamped to
+    max_pages·P, and all of them where n_valid ≤ 0), evenly."""
+    return [(c * pages // C, (c + 1) * pages // C) for c in range(C)]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(S: int, KV: int, hd: int, rep: int, P: int, maxp: int,
+                elt: int) -> tuple[int, int]:
+    """(C, shared-memory bytes) for a launch: the smallest cluster size in
+    ``CLUSTER_SIZES`` at which a rank holds at most ``RANK_POSITIONS``
+    positions, the grid holds at least ``FILL_CTAS`` CTAs and the layout fits
+    ``SMEM_LIMIT``, and no larger than max_pages. Raises where even C = 8
+    does not fit the shared memory."""
+    C = 1
+    while 2 * C <= min(CLUSTER_SIZES[-1], maxp) and (
+            -(-maxp // C) * P > RANK_POSITIONS or S * KV * C < FILL_CTAS
+            or smem_bytes(elt, hd, rep, P, maxp, C) > SMEM_LIMIT):
+        C *= 2
+    smem = smem_bytes(elt, hd, rep, P, maxp, C)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"max_pages·P = {maxp * P} positions need {smem} bytes of shared "
+                         f"memory per CTA at a cluster of {C}: the kernel takes at most "
+                         f"{SMEM_LIMIT}")
+    return C, smem
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(hd: int) -> float:
+    return _ref.attn_scale(hd)
+
+
 
 
 def check_paged_shapes(q, kpages, vpages, tables, n_valid) -> None:
@@ -49,6 +116,7 @@ def check_paged_shapes(q, kpages, vpages, tables, n_valid) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16 or t.device != q.device:
             raise ValueError("the paged kernel takes contiguous, 16-byte aligned "
                              "tensors on one device")
+    launch_plan(S, KV, hd, H // KV, P, tables.shape[1], q.element_size())
 
 
 def paged_attn_decode(q: torch.Tensor, kpages: torch.Tensor, vpages: torch.Tensor,
@@ -63,13 +131,12 @@ def paged_attn_decode(q: torch.Tensor, kpages: torch.Tensor, vpages: torch.Tenso
     S, H, hd = q.shape
     P, KV = kpages.shape[1], kpages.shape[2]
     maxp = tables.shape[1]
+    C, smem = launch_plan(S, KV, hd, H // KV, P, maxp, q.element_size())
     out = torch.empty((S, H, hd), dtype=vpages.dtype, device=q.device)
-    scratch = torch.empty((S, H, maxp * P), dtype=torch.float32, device=q.device)
-    lib = _build.library("paged")
-    err = getattr(lib, f"paged_attn_decode_{_SUFFIX[q.dtype]}")(
+    err = _build.entry("paged", f"paged_attn_decode_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), kpages.data_ptr(), vpages.data_ptr(), tables.data_ptr(),
-        n_valid.data_ptr(), scratch.data_ptr(), out.data_ptr(), S, H, KV, P, maxp, hd,
-        _ref.attn_scale(hd), _stream())
+        n_valid.data_ptr(), out.data_ptr(), S, H, KV, P, maxp, hd, _scale(hd), C, smem,
+        _stream_on(q))
     _build.check(err, "paged_attn_decode")
     paged_attn_decode.launches += 1
     return out

@@ -27,7 +27,7 @@ import torch
 from . import _build
 from . import ref as _ref
 from .randk import X_SUFFIX as _X_SUFFIX
-from .randk import _check_block, _stream
+from .randk import _check_block, _stream, _stream_on
 
 
 def check_cuda_buffers(*tensors: torch.Tensor) -> None:
@@ -242,23 +242,30 @@ absmax_quant_rows.launches = 0
 
 def absmax_dequant_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(R, W) int8 codes + (R,) f32 scales → (R, W) f32 rows, code·scale
-    (the int8 KV-page read)."""
-    R, W = codes.shape
+    (the int8 KV-page read). Called once per k and v, layer and decode step,
+    so its host work is kept to the checks the kernel needs: one pass over
+    the two tensors, the entry point bound once."""
     if not codes.is_cuda:
         return _ref.absmax_dequant_rows_ref(codes, scales)
+    R, W = codes.shape
     if W % 4:
         raise ValueError(f"row width {W} must be a multiple of 4 for the kernel")
     if codes.dtype != torch.int8 or scales.dtype != torch.float32:
         raise ValueError("absmax_dequant_rows takes int8 codes and f32 scales")
-    if tuple(scales.shape) != (R,):
+    if scales.dim() != 1 or scales.shape[0] != R:
         raise ValueError(f"scales must have shape {(R,)}")
-    check_cuda_buffers(codes, scales)
-    out = torch.empty((R, W), dtype=torch.float32, device=codes.device)
+    if R * W >= 2**34:  # 32-bit indices in the kernel; the f32 rows would not fit the card
+        raise ValueError(f"{R}·{W} codes are beyond the kernel's 32-bit indices")
+    cp, sp = codes.data_ptr(), scales.data_ptr()
+    if not (codes.is_contiguous() and scales.is_contiguous()) or (cp | sp) % 16:
+        raise ValueError("the quantize kernels take contiguous, 16-byte aligned tensors")
+    if scales.get_device() != codes.get_device():
+        raise ValueError("the quantize kernels take tensors on one device")
+    out = codes.new_empty((R, W), dtype=torch.float32)
     if R == 0:
         return out
-    lib = _build.library("quantize")
-    err = lib.absmax_dequant_rows(codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                  R, W, _stream())
+    err = _build.entry("quantize", "absmax_dequant_rows")(cp, sp, out.data_ptr(), R, W,
+                                                          _stream_on(codes))
     _build.check(err, "absmax_dequant_rows")
     absmax_dequant_rows.launches += 1
     return out

@@ -25,6 +25,13 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _stream_on(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device: naming the device skips the
+    current-device lookup (about 3 µs of host time a call on the H100's
+    host, ``chip_smoke.dequant_host_us``)."""
+    return torch.cuda.current_stream(t.get_device()).cuda_stream
+
+
 def _check_block(B: int) -> None:
     if B <= 0 or B & (B - 1):
         raise ValueError(f"block width {B} must be a power of two")

@@ -89,6 +89,7 @@ def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     rows, with a host clock in place of the CUDA events."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     report = {}
     rows = chip_smoke.check_natural(3, "cpu", report)
@@ -110,6 +111,7 @@ def test_trimmed_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "TRIM_SMALL_NBLK", 2)
     monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     report = {}
     rows = chip_smoke.check_trimmed(3, "cpu", report)
@@ -140,6 +142,8 @@ def test_serve_kernel_phase_runs_at_a_tiny_shape(monkeypatch):
     comparison and the table rows, with a host clock for the CUDA events."""
     _serve_on_cpu(monkeypatch)
     monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, n=25: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "PAGED_SHAPES", {"serve": (3, 4, 4, 64, 4, 5),
                                                      "gqa_stress": (4, 8, 1, 128, 4, 6)})
     monkeypatch.setattr(chip_smoke, "ABSMAX_SHAPES", {"serve_decode": (12, 64),
@@ -154,8 +158,10 @@ def test_serve_kernel_phase_runs_at_a_tiny_shape(monkeypatch):
     timed = {(t["kernel"], t["shape"]) for t in report["kernels_serve"]}
     assert ("paged_attn_decode", "gqa_stress") in timed
     assert ("absmax_dequant_rows", "serve_decode_read") in timed
-    assert all("sdpa_dense_ms" in t for t in report["kernels_serve"]
-               if t["kernel"] == "paged_attn_decode")
+    assert all("sdpa_dense_ms" in t and "sdpa_dense_b2b_ms" in t and t["cluster"] in (1, 2, 4, 8)
+               for t in report["kernels_serve"] if t["kernel"] == "paged_attn_decode")
+    assert all(t["b2b_ms"] == t["plain_b2b_ms"] == t["device_ms"] == 1.0
+               for t in report["kernels_serve"])
     assert {"absmax_quant_rows", "absmax_dequant_rows",
             "paged_attn_decode"} <= set(chip_smoke.SOURCES)
 
@@ -225,6 +231,7 @@ def test_wire_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     CUDA events."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     report = {}
     rows = chip_smoke.check_wire_kernels(3, "cpu", report)

@@ -498,6 +498,22 @@ def test_absmax_rows_bit_equal_on_card(dev, R, W, xdtype):
     assert counts["absmax_quant_rows"] == counts["absmax_dequant_rows"] == 1
 
 
+@pytest.mark.parametrize("W", [32, 64, 128, 256, 16, 4, 8, 36, 100])
+def test_absmax_dequant_rows_widths_bit_equal_on_card(dev, W):
+    """The shift path (W a power of two ≥ 16) and the tail branch (any other
+    multiple of 4; 333 rows leave the last thread fewer than 16 codes where
+    W is not a multiple of 16), bit-equal, one launch."""
+    gen = torch.Generator(device=dev).manual_seed(W)
+    c = torch.randint(-128, 128, (333, W), generator=gen, device=dev).to(torch.int8)
+    s = torch.randn((333,), generator=gen, device=dev)
+    s[::7] = -0.0
+    kernels.reset_launch_counts()
+    d = quantize.absmax_dequant_rows(c, s)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(d), _bits(ref.absmax_dequant_rows_ref(c, s)))
+    assert kernels.launch_counts()["absmax_dequant_rows"] == 1
+
+
 def test_absmax_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="row width"):
         quantize.absmax_quant_rows(torch.zeros((4, 48), device=dev))
@@ -547,6 +563,33 @@ def test_paged_attn_decode_within_bound_on_card(dev, shape, dtype):
     assert out.dtype == dtype and out.shape == q.shape
     assert _within_paged_bound(out, want, vp)
     assert kernels.launch_counts()["paged_attn_decode"] == 1
+
+
+@pytest.mark.parametrize("geom", [(2, 4, 13), (2, 16, 70)], ids=str)
+@pytest.mark.parametrize("hd", paged.HEAD_DIMS)
+@pytest.mark.parametrize("rep", paged.GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_paged_attn_decode_cluster_edges_on_card(dev, geom, hd, rep, dtype):
+    """Every (hd, rep) instantiation at the cluster split's edges: n_valid =
+    1 (every other rank of the cluster empty), on a page boundary, on a
+    split boundary (C pages: each rank one) and one past it, 0 and −3
+    (uniform over the row), past L (clamped); max_pages not a multiple of C;
+    one launch per call. The second geometry gives each rank several
+    32-position tiles."""
+    KV, P, maxp = geom
+    q, kp, vp, tables, _ = _paged(dev, 9, rep * KV, KV, hd, P, maxp, dtype, seed=hd + rep)
+    C, _ = paged.launch_plan(9, KV, hd, rep, P, maxp, q.element_size())
+    assert C > 1 and maxp % C
+    L = maxp * P
+    n_valid = torch.tensor([1, P, C * P, C * P + 1, 0, -3, L, L + 9, P + 1],
+                           dtype=torch.int32, device=dev)
+    kernels.reset_launch_counts()
+    out = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
+    want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attn_decode"] == 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert _within_paged_bound(out, want, vp)
 
 
 def test_paged_attn_decode_null_page_and_all_masked_rows(dev):
