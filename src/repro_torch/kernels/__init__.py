@@ -14,7 +14,9 @@ of the flat-vector wire, with their plain versions.
                     (`nibble_pack`, `nibble_unpack`) and blockwise
                     natural compression (`natural_block_workers`,
                     `natural_dequant_mean`), the int8 KV-page rows
-                    (`absmax_quant_rows`, `absmax_dequant_rows`) and the
+                    (`absmax_quant_rows`, also as the one-launch page
+                    write `absmax_quant_write_pages`, counted under it,
+                    and `absmax_dequant_rows`) and the
                     two-pass global-norm QSGD of the flat-vector wire
                     (`block_sumsq`, `qsgd_quantize`, `qsgd_dequantize`),
                     over ``csrc/quantize.cu``.

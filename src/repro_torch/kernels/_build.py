@@ -54,6 +54,8 @@ SIGNATURES = {
         "natural_dequant_mean": (_P, _P, _P, _I, _L, _I, _P),
         "absmax_quant_rows_f32": (_P, _P, _P, _L, _I, _P),
         "absmax_quant_rows_bf16": (_P, _P, _P, _L, _I, _P),
+        **{f"absmax_quant_write_pages_{t}": (_P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I,
+                                             _I, _I, _I, _P) for t in ("f32", "bf16")},
         "absmax_dequant_rows": (_P, _P, _P, _L, _I, _P),
         **{f"block_sumsq_{t}": (_P, _P, _L, _I, _P) for t in ("f32", "bf16")},
         **{f"qsgd_quantize_{t}": (_P, _P, _P, _P, _L, _I, _P) for t in ("f32", "bf16")},

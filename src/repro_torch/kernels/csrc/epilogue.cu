@@ -18,8 +18,9 @@
 // All five are bound by device-memory bytes: each reads g (or the n gradient
 // rows, or δ and g, or the n int8 payloads and g) and x once and writes g' and
 // x' once; the arithmetic is a few flops per coordinate (qsgd_epilogue adds an
-// IEEE divide per worker per 4 coordinates and one per coordinate, whose
-// instruction time is not small beside its bytes: PERF.md; natural_epilogue
+// IEEE divide per worker per warp and one per coordinate, moves every
+// coordinate in 16-byte accesses and starts all its loads at once: see its
+// kernel; natural_epilogue
 // decodes each code with one multiply by a power of two built from bits, and
 // divides once per coordinate; the trimmed pair sorts n values per
 // coordinate in registers). The x update rounds the
@@ -116,9 +117,54 @@ __global__ void delta_epilogue_kernel(const float* __restrict__ delta,
   }
 }
 
-// One thread per 4 coordinates: the dequantize-and-mean of qsgd_dequant_mean
-// (quant.cuh), then g' = g + acc/n and the x update.
-template <typename XT>
+// 4 contiguous coordinates of x as f32 (one 16-byte or 8-byte load), and x'
+// rounded to XT to nearest even (one 16-byte or 8-byte store)
+__device__ __forceinline__ float4 load_x4(const float* p, int64_t q) {
+  return reinterpret_cast<const float4*>(p)[q];
+}
+__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p, int64_t q) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[q];
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(a), __high2float(a), __low2float(b), __high2float(b));
+}
+__device__ __forceinline__ void store_x4(float* p, int64_t q, float4 v) {
+  reinterpret_cast<float4*>(p)[q] = v;
+}
+__device__ __forceinline__ void store_x4(__nv_bfloat16* p, int64_t q, float4 v) {
+  __nv_bfloat162 a, b;
+  a.x = __float2bfloat16_rn(v.x);
+  a.y = __float2bfloat16_rn(v.y);
+  b.x = __float2bfloat16_rn(v.z);
+  b.y = __float2bfloat16_rn(v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  reinterpret_cast<uint2*>(p)[q] = u;
+}
+
+// qsgd_epilogue, one thread per 4 contiguous coordinates (quad q), every
+// access contiguous across the warp: g and g' as float4 (512 B a warp
+// instruction), x and x' as float4 (f32) or 4 × bf16 in 8 bytes, each
+// worker's levels as one char4 (128 B). The design it replaces read and wrote
+// g, x, g' and x' one coordinate at a time in a loop over the thread's four,
+// so each warp instruction spanned 512 B at a 16-byte stride for 128 useful
+// bytes, and each store wrote its sectors partly, four times over (2.1× the
+// byte bound at n = 4 and at n = 1, PERF.md). B ≥ 128 (check_qsgd_block)
+// makes the quad count a multiple of 32, so every warp is full and its 128
+// coordinates lie in one block b: lane w reads norm_w once and computes
+// norm_w / s, and the warp shares it by shuffles, in place of n divides a
+// thread. With coalesced accesses alone the kernel was still latency-bound
+// (bf16 x as slow as f32, 1.4–1.5× its bound): the level loads sat in a loop
+// whose trip count is the runtime n, behind the norm's load and divide, so a
+// thread waited for two memory round trips. For NW = n ≤ 4 (every count the
+// paths give it: the uplink's 4, the downlink's 1) the workers are unrolled
+// and every load (levels, g, x, the norm) is started before any is used;
+// NW = 0 keeps the runtime loop, 32 workers a round of shuffles. The
+// arithmetic is dequant_sum4's (quant.cuh): from 0, worker by worker,
+// acc + l·(norm_w / s), then g + acc / n and (−γ)·g' + x, each operation
+// rounded once, so g' and x' are bit-equal to the plain version.
+template <typename XT, int NW>
 __global__ void qsgd_epilogue_kernel(const int8_t* __restrict__ levels,
                                      const float* __restrict__ norms,
                                      const float* __restrict__ g,
@@ -126,19 +172,63 @@ __global__ void qsgd_epilogue_kernel(const int8_t* __restrict__ levels,
                                      float* __restrict__ g_out,
                                      XT* __restrict__ x_out, int n, int64_t nblk,
                                      int block, float s, float neg_gamma) {
-  const int64_t size = nblk * block;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t quads = nblk * block / 4;
+  const int qshift = __ffs(block) - 3;  // B = 2^(qshift + 2): quad q lies in block q >> qshift
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;  // a multiple of 32
   const float fn = (float)n;
-  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < size / 4;
-       q += stride) {
-    const int64_t i0 = 4 * q;
-    float acc[4];
-    dequant_sum4(levels, norms, n, nblk, size, i0 / block, i0, s, acc);
-    for (int k = 0; k < 4; ++k) {
-      const float g_new = __fadd_rn(g[i0 + k], __fdiv_rn(acc[k], fn));
-      g_out[i0 + k] = g_new;
-      store_x(x_out, i0 + k, apply_update(neg_gamma, g_new, load_x(x, i0 + k)));
+  const char4* lv = reinterpret_cast<const char4*>(levels);
+  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < quads;
+       q += stride) {  // warp-uniform: quads and q − lane are multiples of 32
+    const int64_t b = q >> qshift;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 gv, xv;
+    if constexpr (NW > 0) {
+      char4 l[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) l[w] = lv[(int64_t)w * quads + q];
+      gv = reinterpret_cast<const float4*>(g)[q];
+      xv = load_x4(x, q);
+      const float nv = lane < NW ? norms[(int64_t)lane * nblk + b] : 0.0f;
+      const float mine = __fdiv_rn(nv, s);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float scale = __shfl_sync(0xffffffffu, mine, w);
+        acc.x = __fadd_rn(acc.x, __fmul_rn((float)l[w].x, scale));
+        acc.y = __fadd_rn(acc.y, __fmul_rn((float)l[w].y, scale));
+        acc.z = __fadd_rn(acc.z, __fmul_rn((float)l[w].z, scale));
+        acc.w = __fadd_rn(acc.w, __fmul_rn((float)l[w].w, scale));
+      }
+    } else {
+      gv = reinterpret_cast<const float4*>(g)[q];
+      xv = load_x4(x, q);
+      for (int w0 = 0; w0 < n; w0 += 32) {
+        const int m = min(32, n - w0);
+        const float mine =
+            lane < m ? __fdiv_rn(norms[(int64_t)(w0 + lane) * nblk + b], s) : 0.0f;
+#pragma unroll 4
+        for (int j = 0; j < m; ++j) {
+          const float scale = __shfl_sync(0xffffffffu, mine, j);
+          const char4 l = lv[(int64_t)(w0 + j) * quads + q];
+          acc.x = __fadd_rn(acc.x, __fmul_rn((float)l.x, scale));
+          acc.y = __fadd_rn(acc.y, __fmul_rn((float)l.y, scale));
+          acc.z = __fadd_rn(acc.z, __fmul_rn((float)l.z, scale));
+          acc.w = __fadd_rn(acc.w, __fmul_rn((float)l.w, scale));
+        }
+      }
     }
+    float4 gn;
+    gn.x = __fadd_rn(gv.x, __fdiv_rn(acc.x, fn));
+    gn.y = __fadd_rn(gv.y, __fdiv_rn(acc.y, fn));
+    gn.z = __fadd_rn(gv.z, __fdiv_rn(acc.z, fn));
+    gn.w = __fadd_rn(gv.w, __fdiv_rn(acc.w, fn));
+    reinterpret_cast<float4*>(g_out)[q] = gn;
+    float4 xn;
+    xn.x = apply_update(neg_gamma, gn.x, xv.x);
+    xn.y = apply_update(neg_gamma, gn.y, xv.y);
+    xn.z = apply_update(neg_gamma, gn.z, xv.z);
+    xn.w = apply_update(neg_gamma, gn.w, xv.w);
+    store_x4(x_out, q, xn);
   }
 }
 
@@ -286,10 +376,20 @@ static int launch_qsgd(const void* levels, const void* norms, const void* g,
                        const void* x, void* g_out, void* x_out, int n,
                        long long nblk, int block, int s, float neg_gamma,
                        void* stream) {
-  qsgd_epilogue_kernel<XT><<<elementwise_grid(nblk * block / 4, 256), 256, 0,
-                             (cudaStream_t)stream>>>(
-      (const int8_t*)levels, (const float*)norms, (const float*)g, (const XT*)x,
-      (float*)g_out, (XT*)x_out, n, nblk, block, (float)s, neg_gamma);
+  const unsigned grid = elementwise_grid(nblk * block / 4, 256);
+  cudaStream_t st = (cudaStream_t)stream;
+#define QSGD_LAUNCH(NW)                                                           \
+  qsgd_epilogue_kernel<XT, NW><<<grid, 256, 0, st>>>(                              \
+      (const int8_t*)levels, (const float*)norms, (const float*)g, (const XT*)x,   \
+      (float*)g_out, (XT*)x_out, n, nblk, block, (float)s, neg_gamma)
+  switch (n) {
+    case 1: QSGD_LAUNCH(1); break;
+    case 2: QSGD_LAUNCH(2); break;
+    case 3: QSGD_LAUNCH(3); break;
+    case 4: QSGD_LAUNCH(4); break;
+    default: QSGD_LAUNCH(0);  // any other n: the runtime worker loop
+  }
+#undef QSGD_LAUNCH
   return (int)cudaGetLastError();
 }
 

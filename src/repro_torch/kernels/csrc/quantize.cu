@@ -30,7 +30,9 @@
 // the n int8 payloads and writes one f32 accumulator. absmax_quant_rows
 // reads each KV row (W = 32·NPL values, one warp per row) once into
 // registers, takes the row's max |x| with warp shuffles (exact in any order)
-// and writes W int8 codes and one f32 scale; absmax_dequant_rows is one
+// and writes W int8 codes and one f32 scale, to rows of its own or, for
+// absmax_quant_write_pages, straight into a layer's k and v page pools at
+// device-side (page, row) indices; absmax_dequant_rows is one
 // multiply per code, 16 codes per thread (see its section). block_sumsq
 // reads x once (one CTA
 // per block, the blockwise norm's reduction) and writes one f32 per block;
@@ -264,18 +266,8 @@ __global__ void nibble_unpack_kernel(const uint32_t* __restrict__ words,
 }
 
 // ---------------------------------------------------------------------------
-// The serving engine's int8 KV-page rows. absmax_dequant_rows replaces
-// src/repro/kernels/quantize.py::absmax_dequant_rows (there one (bm, W) VMEM
-// tile per grid step, one multiply by the row's broadcast scale). Bound:
-// device-memory bytes, 5 per code (1 read, 4 written) and 4 per row: it does
-// one multiply per 5 bytes. The design reads 16 codes a thread with one
-// 16-byte load and writes them as four float4 stores, so a warp moves 512
-// contiguous bytes in and 2 KB out per instruction; the row comes from a
-// 32-bit shift (W a power of two) and its scale is read once per 16 codes.
-// At decode's sizes (a few MB) a call is over in microseconds, and the
-// wrapper's host work (kernels/quantize.py) is what a caller waits for.
-// There is no sum: out = code·scale, one __fmul_rn, bit-equal to the plain
-// version in any order.
+// The serving engine's int8 KV-page rows: the absmax quantize (one kernel,
+// two row maps) and its dequantize.
 // ---------------------------------------------------------------------------
 
 // f32(1/127) as numpy rounds the double 1/127: bit pattern 0x3C010204
@@ -284,20 +276,95 @@ __global__ void nibble_unpack_kernel(const uint32_t* __restrict__ words,
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// ---------------------------------------------------------------------------
+// absmax_quant_rows replaces src/repro/kernels/quantize.py::absmax_quant_rows
+// (there one (bm, W) VMEM tile per grid step and a separate scatter of the
+// codes and scales into the page pool by XLA). Bound: device-memory bytes,
+// W·(elt + 1) + 4 a row, a few operations a value. One kernel, two row maps:
+// IdentityRows writes row r to codes[r] and scales[r] (the wrapper
+// absmax_quant_rows, the Pallas kernel's exact function); PagedRows is the
+// int8 KV-page write of one layer (absmax_quant_write_pages): warp r takes
+// (k | v, token t, kv-head h), reads page[t] and row[t] on the device and
+// writes its W codes straight into kq / vq[page[t], row[t], h, :] and its
+// scale into k_scale / v_scale[page[t], row[t], h]. At decode's shapes the
+// device time is a few µs, and what a caller waited for was host work: two
+// wrapper calls, two copies and four index assignments a layer and step
+// (PERF.md), now one launch with no allocation.
+//
+// The null page. Idle decode slots and padded prefill tokens all target
+// page 0 (the reference's absorbed writes, src/repro/models/attention.py
+// ::_paged_write); their warps race there, so a page-0 row's codes and its
+// scale may come from different tokens (index_put with duplicate indices is
+// as unspecified). Every row of pages >= 1 is bit-equal to the plain version
+// (codes, scales, the sign of zero); page 0 is never read as data. A page or
+// row index outside the pool is dropped, as the reference's scatter drops an
+// out-of-bounds update.
+// ---------------------------------------------------------------------------
+
+// Row r of an absmax_quant_rows launch: x, codes and scales row-major.
+template <typename XT>
+struct IdentityRows {
+  const XT* x;
+  int8_t* codes;
+  float* scales;
+  template <int W>
+  __device__ __forceinline__ bool locate(int64_t r, const XT*& xr, int8_t*& cr,
+                                         float*& sr) const {
+    xr = x + r * W;
+    cr = codes + r * W;
+    sr = scales + r;
+    return true;
+  }
+};
+
+// Row r of a paged write: r < T·KV is k's (t, h) = (r / KV, r % KV), the
+// rest v's. k and v rows are (T, KV, W) with a token stride (elements) and
+// contiguous (KV, W) parts; the pools (npage, P, KV, W) int8 and (npage, P,
+// KV) f32, contiguous.
+template <typename XT>
+struct PagedRows {
+  const XT* k;
+  const XT* v;
+  long long k_stride, v_stride;
+  const int32_t* page;
+  const int32_t* row;
+  int8_t* kq;
+  int8_t* vq;
+  float* k_scale;
+  float* v_scale;
+  int tokens, kv, npage, psize;
+  template <int W>
+  __device__ __forceinline__ bool locate(int64_t r, const XT*& xr, int8_t*& cr,
+                                         float*& sr) const {
+    const int per = tokens * kv;  // < 2^30 (the wrapper checks)
+    const bool is_v = r >= per;
+    const int i = (int)r - (is_v ? per : 0);
+    const int t = i / kv, h = i - t * kv;
+    const int pg = page[t], rw = row[t];
+    if ((unsigned)pg >= (unsigned)npage || (unsigned)rw >= (unsigned)psize) return false;
+    const int64_t dst = ((int64_t)pg * psize + rw) * kv + h;
+    xr = (is_v ? v + t * v_stride : k + t * k_stride) + h * W;
+    cr = (is_v ? vq : kq) + dst * W;
+    sr = (is_v ? v_scale : k_scale) + dst;
+    return true;
+  }
+};
+
 // One warp per (row of W = 32·NPL values), rows grid-strided: lane l holds
 // the row's values l, l + 32, … (each load and store is contiguous across the
 // warp). The max keeps a NaN, as jnp.max does.
-template <typename XT, int NPL>
-__global__ void absmax_quant_rows_kernel(const XT* __restrict__ x,
-                                         int8_t* __restrict__ codes,
-                                         float* __restrict__ scales, int64_t rows) {
+template <typename XT, int NPL, typename Map>
+__global__ void absmax_quant_kernel(const Map map, int64_t rows) {
   constexpr int W = 32 * NPL;
   const int lane = threadIdx.x & 31;
   const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   const float inv127 = __uint_as_float(ABSMAX_INV127_BITS);
   for (int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < rows;
        r += warps) {
-    const XT* xr = x + r * W;
+    const XT* xr;
+    int8_t* cr;
+    float* sr;
+    if (!map.template locate<W>(r, xr, cr, sr)) continue;  // warp-uniform
     float v[NPL];
     float amax = 0.0f;
 #pragma unroll
@@ -315,10 +382,25 @@ __global__ void absmax_quant_rows_kernel(const XT* __restrict__ x,
     const float safe = scale > 0.0f ? scale : 1.0f;
 #pragma unroll
     for (int k = 0; k < NPL; ++k)
-      codes[r * W + k * 32 + lane] = (int8_t)(int)rintf(__fdiv_rn(v[k], safe));
-    if (lane == 0) scales[r] = scale;
+      cr[k * 32 + lane] = (int8_t)(int)rintf(__fdiv_rn(v[k], safe));
+    if (lane == 0) *sr = scale;
   }
 }
+
+// ---------------------------------------------------------------------------
+// absmax_dequant_rows replaces
+// src/repro/kernels/quantize.py::absmax_dequant_rows (there one (bm, W) VMEM
+// tile per grid step, one multiply by the row's broadcast scale). Bound:
+// device-memory bytes, 5 per code (1 read, 4 written) and 4 per row: it does
+// one multiply per 5 bytes. The design reads 16 codes a thread with one
+// 16-byte load and writes them as four float4 stores, so a warp moves 512
+// contiguous bytes in and 2 KB out per instruction; the row comes from a
+// 32-bit shift (W a power of two) and its scale is read once per 16 codes.
+// At decode's sizes (a few MB) a call is over in microseconds, and the
+// wrapper's host work (kernels/quantize.py) is what a caller waits for.
+// There is no sum: out = code·scale, one __fmul_rn, bit-equal to the plain
+// version in any order.
+// ---------------------------------------------------------------------------
 
 // out = code·scale, one __fmul_rn per element (bit-equal to the plain
 // version). One thread per 16 codes: one 16-byte load, four float4 stores.
@@ -535,17 +617,15 @@ extern "C" int natural_dequant_mean(const void* codes, const void* scales, void*
   return (int)cudaGetLastError();
 }
 
-template <typename XT>
-static int launch_absmax(const void* x, void* codes, void* scales, long long rows,
-                         int width, void* stream) {
+template <typename XT, typename Map>
+static int launch_absmax(const Map& map, long long rows, int width, void* stream) {
   const unsigned grid = grid_for(rows * 32, 256);  // 8 rows (warps) per CTA
   cudaStream_t st = (cudaStream_t)stream;
-  const XT* xp = (const XT*)x;
   switch (width) {
-    case 32: absmax_quant_rows_kernel<XT, 1><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
-    case 64: absmax_quant_rows_kernel<XT, 2><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
-    case 128: absmax_quant_rows_kernel<XT, 4><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
-    case 256: absmax_quant_rows_kernel<XT, 8><<<grid, 256, 0, st>>>(xp, (int8_t*)codes, (float*)scales, rows); break;
+    case 32: absmax_quant_kernel<XT, 1><<<grid, 256, 0, st>>>(map, rows); break;
+    case 64: absmax_quant_kernel<XT, 2><<<grid, 256, 0, st>>>(map, rows); break;
+    case 128: absmax_quant_kernel<XT, 4><<<grid, 256, 0, st>>>(map, rows); break;
+    case 256: absmax_quant_kernel<XT, 8><<<grid, 256, 0, st>>>(map, rows); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -553,12 +633,51 @@ static int launch_absmax(const void* x, void* codes, void* scales, long long row
 
 extern "C" int absmax_quant_rows_f32(const void* x, void* codes, void* scales,
                                      long long rows, int width, void* stream) {
-  return launch_absmax<float>(x, codes, scales, rows, width, stream);
+  const IdentityRows<float> map{(const float*)x, (int8_t*)codes, (float*)scales};
+  return launch_absmax<float>(map, rows, width, stream);
 }
 
 extern "C" int absmax_quant_rows_bf16(const void* x, void* codes, void* scales,
                                       long long rows, int width, void* stream) {
-  return launch_absmax<__nv_bfloat16>(x, codes, scales, rows, width, stream);
+  const IdentityRows<__nv_bfloat16> map{(const __nv_bfloat16*)x, (int8_t*)codes,
+                                        (float*)scales};
+  return launch_absmax<__nv_bfloat16>(map, rows, width, stream);
+}
+
+// k and v rows (tokens, kv, width) with token strides k_stride / v_stride
+// (elements) → both pools of one layer at (page[t], row[t]), one launch.
+template <typename XT>
+static int launch_write_pages(const void* k, const void* v, long long k_stride,
+                              long long v_stride, const void* page, const void* row,
+                              void* kq, void* vq, void* k_scale, void* v_scale,
+                              int tokens, int kv, int width, int npage, int psize,
+                              void* stream) {
+  const PagedRows<XT> map{(const XT*)k, (const XT*)v, k_stride, v_stride,
+                          (const int32_t*)page, (const int32_t*)row, (int8_t*)kq,
+                          (int8_t*)vq, (float*)k_scale, (float*)v_scale, tokens, kv,
+                          npage, psize};
+  return launch_absmax<XT>(map, 2LL * tokens * kv, width, stream);
+}
+
+extern "C" int absmax_quant_write_pages_f32(const void* k, const void* v,
+                                            long long k_stride, long long v_stride,
+                                            const void* page, const void* row, void* kq,
+                                            void* vq, void* k_scale, void* v_scale,
+                                            int tokens, int kv, int width, int npage,
+                                            int psize, void* stream) {
+  return launch_write_pages<float>(k, v, k_stride, v_stride, page, row, kq, vq, k_scale,
+                                   v_scale, tokens, kv, width, npage, psize, stream);
+}
+
+extern "C" int absmax_quant_write_pages_bf16(const void* k, const void* v,
+                                             long long k_stride, long long v_stride,
+                                             const void* page, const void* row, void* kq,
+                                             void* vq, void* k_scale, void* v_scale,
+                                             int tokens, int kv, int width, int npage,
+                                             int psize, void* stream) {
+  return launch_write_pages<__nv_bfloat16>(k, v, k_stride, v_stride, page, row, kq, vq,
+                                           k_scale, v_scale, tokens, kv, width, npage,
+                                           psize, stream);
 }
 
 // rows·width < 2^34 (the wrapper checks it: the f32 output alone would

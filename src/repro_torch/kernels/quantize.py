@@ -6,8 +6,9 @@ QSGD uplink: int8 levels + one f32 norm per block), ``::qsgd_dequant_mean``
 (the server's dequantize-and-mean), ``::nibble_pack`` / ``::nibble_unpack``
 (the 4-bit wire: eight two's-complement nibbles per 32-bit word), the
 natural wire (``::natural_block_workers``, ``::natural_dequant_mean``),
-the serving engine's int8 KV-page rows (``::absmax_quant_rows``,
-``::absmax_dequant_rows``) and the two-pass global-norm QSGD of the
+the serving engine's int8 KV-page rows (``::absmax_quant_rows``, also as
+the in-place write of a layer's k and v pages, ``absmax_quant_write_pages``,
+and ``::absmax_dequant_rows``) and the two-pass global-norm QSGD of the
 flat-vector wire (``::block_sumsq``, ``::qsgd_quantize``,
 ``::qsgd_dequantize``). A wrapper
 given CUDA tensors launches its kernel (or raises); given CPU tensors it
@@ -238,6 +239,67 @@ def absmax_quant_rows(x2d: torch.Tensor):
 
 
 absmax_quant_rows.launches = 0
+
+
+#: dtypes of an int8 layer pool's kq, vq, k_scale, v_scale
+_POOL_DTYPES = (torch.int8, torch.int8, torch.float32, torch.float32)
+
+
+def absmax_quant_write_pages(k_rows: torch.Tensor, v_rows: torch.Tensor, cache: dict,
+                             page: torch.Tensor, row: torch.Tensor) -> None:
+    """The int8 KV-page write of one layer, in place and in one launch: k
+    and v rows (T, KV, W), f32 or bf16, quantized per (token, kv-head) row as
+    :func:`absmax_quant_rows` does, the codes written straight into
+    ``cache["kq"]`` / ``cache["vq"]`` (npage, P, KV, W) int8 at
+    ``[page[t], row[t]]`` and the scales into ``cache["k_scale"]`` /
+    ``cache["v_scale"]`` (npage, P, KV) f32; page and row are (T,) int32 on
+    the card. Counted as a launch of ``absmax_quant_rows`` (one table row).
+
+    Every row of pages ≥ 1 is bit-equal to
+    :func:`~repro_torch.kernels.ref.absmax_quant_write_pages_ref`. Page 0,
+    the null page that idle and padded tokens all write, holds codes and a
+    scale from any of them (not necessarily one token's). The rows may have
+    any token stride; each token's (KV, W) part must be contiguous. Called
+    once per layer and serve step, so its host work is one pass of checks and
+    the entry point bound once; it allocates nothing."""
+    if not k_rows.is_cuda:
+        _ref.absmax_quant_write_pages_ref(k_rows, v_rows, cache, page, row)
+        return
+    kq, vq, ks, vs = cache["kq"], cache["vq"], cache["k_scale"], cache["v_scale"]
+    T, KV, W = k_rows.shape
+    suffix = _X_SUFFIX.get(k_rows.dtype)
+    if suffix is None or v_rows.dtype != k_rows.dtype:
+        raise ValueError("absmax_quant_write_pages takes f32 or bf16 k and v rows of one dtype")
+    if W not in ABSMAX_WIDTHS:
+        raise ValueError(f"row width {W} must be one of {ABSMAX_WIDTHS} for the kernel")
+    if v_rows.shape != k_rows.shape or T * KV >= 2**30:
+        raise ValueError(f"v rows {tuple(v_rows.shape)} must match k rows {(T, KV, W)}")
+    if (k_rows.stride(1), k_rows.stride(2), v_rows.stride(1), v_rows.stride(2)) != (W, 1, W, 1):
+        raise ValueError("each token's (KV, W) rows must be contiguous for the kernel")
+    if (kq.dtype, vq.dtype, ks.dtype, vs.dtype) != _POOL_DTYPES:
+        raise ValueError("the int8 pools are int8 codes and f32 scales")
+    npage, P = kq.shape[0], kq.shape[1]
+    if (kq.shape[2:] != (KV, W) or vq.shape != kq.shape or ks.shape != kq.shape[:3]
+            or vs.shape != ks.shape):
+        raise ValueError(f"the pools must be (npage, P, {KV}, {W}) codes and (npage, P, {KV}) "
+                         "scales")
+    if page.dtype != torch.int32 or row.dtype != torch.int32 or page.shape != (T,) \
+            or row.shape != (T,) or (T > 1 and (page.stride(0) != 1 or row.stride(0) != 1)):
+        raise ValueError(f"page and row must be ({T},) contiguous int32")
+    if not (kq.is_contiguous() and vq.is_contiguous() and ks.is_contiguous()
+            and vs.is_contiguous()):
+        raise ValueError("the page pools must be contiguous")
+    d = k_rows.get_device()
+    if any(t.get_device() != d for t in (v_rows, kq, vq, ks, vs, page, row)):
+        raise ValueError("the quantize kernels take tensors on one device")
+    if T == 0:
+        return
+    err = _build.entry("quantize", f"absmax_quant_write_pages_{suffix}")(
+        k_rows.data_ptr(), v_rows.data_ptr(), k_rows.stride(0), v_rows.stride(0),
+        page.data_ptr(), row.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), T, KV, W, npage, P, _stream_on(k_rows))
+    _build.check(err, "absmax_quant_write_pages")
+    absmax_quant_rows.launches += 1
 
 
 def absmax_dequant_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -712,6 +712,23 @@ def absmax_quant_rows_ref(x2d: torch.Tensor):
     return torch.round(x / safe[:, None]).to(torch.int8), scale
 
 
+def absmax_quant_write_pages_ref(k_rows, v_rows, cache, page, row) -> None:
+    """The int8 KV-page write of one layer, in place: k / v rows (T, KV, hd)
+    quantized per (token, kv-head) row by :func:`absmax_quant_rows_ref`, then
+    the codes put at ``kq`` / ``vq[page[t], row[t]]`` and the scales at
+    ``k_scale`` / ``v_scale[page[t], row[t]]`` (page, row (T,) integer
+    indices). Tokens that share a (page, row), the null page's absorbed
+    writes, leave one of them there, which is not specified."""
+    T, KV, hd = k_rows.shape
+    page, row = page.long(), row.long()
+    kc, ks = absmax_quant_rows_ref(k_rows.reshape(T * KV, hd))
+    vc, vs = absmax_quant_rows_ref(v_rows.reshape(T * KV, hd))
+    cache["kq"][page, row] = kc.reshape(T, KV, hd)
+    cache["vq"][page, row] = vc.reshape(T, KV, hd)
+    cache["k_scale"][page, row] = ks.reshape(T, KV)
+    cache["v_scale"][page, row] = vs.reshape(T, KV)
+
+
 def absmax_dequant_rows_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(R, W) int8 codes + (R,) f32 scales → (R, W) f32: one multiply."""
     return codes.to(torch.float32) * scales[:, None]

@@ -218,18 +218,14 @@ def _paged_write(cache, k_rows, v_rows, page, row, *, backend: str):
     """Write per-token k/v rows (T, KV, hd) into the pool at (page, row), both
     (T,) indices. Idle / invalid tokens carry page 0 (the null page), so
     their writes land there without masking. int8 pools quantize each
-    (token, kv-head) row with ``absmax_quant_rows`` first."""
-    page, row = page.long(), row.long()
+    (token, kv-head) row and write codes and scales in place, k and v in one
+    launch (``absmax_quant_write_pages``; page and row int32)."""
     if "kq" in cache:
-        T, KV, hd = k_rows.shape
-        quant = kref.absmax_quant_rows_ref if _plain(backend) else qz.absmax_quant_rows
-        kc, ks = quant(k_rows.reshape(T * KV, hd).contiguous())
-        vc, vs = quant(v_rows.reshape(T * KV, hd).contiguous())
-        cache["kq"][page, row] = kc.reshape(T, KV, hd)
-        cache["vq"][page, row] = vc.reshape(T, KV, hd)
-        cache["k_scale"][page, row] = ks.reshape(T, KV)
-        cache["v_scale"][page, row] = vs.reshape(T, KV)
+        write = (kref.absmax_quant_write_pages_ref if _plain(backend)
+                 else qz.absmax_quant_write_pages)
+        write(k_rows, v_rows, cache, page, row)
     else:
+        page, row = page.long(), row.long()
         cache["k"][page, row] = k_rows.to(cache["k"].dtype)
         cache["v"][page, row] = v_rows.to(cache["v"].dtype)
     return cache

@@ -8,8 +8,8 @@ the device-memory counters stubbed), every kernel wrapper counting a launch
 where it returns its plain version, so a drift between those expectations
 and the code shows without a card. The small-input phase (the randk_qsgd
 engine's launches and ledger, the baselines' ledgers, the robust and fault
-runs' launches and the drop ledger, the deadline contract) and the natural
-and trimmed kernel phases (shapes, edge values, the timing table, with a
+runs' launches and the drop ledger, the deadline contract) and the QSGD,
+natural and trimmed kernel phases (shapes, edge values, the timing table, with a
 host clock in place of the CUDA events) are rehearsed the same way, and so
 are the per-leaf wires of the small-input phase (SharedRandK, CorrelatedQ,
 a per-leaf QSGD downlink), the flat-wire kernel phase and the wire phase
@@ -19,6 +19,7 @@ a per-leaf QSGD downlink), the flat-wire kernel phase and the wire phase
 import os
 import sys
 
+import pytest
 import torch
 
 import repro_torch.configs as configs
@@ -37,7 +38,8 @@ TINY = ModelConfig(name="tiny-dense", arch_type="dense", d_model=64, num_heads=4
 
 def _count_plain_launches(monkeypatch):
     """Every kernel wrapper counts a launch where it returns its plain
-    version on CPU tensors."""
+    version on CPU tensors (the int8 page write under ``absmax_quant_rows``,
+    as on the card)."""
     for mod in (epilogue, paged, permk, quantize, randk):
         for name, fn in kernels.KERNELS.items():
             if getattr(mod, name, None) is fn:
@@ -46,6 +48,12 @@ def _count_plain_launches(monkeypatch):
                     _fn.launches += 1
                     return out
                 monkeypatch.setattr(mod, name, counted)
+
+    def counted_write(*a, _fn=quantize.absmax_quant_write_pages, **k):
+        out = _fn(*a, **k)
+        kernels.KERNELS["absmax_quant_rows"].launches += 1
+        return out
+    monkeypatch.setattr(quantize, "absmax_quant_write_pages", counted_write)
 
 
 def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
@@ -105,6 +113,29 @@ def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)
 
 
+def test_qsgd_kernel_phase_runs_at_a_tiny_width(monkeypatch):
+    """The packed-QSGD kernel phase's worker counts, bounds and table rows,
+    and qsgd_epilogue's times at every (n, x dtype) against 1.3× its bound,
+    with a host clock in place of the CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    report = {}
+    rows = chip_smoke.check_quantize(3, "cpu", report)
+    assert set(rows) == {"qsgd_block_workers", "nibble_pack", "nibble_unpack",
+                         "qsgd_dequant_mean", "qsgd_epilogue"}
+    for row in rows.values():
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert rows["qsgd_epilogue"]["max_abs_err"] == 0.0
+    at_n = rows["qsgd_epilogue"]["at_n"]
+    assert set(at_n) == {f"n{n}_{x}" for n in (4, 1) for x in ("float32", "bfloat16")}
+    # 17 B a coordinate at n = 1 with x f32 (1 level, g, x, g', x'), 3 more a worker
+    assert at_n["n1_float32"]["bound_ms"] == pytest.approx(
+        (17 * 3 * chip_smoke.BLOCK + 4 * 3) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert at_n["n4_float32"]["bound_ms"] == rows["qsgd_epilogue"]["bound_ms"]
+
+
 def test_trimmed_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     """The trimmed kernel phase's windows, edge rows, bounds and table rows,
     with a host clock in place of the CUDA events."""
@@ -148,6 +179,9 @@ def test_serve_kernel_phase_runs_at_a_tiny_shape(monkeypatch):
                                                      "gqa_stress": (4, 8, 1, 128, 4, 6)})
     monkeypatch.setattr(chip_smoke, "ABSMAX_SHAPES", {"serve_decode": (12, 64),
                                                       "large": (40, 128)})
+    monkeypatch.setattr(chip_smoke, "PAGE_WRITE_SHAPES", {"serve_decode": (3, 2, 4, 64),
+                                                          "serve_prefill": (9, 6, 4, 64)})
+    monkeypatch.setattr(chip_smoke, "PAGE_WRITE_POOL", (7, 4))
     report = {}
     rows = chip_smoke.check_serve_kernels("cpu", report)
     kernels.reset_launch_counts()
@@ -155,9 +189,14 @@ def test_serve_kernel_phase_runs_at_a_tiny_shape(monkeypatch):
     for row in rows.values():
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert rows["paged_attn_decode"]["max_abs_err"] == 0.0  # plain against plain
+    assert rows["absmax_quant_rows"]["shape"] == "write_serve_decode"
+    assert rows["absmax_quant_rows"]["device_ms"] == 1.0
     timed = {(t["kernel"], t["shape"]) for t in report["kernels_serve"]}
     assert ("paged_attn_decode", "gqa_stress") in timed
     assert ("absmax_dequant_rows", "serve_decode_read") in timed
+    assert {("absmax_quant_rows", "write_serve_decode"),
+            ("absmax_quant_rows", "write_serve_prefill"),
+            ("absmax_quant_rows", "large")} <= timed
     assert all("sdpa_dense_ms" in t and "sdpa_dense_b2b_ms" in t and t["cluster"] in (1, 2, 4, 8)
                for t in report["kernels_serve"] if t["kernel"] == "paged_attn_decode")
     assert all(t["b2b_ms"] == t["plain_b2b_ms"] == t["device_ms"] == 1.0
@@ -187,7 +226,7 @@ def test_serve_paths_launch_what_chip_smoke_expects(monkeypatch):
         2 * runs["serve_continuous"]["decode_steps"] > 0
     q8 = runs["serve_continuous_q8"]
     assert launches["serve_continuous_q8"]["absmax_quant_rows"] == \
-        4 * (q8["prefill_chunks"] + q8["decode_steps"])
+        2 * (q8["prefill_chunks"] + q8["decode_steps"])  # 2 layers, k and v in one write
     assert not any(launches["serve_static"].values())
     assert runs["serve_continuous"]["diverged"] == [] == q8["diverged"]
 

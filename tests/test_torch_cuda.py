@@ -1,4 +1,5 @@
-"""The twenty-four CUDA kernels against their plain PyTorch versions on the card.
+"""The twenty-four CUDA kernels (and the int8 page write, a second entry of
+``absmax_quant_rows``) against their plain PyTorch versions on the card.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -199,6 +200,31 @@ def test_qsgd_dequant_mean_and_epilogue_on_card(dev, shape, xdtype):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["qsgd_dequant_mean"] == counts["qsgd_epilogue"] == 3
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nblk,B", [(1, 128), (37, 1024), (5, 256)], ids=str)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 33])
+def test_qsgd_epilogue_bit_equal_on_card(dev, n, nblk, B, xdtype):
+    """g' and x' bit-equal to the plain version, one launch: n = 33 takes
+    the warp's second round of norm_w / s (workers 32..), nblk = 1 a single
+    block, nblk odd a grid whose last CTA is partial. Levels span ±s with
+    zero-norm rows among them."""
+    gen = torch.Generator(device=dev).manual_seed(n * 100 + nblk)
+    s = 7
+    lv = torch.randint(-s, s + 1, (n, nblk, B), generator=gen, device=dev).to(torch.int8)
+    nm = torch.rand((n, nblk), generator=gen, device=dev) * 10
+    nm[0, 0] = 0.0
+    g = torch.randn((nblk, B), generator=gen, device=dev)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    kernels.reset_launch_counts()
+    got = epilogue.qsgd_epilogue(lv, nm, g, x, 0.0371, s)
+    torch.cuda.synchronize()
+    want = ref.qsgd_epilogue_ref(lv, nm, g, x, 0.0371, s)
+    assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    assert kernels.launch_counts()["qsgd_epilogue"] == 1
 
 
 def test_qsgd_engine_and_downlink_on_card(dev):
@@ -527,6 +553,74 @@ def test_absmax_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                      torch.zeros(5, device=dev))
 
 
+def _write_pages_case(dev, T, KV, W, xdtype, npage=9, P=4, seed=0):
+    """Token-strided k / v rows (halves of one (T, 2, KV, W) buffer) with
+    edge rows, a pool with random earlier contents, and (T,) int32 maps:
+    about half the tokens at distinct rows of pages ≥ 1, the rest on the
+    null page, repeated rows included."""
+    gen = torch.Generator(device=dev).manual_seed(seed + T + W)
+    kv = torch.randn((T, 2, KV, W), generator=gen, device=dev) * 5
+    kv[0, 0] = _absmax_edge(dev, W)[torch.arange(KV) % 5]
+    kv = kv.to(xdtype)
+    n_real = min(T // 2 + 1, (npage - 1) * P)
+    slots = torch.randperm((npage - 1) * P, generator=gen, device=dev)[:n_real]
+    page = torch.zeros(T, dtype=torch.int64, device=dev)
+    row = torch.randint(0, 2, (T,), generator=gen, device=dev)
+    page[:n_real], row[:n_real] = 1 + slots // P, slots % P
+    order = torch.randperm(T, generator=gen, device=dev)
+    page, row = page[order].to(torch.int32), row[order].to(torch.int32)
+    shape = (npage, P, KV, W)
+    pool = {"kq": torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8),
+            "vq": torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8),
+            "k_scale": torch.rand(shape[:3], generator=gen, device=dev),
+            "v_scale": torch.rand(shape[:3], generator=gen, device=dev)}
+    return kv[:, 0], kv[:, 1], pool, page, row
+
+
+@pytest.mark.parametrize("T,KV", [(8, 16), (128, 2), (1, 3)], ids=str)
+@pytest.mark.parametrize("W", list(quantize.ABSMAX_WIDTHS))
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_absmax_write_pages_bit_equal_on_card(dev, T, KV, W, xdtype):
+    """The one-launch int8 page write of k and v against its plain version:
+    every row of pages ≥ 1 bit-equal (codes, scales, the sign of zero),
+    page 0 (where idle tokens race) not compared; one launch, counted as
+    absmax_quant_rows."""
+    k, v, pool, page, row = _write_pages_case(dev, T, KV, W, xdtype)
+    got = {key: t.clone() for key, t in pool.items()}
+    want = {key: t.clone() for key, t in pool.items()}
+    kernels.reset_launch_counts()
+    assert quantize.absmax_quant_write_pages(k, v, got, page, row) is None
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["absmax_quant_rows"] == 1
+    ref.absmax_quant_write_pages_ref(k, v, want, page, row)
+    for key in ("kq", "vq", "k_scale", "v_scale"):
+        a, b = got[key][1:], want[key][1:]
+        if a.dtype == torch.float32:
+            a, b = _bits(a), _bits(b)
+        assert torch.equal(a, b), key
+
+
+def test_absmax_write_pages_refuses_what_the_kernel_does_not_take(dev):
+    k, v, pool, page, row = _write_pages_case(dev, 8, 4, 64, torch.float32)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        quantize.absmax_quant_write_pages(k.half(), v.half(), pool, page, row)
+    with pytest.raises(ValueError, match="one dtype"):
+        quantize.absmax_quant_write_pages(k, v.bfloat16(), pool, page, row)
+    with pytest.raises(ValueError, match="row width"):
+        quantize.absmax_quant_write_pages(k[..., :48], v[..., :48], pool, page, row)
+    with pytest.raises(ValueError, match="contiguous"):
+        kt = k.transpose(1, 2).contiguous().transpose(1, 2)  # (KV, W) part transposed
+        quantize.absmax_quant_write_pages(kt, kt, pool, page, row)
+    with pytest.raises(ValueError, match="int32"):
+        quantize.absmax_quant_write_pages(k, v, pool, page.long(), row)
+    with pytest.raises(ValueError, match="int8 codes and f32"):
+        quantize.absmax_quant_write_pages(k, v, dict(pool, k_scale=pool["k_scale"].double()),
+                                          page, row)
+    with pytest.raises(ValueError, match="pools must be"):
+        quantize.absmax_quant_write_pages(k, v, dict(pool, vq=pool["vq"][:, :, :2]),
+                                          page, row)
+
+
 def _paged(dev, S, H, KV, hd, P, maxp, dtype, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     npage = 1 + S * maxp
@@ -658,7 +752,8 @@ def test_serve_on_card_matches_plain_versions(dev, quantized):
         rep = serve.run_continuous(params, cfg, reqs, slots=3, page_size=4, chunk=4,
                                    quantized=quantized, backend=backend, npage=8)
         counts = kernels.launch_counts()
-        if backend == "auto" and quantized:
+        if backend == "auto" and quantized:  # k and v: one write, two dequants a layer
+            assert counts["absmax_quant_rows"] == 2 * (rep.prefill_chunks + rep.decode_steps)
             assert counts["absmax_dequant_rows"] == 4 * rep.decode_steps
         elif backend == "auto":
             assert counts["paged_attn_decode"] == 2 * rep.decode_steps
