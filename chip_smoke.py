@@ -22,9 +22,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    [1, 3)), n = 2 ([0, 2)), n = 5 (the median [2, 3)) and n = 8 ([2, 6)),
    rows and x in f32 and bf16, and on one small input with a NaN row, ±inf,
    ties and ±0; x in f32 and bf16. Offsets, RandK / PermK values, QSGD
-   levels, norms, nibble words, natural codes and scales bit-equal,
-   scatter / dequant / epilogue outputs within 1 ulp, the QSGD and trimmed
-   epilogues' g' and x' bit-equal (the sign of zero included).
+   levels, norms, nibble words, natural codes and scales bit-equal, the
+   scatter-mean (``scatter_accum``) bit-equal, the other scatter / dequant /
+   epilogue outputs within 1 ulp, the QSGD, natural and trimmed epilogues'
+   g' and x' bit-equal (the sign of zero included). ``scatter_accum`` is
+   timed at the wire phase's jittered offsets too, and it and the QSGD and
+   natural epilogues (at every n and x dtype) are printed against 1.3×
+   their bound.
    The serving kernels: ``absmax_quant_rows`` / ``absmax_dequant_rows``
    bit-equal at decode's and prefill's row counts of the serve shape
    (W = 64), at R = 2^20 (W = 128) and on edge rows (a zero row, .5 ties,
@@ -345,7 +349,7 @@ SERVE_SMALL = {
 #: keys a kernel's row adds to the kernel line where it has them: profiler
 #: device ms, qsgd_epilogue's times at every (n, x dtype), the page write's
 #: host µs per call
-TABLE_EXTRA = ("device_ms", "at_n", "host_us")
+TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire")
 
 
 class SmokeFailure(Exception):
@@ -503,7 +507,7 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
 
         s = randk.scatter_accum(v, o, B)
         sr = ref.scatter_accum_ref(v, o, B)
-        require(ulp_diff(s, sr) <= 1, f"{label}: scatter_accum beyond 1 ulp")
+        require(bits_equal(s, sr), f"{label}: scatter_accum not bit-equal")
         err["scatter_accum"] = float((s - sr).abs().max())
         del s, sr
 
@@ -532,21 +536,12 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
             continue
 
         x = x32
-        flat_idx = (torch.arange(nb, device=dev)[None, :, None] * B + o.long()).reshape(-1)
-        zeros = torch.zeros(nb * B, device=dev)
-
-        def library_scatter():  # one call: scatter-add into a copy of zeros, ÷ n
-            return zeros.index_add(0, flat_idx, v.reshape(-1), alpha=1.0 / n)
-
         cells = {
             "randk_seeded_workers": (
                 lambda: randk.randk_seeded_workers(x3d, seeds, kb, scale),
                 lambda: ref.randk_seeded_workers_ref(x3d, seeds, kb, scale), None,
                 n * nb * kb * 12 + 4 * n, n * nb * kb),
-            "scatter_accum": (
-                lambda: randk.scatter_accum(v, o, B),
-                lambda: ref.scatter_accum_ref(v, o, B), library_scatter,
-                n * nb * kb * 8 + nb * B * 4, n * nb * kb + nb * B),
+            "scatter_accum": scatter_accum_cell(v, o, B),
             "scatter_epilogue": (
                 lambda: epilogue.scatter_epilogue(v, o, g, x, 0.0371),
                 lambda: ref.scatter_epilogue_ref(v, o, g, x, 0.0371), None,
@@ -562,9 +557,83 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
                           "max_abs_err": err[name], "bytes": nbytes}
             print(f"time {name}: {times_text(rows[name])}, bound {b_ms:.4f} ms ({b_by}) "
                   f"on {card}", flush=True)
-        del x3d, v, o, vr, orf, g, x32, x, flat_idx, zeros
+        del x3d, v, o, vr, orf, g, x32, x, cells
         torch.cuda.empty_cache()
+        rows["scatter_accum"]["wire"] = time_scatter_wire(nb, card)
+        for at, t in (("production", rows["scatter_accum"]),
+                      ("wire", rows["scatter_accum"]["wire"])):
+            print_target("scatter_accum", at, t, card)
     return rows
+
+
+def scatter_accum_cell(v, o, B: int) -> tuple:
+    """``scatter_accum``'s timing cell on payloads v, o (n, nblk, kb): the
+    kernel, its plain version, the one PyTorch call that computes the same
+    mean (``index_add`` into zeros with alpha 1/n), the bytes (the pairs
+    read once, the (nblk, B) f32 row written once) and the operations."""
+    import torch
+
+    from repro_torch.kernels import randk, ref
+
+    n, nb, kb = v.shape
+    flat_idx = (torch.arange(nb, device=v.device)[None, :, None] * B + o.long()).reshape(-1)
+    zeros = torch.zeros(nb * B, device=v.device)
+
+    def library_scatter():  # one call: scatter-add into a copy of zeros, ÷ n
+        return zeros.index_add(0, flat_idx, v.reshape(-1), alpha=1.0 / n)
+
+    return (lambda: randk.scatter_accum(v, o, B), lambda: ref.scatter_accum_ref(v, o, B),
+            library_scatter, n * nb * kb * 8 + nb * B * 4, n * nb * kb + nb * B)
+
+
+def time_scatter_wire(nblk: int, card: str) -> dict:
+    """``scatter_accum`` at the wire phase's shape and offsets: n = 4
+    payloads of (nblk, kb = 20) at ``ops.jittered_offsets`` under four keys
+    (one offset a stride of B/kb: no duplicate within a worker), as
+    ``ops.randk_decompress_mean`` gets them; bit-equal to its plain version,
+    then timed with it and ``index_add`` against its bound."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import ops, randk, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    keys = prng.split(prng.PRNGKey(SEED + 7), N_WORKERS)
+    o = torch.stack([ops.jittered_offsets(k, nblk, BLOCK, KB, device=dev) for k in keys])
+    v = torch.randn((N_WORKERS, nblk, KB), generator=gen, device=dev)
+    s, sr = randk.scatter_accum(v, o, BLOCK), ref.scatter_accum_ref(v, o, BLOCK)
+    require(bits_equal(s, sr), "scatter_accum at the wire's offsets: not bit-equal")
+    del s, sr
+    kern, plain, lib, nbytes, flops = scatter_accum_cell(v, o, BLOCK)
+    b_ms, b_by = bound(nbytes, flops)
+    t = {**times(kern, plain, lib), "bound_ms": b_ms, "bound_by": b_by,
+         "max_abs_err": 0.0, "bytes": nbytes}
+    print(f"time scatter_accum at the wire's offsets (n={N_WORKERS}, nblk={nblk}, "
+          f"kb={KB}): {times_text(t)}, bound {b_ms:.4f} ms ({b_by}) on {card}", flush=True)
+    del kern, plain, lib, v, o
+    torch.cuda.empty_cache()
+    return t
+
+
+def print_target(name: str, at: str, t: dict, card: str) -> None:
+    """One line: ``name``'s back-to-back time at ``at`` against 1.3× its bound."""
+    ratio = t["b2b_ms"] / t["bound_ms"]
+    print(f"target {name} {at}: back-to-back {t['b2b_ms']:.4f} ms = {ratio:.3f}× its "
+          f"bound {t['bound_ms']:.4f} ms (target ≤ 1.3×: "
+          f"{'met' if ratio <= 1.3 else 'missed'}) on {card}", flush=True)
+
+
+def report_at_n(rows: dict, timings: list, name: str, card: str) -> None:
+    """``name``'s times at every (n, x dtype) it was timed at into its table
+    row (``at_n``), each printed back to back against 1.3× its bound."""
+    at_n = {}
+    for t in timings:
+        if t["kernel"] == name:
+            key = f"n{t['n']}_{t['x'].removeprefix('torch.')}"
+            at_n[key] = {k: t[k] for k in ("ms", "b2b_ms", "bound_ms")}
+            print_target(name, key, t, card)
+    rows[name]["at_n"] = at_n
 
 
 NO_LIBRARY = "none (no single PyTorch call computes this function)"
@@ -763,17 +832,7 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
         del x32, g, xp32
         torch.cuda.empty_cache()
     report["kernels_qsgd"] = timings
-    # qsgd_epilogue at every n and x dtype, back to back against 1.3× its bound
-    at_n = {}
-    for t in timings:
-        if t["kernel"] == "qsgd_epilogue":
-            key = f"n{t['n']}_{t['x'].removeprefix('torch.')}"
-            at_n[key] = {k: t[k] for k in ("ms", "b2b_ms", "bound_ms")}
-            ratio = t["b2b_ms"] / t["bound_ms"]
-            print(f"target qsgd_epilogue {key}: back-to-back {t['b2b_ms']:.4f} ms = "
-                  f"{ratio:.3f}× its bound {t['bound_ms']:.4f} ms (target ≤ 1.3×: "
-                  f"{'met' if ratio <= 1.3 else 'missed'}) on {card}", flush=True)
-    rows["qsgd_epilogue"]["at_n"] = at_n
+    report_at_n(rows, timings, "qsgd_epilogue", card)
     return rows
 
 
@@ -804,9 +863,11 @@ def check_natural(nblk: int, card: str, report: dict) -> dict:
     """The three natural-compression kernels at every worker count of
     ``worker_counts("block_natural", "natural")`` (full width) and on the edge-value input,
     x in f32 and bf16, against their plain versions: codes and scales
-    bit-equal, the decode-and-mean and the epilogue within 1 ulp; each timed
-    at its full-width shape. The table's rows are the production uplink's
-    (n = 4, x f32)."""
+    bit-equal, the decode-and-mean within 1 ulp, the epilogue's g' and x'
+    bit-equal; each timed at its full-width shape. The table's rows are the
+    production uplink's (n = 4, x f32); ``natural_epilogue``'s row also
+    holds its times at every (n, x dtype) (``at_n``), each printed against
+    1.3× its bound."""
     import torch
 
     from repro_torch.kernels import epilogue, quantize, randk, ref
@@ -834,8 +895,8 @@ def check_natural(nblk: int, card: str, report: dict) -> dict:
         del dm, dr
         out = epilogue.natural_epilogue(codes, scales, g, xp, gamma)
         want = ref.natural_epilogue_ref(codes, scales, g, xp, gamma)
-        require(ulp_diff(out[0], want[0]) <= 1, f"natural_epilogue {label} g' beyond 1 ulp")
-        require(ulp_diff(out[1], want[1]) <= 1, f"natural_epilogue {label} x' beyond 1 ulp")
+        require(bits_equal(out[0], want[0]), f"natural_epilogue {label} g' not bit-equal")
+        require(bits_equal(out[1], want[1]), f"natural_epilogue {label} x' not bit-equal")
         err_ep = max(float((out[0] - want[0]).abs().max()),
                      float((out[1].float() - want[1].float()).abs().max()))
         return codes, scales, err_dm, err_ep
@@ -879,6 +940,7 @@ def check_natural(nblk: int, card: str, report: dict) -> dict:
         del x32, g, xp32
         torch.cuda.empty_cache()
     report["kernels_natural"] = timings
+    report_at_n(rows, timings, "natural_epilogue", card)
     return rows
 
 

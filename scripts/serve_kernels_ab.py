@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the serving kernels and the QSGD epilogue from one checkout of the
-port.
+"""Time the serving kernels, the QSGD and natural epilogues and the RandK
+scatter-mean from one checkout of the port.
 
     python3 scripts/serve_kernels_ab.py --root DIR --label NAME [--parts LIST]
 
@@ -19,6 +19,11 @@ all) picks:
   int8 pool, backend ``auto``), at ``chip_smoke.PAGE_WRITE_SHAPES``, rows f32;
 * ``qsgd``: ``qsgd_epilogue`` at Qwen1.5-0.5B's full width (nblk =
   ceil(d / 1024), B = 1024, s = 7), n = 4 and n = 1, x f32 and bf16;
+* ``natural``: ``natural_epilogue`` at the same width, n = 4 and n = 1, x
+  f32 and bf16, on codes in [−127, 127] under power-of-two scales;
+* ``scatter``: ``scatter_accum`` at the production shape (n = 4, the same
+  nblk, B = 1024, kb = 20, offsets uniform in [0, B)), with ``index_add``
+  into zeros (alpha 1/n), the one PyTorch call for the same mean, beside it;
 * ``serve``: the int8-page serve path of ``chip_smoke.py`` (full-width
   Qwen1.5-0.5B, ``SERVE_SPEC``, 8 slots, pages of 16, chunks of 128):
   median decode-step ms and tokens/s.
@@ -38,7 +43,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
-PARTS = ("paged", "dequant", "write", "qsgd", "serve")
+PARTS = ("paged", "dequant", "write", "qsgd", "natural", "scatter", "serve")
 
 
 def timings(call) -> dict:
@@ -86,16 +91,22 @@ def time_write(res, dev, gen) -> None:
         res[f"write_{label}"] = dict(timings(call), host_us=chip_smoke.host_us(call))
 
 
-def time_qsgd(res, dev, gen) -> None:
-    import torch
-
+def full_width_nblk() -> int:
+    """ceil(d / 1024) blocks of Qwen1.5-0.5B's flat parameter vector."""
     from repro_torch.configs import get_arch
     from repro_torch.core import make_layout
-    from repro_torch.kernels import epilogue
     from repro_torch.models import init_params
 
     shapes = init_params(chip_smoke.SEED, get_arch("qwen1.5-0.5b").model, device="meta")
-    nblk, B, s = make_layout(shapes, block=chip_smoke.BLOCK).nblk, chip_smoke.BLOCK, 7
+    return make_layout(shapes, block=chip_smoke.BLOCK).nblk
+
+
+def time_qsgd(res, dev, gen) -> None:
+    import torch
+
+    from repro_torch.kernels import epilogue
+
+    nblk, B, s = full_width_nblk(), chip_smoke.BLOCK, 7
     for n in (chip_smoke.N_WORKERS, 1):
         lv = torch.randint(-s, s + 1, (n, nblk, B), generator=gen, device=dev,
                            dtype=torch.int8)
@@ -108,6 +119,43 @@ def time_qsgd(res, dev, gen) -> None:
             del x
         del lv, nm, g
         torch.cuda.empty_cache()
+
+
+def time_natural(res, dev, gen) -> None:
+    import torch
+
+    from repro_torch.kernels import epilogue, ref
+
+    nblk, B = full_width_nblk(), chip_smoke.BLOCK
+    for n in (chip_smoke.N_WORKERS, 1):
+        codes = torch.randint(-127, 128, (n, nblk, B), generator=gen, device=dev,
+                              dtype=torch.int8)
+        scales = ref.pow2_ref(torch.randint(-40, 10, (n, nblk), generator=gen, device=dev))
+        g = torch.randn((nblk, B), generator=gen, device=dev)
+        for xd in (torch.float32, torch.bfloat16):
+            x = torch.randn((nblk, B), generator=gen, device=dev).to(xd)
+            res[f"natural_epilogue_n{n}_{str(xd)[6:]}"] = timings(
+                lambda: epilogue.natural_epilogue(codes, scales, g, x, 0.0371))
+            del x
+        del codes, scales, g
+        torch.cuda.empty_cache()
+
+
+def time_scatter(res, dev, gen) -> None:
+    import torch
+
+    from repro_torch.kernels import randk
+
+    n, nblk, B, kb = chip_smoke.N_WORKERS, full_width_nblk(), chip_smoke.BLOCK, chip_smoke.KB
+    v = torch.randn((n, nblk, kb), generator=gen, device=dev)
+    o = torch.randint(0, B, (n, nblk, kb), generator=gen, device=dev, dtype=torch.int32)
+    flat_idx = (torch.arange(nblk, device=dev)[None, :, None] * B + o.long()).reshape(-1)
+    zeros = torch.zeros(nblk * B, device=dev)
+    res["scatter_accum"] = timings(lambda: randk.scatter_accum(v, o, B))
+    res["scatter_index_add"] = timings(
+        lambda: zeros.index_add(0, flat_idx, v.reshape(-1), alpha=1.0 / n))
+    del v, o, flat_idx, zeros
+    torch.cuda.empty_cache()
 
 
 def time_serve(res, dev, gen) -> None:
@@ -150,7 +198,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 16)
     res = {"label": args.label, "root": args.root, "card": chip_smoke.nvidia_smi_line()}
     timers = {"paged": time_paged, "dequant": time_dequant, "write": time_write,
-              "qsgd": time_qsgd, "serve": time_serve}
+              "qsgd": time_qsgd, "natural": time_natural, "scatter": time_scatter,
+              "serve": time_serve}
     for part in PARTS:
         if part in parts:
             timers[part](res, dev, gen)

@@ -85,13 +85,13 @@ __device__ __forceinline__ signed char natural_code(float x, int e_ref, uint32_t
 }
 
 // decoded value of one code: sign(c)·scale·2^-(|c|−1), the product rounded
-// once and flushed to 0 below 2^-126; 0 for c = 0
+// once and flushed to 0 below 2^-126 (a NaN product too), the sign applied
+// after the flush (c < 0 may give −0); +0 for c = 0. Selects, no branch.
 __device__ __forceinline__ float natural_value(int c, float scale) {
-  if (c == 0) return 0.0f;
   const int a = c < 0 ? -c : c;
-  float mag = __fmul_rn(scale, pow2_exact(max(1 - a, -126)));
-  if (!(mag >= NATURAL_TINY)) mag = 0.0f;
-  return c < 0 ? -mag : mag;
+  const float mag = __fmul_rn(scale, pow2_exact(max(1 - a, -126)));
+  const float kept = (c != 0) & (mag >= NATURAL_TINY) ? mag : 0.0f;
+  return c < 0 ? -kept : kept;
 }
 
 // acc[k] = Σ_{w=0..n−1} decoded code[w, i0 + k] under scale[w, b], k < 4,

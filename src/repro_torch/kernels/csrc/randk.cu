@@ -23,7 +23,6 @@
 #include <stdint.h>
 
 #include "murmur.cuh"
-#include "scatter.cuh"
 
 // One thread per (w, b, t): offset = murmur(seed_w, b·kb + t) & (B − 1),
 // value = x[w, b, offset] · scale, the multiply rounded once in f32.
@@ -49,21 +48,83 @@ __global__ void randk_seeded_workers_kernel(const float* __restrict__ x,
   }
 }
 
-// One CTA per block b; acc (B f32) and the block's payloads in shared memory.
-// out[b, j] = acc[j] / n, a true division.
-__global__ void scatter_accum_kernel(const float* __restrict__ vals,
-                                     const int32_t* __restrict__ offs,
-                                     float* __restrict__ out, int n,
-                                     int64_t nblk, int block, int kb) {
-  extern __shared__ float smem[];
-  float* acc = smem;
-  float* sv = acc + block;
-  int32_t* so = reinterpret_cast<int32_t*>(sv + n * kb);
-  const int64_t b = blockIdx.x;
-  scatter_block(vals, offs, acc, sv, so, n, nblk, block, kb, b);
+// One warp per block b, up to kScatterWarps blocks a CTA, the warp's (B,)
+// f32 row in shared memory; no __syncthreads. The warp zero-fills its row,
+// then takes the block's n·kb payload pairs 32 at a time in the oracle's
+// order (w = 0..n−1, then t = 0..kb−1; worker w's kb pairs of block b are
+// contiguous at (w·nblk + b)·kb), one pair a lane, loaded coalesced. Pairs
+// of one chunk with the same offset are ranked by lane (__match_any_sync);
+// rank r adds in round r, so the lanes of a round add into distinct
+// coordinates at once and each coordinate's adds keep the oracle's order,
+// without float atomics. Offsets outside [0, B) are dropped, as XLA's
+// scatter drops them. Then out[b, j] = acc[j] / n, written as float4: for n a
+// power of two as acc[j]·(1/n), which is acc[j] / n rounded once (1/n is
+// exact, so both round the same real number), else a true division. The
+// design it replaces ran one CTA of 128 threads a block, with lane 0 doing
+// all n·kb read-add-writes in a dependent chain while the others waited at a
+// barrier (2.7× its byte bound, PERF.md); with the chain gone, the IEEE
+// divide of every coordinate took more instruction slots than the pairs' adds.
+// Bound by bytes: the (B,) output row is 1.86 of the 2.15 GB it moves at the
+// production shape.
+constexpr int kScatterWarps = 8;
+
+// row[j] = acc[j] / n rounded once, by a warp: for POW2 (n a power of two)
+// as acc[j]·(1/n), 1/n exact, else an IEEE division; float4 stores for B ≥ 4
+template <bool POW2>
+__device__ __forceinline__ void write_mean_row(const float* acc, float* __restrict__ row,
+                                               int block, int n, int lane) {
   const float fn = (float)n;
-  for (int j = threadIdx.x; j < block; j += blockDim.x)
-    out[b * block + j] = __fdiv_rn(acc[j], fn);
+  const float inv = __fdiv_rn(1.0f, fn);
+  auto mean = [&](float a) { return POW2 ? __fmul_rn(a, inv) : __fdiv_rn(a, fn); };
+  const int quads = block >> 2;
+  for (int j = lane; j < quads; j += 32) {
+    const float4 a = reinterpret_cast<const float4*>(acc)[j];
+    reinterpret_cast<float4*>(row)[j] = make_float4(mean(a.x), mean(a.y), mean(a.z), mean(a.w));
+  }
+  for (int j = 4 * quads + lane; j < block; j += 32) row[j] = mean(acc[j]);  // B < 4
+}
+
+__global__ void __launch_bounds__(32 * kScatterWarps)
+scatter_accum_kernel(const float* __restrict__ vals, const int32_t* __restrict__ offs,
+                     float* __restrict__ out, int n, int64_t nblk, int block, int kb,
+                     int warps) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * warps + warp;
+  if (b >= nblk) return;  // the whole warp: nothing below waits on another warp
+  float* acc = reinterpret_cast<float*>(smem4) + (size_t)warp * block;
+  const int quads = block >> 2;
+  float4* acc4 = reinterpret_cast<float4*>(acc);  // B ≥ 4: 16-byte aligned rows
+  for (int j = lane; j < quads; j += 32) acc4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int j = 4 * quads + lane; j < block; j += 32) acc[j] = 0.0f;  // B < 4
+  __syncwarp();
+
+  const int m = n * kb;
+  const unsigned below = (1u << lane) - 1u;
+  for (int i0 = 0; i0 < m; i0 += 32) {
+    const int i = i0 + lane;
+    int o = -1;
+    float v = 0.0f;
+    if (i < m) {
+      const int w = i / kb;
+      const int64_t src = ((int64_t)w * nblk + b) * kb + (i - w * kb);
+      v = vals[src];
+      o = offs[src];
+    }
+    const bool keep = (unsigned)o < (unsigned)block;
+    const int rank = __popc(__match_any_sync(0xffffffffu, o) & below);
+    const int rounds = (int)__reduce_max_sync(0xffffffffu, keep ? rank + 1 : 0);
+    for (int r = 0; r < rounds; ++r) {
+      if (keep && rank == r) acc[o] = __fadd_rn(acc[o], v);
+      __syncwarp();
+    }
+  }
+
+  if ((n & (n - 1)) == 0)
+    write_mean_row<true>(acc, out + b * block, block, n, lane);
+  else
+    write_mean_row<false>(acc, out + b * block, block, n, lane);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -128,19 +189,19 @@ extern "C" int randk_seeded_workers(const void* x, const void* seeds, void* vals
 
 extern "C" int scatter_accum(const void* vals, const void* offs, void* out, int n,
                              long long nblk, int block, int kb, void* stream) {
-  const size_t smem = (size_t)block * sizeof(float) +
-                      (size_t)n * kb * (sizeof(float) + sizeof(int32_t));
+  // kScatterWarps blocks a CTA up to B = 1024 (32 KiB of rows), fewer above
+  const int warps = block >= 1024 ? (block >= 8192 ? 1 : 8192 / block) : kScatterWarps;
+  const size_t smem = (size_t)warps * block * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        scatter_accum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        scatter_accum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  scatter_accum_kernel<<<(unsigned)nblk, 128, smem, (cudaStream_t)stream>>>(
-      (const float*)vals, (const int32_t*)offs, (float*)out, n, nblk, block, kb);
+  const long long grid = (nblk + warps - 1) / warps;
+  scatter_accum_kernel<<<(unsigned)grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const float*)vals, (const int32_t*)offs, (float*)out, n, nblk, block, kb, warps);
   return (int)cudaGetLastError();
 }
-
 
 template <typename XT>
 static int launch_gather(const void* x, const void* offs, void* vals, long long nblk,

@@ -1,5 +1,5 @@
-// Shared scatter-accumulate of one block's worker payloads (randk.cu and
-// epilogue.cu). Included by both sources; each is compiled on its own.
+// Scatter-accumulate of one block's worker payloads, for epilogue.cu's
+// scatter_epilogue. (randk.cu's scatter_accum has its own warp-per-block walk.)
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -59,3 +59,17 @@ def close_except_flips(got, want, step, rtol, atol_scale=False) -> int:
     assert (err[flagged] <= step * (1 + 1e-4)
             + np.broadcast_to(tol, err.shape)[flagged]).all(), (err[flagged].max(), step)
     return int(flagged.sum())
+
+
+def ordered_scatter_mean(v: np.ndarray, o: np.ndarray, B: int) -> np.ndarray:
+    """The scatter-mean of (n, nblk, kb) f32 values at int32 offsets as a
+    numpy loop in the oracle's order (w, then t) per block, each add and the
+    final ÷ n rounded once in f32; offsets outside [0, B) skipped."""
+    n, nblk, kb = v.shape
+    acc = np.zeros((nblk, B), np.float32)
+    for b in range(nblk):
+        for w in range(n):
+            for t in range(kb):
+                if 0 <= o[w, b, t] < B:
+                    acc[b, o[w, b, t]] = np.float32(acc[b, o[w, b, t]] + v[w, b, t])
+    return acc / np.float32(n)

@@ -111,6 +111,38 @@ def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     # cohort (2, under the median) and the downlink's one payload (1)
     assert counts == {(k, n) for n in (4, 2, 1) for k in rows}
     assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)
+    at_n = rows["natural_epilogue"]["at_n"]
+    assert set(at_n) == {f"n{n}_{x}" for n in (4, 2, 1) for x in ("float32", "bfloat16")}
+    # 13 B a coordinate at n = 1 with x bf16 (a code, g and g' in f32, x and x'
+    # in bf16), 4 more a block (its scale)
+    assert at_n["n1_bfloat16"]["bound_ms"] == pytest.approx(
+        (13 * 3 * chip_smoke.BLOCK + 4 * 3) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_randk_kernel_phase_runs_at_a_tiny_width(monkeypatch):
+    """The RandK-wire kernel phase: the production shape cut to 3 blocks,
+    PP's cohort and the forced-duplicates shape, the epilogues, and
+    ``scatter_accum`` timed at the production and the wire phase's jittered
+    offsets against its bound and ``index_add``, with a host clock in place
+    of the CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    for name in ("empty_cache", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    report = {}
+    rows = chip_smoke.check_kernels(3, "cpu", report)
+    assert set(rows) == {"randk_seeded_workers", "scatter_accum", "scatter_epilogue",
+                         "mean_epilogue"}
+    for row in rows.values():
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert set(report) == {f"kernels_{k}" for k in chip_smoke.randk_shapes(3)}
+    scatter = rows["scatter_accum"]
+    assert scatter["max_abs_err"] == 0.0 and scatter["library_ms"] == 1.0
+    # the pairs read once (n·nblk·kb · 8 B), the row written once (nblk·B · 4 B)
+    nbytes = chip_smoke.N_WORKERS * 3 * chip_smoke.KB * 8 + 3 * chip_smoke.BLOCK * 4
+    assert scatter["bytes"] == scatter["wire"]["bytes"] == nbytes
+    assert scatter["wire"]["library_ms"] == 1.0 and scatter["wire"]["max_abs_err"] == 0.0
 
 
 def test_qsgd_kernel_phase_runs_at_a_tiny_width(monkeypatch):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import ordered_scatter_mean
 from repro_torch import kernels
 from repro_torch.kernels import epilogue, paged, permk, quantize, randk, ref
 
@@ -53,10 +54,52 @@ def test_randk_and_scatter_accum_on_card(dev, shape):
     vr, orf = ref.randk_seeded_workers_ref(x3d, seeds, kb, B / kb)
     assert torch.equal(o, orf) and torch.equal(v, vr)
     s = randk.scatter_accum(v, o, B)
-    assert _ulp(s, ref.scatter_accum_ref(v, o, B)) <= 1
+    assert torch.equal(_bits(s), _bits(ref.scatter_accum_ref(v, o, B)))
     torch.cuda.synchronize()
     assert kernels.launch_counts()["randk_seeded_workers"] == 1
     assert kernels.launch_counts()["scatter_accum"] == 1
+
+
+#: scatter_accum's shapes beyond SHAPES: kb = B with n = 33 (a chunk of 32
+#: pairs a round, many rounds a block) at B = 1024 and below 128, where a
+#: warp's row is shorter than its 32 lanes' float4s, down to B = 2 and 1
+#: (no float4 at all)
+SCATTER_SHAPES = SHAPES + [(33, 5, B, B) for B in (8, 32, 128, 1024)] + [
+    (3, 7, 2, 2), (2, 9, 1, 1)]
+
+
+@pytest.mark.parametrize("spread", ["dups", "spread"])
+@pytest.mark.parametrize("shape", SCATTER_SHAPES, ids=str)
+def test_scatter_accum_bit_equal_on_card(dev, shape, spread):
+    """Bit-equal to the plain version, one launch. ``dups``: offsets drawn
+    from [0, 4), so each block's n·kb adds pile onto four coordinates and a
+    chunk of 32 pairs takes many rounds; ``spread``: offsets over [0, B)."""
+    n, nblk, B, kb = shape
+    gen = torch.Generator(device=dev).manual_seed(n * 1000 + B + kb)
+    v = torch.randn((n, nblk, kb), generator=gen, device=dev)
+    hi = min(4, B) if spread == "dups" else B
+    o = torch.randint(0, hi, (n, nblk, kb), generator=gen, device=dev).to(torch.int32)
+    kernels.reset_launch_counts()
+    got = randk.scatter_accum(v, o, B)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(ref.scatter_accum_ref(v, o, B)))
+    assert kernels.launch_counts()["scatter_accum"] == 1
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 128, 40), (2, 4, 2, 3), (4, 37, 1024, 20)],
+                         ids=str)
+def test_scatter_accum_drops_offsets_outside_the_block_on_card(dev, shape):
+    """Offsets outside [0, B) (negative, B, past B, the int32 extremes) add
+    nothing: the output equals a numpy loop in (w, t) order that skips them,
+    bit for bit."""
+    n, nblk, B, kb = shape
+    gen = torch.Generator(device=dev).manual_seed(B + kb)
+    v = torch.randn((n, nblk, kb), generator=gen, device=dev)
+    o = torch.randint(-3, B + 3, (n, nblk, kb), generator=gen, device=dev).to(torch.int32)
+    o[0, 0, :3] = torch.tensor([-2**31, 2**31 - 1, B], device=dev)
+    got = randk.scatter_accum(v, o, B)
+    want = torch.from_numpy(ordered_scatter_mean(v.cpu().numpy(), o.cpu().numpy(), B))
+    assert torch.equal(_bits(got.cpu()), _bits(want))
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -334,10 +377,42 @@ def test_natural_dequant_mean_and_epilogue_on_card(dev, shape, xdtype):
     got = epilogue.natural_epilogue(codes, scales, g, x, 0.0371)
     want = ref.natural_epilogue_ref(codes, scales, g, x, 0.0371)
     assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
-    assert _ulp(got[0], want[0]) <= 1 and _ulp(got[1], want[1]) <= 1
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["natural_dequant_mean"] == counts["natural_epilogue"] == 1
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nblk,B", [(1, 128), (37, 1024), (5, 256)], ids=str)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 33])
+def test_natural_epilogue_bit_equal_on_card(dev, n, nblk, B, xdtype):
+    """g' and x' bit-equal to the plain version, one launch: n ≤ 4 the
+    unrolled workers, n = 33 the runtime loop's second round of scales.
+    Codes span ±127 with a run of zero codes in every block; scales are
+    powers of two from 2^-126 to 2^39 with, among them, 0, 2^-126 (every
+    code but ±1 decodes below 2^-126 and flushes, to −0 where c < 0), a
+    non-power of two (products rounded once, the small ones flushing) and a
+    NaN (a NaN product flushes to 0)."""
+    gen = torch.Generator(device=dev).manual_seed(n * 100 + nblk + 7)
+    codes = torch.randint(-127, 128, (n, nblk, B), generator=gen, device=dev).to(torch.int8)
+    codes[:, :, : B // 8] = 0
+    codes[0, 0, B // 8: B // 8 + 8] = torch.tensor([1, -1, 127, -127, 2, -2, 126, -126],
+                                                   device=dev)
+    scales = ref.pow2_ref(torch.randint(-126, 40, (n, nblk), generator=gen, device=dev))
+    edge = torch.tensor([0.0, 2.0**-126, 3.3 * 2.0**-120, float("nan")], device=dev)
+    scales.view(-1)[: edge.numel()] = edge[: scales.numel()]
+    g = torch.randn((nblk, B), generator=gen, device=dev)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    kernels.reset_launch_counts()
+    got = epilogue.natural_epilogue(codes, scales, g, x, 0.0371)
+    torch.cuda.synchronize()
+    want = ref.natural_epilogue_ref(codes, scales, g, x, 0.0371)
+    assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    assert kernels.launch_counts()["natural_epilogue"] == 1
 
 
 def test_natural_and_randk_qsgd_engines_on_card(dev):

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_torch_thread, to_np, ulp_diff  # noqa: F401
+from _torch_parity import one_torch_thread, ordered_scatter_mean, to_np, ulp_diff  # noqa: F401
 from repro.kernels import ref as jref
 from repro_torch import kernels as tk
 from repro_torch.kernels import ref as tref
@@ -58,6 +58,24 @@ def test_scatter_accum_within_one_ulp(shape):
     got = tref.scatter_accum_ref(tv, to, B)
     assert ulp_diff(got, want) <= 1
     assert torch.equal(tk.randk.scatter_accum(tv, to, B), got)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(33, 3, 8, 8)], ids=IDS + ["n33"])
+def test_scatter_accum_duplicates_match_reference(shape):
+    """Offsets drawn from [0, 4): every block's n·kb adds pile onto four
+    coordinates, so any change in the order of duplicate adds shows. The
+    plain version, the reference's oracle and a numpy loop in (w, t) order
+    agree bit for bit."""
+    n, nblk, B, kb = shape
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal((n, nblk, kb), dtype=np.float32)
+    o = rng.integers(0, 4, (n, nblk, kb)).astype(np.int32)
+    want = jref.scatter_accum_ref(jnp.asarray(v), jnp.asarray(o), B)
+    got = tref.scatter_accum_ref(torch.from_numpy(v), torch.from_numpy(o), B)
+    assert ulp_diff(got, want) == 0
+    assert ulp_diff(got, ordered_scatter_mean(v, o, B)) == 0
+    assert torch.equal(tk.randk.scatter_accum(torch.from_numpy(v), torch.from_numpy(o), B),
+                       got)
 
 
 @pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
