@@ -23,12 +23,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    rows and x in f32 and bf16, and on one small input with a NaN row, ±inf,
    ties and ±0; x in f32 and bf16. Offsets, RandK / PermK values, QSGD
    levels, norms, nibble words, natural codes and scales bit-equal, the
-   scatter-mean (``scatter_accum``) bit-equal, the other scatter / dequant /
-   epilogue outputs within 1 ulp, the QSGD, natural and trimmed epilogues'
-   g' and x' bit-equal (the sign of zero included). ``scatter_accum`` is
-   timed at the wire phase's jittered offsets too, and it and the QSGD and
-   natural epilogues (at every n and x dtype) are printed against 1.3×
-   their bound.
+   scatter-mean (``scatter_accum``) and the QSGD dequant-mean bit-equal (the
+   latter also at n ∈ ``DEQUANT_MEAN_NS`` × B ∈ ``DEQUANT_MEAN_BLOCKS``, a
+   zero norm and |l| = s), the other scatter / dequant / epilogue outputs
+   within 1 ulp, the QSGD, natural and trimmed epilogues' g' and x'
+   bit-equal (the sign of zero included). ``scatter_accum`` is timed at the
+   wire phase's jittered offsets too, and it, the QSGD dequant-mean and the
+   QSGD and natural epilogues (at every n and x dtype) are printed against
+   1.3× their bound.
    The serving kernels: ``absmax_quant_rows`` / ``absmax_dequant_rows``
    bit-equal at decode's and prefill's row counts of the serve shape
    (W = 64), at R = 2^20 (W = 128) and on edge rows (a zero row, .5 ties,
@@ -55,6 +57,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``jax.random.uniform`` dither (levels bit-equal) and ``qsgd_dequantize``
    (bit-equal), each on small edge inputs too (±0, ±inf, zero rows, a zero
    norm, |x| = norm, exact ties).
+   The random-gather yardsticks (``kernels/yardstick.py``: no path's
+   kernel, no port of a TPU kernel; ``check_gather_floors``): the gather
+   yardstick at row 1's production shape and at the wire shape of rows
+   10–11, the affine yardstick at row 12's, each against its plain version,
+   timed back to back over ``yardstick.SWEEP`` (the fastest is its time,
+   ``gather_floor_ms``) and printed as ``gather yardstick …`` beside the
+   byte bound and the 32- and 64-byte sector floors of the offsets those
+   kernels gather, with each kernel's back-to-back time over the
+   yardstick's (``rule 2 …``: a redesign is due above 1.3×). The yardstick
+   is a bare gather, not a lower bound: a kernel may beat it.
    For the kernel, its plain version and, where one exists, the one PyTorch
    call that computes the same function: the median single-call time (CUDA
    events around each of 25 calls; 5 for the plain version) and the
@@ -163,6 +175,8 @@ MB_PER_WORKER, R_PARTICIPATING = 2, 2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16, dense tensor cores
+RANDK_SEEDS = [1, 2**31 + 7, 2**32 - 1, 12345]  # the RandK kernels' worker seeds
+PERMK_SEED = 2**31 + 12345                      # the PermK kernel's shared seed
 
 SOURCES = {
     "randk_seeded_workers": ("src/repro_torch/kernels/csrc/randk.cu",
@@ -346,10 +360,11 @@ SERVE_SMALL = {
 }
 
 
-#: keys a kernel's row adds to the kernel line where it has them: profiler
-#: device ms, qsgd_epilogue's times at every (n, x dtype), the page write's
-#: host µs per call
-TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire")
+#: keys a kernel's row adds to the kernel line where it has them, each
+#: measured in the run: profiler device ms, the times at every (n, x dtype)
+#: of qsgd_epilogue and qsgd_dequant_mean, the page write's host µs per call,
+#: the gather yardstick's time at a gather's shape (check_gather_floors)
+TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire", "gather_floor_ms")
 
 
 class SmokeFailure(Exception):
@@ -497,7 +512,7 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
     for label, (n, nb, B, kb) in randk_shapes(nblk).items():
         timed = label == "production"
         x3d = torch.randn((n, nb, B), generator=gen, device=dev)
-        seeds = randk.seeds_tensor([1, 2**31 + 7, 2**32 - 1, 12345][:n], dev)
+        seeds = randk.seeds_tensor(RANDK_SEEDS[:n], dev)
         scale = B / kb
         v, o = randk.randk_seeded_workers(x3d, seeds, kb, scale)
         vr, orf = ref.randk_seeded_workers_ref(x3d, seeds, kb, scale)
@@ -650,7 +665,7 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, timings = {}, []
-    seed = 2**31 + 12345
+    seed = PERMK_SEED
     for n in (N_WORKERS, 2, 8):
         x32 = torch.randn((n, nblk, BLOCK), generator=gen, device=dev)
         for xd in (torch.float32, torch.bfloat16):
@@ -747,10 +762,12 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
     """The five packed-QSGD kernels (s = 7) at every worker count of
     ``worker_counts("block_qsgd", "qsgd")``, x in f32 and bf16, against their plain
     versions: levels, norms and words bit-equal, the dequantized mean
-    within 1 ulp, the epilogue's g' and x' bit-equal; each timed at its
-    shape. The table's rows are the production uplink's (n = 4, x f32);
-    ``qsgd_epilogue``'s row also holds its times at every (n, x dtype)
-    (``at_n``), each printed against 1.3× its bound."""
+    bit-equal (and at ``DEQUANT_MEAN_NS`` × ``DEQUANT_MEAN_BLOCKS``), the
+    epilogue's g' and x' bit-equal; each timed at its shape. The table's
+    rows are the production uplink's (n = 4, x f32); the rows of
+    ``qsgd_epilogue`` and ``qsgd_dequant_mean`` also hold their times at
+    every (n, x dtype) they were timed at (``at_n``), each printed against
+    1.3× its bound."""
     import torch
 
     from repro_torch.kernels import epilogue, quantize, randk, ref
@@ -806,7 +823,7 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
                 del words
                 dm = quantize.qsgd_dequant_mean(lv, nm, s)
                 dr = ref.qsgd_dequant_mean_ref(lv, nm, s)
-                require(ulp_diff(dm, dr) <= 1, f"qsgd_dequant_mean n={n} beyond 1 ulp")
+                require(bits_equal(dm, dr), f"qsgd_dequant_mean n={n} not bit-equal")
                 err = float((dm - dr).abs().max())
                 del dm, dr
                 timed("qsgd_dequant_mean", n, xd,
@@ -831,9 +848,43 @@ def check_quantize(nblk: int, card: str, report: dict) -> dict:
               flush=True)
         del x32, g, xp32
         torch.cuda.empty_cache()
+    check_dequant_mean_shapes(dev)
     report["kernels_qsgd"] = timings
     report_at_n(rows, timings, "qsgd_epilogue", card)
+    report_at_n(rows, timings, "qsgd_dequant_mean", card)
     return rows
+
+
+#: qsgd_dequant_mean's small shapes, each held bit-equal: n over the unrolled
+#: counts (1–4) and the runtime loop (5, 8), the exact multiply by 1/n (1, 2,
+#: 4, 8) and the true divide (3, 5); B over the widths the kernel takes
+DEQUANT_MEAN_NS, DEQUANT_MEAN_BLOCKS = (1, 2, 3, 4, 5, 8), (128, 1024, 4096)
+
+
+def check_dequant_mean_shapes(dev) -> None:
+    """``qsgd_dequant_mean`` bit-equal to its plain version at every n of
+    ``DEQUANT_MEAN_NS`` and B of ``DEQUANT_MEAN_BLOCKS`` (s = 7, 5 blocks),
+    levels over [−s, s] with whole rows at ±s, a row whose norm is 0 and
+    norms spread over many octaves."""
+    import torch
+
+    from repro_torch.kernels import quantize, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    s, nb = S_LEVELS, 5
+    for n in DEQUANT_MEAN_NS:
+        for B in DEQUANT_MEAN_BLOCKS:
+            lv = torch.randint(-s, s + 1, (n, nb, B), generator=gen, device=dev,
+                               dtype=torch.int8)
+            lv[0, 1], lv[-1, 2] = s, -s
+            nm = torch.rand((n, nb), generator=gen, device=dev) * 2.0 ** torch.randint(
+                -30, 30, (n, nb), generator=gen, device=dev)
+            nm[-1, 0] = 0.0
+            require(bits_equal(quantize.qsgd_dequant_mean(lv, nm, s),
+                               ref.qsgd_dequant_mean_ref(lv, nm, s)),
+                    f"qsgd_dequant_mean n={n} B={B}: not bit-equal")
+    print(f"kernels qsgd_dequant_mean n in {DEQUANT_MEAN_NS}, B in {DEQUANT_MEAN_BLOCKS}: "
+          "bit-equal", flush=True)
 
 
 def natural_edge_input(dev, B: int):
@@ -1583,6 +1634,105 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
     check_wire_edges(dev)
     report["kernels_wire"] = timings
     return rows
+
+
+def sector_floors(offs, write_bytes: int) -> dict:
+    """The least device-memory traffic of gathering f32 values at ``offs``
+    (rows, k) int32 offsets into rows of 4 KiB-aligned f32: each row's
+    distinct 32-byte sectors (and 64-byte segments) read once, plus
+    ``write_bytes`` a gathered value written, as ms at the card's memory
+    rate."""
+    out = {}
+    for key, shift, size in (("sector_floor_ms", 3, 32), ("segment_floor_ms", 4, 64)):
+        ids = (offs.reshape(-1, offs.shape[-1]) >> shift).sort(dim=-1).values
+        distinct = ids.shape[0] + int((ids.diff(dim=-1) != 0).sum())
+        out[key] = (distinct * size + offs.numel() * write_bytes) / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def sweep_floor(make_call) -> dict:
+    """Back-to-back ms of a yardstick at every (unroll, threads) of
+    ``yardstick.SWEEP``; its time (``gather_floor_ms``) is the fastest."""
+    from repro_torch.kernels import yardstick
+
+    sweep = {f"u{u}_t{t}": back_to_back_ms(make_call(u, t)) for u, t in yardstick.SWEEP}
+    return {"gather_floor_ms": min(sweep.values()), "sweep_b2b_ms": sweep}
+
+
+def check_gather_floors(nblk: int, card: str, report: dict, rows: dict) -> None:
+    """The random-gather yardsticks (``kernels/yardstick.py``, no path's
+    kernel) at three shapes, each checked against its plain version and
+    timed over ``yardstick.SWEEP``: the gather yardstick at row 1's
+    production shape (n·nblk rows of B = 1024, kb = 20) and at the wire
+    shape of rows 10–11 (nblk rows), the affine yardstick at row 12's (n =
+    4, its seed). Each time goes into its kernels' table rows
+    (``gather_floor_ms``, the one number of this phase on the kernel line)
+    and is printed beside the byte bound and the sector floors of the
+    offsets those kernels gather here (``sector_floor_ms``,
+    ``segment_floor_ms``: every distinct 32-byte sector or 64-byte segment
+    a row touches read once, computed, in ``report["gather_floors"]``),
+    with the kernel's back-to-back time over the yardstick's."""
+    import torch
+
+    from repro_torch.kernels import randk, ref, yardstick
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    floors = {}
+    for label, nrows in (("randk_seeded_workers", N_WORKERS * nblk), ("wire", nblk)):
+        x2d = torch.randn((nrows, BLOCK), generator=gen, device=dev)
+        v, o = yardstick.gather(x2d, KB)
+        require(bits_equal(v, yardstick.gather_ref(x2d, KB)[0]) and torch.equal(
+            o, yardstick.gather_offsets_ref(nrows, BLOCK, KB, dev)),
+            f"gather yardstick at {label}: differs from its plain version")
+        del v, o
+        floors[label] = sweep_floor(lambda u, t: lambda: yardstick.gather(x2d, KB, u, t))
+        del x2d
+        torch.cuda.empty_cache()
+    ctr = torch.arange(nblk * KB, dtype=torch.int64, device=dev).view(1, nblk, KB)
+    seeds = randk.seeds_tensor(RANDK_SEEDS[:N_WORKERS], dev)
+    o = (ref.murmur_bits_ref(seeds.long().view(-1, 1, 1) & 0xFFFFFFFF, ctr)
+         & (BLOCK - 1)).to(torch.int32)  # row 1's offsets under the production seeds
+    floors["randk_seeded_workers"].update(sector_floors(o, 8))
+    del ctr, o
+
+    x3d = torch.randn((N_WORKERS, nblk, BLOCK), generator=gen, device=dev)
+    v, o = yardstick.affine(x3d, PERMK_SEED)
+    vr, orf = yardstick.affine_ref(x3d, PERMK_SEED)
+    require(bits_equal(v, vr) and torch.equal(o, orf),
+            "affine yardstick differs from its plain version (row 12's offsets)")
+    floors["permk_seeded_workers"] = {
+        **sweep_floor(lambda u, t: lambda: yardstick.affine(x3d, PERMK_SEED, u, t)),
+        **sector_floors(o, 8)}
+    del x3d, v, o, vr, orf
+    torch.cuda.empty_cache()
+
+    shapes = {"randk_seeded_workers": f"n={N_WORKERS}, nblk={nblk}, B={BLOCK}, kb={KB}",
+              "wire": f"nblk={nblk}, B={BLOCK}, kb={KB}",
+              "permk_seeded_workers": f"affine, n={N_WORKERS}, nblk={nblk}, B={BLOCK}"}
+    report["gather_floors"] = floors
+    for label, f in floors.items():
+        names = ("randk_gather", "randk_seeded") if label == "wire" else (label,)
+        for name in names:
+            row = rows[name]
+            row["gather_floor_ms"] = f["gather_floor_ms"]
+            for key in ("sector_floor_ms", "segment_floor_ms"):
+                row.setdefault(key, f.get(key))
+                f.setdefault(key, row[key])  # the wire phase's sector floor
+            ratio = row["b2b_ms"] / f["gather_floor_ms"]
+            sec, seg = (("n/a" if row[k] is None else f"{row[k]:.4f}")
+                        for k in ("sector_floor_ms", "segment_floor_ms"))
+            print(f"gather yardstick {name} ({shapes[label]}): {f['gather_floor_ms']:.4f} ms "
+                  f"(fastest of {json.dumps(f['sweep_b2b_ms'])}), byte bound "
+                  f"{row['bound_ms']:.4f}, 32-byte sector floor {sec}, 64-byte {seg} ms; "
+                  f"kernel back-to-back {row['b2b_ms']:.4f} = {ratio:.3f}× the yardstick's "
+                  f"on {card}", flush=True)
+    for name in ("randk_seeded_workers", "randk_gather", "randk_seeded", "permk_seeded_workers"):
+        t = rows[name]
+        ratio = t["b2b_ms"] / t["gather_floor_ms"]
+        print(f"rule 2 {name}: back-to-back {t['b2b_ms']:.4f} ms = {ratio:.3f}× the gather "
+              f"yardstick's {t['gather_floor_ms']:.4f} ms (a redesign above 1.3×: "
+              f"{'due' if ratio > 1.3 else 'not due'}) on {card}", flush=True)
 
 
 def _sync() -> None:
@@ -2408,6 +2558,7 @@ def main() -> int:
     rows.update(check_trimmed(nblk, card, report))
     rows.update(check_serve_kernels(card, report))
     rows.update(check_wire_kernels(nblk, card, report))
+    check_gather_floors(nblk, card, report, rows)
     check_small_input(report)
     check_serve_small_input(report)
     launches = run_main_path(report)

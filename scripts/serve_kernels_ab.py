@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the serving kernels, the QSGD and natural epilogues and the RandK
-scatter-mean from one checkout of the port.
+"""Time the serving kernels, the QSGD and natural epilogues, the QSGD
+dequant-mean and the RandK uplink and scatter-mean from one checkout of the
+port.
 
     python3 scripts/serve_kernels_ab.py --root DIR --label NAME [--parts LIST]
 
@@ -24,6 +25,12 @@ all) picks:
 * ``scatter``: ``scatter_accum`` at the production shape (n = 4, the same
   nblk, B = 1024, kb = 20, offsets uniform in [0, B)), with ``index_add``
   into zeros (alpha 1/n), the one PyTorch call for the same mean, beside it;
+* ``dequant_mean``: ``qsgd_dequant_mean`` at the same width (s = 7), n = 4
+  and n = 1, levels in [−s, s];
+* ``randk_workers``: ``randk_seeded_workers`` at the production shape (n = 4,
+  the same nblk, B = 1024, kb = 20), and beside it, where the checkout has
+  ``kernels/yardstick.py``, the gather yardstick's time at that shape (the
+  fastest over ``yardstick.SWEEP``, back to back);
 * ``serve``: the int8-page serve path of ``chip_smoke.py`` (full-width
   Qwen1.5-0.5B, ``SERVE_SPEC``, 8 slots, pages of 16, chunks of 128):
   median decode-step ms and tokens/s.
@@ -43,7 +50,8 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
-PARTS = ("paged", "dequant", "write", "qsgd", "natural", "scatter", "serve")
+PARTS = ("paged", "dequant", "write", "qsgd", "natural", "scatter", "dequant_mean",
+         "randk_workers", "serve")
 
 
 def timings(call) -> dict:
@@ -158,6 +166,43 @@ def time_scatter(res, dev, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def time_dequant_mean(res, dev, gen) -> None:
+    import torch
+
+    from repro_torch.kernels import quantize
+
+    nblk, B, s = full_width_nblk(), chip_smoke.BLOCK, 7
+    for n in (chip_smoke.N_WORKERS, 1):
+        lv = torch.randint(-s, s + 1, (n, nblk, B), generator=gen, device=dev,
+                           dtype=torch.int8)
+        nm = torch.rand((n, nblk), generator=gen, device=dev)
+        res[f"qsgd_dequant_mean_n{n}"] = timings(lambda: quantize.qsgd_dequant_mean(lv, nm, s))
+        del lv, nm
+        torch.cuda.empty_cache()
+
+
+def time_randk_workers(res, dev, gen) -> None:
+    import importlib.util
+
+    import torch
+
+    from repro_torch.kernels import randk
+
+    n, nblk, B, kb = chip_smoke.N_WORKERS, full_width_nblk(), chip_smoke.BLOCK, chip_smoke.KB
+    x3d = torch.randn((n, nblk, B), generator=gen, device=dev)
+    seeds = randk.seeds_tensor(chip_smoke.RANDK_SEEDS[:n], dev)
+    res["randk_seeded_workers"] = timings(
+        lambda: randk.randk_seeded_workers(x3d, seeds, kb, B / kb))
+    if importlib.util.find_spec("repro_torch.kernels.yardstick") is not None:
+        from repro_torch.kernels import yardstick
+
+        x2d = x3d.view(n * nblk, B)
+        res["gather_floor"] = chip_smoke.sweep_floor(
+            lambda u, t: lambda: yardstick.gather(x2d, kb, u, t))
+    del x3d
+    torch.cuda.empty_cache()
+
+
 def time_serve(res, dev, gen) -> None:
     import torch
 
@@ -199,6 +244,7 @@ def main() -> int:
     res = {"label": args.label, "root": args.root, "card": chip_smoke.nvidia_smi_line()}
     timers = {"paged": time_paged, "dequant": time_dequant, "write": time_write,
               "qsgd": time_qsgd, "natural": time_natural, "scatter": time_scatter,
+              "dequant_mean": time_dequant_mean, "randk_workers": time_randk_workers,
               "serve": time_serve}
     for part in PARTS:
         if part in parts:

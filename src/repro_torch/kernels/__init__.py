@@ -31,6 +31,10 @@ of the flat-vector wire, with their plain versions.
 * ``ops.py``      — the flat-vector wire (`randk_compress`,
                     `randk_decompress_mean`, `qsgd_compress`,
                     `qsgd_decompress`) over those wrappers.
+* ``yardstick.py`` — random-gather yardsticks over ``csrc/yardstick.cu``:
+                    no path calls them and they port no TPU kernel;
+                    ``chip_smoke.py`` times them beside the RandK and
+                    PermK gathers.
 * ``ref.py``      — plain PyTorch versions: the CPU path of every wrapper
                     and the yardstick the kernels are held against on the card.
 * ``_build.py``   — ``nvcc`` → shared library → ``ctypes``, at first use.

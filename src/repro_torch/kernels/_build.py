@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("randk", "permk", "quantize", "epilogue", "paged")
+SOURCES = ("randk", "permk", "quantize", "epilogue", "paged", "yardstick")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -81,6 +81,10 @@ SIGNATURES = {
         f"paged_attn_decode_{t}": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                                    _P)
         for t in ("f32", "bf16")
+    },
+    "yardstick": {
+        "yardstick_gather": (_P, _P, _P, _L, _I, _I, _U, _I, _I, _P),
+        "yardstick_affine": (_P, _U, _P, _P, _I, _L, _I, _I, _I, _P),
     },
 }
 

@@ -21,7 +21,7 @@
 // IEEE divide per worker per warp and one per coordinate; natural_epilogue
 // decodes each code with one multiply by a power of two built from bits, and
 // divides once per coordinate; both move every coordinate in 16-byte accesses
-// and start all their loads at once: see their kernels; the trimmed pair
+// and start all their loads at once: see packed.cuh; the trimmed pair
 // sorts n values per coordinate in registers). The x update rounds the
 // multiply and the add separately (__fmul_rn, __fadd_rn) — an FMA would differ
 // from the oracle in the last bit.
@@ -36,6 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed.cuh"
 #include "quant.cuh"
 #include "scatter.cuh"
 
@@ -142,112 +143,38 @@ __device__ __forceinline__ void store_x4(__nv_bfloat16* p, int64_t q, float4 v) 
   reinterpret_cast<uint2*>(p)[q] = u;
 }
 
-// How a packed payload (int8 codes + one f32 per (worker, block) row)
-// decodes in packed_epilogue_kernel: row_scale turns the row's f32 into the
-// scale the warp shares, add adds four decoded coordinates, each operation
-// rounded once. Each name holds its wrapper's, which chip_smoke.py's profile
-// matches. QSGD: level l under norm_w as l·(norm_w / s) (dequant_sum4's
-// order, quant.cuh).
-struct qsgd_epilogue_levels {
-  float s;
-  __device__ __forceinline__ float row_scale(float norm) const { return __fdiv_rn(norm, s); }
-  __device__ __forceinline__ void add(float4& acc, char4 l, float scale) const {
-    acc.x = __fadd_rn(acc.x, __fmul_rn((float)l.x, scale));
-    acc.y = __fadd_rn(acc.y, __fmul_rn((float)l.y, scale));
-    acc.z = __fadd_rn(acc.z, __fmul_rn((float)l.z, scale));
-    acc.w = __fadd_rn(acc.w, __fmul_rn((float)l.w, scale));
+// qsgd_epilogue's and natural_epilogue's tail of packed_sum_kernel
+// (packed.cuh): g' = g + acc / n, then x' = (−γ)·g' + x, each operation
+// rounded once; g and g' as float4, x and x' as float4 (f32) or 4 × bf16 in 8
+// bytes, so every access is contiguous across the warp
+template <typename XT>
+struct epilogue_update {
+  const float* g;
+  const XT* x;
+  float* g_out;
+  XT* x_out;
+  float fn, neg_gamma;
+  struct In {
+    float4 g, x;
+  };
+  __device__ __forceinline__ In load(int64_t q) const {
+    return {reinterpret_cast<const float4*>(g)[q], load_x4(x, q)};
   }
-};
-
-// natural: code c under scale_w (used as read) as natural_value(c, scale_w),
-// the branch-free decode of quant.cuh
-struct natural_epilogue_codes {
-  __device__ __forceinline__ float row_scale(float scale) const { return scale; }
-  __device__ __forceinline__ void add(float4& acc, char4 c, float scale) const {
-    acc.x = __fadd_rn(acc.x, natural_value(c.x, scale));
-    acc.y = __fadd_rn(acc.y, natural_value(c.y, scale));
-    acc.z = __fadd_rn(acc.z, natural_value(c.z, scale));
-    acc.w = __fadd_rn(acc.w, natural_value(c.w, scale));
-  }
-};
-
-// qsgd_epilogue and natural_epilogue: one thread per 4 contiguous coordinates
-// (quad q), every access contiguous across the warp: g and g' as float4 (512 B
-// a warp instruction), x and x' as float4 (f32) or 4 × bf16 in 8 bytes, each
-// worker's codes as one char4 (128 B). The design it replaces read and wrote
-// g, x, g' and x' one coordinate at a time in a loop over the thread's four,
-// so each warp instruction spanned 512 B at a 16-byte stride for 128 useful
-// bytes, and each store wrote its sectors partly, four times over (2.1× the
-// byte bound at n = 4 and as slow at n = 1, PERF.md). B ≥ 128
-// (check_qsgd_block, check_natural_block) makes the quad count a multiple of
-// 32, so every warp is full and its 128 coordinates lie in one block b: lane w
-// reads row w's f32 once and computes its row_scale, and the warp shares it
-// by shuffles, in place of n loads (and, for QSGD, n divides) a thread. With
-// coalesced accesses alone the QSGD kernel was still latency-bound (bf16 x as
-// slow as f32, 1.4–1.5× its bound): the code loads sat in a loop whose trip
-// count is the runtime n, behind the row load and divide, so a thread waited
-// for two memory round trips. For NW = n ≤ 4 (every count the paths give
-// them: the uplink's 4, the downlink's 1) the workers are unrolled and every
-// load (codes, g, x, the row's f32) is started before any is used; NW = 0
-// keeps the runtime loop, 32 workers a round of shuffles. The sum runs from
-// +0, worker by worker, then g + acc / n and (−γ)·g' + x, each operation
-// rounded once, so g' and x' are bit-equal to the plain versions.
-template <typename XT, int NW, typename Decode>
-__global__ void packed_epilogue_kernel(const int8_t* __restrict__ codes,
-                                       const float* __restrict__ rows,
-                                       const float* __restrict__ g,
-                                       const XT* __restrict__ x,
-                                       float* __restrict__ g_out,
-                                       XT* __restrict__ x_out, int n, int64_t nblk,
-                                       int block, Decode dec, float neg_gamma) {
-  const int64_t quads = nblk * block / 4;
-  const int qshift = __ffs(block) - 3;  // B = 2^(qshift + 2): quad q lies in block q >> qshift
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;  // a multiple of 32
-  const float fn = (float)n;
-  const char4* cv = reinterpret_cast<const char4*>(codes);
-  for (int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; q < quads;
-       q += stride) {  // warp-uniform: quads and q − lane are multiples of 32
-    const int64_t b = q >> qshift;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float4 gv, xv;
-    if constexpr (NW > 0) {
-      char4 c[NW];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) c[w] = cv[(int64_t)w * quads + q];
-      gv = reinterpret_cast<const float4*>(g)[q];
-      xv = load_x4(x, q);
-      const float mine = dec.row_scale(lane < NW ? rows[(int64_t)lane * nblk + b] : 0.0f);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) dec.add(acc, c[w], __shfl_sync(0xffffffffu, mine, w));
-    } else {
-      gv = reinterpret_cast<const float4*>(g)[q];
-      xv = load_x4(x, q);
-      for (int w0 = 0; w0 < n; w0 += 32) {
-        const int m = min(32, n - w0);
-        const float mine =
-            lane < m ? dec.row_scale(rows[(int64_t)(w0 + lane) * nblk + b]) : 0.0f;
-#pragma unroll 4
-        for (int j = 0; j < m; ++j) {
-          const float scale = __shfl_sync(0xffffffffu, mine, j);
-          dec.add(acc, cv[(int64_t)(w0 + j) * quads + q], scale);
-        }
-      }
-    }
+  __device__ __forceinline__ void store(int64_t q, float4 acc, In in) const {
     float4 gn;
-    gn.x = __fadd_rn(gv.x, __fdiv_rn(acc.x, fn));
-    gn.y = __fadd_rn(gv.y, __fdiv_rn(acc.y, fn));
-    gn.z = __fadd_rn(gv.z, __fdiv_rn(acc.z, fn));
-    gn.w = __fadd_rn(gv.w, __fdiv_rn(acc.w, fn));
+    gn.x = __fadd_rn(in.g.x, __fdiv_rn(acc.x, fn));
+    gn.y = __fadd_rn(in.g.y, __fdiv_rn(acc.y, fn));
+    gn.z = __fadd_rn(in.g.z, __fdiv_rn(acc.z, fn));
+    gn.w = __fadd_rn(in.g.w, __fdiv_rn(acc.w, fn));
     reinterpret_cast<float4*>(g_out)[q] = gn;
     float4 xn;
-    xn.x = apply_update(neg_gamma, gn.x, xv.x);
-    xn.y = apply_update(neg_gamma, gn.y, xv.y);
-    xn.z = apply_update(neg_gamma, gn.z, xv.z);
-    xn.w = apply_update(neg_gamma, gn.w, xv.w);
+    xn.x = apply_update(neg_gamma, gn.x, in.x.x);
+    xn.y = apply_update(neg_gamma, gn.y, in.x.y);
+    xn.z = apply_update(neg_gamma, gn.z, in.x.z);
+    xn.w = apply_update(neg_gamma, gn.w, in.x.w);
     store_x4(x_out, q, xn);
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // Coordinate-wise trimmed mean over the worker rows
@@ -363,24 +290,12 @@ static int launch_delta(const void* delta, const void* g, const void* x,
 }
 
 template <typename XT, typename Decode>
-static int launch_packed(const void* codes, const void* rows, const void* g,
-                         const void* x, void* g_out, void* x_out, int n, long long nblk,
-                         int block, Decode dec, float neg_gamma, void* stream) {
-  const unsigned grid = elementwise_grid(nblk * block / 4, 256);
-  cudaStream_t st = (cudaStream_t)stream;
-#define PACKED_LAUNCH(NW)                                                         \
-  packed_epilogue_kernel<XT, NW, Decode><<<grid, 256, 0, st>>>(                    \
-      (const int8_t*)codes, (const float*)rows, (const float*)g, (const XT*)x,     \
-      (float*)g_out, (XT*)x_out, n, nblk, block, dec, neg_gamma)
-  switch (n) {
-    case 1: PACKED_LAUNCH(1); break;
-    case 2: PACKED_LAUNCH(2); break;
-    case 3: PACKED_LAUNCH(3); break;
-    case 4: PACKED_LAUNCH(4); break;
-    default: PACKED_LAUNCH(0);  // any other n: the runtime worker loop
-  }
-#undef PACKED_LAUNCH
-  return (int)cudaGetLastError();
+static int launch_epilogue(const void* codes, const void* rows, const void* g,
+                           const void* x, void* g_out, void* x_out, int n, long long nblk,
+                           int block, Decode dec, float neg_gamma, void* stream) {
+  const epilogue_update<XT> tail{(const float*)g, (const XT*)x, (float*)g_out, (XT*)x_out,
+                                 (float)n, neg_gamma};
+  return launch_packed(codes, rows, n, nblk, block, dec, tail, stream);
 }
 
 extern "C" int scatter_epilogue_f32(const void* vals, const void* offs,
@@ -429,32 +344,34 @@ extern "C" int qsgd_epilogue_f32(const void* levels, const void* norms, const vo
                                  const void* x, void* g_out, void* x_out, int n,
                                  long long nblk, int block, int s, float neg_gamma,
                                  void* stream) {
-  return launch_packed<float>(levels, norms, g, x, g_out, x_out, n, nblk, block,
-                              qsgd_epilogue_levels{(float)s}, neg_gamma, stream);
+  return launch_epilogue<float>(levels, norms, g, x, g_out, x_out, n, nblk, block,
+                                qsgd_epilogue_levels{(float)s}, neg_gamma, stream);
 }
 
 extern "C" int qsgd_epilogue_bf16(const void* levels, const void* norms, const void* g,
                                   const void* x, void* g_out, void* x_out, int n,
                                   long long nblk, int block, int s, float neg_gamma,
                                   void* stream) {
-  return launch_packed<__nv_bfloat16>(levels, norms, g, x, g_out, x_out, n, nblk, block,
-                                      qsgd_epilogue_levels{(float)s}, neg_gamma, stream);
+  return launch_epilogue<__nv_bfloat16>(levels, norms, g, x, g_out, x_out, n, nblk,
+                                        block, qsgd_epilogue_levels{(float)s}, neg_gamma,
+                                        stream);
 }
 
 extern "C" int natural_epilogue_f32(const void* codes, const void* scales, const void* g,
                                     const void* x, void* g_out, void* x_out, int n,
                                     long long nblk, int block, float neg_gamma,
                                     void* stream) {
-  return launch_packed<float>(codes, scales, g, x, g_out, x_out, n, nblk, block,
-                              natural_epilogue_codes{}, neg_gamma, stream);
+  return launch_epilogue<float>(codes, scales, g, x, g_out, x_out, n, nblk, block,
+                                natural_epilogue_codes{}, neg_gamma, stream);
 }
 
 extern "C" int natural_epilogue_bf16(const void* codes, const void* scales,
                                      const void* g, const void* x, void* g_out,
                                      void* x_out, int n, long long nblk, int block,
                                      float neg_gamma, void* stream) {
-  return launch_packed<__nv_bfloat16>(codes, scales, g, x, g_out, x_out, n, nblk,
-                                      block, natural_epilogue_codes{}, neg_gamma, stream);
+  return launch_epilogue<__nv_bfloat16>(codes, scales, g, x, g_out, x_out, n, nblk,
+                                        block, natural_epilogue_codes{}, neg_gamma,
+                                        stream);
 }
 
 template <typename BT, typename XT>

@@ -21,7 +21,8 @@
 // and shared memory, so x is never read twice. Its murmur3 hash, IEEE
 // divide and floor per coordinate take instruction time of the same order as
 // its bytes (PERF.md). qsgd_dequant_mean reads the n int8 payloads and writes
-// one f32 accumulator. The nibble kernels move 8 int8 to or from one 32-bit
+// one f32 mean, every access 16 bytes or a full warp's 128 (packed.cuh).
+// The nibble kernels move 8 int8 to or from one 32-bit
 // word per thread. natural_block_workers, like the QSGD uplink, reads x once
 // and writes int8 codes and one f32 scale per row: the row's max |x| is
 // reduced in registers and shared memory (a max is exact in any order), and
@@ -48,7 +49,8 @@
 // * the level: floor((s·|x|) / safe + u), each operation rounded once
 //   (__fmul_rn, __fdiv_rn, __fadd_rn; no reciprocal, no FMA);
 // * the dequant-mean: from 0, worker by worker, acc + level·(norm_w / s),
-//   then acc / n, each rounded once;
+//   then acc / n, each rounded once (for n a power of two as acc·(1/n),
+//   which rounds the same real number);
 // * natural codes and decoding: quant.cuh (natural_code, natural_value);
 //   the decode-and-mean sums from 0 in worker order, then acc / n;
 // * absmax rows: scale = amax·f32(1/127) (__fmul_rn by the constant's exact
@@ -64,6 +66,7 @@
 #include <stdint.h>
 
 #include "murmur.cuh"
+#include "packed.cuh"
 #include "quant.cuh"
 
 // 4 contiguous elements of x as f32 (one 16-byte or 8-byte load)
@@ -137,29 +140,6 @@ __global__ void qsgd_block_workers_kernel(const XT* __restrict__ x,
   q.z = qsgd_level(v[2], s, safe, murmur_bits(seed, ctr0 + 2u));
   q.w = qsgd_level(v[3], s, safe, murmur_bits(seed, ctr0 + 3u));
   reinterpret_cast<char4*>(levels + row * block)[t] = q;
-}
-
-// One thread per 4 coordinates: the workers' payloads dequantized and
-// summed in order, ÷ n.
-__global__ void qsgd_dequant_mean_kernel(const int8_t* __restrict__ levels,
-                                         const float* __restrict__ norms,
-                                         float* __restrict__ out, int n,
-                                         int64_t nblk, int block, float s) {
-  const int64_t size = nblk * block;
-  const int64_t quads = size / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const float fn = (float)n;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
-       i += stride) {
-    float acc[4];
-    dequant_sum4(levels, norms, n, nblk, size, 4 * i / block, 4 * i, s, acc);
-    float4 o;
-    o.x = __fdiv_rn(acc[0], fn);
-    o.y = __fdiv_rn(acc[1], fn);
-    o.z = __fdiv_rn(acc[2], fn);
-    o.w = __fdiv_rn(acc[3], fn);
-    reinterpret_cast<float4*>(out)[i] = o;
-  }
 }
 
 // One CTA of B/4 threads per (w, b) row: the row's max |x| (subnormals
@@ -563,14 +543,17 @@ extern "C" int qsgd_block_workers_bf16(const void* x, const void* seeds, void* l
                                     stream);
 }
 
+// packed_sum_kernel (packed.cuh) with the mean as its tail
 extern "C" int qsgd_dequant_mean(const void* levels, const void* norms, void* out,
                                  int n, long long nblk, int block, int s,
                                  void* stream) {
-  qsgd_dequant_mean_kernel<<<grid_for(nblk * block / 4, 256), 256, 0,
-                             (cudaStream_t)stream>>>(
-      (const int8_t*)levels, (const float*)norms, (float*)out, n, nblk, block,
-      (float)s);
-  return (int)cudaGetLastError();
+  const qsgd_epilogue_levels dec{(float)s};
+  const float fn = (float)n;
+  if ((n & (n - 1)) == 0)
+    return launch_packed(levels, norms, n, nblk, block, dec,
+                         mean_row<true>{(float*)out, fn, 1.0f / fn}, stream);
+  return launch_packed(levels, norms, n, nblk, block, dec,
+                       mean_row<false>{(float*)out, fn, 1.0f / fn}, stream);
 }
 
 extern "C" int nibble_pack(const void* q, void* words, long long nwords, void* stream) {

@@ -160,6 +160,8 @@ def test_qsgd_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     for row in rows.values():
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert rows["qsgd_epilogue"]["max_abs_err"] == 0.0
+    assert rows["qsgd_dequant_mean"]["max_abs_err"] == 0.0
+    assert set(rows["qsgd_dequant_mean"]["at_n"]) == {"n4_float32", "n1_float32"}
     at_n = rows["qsgd_epilogue"]["at_n"]
     assert set(at_n) == {f"n{n}_{x}" for n in (4, 1) for x in ("float32", "bfloat16")}
     # 17 B a coordinate at n = 1 with x f32 (1 level, g, x, g', x'), 3 more a worker
@@ -317,6 +319,38 @@ def test_wire_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     timed = {(t["kernel"], t["x"]) for t in report["kernels_wire"]}
     assert len(timed) == 9  # the dequantize reads int8 levels: timed once
     assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)
+
+
+def test_gather_floor_phase_runs_at_a_tiny_width(monkeypatch):
+    """The random-gather yardsticks: both against their plain versions at
+    row 1's, the wire's and row 12's shapes cut to 3 blocks, the sweep, and
+    the yardsticks' times written into the four gathers' table rows beside
+    their sector floors, with a host clock in place of the CUDA events. Of
+    these only the measured time goes on the kernel line; the computed
+    sector floors stay in the report."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    names = ("randk_seeded_workers", "randk_gather", "randk_seeded", "permk_seeded_workers")
+    rows = {name: {"b2b_ms": 2.0, "bound_ms": 0.5} for name in names}
+    rows["randk_gather"]["sector_floor_ms"] = rows["randk_seeded"]["sector_floor_ms"] = 0.25
+    report = {}
+    chip_smoke.check_gather_floors(3, "cpu", report, rows)
+    assert set(report["gather_floors"]) == {"randk_seeded_workers", "wire",
+                                            "permk_seeded_workers"}
+    assert all(rows[name]["gather_floor_ms"] == 1.0 for name in names)
+    assert "gather_floor_ms" in chip_smoke.TABLE_EXTRA
+    assert not {"sector_floor_ms", "segment_floor_ms"} & set(chip_smoke.TABLE_EXTRA)
+    assert rows["randk_gather"]["sector_floor_ms"] == 0.25  # the wire phase's, kept
+    assert report["gather_floors"]["wire"]["sector_floor_ms"] == 0.25
+    assert all("sector_floor_ms" in f and "segment_floor_ms" in f
+               for f in report["gather_floors"].values())
+    # row 12 at n = 4: every (w, b) row's 256 affine slots, 4 KiB of 32-byte
+    # sectors at most, 8 bytes written a slot
+    per_row = rows["permk_seeded_workers"]["sector_floor_ms"] * chip_smoke.HBM_BYTES_PER_S / 1e3
+    assert 4 * 3 * 256 * 8 < per_row <= 4 * 3 * (4096 + 256 * 8)
+    sweep = report["gather_floors"]["wire"]["sweep_b2b_ms"]
+    assert len(sweep) == 6
 
 
 def test_wire_path_launches_what_chip_smoke_expects(monkeypatch):

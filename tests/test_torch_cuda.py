@@ -1,5 +1,6 @@
 """The twenty-four CUDA kernels (and the int8 page write, a second entry of
-``absmax_quant_rows``) against their plain PyTorch versions on the card.
+``absmax_quant_rows``) against their plain PyTorch versions on the card, and
+the two random-gather yardsticks (``kernels/yardstick.py``) against theirs.
 
 Marked ``cuda``; each test skips with a reason where torch sees no CUDA
 device (the kernels have no CPU or interpret mode). On a machine with an
@@ -120,6 +121,34 @@ def test_epilogues_on_card(dev, shape, xdtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("shape", [(7, 1024, 20), (40, 128, 1), (9, 256, 33)], ids=str)
+def test_gather_yardstick_matches_its_plain_version_on_card(dev, shape):
+    from repro_torch.kernels import yardstick
+
+    rows, B, kb = shape
+    x2d = torch.randn((rows, B), generator=torch.Generator(device=dev).manual_seed(rows),
+                      device=dev)
+    for unroll, threads in yardstick.SWEEP:
+        v, o = yardstick.gather(x2d, kb, unroll, threads)
+        vr, orf = yardstick.gather_ref(x2d, kb)
+        assert torch.equal(o, orf) and torch.equal(_bits(v), _bits(vr))
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 1024), (2, 5, 128), (8, 3, 256)], ids=str)
+def test_affine_yardstick_gathers_permk_offsets_on_card(dev, shape):
+    """The affine yardstick gathers row 12's own offsets: its values ×n are
+    ``permk_seeded_workers``' values."""
+    from repro_torch.kernels import yardstick
+
+    n, nblk, B = shape
+    x3d = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(B), device=dev)
+    seed = 2**31 + 12345
+    pv, po = ref.permk_seeded_workers_ref(x3d, seed)
+    for unroll, threads in yardstick.SWEEP:
+        v, o = yardstick.affine(x3d, seed, unroll, threads)
+        assert torch.equal(o, po) and torch.equal(v * n, pv)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x3d, seeds, _ = _inputs(dev, 2, 3, 128)
     with pytest.raises(ValueError):
@@ -234,8 +263,8 @@ def test_qsgd_dequant_mean_and_epilogue_on_card(dev, shape, xdtype):
     kernels.reset_launch_counts()
     for s in (3, 7, 15):
         lv, nm = quantize.qsgd_block_workers(x3d, seeds, s)
-        assert _ulp(quantize.qsgd_dequant_mean(lv, nm, s),
-                    ref.qsgd_dequant_mean_ref(lv, nm, s)) <= 1
+        assert torch.equal(_bits(quantize.qsgd_dequant_mean(lv, nm, s)),
+                           _bits(ref.qsgd_dequant_mean_ref(lv, nm, s)))
         got = epilogue.qsgd_epilogue(lv, nm, g, x, 0.0371, s)
         want = ref.qsgd_epilogue_ref(lv, nm, g, x, 0.0371, s)
         assert got[0].dtype == torch.float32 and got[1].dtype == xdtype
@@ -243,6 +272,28 @@ def test_qsgd_dequant_mean_and_epilogue_on_card(dev, shape, xdtype):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["qsgd_dequant_mean"] == counts["qsgd_epilogue"] == 3
+
+
+@pytest.mark.parametrize("B", [128, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 33])
+def test_qsgd_dequant_mean_bit_equal_on_card(dev, n, B):
+    """Bit-equal to the plain version, one launch: n ≤ 4 unrolled, 5, 8 and
+    33 the runtime loop (33: a second round of shuffles), 1, 2, 4, 8 the
+    exact multiply by 1/n and 3, 5, 33 the true divide. Levels span ±s with
+    whole rows at ±s, one row's norm is 0 and the norms span many octaves;
+    at B = 128 the 7 blocks leave part of the one CTA idle."""
+    gen = torch.Generator(device=dev).manual_seed(n * 10 + B)
+    s, nblk = 7, 7
+    lv = torch.randint(-s, s + 1, (n, nblk, B), generator=gen, device=dev).to(torch.int8)
+    lv[0, 1], lv[-1, 2] = s, -s
+    nm = torch.rand((n, nblk), generator=gen, device=dev) * 2.0 ** torch.randint(
+        -30, 30, (n, nblk), generator=gen, device=dev)
+    nm[-1, 0] = 0.0
+    kernels.reset_launch_counts()
+    got = quantize.qsgd_dequant_mean(lv, nm, s)
+    assert torch.equal(_bits(got), _bits(ref.qsgd_dequant_mean_ref(lv, nm, s)))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["qsgd_dequant_mean"] == 1
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
