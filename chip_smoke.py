@@ -95,7 +95,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    Last, the per-leaf wires (``SMALL_LEAFWISE``): MARINA × shared_randk,
    × correlated_qsgd (n = 4) and × block_randk under a per-leaf QSGD
    downlink (s = 7), recompute rounds, kernels against plain versions, each
-   ledger ``tree_payload_bits`` of its per-leaf compressor.
+   ledger ``tree_payload_bits`` of its per-leaf compressor. The MARINA ×
+   block_randk carry state, its params and carry cast to bf16, goes
+   through a checkpoint and back into a state on the card, bit for bit.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
@@ -116,7 +118,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    full-width carry run: its device time split into model forward +
    backward, the port's kernels and the rest, the device's idle share of
    the step, and the costliest device functions.
-7. wire — the flat-vector wire on the same model: n = 4 worker gradients
+7. resume — ``RESUME_PATH`` (MARINA × block_randk, recompute rounds) on
+   the same model at full width and depth, on Dirichlet(α = 0.1) token
+   streams, through the port's ``Trainer`` three times: U, 4 steps
+   uninterrupted; A, steps 0–1, checkpointing after step 1
+   (``ckpt_00000001.npz``, ~3.7 GB: params and g, f32) into a
+   ``tempfile.mkdtemp()`` directory that must have twice that free; B,
+   ``steps = 4`` on the same directory, resuming at step 2. (The carry
+   shape's 11.1 GB checkpoint made the phase 64.5 s on an H100, past its
+   60 s budget: PERF.md.) B's final params, g and h are bit-equal to U's;
+   B's c_k are steps 2–3 of ``EXPECTED_C_K``; its bits ledger starts from
+   float32(A's) and adds the two rounds exactly; U, A and B launch their
+   rounds' share of
+   ``EXPECTED_LAUNCHES[RESUME_PATH]`` (counts reset just before each run,
+   read just after). Save and load seconds, GB and free disk; the
+   directory is removed.
+8. wire — the flat-vector wire on the same model: n = 4 worker gradients
    from the trainer's step-0 batches (8 × 256 tokens each), packed into
    (4, nblk, 1024) f32; per worker ``ops.randk_compress`` (kb = 20), then
    ``ops.randk_decompress_mean`` over the 4 payloads; ``flat.block_compress``
@@ -128,7 +145,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    is x·B/kb where nonzero; the wire bits are ``wire.py``'s; the same run
    through the plain versions on the card gives identical outputs. Seconds
    per call and peak memory.
-8. serve paths — ``repro_torch.launch.serve`` on the same model, greedy:
+9. serve paths — ``repro_torch.launch.serve`` on the same model, greedy:
    16 requests (512:64, 128:16, 64:8, 256:32, four times), 8 slots, 16-token pages,
    128-token prefill chunks — ``serve_continuous`` (f32 pages),
    ``serve_continuous_q8`` (int8 pages) and ``serve_static`` (batches of 8,
@@ -301,6 +318,20 @@ EXPECTED_LAUNCHES = {
     "pp_natural_median_carry": {"natural_block_workers": _NC,
                                 "trimmed_delta_epilogue": _NC,
                                 "trimmed_sync_epilogue": _NS},
+}
+#: the resume phase: the main path it runs, the Dirichlet α of its token
+#: streams, and the steps of its first leg (A saves after step
+#: RESUME_SPLIT − 1; B resumes at RESUME_SPLIT)
+RESUME_PATH = "marina_randk_recompute"
+RESUME_ALPHA = 0.1
+RESUME_SPLIT = 2
+#: what a path the resume phase can run launches in one round, by c_k
+#: (summed over EXPECTED_C_K: EXPECTED_LAUNCHES[path]); the carry shape is
+#: scripts/resume_carry.py's
+ROUND_LAUNCHES = {
+    "marina_randk_recompute": {0: {"randk_seeded_workers": 1, "scatter_accum": 1}, 1: {}},
+    "marina_randk_carry": {0: {"randk_seeded_workers": 1, "scatter_epilogue": 1},
+                           1: {"mean_epilogue": 1}},
 }
 #: the small-input robust and fault runs: (trainer dials, launches). Recompute
 #: rounds aggregate robustly in plain PyTorch, as the reference does; Krum and
@@ -1198,6 +1229,8 @@ def check_small_input(report: dict) -> None:
             require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
                     f"small input {path}: kernels and plain versions diverge")
             worst = max(worst, float((a - b).abs().max()))
+        if path == "marina_randk_carry":
+            check_checkpoint_roundtrip(s_k, report)
         if sampler == "randk_qsgd":  # the RandK kernels around the plain stage
             want = ({"randk_seeded_workers": 2, "scatter_epilogue": 2, "mean_epilogue": 2}
                     if kw["carry"] else {"randk_seeded_workers": 2, "scatter_accum": 2})
@@ -2469,6 +2502,195 @@ def check_serve_small_input(report: dict) -> None:
     report["small_input_serve"] = out
 
 
+def check_checkpoint_roundtrip(state, report: dict) -> None:
+    """A carry-mode MARINA state (params, the packed g, the workers' carry
+    h, the step) with its params and h cast to bf16 → ``save_checkpoint``
+    → ``load_checkpoint`` into a zeroed state on the card: every leaf
+    bit-equal, of its dtype and on the card, the step an int."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.tree_util import tree_map
+
+    def bf16(tree):
+        return tree_map(lambda t: t.to(torch.bfloat16), tree)
+
+    state = dataclasses.replace(state, params=bf16(state.params), h=bf16(state.h))
+    like = dataclasses.replace(
+        state, step=0, g=torch.zeros_like(state.g),
+        params=tree_map(torch.zeros_like, state.params),
+        h=tree_map(torch.zeros_like, state.h))
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        save_checkpoint(ckdir, state.step, state)
+        back = load_checkpoint(ckdir, state.step, like)
+    finally:
+        shutil.rmtree(ckdir)
+    require(back.step == state.step and isinstance(back.step, int),
+            f"checkpoint round trip: step {back.step!r}")
+    pairs = state_leaf_pairs(state, back)
+    require(all(b.dtype == a.dtype and b.device == a.device for a, b in pairs),
+            "checkpoint round trip: a leaf changed dtype or device")
+    require(states_bit_equal(state, back), "checkpoint round trip: not bit-equal")
+    n_bf16 = sum(a.dtype == torch.bfloat16 for a, _ in pairs)
+    report["small_input_checkpoint"] = {"leaves": len(pairs), "bf16_leaves": n_bf16}
+    print(f"small input checkpoint: a carry state with {n_bf16} bf16 leaves of "
+          f"{len(pairs)} round-trips bit for bit on {pairs[0][1].device}", flush=True)
+
+
+def tensor_leaves(state) -> list:
+    """(path, tensor) for every tensor leaf of an optimizer state (params,
+    g, h; not the step)."""
+    from repro_torch.core.tree_util import tree_flatten_with_path
+
+    return [(p, x) for p, x in tree_flatten_with_path(state)[0] if not isinstance(x, int)]
+
+
+def state_leaf_pairs(a, b) -> list:
+    """The tensor leaves of two optimizer states, paired in path order."""
+    la, lb = tensor_leaves(a), tensor_leaves(b)
+    require([p for p, _ in la] == [p for p, _ in lb], "states of different structure")
+    return [(x, y) for (_, x), (_, y) in zip(la, lb)]
+
+
+def states_bit_equal(a, b) -> bool:
+    """Every tensor leaf (params, g, h) bit-equal (the sign of zero and NaN
+    payloads included) and the steps equal."""
+    import torch
+
+    def raw(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    return a.step == b.step and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(raw(x), raw(y))
+        for x, y in state_leaf_pairs(a, b))
+
+
+def state_gb(state) -> float:
+    """Bytes of a state's tensor leaves, in GB (a checkpoint's size)."""
+    return sum(x.numel() * x.element_size() for _, x in tensor_leaves(state)) / 1e9
+
+
+def resume_launches(path: str, c_ks) -> dict:
+    """What ``path`` launches over rounds with these c_k."""
+    out: dict = {}
+    for c in c_ks:
+        for name, k in ROUND_LAUNCHES[path][c].items():
+            out[name] = out.get(name, 0) + k
+    return out
+
+
+def resumed_bits(first_leg_bits: float, rounds: list) -> float:
+    """A resumed run's final bits ledger: the first leg's as saved (float32)
+    plus the resumed rounds' exact entries."""
+    import numpy as np
+
+    return float(np.float32(first_leg_bits)) + sum(rounds)
+
+
+class _Timed:
+    """Wrap ``module.name`` to record each call's seconds; restored on exit."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.secs = module, name, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            self.secs.append(time.perf_counter() - t)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def run_resume(report: dict, path: str = RESUME_PATH) -> dict:
+    """Phase 7: U (4 steps), A (2 steps, checkpoint after step 1), B (resume
+    to step 4) on ``path`` at full width; see the module docstring."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen1.5-0.5b").model
+    params = init_params(SEED, cfg, device=DEVICE)
+    method, compressor, carry, _ = PATHS[path]
+    require(resume_launches(path, EXPECTED_C_K) == EXPECTED_LAUNCHES[path],
+            "ROUND_LAUNCHES disagrees with EXPECTED_LAUNCHES")
+    kw = dict(method=method, compressor=compressor, alpha=RESUME_ALPHA)
+
+    def leg(**dials):
+        kernels.reset_launch_counts()
+        state, hist = train(cfg, params, carry, **kw, **dials)
+        return state, hist, {k: v for k, v in kernels.launch_counts().items() if v}
+
+    s_u, h_u, l_u = leg()
+    want_u = resume_launches(path, EXPECTED_C_K)
+    require(l_u == want_u, f"resume U: launches {l_u} != {want_u}")
+    require(h_u.round_sync == EXPECTED_C_K, f"resume U: c_k {h_u.round_sync}")
+    gb = state_gb(s_u)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        free_gb = shutil.disk_usage(ckdir).free / 1e9
+        print(f"resume: checkpoint {gb:.3f} GB, {free_gb:.1f} GB free in {ckdir}",
+              flush=True)
+        require(free_gb >= 2 * gb, f"resume: {free_gb:.1f} GB free, need {2 * gb:.1f}")
+        with _Timed(trainer_mod, "save_checkpoint") as saves:
+            s_a, h_a, l_a = leg(steps=RESUME_SPLIT, ckpt_dir=ckdir, ckpt_every=RESUME_SPLIT)
+        del s_a
+        names = sorted(os.listdir(ckdir))
+        require(names == [f"ckpt_{RESUME_SPLIT - 1:08d}.npz"], f"resume A wrote {names}")
+        file_gb = os.path.getsize(os.path.join(ckdir, names[0])) / 1e9
+        with _Timed(trainer_mod, "load_checkpoint") as loads:
+            s_b, h_b, l_b = leg(steps=STEPS, ckpt_dir=ckdir, ckpt_every=0)
+    finally:
+        shutil.rmtree(ckdir)
+    want_a = resume_launches(path, EXPECTED_C_K[:RESUME_SPLIT])
+    want_b = resume_launches(path, EXPECTED_C_K[RESUME_SPLIT:])
+    require(l_a == want_a, f"resume A: launches {l_a} != {want_a}")
+    require(l_b == want_b, f"resume B: launches {l_b} != {want_b}")
+    require(len(saves.secs) == 1 and len(loads.secs) == 1,
+            f"resume: {len(saves.secs)} saves, {len(loads.secs)} loads")
+    require(h_b.step[0] == RESUME_SPLIT - 1, f"resume B: started at {h_b.step[0] + 1}")
+    require(h_b.round_sync == EXPECTED_C_K[RESUME_SPLIT:], f"resume B: c_k {h_b.round_sync}")
+    require(h_b.round_bits == h_u.round_bits[RESUME_SPLIT:], "resume B: round ledger")
+    want_bits = resumed_bits(h_a.bits_cum[-1], h_b.round_bits)
+    require(h_b.bits_cum[-1] == want_bits,
+            f"resume B: bits {h_b.bits_cum[-1]} != {want_bits}")
+    require(all(math.isfinite(v) for v in h_b.loss), "resume B: loss not finite")
+    require(states_bit_equal(s_u, s_b), "resume: B's params, g, h differ from U's")
+    secs = time.perf_counter() - t_phase
+    report["resume"] = {
+        "path": path, "alpha": RESUME_ALPHA, "state_gb": gb, "file_gb": file_gb,
+        "free_gb": free_gb, "save_s": saves.secs[0], "load_s": loads.secs[0],
+        "phase_s": secs, "c_k": h_b.round_sync, "bits_cum": h_b.bits_cum,
+        "launches": {"U": l_u, "A": l_a, "B": l_b}, "loss_u": h_u.loss, "loss_b": h_b.loss}
+    print(f"resume: save {saves.secs[0]:.2f} s, load {loads.secs[0]:.2f} s, "
+          f"file {file_gb:.3f} GB", flush=True)
+    print(f"resume {path} (alpha {RESUME_ALPHA}): B resumed at step {RESUME_SPLIT}, "
+          f"its state (params, g, h) bit-equal to U's; c_k {h_b.round_sync}, bits "
+          f"{h_b.bits_cum[-1]}, launches B {l_b}; phase {secs:.1f} s", flush=True)
+    del s_u, s_b, params
+    torch.cuda.empty_cache()
+    return {"resume": {name: l_b.get(name, 0) for name in kernels.KERNELS}}
+
+
 def run_main_path(report: dict) -> dict:
     import torch
 
@@ -2562,6 +2784,7 @@ def main() -> int:
     check_small_input(report)
     check_serve_small_input(report)
     launches = run_main_path(report)
+    launches.update(run_resume(report))
     launches.update(run_wire_path(report))
     launches.update(run_serve_paths(report))
 

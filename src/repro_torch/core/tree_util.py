@@ -6,6 +6,11 @@ keep their order, ``None`` is an empty subtree — because the flat layout
 places leaves at offsets in that order and the seeded RandK offsets must hit
 the same coordinates as in the reference. (``torch.utils._pytree`` keeps dict
 insertion order, so it is not used here.)
+
+:func:`tree_flatten_with_path` also opens dataclasses (the optimizer states,
+which the reference registers as pytree nodes) and names every leaf by its
+path, as ``jax.tree_util.tree_flatten_with_path`` does: the checkpoint store
+keys its files by those paths.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ PyTree = Any
 @dataclasses.dataclass(frozen=True)
 class TreeDef:
     """Structure of a pytree: ``kind`` is leaf | none | dict | list | tuple |
-    namedtuple; ``meta`` the sorted dict keys or the NamedTuple class."""
+    namedtuple | dataclass; ``meta`` the sorted dict keys, the NamedTuple
+    class, or the dataclass and its field names."""
 
     kind: str
     meta: Any = None
@@ -40,7 +46,12 @@ class TreeDef:
         elif self.kind == "none":
             return
         else:
-            subs = [tree[k] for k in self.meta] if self.kind == "dict" else list(tree)
+            if self.kind == "dict":
+                subs = [tree[k] for k in self.meta]
+            elif self.kind == "dataclass":
+                subs = [getattr(tree, name) for name in self.meta[1]]
+            else:
+                subs = list(tree)
             if len(subs) != len(self.children):
                 raise ValueError("tree structure mismatch")
             for c, s in zip(self.children, subs):
@@ -65,6 +76,9 @@ class TreeDef:
             return subs
         if self.kind == "namedtuple":
             return self.meta(*subs)
+        if self.kind == "dataclass":
+            cls, names = self.meta
+            return cls(**dict(zip(names, subs)))
         return tuple(subs)
 
 
@@ -88,6 +102,63 @@ def tree_structure(tree: PyTree) -> TreeDef:
 def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
     treedef = tree_structure(tree)
     return treedef.flatten_up_to(tree), treedef
+
+
+@dataclasses.dataclass(frozen=True)
+class DictKey:
+    """A path entry: the dict key (``jax.tree_util.DictKey``)."""
+
+    key: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceKey:
+    """A path entry: the list or tuple index (``jax.tree_util.SequenceKey``)."""
+
+    idx: int
+
+
+@dataclasses.dataclass(frozen=True)
+class GetAttrKey:
+    """A path entry: the NamedTuple or dataclass field (``jax.tree_util.GetAttrKey``)."""
+
+    name: str
+
+
+def tree_flatten_with_path(tree: PyTree) -> tuple[list, TreeDef]:
+    """``[(path, leaf), ...]`` and the structure, in ``tree_flatten``'s leaf
+    order, with dataclass instances opened as nodes (their fields in
+    declaration order, ``None`` fields holding no leaf). The paths are
+    tuples of :class:`DictKey` / :class:`SequenceKey` / :class:`GetAttrKey`,
+    the entries ``jax.tree_util.tree_flatten_with_path`` gives for the same
+    tree; the structure unflattens back into the dataclasses."""
+    out: list = []
+
+    def walk(t, path):
+        if t is None:
+            return TreeDef("none")
+        if isinstance(t, dict):
+            keys = tuple(sorted(t))
+            return TreeDef("dict", keys,
+                           tuple(walk(t[k], path + (DictKey(k),)) for k in keys))
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            names = tuple(f.name for f in dataclasses.fields(t))
+            return TreeDef("dataclass", (type(t), names),
+                           tuple(walk(getattr(t, n), path + (GetAttrKey(n),))
+                                 for n in names))
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return TreeDef("namedtuple", type(t),
+                           tuple(walk(v, path + (GetAttrKey(f),))
+                                 for f, v in zip(t._fields, t)))
+        if isinstance(t, (list, tuple)):
+            kind = "list" if isinstance(t, list) else "tuple"
+            return TreeDef(kind, None, tuple(walk(v, path + (SequenceKey(i),))
+                                             for i, v in enumerate(t)))
+        out.append((path, t))
+        return TreeDef("leaf")
+
+    treedef = walk(tree, ())
+    return out, treedef
 
 
 def tree_leaves(tree: PyTree) -> list:

@@ -9,8 +9,10 @@ reference's layout too — a list per segment, a list per period position,
 leaves with a leading ``repeat`` axis (``(repeat, npage, P, KV, hd)`` for a
 page pool) — so ``convert.params_from_jax`` carries a JAX cache across
 unchanged. The serving functions write the cache in place and return it.
-``remat`` maps to ``torch.utils.checkpoint`` (training only). Multi-token
-prediction and prefix embeddings are not ported yet.
+``remat`` maps to ``torch.utils.checkpoint`` (training only). The dense
+training path takes a continuous ``prefix_embed`` (a frontend's output)
+before the tokens; multi-token prediction, frontends and sinusoidal
+positions are not ported yet.
 """
 
 from __future__ import annotations
@@ -79,14 +81,18 @@ def _slice(tree: PyTree, r: int) -> PyTree:
     return tree[r]
 
 
-def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embed: torch.Tensor | None = None, *,
             want_cache: bool = False, cache_len: int | None = None,
             last_logits_only: bool = False):
     """→ (logits (B,S,V) or (B,1,V), aux_loss, cache-or-None, hidden (B,S,d)).
 
-    ``last_logits_only`` computes the unembedding for the final position
-    only (the serving prefill)."""
+    ``prefix_embed`` (B, P, d) goes before the tokens' embeddings, and
+    positions run 0 … P+S−1 over both. ``last_logits_only`` computes the
+    unembedding for the final position only (the serving prefill)."""
     x = embed(params["embed"], tokens)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -122,10 +128,13 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def lm_loss(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy over token positions (+ aux loss)."""
-    logits, aux, _, _ = forward(params, cfg, tokens)
-    pred = logits[:, :-1]
+def lm_loss(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embed: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token cross-entropy over token positions, the prefix excluded
+    (+ aux loss)."""
+    logits, aux, _, _ = forward(params, cfg, tokens, prefix_embed)
+    P = 0 if prefix_embed is None else prefix_embed.shape[1]
+    pred = logits[:, P:-1]
     tgt = tokens[:, 1:].long()
     logp = F.log_softmax(pred.float(), dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]

@@ -31,8 +31,13 @@ step at a time (PyTorch is eager) and records each step's wall time and
 round type. With ``nonfinite_guard`` a step whose new state holds any NaN/inf
 (a ``nan`` attack under the plain mean) is reverted and counted as skipped.
 
-Not ported yet: checkpointing, the Dirichlet data dial, prefix embeddings
-(raise).
+``alpha`` switches the token streams to the Dirichlet(α) federated dial;
+``prefix_len`` gives every batch stub frontend embeddings from
+``fold_in(PRNGKey(seed + 7), step)``. With ``ckpt_dir`` the trainer saves
+``{"state", "bits", "down", "oracle", "skipped"}`` (the ledgers in float32)
+after every step s with (s + 1) % ``ckpt_every`` == 0, in the reference's
+file format, and resumes from the directory's latest checkpoint at s + 1:
+a resumed run's state, c_k and ledgers are the uninterrupted run's.
 """
 
 from __future__ import annotations
@@ -41,10 +46,12 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch import prng
+from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.core import (
     DCGD,
     ECSGD,
@@ -73,8 +80,9 @@ from repro_torch.core.tree_util import (
     tree_map,
     tree_norm,
     tree_unflatten,
+    tree_worker_slice,
 )
-from repro_torch.data import HeterogeneousLMData, worker_batches
+from repro_torch.data import HeterogeneousLMData, make_prefix_embeddings, worker_batches
 from repro_torch.device import default_device
 from repro_torch.models import lm_loss
 from repro_torch.models.config import ModelConfig
@@ -90,11 +98,17 @@ PARAMS_ONLY_INIT = ("diana", "dcgd", "ec_sgd")
 SPAN_STEP = "train.step"
 SPAN_GRAD = "train.grad"
 
+#: the ledgers a checkpoint holds beside the state
+LEDGERS = ("bits", "down", "oracle", "skipped")
+#: the ledgers of each older checkpoint layout the resume falls back to, in
+#: the reference's order: no skipped-rounds ledger (before the non-finite
+#: guard), then no downlink ledger (before the compressed downlink)
+OLDER_LAYOUTS = (("bits", "down", "oracle"), ("bits", "oracle"))
+
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The reference's fields that this port runs; the others (checkpoints,
-    Dirichlet data) are not ported yet."""
+    """The reference's fields."""
 
     method: str = "vr_marina"          # marina|vr_marina|pp_marina|diana|dcgd|ec_sgd|gd
     compressor: str = "randk"
@@ -107,9 +121,14 @@ class TrainConfig:
     r_participating: int = 2           # PP-MARINA cohort size r
     pp_replace: bool = True            # i.i.d. cohort (False: distinct clients)
     pp_weights: Optional[Any] = None   # client weights (raw counts are fine)
+    # Dirichlet non-IID dial for the LM data (None → the legacy
+    # heterogeneity scalar): 0.1 near-single-region clients, np.inf iid
+    alpha: Optional[float] = None
     steps: int = 100
     seed: int = 0
     log_every: int = 10
+    ckpt_dir: Optional[str] = None     # resume from its latest checkpoint
+    ckpt_every: int = 0                # save after every ckpt_every-th step (0: never)
     diana_alpha: Optional[float] = None  # None → 1/(1+ω), ω of the worst leaf
     flat_backend: str = "auto"         # kernel backend for the flat engine
     carry_grads: bool = False
@@ -179,20 +198,21 @@ class Trainer:
                  if train_cfg.faults != "none" else None)
         if (agg is not None or fspec is not None) and m not in MARINA_FAMILY:
             raise ValueError(f"aggregator/faults are marina-family dials, not {m!r}")
-        if prefix_len:
-            raise NotImplementedError("prefix embeddings are not ported yet")
         self.device = default_device(device)
         self.mcfg = model_cfg
         self.tcfg = train_cfg
+        self.prefix_len = prefix_len
         self.data = HeterogeneousLMData(
             n_workers=train_cfg.n_workers,
             vocab_size=model_cfg.vocab_size,
             seq_len=128 if model_cfg.num_layers <= 4 else 256,
             seed=train_cfg.seed,
+            alpha=train_cfg.alpha,
         )
+        self._prefix_key = prng.PRNGKey(train_cfg.seed + 7)
 
         def loss_fn(params, batch):
-            return lm_loss(params, model_cfg, batch["tokens"])
+            return lm_loss(params, model_cfg, batch["tokens"], batch.get("prefix"))
 
         def grad_fn(params, batch):
             with record_function(SPAN_GRAD):
@@ -276,7 +296,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _batches(self, step: int, per_worker: int) -> dict:
-        return {"tokens": worker_batches(self.data, step, per_worker, self.device)}
+        batch = {"tokens": worker_batches(self.data, step, per_worker, self.device)}
+        if self.prefix_len:
+            batch["prefix"] = make_prefix_embeddings(
+                prng.fold_in(self._prefix_key, step), self.tcfg.n_workers, per_worker,
+                self.prefix_len, self.mcfg.d_model, self.device)
+        return batch
 
     def _step(self, state, key, step: int):
         """One optimizer step; VR-MARINA also takes the step's minibatches."""
@@ -287,9 +312,10 @@ class Trainer:
         return self.method.step(state, key, full)
 
     def eval_loss(self, params, step: int = 10**6) -> float:
-        b = self._batches(step, self.tcfg.batch_per_worker)["tokens"]
+        b = self._batches(step, self.tcfg.batch_per_worker)
         with torch.no_grad():
-            losses = [float(self.loss_fn(params, {"tokens": t})) for t in b]
+            losses = [float(self.loss_fn(params, tree_worker_slice(b, w)))
+                      for w in range(self.tcfg.n_workers)]
         return sum(losses) / len(losses)
 
     def _sync(self) -> None:
@@ -306,7 +332,8 @@ class Trainer:
             state = self.method.init(self.params0)
         else:
             state = self.method.init(self.params0, self._batches(0, tc.batch_per_worker))
-        bits = down = oracle = skipped = 0.0
+        state, start, ledgers = self._resume(state)
+        bits, down, oracle, skipped = (ledgers[k] for k in LEDGERS)
         hist = TrainMetrics()
         t0 = time.time()
 
@@ -320,10 +347,11 @@ class Trainer:
             hist.wall.append(time.time() - t0)
             hist.skipped_cum.append(skipped)
 
-        log(-1, self.eval_loss(state.params, 0),
+        # the curve's anchor: the state the run starts from, 0 bits if fresh
+        log(start - 1, self.eval_loss(state.params, start),
             float(tree_norm(state.g)) if hasattr(state, "g") else 0.0)
         base_key = prng.PRNGKey(tc.seed)
-        for step in range(tc.steps):
+        for step in range(start, tc.steps):
             self._sync()
             ts = time.perf_counter()
             with record_function(SPAN_STEP):
@@ -348,4 +376,29 @@ class Trainer:
                 step_hook(step)
             if (step + 1) % tc.log_every == 0 or step == tc.steps - 1:
                 log(step, self.eval_loss(state.params, step), float(gnorm))
+            if tc.ckpt_dir and tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
+                save_checkpoint(tc.ckpt_dir, step, {
+                    "state": state, "bits": np.float32(bits), "down": np.float32(down),
+                    "oracle": np.float32(oracle), "skipped": np.float32(skipped)})
         return state, hist
+
+    def _resume(self, state):
+        """(state, first step, ledgers) from ``ckpt_dir``'s latest
+        checkpoint, or (``state``, 0, zeros) without one. The ledgers resume
+        with the state (as saved: float32). A checkpoint of an older layout
+        loads with the ledgers it has (the rest 0), and a bare state tree
+        with zeroed ledgers — each tier tried on a ``KeyError``; a corrupt
+        file raises :class:`CheckpointCorruptionError` from the first."""
+        tc = self.tcfg
+        zeros = dict.fromkeys(LEDGERS, 0.0)
+        s = latest_step(tc.ckpt_dir) if tc.ckpt_dir else None
+        if s is None:
+            return state, 0, zeros
+        for names in (LEDGERS,) + OLDER_LAYOUTS:
+            like = {"state": state, **{k: np.zeros((), np.float32) for k in names}}
+            try:
+                ck = load_checkpoint(tc.ckpt_dir, s, like)
+            except KeyError:
+                continue
+            return ck["state"], s + 1, {**zeros, **{k: float(ck[k]) for k in names}}
+        return load_checkpoint(tc.ckpt_dir, s, state), s + 1, zeros

@@ -12,8 +12,11 @@ runs' launches and the drop ledger, the deadline contract) and the QSGD,
 natural and trimmed kernel phases (shapes, edge values, the timing table, with a
 host clock in place of the CUDA events) are rehearsed the same way, and so
 are the per-leaf wires of the small-input phase (SharedRandK, CorrelatedQ,
-a per-leaf QSGD downlink), the flat-wire kernel phase and the wire phase
-(``WIRE_LAUNCHES``, the seeded payloads, the gathers, the plain run).
+a per-leaf QSGD downlink) and its checkpoint round trip of a carry state
+with bf16 leaves, the flat-wire kernel phase and the wire phase
+(``WIRE_LAUNCHES``, the seeded payloads, the gathers, the plain run), and
+the resume phase (U, A and B on the tiny LM: launches, c_k, the ledger,
+B bit-equal to U, the checkpoint directory removed) with its helpers.
 """
 
 import os
@@ -90,6 +93,8 @@ def test_small_input_phase_runs_as_chip_smoke_expects(monkeypatch):
     assert set(report["small_input_robust"]) == set(chip_smoke.SMALL_ROBUST)
     assert report["small_input_deadline"]["uploaded_compressed"] == chip_smoke.N_WORKERS - 1
     assert set(report["small_input_leafwise"]) == set(chip_smoke.SMALL_LEAFWISE)
+    ck = report["small_input_checkpoint"]
+    assert 0 < ck["bf16_leaves"] < ck["leaves"]  # params and h cast, g kept f32
 
 
 def test_natural_kernel_phase_runs_at_a_tiny_width(monkeypatch):
@@ -371,3 +376,56 @@ def test_wire_path_launches_what_chip_smoke_expects(monkeypatch):
     assert set(report["wire"]["seconds_per_call"]) == {
         "randk_compress", "randk_decompress_mean", "block_compress", "block_gather",
         "qsgd_compress", "qsgd_decompress"}
+
+
+def test_resume_phase_runs_as_chip_smoke_expects(monkeypatch, tmp_path):
+    """U, A (checkpoint after step 1) and B (resumed at step 2) on the tiny
+    LM: every check of the card's run (B bit-equal to U, c_k, the float32
+    ledger, each leg's launches), and the checkpoint directory removed."""
+    import tempfile
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(configs, "get_arch",
+                        lambda name: type("Arch", (), {"model": TINY}))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    _count_plain_launches(monkeypatch)
+    report = {}
+    launches = chip_smoke.run_resume(report)  # raises SmokeFailure on a drift
+    kernels.reset_launch_counts()
+    split = chip_smoke.RESUME_SPLIT
+    want_b = chip_smoke.resume_launches(chip_smoke.RESUME_PATH,
+                                        chip_smoke.EXPECTED_C_K[split:])
+    assert {k: v for k, v in launches["resume"].items() if v} == want_b
+    res = report["resume"]
+    assert res["c_k"] == chip_smoke.EXPECTED_C_K[split:]
+    assert res["launches"]["U"] == chip_smoke.EXPECTED_LAUNCHES[chip_smoke.RESUME_PATH]
+    assert res["file_gb"] > res["state_gb"] > 0
+    assert not list(tmp_path.glob("chip_smoke_resume_*"))  # the directory is gone
+
+
+def test_resume_helpers():
+    from repro_torch.core.marina import MarinaState
+
+    c_k, split = chip_smoke.EXPECTED_C_K, chip_smoke.RESUME_SPLIT
+    for path in chip_smoke.ROUND_LAUNCHES:  # the phase's path and the carry shape
+        assert chip_smoke.resume_launches(path, c_k) == chip_smoke.EXPECTED_LAUNCHES[path]
+    assert chip_smoke.resume_launches("marina_randk_recompute", c_k[:split]) == {
+        "randk_seeded_workers": 1, "scatter_accum": 1}
+    assert chip_smoke.resume_launches("marina_randk_carry", c_k[split:]) == {
+        "randk_seeded_workers": 1, "scatter_epilogue": 1, "mean_epilogue": 1}
+    # float32 of the first leg (2^24 + 1 is not a float32), then exact adds
+    assert chip_smoke.resumed_bits(2.0**24 + 1, [3.0, 0.5]) == 2.0**24 + 3.5
+
+    def state(g, h0=1.0):
+        return MarinaState(params={"w": torch.ones(3), "b": torch.ones(2, dtype=torch.bfloat16)},
+                           g=g, step=4, h={"w": torch.full((2, 3), h0)})
+
+    a = state(torch.tensor([0.0, 1.0]))
+    assert chip_smoke.state_gb(a) == (3 * 4 + 2 * 2 + 2 * 4 + 6 * 4) / 1e9
+    assert chip_smoke.states_bit_equal(a, state(torch.tensor([0.0, 1.0])))
+    assert not chip_smoke.states_bit_equal(a, state(torch.tensor([-0.0, 1.0])))
+    assert not chip_smoke.states_bit_equal(a, state(torch.tensor([0.0, 1.0]), h0=1.0 + 2**-23))
+    b = state(torch.tensor([0.0, 1.0]))
+    b.step = 5
+    assert not chip_smoke.states_bit_equal(a, b)

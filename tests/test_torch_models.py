@@ -3,7 +3,9 @@ d_model 64, 4 heads, 2 kv heads, vocab 256, seq 16), with the reference's
 parameters carried across by ``convert.params_from_jax``:
 
 * ``lm_loss`` and its gradient agree to rtol 1e-5 / atol 1e-6 (torch and
-  XLA reduce matmuls in different orders — not a fault of the port);
+  XLA reduce matmuls in different orders — not a fault of the port), with
+  and without a ``prefix_embed`` before the tokens (the loss over token
+  positions only);
 * 5 rounds of ``Marina`` on the flat engine with 2 workers and the
   reference's token batches agree to rtol 1e-4 of each leaf's scale, in both
   round shapes, with equal ``c_k`` and bits. (A compressed round uplinks
@@ -102,10 +104,10 @@ def tokens4():
     return [np.asarray(fn(s)) for s in range(6)]
 
 
-def _torch_grad(params, tokens):
+def _torch_grad(params, tokens, prefix=None):
     leaves, treedef = tree_flatten(params)
     leaves = [t.detach().requires_grad_(True) for t in leaves]
-    loss = lm_loss(tree_unflatten(treedef, leaves), TCFG, tokens)
+    loss = lm_loss(tree_unflatten(treedef, leaves), TCFG, tokens, prefix)
     return loss, tree_unflatten(treedef, torch.autograd.grad(loss, leaves))
 
 
@@ -116,11 +118,22 @@ def _close_to_leaf_scale(a, b, rtol):
 
 
 def test_lm_loss_and_grad_match_reference(jparams, tokens):
+    _loss_and_grad_match(jparams, tokens[0][0], None)
+
+
+@pytest.mark.parametrize("prefix_len", [1, 3])
+def test_lm_loss_with_prefix_embed_matches_reference(jparams, tokens, prefix_len):
     toks = tokens[0][0]
+    prefix = np.random.default_rng(prefix_len).standard_normal(
+        (toks.shape[0], prefix_len, CFG_KW["d_model"])).astype(np.float32) * 0.02
+    _loss_and_grad_match(jparams, toks, prefix)
+
+
+def _loss_and_grad_match(jparams, toks, prefix):
     jl, jg = jax.jit(jax.value_and_grad(j_lm_loss), static_argnums=1)(
-        jparams, JCFG, jnp.asarray(toks))
+        jparams, JCFG, jnp.asarray(toks), None if prefix is None else jnp.asarray(prefix))
     tl, tg = _torch_grad(params_from_jax(_np_tree(jparams), device="cpu"),
-                         torch.tensor(toks))
+                         torch.tensor(toks), None if prefix is None else torch.from_numpy(prefix))
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     jleaves = jax.tree.leaves(jg)
     assert len(jleaves) == len(tree_leaves(tg))

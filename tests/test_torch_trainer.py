@@ -11,11 +11,20 @@
   compressed rounds and 32·d on sync rounds; the downlink's refusals (non
   marina-family methods, PermK), and without a flat engine the per-leaf
   compressor it names.
-* ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-  ``repro`` (checked in a fresh interpreter).
+* ``repro_torch`` (its checkpoint store, problems and data pipeline
+  among the modules), ``chip_smoke.py`` and the example twins import
+  neither ``jax`` nor ``repro`` (checked in a fresh interpreter).
 * Entry points default to the card and raise without one: the trainer,
-  model init, the engine, the data stream, the binclass problem, the
-  seeded offsets and the converters from the reference's arrays.
+  model init, the engine, the data stream and the prefix embeddings, the
+  problem makers, the seeded offsets and the converters from the
+  reference's arrays.
+* Checkpoints: a run resumed from a checkpoint equals the uninterrupted run
+  bit for bit (params, g, h, step, c_k), its ledgers continuing from the
+  float32 values saved, as the reference's do; older layouts (no
+  skipped-rounds ledger, no downlink ledger, a bare state) resume through
+  the reference's three fallback tiers, and a corrupt file raises
+  ``CheckpointCorruptionError`` through them. Prefix embeddings and the
+  Dirichlet data dial run through the trainer.
 """
 
 import dataclasses
@@ -28,12 +37,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import CheckpointCorruptionError, load_checkpoint, save_checkpoint
+
 from _torch_parity import one_torch_thread  # noqa: F401
 from repro_torch.convert import params_from_jax, state_from_jax
 from repro_torch.core import make_engine, wire
 from repro_torch.core.flat import seeded_offsets
+from repro_torch.core import problems
 from repro_torch.core.problems import make_synthetic_binclass
-from repro_torch.data import HeterogeneousLMData, worker_batches
+from repro_torch.data import HeterogeneousLMData, make_prefix_embeddings, worker_batches
 from repro_torch.core.tree_util import tree_leaves
 from repro_torch.models import ModelConfig, dense_stack, init_params
 from repro_torch.train import TrainConfig, Trainer
@@ -206,6 +218,12 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for name in ('quickstart_torch', 'federated_pp_torch', 'train_lm_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "new = ('repro_torch.checkpoint.store', 'repro_torch.core.problems',\n"
+        "       'repro_torch.data.pipeline')\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
@@ -227,6 +245,10 @@ def test_entry_points_default_to_cuda():
     for call in (
         lambda: make_engine({"v": torch.zeros(300)}),
         lambda: make_synthetic_binclass(0, 2, 4, 8),
+        lambda: problems.make_quadratic(0, 2, 4),
+        lambda: problems.make_shifted_quadratics(0, 2, 4),
+        lambda: problems.make_dirichlet_binclass(0, 2, 4, 8, alpha=0.1),
+        lambda: make_prefix_embeddings(np.zeros(2, np.uint32), 1, 1, 1, 4),
         lambda: params_from_jax({"v": [1.0]}),
         lambda: state_from_jax({"v": [1.0]}, {"v": [0.0]}, 0),
         lambda: worker_batches(HeterogeneousLMData(2, 256, 8), 0, 1),
@@ -286,3 +308,106 @@ def test_trainer_robust_dials_build_and_run(carry):
         for c_k, bits in zip(hist.round_sync, hist.round_bits):
             assert bits == (wire.dense_f32_bits(d) if c_k
                             else float(np.float32(zeta) * np.float32(0.75)))
+
+
+def _leaves(state):
+    from repro_torch.core.tree_util import tree_flatten_with_path
+
+    return [leaf for _, leaf in tree_flatten_with_path(state)[0]]
+
+
+def _bit_equal(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        if isinstance(x, int):
+            assert x == y
+        else:
+            assert x.dtype == y.dtype and torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+_f32 = lambda v: float(np.float32(v))  # noqa: E731
+
+
+@pytest.mark.parametrize("method,carry", [("marina", False), ("marina", True),
+                                          ("vr_marina", True), ("pp_marina", True)])
+def test_resumed_run_equals_uninterrupted(tmp_path, method, carry):
+    """U: 4 steps; A: steps 0-1, saving after step 1; B: the same config on
+    A's directory, resumed at step 2. B's state equals U's bit for bit; its
+    ledgers start from A's as saved (float32) and add B's rounds exactly;
+    its anchor log is step 1 with the eval at step 2."""
+    kw = dict(n_workers=4, r_participating=2, mb_per_worker=1, alpha=0.1)
+    base = (_tc(carry, method, "permk", **kw) if method == "vr_marina"
+            else _tc(carry, method, **kw))
+    tc = lambda **k: dataclasses.replace(base, **k)  # noqa: E731
+    params = init_params(0, CFG, device="cpu")
+    d = str(tmp_path)
+    s_u, h_u = Trainer(CFG, tc(), params, device="cpu").run()
+    _, h_a = Trainer(CFG, tc(steps=2, ckpt_dir=d, ckpt_every=2), params, device="cpu").run()
+    assert sorted(os.listdir(d)) == ["ckpt_00000001.npz"]
+    s_b, h_b = Trainer(CFG, tc(ckpt_dir=d), params, device="cpu").run()
+    _bit_equal(s_u, s_b)
+    assert h_b.round_sync == h_u.round_sync[2:] and h_b.round_bits == h_u.round_bits[2:]
+    assert h_b.step == [1, 3]
+    for cum, a, rounds in ((h_b.bits_cum, h_a.bits_cum, h_b.round_bits),
+                           (h_b.down_cum, h_a.down_cum, h_b.round_down_bits)):
+        assert cum[0] == _f32(a[-1])
+        assert cum[-1] == _f32(a[-1]) + sum(rounds)
+    assert h_b.oracle_cum[0] == _f32(h_a.oracle_cum[-1])
+    assert len(os.listdir(d)) == 1  # ckpt_every = 0: B saves nothing
+
+
+def test_resume_fallback_tiers_and_corrupt_file(tmp_path):
+    """Checkpoints of the older layouts resume with the ledgers they hold
+    (no skipped-rounds ledger; no downlink ledger either; a bare state with
+    zeroed ledgers), B's state bit-equal to U's each time; a corrupt file
+    raises CheckpointCorruptionError, not a fallback."""
+    tc = lambda **k: dataclasses.replace(_tc(True), **k)  # noqa: E731
+    params = init_params(0, CFG, device="cpu")
+    s_u, _ = Trainer(CFG, tc(), params, device="cpu").run()
+    full = str(tmp_path / "full")
+    _, h_a = Trainer(CFG, tc(steps=2, ckpt_dir=full, ckpt_every=2), params,
+                     device="cpu").run()
+    tr = Trainer(CFG, tc(), params, device="cpu")
+    like_state = tr.method.init(tr.params0, tr._batches(0, 2))
+    saved = load_checkpoint(full, 1, {"state": like_state, **{
+        k: np.zeros((), np.float32) for k in ("bits", "down", "oracle", "skipped")}})
+    bits, down = _f32(h_a.bits_cum[-1]), _f32(h_a.down_cum[-1])
+    for name, keep, want in (("no_skipped", ("bits", "down", "oracle"), (bits, down)),
+                             ("no_down", ("bits", "oracle"), (bits, 0.0)),
+                             ("bare", None, (0.0, 0.0))):
+        d = str(tmp_path / name)
+        tree = saved["state"] if keep is None else {
+            "state": saved["state"], **{k: saved[k] for k in keep}}
+        save_checkpoint(d, 1, tree)
+        s_b, h_b = Trainer(CFG, tc(ckpt_dir=d), params, device="cpu").run()
+        _bit_equal(s_u, s_b)
+        assert (h_b.bits_cum[0], h_b.down_cum[0]) == want, name
+        assert h_b.skipped_cum[0] == 0.0
+    path = os.path.join(full, "ckpt_00000001.npz")
+    blob = bytearray(open(path, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(path, "wb").write(bytes(blob))
+    with pytest.raises(CheckpointCorruptionError):
+        Trainer(CFG, tc(ckpt_dir=full), params, device="cpu").run()
+
+
+def test_trainer_prefix_embeddings_and_dirichlet_data():
+    """prefix_len gives every batch (n, b, P, d_model) embeddings from
+    fold_in(PRNGKey(seed + 7), step); the loss covers the token positions;
+    alpha switches the token streams to the Dirichlet dial."""
+    from repro_torch import prng
+    from repro_torch.models import lm_loss
+
+    params = init_params(0, CFG, device="cpu")
+    tr = Trainer(CFG, _tc(True, alpha=0.1), params, prefix_len=3, device="cpu")
+    assert tr.data.alpha == 0.1
+    b = tr._batches(5, 2)
+    assert b["prefix"].shape == (2, 2, 3, CFG.d_model)
+    assert torch.equal(b["prefix"], make_prefix_embeddings(
+        prng.fold_in(prng.PRNGKey(7), 5), 2, 2, 3, CFG.d_model, device="cpu"))
+    want = np.mean([float(lm_loss(params, CFG, b["tokens"][w], b["prefix"][w]))
+                    for w in range(2)])
+    assert tr.eval_loss(params, 5) == pytest.approx(want, rel=1e-6)
+    _, hist = tr.run()
+    assert all(math.isfinite(v) for v in hist.loss) and hist.skipped_cum[-1] == 0.0
