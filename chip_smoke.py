@@ -43,9 +43,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    µs a call too; ``scripts/serve_kernels_ab.py`` times it against another
    checkout's write);
    ``paged_attn_decode`` at the serve
-   shape (8 slots, H = KV = 16, hd = 64, 36 pages of 16) and a GQA stress
+   shape (8 slots, H = KV = 16, hd = 64, 36 pages of 16), a GQA stress
    shape (64 slots, H = 64, KV = 8, hd = 128, 256 pages of 16, n_valid in
-   [1, 4096]), f32 and bf16, and at the cluster split's edges
+   [1, 4096]), Llama-4-Scout's decode shape (8 slots, H = 40, KV = 8,
+   hd = 128, 36 pages of 16: H / KV = 5) and H = 56 at that shape (H / KV
+   = 7, DeepSeek-Coder-33B's ratio), f32 and bf16, and at the cluster
+   split's edges
    (``paged_edge_n_valid``), within |Δ| ≤ 1e-5·max|v| (f32) or one bf16 ulp
    of each output row's largest magnitude (bf16), with
    ``scaled_dot_product_attention`` on the pre-gathered dense cache printed
@@ -98,6 +101,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    ledger ``tree_payload_bits`` of its per-leaf compressor. The MARINA ×
    block_randk carry state, its params and carry cast to bf16, goes
    through a checkpoint and back into a state on the card, bit for bit.
+   Then the attention and MoE families (``SMALL_FAMILIES``: reduced gemma3
+   with five sliding-window layers and a global one, Llama-4-Scout with
+   MoE, DeepSeek-V3 with MLA, MoE and the MTP head) through the trainer on
+   MARINA × block_randk carry, 4 steps, through the kernels and through
+   their plain versions: launches exact, trajectories agree.
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
@@ -156,6 +164,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain run's top-2 logit margin at the diverging token is below 1e-3,
    int8-page streams identical. Tokens/s, first-token and completion p50 /
    p99, median decode-step ms, steps, chunks and peak memory per path.
+
+10. families — the attention and MoE families at full width, f32 random
+   init from the seed, each leg's parameters freed before the next, the
+   depth cuts listed in the report's ``reduced``: Llama-4-Scout-17B-16E
+   (4 of 48 layers, 10.88 B parameters) served continuously on
+   ``SERVE_SPEC`` on f32 and int8 pages, each run again through the plain
+   versions (streams compared as in phase 9), launches exact by
+   ``serve_launches`` at 4 layers, and the (token, k) pairs the MoE capacity
+   dropped; gemma3-27b (one period: five sliding-window layers and a global
+   one, 3.89 B) through ``run_static`` at 4 × 1536:32, so every 1024-slot
+   ring wraps; DeepSeek-V3 (a dense MLA + MLP layer, then MLA + MoE; no
+   MTP head, 13.94 B) through ``run_static`` at 2 × 256:16. The static legs
+   check 4 decode steps' logits against a teacher-forced ``forward``
+   (within 1e-4 of each row's largest logit). Peak memory and seconds per
+   leg; the phase must take at most 120 s.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -365,10 +388,14 @@ SERVE_PATHS = {"serve_continuous": False, "serve_continuous_q8": True, "serve_st
 #: where the plain run's top-2 logit margin was below this
 SERVE_TIE_MARGIN = 1e-3
 #: paged_attn_decode shapes: (S, H, KV, hd, P, max_pages); the serve shape
-#: (Qwen1.5-0.5B, 8 slots, 36 pages of 16) and a GQA stress shape
-#: (Qwen3-32B's attention, 64 slots of up to 4096 positions)
+#: (Qwen1.5-0.5B, 8 slots, 36 pages of 16), a GQA stress shape (Qwen3-32B's
+#: attention, 64 slots of up to 4096 positions), Llama-4-Scout's decode shape
+#: of the families phase (H / KV = 40 / 8 = 5) and DeepSeek-Coder-33B's ratio
+#: (56 / 8 = 7) at that shape
 PAGED_SHAPES = {"serve": (SERVE_SLOTS, 16, 16, 64, SERVE_PAGE, 36),
-                "gqa_stress": (64, 64, 8, 128, 16, 256)}
+                "gqa_stress": (64, 64, 8, 128, 16, 256),
+                "llama4_scout": (SERVE_SLOTS, 40, 8, 128, SERVE_PAGE, 36),
+                "rep7": (SERVE_SLOTS, 56, 8, 128, SERVE_PAGE, 36)}
 #: absmax row shapes (R, W): decode's R = S·KV and prefill's R = chunk·KV at
 #: the serve width, and R = 2^20 at W = 128
 #: absmax_dequant_rows widths checked bit for bit: every power of two of the
@@ -389,6 +416,32 @@ SERVE_SMALL = {
     "share_prefix": ("42:8,20:4,46:6,42:5", dict(slots=2, share_prefix=True)),
     "preempt": ("24:12,9:14,30:10,12:16", dict(slots=3, npage=12)),
 }
+
+
+#: the small-input families: reduced (d_model 64) gemma3 (five local layers
+#: and a global one), llama4-scout (MoE) and deepseek-v3 (three MLA + MLP
+#: layers, then MLA + MoE, and the MTP head) through the trainer on the
+#: MARINA × block_randk carry path: arch → layers
+SMALL_FAMILIES = {"gemma3-27b": 6, "llama4-scout-17b-a16e": 2, "deepseek-v3-671b": 4}
+#: the families phase, at full width: arch → the repeats kept of each
+#: segment (the depth cut; later segments dropped). Llama-4-Scout serves
+#: through the paged engine on SERVE_SPEC (f32 and int8 pages); gemma3 (one
+#: period: five sliding-window layers and a global one) and DeepSeek-V3 (a
+#: dense MLA + MLP layer, then MLA + MoE; no MTP head, which does not serve)
+#: through the static dense / ring / latent caches
+FAMILY_REPEATS = {"llama4-scout-17b-a16e": (4,), "gemma3-27b": (1,),
+                  "deepseek-v3-671b": (1, 1)}
+FAMILY_SERVE_PATHS = {"llama4_serve_continuous": False, "llama4_serve_continuous_q8": True}
+#: static legs: (requests, batch); 1536-token prompts wrap gemma3's
+#: 1024-slot rings
+FAMILY_STATIC = {"gemma3-27b": (",".join(["1536:32"] * 4), 4),
+                 "deepseek-v3-671b": (",".join(["256:16"] * 2), 2)}
+#: decode steps held against a teacher-forced forward, and the bound:
+#: |Δ| ≤ FAMILY_LOGIT_RTOL · max |forward logit| of the row
+FAMILY_TEACHER_STEPS, FAMILY_LOGIT_RTOL = 4, 1e-4
+#: the MoE decode step's time split: cached positions per slot
+FAMILY_PROFILE_LEN = 512
+FAMILY_BUDGET_S = 120.0
 
 
 #: keys a kernel's row adds to the kernel line where it has them, each
@@ -471,6 +524,13 @@ def device_ms(fn, n: int = 25):
     gaps between launches, which the back-to-back time still holds where a
     call's host work outlasts its kernel. None where the trace shows no
     device activity."""
+    by_kernel = device_kernel_ms(fn, n)
+    return sum(by_kernel.values()) if by_kernel else None
+
+
+def device_kernel_ms(fn, n: int = 5) -> dict:
+    """Device ms per call of each kernel name in a ``torch.profiler`` trace
+    of ``n`` calls (after a warm-up call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -481,9 +541,11 @@ def device_ms(fn, n: int = 25):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / n / 1e3 if us else None
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    return out
 
 
 def times(kern, plain, lib=None) -> dict:
@@ -2271,16 +2333,17 @@ def check_serve_kernels(card: str, report: dict) -> dict:
     return rows
 
 
-def serve_launches(path: str, rep: dict) -> dict:
+def serve_launches(quantized: bool | None, rep: dict) -> dict:
     """What a serve path must launch: the paged attention once per layer of
-    every decode step on f32 pages; on int8 pages the row quantizer once
-    per layer of every prefill chunk and decode step (the page write, k and
-    v in one launch) and the dequantizer twice (k, v) per layer of every
-    decode step; nothing on the static dense-cache path."""
+    every decode step on f32 pages; on int8 pages (``quantized``) the row
+    quantizer once per layer of every prefill chunk and decode step (the
+    page write, k and v in one launch) and the dequantizer twice (k, v) per
+    layer of every decode step; nothing on the static dense-cache path
+    (``quantized`` None)."""
     layers = rep["n_layers"]
-    if path == "serve_continuous":
+    if quantized is False:
         return {"paged_attn_decode": layers * rep["decode_steps"]}
-    if path == "serve_continuous_q8":
+    if quantized:
         return {"absmax_quant_rows": layers * (rep["prefill_chunks"] + rep["decode_steps"]),
                 "absmax_dequant_rows": 2 * layers * rep["decode_steps"]}
     return {}
@@ -2379,29 +2442,28 @@ def timed_paged_steps(params, cfg) -> tuple[dict, list]:
     return steps, decode_s
 
 
-def run_serve_paths(report: dict) -> dict:
-    """The three serve paths at full width and depth, each with its launch
-    counts reset just before and read just after; the continuous paths then
-    run again through the plain versions and their streams are compared."""
+def serve_paths(params, cfg, paths: dict, label: str) -> tuple[dict, dict]:
+    """Serve SERVE_SPEC on each of ``paths`` (path → int8 pages, or None for
+    the static dense-cache batches), each with its launch counts reset just
+    before and read just after and held to ``serve_launches``; the
+    continuous paths then run again through the plain versions and their
+    streams are compared. Returns (runs, launches) by path."""
     import torch
 
     from repro_torch import kernels
-    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    from repro_torch.models import init_params
 
-    cfg = get_arch("qwen1.5-0.5b").model
-    params = init_params(SEED, cfg, device=DEVICE)
     pairs = serve.parse_requests(SERVE_SPEC)
     kw = dict(slots=SERVE_SLOTS, page_size=SERVE_PAGE, chunk=SERVE_CHUNK)
     runs, launches = {}, {}
-    for path, quantized in SERVE_PATHS.items():
+    for path, quantized in paths.items():
         reqs = serve.make_workload(cfg, pairs)
         steps, decode_s = timed_paged_steps(params, cfg)
         gc.collect()  # e.g. the comparison engine's pool: its steps close over it
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        drops = moe_drop_counter(cfg)
         if quantized is None:
             rep = serve.run_static(params, cfg, reqs, batch=SERVE_BATCH)
         else:
@@ -2413,7 +2475,9 @@ def run_serve_paths(report: dict) -> dict:
         rep["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         rep["median_decode_step_ms"] = (statistics.median(decode_s) * 1e3 if decode_s
                                         else None)
-        want = {name: serve_launches(path, rep).get(name, 0) for name in kernels.KERNELS}
+        if drops is not None:
+            rep["moe_dropped_pairs"] = read_moe_drops(drops)
+        want = {name: serve_launches(quantized, rep).get(name, 0) for name in kernels.KERNELS}
         require(launches[path] == want, f"{path} launches {launches[path]} != {want}")
         require(rep["n_requests"] == len(pairs) and rep["total_new_tokens"]
                 == sum(g for _, g in pairs), f"{path}: {rep}")
@@ -2428,16 +2492,52 @@ def run_serve_paths(report: dict) -> dict:
             rep["diverged"] = compare_streams(path, got, want_streams,
                                               None if quantized else margins)
         runs[path] = rep
-        print(f"serve path {path}: tokens/s {rep['tokens_per_s']:.1f}, first token p50 / "
-              f"p99 {rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} ms, "
-              f"completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
+        print(f"{label} serve path {path}: tokens/s {rep['tokens_per_s']:.1f}, first token "
+              f"p50 / p99 {rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} "
+              f"ms, completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
               f"{rep['completion_p99_ms']:.1f} ms, median decode step "
               f"{rep['median_decode_step_ms']} ms, decode_steps {rep.get('decode_steps')}, "
               f"prefill_chunks {rep.get('prefill_chunks')}, peak memory "
-              f"{rep['peak_mem_gb']:.2f} GB, launches "
+              f"{rep['peak_mem_gb']:.2f} GB, MoE dropped pairs "
+              f"{rep.get('moe_dropped_pairs')}, launches "
               f"{ {k: v for k, v in launches[path].items() if v} }", flush=True)
         del reqs
         torch.cuda.empty_cache()
+    return runs, launches
+
+
+def moe_drop_counter(cfg):
+    """Start counting the (token, k) pairs the MoE capacity drops (a device
+    counter in ``moe_ff.drops``), or None for a model without MoE."""
+    import torch
+
+    from repro_torch.models import moe
+
+    if cfg.moe is None:
+        return None
+    moe.moe_ff.drops = torch.zeros((), dtype=torch.long, device=DEVICE)
+    return moe.moe_ff.drops
+
+
+def read_moe_drops(drops) -> int:
+    from repro_torch.models import moe
+
+    moe.moe_ff.drops = None
+    return int(drops)
+
+
+def run_serve_paths(report: dict) -> dict:
+    """The three serve paths on Qwen1.5-0.5B at full width and depth (f32
+    params from ``init_params(SEED)``), and the continuous paths' tokens/s
+    over the static path's."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch("qwen1.5-0.5b").model
+    params = init_params(SEED, cfg, device=DEVICE)
+    runs, launches = serve_paths(params, cfg, SERVE_PATHS, "qwen1.5-0.5b")
     static = runs["serve_static"]["tokens_per_s"]
     for path in ("serve_continuous", "serve_continuous_q8"):
         runs[path]["tokens_per_s_over_static"] = runs[path]["tokens_per_s"] / static
@@ -2748,6 +2848,260 @@ def run_main_path(report: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the attention and MoE families
+# ---------------------------------------------------------------------------
+
+
+def check_families_small_input(report: dict) -> None:
+    """SMALL_FAMILIES through the trainer, MARINA × block_randk carry, 4
+    steps, through the kernels and through their plain versions: the
+    launches of ``EXPECTED_LAUNCHES["marina_randk_carry"]`` exactly, c_k,
+    equal ledgers and agreeing trajectories."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import init_params, reduced
+
+    out = {}
+    want = EXPECTED_LAUNCHES["marina_randk_carry"]
+    for name, layers in SMALL_FAMILIES.items():
+        cfg = reduced(get_arch(name).model, layers=layers, d_model=64)
+        params = init_params(SEED, cfg, device=DEVICE)
+        kw = dict(carry=True, batch_per_worker=2)
+        kernels.reset_launch_counts()
+        s_k, h_k = train(cfg, params, **kw)
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        s_r, h_r = train(cfg, params, backend="ref", **kw)
+        require(launched == want, f"small input {name}: launches {launched} != {want}")
+        require(h_k.round_sync == h_r.round_sync == EXPECTED_C_K,
+                f"small input {name}: c_k {h_k.round_sync}")
+        require(h_k.round_bits == h_r.round_bits, f"small input {name}: ledgers differ")
+        require(all(math.isfinite(v) for v in h_k.loss) and h_k.skipped_cum[-1] == 0.0,
+                f"small input {name}: loss {h_k.loss}")
+        worst = 0.0
+        for a, b in zip(tree_leaves(s_k.params), tree_leaves(s_r.params)):
+            require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                    f"small input {name}: kernels and plain versions diverge")
+            worst = max(worst, float((a - b).abs().max()))
+        out[name] = {"layers": layers, "loss": h_k.loss, "launches": launched,
+                     "max_abs_param_diff": worst}
+        print(f"small input family {name} ({layers} layers, d_model 64): loss {h_k.loss}, "
+              f"launches {launched}, max |Δparams| {worst:.3e}", flush=True)
+    report["small_input_families"] = out
+
+
+def family_cfg(name: str):
+    """The full-width config of ``name`` cut to FAMILY_REPEATS' depth, with
+    its MTP head off (it does not serve), and the list of cuts."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Segment
+
+    cfg = get_arch(name).model
+    keep = FAMILY_REPEATS[name]
+    segs = tuple(Segment(period=seg.period, repeat=r) for seg, r in zip(cfg.segments, keep))
+    cut = dataclasses.replace(cfg, segments=segs, mtp_depth=0)
+    reduced = [f"layers {cfg.num_layers} -> {cut.num_layers} (segment repeats "
+               f"{[seg.repeat for seg in cfg.segments]} -> {list(keep)})"]
+    if cfg.mtp_depth:
+        reduced.append(f"mtp_depth {cfg.mtp_depth} -> 0 (the MTP head does not serve; "
+                       "tests/test_torch_families.py holds it)")
+    return cut, reduced
+
+
+def teacher_forced_check(params, cfg, reqs) -> dict:
+    """Each request's prompt prefilled and its first FAMILY_TEACHER_STEPS
+    generated tokens fed to ``decode_step``: every step's logits against a
+    teacher-forced ``forward`` over the prompt and those tokens, one
+    request at a time, |Δ| ≤ FAMILY_LOGIT_RTOL · max |forward logit| per
+    row; the served stream's next tokens are the decode logits' argmax (up
+    to a top-2 margin below SERVE_TIE_MARGIN). An MoE drops no pair in
+    decode (each expert's capacity, at least 8, holds the batch's tokens),
+    so the forward runs with the capacity of every token (a capacity factor
+    of E / top_k): with the served one it would drop pairs the decode
+    keeps. All prompts have one length (no padding)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, forward, prefill
+
+    n = FAMILY_TEACHER_STEPS
+    dev = params["embed"].device
+    prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev)
+    gen = torch.as_tensor([r.generated[:n + 1] for r in reqs], device=dev)
+    P = prompts.shape[1]
+    tf_cfg = cfg if cfg.moe is None else dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    worst, ties = 0.0, 0
+    with torch.inference_mode():
+        _, cache = prefill(params, cfg, prompts, max_len=P + n)
+        drops = moe_drop_counter(cfg)
+        dec = []
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache, gen[:, i], P + i)
+            dec.append(lg)
+        require(drops is None or read_moe_drops(drops) == 0, "a decode step dropped pairs")
+        del cache
+        for b in range(len(reqs)):
+            seq = torch.cat([prompts[b:b + 1], gen[b:b + 1, :n]], dim=1)
+            full = forward(params, tf_cfg, seq)[0][0, P:].float()
+            for i, lg in enumerate(dec):
+                want = full[i]
+                err = float((lg[b].float() - want).abs().max() / want.abs().max())
+                worst = max(worst, err)
+                top = torch.topk(lg[b].float(), 2).values
+                same = int(torch.argmax(lg[b])) == int(gen[b, i + 1])
+                require(same or float(top[0] - top[1]) < SERVE_TIE_MARGIN,
+                        f"teacher-forced step {i}: the served token is not the decode argmax")
+                ties += not same
+            del full
+        del dec
+    require(worst <= FAMILY_LOGIT_RTOL,
+            f"decode logits {worst} of the row's scale from the teacher-forced forward")
+    return {"steps": n, "max_rel_logit_err": worst, "near_tie_tokens": ties}
+
+
+def profile_moe_decode(params, cfg) -> dict:
+    """Where an MoE paged decode step spends its time, at SERVE_SLOTS slots
+    of FAMILY_PROFILE_LEN cached positions (f32 pages): the step on the host
+    clock (median of 5, each ending in a synchronize); its device time by
+    kernel (``device_kernel_ms``), split into the paged kernel, GEMMs
+    (``gemm`` in the name: the experts' batched products, the attention,
+    shared-expert and unembedding products) and the rest; the MoE FF of one
+    layer on the step's input (device ms, × layers); and the expert
+    weights' byte bound (every expert is read: the capacity buffer runs all
+    of them)."""
+    import torch
+
+    from repro_torch.models import init_paged_cache, moe, paged_decode_step
+    from repro_torch.models.model import _slice
+
+    S, Pg, L = SERVE_SLOTS, SERVE_PAGE, FAMILY_PROFILE_LEN
+    maxp = -(-(L + 1) // Pg)
+    dev = params["embed"].device
+    cache = init_paged_cache(cfg, 1 + S * maxp, Pg, device=dev)
+    tables = (1 + torch.arange(S * maxp, device=dev, dtype=torch.int32)).reshape(S, maxp)
+    lengths = torch.full((S,), L, dtype=torch.int32, device=dev)
+    toks = torch.arange(S, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            return paged_decode_step(params, cfg, cache, toks, lengths, tables)
+
+    host = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    by_kernel = device_kernel_ms(step)
+    paged_ms = sum(v for k, v in by_kernel.items() if "paged_attn_decode" in k)
+    gemm_ms = sum(v for k, v in by_kernel.items() if "gemm" in k.lower())
+    ff = _slice(params["segments"][0][0], 0)["ff"]
+    x = torch.randn((S, 1, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 23))
+    with torch.inference_mode():
+        moe_ms = device_ms(lambda: moe.moe_ff(ff, cfg, x), 5)
+    m, layers = cfg.moe, cfg.num_layers
+    expert_bytes = 3.0 * m.num_experts * cfg.d_model * m.d_expert * 4 * layers
+    del cache
+    return {"slots": S, "cached": L, "layers": layers,
+            "step_host_ms": statistics.median(host[2:]),
+            "step_device_ms": sum(by_kernel.values()), "paged_device_ms": paged_ms,
+            "gemm_device_ms": gemm_ms,
+            "other_device_ms": sum(by_kernel.values()) - paged_ms - gemm_ms,
+            "moe_device_ms": None if moe_ms is None else layers * moe_ms,
+            "expert_bytes_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+            "top": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def run_families(report: dict) -> dict:
+    """The attention and MoE families at full width (random f32 init from
+    SEED), each leg's parameters freed before the next: Llama-4-Scout served
+    continuously on f32 and int8 pages (FAMILY_SERVE_PATHS, launches exact,
+    streams against the plain versions), then gemma3 and DeepSeek-V3
+    served statically (FAMILY_STATIC) with FAMILY_TEACHER_STEPS decode steps
+    against a teacher-forced forward. Peak memory and seconds per leg; the
+    phase must take at most FAMILY_BUDGET_S."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, param_count
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for name in FAMILY_REPEATS:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, cuts = family_cfg(name)
+        params = init_params(SEED, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        leg = {"reduced": cuts, "params_b": param_count(params) / 1e9,
+               "init_s": time.perf_counter() - t0}
+        print(f"families {name}: {leg['params_b']:.2f} B parameters (f32), cuts {cuts}, "
+              f"init {leg['init_s']:.1f} s", flush=True)
+        if name in FAMILY_STATIC:
+            spec, batch = FAMILY_STATIC[name]
+            pairs = serve.parse_requests(spec)
+            reqs = serve.make_workload(cfg, pairs)
+            kernels.reset_launch_counts()
+            drops = moe_drop_counter(cfg)
+            rep = serve.run_static(params, cfg, reqs, batch=batch)
+            if drops is not None:
+                rep["moe_dropped_pairs"] = read_moe_drops(drops)
+            launched = {k: v for k, v in kernels.launch_counts().items() if v}
+            require(not launched, f"families {name}: the static path launched {launched}")
+            require(rep["total_new_tokens"] == sum(g for _, g in pairs) and all(
+                len(r.generated) == g for r, (_, g) in zip(reqs, pairs)),
+                f"families {name}: {rep}")
+            rep["teacher_forced"] = teacher_forced_check(params, cfg, reqs)
+            leg["serve_static"] = rep
+            print(f"families {name} static {spec} (batch {batch}): tokens/s "
+                  f"{rep['tokens_per_s']:.1f}, first token p50 / p99 "
+                  f"{rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} ms, "
+                  f"completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
+                  f"{rep['completion_p99_ms']:.1f} ms, MoE dropped pairs "
+                  f"{rep.get('moe_dropped_pairs')}, teacher-forced "
+                  f"{rep['teacher_forced']}", flush=True)
+            del reqs
+        else:
+            runs, by_path = serve_paths(params, cfg, FAMILY_SERVE_PATHS, name)
+            leg.update(runs)
+            launches.update(by_path)
+            leg["decode_profile"] = prof = profile_moe_decode(params, cfg)
+            print(f"families {name} decode step at {prof['slots']} slots × "
+                  f"{prof['cached']} positions: host {prof['step_host_ms']:.2f} ms, "
+                  f"device {prof['step_device_ms']:.3f} ms (GEMMs "
+                  f"{prof['gemm_device_ms']:.3f}, paged attention "
+                  f"{prof['paged_device_ms']:.4f}, other {prof['other_device_ms']:.3f}); "
+                  f"the MoE FF of {prof['layers']} layers alone {prof['moe_device_ms']} ms "
+                  f"(expert bytes bound {prof['expert_bytes_bound_ms']:.2f}); top "
+                  f"{prof['top']}", flush=True)
+        leg["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg["seconds"] = time.perf_counter() - t0
+        out[name] = leg
+        print(f"families {name}: peak memory {leg['peak_mem_gb']:.2f} GB, "
+              f"{leg['seconds']:.1f} s", flush=True)
+    secs = time.perf_counter() - t_phase
+    report["families"] = dict(out, seconds=secs)
+    print(f"families phase: {secs:.1f} s (budget {FAMILY_BUDGET_S:.0f})", flush=True)
+    require(secs <= FAMILY_BUDGET_S, f"families phase took {secs:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2782,11 +3136,13 @@ def main() -> int:
     rows.update(check_wire_kernels(nblk, card, report))
     check_gather_floors(nblk, card, report, rows)
     check_small_input(report)
+    check_families_small_input(report)
     check_serve_small_input(report)
     launches = run_main_path(report)
     launches.update(run_resume(report))
     launches.update(run_wire_path(report))
     launches.update(run_serve_paths(report))
+    launches.update(run_families(report))
 
     table = []
     for name, (source, replaces) in SOURCES.items():

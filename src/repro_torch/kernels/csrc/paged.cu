@@ -30,8 +30,13 @@
 //   of a dot product from shared memory, the parts chosen so that all 256
 //   threads work at any rep; bf16 — mma.sync.m16n8k16 with f32
 //   accumulation, the staged K tile as A (16 positions × 16 dims through
-//   ldmatrix) and Qᵀ as B (N = 8 ≥ rep heads). Tensor cores stay off for
-//   f32: TF32 would break the f32 bound.
+//   ldmatrix) and Qᵀ as B (N = 8 ≥ rep heads, the columns past rep zero).
+//   Tensor cores stay off for f32: TF32 would break the f32 bound.
+// * Any rep from 1 to 8 (the ported configs' GQA ratios: 40/8 = 5 in
+//   Llama-4-Scout, 56/8 = 7 in DeepSeek-Coder-33B, 14/2 = 7 in
+//   InternVL2-1B). A rep that does not divide the f32 path's thread groups
+//   leaves the spare groups idle on q·k (one part of hd per head) and on
+//   PV; for 1, 2, 4 and 8 the layout is unchanged.
 // * The rank's logits stay in shared memory (rep · ceil(maxp/C)·P floats at
 //   most); there is no global scratch.
 // * The softmax crosses the cluster through distributed shared memory
@@ -53,7 +58,8 @@
 // * logit = round_to_T(q·k) · scale, the dot product accumulated in f32 and
 //   rounded to the pages' type as the plain einsum's output is, then
 //   multiplied by scale = f32(1/√hd). f32: hd split into 8/rep contiguous
-//   parts; within a part four partial sums over d ≡ 0, 1, 2, 3 (mod 4), each
+//   parts (rep 1, 2, 4, 8; one part for any other rep); within a part four
+//   partial sums over d ≡ 0, 1, 2, 3 (mod 4), each
 //   in increasing d, then (s0 + s1) + (s2 + s3); then the parts in order.
 //   bf16: the tensor core's order within each 16-wide step, the steps in
 //   order. Products and sums are rounded separately (__fmul_rn, __fadd_rn);
@@ -233,7 +239,7 @@ __device__ __forceinline__ void stage_tile(unsigned char* ring, const unsigned c
   cp_async_commit();
 }
 
-// T = float or __nv_bfloat16, HD = head width, REP = H / KV (≤ 8).
+// T = float or __nv_bfloat16, HD = head width, REP = H / KV (1 … 8).
 // blockIdx.x = ((s·KV + g)·C + rank), one cluster of C CTAs per (s, g).
 template <typename T, int HD, int REP>
 __global__ void __launch_bounds__(threads_for<T>())
@@ -323,11 +329,14 @@ paged_attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         // every thread works at any rep. Each part's sum as four partial sums over
         // d ≡ 0, 1, 2, 3 (mod 4) in increasing d, then (s0 + s1) + (s2 + s3);
         // the DP parts of a head then added in order.
-        constexpr int NG = NT / kTile, DP = NG / REP, DW = HD / DP;
-        static_assert(NG % REP == 0 && DW % 4 == 0, "f32 logits layout");
+        // A rep that does not divide NG (3, 5, 6, 7) takes one part per head
+        // (DP = 1), and the NG − rep spare groups idle here.
+        constexpr int NG = NT / kTile, DP = NG % REP == 0 ? NG / REP : 1, DW = HD / DP;
+        constexpr bool kSpare = NG % REP != 0;
+        static_assert(REP <= NG && DW % 4 == 0, "f32 logits layout");
         const int t = tid % kTile, r = tid / kTile / DP, dp = tid / kTile % DP;
         const int pos = it * kTile + t;
-        if (pos < cnt) {
+        if (pos < cnt && (!kSpare || r < REP)) {
           const float* krow = reinterpret_cast<const float*>(buf + t * ROW) + dp * DW;
           const float* qrow = qs + r * HD + dp * DW;
           float acc[4];
@@ -465,12 +474,18 @@ paged_attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     // order, four at a time (one float4 of weights per head); with PP
     // position blocks per tile (positions [p·BW, (p+1)·BW) of each tile), a
     // head's PP partial sums are then added in block order.
+    // A rep that neither divides nor is a multiple of NHG leaves the groups
+    // past its heads idle (kSpareHeads): group hg's j-th head r0 + j·NHG
+    // exists only below rep.
     constexpr int NHG = NT / HD;
     constexpr int PP = REP < NHG ? NHG / REP : 1;
-    constexpr int RPT = REP < NHG ? 1 : REP / NHG;
+    constexpr int RPT = REP < NHG ? 1 : (REP + NHG - 1) / NHG;
     constexpr int BW = kTile / PP;
+    constexpr bool kSpareHeads = REP < NHG ? NHG % REP != 0 : REP % NHG != 0;
+    static_assert(kTile % PP == 0, "f32 PV layout");
     const int d = tid % HD, hg = tid / HD;
     const int r0 = hg / PP, blk = hg % PP;
+#define HEAD_OK(j) (!kSpareHeads || r0 + (j) * NHG < REP)
     float acc[RPT];
 #pragma unroll
     for (int j = 0; j < RPT; ++j) acc[j] = 0.0f;
@@ -488,6 +503,7 @@ paged_attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         const float v2 = vcol[(t + 2) * (ROW / 4)], v3 = vcol[(t + 3) * (ROW / 4)];
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
+          if (!HEAD_OK(j)) continue;
           const float4 w = *reinterpret_cast<const float4*>(wt + (r0 + j * NHG) * lc + t);
           acc[j] = mac(mac(mac(mac(acc[j], w.x, v0), w.y, v1), w.z, v2), w.w, v3);
         }
@@ -495,13 +511,15 @@ paged_attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       for (; t < tn; ++t) {
         const float v = vcol[t * (ROW / 4)];
 #pragma unroll
-        for (int j = 0; j < RPT; ++j) acc[j] = mac(acc[j], wt[(r0 + j * NHG) * lc + t], v);
+        for (int j = 0; j < RPT; ++j)
+          if (HEAD_OK(j)) acc[j] = mac(acc[j], wt[(r0 + j * NHG) * lc + t], v);
       }
       __syncthreads();
     }
     if constexpr (PP == 1) {
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) part[(r0 + j * NHG) * HD + d] = acc[0 + j];
+      for (int j = 0; j < RPT; ++j)
+        if (HEAD_OK(j)) part[(r0 + j * NHG) * HD + d] = acc[0 + j];
     } else {
       xs[tid] = acc[0];  // (head r0, block blk) row of HD partial sums
       __syncthreads();
@@ -513,6 +531,7 @@ paged_attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         part[i] = v;
       }
     }
+#undef HEAD_OK
   } else {
     // warp w → dim tiles w, w + NW, … (16 dims each): A = Vᵀ (ldmatrix.trans),
     // B = the weights (16 positions × 8 heads), positions in steps of 16
@@ -621,10 +640,10 @@ static int launch_hd(const void* q, const void* kp, const void* vp, const void* 
                      const void* n_valid, void* out, int S, int H, int KV, int P, int maxp,
                      float scale, int C, int smem, cudaStream_t st) {
   switch (H / KV) {
-    case 1: return launch_rep<T, HD, 1>(q, kp, vp, tables, n_valid, out, S, H, KV, P, maxp, scale, C, smem, st);
-    case 2: return launch_rep<T, HD, 2>(q, kp, vp, tables, n_valid, out, S, H, KV, P, maxp, scale, C, smem, st);
-    case 4: return launch_rep<T, HD, 4>(q, kp, vp, tables, n_valid, out, S, H, KV, P, maxp, scale, C, smem, st);
-    case 8: return launch_rep<T, HD, 8>(q, kp, vp, tables, n_valid, out, S, H, KV, P, maxp, scale, C, smem, st);
+#define REP_CASE(R) \
+  case R: return launch_rep<T, HD, R>(q, kp, vp, tables, n_valid, out, S, H, KV, P, maxp, scale, C, smem, st);
+    REP_CASE(1) REP_CASE(2) REP_CASE(3) REP_CASE(4) REP_CASE(5) REP_CASE(6) REP_CASE(7) REP_CASE(8)
+#undef REP_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

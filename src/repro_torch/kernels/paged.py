@@ -30,9 +30,10 @@ from . import ref as _ref
 from .randk import _stream_on
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-#: head widths and GQA group sizes (H / KV) the kernel is instantiated for
+#: head widths and GQA group sizes (H / KV) the kernel is instantiated for;
+#: hd 256 and H / KV > 8 are refused (no ported config pages them)
 HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 3, 4, 5, 6, 7, 8)
 #: the kernel's layout (csrc/paged.cu): positions per staged tile, tiles in
 #: the ring, bytes of the max / sum exchange area, the shared memory one CTA
 #: may use on the H100

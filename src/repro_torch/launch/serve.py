@@ -4,8 +4,11 @@
 
 Continuous mode threads one page-pool cache through one decode step per
 iteration, joining prefill chunks into the running batch as slots and pages
-free up. Static mode pads every batch of requests to its longest prompt,
-prefills once and decodes until the longest generation finishes. Decoding is
+free up; it takes global-attention models only, and raises the reference's
+``ValueError`` for sliding-window and MLA layers. Static mode pads every
+batch of requests to its longest prompt, prefills once and decodes until
+the longest generation finishes, through the full, ring or latent cache of
+each layer, so it serves every ported config. Decoding is
 greedy (``temperature = 0``: the first index of the largest logit); sampling
 at a temperature is not ported (ROADMAP A2). Every step runs under
 ``torch.inference_mode()`` and writes the cache in place; swapped-out

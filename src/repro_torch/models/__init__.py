@@ -1,5 +1,7 @@
-"""repro_torch.models — the dense LM: training, dense-cache decode and the
-paged serving steps (port of repro.models)."""
+"""repro_torch.models — the LM of the attention and MoE families (global and
+sliding-window GQA, MLA, MLP and MoE feed-forwards, MTP, sinusoidal
+positions, frontend prefixes): training, dense / ring / latent-cache decode
+and the paged serving steps (port of repro.models)."""
 
 from .config import LayerSpec, MLAConfig, MoEConfig, ModelConfig, Segment, dense_stack, reduced
 from repro_torch.device import default_device

@@ -1,4 +1,5 @@
-"""Primitive layers: norms, embeddings, rotary positions, the gated MLP.
+"""Primitive layers: norms, embeddings, rotary and sinusoidal positions, the
+gated MLP.
 
 Functional, as in ``repro.models.layers``: ``init_*`` builds parameter
 subtrees (dicts of tensors with the reference's names and shapes), the apply
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 def _normal(gen, shape, scale, dtype, device):
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+    return torch.randn(shape, generator=gen, device=device).mul_(scale).to(dtype)
 
 
 def init_dense(gen, d_in: int, d_out: int, dtype, device, scale: float | None = None):
@@ -60,6 +61,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(…, S) → (…, S, d) classic transformer sinusoids (musicgen), in f32."""
+    half = d // 2
+    exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(10_000.0, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_mlp(gen, d: int, f: int, dtype, device):

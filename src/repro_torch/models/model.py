@@ -1,18 +1,21 @@
 """The language model: init / train forward / loss / prefill / decode_step /
-the paged serving steps — port of the dense paths of ``repro.models.model``.
+the paged serving steps — port of ``repro.models.model`` for the attention
+families.
 
 The parameter tree has the reference's leaves and shapes: each segment
 position holds its layers' weights stacked over a leading ``repeat`` axis
-(``model.py:57-68`` of the reference), so a flat layout built from either
-package places every leaf at the same offset. The caches keep the
-reference's layout too — a list per segment, a list per period position,
-leaves with a leading ``repeat`` axis (``(repeat, npage, P, KV, hd)`` for a
-page pool) — so ``convert.params_from_jax`` carries a JAX cache across
-unchanged. The serving functions write the cache in place and return it.
-``remat`` maps to ``torch.utils.checkpoint`` (training only). The dense
-training path takes a continuous ``prefix_embed`` (a frontend's output)
-before the tokens; multi-token prediction, frontends and sinusoidal
-positions are not ported yet.
+(``model.py:57-68`` of the reference), and a multi-token-prediction head
+sits under ``mtp`` (``proj``, ``layer``, ``norm``), so a flat layout built
+from either package places every leaf at the same offset. The caches keep
+the reference's layout too — a list per segment, a list per period
+position, leaves with a leading ``repeat`` axis (``(repeat, npage, P, KV,
+hd)`` for a page pool) — so ``convert.params_from_jax`` carries a JAX cache
+across unchanged. The serving functions write the cache in place and
+return it. ``remat`` maps to ``torch.utils.checkpoint`` (training only).
+Supports token inputs with an optional continuous ``prefix_embed`` (a
+frontend's output) before them, rotary or sinusoidal positions, tied or
+untied unembedding, the MoE load-balance losses summed over the layers, and
+DeepSeek-V3's MTP loss term.
 """
 
 from __future__ import annotations
@@ -36,7 +39,15 @@ from .blocks import (
     layer_train,
 )
 from .config import ModelConfig
-from .layers import embed, init_embedding, init_rmsnorm, rmsnorm, unembed
+from .layers import (
+    _normal,
+    embed,
+    init_embedding,
+    init_rmsnorm,
+    rmsnorm,
+    sinusoidal_pos,
+    unembed,
+)
 
 PyTree = Any
 
@@ -44,12 +55,11 @@ PyTree = Any
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
                 device=None) -> PyTree:
     """Random parameters from ``seed`` (a ``torch.Generator`` on the target
-    device). ``device="meta"`` builds the shapes only."""
+    device). ``device="meta"`` builds the shapes only. A segment position's
+    layers are drawn one at a time into their stacked tensors, so the peak
+    holds one layer more than the model."""
     device = default_device(device)
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
-    if cfg.mtp_depth > 0 or cfg.frontend is not None or cfg.pos_emb == "sinusoidal":
-        raise NotImplementedError("MTP heads, frontends and sinusoidal positions "
-                                  "are not ported yet")
     params: dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device),
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
@@ -60,10 +70,26 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
     for seg in cfg.segments:
         pos_params = []
         for spec in seg.period:
-            stack = [init_layer(gen, cfg, spec, dtype, device) for _ in range(seg.repeat)]
-            pos_params.append(_stack_trees(stack))
+            stacked = None
+            for r in range(seg.repeat):
+                layer = init_layer(gen, cfg, spec, dtype, device)
+                if seg.repeat == 1:  # a view: no copy
+                    stacked = tree_map(lambda t: t[None], layer)
+                    break
+                if stacked is None:
+                    stacked = tree_map(lambda t: t.new_empty((seg.repeat, *t.shape)), layer)
+                tree_map(lambda dst, t: dst[r].copy_(t), stacked, layer)
+                del layer
+            pos_params.append(stacked)
         segs.append(pos_params)
     params["segments"] = segs
+    if cfg.mtp_depth > 0:
+        mtp_spec = cfg.segments[-1].period[-1]
+        params["mtp"] = {
+            "proj": _normal(gen, (2 * cfg.d_model, cfg.d_model), 0.02, dtype, device),
+            "layer": init_layer(gen, cfg, mtp_spec, dtype, device),
+            "norm": init_rmsnorm(cfg.d_model, dtype, device),
+        }
     return params
 
 
@@ -81,6 +107,20 @@ def _slice(tree: PyTree, r: int) -> PyTree:
     return tree[r]
 
 
+def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                  prefix_embed: torch.Tensor | None):
+    """Token embeddings after the prefix, positions 0 … P+S−1 over both, and
+    the sinusoids added where the config has them."""
+    x = embed(params["embed"], tokens)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
+    return x, positions
+
+
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_embed: torch.Tensor | None = None, *,
             want_cache: bool = False, cache_len: int | None = None,
@@ -90,11 +130,7 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     ``prefix_embed`` (B, P, d) goes before the tokens' embeddings, and
     positions run 0 … P+S−1 over both. ``last_logits_only`` computes the
     unembedding for the final position only (the serving prefill)."""
-    x = embed(params["embed"], tokens)
-    if prefix_embed is not None:
-        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    x, positions = _embed_inputs(params, cfg, tokens, prefix_embed)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     use_remat = cfg.remat and not want_cache and torch.is_grad_enabled()
 
@@ -130,15 +166,32 @@ def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def lm_loss(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_embed: torch.Tensor | None = None) -> torch.Tensor:
-    """Next-token cross-entropy over token positions, the prefix excluded
-    (+ aux loss)."""
-    logits, aux, _, _ = forward(params, cfg, tokens, prefix_embed)
+    """Next-token cross-entropy over token positions, the prefix excluded,
+    + the MoE aux loss + the MTP term (0.3 × its NLL + its aux)."""
+    logits, aux, _, hidden = forward(params, cfg, tokens, prefix_embed)
     P = 0 if prefix_embed is None else prefix_embed.shape[1]
     pred = logits[:, P:-1]
     tgt = tokens[:, 1:].long()
-    logp = F.log_softmax(pred.float(), dim=-1)
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    return torch.mean(nll) + aux
+    loss = _nll(pred, tgt) + aux
+    if cfg.mtp_depth > 0 and tokens.shape[1] > 2:
+        # DeepSeek-V3-style MTP: hidden_t with embed(token_{t+1}) predicts
+        # token_{t+2} through one extra layer
+        h_in = hidden[:, P:, :][:, :-2, :]
+        e_next = embed(params["embed"], tokens[:, 1:-1])
+        z = torch.cat([h_in, e_next], dim=-1) @ params["mtp"]["proj"]
+        B, S2, _ = z.shape
+        positions = torch.arange(S2, dtype=torch.int32, device=z.device).expand(B, S2)
+        spec = cfg.segments[-1].period[-1]
+        z, mtp_aux, _ = layer_train(params["mtp"]["layer"], cfg, spec, z, positions)
+        z = rmsnorm(z, params["mtp"]["norm"], cfg.norm_eps)
+        table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        loss = loss + 0.3 * _nll(unembed(table, z), tokens[:, 2:].long()) + mtp_aux
+    return loss
+
+
+def _nll(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return torch.mean(-torch.gather(logp, -1, tgt[..., None])[..., 0])
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +221,12 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=torch.float32,
                                                           device))
 
 
-def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
-            max_len: int | None = None, last_logits_only: bool = False):
+def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embed: torch.Tensor | None = None, *, max_len: int | None = None,
+            last_logits_only: bool = False):
     """Serve prefill: one forward pass that also lays out the decode cache,
     sized for ``max_len`` positions. Returns (last logits (B,V), cache)."""
-    logits, _, cache, _ = forward(params, cfg, tokens, want_cache=True,
+    logits, _, cache, _ = forward(params, cfg, tokens, prefix_embed, want_cache=True,
                                   cache_len=max_len, last_logits_only=last_logits_only)
     return logits[:, -1, :], cache
 
@@ -182,6 +236,9 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree, token_t: torch.
     """One serve step: token_t (B,) at absolute position ``pos``, attending
     to the cache. Returns (logits (B,V), cache)."""
     x = embed(params["embed"], token_t[:, None])
+    if cfg.pos_emb == "sinusoidal":
+        p = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+        x = x + sinusoidal_pos(p, cfg.d_model).to(x.dtype)
     for spec, pp, c in _layers(params, cfg, cache):
         x, _ = layer_decode(pp, cfg, spec, c, x, pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -249,6 +306,8 @@ def paged_decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree,
     ``lengths[s]`` (idle slots carry length 0 and null tables; their logits
     are garbage the scheduler ignores). Returns (logits (S,V), cache)."""
     x = embed(params["embed"], token_t[:, None])
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos(lengths[:, None].to(torch.int32), cfg.d_model).to(x.dtype)
     for spec, pp, c in _layers(params, cfg, cache):
         x, _ = layer_paged_decode(pp, cfg, spec, c, x, lengths, tables, backend=backend)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -264,6 +323,10 @@ def paged_prefill_chunk(params: PyTree, cfg: ModelConfig, cache: PyTree,
     attends causally over its whole cached prefix. Returns (logits (V,) at
     the chunk's last valid position, cache)."""
     x = embed(params["embed"], tokens)
+    if cfg.pos_emb == "sinusoidal":
+        pos = (start + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                    device=x.device))[None]
+        x = x + sinusoidal_pos(pos, cfg.d_model).to(x.dtype)
     for spec, pp, c in _layers(params, cfg, cache):
         x, _ = layer_paged_prefill(pp, cfg, spec, c, x, start, table_row, n_valid,
                                    backend=backend)

@@ -1,8 +1,12 @@
 """Helpers shared by the PyTorch-port parity tests (tests/test_torch_*.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.models import LayerSpec, MLAConfig, ModelConfig, MoEConfig, Segment
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,3 +77,14 @@ def ordered_scatter_mean(v: np.ndarray, o: np.ndarray, B: int) -> np.ndarray:
                 if 0 <= o[w, b, t] < B:
                     acc[b, o[w, b, t]] = np.float32(acc[b, o[w, b, t]] + v[w, b, t])
     return acc / np.float32(n)
+
+
+def port_cfg(j) -> ModelConfig:
+    """A reference ModelConfig rebuilt as the port's (same fields)."""
+    kw = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
+    kw["segments"] = tuple(
+        Segment(period=tuple(LayerSpec(mixer=l.mixer, ff=l.ff) for l in s.period),
+                repeat=s.repeat) for s in j.segments)
+    kw["mla"] = None if j.mla is None else MLAConfig(**dataclasses.asdict(j.mla))
+    kw["moe"] = None if j.moe is None else MoEConfig(**dataclasses.asdict(j.moe))
+    return ModelConfig(**kw)

@@ -12,6 +12,10 @@
   for every state class (MARINA / VR / PP / GD's ``MarinaState``, DIANA,
   VR-DIANA, DCGD, EC-SGD, deadline MARINA) both packages write the same
   keys, the same entries byte for byte and the same digest.
+* MARINA carry states of reduced Llama-4-Scout (MoE stacks) and reduced
+  DeepSeek-V3 (MLA, MoE and the ``mtp`` subtree) with the reference's
+  parameter trees: the port writes the reference's file byte for byte and
+  loads it back bit for bit.
 * ``core.tree_util.tree_flatten_with_path`` names leaves exactly as
   ``jax.tree_util.tree_flatten_with_path`` does.
 """
@@ -306,3 +310,40 @@ def test_tree_flatten_with_path_matches_jax():
     back = treedef.unflatten([leaf for _, leaf in tflat])
     assert isinstance(back["m"], marina.MarinaState) and back["m"].g is None
     assert isinstance(back["a"], Pair) and back["z"][1][1] is None
+
+
+@pytest.mark.parametrize("name,layers", [("llama4-scout-17b-a16e", 2),
+                                         ("deepseek-v3-671b", 4)])
+def test_moe_and_mla_model_states_write_the_same_file(tmp_path, name, layers):
+    """A carry-mode MARINA state over the reference's parameter tree of a
+    reduced MoE / MLA model (the router, the (E, d, f) expert stacks, the
+    shared expert, MLA's latent projections, the MTP head): the same zip
+    entries byte for byte, and the file loads back into a zeroed port state
+    bit for bit."""
+    from repro.configs import get_arch
+    from repro.models import init_params, reduced
+
+    cfg = reduced(get_arch(name).model, layers=layers, d_model=64)
+    jp = init_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(3)
+    fields = dict(params=jax.tree.map(np.asarray, jp),
+                  g=rng.standard_normal((5, 128)).astype(np.float32), step=2,
+                  h=jax.tree.map(lambda a: rng.standard_normal((2, *a.shape)).astype(
+                      np.float32), jax.tree.map(np.asarray, jp)))
+    paths = [jstore._path_str(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(fields["params"])[0]]
+    assert any("router" in p for p in paths) and any("moe_gate" in p for p in paths)
+    if name.startswith("deepseek"):
+        assert any("mtp" in p for p in paths) and any("w_uk" in p for p in paths)
+    jstate, tstate = _jax_state(fields), _port_state(fields)
+    jpath = jck.save_checkpoint(str(tmp_path / "j"), 2, jstate)
+    tpath = save_checkpoint(str(tmp_path / "t"), 2, tstate)
+    with zipfile.ZipFile(jpath) as zj, zipfile.ZipFile(tpath) as zt:
+        assert sorted(zt.namelist()) == sorted(zj.namelist())
+        for entry in zj.namelist():
+            assert zt.read(entry) == zj.read(entry), entry
+    zeros = {k: jax.tree.map(np.zeros_like, fields[k]) for k in ("params", "g", "h")}
+    like = marina.MarinaState(step=0, **params_from_jax(zeros, device="cpu"))
+    back = load_checkpoint(str(tmp_path / "t"), 2, like)
+    assert back.step == 2
+    _assert_bit_equal(jstate, back)

@@ -16,9 +16,15 @@ a per-leaf QSGD downlink) and its checkpoint round trip of a carry state
 with bf16 leaves, the flat-wire kernel phase and the wire phase
 (``WIRE_LAUNCHES``, the seeded payloads, the gathers, the plain run), and
 the resume phase (U, A and B on the tiny LM: launches, c_k, the ledger,
-B bit-equal to U, the checkpoint directory removed) with its helpers.
+B bit-equal to U, the checkpoint directory removed) with its helpers. The
+families phase runs its three legs on the families' configs with every
+segment kept at d_model 64 (then cut to the phase's depth): the
+Llama-4-Scout paths' launch counts from the ServeReport, the static legs'
+teacher-forced check, the report's keys and cuts; and the small-input
+families through the trainer with the carry path's exact launches.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -214,6 +220,8 @@ def test_serve_kernel_phase_runs_at_a_tiny_shape(monkeypatch):
     monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_kernel_ms", lambda fn, n=5: (fn(), {
+        "paged_attn_decode_kernel": 0.5, "sm90_gemm": 2.0, "copy": 0.25})[1])
     monkeypatch.setattr(chip_smoke, "PAGED_SHAPES", {"serve": (3, 4, 4, 64, 4, 5),
                                                      "gqa_stress": (4, 8, 1, 128, 4, 6)})
     monkeypatch.setattr(chip_smoke, "ABSMAX_SHAPES", {"serve_decode": (12, 64),
@@ -429,3 +437,76 @@ def test_resume_helpers():
     b = state(torch.tensor([0.0, 1.0]))
     b.step = 5
     assert not chip_smoke.states_bit_equal(a, b)
+
+
+def _tiny_families(monkeypatch):
+    """get_arch → the family's config with every segment kept (full depth)
+    at d_model 64, so that ``family_cfg`` cuts it as on the card."""
+    from repro_torch.models import reduced
+
+    real = configs.get_arch
+
+    def tiny(name):
+        arch = real(name)
+        return dataclasses.replace(arch, model=reduced(
+            arch.model, layers=arch.model.num_layers, d_model=64))
+    monkeypatch.setattr(configs, "get_arch", tiny)
+
+
+def test_families_phase_runs_at_a_tiny_width(monkeypatch):
+    _serve_on_cpu(monkeypatch)
+    _tiny_families(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "SERVE_SPEC", "12:5,5:3,9:4,3:2,7:6")
+    monkeypatch.setattr(chip_smoke, "SERVE_SLOTS", 3)
+    monkeypatch.setattr(chip_smoke, "SERVE_PAGE", 4)
+    monkeypatch.setattr(chip_smoke, "SERVE_CHUNK", 4)
+    monkeypatch.setattr(chip_smoke, "FAMILY_STATIC", {"gemma3-27b": ("22:6,22:6", 2),
+                                                      "deepseek-v3-671b": ("9:6,9:6", 2)})
+    monkeypatch.setattr(chip_smoke, "FAMILY_PROFILE_LEN", 9)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_kernel_ms", lambda fn, n=5: (fn(), {
+        "paged_attn_decode_kernel": 0.5, "sm90_gemm": 2.0, "copy": 0.25})[1])
+    report = {}
+    launches = chip_smoke.run_families(report)
+    kernels.reset_launch_counts()
+    assert set(launches) == set(chip_smoke.FAMILY_SERVE_PATHS)
+    fam = report["families"]
+    assert set(fam) == set(chip_smoke.FAMILY_REPEATS) | {"seconds"}
+    scout = fam["llama4-scout-17b-a16e"]
+    f32, q8 = scout["llama4_serve_continuous"], scout["llama4_serve_continuous_q8"]
+    assert f32["n_layers"] == 4
+    assert launches["llama4_serve_continuous"]["paged_attn_decode"] == \
+        4 * f32["decode_steps"] > 0
+    assert launches["llama4_serve_continuous_q8"]["absmax_quant_rows"] == \
+        4 * (q8["prefill_chunks"] + q8["decode_steps"])
+    assert f32["diverged"] == [] == q8["diverged"] and f32["moe_dropped_pairs"] >= 0
+    assert scout["reduced"] == ["layers 48 -> 4 (segment repeats [48] -> [4])"]
+    prof = scout["decode_profile"]
+    assert prof["moe_device_ms"] == prof["layers"] == 4
+    assert (prof["paged_device_ms"], prof["gemm_device_ms"], prof["other_device_ms"]) == (
+        0.5, 2.0, 0.25) and prof["step_device_ms"] == 2.75
+    assert prof["expert_bytes_bound_ms"] > 0 and prof["step_host_ms"] > 0
+    ds = fam["deepseek-v3-671b"]
+    assert ds["reduced"][0] == "layers 61 -> 2 (segment repeats [3, 58] -> [1, 1])"
+    assert ds["reduced"][1].startswith("mtp_depth 1 -> 0")
+    assert fam["gemma3-27b"]["reduced"] == [
+        "layers 62 -> 6 (segment repeats [10, 1] -> [1])"]
+    for name in ("gemma3-27b", "deepseek-v3-671b"):
+        tf = fam[name]["serve_static"]["teacher_forced"]
+        assert tf["steps"] == chip_smoke.FAMILY_TEACHER_STEPS
+        assert tf["max_rel_logit_err"] <= chip_smoke.FAMILY_LOGIT_RTOL
+    assert fam["deepseek-v3-671b"]["serve_static"]["moe_dropped_pairs"] >= 0
+    assert all(fam[n]["seconds"] > 0 and "peak_mem_gb" in fam[n]
+               for n in chip_smoke.FAMILY_REPEATS)
+
+
+def test_families_small_input_runs_as_chip_smoke_expects(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    _count_plain_launches(monkeypatch)
+    report = {}
+    chip_smoke.check_families_small_input(report)
+    kernels.reset_launch_counts()
+    out = report["small_input_families"]
+    assert set(out) == set(chip_smoke.SMALL_FAMILIES)
+    assert all(run["launches"] == chip_smoke.EXPECTED_LAUNCHES["marina_randk_carry"]
+               for run in out.values())

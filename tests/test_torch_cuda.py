@@ -703,7 +703,7 @@ def _write_pages_case(dev, T, KV, W, xdtype, npage=9, P=4, seed=0):
     return kv[:, 0], kv[:, 1], pool, page, row
 
 
-@pytest.mark.parametrize("T,KV", [(8, 16), (128, 2), (1, 3)], ids=str)
+@pytest.mark.parametrize("T,KV", [(8, 16), (128, 2), (1, 3), (8, 8), (128, 8)], ids=str)
 @pytest.mark.parametrize("W", list(quantize.ABSMAX_WIDTHS))
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_absmax_write_pages_bit_equal_on_card(dev, T, KV, W, xdtype):
@@ -771,8 +771,13 @@ def _within_paged_bound(out, want, vp):
     return bool((diff <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all())
 
 
+#: (S, H, KV, hd, P, max_pages); the last four at H / KV = 5 and 7: the
+#: Llama-4-Scout decode shape (40 / 8), DeepSeek-Coder-33B's ratio (56 / 8)
+#: and InternVL2-1B's (14 / 2, hd 64), and 5 at hd 64
 @pytest.mark.parametrize("shape", [(3, 4, 2, 32, 4, 5), (8, 16, 16, 64, 16, 36),
-                                   (5, 64, 8, 128, 16, 12), (2, 8, 8, 64, 8, 3)], ids=str)
+                                   (5, 64, 8, 128, 16, 12), (2, 8, 8, 64, 8, 3),
+                                   (8, 40, 8, 128, 16, 36), (8, 56, 8, 128, 16, 36),
+                                   (4, 14, 2, 64, 16, 12), (3, 15, 3, 64, 8, 9)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_paged_attn_decode_within_bound_on_card(dev, shape, dtype):
     q, kp, vp, tables, n_valid = _paged(dev, *shape, dtype)
@@ -840,16 +845,21 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
         paged.paged_attn_decode(q.bfloat16(), kp, vp, tables, n_valid)
     with pytest.raises(ValueError, match="int32"):
         paged.paged_attn_decode(q, kp, vp, tables.long(), n_valid)
-    with pytest.raises(ValueError, match="H / KV"):
-        paged.paged_attn_decode(torch.zeros((2, 6, 32), device=dev), kp, vp, tables, n_valid)
+    for H in (5, 18):  # H not a multiple of KV; H / KV = 9 > 8
+        with pytest.raises(ValueError, match="H / KV"):
+            paged.paged_attn_decode(torch.zeros((2, H, 32), device=dev), kp, vp, tables,
+                                    n_valid)
 
 
-def test_paged_q8_route_on_card(dev):
+@pytest.mark.parametrize("shape", [(4, 8, 2, 64, 8, 5), (8, 40, 8, 128, 16, 36)], ids=str)
+def test_paged_q8_route_on_card(dev, shape):
     """The int8 route through the dequant kernel equals its plain version
-    bit for bit (the attention after the dequant is the same torch code)."""
-    q, kp, vp, tables, n_valid = _paged(dev, 4, 8, 2, 64, 8, 5, torch.float32, seed=5)
-    kc, ks = ref.absmax_quant_rows_ref(kp.reshape(-1, 64))
-    vc, vs = ref.absmax_quant_rows_ref(vp.reshape(-1, 64))
+    bit for bit (the attention after the dequant is the same torch code);
+    also at the Llama-4-Scout decode shape (KV = 8, hd = 128)."""
+    q, kp, vp, tables, n_valid = _paged(dev, *shape, torch.float32, seed=5)
+    hd = shape[3]
+    kc, ks = ref.absmax_quant_rows_ref(kp.reshape(-1, hd))
+    vc, vs = ref.absmax_quant_rows_ref(vp.reshape(-1, hd))
     args = (q, kc.reshape(kp.shape), vc.reshape(vp.shape), ks.reshape(kp.shape[:3]),
             vs.reshape(vp.shape[:3]), tables, n_valid)
     kernels.reset_launch_counts()
@@ -990,3 +1000,30 @@ def test_flat_wire_ops_on_card_match_plain_versions(dev):
         bvr, bor = flat.block_compress(x2d, 12345, 20, 51.2, "ref")
         assert torch.equal(bo, bor) and torch.equal(bv, bvr)
         assert torch.equal(flat.block_gather(x2d, bo, 51.2, backend), bv)
+
+
+def test_moe_ff_is_run_to_run_identical_on_card(dev):
+    """The MoE layer's combine is a gather in top-k order (no duplicate-index
+    scatter-add), so two runs on the card give the same bits (ROADMAP C):
+    reduced DeepSeek-V3's router (sigmoid, top-8 of 32) over 512 tokens,
+    with drops (capacity factor 1)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, reduced
+
+    cfg = reduced(get_arch("deepseek-v3-671b").model, layers=4, d_model=256)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=32,
+                                                           top_k=8, capacity_factor=1.0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32, dev)
+    x = torch.randn((2, 256, 256), generator=gen, device=dev)
+    drops = torch.zeros((), dtype=torch.long, device=dev)
+    moe.moe_ff.drops = drops
+    try:
+        y1, a1 = moe.moe_ff(p, cfg, x)
+        y2, a2 = moe.moe_ff(p, cfg, x)
+    finally:
+        moe.moe_ff.drops = None
+    assert int(drops) > 0
+    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32)) and torch.equal(a1, a2)

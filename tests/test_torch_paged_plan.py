@@ -26,9 +26,11 @@ from repro_torch.kernels import paged, ref
 
 #: (S, KV, P, max_pages): the serve shape and the GQA stress shape of
 #: chip_smoke.py, the card tests' shapes, the cluster-edge geometries, one
-#: page, and a 32,768-position row
+#: page, a 32,768-position row, and the Llama-4-Scout / rep-7 decode shape of
+#: chip_smoke.py's kernel phase (8 slots, KV = 8, 36 pages of 16)
 SHAPES = [(8, 16, 16, 36), (64, 8, 16, 256), (3, 2, 4, 5), (5, 8, 16, 12), (2, 8, 8, 3),
-          (3, 2, 4, 4), (9, 2, 4, 13), (9, 2, 16, 70), (1, 1, 16, 1), (1, 8, 16, 2048)]
+          (3, 2, 4, 4), (9, 2, 4, 13), (9, 2, 16, 70), (1, 1, 16, 1), (1, 8, 16, 2048),
+          (8, 8, 16, 36)]
 INSTANCES = [(hd, rep, dt) for hd in paged.HEAD_DIMS for rep in paged.GROUPS
              for dt in (torch.float32, torch.bfloat16)]
 
@@ -68,6 +70,25 @@ def test_launch_plan_covers_every_position_once_within_shared_memory(hd, rep, dt
     # the GQA stress shape
     assert paged.launch_plan(8, 16, 64, 1, 16, 36, 4)[0] == 4
     assert paged.launch_plan(64, 8, 128, 8, 16, 256, elt)[0] == 8
+
+
+def test_launch_plan_at_the_new_gqa_ratios():
+    """Every rep of 1 … 8 is instantiated, and hd 256 or rep 9 is refused by
+    the wrapper's shape check. At the Llama-4-Scout (rep 5) and rep-7
+    decode shapes (8 slots, KV = 8, 36 pages of 16) a row splits over 8
+    CTAs in both dtypes."""
+    assert paged.GROUPS == tuple(range(1, 9))
+    for rep in (5, 7):
+        for elt in (4, 2):
+            C, smem = paged.launch_plan(8, 8, 128, rep, 16, 36, elt)
+            assert C == 8 and smem <= paged.SMEM_LIMIT
+    tables = torch.zeros((1, 2), dtype=torch.int32)
+    n_valid = torch.ones((1,), dtype=torch.int32)
+    for H, KV, hd in ((9, 1, 64), (8, 8, 256)):
+        q = torch.zeros((1, H, hd))
+        pages = torch.zeros((3, 4, KV, hd))
+        with pytest.raises(ValueError, match="must lie in"):
+            paged.check_paged_shapes(q, pages, pages, tables, n_valid)
 
 
 def test_launch_plan_refuses_rows_beyond_shared_memory():
@@ -135,6 +156,13 @@ def test_cluster_split_order_matches_plain_version_and_reference(dtype, geom):
     tables = (1 + rng.permutation(npage - 1)).astype(np.int32).reshape(S, maxp)
     L = maxp * P
     n_valid = np.array([1, P, C * P, C * P + 1, 0, -3, L, L + 9, P + 1], np.int32)
+    _hold_emulation(q, kp, vp, tables, n_valid, C, dtype)
+
+
+def _hold_emulation(q, kp, vp, tables, n_valid, C, dtype):
+    """The emulation against the plain version (f32: |Δ| ≤ 1e-5·max|v|,
+    bf16: one ulp of each output row's largest magnitude) and, in f32, the
+    reference within rtol 1e-5."""
     t = [torch.from_numpy(a) for a in (q, kp, vp, tables, n_valid)]
     for i in range(3):
         t[i] = t[i].to(dtype)
@@ -149,3 +177,24 @@ def test_cluster_split_order_matches_plain_version_and_reference(dtype, geom):
     else:  # one bf16 ulp of each output row's largest magnitude (ROADMAP C)
         top = plain.float().abs().amax(dim=-1, keepdim=True).clamp_min(2.0**-126)
         assert bool((diff <= torch.exp2(torch.floor(torch.log2(top)) - 7)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("rep", [3, 5, 6, 7])
+def test_cluster_split_order_at_the_new_gqa_ratios(rep, dtype):
+    """The same emulation and edges at the ratios that do not divide the
+    f32 path's eight thread groups, held against the plain version and the
+    reference as the ratios 1, 2, 4 and 8 are."""
+    KV, P, maxp = 2, 4, 13
+    S, H, hd = 9, rep * KV, 32
+    C, _ = paged.launch_plan(S, KV, hd, rep, P, maxp, 4)
+    assert C > 1 and maxp % C
+    rng = np.random.default_rng(rep)
+    npage = 1 + S * maxp
+    q = rng.standard_normal((S, H, hd), dtype=np.float32)
+    kp = rng.standard_normal((npage, P, KV, hd), dtype=np.float32)
+    vp = rng.standard_normal((npage, P, KV, hd), dtype=np.float32)
+    tables = (1 + rng.permutation(npage - 1)).astype(np.int32).reshape(S, maxp)
+    L = maxp * P
+    n_valid = np.array([1, P, C * P, C * P + 1, 0, -3, L, L + 9, P + 1], np.int32)
+    _hold_emulation(q, kp, vp, tables, n_valid, C, dtype)

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_torch_thread, to_np  # noqa: F401
+from _torch_parity import one_torch_thread, port_cfg, to_np  # noqa: F401
 from repro.configs import PUBLIC_TO_MODULE as J_ARCHS
 from repro.configs import get_arch as j_get_arch
 from repro.kernels import paged as jpaged
@@ -54,9 +54,6 @@ from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve as tserve
 from repro_torch.models import (
     LayerSpec,
-    MLAConfig,
-    ModelConfig,
-    MoEConfig,
     Segment,
     decode_step,
     forward,
@@ -73,17 +70,6 @@ from repro_torch.models import (
 LOGIT_TOL = 1e-4
 CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "src", "repro_torch", "kernels",
                     "csrc")
-
-
-def port_cfg(j) -> ModelConfig:
-    """A reference ModelConfig rebuilt as the port's (same fields)."""
-    kw = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
-    kw["segments"] = tuple(
-        Segment(period=tuple(LayerSpec(mixer=l.mixer, ff=l.ff) for l in s.period),
-                repeat=s.repeat) for s in j.segments)
-    kw["mla"] = None if j.mla is None else MLAConfig(**dataclasses.asdict(j.mla))
-    kw["moe"] = None if j.moe is None else MoEConfig(**dataclasses.asdict(j.moe))
-    return ModelConfig(**kw)
 
 
 #: the reduced GQA config: Qwen3-32B's family (qk-norm, head_dim set) at 2
@@ -379,14 +365,20 @@ def test_page_ops_match_reference_exactly():
 
 
 def test_paged_cache_rejects_non_attn_mixer_and_sliding_windows():
+    """The paged pool takes global attention only, as the reference's: a
+    recurrent mixer and a sliding-window layer raise its ValueError (the
+    dense ring cache serves the latter); recurrent mixers are not ported."""
     cfg = reduced(port_cfg(j_get_arch("recurrentgemma-2b").model), layers=2, d_model=128)
     with pytest.raises(ValueError, match="global-attention"):
         init_paged_cache(cfg, 8, 4, device="cpu")
     local = dataclasses.replace(TCFG, segments=(Segment(period=(LayerSpec("attn_local"),),
                                                         repeat=1),))
+    with pytest.raises(ValueError, match="global-attention"):
+        init_paged_cache(local, 8, 4, device="cpu")
     from repro_torch.models import init_cache
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_cache(local, 1, 8, device="cpu")
+    assert init_cache(local, 1, 40, device="cpu")[0][0]["k"].shape[2] == local.window
+    with pytest.raises(NotImplementedError, match="A4c"):
+        init_cache(cfg, 1, 8, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -218,11 +218,13 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "for name in ('quickstart_torch', 'federated_pp_torch', 'train_lm_torch'):\n"
+        "for name in ('quickstart_torch', 'federated_pp_torch', 'train_lm_torch',\n"
+        "             'serve_lm_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "new = ('repro_torch.checkpoint.store', 'repro_torch.core.problems',\n"
-        "       'repro_torch.data.pipeline')\n"
+        "       'repro_torch.data.pipeline', 'repro_torch.models.moe',\n"
+        "       'repro_torch.configs.deepseek_v3_671b')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
