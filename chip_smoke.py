@@ -105,7 +105,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    with five sliding-window layers and a global one, Llama-4-Scout with
    MoE, DeepSeek-V3 with MLA, MoE and the MTP head) through the trainer on
    MARINA × block_randk carry, 4 steps, through the kernels and through
-   their plain versions: launches exact, trajectories agree.
+   their plain versions: launches exact, trajectories agree; and so do the
+   recurrent families (``SMALL_RECURRENT``: reduced recurrentgemma-2b with
+   two RG-LRU layers and a sliding-window one, xlstm-350m's whole 7 mLSTM :
+   1 sLSTM period).
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
    B = 1024, p = 0.5, 4 steps per path, both round shapes
@@ -179,6 +182,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    check 4 decode steps' logits against a teacher-forced ``forward``
    (within 1e-4 of each row's largest logit). Peak memory and seconds per
    leg; the phase must take at most 120 s.
+
+11. recurrent — the recurrent families at full width and depth, f32 random
+   init from the seed, each leg's parameters freed before the next:
+   recurrentgemma-2b (26 layers, RG-LRU and sliding-window attention)
+   through ``run_static`` at 4 × 2304:32 (every 2048-slot ring wraps) and
+   xlstm-350m (24 layers, 7 mLSTM : 1 sLSTM) at 8 × 252:64 (prompt and
+   teacher-forced steps one 256-position mLSTM chunk), each checking 4
+   decode steps against a teacher-forced ``forward`` (within 1e-4 of each
+   row's largest logit; xLSTM within 1e-3 in float32, and within 1e-4 with
+   the same steps in float64: ``RECURRENT_F32_RTOL``), no kernel launched;
+   the xLSTM decode state's bytes equal at max_len 256 and 4096;
+   xlstm-350m trained on the MARINA × block_randk carry path (n = 4, 8 ×
+   256 tokens per worker, 4 steps): launches exactly
+   ``EXPECTED_LAUNCHES["marina_randk_carry"]``, c_k and the ledgers exact,
+   the same steps through the plain versions within rtol 1e-5 / atol 1e-6.
+   Then sampling at T = 0.7, seed 0, on phase 9's model and ``SERVE_SPEC``:
+   the continuous path (f32 pages) twice with identical streams, its
+   launches exact and its streams equal to the plain versions' except after
+   a token whose perturbed top-2 margin in the plain run is below 1e-3
+   (counted), and the static path; one step's Gumbel draw on the card
+   against the host path (uniforms bit for bit). Seconds per leg and round
+   type, peak memory; the phase must take at most 120 s.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -437,11 +462,49 @@ FAMILY_SERVE_PATHS = {"llama4_serve_continuous": False, "llama4_serve_continuous
 FAMILY_STATIC = {"gemma3-27b": (",".join(["1536:32"] * 4), 4),
                  "deepseek-v3-671b": (",".join(["256:16"] * 2), 2)}
 #: decode steps held against a teacher-forced forward, and the bound:
-#: |Δ| ≤ FAMILY_LOGIT_RTOL · max |forward logit| of the row
+#: |Δ| ≤ FAMILY_LOGIT_RTOL · max |forward logit| of the row; the forward runs
+#: on as many requests at once as keep its logits within TEACHER_LOGIT_BYTES
 FAMILY_TEACHER_STEPS, FAMILY_LOGIT_RTOL = 4, 1e-4
+TEACHER_LOGIT_BYTES = 4e9
 #: the MoE decode step's time split: cached positions per slot
 FAMILY_PROFILE_LEN = 512
 FAMILY_BUDGET_S = 120.0
+
+#: the recurrent phase, at full width and depth (f32 random init from SEED).
+#: Static legs (requests, batch): recurrentgemma-2b's 2304-token prompts run
+#: past its 2048-position window, so every local-attention ring wraps;
+#: xlstm-350m's 252 prompt positions and FAMILY_TEACHER_STEPS teacher-forced
+#: steps make one 256-position mLSTM chunk (its forward takes S ≤ 256 or a
+#: multiple of 256)
+RECURRENT_STATIC = {"recurrentgemma-2b": (",".join(["2304:32"] * 4), 4),
+                    "xlstm-350m": (",".join(["252:64"] * 8), 8)}
+#: the float32 teacher-forced bound where FAMILY_LOGIT_RTOL is out of float32's
+#: reach, and the check then repeated in float64 at FAMILY_LOGIT_RTOL. xLSTM:
+#: the chunkwise forward's cumulative log-forget sums (|F| ≈ 177 over 256
+#: steps of log σ(0)) lose ~|F|·2^-24 in each exponent, through 24 layers:
+#: 1.1e-4 to 3.8e-4 measured on the card, both packages 5.6e-5 to 8.3e-5 at 24
+#: reduced layers on the CPU (scripts/xlstm_precision.py); float64 closes the
+#: gap to 3e-13 (ROADMAP C)
+RECURRENT_F32_RTOL = {"xlstm-350m": 1e-3}
+#: the xLSTM decode state's bytes must not depend on max_len
+RECURRENT_STATE_LENS = (256, 4096)
+#: the training leg: xlstm-350m through the trainer on the MARINA ×
+#: block_randk carry path (launches: EXPECTED_LAUNCHES["marina_randk_carry"];
+#: ``xc`` in PERF.md's kernel table)
+RECURRENT_TRAIN_ARCH = "xlstm-350m"
+RECURRENT_TRAIN_PATH = "xlstm_marina_randk_carry"
+#: the reduced recurrent families through the trainer in the small-input
+#: phase (arch → layers): the whole 7 mLSTM : 1 sLSTM period, and (RG-LRU,
+#: RG-LRU, local attention)
+SMALL_RECURRENT = {"recurrentgemma-2b": 3, "xlstm-350m": 8}
+#: sampling at a temperature: SERVE_SPEC on the Qwen1.5-0.5B serve paths
+#: (path → int8 pages, None: static) under one seed; the continuous path
+#: (the kernels) runs twice, its streams identical
+SAMPLE_TEMPERATURE, SAMPLE_SEED = 0.7, 0
+SAMPLE_PATHS = {"sampled_serve_continuous": False, "sampled_serve_static": None}
+#: the device's Gumbel draws against the host path's: units of ulp(max(|g|, 1))
+GUMBEL_ULPS = 2
+RECURRENT_BUDGET_S = 120.0
 
 
 #: keys a kernel's row adds to the kernel line where it has them, each
@@ -2349,14 +2412,18 @@ def serve_launches(quantized: bool | None, rep: dict) -> dict:
     return {}
 
 
-def plain_streams(params, cfg, pairs, serve_kw: dict) -> tuple[list, dict]:
+def plain_streams(params, cfg, pairs, serve_kw: dict, temperature: float = 0.0,
+                  seed: int = 0) -> tuple[list, dict]:
     """The continuous engine over the plain versions (``backend="ref"``),
     with its prefill and decode steps rebuilt to keep the logits (as the
-    reference's serving tests do): every request's greedy stream and, per
-    generated token, the top-2 logit margin of the logits that chose it."""
+    reference's serving tests do): every request's stream and, per
+    generated token, the top-2 margin of the logits that chose it — at
+    ``temperature`` > 0 of the perturbed logits (logits × f32(1/T) + the
+    Gumbel noise of the step's key, split as the engine splits it)."""
     import numpy as np
     import torch
 
+    from repro_torch import prng
     from repro_torch.launch import serve
     from repro_torch.models import paged_decode_step, paged_prefill_chunk
 
@@ -2371,7 +2438,12 @@ def plain_streams(params, cfg, pairs, serve_kw: dict) -> tuple[list, dict]:
     def tensor(a):
         return torch.as_tensor(np.asarray(a), device=dev)
 
+    keys = serve.KeyStream(seed)
+
     def greedy(lg):
+        if temperature > 0:
+            lg = (prng.gumbel(keys.next(), tuple(lg.shape), device=lg.device)
+                  + serve.scale_logits(lg, temperature, jitted=True))
         top = torch.topk(lg.float(), 2, dim=-1).values
         return (torch.argmax(lg, dim=-1).to(torch.int32).cpu().numpy(),
                 (top[..., 0] - top[..., 1]).cpu().tolist())
@@ -2853,11 +2925,13 @@ def run_main_path(report: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_families_small_input(report: dict) -> None:
-    """SMALL_FAMILIES through the trainer, MARINA × block_randk carry, 4
-    steps, through the kernels and through their plain versions: the
-    launches of ``EXPECTED_LAUNCHES["marina_randk_carry"]`` exactly, c_k,
-    equal ledgers and agreeing trajectories."""
+def check_families_small_input(report: dict, families: dict | None = None,
+                               key: str = "small_input_families") -> None:
+    """``families`` (arch → layers; SMALL_FAMILIES by default) reduced to
+    d_model 64 through the trainer, MARINA × block_randk carry, 4 steps,
+    through the kernels and through their plain versions: the launches of
+    ``EXPECTED_LAUNCHES["marina_randk_carry"]`` exactly, c_k, equal ledgers
+    and agreeing trajectories; the runs go to ``report[key]``."""
     import torch
 
     from repro_torch import kernels
@@ -2867,7 +2941,7 @@ def check_families_small_input(report: dict) -> None:
 
     out = {}
     want = EXPECTED_LAUNCHES["marina_randk_carry"]
-    for name, layers in SMALL_FAMILIES.items():
+    for name, layers in (SMALL_FAMILIES if families is None else families).items():
         cfg = reduced(get_arch(name).model, layers=layers, d_model=64)
         params = init_params(SEED, cfg, device=DEVICE)
         kw = dict(carry=True, batch_per_worker=2)
@@ -2890,7 +2964,7 @@ def check_families_small_input(report: dict) -> None:
                      "max_abs_param_diff": worst}
         print(f"small input family {name} ({layers} layers, d_model 64): loss {h_k.loss}, "
               f"launches {launched}, max |Δparams| {worst:.3e}", flush=True)
-    report["small_input_families"] = out
+    report[key] = out
 
 
 def family_cfg(name: str):
@@ -2913,13 +2987,15 @@ def family_cfg(name: str):
     return cut, reduced
 
 
-def teacher_forced_check(params, cfg, reqs) -> dict:
+def teacher_forced_check(params, cfg, reqs, rtol: float = FAMILY_LOGIT_RTOL,
+                         served: bool = True) -> dict:
     """Each request's prompt prefilled and its first FAMILY_TEACHER_STEPS
     generated tokens fed to ``decode_step``: every step's logits against a
-    teacher-forced ``forward`` over the prompt and those tokens, one
-    request at a time, |Δ| ≤ FAMILY_LOGIT_RTOL · max |forward logit| per
-    row; the served stream's next tokens are the decode logits' argmax (up
-    to a top-2 margin below SERVE_TIE_MARGIN). An MoE drops no pair in
+    teacher-forced ``forward`` over the prompt and those tokens (as many
+    requests at a time as keep the logits within TEACHER_LOGIT_BYTES),
+    |Δ| ≤ ``rtol`` · max |forward logit| per row; with
+    ``served`` the served stream's next tokens are the decode logits' argmax
+    (up to a top-2 margin below SERVE_TIE_MARGIN). An MoE drops no pair in
     decode (each expert's capacity, at least 8, holds the batch's tokens),
     so the forward runs with the capacity of every token (a capacity factor
     of E / top_k): with the served one it would drop pairs the decode
@@ -2948,23 +3024,28 @@ def teacher_forced_check(params, cfg, reqs) -> dict:
             dec.append(lg)
         require(drops is None or read_moe_drops(drops) == 0, "a decode step dropped pairs")
         del cache
-        for b in range(len(reqs)):
-            seq = torch.cat([prompts[b:b + 1], gen[b:b + 1, :n]], dim=1)
-            full = forward(params, tf_cfg, seq)[0][0, P:].float()
-            for i, lg in enumerate(dec):
-                want = full[i]
-                err = float((lg[b].float() - want).abs().max() / want.abs().max())
-                worst = max(worst, err)
-                top = torch.topk(lg[b].float(), 2).values
-                same = int(torch.argmax(lg[b])) == int(gen[b, i + 1])
-                require(same or float(top[0] - top[1]) < SERVE_TIE_MARGIN,
-                        f"teacher-forced step {i}: the served token is not the decode argmax")
-                ties += not same
+        group = max(1, int(TEACHER_LOGIT_BYTES // (
+            (P + n) * cfg.vocab_size * params["embed"].element_size())))
+        for b0 in range(0, len(reqs), group):
+            seq = torch.cat([prompts[b0:b0 + group], gen[b0:b0 + group, :n]], dim=1)
+            full = forward(params, tf_cfg, seq)[0][:, P:].double()
+            for b in range(b0, b0 + len(seq)):
+                for i, lg in enumerate(dec):
+                    want = full[b - b0, i]
+                    err = float((lg[b].double() - want).abs().max() / want.abs().max())
+                    worst = max(worst, err)
+                    top = torch.topk(lg[b].float(), 2).values
+                    same = int(torch.argmax(lg[b])) == int(gen[b, i + 1])
+                    require(not served or same or float(top[0] - top[1]) < SERVE_TIE_MARGIN,
+                            f"teacher-forced step {i}: the served token is not the decode "
+                            "argmax")
+                    ties += not same
             del full
         del dec
-    require(worst <= FAMILY_LOGIT_RTOL,
+    require(worst <= rtol,
             f"decode logits {worst} of the row's scale from the teacher-forced forward")
-    return {"steps": n, "max_rel_logit_err": worst, "near_tie_tokens": ties}
+    return {"steps": n, "max_rel_logit_err": worst, "bound": rtol,
+            "dtype": str(params["embed"].dtype), "near_tie_tokens": ties}
 
 
 def profile_moe_decode(params, cfg) -> dict:
@@ -3022,6 +3103,39 @@ def profile_moe_decode(params, cfg) -> dict:
             "top": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]}
 
 
+def static_leg(params, cfg, spec: str, batch: int, label: str,
+               rtol: float = FAMILY_LOGIT_RTOL) -> tuple[dict, list]:
+    """``run_static`` on ``spec`` in batches of ``batch``: no kernel
+    launched (the static caches are plain PyTorch), every request served in
+    full, then FAMILY_TEACHER_STEPS decode steps against a teacher-forced
+    ``forward`` within ``rtol``. Returns the ServeReport with the MoE drops
+    and the teacher-forced check, and the requests."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    pairs = serve.parse_requests(spec)
+    reqs = serve.make_workload(cfg, pairs)
+    kernels.reset_launch_counts()
+    drops = moe_drop_counter(cfg)
+    rep = serve.run_static(params, cfg, reqs, batch=batch)
+    if drops is not None:
+        rep["moe_dropped_pairs"] = read_moe_drops(drops)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    require(not launched, f"{label}: the static path launched {launched}")
+    require(rep["total_new_tokens"] == sum(g for _, g in pairs) and all(
+        len(r.generated) == g and all(0 <= t < cfg.vocab_size for t in r.generated)
+        for r, (_, g) in zip(reqs, pairs)), f"{label}: {rep}")
+    rep["teacher_forced"] = teacher_forced_check(params, cfg, reqs, rtol)
+    print(f"{label} static {spec} (batch {batch}): tokens/s "
+          f"{rep['tokens_per_s']:.1f}, first token p50 / p99 "
+          f"{rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} ms, "
+          f"completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
+          f"{rep['completion_p99_ms']:.1f} ms, MoE dropped pairs "
+          f"{rep.get('moe_dropped_pairs')}, teacher-forced "
+          f"{rep['teacher_forced']}", flush=True)
+    return rep, reqs
+
+
 def run_families(report: dict) -> dict:
     """The attention and MoE families at full width (random f32 init from
     SEED), each leg's parameters freed before the next: Llama-4-Scout served
@@ -3032,8 +3146,6 @@ def run_families(report: dict) -> dict:
     phase must take at most FAMILY_BUDGET_S."""
     import torch
 
-    from repro_torch import kernels
-    from repro_torch.launch import serve
     from repro_torch.models import init_params, param_count
 
     t_phase = time.perf_counter()
@@ -3051,29 +3163,8 @@ def run_families(report: dict) -> dict:
         print(f"families {name}: {leg['params_b']:.2f} B parameters (f32), cuts {cuts}, "
               f"init {leg['init_s']:.1f} s", flush=True)
         if name in FAMILY_STATIC:
-            spec, batch = FAMILY_STATIC[name]
-            pairs = serve.parse_requests(spec)
-            reqs = serve.make_workload(cfg, pairs)
-            kernels.reset_launch_counts()
-            drops = moe_drop_counter(cfg)
-            rep = serve.run_static(params, cfg, reqs, batch=batch)
-            if drops is not None:
-                rep["moe_dropped_pairs"] = read_moe_drops(drops)
-            launched = {k: v for k, v in kernels.launch_counts().items() if v}
-            require(not launched, f"families {name}: the static path launched {launched}")
-            require(rep["total_new_tokens"] == sum(g for _, g in pairs) and all(
-                len(r.generated) == g for r, (_, g) in zip(reqs, pairs)),
-                f"families {name}: {rep}")
-            rep["teacher_forced"] = teacher_forced_check(params, cfg, reqs)
-            leg["serve_static"] = rep
-            print(f"families {name} static {spec} (batch {batch}): tokens/s "
-                  f"{rep['tokens_per_s']:.1f}, first token p50 / p99 "
-                  f"{rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} ms, "
-                  f"completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
-                  f"{rep['completion_p99_ms']:.1f} ms, MoE dropped pairs "
-                  f"{rep.get('moe_dropped_pairs')}, teacher-forced "
-                  f"{rep['teacher_forced']}", flush=True)
-            del reqs
+            leg["serve_static"] = static_leg(params, cfg, *FAMILY_STATIC[name],
+                                             f"families {name}")[0]
         else:
             runs, by_path = serve_paths(params, cfg, FAMILY_SERVE_PATHS, name)
             leg.update(runs)
@@ -3099,6 +3190,252 @@ def run_families(report: dict) -> dict:
     report["families"] = dict(out, seconds=secs)
     print(f"families phase: {secs:.1f} s (budget {FAMILY_BUDGET_S:.0f})", flush=True)
     require(secs <= FAMILY_BUDGET_S, f"families phase took {secs:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families and sampling at a temperature
+# ---------------------------------------------------------------------------
+
+
+def state_bytes(cfg, B: int) -> dict:
+    """The decode state's bytes (``init_cache`` on the meta device) at each
+    of RECURRENT_STATE_LENS."""
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import init_cache
+
+    return {L: sum(t.numel() * t.element_size() for t in tree_leaves(
+        init_cache(cfg, B, L, device="meta"))) for L in RECURRENT_STATE_LENS}
+
+
+def run_recurrent_train(cfg, params) -> tuple[dict, dict]:
+    """RECURRENT_TRAIN_ARCH through the trainer at full width on the MARINA
+    × block_randk carry path (n = 4, 8 × 256 tokens per worker, 4 steps):
+    launches exactly ``EXPECTED_LAUNCHES["marina_randk_carry"]``, c_k, the
+    up and down ledgers, finite losses; then the same steps through the
+    plain versions (``backend="ref"``), parameters within rtol 1e-5 / atol
+    1e-6. Returns (the run, its launches)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import param_count
+
+    d = param_count(params)
+    nblk = math.ceil(d / BLOCK)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, hist = train(cfg, params, True)
+    launched = kernels.launch_counts()
+    want = {name: EXPECTED_LAUNCHES["marina_randk_carry"].get(name, 0)
+            for name in kernels.KERNELS}
+    require(launched == want, f"{RECURRENT_TRAIN_PATH} launches {launched} != {want}")
+    require(hist.round_sync == EXPECTED_C_K, f"{RECURRENT_TRAIN_PATH}: c_k {hist.round_sync}")
+    require(all(math.isfinite(v) for v in hist.loss) and hist.skipped_cum[-1] == 0.0,
+            f"{RECURRENT_TRAIN_PATH}: loss {hist.loss}")
+    for c_k, bits, down in zip(hist.round_sync, hist.round_bits, hist.round_down_bits):
+        require(bits == expected_bits("marina", "block_randk", c_k, d, nblk),
+                f"{RECURRENT_TRAIN_PATH}: ledger {bits}")
+        require(down == expected_down_bits(None, c_k, d, nblk),
+                f"{RECURRENT_TRAIN_PATH}: down ledger {down}")
+    require(hist.bits_cum[-1] == sum(hist.round_bits), f"{RECURRENT_TRAIN_PATH}: ledger sum")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kept = [t.clone() for t in tree_leaves(state.params)]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    s_r, h_r = train(cfg, params, True, backend="ref")
+    require(h_r.round_sync == hist.round_sync and h_r.round_bits == hist.round_bits,
+            f"{RECURRENT_TRAIN_PATH}: the plain run's c_k or ledger differ")
+    worst = 0.0
+    for a, b in zip(kept, tree_leaves(s_r.params)):
+        require(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                f"{RECURRENT_TRAIN_PATH}: kernels and plain versions diverge")
+        worst = max(worst, float((a - b).abs().max()))
+    del s_r, kept
+    by_type = {}
+    for c_k, sec in zip(hist.round_sync, hist.step_seconds):
+        by_type.setdefault("sync" if c_k else "compressed", []).append(sec)
+    run = {"d": d, "nblk": nblk, "loss": hist.loss, "c_k": hist.round_sync,
+           "round_bits": hist.round_bits, "step_seconds": hist.step_seconds,
+           "median_step_s": {k: statistics.median(v) for k, v in by_type.items()},
+           "plain_step_seconds": h_r.step_seconds, "launches": launched,
+           "max_abs_param_diff": worst, "peak_mem_gb": peak}
+    print(f"recurrent {RECURRENT_TRAIN_PATH}: d={d}, loss {hist.loss}, c_k "
+          f"{hist.round_sync}, launches { {k: v for k, v in launched.items() if v} }, "
+          f"median s/step {run['median_step_s']}, plain run s/step {h_r.step_seconds}, "
+          f"max |Δparams| against the plain run {worst:.3e}, peak memory {peak:.2f} GB",
+          flush=True)
+    return run, {RECURRENT_TRAIN_PATH: launched}
+
+
+def check_gumbel_draws(vocab: int) -> dict:
+    """One decode step's draw at SERVE_SLOTS × vocab under the first key
+    the engine would split: the device's uniforms (``minval`` = tiny) bit
+    for bit the host path's, the device's Gumbel values within GUMBEL_ULPS
+    units of ulp(max(|g|, 1)) of the host path's."""
+    import numpy as np
+
+    from repro_torch import prng
+
+    key = prng.split(prng.PRNGKey(SAMPLE_SEED))[1]
+    shape = (SERVE_SLOTS, vocab)
+    u_dev = prng.uniform(key, shape, prng.TINY, 1.0, device=DEVICE).cpu().numpy()
+    u_host = prng.uniform(key, shape, prng.TINY, 1.0)
+    require(np.array_equal(u_dev.view(np.int32), u_host.view(np.int32)),
+            "the device's Gumbel uniforms differ from the host path's")
+    g_dev = prng.gumbel(key, shape, device=DEVICE).cpu().numpy()
+    g_host = prng.gumbel(key, shape)
+    unit = np.spacing(np.maximum(np.abs(g_host), np.float32(1))).astype(np.float64)
+    units = float(np.max(np.abs(g_dev.astype(np.float64) - g_host) / unit))
+    require(units <= GUMBEL_ULPS, f"device Gumbel values {units} units from the host's")
+    out = {"shape": list(shape), "uniform_bit_equal": True, "gumbel_max_units": units,
+           "gumbel_bit_equal": bool(np.array_equal(g_dev.view(np.int32),
+                                                   g_host.view(np.int32)))}
+    print(f"sampling: one step's draw {shape}: device uniforms bit-equal to the host's, "
+          f"Gumbel values within {units} units of the host's "
+          f"(bit-equal: {out['gumbel_bit_equal']})", flush=True)
+    return out
+
+
+def run_sampled_serve(report: dict) -> dict:
+    """SERVE_SPEC on Qwen1.5-0.5B at SAMPLE_TEMPERATURE under SAMPLE_SEED on
+    each path of SAMPLE_PATHS, the continuous path twice with identical
+    streams; its launches held to ``serve_launches`` and its streams to the plain
+    versions' (equal but after a token whose perturbed top-2 margin in the
+    plain run is below SERVE_TIE_MARGIN: counted); the static path launches
+    nothing. Returns the continuous path's launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("qwen1.5-0.5b").model
+    params = init_params(SEED, cfg, device=DEVICE)
+    pairs = serve.parse_requests(SERVE_SPEC)
+    kw = dict(slots=SERVE_SLOTS, page_size=SERVE_PAGE, chunk=SERVE_CHUNK)
+    runs, launches = {}, {}
+    for path, quantized in SAMPLE_PATHS.items():
+        streams = []
+        for rerun in range(2 if quantized is not None else 1):
+            reqs = serve.make_workload(cfg, pairs)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            if quantized is None:
+                rep = serve.run_static(params, cfg, reqs, batch=SERVE_BATCH,
+                                       temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED)
+            else:
+                rep = serve.run_continuous(params, cfg, reqs, quantized=quantized,
+                                           temperature=SAMPLE_TEMPERATURE,
+                                           seed=SAMPLE_SEED, **kw).to_dict()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            rep["n_layers"] = cfg.num_layers
+            want = {k: serve_launches(quantized, rep).get(k, 0) for k in kernels.KERNELS}
+            require(counts == want, f"{path} launches {counts} != {want}")
+            require(all(len(r.generated) == g and all(0 <= t < cfg.vocab_size
+                                                       for t in r.generated)
+                        for r, (_, g) in zip(reqs, pairs)), f"{path}: {rep}")
+            streams.append([r.generated for r in reqs])
+            if rerun == 0:
+                launches[path] = counts
+                runs[path] = rep
+        require(streams[0] == streams[-1], f"{path}: two runs under one seed differ")
+        rep = runs[path]
+        if quantized is not None:
+            want_streams, margins = plain_streams(
+                params, cfg, pairs, dict(kw, quantized=quantized),
+                temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED)
+            rep["diverged"] = compare_streams(path, streams[0], want_streams, margins)
+        print(f"sampling {path} (T = {SAMPLE_TEMPERATURE}, seed {SAMPLE_SEED}): tokens/s "
+              f"{rep['tokens_per_s']:.1f}, first token p50 / p99 "
+              f"{rep['first_token_p50_ms']:.1f} / {rep['first_token_p99_ms']:.1f} ms, "
+              f"completion p50 / p99 {rep['completion_p50_ms']:.1f} / "
+              f"{rep['completion_p99_ms']:.1f} ms, runs {len(streams)} (identical), near-tie "
+              f"divergences from the plain run {len(rep.get('diverged', []))}, launches "
+              f"{ {k: v for k, v in launches[path].items() if v} }", flush=True)
+    runs["gumbel"] = check_gumbel_draws(cfg.vocab_size)
+    runs["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["sampling"] = runs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["seconds"] = time.perf_counter() - t0
+    print(f"sampling: peak memory {runs['peak_mem_gb']:.2f} GB, {runs['seconds']:.1f} s, "
+          "no cuts (Qwen1.5-0.5B at full width and depth)", flush=True)
+    return {k: v for k, v in launches.items() if any(v.values())}
+
+
+def run_recurrent(report: dict) -> dict:
+    """The recurrent families at full width and depth (random f32 init from
+    SEED), each leg's parameters freed before the next: recurrentgemma-2b
+    and xlstm-350m served statically (RECURRENT_STATIC) with
+    FAMILY_TEACHER_STEPS decode steps against a teacher-forced forward, the
+    xLSTM decode state's bytes equal at RECURRENT_STATE_LENS, xlstm-350m
+    trained (``run_recurrent_train``); sampling at a temperature
+    (``run_sampled_serve``). Seconds, peak memory and cuts per leg; the phase
+    must take at most RECURRENT_BUDGET_S. (The reduced recurrent families,
+    SMALL_RECURRENT, go through the trainer in the small-input phase.)"""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import init_params, param_count
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    for name, (spec, batch) in RECURRENT_STATIC.items():
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(name).model
+        params = init_params(SEED, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        leg = {"reduced": [], "layers": cfg.num_layers,
+               "params_b": param_count(params) / 1e9, "init_s": time.perf_counter() - t0}
+        print(f"recurrent {name}: {leg['params_b']:.3f} B parameters (f32), "
+              f"{cfg.num_layers} layers, no cuts, init {leg['init_s']:.1f} s", flush=True)
+        leg["serve_static"], reqs = static_leg(params, cfg, spec, batch,
+                                               f"recurrent {name}",
+                                               RECURRENT_F32_RTOL.get(name, FAMILY_LOGIT_RTOL))
+        if name in RECURRENT_F32_RTOL:  # the same steps in float64: the hand-off is exact
+            p64 = tree_map(lambda t: t.double(), params)
+            leg["teacher_forced_f64"] = tf = teacher_forced_check(p64, cfg, reqs, served=False)
+            print(f"recurrent {name}: teacher-forced in float64 {tf}", flush=True)
+            del p64
+        del reqs
+        if name == "xlstm-350m":
+            leg["state_bytes"] = sb = state_bytes(cfg, batch)
+            require(len(set(sb.values())) == 1, f"xLSTM decode state grows: {sb}")
+            print(f"recurrent {name}: decode state {sb} bytes at batch {batch}", flush=True)
+        leg["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if name == RECURRENT_TRAIN_ARCH:
+            t1 = time.perf_counter()
+            leg["train"], by_path = run_recurrent_train(cfg, params)
+            leg["train"]["seconds"] = time.perf_counter() - t1
+            launches.update(by_path)
+        leg["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        leg["seconds"] = time.perf_counter() - t0
+        out[name] = leg
+        print(f"recurrent {name}: peak memory {leg['peak_mem_gb']:.2f} GB, "
+              f"{leg['seconds']:.1f} s", flush=True)
+    launches.update(run_sampled_serve(out))
+    secs = time.perf_counter() - t_phase
+    report["recurrent"] = dict(out, seconds=secs)
+    print(f"recurrent phase: {secs:.1f} s (budget {RECURRENT_BUDGET_S:.0f})", flush=True)
+    require(secs <= RECURRENT_BUDGET_S, f"recurrent phase took {secs:.1f} s")
     return launches
 
 
@@ -3137,12 +3474,14 @@ def main() -> int:
     check_gather_floors(nblk, card, report, rows)
     check_small_input(report)
     check_families_small_input(report)
+    check_families_small_input(report, SMALL_RECURRENT, "small_input_recurrent")
     check_serve_small_input(report)
     launches = run_main_path(report)
     launches.update(run_resume(report))
     launches.update(run_wire_path(report))
     launches.update(run_serve_paths(report))
     launches.update(run_families(report))
+    launches.update(run_recurrent(report))
 
     table = []
     for name, (source, replaces) in SOURCES.items():

@@ -3,8 +3,8 @@
 Each ``<arch>.py`` exposes ``get_config() -> ArchConfig`` with the published
 dimensions ([citation] per file) and the distribution policy of the
 reference (worker axes, parameter sharding flavour, frontend prefix,
-long-context support). The attention and MoE families are ported; the two
-recurrent architectures are the next slice (ROADMAP A4c).
+long-context support). All ten of the reference's architectures are
+ported: the attention and MoE families and the two recurrent ones.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ ARCH_IDS = [
     "internvl2_1b",
     "deepseek_coder_33b",
     "gemma3_27b",
+    "recurrentgemma_2b",
+    "xlstm_350m",
 ]
 
 # public ids (with dashes) map to module names
@@ -35,10 +37,9 @@ PUBLIC_TO_MODULE = {
     "internvl2-1b": "internvl2_1b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "gemma3-27b": "gemma3_27b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-350m": "xlstm_350m",
 }
-
-#: the reference's recurrent architectures, not ported yet
-RECURRENT_IDS = {"recurrentgemma-2b": "recurrentgemma_2b", "xlstm-350m": "xlstm_350m"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +68,6 @@ class ArchConfig:
 def get_arch(name: str) -> ArchConfig:
     mod_name = PUBLIC_TO_MODULE.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCH_IDS:
-        if mod_name in RECURRENT_IDS.values():
-            raise NotImplementedError(
-                f"architecture {name!r} is not ported yet: the recurrent families "
-                "(RG-LRU, mLSTM, sLSTM) are the next slice of the port (ROADMAP A4c)")
-        raise NotImplementedError(f"architecture {name!r} is not ported yet")
+        raise ValueError(f"unknown architecture {name!r}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.get_config()

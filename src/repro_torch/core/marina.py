@@ -761,7 +761,8 @@ class PPMarina:
             bits = _counted_bits(uploaded, zeta, n)
         return StepMetrics(
             grad_est_norm=gnorm, bits_per_worker=bits, sync_round=int(c_k),
-            oracle_calls=1.0 if c_k else oracle_factor * self.r / n,
+            # the reference books r/n in float32 (``jnp.where`` under jit)
+            oracle_calls=1.0 if c_k else float(np.float32(oracle_factor * self.r / n)),
             down_bits=(wire.dense_f32_bits(d) if c_k
                        else _down_round_bits(self.down_compressor, self.down_engine,
                                              like, d)))

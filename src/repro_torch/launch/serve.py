@@ -7,18 +7,21 @@ iteration, joining prefill chunks into the running batch as slots and pages
 free up; it takes global-attention models only, and raises the reference's
 ``ValueError`` for sliding-window and MLA layers. Static mode pads every
 batch of requests to its longest prompt, prefills once and decodes until
-the longest generation finishes, through the full, ring or latent cache of
-each layer, so it serves every ported config. Decoding is
-greedy (``temperature = 0``: the first index of the largest logit); sampling
-at a temperature is not ported (ROADMAP A2). Every step runs under
-``torch.inference_mode()`` and writes the cache in place; swapped-out
-snapshots live in host memory.
+the longest generation finishes, through the full, ring or latent cache or
+the recurrent state of each layer, so it serves every config. Decoding is
+greedy at ``temperature = 0`` (the first index of the largest logit); above
+it each step draws ``prng.categorical`` (the Gumbel-max trick, JAX's
+uniforms bit for bit) from logits / temperature, under a key split as the
+reference splits it: once per batch's prefill and decode step in static
+mode, once per prefill chunk and decode step in continuous mode. Every step
+runs under ``torch.inference_mode()`` and writes the cache in place;
+swapped-out snapshots live in host memory.
 
 Usage (on the card unless ``--device`` names another):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 32:24,32:4,8:4,8:4 --slots 4 --mode continuous
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
-      --device cpu --mode static --batch 4 --prompt 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --device cpu --mode static --batch 4 --prompt 32 --gen 16 --temperature 0.7
 """
 
 from __future__ import annotations
@@ -47,13 +50,35 @@ from repro_torch.models import (
 )
 from repro_torch.models import reduced as reduce_cfg
 
-_SAMPLING = ("temperature > 0 (jax.random.categorical under XLA's approximate "
-             "log) is not ported: see ROADMAP.md A2; serve greedily")
+def scale_logits(logits: torch.Tensor, temperature: float, *, jitted: bool) -> torch.Tensor:
+    """logits / temperature as the reference computes it: a true division
+    where it runs eagerly (``run_static``), a multiply by float32(1 /
+    temperature) in the paged steps, where XLA rewrites the division under
+    ``jit`` (ROADMAP C)."""
+    if jitted:
+        return logits * float(np.float32(1) / np.float32(temperature))
+    return logits / torch.tensor(temperature, dtype=logits.dtype, device=logits.device)
 
 
-def _check_greedy(temperature: float) -> None:
+def sample(logits: torch.Tensor, temperature: float, key=None, *,
+           jitted: bool = False) -> torch.Tensor:
+    """Greedy (``temperature`` 0: the first index of the largest logit), or
+    ``prng.categorical(key, logits / temperature)``."""
     if temperature > 0:
-        raise NotImplementedError(_SAMPLING)
+        return prng.categorical(key, scale_logits(logits, temperature, jitted=jitted))
+    return torch.argmax(logits, dim=-1)
+
+
+class KeyStream:
+    """The reference's key threading: ``PRNGKey(seed)``, split once per
+    draw (``next()`` returns the subkey)."""
+
+    def __init__(self, seed: int):
+        self.key = prng.PRNGKey(seed)
+
+    def next(self):
+        self.key, sub = prng.split(self.key)
+        return sub
 
 
 def _device_of(params) -> torch.device:
@@ -86,32 +111,36 @@ def make_workload(cfg, pairs, seed: int = 1) -> list[Request]:
     return reqs
 
 
-def build_paged_steps(params, cfg, *, temperature: float = 0.0,
+def build_paged_steps(params, cfg, *, temperature: float = 0.0, seed: int = 0,
                       backend: str = "auto") -> dict:
     """The engine's step functions over ``params``: the paged prefill chunk
-    and decode step with greedy sampling, and the COW / swap page ops. One
-    set serves f32 and int8 caches and any number of engines. ``backend``
-    ``ref`` runs the kernels' plain versions."""
-    _check_greedy(temperature)
+    and decode step with their sampling, and the COW / swap page ops. One
+    set serves f32 and int8 caches and any number of engines (which then
+    share one key stream, as the reference's steps do). At ``temperature``
+    > 0 the key ``PRNGKey(seed)`` splits once per prefill chunk and decode
+    step; greedy steps never touch it. ``backend`` ``ref`` runs the kernels'
+    plain versions."""
     dev = _device_of(params)
+    keys = KeyStream(seed)
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a), device=dev)
 
-    def sample(logits):
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    def pick(logits):
+        key = keys.next() if temperature > 0 else None
+        return sample(logits, temperature, key, jitted=True).to(torch.int32).cpu().numpy()
 
     @torch.inference_mode()
     def prefill_fn(cache, toks, start, row, nv):
         logits, cache = paged_prefill_chunk(params, cfg, cache, tensor(toks), int(start),
                                             tensor(row), int(nv), backend=backend)
-        return sample(logits), cache
+        return pick(logits), cache
 
     @torch.inference_mode()
     def decode_fn(cache, toks, lengths, tables):
         logits, cache = paged_decode_step(params, cfg, cache, tensor(toks), tensor(lengths),
                                           tensor(tables), backend=backend)
-        return sample(logits), cache
+        return pick(logits), cache
 
     @torch.inference_mode()
     def copy_fn(cache, src, dst):
@@ -130,7 +159,7 @@ def build_paged_steps(params, cfg, *, temperature: float = 0.0,
 
 
 def build_engine(params, cfg, layout: PagedLayout, *, chunk: int,
-                 temperature: float = 0.0, quantized: bool = False,
+                 temperature: float = 0.0, quantized: bool = False, seed: int = 0,
                  share_prefix: bool = False, admission: str = "expected",
                  steps: dict | None = None, backend: str = "auto") -> ContinuousEngine:
     """Single-process engine over the paged steps and one page-pool cache
@@ -140,7 +169,8 @@ def build_engine(params, cfg, layout: PagedLayout, *, chunk: int,
     reservation). Pass a :func:`build_paged_steps` dict via ``steps`` to
     share it across engines."""
     if steps is None:
-        steps = build_paged_steps(params, cfg, temperature=temperature, backend=backend)
+        steps = build_paged_steps(params, cfg, temperature=temperature, seed=seed,
+                                  backend=backend)
     with torch.inference_mode():
         cache = init_paged_cache(cfg, layout.npage, layout.page_size,
                                  params["embed"].dtype, quantized=quantized,
@@ -168,13 +198,15 @@ def run_continuous(params, cfg, reqs: list[Request], *, slots: int, page_size: i
                    npage: int | None = None, chunk: int = 16, temperature: float = 0.0,
                    quantized: bool = False, share_prefix: bool = False,
                    admission: str = "expected", steps: dict | None = None,
-                   backend: str = "auto"):
+                   backend: str = "auto", seed: int = 0):
     """Serve ``reqs`` with continuous batching; returns the ServeReport (each
     request's tokens are in ``req.generated``). The pool's conservation audit
-    runs at the end."""
+    runs at the end. Global-attention models only: a sliding-window, MLA or
+    recurrent layer raises the reference's ``ValueError``. ``seed`` keys the
+    sampling (the reference's engine uses seed 0)."""
     layout = paged_layout(reqs, slots=slots, page_size=page_size, npage=npage)
     engine = build_engine(params, cfg, layout, chunk=chunk, temperature=temperature,
-                          quantized=quantized, share_prefix=share_prefix,
+                          quantized=quantized, seed=seed, share_prefix=share_prefix,
                           admission=admission, steps=steps, backend=backend)
     report = engine.run(reqs)
     engine.sched.pool.check_conservation(engine.sched.tables)
@@ -183,14 +215,20 @@ def run_continuous(params, cfg, reqs: list[Request], *, slots: int, page_size: i
 
 @torch.inference_mode()
 def run_static(params, cfg, reqs: list[Request], *, batch: int,
-               temperature: float = 0.0):
+               temperature: float = 0.0, seed: int = 0):
     """Static batching: pad each batch of ``batch`` requests on the left to
     its longest prompt, prefill, decode until the longest generation
     finishes. tokens/s counts USEFUL tokens only (what each request asked
     for), so padding and overrun show up as lost throughput. Each request's
-    first ``max_new`` tokens of its row go to ``req.generated``."""
-    _check_greedy(temperature)
+    first ``max_new`` tokens of its row go to ``req.generated``. At
+    ``temperature`` > 0 the key ``PRNGKey(seed)`` splits once for each
+    batch's prefill and once per decode step."""
     dev = _device_of(params)
+    keys = KeyStream(seed)
+
+    def pick(logits):
+        return sample(logits, temperature, keys.next() if temperature > 0 else None)
+
     t0 = time.perf_counter()
     total_new = 0
     firsts, comps = [], []
@@ -203,7 +241,7 @@ def run_static(params, cfg, reqs: list[Request], *, batch: int,
             toks[j, pmax - r.prompt_len:] = r.prompt  # left-pad
         logits, cache = prefill(params, cfg, torch.as_tensor(toks, device=dev),
                                 max_len=pmax + gmax)
-        tok = torch.argmax(logits, -1)
+        tok = pick(logits)
         rows = [tok]
         _sync(dev)
         t_first = time.perf_counter()
@@ -211,7 +249,7 @@ def run_static(params, cfg, reqs: list[Request], *, batch: int,
         done_at = [None] * len(group)
         for step in range(1, gmax):
             lg, cache = decode_step(params, cfg, cache, tok, pmax + step - 1)
-            tok = torch.argmax(lg, -1)
+            tok = pick(lg)
             rows.append(tok)
             _sync(dev)
             now = time.perf_counter()
@@ -257,6 +295,7 @@ def main(argv=None):
     )
     ap.add_argument("--quantized", action="store_true", help="int8 KV pages")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0, help="the sampling key's seed")
     ap.add_argument(
         "--share-prefix", action="store_true",
         help="map cached prompt pages via the prefix index (COW on write)",
@@ -290,10 +329,11 @@ def main(argv=None):
             params, cfg, reqs, slots=args.slots, page_size=args.page_size,
             npage=args.npage, chunk=args.chunk, temperature=args.temperature,
             quantized=args.quantized, share_prefix=args.share_prefix,
-            admission=args.admission,
+            admission=args.admission, seed=args.seed,
         ).to_dict()
     else:
-        rep = run_static(params, cfg, reqs, batch=args.batch, temperature=args.temperature)
+        rep = run_static(params, cfg, reqs, batch=args.batch, temperature=args.temperature,
+                         seed=args.seed)
     print(json.dumps(rep, indent=1))
 
 

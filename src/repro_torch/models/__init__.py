@@ -1,7 +1,8 @@
-"""repro_torch.models — the LM of the attention and MoE families (global and
-sliding-window GQA, MLA, MLP and MoE feed-forwards, MTP, sinusoidal
-positions, frontend prefixes): training, dense / ring / latent-cache decode
-and the paged serving steps (port of repro.models)."""
+"""repro_torch.models — the LM of every family (global and sliding-window
+GQA, MLA, the recurrent RG-LRU, mLSTM and sLSTM mixers, MLP and MoE
+feed-forwards, MTP, sinusoidal positions, frontend prefixes): training,
+dense / ring / latent-cache and recurrent-state decode and the paged
+serving steps (port of repro.models)."""
 
 from .config import LayerSpec, MLAConfig, MoEConfig, ModelConfig, Segment, dense_stack, reduced
 from repro_torch.device import default_device

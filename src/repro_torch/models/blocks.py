@@ -1,37 +1,44 @@
 """Layer assembly: (pre-norm mixer + residual) ∘ (pre-norm FF + residual) —
-port of ``repro.models.blocks`` for the attention families: global and
-sliding-window GQA and MLA mixers, MLP and MoE feed-forwards. Training
-(optionally returning the serving cache, so prefill is one forward pass:
-the full cache for global attention, the ring for sliding-window layers,
-the latent cache for MLA), dense-cache decode, and the paged twins of both
-for the serving engine (global attention only, as in the reference).
-
-The recurrent mixers (RG-LRU, mLSTM, sLSTM) are the next slice of the port
-(ROADMAP A4c) and raise ``NotImplementedError``.
+port of ``repro.models.blocks``: global and sliding-window GQA, MLA and the
+recurrent mixers (RG-LRU, mLSTM, sLSTM), MLP and MoE feed-forwards.
+Training (optionally returning the serving cache, so prefill is one
+forward pass: the full cache for global attention, the ring for
+sliding-window layers, the latent cache for MLA, the O(1) state of a
+recurrent mixer), dense-cache decode, and the paged twins of both for the
+serving engine (global attention only, as in the reference: paging a ring
+or a recurrent state buys nothing).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm
 from .config import LayerSpec, ModelConfig
 from .layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 PyTree = Any
 
-_RECURRENT = ("rglru", "mlstm", "slstm")
+class _Recurrent(NamedTuple):
+    init: Callable
+    train: Callable
+    prefill: Callable  # → (output, the decode state after the sequence)
+    decode: Callable
+    state: Callable    # the empty decode state
 
 
-def _refuse(mixer: str):
-    if mixer in _RECURRENT:
-        raise NotImplementedError(
-            f"the {mixer} mixer is not ported yet: the recurrent families are the "
-            "next slice of the port (ROADMAP A4c)")
-    raise ValueError(mixer)
+_RECURRENT = {
+    "rglru": _Recurrent(ssm.init_rglru, ssm.rglru_train, ssm.rglru_prefill,
+                        ssm.rglru_decode, ssm.init_rglru_state),
+    "mlstm": _Recurrent(ssm.init_mlstm, ssm.mlstm_train, ssm.mlstm_prefill,
+                        ssm.mlstm_decode, ssm.init_mlstm_state),
+    "slstm": _Recurrent(ssm.init_slstm, ssm.slstm_train, ssm.slstm_prefill,
+                        ssm.slstm_decode, ssm.init_slstm_state),
+}
 
 
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> PyTree:
@@ -40,8 +47,10 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> PyTree:
         p["mixer"] = attn.init_attn(gen, cfg, dtype, device)
     elif spec.mixer == "mla":
         p["mixer"] = attn.init_mla(gen, cfg, dtype, device)
+    elif spec.mixer in _RECURRENT:
+        p["mixer"] = _RECURRENT[spec.mixer].init(gen, cfg, dtype, device)
     else:
-        _refuse(spec.mixer)
+        raise ValueError(spec.mixer)
     if spec.ff == "mlp":
         p["ln2"] = init_rmsnorm(cfg.d_model, dtype, device)
         p["ff"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
@@ -69,8 +78,15 @@ def layer_train(p: PyTree, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         y = attn.mla_train(p["mixer"], cfg, h, positions, chunk=cfg.attn_chunk)
         if want_cache:
             cache = _mla_cache_from_prefill(p["mixer"], cfg, h, positions, cache_len)
+    elif spec.mixer in _RECURRENT:
+        # the prefill state: the scan's last element (RG-LRU, sLSTM), or
+        # mLSTM's whole-sequence formula (not its chunk carry)
+        if want_cache:
+            y, cache = _RECURRENT[spec.mixer].prefill(p["mixer"], cfg, h)
+        else:
+            y = _RECURRENT[spec.mixer].train(p["mixer"], cfg, h)
     else:
-        _refuse(spec.mixer)
+        raise ValueError(spec.mixer)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ff == "mlp":
@@ -89,8 +105,10 @@ def layer_decode(p: PyTree, cfg: ModelConfig, spec: LayerSpec, cache: PyTree,
                                     local=spec.mixer == "attn_local")
     elif spec.mixer == "mla":
         y, cache = attn.mla_decode(p["mixer"], cfg, cache, h, pos)
+    elif spec.mixer in _RECURRENT:
+        y, cache = _RECURRENT[spec.mixer].decode(p["mixer"], cfg, cache, h)
     else:
-        _refuse(spec.mixer)
+        raise ValueError(spec.mixer)
     return _ff_decode(p, cfg, spec, x_t + y), cache
 
 
@@ -147,7 +165,9 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, B: int, max_len: int, dt
                                     dtype=dtype, device=device)
     if spec.mixer == "mla":
         return attn.init_mla_cache(cfg, B, max_len, dtype, device)
-    _refuse(spec.mixer)
+    if spec.mixer in _RECURRENT:  # O(1): independent of max_len
+        return _RECURRENT[spec.mixer].state(cfg, B, dtype, device)
+    raise ValueError(spec.mixer)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,9 @@ def init_rmsnorm(d: int, dtype, device):
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """In float32, as the reference (float64 stays float64)."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = x if dt == torch.float64 else x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(dt) * scale
 

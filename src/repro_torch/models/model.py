@@ -1,6 +1,5 @@
 """The language model: init / train forward / loss / prefill / decode_step /
-the paged serving steps — port of ``repro.models.model`` for the attention
-families.
+the paged serving steps — port of ``repro.models.model``.
 
 The parameter tree has the reference's leaves and shapes: each segment
 position holds its layers' weights stacked over a leading ``repeat`` axis
@@ -215,7 +214,9 @@ def _cache_tree(cfg: ModelConfig, make_one) -> PyTree:
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=torch.float32,
                device=None) -> PyTree:
-    """Dense decode caches: (repeat, B, max_len, KV, hd) leaves."""
+    """Dense decode caches: (repeat, B, max_len, KV, hd) leaves (a ring
+    layer's min(window, max_len) slots, MLA's latent rows), and a recurrent
+    mixer's O(1) state, whatever ``max_len``."""
     device = default_device(device)
     return _cache_tree(cfg, lambda spec: init_layer_cache(cfg, spec, B, max_len, dtype,
                                                           device))

@@ -15,7 +15,11 @@ handful of hashes), so the arithmetic runs in numpy ``uint32``, whose
 wrap-around arithmetic is exact; the results are numpy arrays. A key is a
 ``(2,)`` ``uint32`` array, a stack of keys ``(..., 2)``.
 
-``bits``, ``uniform`` and ``randint`` also draw on a device
+Sampling at a temperature draws ``categorical``: the Gumbel-max trick over
+``gumbel``'s noise, whose uniforms (``uniform`` with ``minval`` = tiny) are
+bit-equal to JAX's.
+
+``bits``, ``uniform``, ``randint`` and ``gumbel`` also draw on a device
 (``device=...``): the flat-vector wire needs one dither or offset per
 coordinate of a full model (``kernels/ops.py``), where the host arrays would
 take minutes and tens of GB. There the cipher runs in PyTorch ``int64``
@@ -109,15 +113,55 @@ def bits(key, shape: tuple = (), device=None):
     return b1 ^ b2
 
 
-def uniform(key, shape: tuple = (), device=None):
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the top 23
-    bits become the mantissa of a float in [1, 2), minus one. A numpy
-    array, or with ``device`` a tensor on it."""
+def uniform(key, shape: tuple = (), minval: float = 0.0, maxval: float = 1.0, device=None):
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in float32: the
+    top 23 bits become the mantissa of a float f in [1, 2); then
+    ``max(min, (f − 1)·(max − min) + min)`` in float32, the multiply-add
+    rounded once, as XLA fuses it under ``jit`` (an exact product in
+    float64). A numpy array, or with ``device`` a tensor on it
+    (bit-equal)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
     if device is not None:
-        return _device_draw(key, shape, device, torch.float32, _uniform_from_bits_t)
+        return _device_draw(key, shape, device, torch.float32,
+                            lambda b: _uniform_from_bits_t(b, float(lo), float(hi)))
     b = bits(key, shape)
     f = ((b >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - np.float32(1.0)
-    return np.maximum(np.float32(0.0), f)
+    return np.maximum(lo, _fma_f32(f, hi - lo, lo))
+
+
+#: ``jnp.finfo(float32).tiny``: the lower end of the Gumbel draw's uniforms
+TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key, shape: tuple = (), device=None):
+    """``jax.random.gumbel(key, shape)`` in its default mode "low":
+    −log(−log(u)) of ``uniform(key, shape, minval=tiny, maxval=1)``. The
+    uniforms are bit-equal to JAX's; the two logarithms are taken in
+    float64 and rounded once to float32 (host: numpy; ``device``: PyTorch),
+    where XLA takes them in float32 with its own approximate ``log``: within
+    2 units of ulp(max(|g|, 1)) of JAX's value (ROADMAP C). A numpy array,
+    or with ``device`` a tensor on it."""
+    if device is not None:
+        u = uniform(key, shape, TINY, 1.0, device=device).double()
+        return (-torch.log(-torch.log(u))).float()
+    u = uniform(key, shape, TINY, 1.0).astype(np.float64)
+    return (-np.log(-np.log(u))).astype(np.float32)
+
+
+def categorical(key, logits):
+    """``jax.random.categorical(key, logits)`` over the last axis (mode
+    "low", the Gumbel-max trick): the first index of the largest
+    ``logits + gumbel(key, logits.shape)``. ``logits`` float32, a tensor
+    (the draw on its device) or a numpy array."""
+    if isinstance(logits, torch.Tensor):
+        if logits.dtype != torch.float32:
+            raise ValueError(f"categorical draws float32 Gumbel noise; logits are {logits.dtype}")
+        return torch.argmax(gumbel(key, tuple(logits.shape), device=logits.device) + logits,
+                            dim=-1)
+    logits = np.asarray(logits)
+    if logits.dtype != np.float32:
+        raise ValueError(f"categorical draws float32 Gumbel noise; logits are {logits.dtype}")
+    return np.argmax(gumbel(key, logits.shape) + logits, axis=-1)
 
 
 def bernoulli(key, p: float, shape: tuple = ()) -> np.ndarray:
@@ -194,10 +238,14 @@ def _device_draw(key, shape: tuple, device, dtype, finish) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def _uniform_from_bits_t(b: torch.Tensor) -> torch.Tensor:
-    """uniform's float32 from int64 uint32 bits: mantissa bits → [1, 2) − 1."""
+def _uniform_from_bits_t(b: torch.Tensor, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    """uniform's float32 from int64 uint32 bits: mantissa bits → [1, 2) − 1,
+    then ·(hi − lo) + lo rounded once to float32 and max(lo, ·) (lo, hi
+    float32 values)."""
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    if (lo, hi) != (0.0, 1.0):  # the multiply-add rounded once (uniform)
+        f = (f.double() * float(np.float32(hi) - np.float32(lo)) + lo).float()
+    return torch.clamp_min(f, lo)
 
 
 def _mul32_t(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -351,6 +351,10 @@ class Trainer:
         log(start - 1, self.eval_loss(state.params, start),
             float(tree_norm(state.g)) if hasattr(state, "g") else 0.0)
         base_key = prng.PRNGKey(tc.seed)
+        # the oracle ledger sums the rounds between two log / checkpoint
+        # steps in float32, then adds that sum, as the reference's scan
+        # carries it (each round books float32(r/n) there too)
+        chunk_oracle = np.float32(0.0)
         for step in range(start, tc.steps):
             self._sync()
             ts = time.perf_counter()
@@ -366,7 +370,7 @@ class Trainer:
                 state = new_state
                 bits += met.bits_per_worker
                 down += met.down_bits
-                oracle += met.oracle_calls
+                chunk_oracle = np.float32(chunk_oracle + np.float32(met.oracle_calls))
                 self._sync()
             hist.step_seconds.append(time.perf_counter() - ts)
             hist.round_sync.append(met.sync_round)
@@ -374,9 +378,14 @@ class Trainer:
             hist.round_down_bits.append(met.down_bits)
             if step_hook is not None:
                 step_hook(step)
-            if (step + 1) % tc.log_every == 0 or step == tc.steps - 1:
+            is_log = (step + 1) % tc.log_every == 0 or step == tc.steps - 1
+            is_ckpt = bool(tc.ckpt_dir and tc.ckpt_every and (step + 1) % tc.ckpt_every == 0)
+            if is_log or is_ckpt:
+                oracle += float(chunk_oracle)
+                chunk_oracle = np.float32(0.0)
+            if is_log:
                 log(step, self.eval_loss(state.params, step), float(gnorm))
-            if tc.ckpt_dir and tc.ckpt_every and (step + 1) % tc.ckpt_every == 0:
+            if is_ckpt:
                 save_checkpoint(tc.ckpt_dir, step, {
                     "state": state, "bits": np.float32(bits), "down": np.float32(down),
                     "oracle": np.float32(oracle), "skipped": np.float32(skipped)})

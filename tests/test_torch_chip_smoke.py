@@ -21,7 +21,10 @@ families phase runs its three legs on the families' configs with every
 segment kept at d_model 64 (then cut to the phase's depth): the
 Llama-4-Scout paths' launch counts from the ServeReport, the static legs'
 teacher-forced check, the report's keys and cuts; and the small-input
-families through the trainer with the carry path's exact launches.
+families through the trainer with the carry path's exact launches. The
+recurrent phase's constants are checked here without running it (the mLSTM
+chunk rule, recurrentgemma's window, the ``xc`` path's launches); its
+rehearsal is ``tests/test_torch_chip_smoke_recurrent.py``.
 """
 
 import dataclasses
@@ -510,3 +513,35 @@ def test_families_small_input_runs_as_chip_smoke_expects(monkeypatch):
     assert set(out) == set(chip_smoke.SMALL_FAMILIES)
     assert all(run["launches"] == chip_smoke.EXPECTED_LAUNCHES["marina_randk_carry"]
                for run in out.values())
+
+
+def test_recurrent_phase_constants():
+    """The recurrent phase's shapes, checked without running it: every
+    xLSTM forward it makes (the static prefill, the teacher-forced forward
+    over the prompt and FAMILY_TEACHER_STEPS tokens, the trainer's
+    sequences) takes S ≤ 256 or a multiple of 256, the mLSTM chunk rule;
+    recurrentgemma-2b's prompts run past its window, so the rings wrap; the
+    training leg (``xc``) launches the carry path's three kernels, two each
+    at c_k = 1, 0, 1, 0."""
+    from repro_torch.models import ssm
+
+    def chunk_ok(S):
+        return S <= ssm.MLSTM_CHUNK or S % ssm.MLSTM_CHUNK == 0
+
+    for name, (spec, batch) in chip_smoke.RECURRENT_STATIC.items():
+        pairs = [tuple(map(int, p.split(":"))) for p in spec.split(",")]
+        assert len(pairs) % batch == 0 and len({p for p, _ in pairs}) == 1
+        prompt = pairs[0][0]
+        if name == "xlstm-350m":
+            assert chunk_ok(prompt) and chunk_ok(prompt + chip_smoke.FAMILY_TEACHER_STEPS)
+        else:
+            assert prompt > configs.get_arch(name).model.window == 2048
+    xlstm = configs.get_arch(chip_smoke.RECURRENT_TRAIN_ARCH).model
+    assert xlstm.num_layers == 24 and chunk_ok(256)  # the trainer's seq_len above 4 layers
+    assert {l.mixer for s in xlstm.segments for l in s.period} == {"mlstm", "slstm"}
+    assert chip_smoke.EXPECTED_LAUNCHES["marina_randk_carry"] == {
+        "randk_seeded_workers": 2, "scatter_epilogue": 2, "mean_epilogue": 2}
+    assert chip_smoke.EXPECTED_C_K == [1, 0, 1, 0]
+    assert chip_smoke.RECURRENT_STATE_LENS == (256, 4096)
+    assert chip_smoke.SMALL_RECURRENT == {"recurrentgemma-2b": 3, "xlstm-350m": 8}
+    assert 0 < chip_smoke.SAMPLE_TEMPERATURE and chip_smoke.RECURRENT_BUDGET_S == 120.0

@@ -23,8 +23,8 @@ The serving engine and the MARINA rounds on these configs are in
 * The port's own ``init_params`` (meta device) has the reference's leaf
   paths, shapes and dtypes, reduced and at full width (the families
   phase's Llama-4-Scout and DeepSeek-V3 cuts).
-* ``get_arch`` builds the reference's config for every ported id; the two
-  recurrent ids raise ``NotImplementedError`` naming the next slice.
+* ``get_arch`` builds the reference's config for all ten ids, the two
+  recurrent ones included (their paths: ``tests/test_torch_ssm_paths.py``).
 """
 
 import dataclasses
@@ -224,10 +224,6 @@ def _close_to_leaf_scale(a, b, rtol):
 @pytest.mark.parametrize("name", sorted(J_ARCHS))
 def test_get_arch_builds_every_ported_config(name):
     jarch = j_get_arch(name)
-    if name in ("recurrentgemma-2b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="next slice.*A4c"):
-            configs.get_arch(name)
-        return
     arch = configs.get_arch(name)
     assert dataclasses.asdict(arch.model) == dataclasses.asdict(jarch.model)
     assert (arch.worker_axes, arch.fsdp, arch.prefix_len, arch.runs_long_context) == (

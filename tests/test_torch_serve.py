@@ -367,7 +367,9 @@ def test_page_ops_match_reference_exactly():
 def test_paged_cache_rejects_non_attn_mixer_and_sliding_windows():
     """The paged pool takes global attention only, as the reference's: a
     recurrent mixer and a sliding-window layer raise its ValueError (the
-    dense ring cache serves the latter); recurrent mixers are not ported."""
+    dense ring cache serves the latter, the O(1) recurrent state the
+    former: ``init_cache`` gives the reference's state shapes)."""
+    jcfg = j_reduced(j_get_arch("recurrentgemma-2b").model, layers=2, d_model=128)
     cfg = reduced(port_cfg(j_get_arch("recurrentgemma-2b").model), layers=2, d_model=128)
     with pytest.raises(ValueError, match="global-attention"):
         init_paged_cache(cfg, 8, 4, device="cpu")
@@ -377,8 +379,12 @@ def test_paged_cache_rejects_non_attn_mixer_and_sliding_windows():
         init_paged_cache(local, 8, 4, device="cpu")
     from repro_torch.models import init_cache
     assert init_cache(local, 1, 40, device="cpu")[0][0]["k"].shape[2] == local.window
-    with pytest.raises(NotImplementedError, match="A4c"):
-        init_cache(cfg, 1, 8, device="cpu")
+    from repro.models import init_cache as j_init_cache
+    want = jax.tree.leaves(j_init_cache(jcfg, 1, 8, jnp.float32))
+    got = _leaves(init_cache(cfg, 1, 8, device="cpu"))
+    assert [(a.shape, str(a.dtype)) for a in want] == [
+        (tuple(b.shape), str(b.dtype).split(".")[1]) for b in got]
+    assert all(np.array_equal(np.asarray(a), b.numpy()) for a, b in zip(want, got))
 
 
 # ---------------------------------------------------------------------------
@@ -475,11 +481,31 @@ def test_run_static_streams_match_reference(params):
 
 
 def test_sampling_at_a_temperature_is_refused(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.build_paged_steps(params[1], TCFG, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.run_static(params[1], TCFG, tserve.make_workload(TCFG, [(3, 2)]), batch=1,
-                          temperature=0.7)
+    """Sampling at T = 0.7 is no longer refused: the paged steps' prefill
+    draw and ``run_static``'s tokens equal the reference's under the same
+    seed (tests/test_torch_sampling.py holds whole streams, near ties
+    included; here the draws' top-2 gaps are far from a tie)."""
+    jp, tp = params
+    toks = np.arange(1, 9, dtype=np.int32)[None] * 7
+    row = np.arange(1, 4, dtype=np.int32)
+    jsteps_t = jserve.build_paged_steps(jp, JCFG, temperature=0.7, seed=2)
+    tsteps = tserve.build_paged_steps(tp, TCFG, temperature=0.7, seed=2)
+    jcache = j_init_paged_cache(JCFG, 4, 4)
+    tcache = _to_port(jcache)
+    for start in (0, 4):  # two chunks: the key splits once a chunk
+        jt, jcache = jsteps_t["prefill"](jcache, jnp.asarray(toks[:, start:start + 4]),
+                                         jnp.int32(start), jnp.asarray(row), jnp.int32(4))
+        tt, tcache = tsteps["prefill"](tcache, toks[:, start:start + 4], start, row, 4)
+        assert int(tt) == int(jt)
+    reqs = tserve.make_workload(TCFG, [(3, 2)])
+    tserve.run_static(tp, TCFG, reqs, batch=1, temperature=0.7, seed=4)
+    jreq = jserve.make_workload(JCFG, [(3, 2)])[0]
+    logits, cache = j_prefill(jp, JCFG, jnp.asarray(jreq.prompt[None]), max_len=5)
+    key, sub = jax.random.split(jax.random.PRNGKey(4))
+    tok = jax.random.categorical(sub, logits / 0.7, axis=-1)
+    lg, _ = j_decode_step(jp, JCFG, cache, tok, 3)
+    key, sub = jax.random.split(key)
+    assert reqs[0].generated == [int(tok[0]), int(jax.random.categorical(sub, lg / 0.7)[0])]
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):

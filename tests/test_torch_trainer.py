@@ -117,6 +117,28 @@ def test_trainer_vr_and_pp_cpu_smoke_and_ledger(method, carry):
     assert hist.skipped_cum[-1] == 0.0
 
 
+def test_trainer_pp_oracle_ledger_sums_float32_rounds_per_chunk():
+    """PP-MARINA at r = 2 of n = 3, recompute rounds (two gradients a
+    cohort member), books float32(2·2/3) a compressed round, as the
+    reference does (``tests/test_torch_problems.py`` holds the round's
+    value to it exactly), and the ledger sums each log interval's rounds in
+    float32 before adding them, as the reference's scan carries them: 8
+    steps logged every 4."""
+    tc = dataclasses.replace(_tc(False, "pp_marina", n_workers=3, r_participating=2),
+                             steps=8, log_every=4)
+    tr = Trainer(CFG, tc, init_params(0, CFG, device="cpu"), device="cpu")
+    _, hist = tr.run()
+    assert 0 in hist.round_sync and 1 in hist.round_sync
+    want, total = [0.0], 0.0
+    for lo in range(0, 8, 4):
+        chunk = np.float32(0.0)
+        for c_k in hist.round_sync[lo:lo + 4]:
+            chunk = np.float32(chunk + (np.float32(1.0) if c_k else np.float32(2 * 2 / 3)))
+        total += float(chunk)
+        want.append(total)
+    assert hist.oracle_cum == want
+
+
 @pytest.mark.parametrize("carry", [False, True], ids=["recompute", "carry"])
 @pytest.mark.parametrize("method", ["marina", "vr_marina", "pp_marina"])
 @pytest.mark.parametrize("wire_kind", ["block_qsgd", "downlink"])
@@ -224,7 +246,8 @@ def test_port_imports_no_jax_and_no_reference():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "new = ('repro_torch.checkpoint.store', 'repro_torch.core.problems',\n"
         "       'repro_torch.data.pipeline', 'repro_torch.models.moe',\n"
-        "       'repro_torch.configs.deepseek_v3_671b')\n"
+        "       'repro_torch.configs.deepseek_v3_671b', 'repro_torch.models.ssm',\n"
+        "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
