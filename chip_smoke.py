@@ -60,6 +60,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``jax.random.uniform`` dither (levels bit-equal) and ``qsgd_dequantize``
    (bit-equal), each on small edge inputs too (±0, ±inf, zero rows, a zero
    norm, |x| = norm, exact ties).
+   The launch layer's per-leaf widths (``TRANSPORT_WIDTHS``;
+   ``check_transport_widths``): ``scatter_accum`` and ``randk_gather`` at
+   Qwen1.5-0.5B's MLP leaf (n = 4, 24,576 rows of L = 2816, kb = 22) and one
+   layer of qwen3-32b's (5120 rows of L = 25,600, kb = 200) on offsets drawn
+   as the transport draws them, bit-equal to their plain versions; the MLP
+   leaf's times against their bounds (the kernel line's ``transport``).
    The random-gather yardsticks (``kernels/yardstick.py``: no path's
    kernel, no port of a TPU kernel; ``check_gather_floors``): the gather
    yardstick at row 1's production shape and at the wire shape of rows
@@ -205,6 +211,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    against the host path (uniforms bit for bit). Seconds per leg and round
    type, peak memory; the phase must take at most 120 s.
 
+12. launch — the launch layer's worker axis (``run_launch``, ≤ 120 s): a
+   process group of world size 1 brought up through
+   ``topology.init_from_env`` (``MARINA_MP_*`` set for one process: nccl on
+   the card) and destroyed after the phase; a (4, 1) ("data", "model") mesh
+   whose data axis hosts all four workers on the one rank (tier
+   ``loopback``). ``ml``: Qwen1.5-0.5B at full width and depth (seed 0, f32,
+   14 leaves) through ``launch.distributed.build_train_steps`` (randk,
+   ``grad_carry``, 8 × 256 tokens a worker): one ``sync_step``, then 3
+   ``compressed_step``s, then the same rounds with
+   ``compression_backend="ref"``; params, g and h bit-equal between the
+   two; a compressed round books 231,993,856 up-bits a worker (Σ R·kb·64
+   over the leaves) and the dense broadcast down, a sync round 32·d up and
+   down; ``randk_gather`` and ``scatter_accum`` launch once a leaf a
+   compressed round (14 each) and nothing on the sync round. ``mp``: the
+   flat-PP path (r = 2 of 4, cohort compute, no carry), one sync round and
+   2 compressed rounds through the kernels and the plain versions,
+   bit-equal; rows 1 and 2 once a compressed round; r·ζ_Q/n booked. Each
+   run starts with one untimed ``sync_step`` (the process's first backprop
+   and the group's first collective), then the timed rounds. The bytes each
+   round's collectives carried are read off the mesh: ×8 ÷ n, an ``ml``
+   compressed round's all-gathers must equal its booked uplink and a sync
+   round's all-reduce 32 bits a slot of the padded flat buffer. Seconds a
+   round by type (host clock ending in a synchronize), the transport's
+   seconds a call, peak memory and the collectives issued on the group.
+
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -212,6 +243,7 @@ the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -506,12 +538,34 @@ SAMPLE_PATHS = {"sampled_serve_continuous": False, "sampled_serve_static": None}
 GUMBEL_ULPS = 2
 RECURRENT_BUDGET_S = 120.0
 
+#: the launch phase (ROADMAP A3, the launch layer's worker axis): one process,
+#: an nccl group of world size 1 brought up through ``topology.init_from_env``,
+#: a (LAUNCH_N, 1) ("data", "model") mesh whose data axis hosts every worker
+#: on the one rank. ``ml``: Qwen1.5-0.5B at full width and depth through
+#: ``build_train_steps`` (randk, grad_carry, LAUNCH_BATCH × LAUNCH_SEQ tokens
+#: a worker), one sync round then LAUNCH_COMPRESSED compressed rounds, again
+#: with ``compression_backend="ref"``; ``mp``: the flat-PP path (cohort
+#: LAUNCH_PP, no carry), one sync round then LAUNCH_PP_COMPRESSED compressed
+#: rounds, again through the plain versions
+LAUNCH_N, LAUNCH_BATCH, LAUNCH_SEQ = 4, 8, 256
+LAUNCH_COMPRESSED, LAUNCH_PP, LAUNCH_PP_COMPRESSED = 3, (2, "without"), 2
+LAUNCH_BUDGET_S = 120.0
+#: Qwen1.5-0.5B's d and the ml path's compressed uplink per worker: Σ over its
+#: 14 leaves of R·kb·64 bits (kb = max(1, L // 128) f32 values and int32
+#: offsets a row)
+QWEN_D, ML_UP_BITS = 463_987_712, 231_993_856
+#: the transport's per-leaf widths for scatter_accum (row 2) and randk_gather
+#: (row 10), (n, R, L, kb): Qwen1.5-0.5B's MLP leaf (w_gate, 24 layers × 1024
+#: rows of 2816; timed) and one layer of qwen3-32b's (5120 rows of 25,600)
+TRANSPORT_WIDTHS = {"qwen_mlp": (LAUNCH_N, 24 * 1024, 2816, 22),
+                    "qwen3_mlp_layer": (LAUNCH_N, 5120, 25600, 200)}
+
 
 #: keys a kernel's row adds to the kernel line where it has them, each
 #: measured in the run: profiler device ms, the times at every (n, x dtype)
 #: of qsgd_epilogue and qsgd_dequant_mean, the page write's host µs per call,
 #: the gather yardstick's time at a gather's shape (check_gather_floors)
-TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire", "gather_floor_ms")
+TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire", "gather_floor_ms", "transport")
 
 
 class SmokeFailure(Exception):
@@ -3439,6 +3493,325 @@ def run_recurrent(report: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the launch layer: per-leaf widths, and the worker axis on an nccl group
+# ---------------------------------------------------------------------------
+
+
+def check_transport_widths(card: str, report: dict, rows: dict) -> None:
+    """``scatter_accum`` and ``randk_gather`` at the transport's per-leaf
+    widths (``TRANSPORT_WIDTHS``), on offsets drawn as the transport draws
+    them (``prng.randint`` over [0, L)): both bit-equal to their plain
+    versions; at Qwen1.5-0.5B's MLP leaf both timed against their bounds
+    (the kernel line's ``transport``)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import randk, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for label, (n, R, L, kb) in TRANSPORT_WIDTHS.items():
+        o = prng.randint(prng.PRNGKey(SEED + 11), (n, R, kb), 0, L, device=dev)
+        v = torch.randn((n, R, kb), generator=gen, device=dev)
+        s, sr = randk.scatter_accum(v, o, L), ref.scatter_accum_ref(v, o, L)
+        require(bits_equal(s, sr), f"scatter_accum at L={L}: not bit-equal")
+        del s, sr
+        x = torch.randn((n * R, L), generator=gen, device=dev)
+        o2 = o.reshape(n * R, kb)
+        gv, gr = randk.randk_gather(x, o2, L / kb), ref.randk_block_compress_ref(x, o2, L / kb)
+        require(bits_equal(gv, gr), f"randk_gather at L={L}: not bit-equal")
+        del gv, gr
+        out[label] = {"shape": [n, R, L, kb], "bit_equal": True}
+        print(f"transport width {label} (n={n}, R={R}, L={L}, kb={kb}): scatter_accum and "
+              f"randk_gather bit-equal to their plain versions", flush=True)
+        if label == "qwen_mlp":
+            kern, plain, lib, nbytes, flops = scatter_accum_cell(v, o, L)
+            b_ms, b_by = bound(nbytes, flops)
+            rows["scatter_accum"]["transport"] = t = {
+                **times(kern, plain, lib), "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": 0.0, "bytes": nbytes, "shape": [n, R, L, kb]}
+            print(f"time scatter_accum at {label}: {times_text(t)}, bound {b_ms:.4f} ms "
+                  f"({b_by}) on {card}", flush=True)
+            print_target("scatter_accum", label, t, card)
+            gbytes = n * R * kb * (4 + 4 + 4)  # offsets and sampled x read, values written
+            b_ms, b_by = bound(gbytes, n * R * kb)
+            rows["randk_gather"]["transport"] = t = {
+                **times(lambda: randk.randk_gather(x, o2, L / kb),
+                        lambda: ref.randk_block_compress_ref(x, o2, L / kb)),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0, "bytes": gbytes,
+                "shape": [n * R, L, kb]}
+            print(f"time randk_gather at {label}: {times_text(t)}, bound {b_ms:.4f} ms "
+                  f"({b_by}) on {card}", flush=True)
+            del kern, plain, lib
+        del x, o, o2, v
+        torch.cuda.empty_cache()
+    report["transport_widths"] = out
+
+
+def ml_up_bits(params) -> float:
+    """The ml path's compressed uplink per worker, from the leaf shapes: Σ
+    R·kb·64 (kb = max(1, L // 128) f32 values and int32 offsets a row)."""
+    from repro_torch.core.tree_util import tree_leaves
+
+    total = 0
+    for t in tree_leaves(params):
+        L = t.shape[-1]
+        total += (t.numel() // L) * max(1, L // 128) * 64
+    return float(total)
+
+
+@contextlib.contextmanager
+def timed_exchanges(transport, secs: dict):
+    """Record the seconds of each ``sync_mean``, ``uplink_mean`` and
+    ``downlink`` call of ``transport`` into ``secs`` (lists by name), the
+    device synchronized before and after each call."""
+    names = ("sync_mean", "uplink_mean", "downlink")
+    for name in names:
+        fn = getattr(transport, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            _sync()
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            _sync()
+            secs.setdefault(_name, []).append(time.perf_counter() - t)
+            return out
+
+        setattr(transport, name, timed)
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(transport, name)
+
+
+def launch_rounds(fns: dict, state: tuple, batch: dict, compressed: int, mesh, sels=None,
+                  key0: int = SEED + 20) -> tuple:
+    """One untimed ``sync_step`` from ``state`` (it warms the backprop and
+    the group; its output is dropped), then from ``state`` one timed
+    ``sync_step`` and ``compressed`` ``compressed_step``s (keys
+    ``PRNGKey(key0 + i)``; cohort ``sels[i]`` under PP), each timed on the
+    host clock ending in a synchronize; launches and the bytes the mesh's
+    collectives carried counted by round. Returns (state, seconds by round
+    type, launches by round, payload bytes by round)."""
+    from repro_torch import kernels, prng
+
+    warm = fns["sync_step"](*state, batch)
+    _sync()
+    del warm
+    gc.collect()
+    mesh.reset_counts()
+    secs, per_round, wire = {"sync": [], "compressed": []}, [], []
+    for i in range(compressed + 1):
+        kernels.reset_launch_counts()
+        before = dict(mesh.payload_bytes)
+        t0 = time.perf_counter()
+        if i == 0:
+            state = fns["sync_step"](*state, batch)
+        else:
+            extra = () if sels is None else (sels[i - 1],)
+            state = fns["compressed_step"](*state, batch, prng.PRNGKey(key0 + i), *extra)
+        _sync()
+        secs["sync" if i == 0 else "compressed"].append(time.perf_counter() - t0)
+        per_round.append({k: v for k, v in kernels.launch_counts().items() if v})
+        wire.append({k: v - before.get(k, 0) for k, v in mesh.payload_bytes.items()
+                     if v != before.get(k, 0)})
+    return state, secs, per_round, wire
+
+
+def run_launch(report: dict) -> dict:
+    """Phase 12 (module doc): bring up a one-rank process group through
+    ``topology.init_from_env`` (``MARINA_MP_*`` set here for one process:
+    nccl on the card), run ``_launch_paths`` on it, destroy it. Must take at
+    most LAUNCH_BUDGET_S."""
+    import socket
+
+    from repro_torch.launch import topology as topo
+
+    t_phase = time.perf_counter()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    os.environ[topo.PROCESS_ENV] = "0/1"
+    os.environ[topo.COORD_ENV] = f"127.0.0.1:{port}"
+    try:
+        require(topo.init_from_env(device=DEVICE) == (0, 1), "bring-up")
+        out, launches = _launch_paths(report)
+    finally:
+        topo.shutdown()
+        for name in (topo.PROCESS_ENV, topo.COORD_ENV):
+            os.environ.pop(name, None)
+    secs = time.perf_counter() - t_phase
+    report["launch"] = dict(out, seconds=secs)
+    print(f"launch phase: {secs:.1f} s (budget {LAUNCH_BUDGET_S:.0f})", flush=True)
+    require(secs <= LAUNCH_BUDGET_S, f"launch phase took {secs:.1f} s")
+    return launches
+
+
+def _launch_paths(report: dict) -> tuple:
+    """The ml and mp paths on the phase's mesh (the group is up)."""
+    import torch
+
+    from repro_torch import kernels, prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree_util import tree_leaves, tree_map
+    from repro_torch.launch import topology as topo
+    from repro_torch.launch.distributed import BLOCK as PP_BLOCK
+    from repro_torch.launch.distributed import KB as PP_KB
+    from repro_torch.launch.distributed import build_train_steps, pp_cohort_schedule
+    from repro_torch.models import init_params, param_count
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = topo.make_test_mesh(LAUNCH_N, 1, device=DEVICE)
+    tier = topo.detect_topology(mesh).tier_for_axes(("data",))
+    require(tier == "loopback", f"worker-axis tier {tier} on one rank")
+    arch = get_arch("qwen1.5-0.5b")
+    cfg = arch.model
+    t0 = time.perf_counter()
+    params = init_params(SEED, cfg, device=DEVICE)
+    d = param_count(params)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 21)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LAUNCH_N, LAUNCH_BATCH, LAUNCH_SEQ),
+                                     generator=gen, device=mesh.device)}
+    kw = dict(global_batch=LAUNCH_N * LAUNCH_BATCH, seq_len=LAUNCH_SEQ, dtype=torch.float32)
+    up_want = ml_up_bits(params)
+    if d == QWEN_D:
+        require(up_want == ML_UP_BITS, f"ml uplink formula {up_want} != {ML_UP_BITS}")
+    nleaf = len(tree_leaves(params))
+    out = {"mesh": dict(mesh.shape), "backend": mesh.backend, "world": mesh.world,
+           "tier": tier, "d": d, "leaves": nleaf}
+    launches, final = {}, None
+    print(f"launch: mesh {mesh.shape} on {mesh.backend} (world {mesh.world}), tier {tier}, "
+          f"d={d}, {nleaf} leaves, init {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ml: mesh × randk × carry, through the kernels and then the plain versions
+    for backend in ("auto", "ref"):
+        b = build_train_steps(arch, mesh, False, grad_carry=True,
+                              compression_backend=backend, **kw)
+        exchange = {}
+        with timed_exchanges(b.transport, exchange if backend == "auto" else {}):
+            state, secs, per_round, wire = launch_rounds(
+                b.fns, (params, tree_map(torch.zeros_like, params),
+                        tree_map(lambda t: t.new_zeros((LAUNCH_N, *t.shape)), params)),
+                batch, LAUNCH_COMPRESSED, mesh)
+        if exchange:
+            exchange["sync_mean"] = exchange["sync_mean"][1:]  # drop the warm-up's
+        led = b.transport.ledger
+        sync_up = led.total_bits(scope="sync_step", direction="up")
+        sync_down = led.total_bits(scope="sync_step", direction="down")
+        comp_up = led.total_bits(scope="compressed_step", direction="up")
+        comp_down = led.total_bits(scope="compressed_step", direction="down")
+        require(sync_up == sync_down == 32.0 * d, f"ml sync ledger {sync_up}, {sync_down}")
+        require(comp_up == up_want, f"ml compressed uplink {comp_up} != {up_want}")
+        require(comp_down == 32.0 * d, f"ml compressed downlink {comp_down} != {32.0 * d}")
+        require(set(t for (_s, _d, t, _k) in led.bits) == {tier}, "ml ledger tiers")
+        # the wire against the ledger: bytes the collectives carried (one
+        # rank: the whole fleet's), ×8 ÷ n
+        padded = b.transport.sync_layout.padded
+        wire_up = [sum(w.values()) * 8.0 / LAUNCH_N for w in wire]
+        require(set(wire[0]) == {"all_reduce"} and wire_up[0] == 32.0 * padded,
+                f"ml sync round wire {wire[0]} != 32 bits x {padded} padded slots a worker")
+        for i, w in enumerate(wire[1:], 1):
+            require(set(w) == {"all_gather"} and wire_up[i] == comp_up,
+                    f"ml round {i} wire {w}: {wire_up[i]} bits a worker != booked {comp_up}")
+        require(all(math.isfinite(float(x.float().abs().max())) for x in tree_leaves(state)),
+                "ml state not finite")
+        want_round = ({"randk_gather": nleaf, "scatter_accum": nleaf}
+                      if backend == "auto" else {})
+        for i, got in enumerate(per_round[1:], 1):
+            require(got == want_round, f"ml round {i} ({backend}) launches {got}")
+        require(per_round[0] == {}, f"ml sync round ({backend}) launches {per_round[0]}")
+        run = {"seconds": secs, "median_s": {k: statistics.median(v) for k, v in secs.items()},
+               "exchange_s": exchange,
+               "collectives": dict(mesh.collectives), "launches_by_round": per_round,
+               "up_bits": {"sync": sync_up, "compressed": comp_up},
+               "wire_bytes_by_round": wire, "wire_up_bits_by_round": wire_up,
+               "down_bits": {"sync": sync_down, "compressed": comp_down},
+               "ledger": led.to_dict(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out[f"ml_{backend}"] = run
+        if exchange:
+            print(f"launch ml: the transport's seconds a call (synchronized): {exchange}",
+                  flush=True)
+        print(f"launch ml ({backend}): s/round {run['median_s']} ({secs}), up bits/worker "
+              f"sync {sync_up:.0f} compressed {comp_up:.0f} (wire, by round: {wire_up}), "
+              f"down {comp_down:.0f}, "
+              f"collectives {run['collectives']}, launches/round {per_round[1]}, "
+              f"peak {run['peak_mem_gb']:.2f} GB", flush=True)
+        if backend == "auto":
+            launches["ml"] = _summed(per_round)
+            final = state
+        else:
+            same = all(bits_equal(a, b_) for a, b_ in zip(tree_leaves(final),
+                                                        tree_leaves(state)))
+            require(same, "ml: the kernel run's params, g and h differ from the plain run's")
+            out["ml_bit_equal"] = True
+            print("launch ml: params, g and h bit-equal between the kernel and plain runs",
+                  flush=True)
+        del state, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    del final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mp: mesh × PP (flat PP, cohort compute), kernels and plain versions
+    r, scheme = LAUNCH_PP
+    sels = pp_cohort_schedule(prng.PRNGKey(SEED + 22), LAUNCH_PP_COMPRESSED, LAUNCH_N, r,
+                              scheme)
+    finals = []
+    for backend in ("auto", "ref"):
+        b = build_train_steps(arch, mesh, False, participation=LAUNCH_PP,
+                              compression_backend=backend, **kw)
+        require(b.meta["flat_pp"] and b.meta["cohort_compute"], f"mp meta {b.meta}")
+        state, secs, per_round, wire = launch_rounds(
+            b.fns, (params, tree_map(torch.zeros_like, params)), batch, LAUNCH_PP_COMPRESSED,
+            mesh, sels=sels)
+        led = b.transport.ledger
+        comp_up = led.total_bits(scope="compressed_step", direction="up")
+        nblk = math.ceil(d / PP_BLOCK)
+        pp_up = r * (32.0 + 32.0 * nblk * PP_KB) / LAUNCH_N
+        require(comp_up == pp_up, f"mp compressed uplink {comp_up} != {pp_up}")
+        want_round = ({"randk_seeded_workers": 1, "scatter_accum": 1}
+                      if backend == "auto" else {})
+        for i, got in enumerate(per_round[1:], 1):
+            require(got == want_round, f"mp round {i} ({backend}) launches {got}")
+        run = {"seconds": secs, "median_s": {k: statistics.median(v) for k, v in secs.items()},
+               "collectives": dict(mesh.collectives), "launches_by_round": per_round,
+               "up_bits_compressed": comp_up, "wire_bytes_by_round": wire,
+               "meta": {k: str(v) for k, v in b.meta.items()},
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out[f"mp_{backend}"] = run
+        print(f"launch mp ({backend}): s/round {run['median_s']} ({secs}), compressed up "
+              f"bits/worker {comp_up:.0f} (the cohort rows are on the rank: wire by round "
+              f"{wire}), collectives {run['collectives']}, "
+              f"launches/round {per_round[1]}", flush=True)
+        if backend == "auto":
+            launches["mp"] = _summed(per_round)
+        finals.append(state)
+        del b
+    require(all(bits_equal(a, b_) for a, b_ in zip(tree_leaves(finals[0]),
+                                                   tree_leaves(finals[1]))),
+            "mp: the kernel run's params and g differ from the plain run's")
+    out["mp_bit_equal"] = True
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del finals, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, {path: {name: counts.get(name, 0) for name in kernels.KERNELS}
+                 for path, counts in launches.items()}
+
+
+def _summed(per_round: list) -> dict:
+    total: dict = {}
+    for counts in per_round:
+        for name, k in counts.items():
+            total[name] = total.get(name, 0) + k
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3472,6 +3845,7 @@ def main() -> int:
     rows.update(check_serve_kernels(card, report))
     rows.update(check_wire_kernels(nblk, card, report))
     check_gather_floors(nblk, card, report, rows)
+    check_transport_widths(card, report, rows)
     check_small_input(report)
     check_families_small_input(report)
     check_families_small_input(report, SMALL_RECURRENT, "small_input_recurrent")
@@ -3482,6 +3856,7 @@ def main() -> int:
     launches.update(run_serve_paths(report))
     launches.update(run_families(report))
     launches.update(run_recurrent(report))
+    launches.update(run_launch(report))
 
     table = []
     for name, (source, replaces) in SOURCES.items():

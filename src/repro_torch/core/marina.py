@@ -355,15 +355,18 @@ def _counted_bits(uploaded: int, zeta: float, n: int) -> float:
     return float(f32(f32(uploaded) * f32(zeta)) * f32(1.0 / n))
 
 
-def _carry_refresh(h_old: PyTree, grads: PyTree, faults, c_k: bool, n: int) -> PyTree:
+def _carry_refresh(h_old: PyTree, grads: PyTree, faults, c_k: bool, n: int,
+                   ids=None) -> PyTree:
     """The next carry h: this round's gradients, except a dropped client's
     row on a compressed round, which keeps the anchor both sides last
-    agreed on."""
+    agreed on. ``ids`` are the client ids of the rows (default: the whole
+    fleet, 0..n−1; a rank of the launch layer passes its own workers')."""
     if c_k or faults is None or faults.attack != "drop" or faults.n_faulty(n) == 0:
         return grads
-    keep_old = faults.byz_mask(list(range(n)), n)
+    ids = list(range(n)) if ids is None else list(ids)
+    keep_old = faults.byz_mask(ids, n)
     return tree_map(lambda ho, gn: torch.where(
-        keep_old.to(gn.device).reshape((n,) + (1,) * (gn.ndim - 1)),
+        keep_old.to(gn.device).reshape((len(ids),) + (1,) * (gn.ndim - 1)),
         ho.to(gn.dtype), gn), h_old, grads)
 
 

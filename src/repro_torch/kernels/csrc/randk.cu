@@ -57,7 +57,9 @@ __global__ void randk_seeded_workers_kernel(const float* __restrict__ x,
 // rank r adds in round r, so the lanes of a round add into distinct
 // coordinates at once and each coordinate's adds keep the oracle's order,
 // without float atomics. Offsets outside [0, B) are dropped, as XLA's
-// scatter drops them. Then out[b, j] = acc[j] / n, written as float4: for n a
+// scatter drops them. Then out[b, j] = acc[j] / n, written as float4 where
+// every row stays 16-byte aligned (B a multiple of 4; else one float at a
+// time): for n a
 // power of two as acc[j]·(1/n), which is acc[j] / n rounded once (1/n is
 // exact, so both round the same real number), else a true division. The
 // design it replaces ran one CTA of 128 threads a block, with lane 0 doing
@@ -69,21 +71,24 @@ __global__ void randk_seeded_workers_kernel(const float* __restrict__ x,
 constexpr int kScatterWarps = 8;
 
 // row[j] = acc[j] / n rounded once, by a warp: for POW2 (n a power of two)
-// as acc[j]·(1/n), 1/n exact, else an IEEE division; float4 stores for B ≥ 4
-template <bool POW2>
+// as acc[j]·(1/n), 1/n exact, else an IEEE division; float4 stores for VEC
+// (B a multiple of 4, so acc and row are 16-byte aligned), one float a lane
+// otherwise
+template <bool POW2, bool VEC>
 __device__ __forceinline__ void write_mean_row(const float* acc, float* __restrict__ row,
                                                int block, int n, int lane) {
   const float fn = (float)n;
   const float inv = __fdiv_rn(1.0f, fn);
   auto mean = [&](float a) { return POW2 ? __fmul_rn(a, inv) : __fdiv_rn(a, fn); };
-  const int quads = block >> 2;
+  const int quads = VEC ? block >> 2 : 0;
   for (int j = lane; j < quads; j += 32) {
     const float4 a = reinterpret_cast<const float4*>(acc)[j];
     reinterpret_cast<float4*>(row)[j] = make_float4(mean(a.x), mean(a.y), mean(a.z), mean(a.w));
   }
-  for (int j = 4 * quads + lane; j < block; j += 32) row[j] = mean(acc[j]);  // B < 4
+  for (int j = 4 * quads + lane; j < block; j += 32) row[j] = mean(acc[j]);
 }
 
+template <bool VEC>
 __global__ void __launch_bounds__(32 * kScatterWarps)
 scatter_accum_kernel(const float* __restrict__ vals, const int32_t* __restrict__ offs,
                      float* __restrict__ out, int n, int64_t nblk, int block, int kb,
@@ -94,10 +99,10 @@ scatter_accum_kernel(const float* __restrict__ vals, const int32_t* __restrict__
   const int64_t b = (int64_t)blockIdx.x * warps + warp;
   if (b >= nblk) return;  // the whole warp: nothing below waits on another warp
   float* acc = reinterpret_cast<float*>(smem4) + (size_t)warp * block;
-  const int quads = block >> 2;
-  float4* acc4 = reinterpret_cast<float4*>(acc);  // B ≥ 4: 16-byte aligned rows
+  const int quads = VEC ? block >> 2 : 0;
+  float4* acc4 = reinterpret_cast<float4*>(acc);  // VEC: 16-byte aligned rows
   for (int j = lane; j < quads; j += 32) acc4[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int j = 4 * quads + lane; j < block; j += 32) acc[j] = 0.0f;  // B < 4
+  for (int j = 4 * quads + lane; j < block; j += 32) acc[j] = 0.0f;
   __syncwarp();
 
   const int m = n * kb;
@@ -122,9 +127,9 @@ scatter_accum_kernel(const float* __restrict__ vals, const int32_t* __restrict__
   }
 
   if ((n & (n - 1)) == 0)
-    write_mean_row<true>(acc, out + b * block, block, n, lane);
+    write_mean_row<true, VEC>(acc, out + b * block, block, n, lane);
   else
-    write_mean_row<false>(acc, out + b * block, block, n, lane);
+    write_mean_row<false, VEC>(acc, out + b * block, block, n, lane);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -187,20 +192,30 @@ extern "C" int randk_seeded_workers(const void* x, const void* seeds, void* vals
   return (int)cudaGetLastError();
 }
 
-extern "C" int scatter_accum(const void* vals, const void* offs, void* out, int n,
-                             long long nblk, int block, int kb, void* stream) {
-  // kScatterWarps blocks a CTA up to B = 1024 (32 KiB of rows), fewer above
+template <bool VEC>
+static int launch_scatter(const void* vals, const void* offs, void* out, int n,
+                          long long nblk, int block, int kb, void* stream) {
+  // kScatterWarps blocks a CTA up to B = 1024 (32 KiB of rows), fewer above;
+  // one row a CTA from B = 8192 up to the 227 KiB a CTA may hold (the
+  // wrapper refuses wider rows)
   const int warps = block >= 1024 ? (block >= 8192 ? 1 : 8192 / block) : kScatterWarps;
   const size_t smem = (size_t)warps * block * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        scatter_accum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        scatter_accum_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long grid = (nblk + warps - 1) / warps;
-  scatter_accum_kernel<<<(unsigned)grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+  scatter_accum_kernel<VEC><<<(unsigned)grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const float*)vals, (const int32_t*)offs, (float*)out, n, nblk, block, kb, warps);
   return (int)cudaGetLastError();
+}
+
+extern "C" int scatter_accum(const void* vals, const void* offs, void* out, int n,
+                             long long nblk, int block, int kb, void* stream) {
+  return (block & 3) == 0
+             ? launch_scatter<true>(vals, offs, out, n, nblk, block, kb, stream)
+             : launch_scatter<false>(vals, offs, out, n, nblk, block, kb, stream);
 }
 
 template <typename XT>

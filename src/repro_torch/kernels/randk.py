@@ -37,6 +37,17 @@ def _check_block(B: int) -> None:
         raise ValueError(f"block width {B} must be a power of two")
 
 
+#: the widest row ``scatter_accum`` takes: one f32 row in the 227 KiB of
+#: shared memory a CTA may hold on Hopper
+MAX_SCATTER_WIDTH = 232448 // 4
+
+
+def _check_scatter_width(B: int) -> None:
+    if not 1 <= B <= MAX_SCATTER_WIDTH:
+        raise ValueError(f"scatter_accum row width {B} outside [1, {MAX_SCATTER_WIDTH}]: "
+                         "one f32 row must fit a CTA's shared memory")
+
+
 def seeds_tensor(seeds, device) -> torch.Tensor:
     """uint32 seed values (a sequence, a numpy array or a tensor) → (n,)
     int32 tensor on ``device`` holding the same bit patterns."""
@@ -78,9 +89,11 @@ randk_seeded_workers.launches = 0
 def scatter_accum(values: torch.Tensor, offsets: torch.Tensor,
                   block: int) -> torch.Tensor:
     """(n, nblk, kb) f32 values + int32 offsets → (nblk, block) f32 mean over
-    workers; duplicates add in the order w, then t."""
+    workers; duplicates add in the order w, then t. ``block`` is any row
+    width up to :data:`MAX_SCATTER_WIDTH`: the flat engine's 1024, or a
+    leaf's last dimension on the launch layer's per-leaf wire."""
     n, nblk, kb = values.shape
-    _check_block(block)
+    _check_scatter_width(block)
     if not values.is_cuda:
         return _ref.scatter_accum_ref(values, offsets, block)
     _check_payload(values, offsets)

@@ -1,0 +1,703 @@
+"""Topology layer of the launch stack on ``torch.distributed`` (port of
+``repro.launch.topology``).
+
+It answers the reference's three questions for a fleet of MARINA workers
+hosted by one or more processes:
+
+1. **What does the fabric look like?** :class:`Topology` (the reference's
+   record, unchanged) names the link tier every mesh axis crosses —
+   ``loopback`` (workers inside one process: the fleet simulated on one card
+   or one CPU), ``ici`` (GPUs of one host joined by NVLink), ``dcn`` (the
+   slow link a CPU cluster's process boundary stands for) — each with its
+   α–β cost model (:class:`LinkSpec`, :data:`DEFAULT_LINKS`).
+
+2. **How do I get a mesh on it?** GSPMD has no counterpart here, so a
+   :class:`Mesh` is a plain record: ordered axis names and sizes (``.shape``
+   and ``.axis_names`` as in JAX), the process group, and the device. The
+   workers of the worker axes are split into contiguous groups, one per
+   rank (:meth:`Mesh.workers`); each rank holds the whole model on its
+   device, and one rank may host all n workers (one process, one card).
+   :func:`detect_topology` classifies the axes against that layout: an axis
+   whose workers span processes is ``dcn`` on the CPU (gloo) and ``ici`` on
+   GPUs (nccl); an axis inside one process is ``loopback``, four workers on
+   one card included.
+
+3. **How do multiple processes come up?** :func:`initialize_multiprocess`
+   is ``torch.distributed.init_process_group`` with a TCP rendezvous —
+   ``nccl`` when the process runs on the card (the default), ``gloo`` only
+   when the caller asks for the CPU; nothing falls back quietly.
+   :func:`init_from_env` reads the reference's ``MARINA_MP_*`` contract and
+   :func:`spawn_local_cluster` stands up an N-process local cluster in
+   subprocesses, with the reference's crash and recovery helpers.
+
+Demo (a 2-process gloo cluster on the CPU, one all-reduce and the topology
+report per process):
+
+    PYTHONPATH=src python -m repro_torch.launch.topology --processes 2
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import socket
+import subprocess
+import sys
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import default_device
+
+PROCESS_ENV = "MARINA_MP_PROCESS"       # "<process_id>/<num_processes>"
+COORD_ENV = "MARINA_MP_COORDINATOR"     # "host:port"
+#: workers each process of a local cluster hosts (the reference's fake
+#: devices per process)
+LOCAL_ENV = "MARINA_MP_LOCAL"
+
+# crash / recovery contract (the reference's DESIGN.md §4.10): the resilient
+# runner and the worker programs communicate through these —
+CRASH_ENV = "MARINA_MP_CRASH"           # "<rank>@<round>": hard-exit there
+DEAD_ENV = "MARINA_MP_DEAD"             # "2,3": client ids lost to a crash
+RESUME_ENV = "MARINA_MP_RESUME"         # first round the dead set applies
+
+#: per-round liveness marker worker programs print (every rank) after
+#: completing each round; the resilient runner reads the streams back to
+#: locate the last fleet-wide completed round after a crash
+HEARTBEAT = "MARINA_HB"
+
+#: link-tier names, fastest to slowest (``core.wire.LINK_TIERS``)
+TIERS = ("loopback", "ici", "dcn")
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkSpec:
+    """α–β cost model of one link tier: a collective over the tier costs
+    ``steps·alpha_s + wire_bytes/bw``."""
+
+    alpha_s: float          # latency per collective step (seconds)
+    bw: float               # bandwidth per device (bytes/s)
+
+
+#: The reference's default α–β table: modeling constants (loopback ≈ one
+#: memcpy inside a process, ici = TPU v5e ~50 GB/s a link with ~1 µs hop
+#: latency, dcn = a 50 Gbit/s NIC with ~25 µs software latency), not
+#: measurements of this port or of an H100 host.
+DEFAULT_LINKS: dict = {
+    "loopback": LinkSpec(alpha_s=5e-7, bw=100e9),
+    "ici": LinkSpec(alpha_s=1e-6, bw=50e9),
+    "dcn": LinkSpec(alpha_s=25e-6, bw=6.25e9),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """The fabric: process / pod extents plus a link tier per mesh axis.
+
+    ``axis_tiers`` maps every mesh axis name to the SLOWEST link a
+    collective over that axis crosses. ``devices_per_pod`` bounds the ici
+    domain for group-size classification; ``devices_per_process`` bounds the
+    loopback domain the same way."""
+
+    axis_tiers: tuple            # ((axis, tier), ...) — frozen mapping
+    n_devices: int
+    n_processes: int = 1
+    devices_per_pod: Optional[int] = None   # None: single-pod fabric
+    links: tuple = tuple(sorted(DEFAULT_LINKS.items()))
+
+    @property
+    def devices_per_process(self) -> int:
+        """Mesh slots per OS process (the loopback domain)."""
+        return self.n_devices // max(1, self.n_processes)
+
+    def tier_of_axis(self, axis: str) -> str:
+        """Link tier of a collective over one mesh axis."""
+        for a, t in self.axis_tiers:
+            if a == axis:
+                return t
+        raise KeyError(f"axis {axis!r} not in topology {self.axis_tiers}")
+
+    def tier_for_axes(self, axes) -> str:
+        """Slowest tier among the given mesh axes; empty axes (an exchange
+        inside one device) price as loopback."""
+        if not axes:
+            return "loopback"
+        if isinstance(axes, str):
+            axes = (axes,)
+        return max((self.tier_of_axis(a) for a in axes), key=TIERS.index)
+
+    def tier_for_group_size(self, g: int) -> str:
+        """Classify a collective by its group extent: wider than one pod →
+        dcn; wider than one process → ici; inside one process, loopback
+        unless an axis of the fabric models real links (then ici)."""
+        if self.devices_per_pod is not None and g > self.devices_per_pod:
+            return "dcn"
+        if g > self.devices_per_process:
+            return "ici"
+        if any(t != "loopback" for _a, t in self.axis_tiers):
+            return "ici"
+        return "loopback"
+
+    def tier_for_ids(self, ids) -> str:
+        """Classify a group by its member slot ids: one spanning pods, or
+        (with several processes) spanning processes, crosses the dcn; else
+        as :meth:`tier_for_group_size`."""
+        ids = [int(i) for i in ids]
+        if len(ids) <= 1:
+            return "loopback"
+        if self.devices_per_pod is not None and len(
+                {i // self.devices_per_pod for i in ids}) > 1:
+            return "dcn"
+        if self.n_processes > 1 and len(
+                {i // self.devices_per_process for i in ids}) > 1:
+            return "dcn"
+        return self.tier_for_group_size(len(ids))
+
+    def link(self, tier: str) -> LinkSpec:
+        """The α–β constants of one tier."""
+        return dict(self.links)[tier]
+
+
+# ---------------------------------------------------------------------------
+# the mesh: axes, the process group, the workers this rank hosts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """A named mesh over the process group. ``sizes`` follow
+    ``axis_names``; ``group`` is the ``torch.distributed`` group (None: no
+    process group, one process); ``rank`` / ``world`` locate this process
+    in it; ``device`` is where this rank computes. ``collectives`` counts
+    the collectives issued through the mesh, by kind, and ``payload_bytes``
+    the bytes of this rank's rows that they carried: summed over the ranks,
+    ×8 and ÷ n, a payload kind's bytes are the bits per worker the ledger
+    books for it. The dense worker state a rank gathers whole
+    (:meth:`assemble_rows`) counts under its own kind, ``gather_state``."""
+
+    axis_names: tuple
+    sizes: tuple
+    device: torch.device
+    group: Any = None
+    rank: int = 0
+    world: int = 1
+    collectives: dict = dataclasses.field(default_factory=dict)
+    payload_bytes: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}`` in axis order, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The group's backend ("nccl" / "gloo"), None without a group."""
+        if self.group is None:
+            return None
+        import torch.distributed as dist
+
+        return dist.get_backend(self.group)
+
+    def workers(self, n: int) -> range:
+        """The contiguous group of the n workers this rank hosts."""
+        if n % self.world:
+            raise ValueError(f"{n} workers do not split evenly over {self.world} ranks")
+        per = n // self.world
+        return range(self.rank * per, (self.rank + 1) * per)
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.collectives[kind] = self.collectives.get(kind, 0) + 1
+        self.payload_bytes[kind] = self.payload_bytes.get(kind, 0) + int(nbytes)
+
+    def reset_counts(self) -> None:
+        """Zero ``collectives`` and ``payload_bytes``."""
+        self.collectives.clear()
+        self.payload_bytes.clear()
+
+    def gather_rows(self, local: torch.Tensor, n: int,
+                    kind: str = "all_gather") -> torch.Tensor:
+        """All n rows from each rank's :meth:`workers` rows: an all-gather
+        across the group (as bytes, so any dtype crosses), rows in worker
+        order, counted under ``kind``. Runs whenever the mesh has a group, a
+        world of one rank included; without a group the local rows are all n
+        rows."""
+        if self.group is None:
+            if local.shape[0] != n:
+                raise ValueError(f"{local.shape[0]} local rows of {n} without a process group")
+            return local
+        import torch.distributed as dist
+
+        src = local.contiguous()
+        raw = src.view(torch.uint8)
+        outs = [torch.empty_like(raw) for _ in range(self.world)]
+        dist.all_gather(outs, raw, group=self.group)
+        self._count(kind, raw.numel())
+        full = outs[0] if self.world == 1 else torch.cat(outs)
+        return full.view(src.dtype).reshape((n,) + tuple(local.shape[1:]))
+
+    def sum_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
+        """All n rows through an all-reduce (the psum kinds): each rank
+        adds its own rows into zeros elsewhere, so the sum is exact and the
+        rows come out in worker order. A world of one reduces in place. The
+        bytes counted are this rank's rows, not the zeros."""
+        if self.group is None:
+            if local.shape[0] != n:
+                raise ValueError(f"{local.shape[0]} local rows of {n} without a process group")
+            return local
+        import torch.distributed as dist
+
+        if self.world == 1:
+            full = local.contiguous()
+        else:
+            full = torch.zeros((n,) + tuple(local.shape[1:]), dtype=local.dtype,
+                               device=local.device)
+            w = self.workers(n)
+            full[w.start:w.stop] = local
+        dist.all_reduce(full, group=self.group)
+        self._count("all_reduce", local.numel() * local.element_size())
+        return full
+
+    def assemble_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
+        """All n rows of dense worker state (per-worker gradients or decoded
+        rows a rank needs whole): gathered only where the workers span
+        ranks, the local rows themselves on a world of one."""
+        if self.world == 1:
+            return local
+        return self.gather_rows(local, n, kind="gather_state")
+
+
+def _make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
+    """A mesh over the initialized default process group (or none)."""
+    device = default_device(device)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        backend = dist.get_backend()
+        if backend == "gloo" and device.type != "cpu":
+            raise ValueError("a gloo group stages CPU tensors only: the mesh must be on the CPU")
+        if backend == "nccl" and device.type != "cuda":
+            raise ValueError("an nccl group stages CUDA tensors only: the mesh must be on the card")
+        return Mesh(axis_names=tuple(axes), sizes=tuple(int(s) for s in shape), device=device,
+                    group=dist.group.WORLD, rank=dist.get_rank(),
+                    world=dist.get_world_size())
+    return Mesh(axis_names=tuple(axes), sizes=tuple(int(s) for s in shape), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """16×16 single-pod or 2×16×16 two-pod mesh (the axes the rule table
+    and the tiers read; no program of the port runs on it)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make_mesh(shape, axes, device)
+
+
+def production_topology(*, multi_pod: bool = False) -> Topology:
+    """The fabric the production meshes model: every intra-pod axis ici,
+    the pod axis dcn, one pod = 256 chips."""
+    if multi_pod:
+        return Topology(
+            axis_tiers=(("pod", "dcn"), ("data", "ici"), ("model", "ici")),
+            n_devices=512, n_processes=1, devices_per_pod=256,
+        )
+    return Topology(
+        axis_tiers=(("data", "ici"), ("model", "ici")),
+        n_devices=256, n_processes=1, devices_per_pod=256,
+    )
+
+
+def make_test_mesh(data: int = 2, model: int = 1, device=None) -> Mesh:
+    """A (data, model) mesh: ``data`` workers split over the ranks."""
+    return _make_mesh((data, model), ("data", "model"), device)
+
+
+def make_federated_mesh(clients: int, model: int = 1, device=None) -> Mesh:
+    """Mesh for the federated PP scenario: the worker ("data") axis is the
+    client fleet, the model axis within-client parallelism."""
+    return _make_mesh((clients, model), ("data", "model"), device)
+
+
+def worker_axis_names(multi_pod: bool, worker_axes: str) -> tuple:
+    """Which mesh axes form the MARINA worker dimension."""
+    if not multi_pod:
+        return ("data",)
+    return ("pod",) if worker_axes == "pod" else ("pod", "data")
+
+
+def num_workers(mesh, multi_pod: bool, worker_axes: str) -> int:
+    """Worker-fleet size n: product of the worker mesh axes' extents."""
+    n = 1
+    for ax in worker_axis_names(multi_pod, worker_axes):
+        n *= mesh.shape[ax]
+    return n
+
+
+def cohort_group_size(n: int, r: int) -> Optional[int]:
+    """Worker shards per sampled client when a PP cohort of r is respread
+    over all n shards: n/r when r divides n, else None (masked dense
+    compute)."""
+    return n // r if (r > 0 and n % r == 0) else None
+
+
+def detect_topology(mesh: Mesh) -> Topology:
+    """Classify a runtime mesh's axes against the process layout.
+
+    The ranks split the mesh's non-model slots (the worker index space, row
+    major over the non-model axes) into contiguous groups; the model axis
+    never leaves a rank, which holds the whole model. An axis along which
+    the rank changes spans processes: "dcn" on the CPU (gloo), "ici" on
+    GPUs (nccl). An axis inside one process is "loopback" on either. An
+    axis named "pod" is always "dcn", read from the mesh itself (the
+    reference's ``multi_pod`` argument is not needed)."""
+    sizes = [s for a, s in zip(mesh.axis_names, mesh.sizes) if a != "model"]
+    m = int(np.prod(sizes)) if sizes else 1
+    if m % mesh.world:
+        raise ValueError(f"{m} worker slots do not split over {mesh.world} ranks")
+    ranks = (np.arange(m) // (m // mesh.world)).reshape(sizes or (1,))
+    cpu = mesh.device.type == "cpu"
+    tiers, i = [], 0
+    for axis in mesh.axis_names:
+        if axis == "model":
+            tiers.append((axis, "loopback"))
+            continue
+        along = np.moveaxis(ranks, i, 0)
+        i += 1
+        if axis == "pod":
+            tiers.append((axis, "dcn"))
+        elif bool((along != along[0]).any()):
+            tiers.append((axis, "dcn" if cpu else "ici"))
+        else:
+            tiers.append((axis, "loopback"))
+    pod_devs = mesh.size // mesh.shape["pod"] if "pod" in mesh.axis_names else None
+    return Topology(axis_tiers=tuple(tiers), n_devices=mesh.size,
+                    n_processes=mesh.world, devices_per_pod=pod_devs)
+
+
+# ---------------------------------------------------------------------------
+# multi-process bring-up (torch.distributed)
+# ---------------------------------------------------------------------------
+
+
+def initialize_multiprocess(coordinator_address: str, num_processes: int,
+                            process_id: int, *, device=None,
+                            timeout_s: float = 120.0) -> torch.device:
+    """``torch.distributed.init_process_group`` over a TCP rendezvous at
+    ``coordinator_address`` ("host:port"): nccl on the card (the default;
+    the process takes card ``process_id mod device_count``), gloo when
+    ``device`` asks for the CPU. Returns the device this process computes
+    on."""
+    import torch.distributed as dist
+
+    device = default_device(device)
+    kw = {}
+    if device.type == "cuda":
+        backend = "nccl"
+        device = torch.device("cuda", process_id % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    elif device.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no process-group backend for device {device}")
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    return device
+
+
+def init_from_env(device=None) -> tuple:
+    """Bring this process up from the ``MARINA_MP_*`` contract set by
+    :func:`spawn_local_cluster` (no process group when the variables are
+    absent). Returns ``(process_id, num_processes)``. On the card unless
+    ``device`` names the CPU (raises without a card)."""
+    device = default_device(device)
+    spec = os.environ.get(PROCESS_ENV)
+    coord = os.environ.get(COORD_ENV)
+    if not spec or not coord:
+        return (0, 1)
+    pid_s, nproc_s = spec.split("/")
+    pid, nproc = int(pid_s), int(nproc_s)
+    initialize_multiprocess(coord, nproc, pid, device=device)
+    return (pid, nproc)
+
+
+def shutdown() -> None:
+    """Destroy the default process group, if one is up."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def local_workers() -> int:
+    """Workers each process of a local cluster hosts (``MARINA_MP_LOCAL``;
+    1 outside a cluster)."""
+    return int(os.environ.get(LOCAL_ENV, "") or 1)
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _launch_procs(prog: str, num_processes: int, devices_per_process: int,
+                  extra_env: Optional[dict]) -> list:
+    """Start the cluster's subprocesses (rank order) on a fresh rendezvous
+    port — the shared bring-up of :func:`spawn_local_cluster` and
+    :func:`run_resilient_cluster`."""
+    port = _free_port()
+    env_base = dict(os.environ)
+    env_base[COORD_ENV] = f"127.0.0.1:{port}"
+    env_base[LOCAL_ENV] = str(devices_per_process)
+    env_base.setdefault("PYTHONPATH", os.path.join(os.path.dirname(__file__), "..", ".."))
+    if extra_env:
+        env_base.update(extra_env)
+    procs = []
+    for pid in range(num_processes):
+        env = dict(env_base)
+        env[PROCESS_ENV] = f"{pid}/{num_processes}"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", prog], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+    return procs
+
+
+class ClusterBringupError(RuntimeError):
+    """A local-cluster attempt came back with failed children. Carries the
+    per-rank ``CompletedProcess`` list so the retry wrapper can surface the
+    LAST attempt's stderr when the budget runs out."""
+
+    def __init__(self, message: str, results: Optional[list] = None):
+        super().__init__(message)
+        self.results = results
+
+
+def spawn_local_cluster(prog: str, *, num_processes: int = 2, devices_per_process: int = 2,
+                        timeout: float = 560.0, extra_env: Optional[dict] = None,
+                        retry=None) -> list:
+    """Run ``prog`` (python source) in ``num_processes`` subprocesses wired
+    into one process group; each hosts ``devices_per_process`` workers
+    (``MARINA_MP_LOCAL``) and must call :func:`init_from_env` before any
+    collective. Returns the per-process ``CompletedProcess`` list (rank
+    order).
+
+    ``retry`` (a :class:`repro_torch.launch.transport.RetryPolicy`) tears
+    the whole attempt down and relaunches it — fresh port, fresh children —
+    when it times out or any child exits nonzero (a rendezvous race is a
+    whole-cluster failure). Each attempt gets ``retry.timeout_s``; the last
+    attempt's failure propagates (``TimeoutExpired``) or returns its failed
+    results for the caller's asserts."""
+
+    def one_attempt(attempt_timeout: float) -> list:
+        procs = _launch_procs(prog, num_processes, devices_per_process, extra_env)
+        done = []
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=attempt_timeout)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                    q.communicate()
+                raise
+            done.append(subprocess.CompletedProcess(p.args, p.returncode, out, err))
+        return done
+
+    if retry is None:
+        return one_attempt(timeout)
+
+    from repro_torch.launch.transport import retry_call  # transport imports topology
+
+    def attempt() -> list:
+        results = one_attempt(retry.timeout_s)
+        bad = [i for i, r in enumerate(results) if r.returncode != 0]
+        if bad:
+            raise ClusterBringupError(f"cluster ranks {bad} exited nonzero", results=results)
+        return results
+
+    try:
+        return retry_call(attempt, retry,
+                          retryable=(ClusterBringupError, subprocess.TimeoutExpired))
+    except ClusterBringupError as exc:
+        return exc.results
+
+
+# ---------------------------------------------------------------------------
+# crash detection + recovery (the reference's DESIGN.md §4.10)
+#
+# A killed worker process takes its workers with it, and every survivor then
+# hangs in the next collective. The resilient runner watches liveness from
+# outside, kills the survivors the moment any rank dies, and locates the last
+# fleet-wide completed round from the heartbeat lines; recovery relaunches
+# with the dead clients as a static ``drop`` set from the first incomplete
+# round.
+# ---------------------------------------------------------------------------
+
+
+def clients_of_rank(rank: int, devices_per_process: int) -> tuple:
+    """Client ids a crashed rank takes down: rank r hosts the contiguous
+    workers [r·dpp, (r+1)·dpp) (:meth:`Mesh.workers`)."""
+    lo = rank * devices_per_process
+    return tuple(range(lo, lo + devices_per_process))
+
+
+def crash_spec_from_env() -> Optional[tuple]:
+    """``(rank, round)`` from ``MARINA_MP_CRASH="<rank>@<round>"``; None
+    when unset or empty."""
+    spec = os.environ.get(CRASH_ENV, "")
+    if not spec:
+        return None
+    rank_s, round_s = spec.split("@")
+    return (int(rank_s), int(round_s))
+
+
+def maybe_crash(rank: int, round_k: int) -> None:
+    """Process-crash fault injection: ``os._exit`` when the environment names
+    this rank and round. Call at the top of the round body, before any
+    collective."""
+    if crash_spec_from_env() == (rank, round_k):
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(17)
+
+
+def recovery_from_env() -> tuple:
+    """``(dead_client_ids, resume_round)`` from ``MARINA_MP_DEAD`` /
+    ``MARINA_MP_RESUME``; ``((), 0)`` when unset."""
+    dead_s = os.environ.get(DEAD_ENV, "")
+    dead = tuple(int(x) for x in dead_s.split(",") if x.strip()) if dead_s else ()
+    resume = int(os.environ.get(RESUME_ENV, "") or 0)
+    return dead, resume
+
+
+def last_heartbeat(text: str) -> int:
+    """Last round a rank reported complete (``MARINA_HB <k>`` lines); −1
+    when it never finished one."""
+    last = -1
+    for line in text.splitlines():
+        parts = line.strip().split()
+        if len(parts) == 2 and parts[0] == HEARTBEAT:
+            try:
+                last = int(parts[1])
+            except ValueError:
+                pass
+    return last
+
+
+@dataclasses.dataclass
+class ClusterOutcome:
+    """What :func:`run_resilient_cluster` observed: per-rank results, the
+    ranks that died on their own, and the last round every rank completed."""
+
+    results: list
+    dead_ranks: tuple
+    last_round: int
+
+    @property
+    def crashed(self) -> bool:
+        return bool(self.dead_ranks)
+
+
+def run_resilient_cluster(prog: str, *, num_processes: int = 2, devices_per_process: int = 2,
+                          timeout: float = 560.0, extra_env: Optional[dict] = None,
+                          poll_s: float = 0.2) -> ClusterOutcome:
+    """Like :func:`spawn_local_cluster`, but crash-aware: polls the
+    children, kills the survivors (hung in their next collective) as soon as
+    a rank exits nonzero, and reads the heartbeats back. ``timeout`` is the
+    hang backstop."""
+    procs = _launch_procs(prog, num_processes, devices_per_process, extra_env)
+    deadline = time.monotonic() + timeout
+    dead = ()
+    while time.monotonic() < deadline:
+        codes = [p.poll() for p in procs]
+        dead = tuple(i for i, c in enumerate(codes) if c is not None and c != 0)
+        if dead or all(c is not None for c in codes):
+            break
+        time.sleep(poll_s)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    results = []
+    for p in procs:
+        out, err = p.communicate()
+        results.append(subprocess.CompletedProcess(p.args, p.returncode, out, err))
+    beats = [last_heartbeat(r.stdout or "") for r in results]
+    return ClusterOutcome(results=results, dead_ranks=dead,
+                          last_round=min(beats) if beats else -1)
+
+
+def run_with_recovery(prog: str, *, num_processes: int = 2, devices_per_process: int = 2,
+                      timeout: float = 560.0, extra_env: Optional[dict] = None,
+                      retry=None) -> tuple:
+    """Run ``prog`` crash-aware; if a rank dies, relaunch it as one process
+    hosting every worker, the crashed rank's clients exported as the dead set
+    from the first incomplete round. Returns ``(outcome, recovery)``, the
+    recovery run's ``CompletedProcess`` or None."""
+    outcome = run_resilient_cluster(prog, num_processes=num_processes,
+                                    devices_per_process=devices_per_process,
+                                    timeout=timeout, extra_env=extra_env)
+    if not outcome.crashed:
+        return outcome, None
+    dead_clients = ()
+    for r in outcome.dead_ranks:
+        dead_clients += clients_of_rank(r, devices_per_process)
+    recovery_env = dict(extra_env or {})
+    recovery_env[CRASH_ENV] = ""          # the ghost must not die twice
+    recovery_env[DEAD_ENV] = ",".join(str(c) for c in sorted(dead_clients))
+    recovery_env[RESUME_ENV] = str(outcome.last_round + 1)
+    results = spawn_local_cluster(prog, num_processes=1,
+                                  devices_per_process=num_processes * devices_per_process,
+                                  timeout=timeout, extra_env=recovery_env, retry=retry)
+    return outcome, results[0]
+
+
+_DEMO_PROG = r"""
+import torch
+from repro_torch.launch import topology as topo
+pid, nproc = topo.init_from_env(device="cpu")
+mesh = topo.make_test_mesh(nproc * topo.local_workers(), 1, device="cpu")
+t = topo.detect_topology(mesh)
+n = mesh.shape["data"]
+rows = torch.arange(n, dtype=torch.float32)[list(mesh.workers(n))]
+total = float(mesh.sum_rows(rows, n).sum())
+print(f"process {pid}/{nproc}: hosts workers {list(mesh.workers(n))} of {n}; "
+      f"worker-axis tier = {t.tier_for_axes(('data',))}; "
+      f"all-reduce(arange) = {total:.0f}", flush=True)
+topo.shutdown()
+"""
+
+
+def main():
+    """CLI demo: spawn an N-process local cluster on the CPU (gloo), run one
+    cross-process all-reduce, and print each process's view of the
+    topology."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--processes", type=int, default=2)
+    ap.add_argument("--devices-per-process", type=int, default=2,
+                    help="workers each process hosts")
+    args = ap.parse_args()
+    results = spawn_local_cluster(_DEMO_PROG, num_processes=args.processes,
+                                  devices_per_process=args.devices_per_process,
+                                  timeout=120.0)
+    ok = True
+    for r in results:
+        sys.stdout.write(r.stdout)
+        if r.returncode != 0:
+            ok = False
+            sys.stderr.write(r.stderr[-2000:])
+    sys.exit(0 if ok else 1)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,12 @@ teacher-forced check, the report's keys and cuts; and the small-input
 families through the trainer with the carry path's exact launches. The
 recurrent phase's constants are checked here without running it (the mLSTM
 chunk rule, recurrentgemma's window, the ``xc`` path's launches); its
-rehearsal is ``tests/test_torch_chip_smoke_recurrent.py``.
+rehearsal is ``tests/test_torch_chip_smoke_recurrent.py``. The launch
+phase runs its two paths on the tiny LM over a one-rank gloo group brought
+up through ``topology.init_from_env`` (the card's is nccl): launches by
+round, the ledgers, the collectives, the kernel and plain runs bit-equal,
+the group destroyed; and the transport's per-leaf widths of the kernel
+phase run at a tiny row count.
 """
 
 import dataclasses
@@ -545,3 +550,83 @@ def test_recurrent_phase_constants():
     assert chip_smoke.RECURRENT_STATE_LENS == (256, 4096)
     assert chip_smoke.SMALL_RECURRENT == {"recurrentgemma-2b": 3, "xlstm-350m": 8}
     assert 0 < chip_smoke.SAMPLE_TEMPERATURE and chip_smoke.RECURRENT_BUDGET_S == 120.0
+
+
+def test_launch_phase_runs_at_a_tiny_width(monkeypatch):
+    """The launch phase on the tiny LM: ml (randk, carry) launches
+    ``randk_gather`` and ``scatter_accum`` once a leaf a compressed round
+    and nothing on its sync round, mp (flat PP) the flat engine's two RandK
+    kernels once a compressed round; the plain runs launch nothing and end
+    bit-equal; the payloads crossed the group (two all-gathers a leaf a
+    compressed round, one all-reduce a sync round); no group is left up."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(configs, "get_arch", lambda name: configs.ArchConfig(model=TINY))
+    for name in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    _count_plain_launches(monkeypatch)
+    report = {}
+    launches = chip_smoke.run_launch(report)
+    kernels.reset_launch_counts()
+    assert not dist.is_initialized()
+    out = report["launch"]
+    nleaf, c = out["leaves"], chip_smoke.LAUNCH_COMPRESSED
+    assert (out["backend"], out["world"], out["tier"]) == ("gloo", 1, "loopback")
+    assert {k: v for k, v in launches["ml"].items() if v} == {
+        "randk_gather": c * nleaf, "scatter_accum": c * nleaf}
+    assert {k: v for k, v in launches["mp"].items() if v} == {
+        "randk_seeded_workers": chip_smoke.LAUNCH_PP_COMPRESSED,
+        "scatter_accum": chip_smoke.LAUNCH_PP_COMPRESSED}
+    assert out["ml_bit_equal"] and out["mp_bit_equal"]
+    assert out["ml_auto"]["collectives"] == {"all_gather": 2 * c * nleaf, "all_reduce": 1}
+    assert out["ml_auto"]["up_bits"]["compressed"] == chip_smoke.ml_up_bits(
+        init_params_meta())
+    # the bytes the collectives carried, ×8 ÷ n, are the booked bits
+    assert out["ml_auto"]["wire_up_bits_by_round"][1:] == [
+        out["ml_auto"]["up_bits"]["compressed"]] * c
+    assert [set(w) for w in out["ml_auto"]["wire_bytes_by_round"]] == (
+        [{"all_reduce"}] + [{"all_gather"}] * c)
+    assert out["mp_auto"]["wire_bytes_by_round"] == [{"all_reduce": out["mp_auto"][
+        "wire_bytes_by_round"][0]["all_reduce"]}] + [{}] * chip_smoke.LAUNCH_PP_COMPRESSED
+    assert out["ml_auto"]["ledger"] == out["ml_ref"]["ledger"]
+
+
+def init_params_meta():
+    from repro_torch.models import init_params
+
+    return init_params(0, TINY, device="meta")
+
+
+def test_ml_uplink_formula_is_qwen_s():
+    """231,993,856 bits a worker a compressed ml round: Σ R·kb·64 over
+    Qwen1.5-0.5B's 14 leaves, d = 463,987,712."""
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import init_params, param_count
+
+    shapes = init_params(0, configs.get_arch("qwen1.5-0.5b").model, device="meta")
+    assert param_count(shapes) == chip_smoke.QWEN_D
+    assert len(tree_leaves(shapes)) == 14
+    assert chip_smoke.ml_up_bits(shapes) == chip_smoke.ML_UP_BITS
+
+
+def test_transport_width_phase_runs_at_a_tiny_row_count(monkeypatch):
+    """``scatter_accum`` and ``randk_gather`` at the transport's widths (L =
+    2816 and 25,600, R cut to a few rows) against their plain versions, the
+    MLP leaf timed against its bound, with a host clock in place of the
+    CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    widths = {k: (n, 3, L, kb) for k, (n, _R, L, kb) in chip_smoke.TRANSPORT_WIDTHS.items()}
+    assert [w[2] for w in widths.values()] == [2816, 25600]
+    monkeypatch.setattr(chip_smoke, "TRANSPORT_WIDTHS", widths)
+    rows, report = {"scatter_accum": {}, "randk_gather": {}}, {}
+    chip_smoke.check_transport_widths("cpu", report, rows)
+    assert set(report["transport_widths"]) == set(widths)
+    t = rows["scatter_accum"]["transport"]
+    n, R, L, kb = widths["qwen_mlp"]
+    assert t["bytes"] == n * R * kb * 8 + R * L * 4 and t["bound_by"] == "bytes"
+    assert rows["randk_gather"]["transport"]["shape"] == [n * R, L, kb]

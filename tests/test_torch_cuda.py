@@ -64,9 +64,13 @@ def test_randk_and_scatter_accum_on_card(dev, shape):
 #: scatter_accum's shapes beyond SHAPES: kb = B with n = 33 (a chunk of 32
 #: pairs a round, many rounds a block) at B = 1024 and below 128, where a
 #: warp's row is shorter than its 32 lanes' float4s, down to B = 2 and 1
-#: (no float4 at all)
+#: (no float4 at all); then the launch layer's per-leaf widths: Qwen1.5-0.5B's
+#: MLP leaf (L = 2816, kb = 22), qwen3-32b's (L = 25,600, one warp a CTA), rows
+#: that are not 16-byte aligned (L = 1001, 9001: one float a lane) and the
+#: widest row a CTA's shared memory holds (58,112)
 SCATTER_SHAPES = SHAPES + [(33, 5, B, B) for B in (8, 32, 128, 1024)] + [
-    (3, 7, 2, 2), (2, 9, 1, 1)]
+    (3, 7, 2, 2), (2, 9, 1, 1), (4, 37, 2816, 22), (4, 5, 25600, 200), (3, 7, 1001, 7),
+    (2, 9, 9001, 70), (4, 3, randk.MAX_SCATTER_WIDTH, 454)]
 
 
 @pytest.mark.parametrize("spread", ["dups", "spread"])
@@ -954,6 +958,13 @@ def test_global_norm_qsgd_bit_equal_on_card(dev, shape, xdtype):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["block_sumsq"] == 1
     assert kernels.launch_counts()["qsgd_quantize"] == 5
+
+
+def test_scatter_accum_refuses_a_row_past_shared_memory_on_card(dev):
+    W = randk.MAX_SCATTER_WIDTH + 1
+    v = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError, match=str(W)):
+        randk.scatter_accum(v, torch.zeros((1, 2, 4), dtype=torch.int32, device=dev), W)
 
 
 def test_flat_wire_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -220,3 +220,30 @@ def test_delta_epilogue_within_one_ulp(xdtype):
     assert ulp_diff(tg2, jg2) <= 1 and ulp_diff(tx2, jx2) <= 1
     wg, wx = tk.epilogue.delta_epilogue(*args)
     assert torch.equal(wg, tg2) and torch.equal(wx, tx2)
+
+
+@pytest.mark.parametrize("B", [3, 100, 1001, 2816, 25600])
+def test_scatter_accum_takes_the_transport_widths(B):
+    """Any row width a leaf's last dimension gives the launch layer's wire
+    (not only powers of two): the wrapper on CPU tensors equals the
+    reference's oracle bit for bit, duplicates included."""
+    rng = np.random.default_rng(B)
+    n, R, kb = 4, 3, max(1, B // 128)
+    v = rng.standard_normal((n, R, kb), dtype=np.float32)
+    o = rng.integers(0, B, size=(n, R, kb)).astype(np.int32)
+    want = jref.scatter_accum_ref(jnp.asarray(v), jnp.asarray(o), B)
+    got = tk.randk.scatter_accum(torch.from_numpy(v), torch.from_numpy(o), B)
+    assert ulp_diff(got, want) == 0
+
+
+def test_scatter_accum_refuses_rows_past_shared_memory():
+    """A row wider than one CTA's shared memory holds (227 KiB of f32) is
+    refused with its width named, on the CPU as on the card."""
+    W = tk.randk.MAX_SCATTER_WIDTH
+    assert W == 58112
+    v = torch.zeros((1, 2, 4))
+    o = torch.zeros((1, 2, 4), dtype=torch.int32)
+    assert tk.randk.scatter_accum(v, o, W).shape == (2, W)
+    for bad in (W + 1, 0):
+        with pytest.raises(ValueError, match=f"width {bad} "):
+            tk.randk.scatter_accum(v, o, bad)

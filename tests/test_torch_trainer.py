@@ -244,10 +244,15 @@ def test_port_imports_no_jax_and_no_reference():
         "             'serve_lm_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "spec = importlib.util.spec_from_file_location('cat', 'scripts/check_async_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "new = ('repro_torch.checkpoint.store', 'repro_torch.core.problems',\n"
         "       'repro_torch.data.pipeline', 'repro_torch.models.moe',\n"
         "       'repro_torch.configs.deepseek_v3_671b', 'repro_torch.models.ssm',\n"
-        "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m')\n"
+        "       'repro_torch.configs.recurrentgemma_2b', 'repro_torch.configs.xlstm_350m',\n"
+        "       'repro_torch.launch.topology', 'repro_torch.launch.transport',\n"
+        "       'repro_torch.launch.distributed', 'repro_torch.launch.participation',\n"
+        "       'repro_torch.launch.sharding', 'repro_torch.launch.train')\n"
         "assert all(m in sys.modules for m in new), new\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
