@@ -65,7 +65,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    Qwen1.5-0.5B's MLP leaf (n = 4, 24,576 rows of L = 2816, kb = 22) and one
    layer of qwen3-32b's (5120 rows of L = 25,600, kb = 200) on offsets drawn
    as the transport draws them, bit-equal to their plain versions; the MLP
-   leaf's times against their bounds (the kernel line's ``transport``).
+   leaf's times against their bounds (the kernel line's ``transport``),
+   and there ``randk_gather`` (row 10) against the gather yardstick on the
+   same 98,304 rows of 2816 f32 and kb 22 and the 32- / 64-byte sector
+   floors of its offsets (``transport_gather_floor``; a redesign due above
+   ``TRANSPORT_GATHER_RULE2``× the yardstick).
    The random-gather yardsticks (``kernels/yardstick.py``: no path's
    kernel, no port of a TPU kernel; ``check_gather_floors``): the gather
    yardstick at row 1's production shape and at the wire shape of rows
@@ -227,7 +231,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    compressed round (14 each) and nothing on the sync round. ``mp``: the
    flat-PP path (r = 2 of 4, cohort compute, no carry), one sync round and
    2 compressed rounds through the kernels and the plain versions,
-   bit-equal; rows 1 and 2 once a compressed round; r·ζ_Q/n booked. Each
+   bit-equal; rows 1 and 2 once a compressed round; r·ζ_Q/n booked, and
+   read off the wire: the cohort rows' payloads and seeds all-gathered,
+   ×8 ÷ n, equal it (no dense state crosses). Each
    run starts with one untimed ``sync_step`` (the process's first backprop
    and the group's first collective), then the timed rounds. The bytes each
    round's collectives carried are read off the mesh: ×8 ÷ n, an ``ml``
@@ -235,6 +241,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    round's all-reduce 32 bits a slot of the padded flat buffer. Seconds a
    round by type (host clock ending in a synchronize), the transport's
    seconds a call, peak memory and the collectives issued on the group.
+
+13. mesh_serve — on the launch phase's group, before it is destroyed
+   (``run_mesh_serve``, ≤ 120 s): Qwen1.5-0.5B at full width and depth,
+   f32, seed 0, on a (1, 1) mesh. (a) ``SERVE_SPEC`` through
+   ``launch.serve_steps.build_paged_serve_steps`` (8 slots, pages of 16,
+   chunks of 128) driven by the engine (``serve_steps.engine_steps``), on
+   f32 and int8 pages (``mesh_serve_f32`` / ``mesh_serve_q8`` in
+   ``launches_by_path``): streams bit-equal to ``run_continuous``'s,
+   launches ``serve_launches`` (rows 22–24), the exchanges' bytes every
+   slot's written K/V rows and token a decode step; then the same bundle
+   through the plain versions, which may diverge only at phase 9's listed
+   near ties. The median decode step (host clock) against its floor,
+   ``roofline.decode_bandwidth_bound_s`` of the f32 parameters
+   (``param_math``, 4 B each) and the step's live KV pages at 3.35e12 B/s.
+   (b) ``build_serve_steps``: a prefill of ``MESH_DENSE`` (8 × 512, last
+   logits) and 8 decode steps, every logit row within 1e-4 of its largest
+   from a teacher-forced ``forward``. (c) ``param_math``'s counts of the
+   ten configs from meta shapes (three held to the reference's), and one
+   ``ml`` compressed round's 6·N·D FLOPs at the f32 peak (67 TFLOP/s)
+   against the launch phase's host-clock round and the device-busy time of
+   one traced round. (d) ``roofline.analyze_step`` on one ``ml``
+   compressed round: FLOPs, bytes, collective stats, peak memory, the
+   dominant term.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -559,6 +588,24 @@ QWEN_D, ML_UP_BITS = 463_987_712, 231_993_856
 #: rows of 2816; timed) and one layer of qwen3-32b's (5120 rows of 25,600)
 TRANSPORT_WIDTHS = {"qwen_mlp": (LAUNCH_N, 24 * 1024, 2816, 22),
                     "qwen3_mlp_layer": (LAUNCH_N, 5120, 25600, 200)}
+
+#: the mesh_serve phase (after the launch phase's paths, on its one-rank
+#: group): Qwen1.5-0.5B at full width and depth, f32. SERVE_SPEC through
+#: ``serve_steps.build_paged_serve_steps`` on f32 and int8 pages (kernels,
+#: then the plain versions); a dense prefill of MESH_DENSE[0] ×
+#: MESH_DENSE[1] tokens (last logits) and MESH_DENSE[2] decode steps through
+#: ``build_serve_steps``; ``param_math``'s counts of the ten configs; one
+#: ``ml`` compressed round's FLOP share of the f32 peak and its roofline
+MESH_SERVE_PATHS = {"mesh_serve_f32": False, "mesh_serve_q8": True}
+MESH_DENSE = (8, 512, 8)
+MESH_SERVE_BUDGET_S = 120.0
+#: the reference's parameter counts (params, active) of three configs
+PARAM_COUNTS = {"deepseek-v3-671b": (682_636_457_984, 38_240_368_640),
+                "llama4-scout-17b-a16e": (107_769_873_408, 17_172_907_008),
+                "qwen1.5-0.5b": (463_987_712, 463_987_712)}
+#: the gather yardstick's time at the transport's row-10 shape over the
+#: kernel's back-to-back time above which the gather is due a redesign
+TRANSPORT_GATHER_RULE2 = 2.0
 
 
 #: keys a kernel's row adds to the kernel line where it has them, each
@@ -3544,10 +3591,45 @@ def check_transport_widths(card: str, report: dict, rows: dict) -> None:
                 "shape": [n * R, L, kb]}
             print(f"time randk_gather at {label}: {times_text(t)}, bound {b_ms:.4f} ms "
                   f"({b_by}) on {card}", flush=True)
+            t.update(transport_gather_floor(x, o2, kb, label, card))
             del kern, plain, lib
         del x, o, o2, v
         torch.cuda.empty_cache()
     report["transport_widths"] = out
+
+
+def transport_gather_floor(x, o2, kb: int, label: str, card: str) -> dict:
+    """Row 10 (``randk_gather``) at the transport's shape against a bare
+    gather: the gather yardstick on the same (rows, L) f32 buffer and kb
+    (checked against its plain version, timed over ``yardstick.SWEEP``) and
+    the 32- / 64-byte sector floors of the kernel's own offsets (``o2``: 4
+    bytes of offset read and 4 of value written a gathered value). Prints
+    the kernel's back-to-back time over the yardstick's, a redesign due
+    above ``TRANSPORT_GATHER_RULE2``."""
+    import torch
+
+    from repro_torch.kernels import randk, yardstick
+
+    v, o = yardstick.gather(x, kb)
+    vr, orf = yardstick.gather_ref(x, kb)
+    require(bits_equal(v, vr) and torch.equal(o, orf),
+            f"gather yardstick at {label}: differs from its plain version")
+    del v, o, vr, orf
+    out = {**sweep_floor(lambda u, t: lambda: yardstick.gather(x, kb, u, t)),
+           **sector_floors(o2, 8)}
+    L = x.shape[1]
+    b2b = back_to_back_ms(lambda: randk.randk_gather(x, o2, L / kb))
+    out["kernel_b2b_ms"] = b2b
+    out["over_yardstick"] = ratio = b2b / out["gather_floor_ms"]
+    print(f"gather yardstick randk_gather ({label}: {x.shape[0]} rows of {L}, kb={kb}): "
+          f"{out['gather_floor_ms']:.4f} ms (fastest of {json.dumps(out['sweep_b2b_ms'])}), "
+          f"32-byte sector floor {out['sector_floor_ms']:.4f}, 64-byte "
+          f"{out['segment_floor_ms']:.4f} ms; kernel back-to-back {b2b:.4f} ms = "
+          f"{ratio:.3f}× the yardstick's on {card}", flush=True)
+    print(f"rule 2 randk_gather at {label}: {ratio:.3f}× the gather yardstick (a redesign "
+          f"above {TRANSPORT_GATHER_RULE2:.1f}×: "
+          f"{'due' if ratio > TRANSPORT_GATHER_RULE2 else 'not due'}) on {card}", flush=True)
+    return {"yardstick": out}
 
 
 def ml_up_bits(params) -> float:
@@ -3640,14 +3722,286 @@ def run_launch(report: dict) -> dict:
     try:
         require(topo.init_from_env(device=DEVICE) == (0, 1), "bring-up")
         out, launches = _launch_paths(report)
+        secs = time.perf_counter() - t_phase
+        report["launch"] = dict(out, seconds=secs)
+        print(f"launch phase: {secs:.1f} s (budget {LAUNCH_BUDGET_S:.0f})", flush=True)
+        require(secs <= LAUNCH_BUDGET_S, f"launch phase took {secs:.1f} s")
+        launches.update(run_mesh_serve(report))
     finally:
         topo.shutdown()
         for name in (topo.PROCESS_ENV, topo.COORD_ENV):
             os.environ.pop(name, None)
+    return launches
+
+
+def live_kv_bytes(lengths, page_size: int, row_bytes: int) -> int:
+    """The KV bytes a paged decode step reads: every page an active slot
+    (length > 0) holds once its new token is written, whole, at
+    ``row_bytes`` a token row of every layer."""
+    return sum(-(-(int(n) + 1) // page_size) * page_size * row_bytes
+               for n in lengths if int(n) > 0)
+
+
+def first_divergences(got: list, want: list) -> set:
+    """(request, token) of the first token where each stream differs."""
+    out = set()
+    for rid, (a, b) in enumerate(zip(got, want)):
+        require(len(a) == len(b), f"request {rid}: lengths {len(a)} != {len(b)}")
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            out.add((rid, j))
+    return out
+
+
+def mesh_paged_path(arch, params, mesh, quantized: bool, backend: str) -> tuple:
+    """SERVE_SPEC through ``build_paged_serve_steps`` on ``mesh``, the
+    engine driven by ``serve_steps.engine_steps``; each decode step timed
+    on the host clock (it ends in the tokens' copy to the host) beside the
+    live KV bytes it reads. Returns (streams, ServeReport dict, launches,
+    [(seconds, kv bytes)] by decode step, the mesh's bytes by kind)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve_steps import build_paged_serve_steps, engine_steps
+
+    cfg = arch.model
+    pairs = serve.parse_requests(SERVE_SPEC)
+    reqs = serve.make_workload(cfg, pairs)
+    layout = serve.paged_layout(reqs, slots=SERVE_SLOTS, page_size=SERVE_PAGE)
+    b = build_paged_serve_steps(arch, mesh, n_slots=SERVE_SLOTS, npage=layout.npage,
+                                page_size=SERVE_PAGE, max_pages=layout.max_pages,
+                                chunk=SERVE_CHUNK, dtype=torch.float32, quantized=quantized,
+                                backend=backend)
+    row_bytes = sum(leaf[:, 0, 0].numel() * leaf.element_size()
+                    for leaf in tree_leaves(b.meta["cache_shapes"]))
+    steps = engine_steps(b, params)
+    rec = []
+
+    def timed(cache, toks, lengths, tables, _fn=steps["decode"]):
+        t0 = time.perf_counter()
+        out = _fn(cache, toks, lengths, tables)
+        rec.append((time.perf_counter() - t0, live_kv_bytes(lengths, SERVE_PAGE, row_bytes)))
+        return out
+
+    steps["decode"] = timed
+    gc.collect()
+    _sync()
+    mesh.reset_counts()
+    kernels.reset_launch_counts()
+    rep = serve.run_continuous(params, cfg, reqs, quantized=quantized, steps=steps,
+                               slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                               chunk=SERVE_CHUNK).to_dict()
+    _sync()
+    launches = kernels.launch_counts()
+    rep["n_layers"] = cfg.num_layers
+    rep["row_bytes"] = row_bytes
+    return [r.generated for r in reqs], rep, launches, rec, dict(mesh.payload_bytes)
+
+
+def device_busy_ms(fn) -> "dict | None":
+    """One call of ``fn`` under ``torch.profiler``: the union of its device
+    intervals (kernels, copies, sets) and the host wall of the call, in ms
+    (None on the CPU: no device)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE == "cpu":
+        fn()
+        return None
+    trace = os.path.join(ROOT, "build", "mesh_serve_ml_round.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace)
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    require(dev, "mesh_serve: the ml round's trace holds no device activity")
+    return {"device_busy_ms": _union_us(dev) / 1e3, "wall_ms": wall * 1e3,
+            "device_events": len(dev)}
+
+
+def run_mesh_serve(report: dict) -> dict:
+    """Phase 13 (module doc): the serving bundles and the roofline on the
+    launch phase's group. Must take at most MESH_SERVE_BUDGET_S."""
+    import torch
+
+    from repro_torch import configs, prng
+    from repro_torch.core.tree_util import tree_leaves, tree_map
+    from repro_torch.launch import param_math as pm
+    from repro_torch.launch import serve
+    from repro_torch.launch import topology as topo
+    from repro_torch.launch.distributed import build_train_steps
+    from repro_torch.launch.serve_steps import build_serve_steps
+    from repro_torch.models import forward, init_params
+    from repro_torch.roofline import HW, analyze_step, decode_bandwidth_bound_s
+    from repro_torch.roofline.analysis import H100_F32_PEAK_FLOPS
+
+    t_phase = time.perf_counter()
+    card = report.get("card", "")
+    out: dict = {}
+    launches: dict = {}
+    arch = configs.get_arch("qwen1.5-0.5b")
+    cfg = arch.model
+    params = init_params(SEED, cfg, device=DEVICE)
+    mesh = topo.make_test_mesh(1, 1, device=DEVICE)
+    param_bytes = 4.0 * pm.count_params(cfg)
+    n_params = pm.count_params(cfg)
+    require(n_params == sum(t.numel() for t in tree_leaves(params)),
+            f"param_math counts {n_params} parameters the model does not have")
+
+    # (a) the paged bundles on SERVE_SPEC
+    pairs = serve.parse_requests(SERVE_SPEC)
+    listed = report.get("serve_paths", {})
+    for path, quantized in MESH_SERVE_PATHS.items():
+        want_reqs = serve.make_workload(cfg, pairs)
+        serve.run_continuous(params, cfg, want_reqs, quantized=quantized, slots=SERVE_SLOTS,
+                             page_size=SERVE_PAGE, chunk=SERVE_CHUNK)
+        want = [r.generated for r in want_reqs]
+        got, rep, counts, rec, wire = mesh_paged_path(arch, params, mesh, quantized, "auto")
+        require(got == want, f"{path}: streams differ from run_continuous's")
+        exp = {name: serve_launches(quantized, rep).get(name, 0) for name in counts}
+        require(counts == exp, f"{path} launches {counts} != {exp}")
+        launches[path] = counts
+        steps = rep["decode_steps"]
+        require(wire.get("tokens") == steps * SERVE_SLOTS * 4
+                and wire.get("kv_rows") == steps * SERVE_SLOTS * rep["row_bytes"],
+                f"{path}: the exchanges carried {wire}")
+        plain, _, plain_counts, _, _ = mesh_paged_path(arch, params, mesh, quantized, "ref")
+        require(not any(plain_counts.values()), f"{path}: the plain run launched {plain_counts}")
+        near = {(d["rid"], d["token"]) for d in listed.get(
+            "serve_continuous_q8" if quantized else "serve_continuous", {}).get("diverged", [])}
+        diverged = first_divergences(got, plain)
+        require(diverged <= near, f"{path}: the plain run diverges at {sorted(diverged)}, "
+                                  f"not among phase 9's near ties {sorted(near)}")
+        secs = [t for t, _ in rec]
+        bounds = [decode_bandwidth_bound_s(kv, param_bytes, 1, HW())["bound_s"]
+                  for _, kv in rec]
+        step_ms, bound_ms = statistics.median(secs) * 1e3, statistics.median(bounds) * 1e3
+        out[path] = run = {
+            "decode_steps": steps, "prefill_chunks": rep["prefill_chunks"],
+            "tokens_per_s": rep["tokens_per_s"], "median_decode_step_ms": step_ms,
+            "median_bound_ms": bound_ms, "floor_share": bound_ms / step_ms,
+            "param_bytes": param_bytes,
+            "median_kv_bytes": statistics.median(kv for _, kv in rec),
+            "wire_bytes": wire, "plain_diverged": sorted(diverged),
+            "launches": {k: v for k, v in counts.items() if v}}
+        print(f"mesh_serve {path}: streams equal run_continuous's; median decode step "
+              f"{step_ms:.3f} ms, its floor (decode_bandwidth_bound_s: {param_bytes:.0f} B "
+              f"of f32 params + median {run['median_kv_bytes']:.0f} B of live KV pages at "
+              f"3.35e12 B/s) {bound_ms:.4f} ms = {run['floor_share']:.4f} of the step; "
+              f"{steps} decode steps, {rep['prefill_chunks']} chunks, launches "
+              f"{run['launches']}, exchanges {wire}, the plain run's divergences "
+              f"{run['plain_diverged']} on {card}", flush=True)
+        del want_reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) the dense bundles: prefill with last logits, decode, teacher-forced
+    B, S, n = MESH_DENSE
+    toks = prng.randint(prng.PRNGKey(SEED + 30), (B, S), 0, cfg.vocab_size, device=DEVICE)
+    pre = build_serve_steps(arch, mesh, batch=B, seq_len=S + n, mode="prefill",
+                            dtype=torch.float32, last_logits=True)
+    dec = build_serve_steps(arch, mesh, batch=B, seq_len=S + n, mode="decode",
+                            dtype=torch.float32)
+    t0 = time.perf_counter()
+    lg, cache = pre.fns["prefill_step"](params, toks)
+    logits = [lg]
+    for i in range(n):
+        lg, cache = dec.fns["decode_step"](params, cache, torch.argmax(logits[-1], -1), S + i)
+        logits.append(lg)
+    _sync()
+    dense_s = time.perf_counter() - t0
+    del cache
+    gen = torch.stack([torch.argmax(lg, -1) for lg in logits[:n]], dim=1)
+    with torch.inference_mode():
+        full = forward(params, cfg, torch.cat([toks, gen.to(toks.dtype)], dim=1))[0]
+    worst = 0.0
+    for i, lg in enumerate(logits):
+        want_lg = full[:, S - 1 + i].double()
+        err = ((lg.double() - want_lg).abs().amax(-1) / want_lg.abs().amax(-1)).max()
+        worst = max(worst, float(err))
+    del full, logits
+    require(worst <= FAMILY_LOGIT_RTOL,
+            f"mesh_serve dense: logits {worst} of the row's largest from the teacher-forced "
+            "forward")
+    out["dense"] = {"batch": B, "prompt": S, "decode_steps": n, "seconds": dense_s,
+                    "max_rel_logit_err": worst, "bound": FAMILY_LOGIT_RTOL,
+                    "wire_bytes": dict(mesh.payload_bytes)}
+    print(f"mesh_serve dense: prefill {B} × {S} (last logits) + {n} decode steps in "
+          f"{dense_s:.2f} s; logits within {worst:.3g} of each row's largest from a "
+          f"teacher-forced forward (bound {FAMILY_LOGIT_RTOL})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) param_math: the ten configs from meta shapes, the ml round's FLOPs
+    counts = {}
+    for name in sorted(configs.PUBLIC_TO_MODULE):
+        c = configs.get_arch(name).model
+        counts[name] = [pm.count_params(c), pm.count_active_params(c)]
+        if name in PARAM_COUNTS and c.name == name:
+            require(tuple(counts[name]) == PARAM_COUNTS[name],
+                    f"{name}: counts {counts[name]} != the reference's {PARAM_COUNTS[name]}")
+    tokens = LAUNCH_N * LAUNCH_BATCH * LAUNCH_SEQ
+    mf = pm.model_flops(cfg, tokens)
+    flop_s = mf / H100_F32_PEAK_FLOPS
+    host_s = report["launch"]["ml_auto"]["median_s"]["compressed"]
+    out["param_counts"] = counts
+    print(f"mesh_serve param_math: (params, active) {json.dumps(counts)}", flush=True)
+
+    # (d) the ml round: device busy under the profiler, then analyze_step
+    lmesh = topo.make_test_mesh(LAUNCH_N, 1, device=DEVICE)
+    b = build_train_steps(arch, lmesh, False, grad_carry=True, global_batch=tokens // LAUNCH_SEQ,
+                          seq_len=LAUNCH_SEQ, dtype=torch.float32)
+    gen_t = torch.Generator(device=lmesh.device).manual_seed(SEED + 21)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LAUNCH_N, LAUNCH_BATCH, LAUNCH_SEQ),
+                                     generator=gen_t, device=lmesh.device)}
+    state = b.fns["sync_step"](params, tree_map(torch.zeros_like, params),
+                               tree_map(lambda t: t.new_zeros((LAUNCH_N, *t.shape)), params),
+                               batch)
+    comp = b.fns["compressed_step"]
+    busy = device_busy_ms(lambda: comp(*state, batch, prng.PRNGKey(SEED + 31)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    hw32 = HW(peak_flops=H100_F32_PEAK_FLOPS)
+    roof = analyze_step(comp, *state, batch, prng.PRNGKey(SEED + 32), n_devices=1,
+                        model_flops_total=mf, topology=topo.detect_topology(lmesh),
+                        mesh=lmesh, hw=hw32, device=lmesh.device)
+    del state
+    out["ml_round"] = ml = {
+        "model_flops": mf, "flop_s_at_f32_peak": flop_s, "host_s": host_s,
+        "share_of_peak_host": flop_s / host_s,
+        **({} if busy is None else {**busy, "share_of_peak_busy":
+                                    flop_s / (busy["device_busy_ms"] / 1e3)}),
+        "roofline": roof.to_dict()}
+    busy_txt = ("device busy not measured (no device)" if busy is None else
+                f"device busy {busy['device_busy_ms']:.1f} ms of a {busy['wall_ms']:.1f} ms "
+                f"traced round: {ml['share_of_peak_busy']:.3f} of the peak")
+    print(f"mesh_serve ml round: 6·N·D = {mf:.4g} FLOP = {flop_s:.4f} s at "
+          f"{H100_F32_PEAK_FLOPS:.3g} FLOP/s; host clock {host_s:.4f} s a round (launch phase): "
+          f"{ml['share_of_peak_host']:.3f} of the peak; {busy_txt} on {card}", flush=True)
+    print(f"mesh_serve ml round roofline (analyze_step, HW f32 peak): counted FLOPs "
+          f"{roof.flops_per_device:.4g} (useful ratio {roof.useful_ratio:.3f}), bytes "
+          f"{roof.bytes_per_device:.4g}, collective {roof.collective.per_device_bytes:.4g} B "
+          f"({roof.collective.counts}), peak memory {roof.peak_memory_per_device}, terms "
+          f"compute {roof.compute_s:.4f} s / memory {roof.memory_s:.4f} s / collective "
+          f"{roof.collective_s:.4g} s, dominant {roof.dominant}", flush=True)
+    del params, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
     secs = time.perf_counter() - t_phase
-    report["launch"] = dict(out, seconds=secs)
-    print(f"launch phase: {secs:.1f} s (budget {LAUNCH_BUDGET_S:.0f})", flush=True)
-    require(secs <= LAUNCH_BUDGET_S, f"launch phase took {secs:.1f} s")
+    out["seconds"] = secs
+    report["mesh_serve"] = out
+    print(f"mesh_serve phase: {secs:.1f} s (budget {MESH_SERVE_BUDGET_S:.0f})", flush=True)
+    require(secs <= MESH_SERVE_BUDGET_S, f"mesh_serve phase took {secs:.1f} s")
     return launches
 
 
@@ -3774,6 +4128,12 @@ def _launch_paths(report: dict) -> tuple:
         nblk = math.ceil(d / PP_BLOCK)
         pp_up = r * (32.0 + 32.0 * nblk * PP_KB) / LAUNCH_N
         require(comp_up == pp_up, f"mp compressed uplink {comp_up} != {pp_up}")
+        # the r payload rows and their seeds cross by all-gather, read off
+        # the wire as the ledger books them; no dense state crosses
+        for i, w in enumerate(wire[1:], 1):
+            bits = sum(w.values()) * 8.0 / LAUNCH_N
+            require(set(w) == {"all_gather"} and bits == comp_up,
+                    f"mp round {i} wire {w}: {bits} bits a worker != booked {comp_up}")
         want_round = ({"randk_seeded_workers": 1, "scatter_accum": 1}
                       if backend == "auto" else {})
         for i, got in enumerate(per_round[1:], 1):
@@ -3785,9 +4145,8 @@ def _launch_paths(report: dict) -> tuple:
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         out[f"mp_{backend}"] = run
         print(f"launch mp ({backend}): s/round {run['median_s']} ({secs}), compressed up "
-              f"bits/worker {comp_up:.0f} (the cohort rows are on the rank: wire by round "
-              f"{wire}), collectives {run['collectives']}, "
-              f"launches/round {per_round[1]}", flush=True)
+              f"bits/worker {comp_up:.0f} (wire by round {wire}), collectives "
+              f"{run['collectives']}, launches/round {per_round[1]}", flush=True)
         if backend == "auto":
             launches["mp"] = _summed(per_round)
         finals.append(state)

@@ -180,11 +180,9 @@ def seeded_offsets(seed: int, nblk: int, block: int, kb: int,
     """(nblk, kb) int32 offsets in [0, block) from the murmur3 counter RNG,
     the ones the seeded kernel samples for ``seed``. On ``cuda`` unless
     ``device`` names another."""
-    device = default_device(device)
-    ctr = (torch.arange(kb, dtype=torch.int64, device=device)[None, :]
-           + (torch.arange(nblk, dtype=torch.int64, device=device) * kb)[:, None])
-    bits = _ref.murmur_bits_ref(int(seed) & 0xFFFFFFFF, ctr)
-    return (bits & (block - 1)).to(torch.int32)
+    seeds = torch.tensor([int(seed) & 0xFFFFFFFF], dtype=torch.int64,
+                         device=default_device(device))
+    return _ref.seeded_offsets_ref(seeds, nblk, block, kb)[0]
 
 
 def _kernel(backend: str, tensor: torch.Tensor, wrapper, plain):
@@ -328,6 +326,8 @@ class FlatEngine:
     device: Any = None
 
     SAMPLERS = ("randk", "permk", "qsgd", "natural", "randk_qsgd")
+    #: the samplers whose wire splits at the rows (:meth:`encode_rows`)
+    SPLIT_WIRE = ("randk", "permk", "qsgd")
 
     def __post_init__(self):
         if self.sampler not in self.SAMPLERS:
@@ -401,27 +401,21 @@ class FlatEngine:
     def worker_dense(self, key, bufs: torch.Tensor, n: int) -> torch.Tensor:
         """Each worker's payload decoded densely: (n, nblk, B) diffs → (n, nblk,
         B) f32 rows Q_i(Δ_i), from the seeds and payloads :meth:`aggregate`
-        uses. QSGD: the uplink kernel, the 4-bit words for s ≤ 7, then
-        levels·(norm/s); natural: the uplink kernel, then the plain decode;
-        RandK (and RandK∘QSGD): the RandK kernel (and the plain K-sized QSGD
-        stage), then one scatter-mean kernel per worker at n = 1. PermK
+        uses. RandK and QSGD: the wire of :meth:`encode_rows`, decoded by
+        :meth:`decode_rows`; natural: the uplink kernel, then the plain
+        decode; RandK∘QSGD: the RandK kernel and the plain K-sized QSGD
+        stage, then one scatter-mean kernel per worker at n = 1. PermK
         raises: its workers partition the coordinates, so there is no
         per-coordinate sample to aggregate robustly."""
-        if self.sampler == "permk":
-            raise ValueError("PermK partitions coordinates across workers; robust "
-                             "aggregation is undefined on its payloads")
-        if self.sampler == "qsgd":
-            levels, norms = self._qsgd_payloads(key, bufs, n)
-            return levels.float().mul_(_ref.div_n(norms, self.s)[..., None])
         if self.sampler == "natural":  # worker by worker: the decode's temporaries
             codes, scales = self._natural_payloads(key, bufs, n)
             rows = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
             for w in range(codes.shape[0]):
                 rows[w] = _ref.natural_decode_ref(codes[w], scales[w])
             return rows
-        vals, offs = self._sampled_payloads(key, bufs, n)
-        return torch.stack([self.decompress_mean(vals[w : w + 1], offs[w : w + 1])
-                            for w in range(vals.shape[0])])
+        if self.sampler == "randk_qsgd":
+            return self._scatter_rows(*self._sampled_payloads(key, bufs, n))
+        return self.decode_rows(self.encode_rows(key, bufs, range(n), n), n)
 
     # -- the hot path -------------------------------------------------------
     def fused_delta(self, key, diffs: PyTree, n: int, aggregator=None) -> PyTree:
@@ -432,45 +426,152 @@ class FlatEngine:
 
     def aggregate(self, key, bufs: torch.Tensor, n: int, aggregator=None) -> torch.Tensor:
         """Server-side aggregate over packed diffs: (n, nblk, B) → (nblk, B).
-        A robust ``aggregator`` combines :meth:`worker_dense`'s rows."""
+        RandK, PermK and QSGD: every row through the split wire
+        (:meth:`encode_rows`, then :meth:`decode_mean`). A robust
+        ``aggregator`` combines :meth:`worker_dense`'s rows."""
+        if self.sampler in self.SPLIT_WIRE:
+            return self.decode_mean(self.encode_rows(key, bufs, range(n), n), n, aggregator)
         if aggregator is not None and aggregator.robust:
             return aggregator.combine_rows(self.worker_dense(key, bufs, n))
-        if self.sampler == "permk":
-            return self._permk_mean(key, bufs)
-        if self.sampler == "qsgd":
-            levels, norms = self._qsgd_payloads(key, bufs, n)
-            fn = (_ref.qsgd_dequant_mean_ref if self._plain(levels)
-                  else _quant.qsgd_dequant_mean)
-            return fn(levels, norms, self.s)
         if self.sampler == "natural":
             codes, scales = self._natural_payloads(key, bufs, n)
             fn = (_ref.natural_dequant_mean_ref if self._plain(codes)
                   else _quant.natural_dequant_mean)
             return fn(codes, scales)
-        vals, offs = self._sampled_payloads(key, bufs, n)
-        return self.decompress_mean(vals, offs)
+        return self.decompress_mean(*self._sampled_payloads(key, bufs, n))
 
-    def _permk_mean(self, key, bufs: torch.Tensor) -> torch.Tensor:
-        """PermK uplink of every worker under ONE shared seed, then the
-        scatter-free mean: an inverse-permutation gather in plain PyTorch on
-        every backend, as in the reference (disjoint supports make the mean
-        an assembly, not a sum)."""
-        seed = self._shared_seed(key)  # shared: all workers, one permutation
-        fn = (_ref.permk_seeded_workers_ref if self._plain(bufs)
-              else _permk.permk_seeded_workers)
-        vals, _ = fn(bufs, seed)
-        return _ref.permk_concat_mean_ref(vals, seed, self.layout.block)
+    # -- the split wire: rows encoded where they form, decoded everywhere --
+    def encode_rows(self, key, bufs: torch.Tensor, rows, n: int) -> dict:
+        """The payloads of rows ``rows`` of an n-row stack, from their packed
+        diffs ``bufs`` (len(rows), nblk, B), under the seeds :meth:`aggregate`
+        gives those rows. Returns the tensors that cross the wire, each with
+        a leading row axis — randk: ``values`` and ``seeds``; permk: the
+        ``values`` of the rows' shares and the shared ``seeds``; qsgd:
+        ``norms`` and the 4-bit ``words`` (s ≤ 7) or int8 ``levels`` — and,
+        for randk, the rows' ``offsets``, which never cross: a receiver
+        regenerates them from the seeds (:meth:`decode_mean`)."""
+        rows = [int(i) for i in rows]
+        if self.sampler not in self.SPLIT_WIRE:
+            raise ValueError(f"no split wire for sampler {self.sampler!r}")
+        if not rows:
+            return self._empty_payload(n, bufs.device)
+        seeds = (np.full(len(rows), self._shared_seed(key), dtype=np.uint32)
+                 if self.sampler == "permk" else self.worker_seeds(key, n)[rows])
+        seeds_t = _randk.seeds_tensor(seeds, bufs.device)
+        if self.sampler == "randk":
+            vals, offs = self.compress_stacked(seeds, bufs)
+            return {"values": vals, "seeds": seeds_t, "offsets": offs}
+        if self.sampler == "permk":
+            # the kernel numbers the shares by row: a part of the stack sits
+            # at its rows of an n-row stack (zeros elsewhere: those rows are
+            # computed and dropped)
+            every = rows == list(range(n))
+            full = bufs
+            if not every:
+                full = bufs.new_zeros((n,) + tuple(bufs.shape[1:]))
+                full[rows] = bufs
+            fn = (_ref.permk_seeded_workers_ref if self._plain(bufs)
+                  else _permk.permk_seeded_workers)
+            vals, _ = fn(full, int(seeds[0]))
+            return {"values": vals if every else vals[rows], "seeds": seeds_t}
+        fn = (_ref.qsgd_block_workers_ref if self._plain(bufs)
+              else _quant.qsgd_block_workers)
+        levels, norms = fn(bufs, seeds_t, self.s)
+        m, nblk, B = levels.shape
+        if self.s > wire.NIBBLE_MAX_S:
+            return {"levels": levels, "norms": norms}
+        pack = _ref.nibble_pack_ref if self._plain(bufs) else _quant.nibble_pack
+        return {"words": pack(levels.reshape(m * nblk, B)).reshape(m, nblk, B // 8),
+                "norms": norms}
+
+    def _empty_payload(self, n: int, device) -> dict:
+        """:meth:`encode_rows`' tensors for a rank that holds no row."""
+        nblk, B = self.layout.nblk, self.layout.block
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty((0, *shape), dtype=dtype, device=device)
+
+        if self.sampler == "randk":
+            return {"values": empty(nblk, self.kb), "seeds": empty(dtype=torch.int32),
+                    "offsets": empty(nblk, self.kb, dtype=torch.int32)}
+        if self.sampler == "permk":
+            return {"values": empty(nblk, B // n), "seeds": empty(dtype=torch.int32)}
+        if self.s > wire.NIBBLE_MAX_S:
+            return {"levels": empty(nblk, B, dtype=torch.int8), "norms": empty(nblk)}
+        return {"words": empty(nblk, B // 8, dtype=torch.int32), "norms": empty(nblk)}
+
+    def decode_mean(self, payload: dict, n: int, aggregator=None, rows=None) -> torch.Tensor:
+        """All n rows' payloads (:meth:`encode_rows`, rows in order 0..n−1)
+        → (nblk, B): the mean :meth:`aggregate` takes, bit for bit, or the
+        robust ``aggregator``'s rule over :meth:`decode_rows`. RandK
+        ``offsets`` in ``payload`` are those of rows ``rows`` (default: all
+        n); the other rows' come from their seeds."""
+        if aggregator is not None and aggregator.robust:
+            return aggregator.combine_rows(self.decode_rows(payload, n, rows))
+        if self.sampler == "randk":
+            return self.decompress_mean(payload["values"], self._offsets(payload, n, rows))
+        if self.sampler == "permk":
+            seed = int(payload["seeds"][0]) & 0xFFFFFFFF
+            return _ref.permk_concat_mean_ref(payload["values"], seed, self.layout.block)
+        levels = self._levels(payload, n)
+        fn = (_ref.qsgd_dequant_mean_ref if self._plain(levels)
+              else _quant.qsgd_dequant_mean)
+        return fn(levels, payload["norms"], self.s)
+
+    def decode_rows(self, payload: dict, n: int, rows=None) -> torch.Tensor:
+        """All n rows' payloads → (n, nblk, B) f32 rows Q_i(Δ_i): RandK one
+        scatter-mean kernel per row at n = 1, QSGD levels·(norm/s). PermK
+        raises (its rows partition the coordinates)."""
+        if self.sampler == "permk":
+            raise ValueError("PermK partitions coordinates across workers; robust "
+                             "aggregation is undefined on its payloads")
+        if self.sampler == "randk":
+            return self._scatter_rows(payload["values"], self._offsets(payload, n, rows))
+        return self._levels(payload, n).float().mul_(
+            _ref.div_n(payload["norms"], self.s)[..., None])
+
+    def _offsets(self, payload: dict, n: int, rows=None) -> torch.Tensor:
+        """The n rows' RandK offsets: ``payload``'s for rows ``rows``
+        (default: all n), the rest regenerated from their seeds in one
+        batched call (:func:`seeded_offsets` of each)."""
+        offs = payload.get("offsets")
+        if offs is None:
+            have = []
+        else:
+            have = list(range(n)) if rows is None else [int(j) for j in rows]
+        if len(have) == n:
+            return offs
+        seeds = payload["seeds"]
+        rest = torch.as_tensor([j for j in range(n) if j not in have], device=seeds.device)
+        out = torch.empty((n, self.layout.nblk, self.kb), dtype=torch.int32,
+                          device=seeds.device)
+        out[rest] = _ref.seeded_offsets_ref(seeds[rest], self.layout.nblk,
+                                            self.layout.block, self.kb)
+        if have:
+            out[torch.as_tensor(have, device=seeds.device)] = offs
+        return out
+
+    def _levels(self, payload: dict, n: int) -> torch.Tensor:
+        """The n rows' QSGD levels (n, nblk, B) int8, unpacked from the 4-bit
+        words where the wire carries them."""
+        if "levels" in payload:
+            return payload["levels"]
+        words, lay = payload["words"], self.layout
+        unpack = _ref.nibble_unpack_ref if self._plain(words) else _quant.nibble_unpack
+        return unpack(words.reshape(n * lay.nblk, -1), lay.block).reshape(
+            n, lay.nblk, lay.block)
+
+    def _scatter_rows(self, vals: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+        """Each row's RandK payload decoded densely: one scatter-mean at n = 1
+        a row."""
+        return torch.stack([self.decompress_mean(vals[w:w + 1], offs[w:w + 1])
+                            for w in range(vals.shape[0])])
 
     def _qsgd_payloads(self, key, bufs: torch.Tensor, n: int):
         """Every worker's QSGD payload (levels, norms), the levels through the
         4-bit words when s ≤ 7."""
-        seeds = _randk.seeds_tensor(self.worker_seeds(key, n), bufs.device)
-        fn = (_ref.qsgd_block_workers_ref if self._plain(bufs)
-              else _quant.qsgd_block_workers)
-        levels, norms = fn(bufs, seeds, self.s)
-        if self.s <= wire.NIBBLE_MAX_S:
-            levels = nibble_roundtrip(levels, self.layout.block, self.backend)
-        return levels, norms
+        payload = self.encode_rows(key, bufs, range(n), n)
+        return self._levels(payload, n), payload["norms"]
 
     def _natural_payloads(self, key, bufs: torch.Tensor, n: int):
         """Every worker's natural payload (codes, scales)."""
@@ -541,7 +642,7 @@ class FlatEngine:
                   else _epi.natural_epilogue)
             return fn(codes, scales, g2d, x2d, gamma)
         if self.sampler == "permk":
-            delta = self._permk_mean(key, diff_bufs)
+            delta = self.aggregate(key, diff_bufs, n)
             fn = _ref.delta_epilogue_ref if self._plain(delta) else _epi.delta_epilogue
             return fn(delta, g2d, x2d, gamma)
         vals, offs = self._sampled_payloads(key, diff_bufs, n)

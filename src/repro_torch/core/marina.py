@@ -602,20 +602,24 @@ def _take_rows(tree: PyTree, sel: list) -> PyTree:
 
 
 def _pp_carry_refresh(h_old: PyTree, sel: list, grads_sel: PyTree, faults,
-                      n: int) -> PyTree:
+                      n: int, positions=None, offset: int = 0) -> PyTree:
     """The server table with rows ``sel`` set to the cohort's gradients, in
     cohort order, one row after another (a repeated client writes the same
     values twice) — except a dropped client's row, which the server never
-    received and keeps. A new table: the old one stays valid for a revert."""
+    received and keeps. A new table: the old one stays valid for a revert.
+    ``grads_sel`` holds the gradients of cohort ``positions`` (default:
+    all of them), in order, and ``h_old`` the table's rows from ``offset``
+    on (a rank's rows of it); the drop mask reads the whole cohort."""
     dropped = [False] * len(sel)
     if faults is not None and faults.attack == "drop":
         dropped = faults.byz_mask(sel, n).tolist()
+    positions = range(len(sel)) if positions is None else positions
 
     def refresh(ht, gt):
         out = ht.clone()
-        for i, row in enumerate(sel):
+        for j, i in enumerate(positions):
             if not dropped[i]:
-                out[row].copy_(gt[i])
+                out[sel[i] - offset].copy_(gt[j])
         return out
 
     return tree_map(refresh, h_old, grads_sel)

@@ -16,7 +16,9 @@
 //   8 bytes written (the value, the offset), as randk_seeded_workers writes
 //   them. The row comes from a multiply-high by the host's
 //   ceil(2^32 / kb), exact over every k the wrapper allows, so there is no
-//   integer division. The offset is the top lg(B) bits of (k·k)·0x9E3779B9:
+//   integer division. The offset is ⌊h·B / 2^32⌋ of h = (k·k)·0x9E3779B9
+//   (a multiply-high: the top lg(B) bits of h where B is a power of two,
+//   any row width B ≥ 2 otherwise, as the transport's 2816-wide leaves):
 //   one multiply of k alone gives Fibonacci-spaced offsets, 20 distinct
 //   32-byte sectors in every row of 20, where a random draw (and
 //   randk_seeded_workers' murmur3 offsets) touches 18.6; the square spreads
@@ -40,7 +42,7 @@ template <int U>
 __global__ void yardstick_gather_kernel(const float* __restrict__ x,
                                         float* __restrict__ vals,
                                         int32_t* __restrict__ offs, uint32_t total,
-                                        int block, int kb, uint32_t magic, int drop) {
+                                        int block, int kb, uint32_t magic) {
   const uint32_t base = blockIdx.x * (U * blockDim.x) + threadIdx.x;
   float v[U];
   uint32_t off[U];
@@ -49,7 +51,7 @@ __global__ void yardstick_gather_kernel(const float* __restrict__ x,
     const uint32_t k = base + j * blockDim.x;
     if (k < total) {
       const uint32_t r = kb == 1 ? k : __umulhi(k, magic);
-      off[j] = (k * k * 0x9E3779B9u) >> drop;
+      off[j] = __umulhi(k * k * 0x9E3779B9u, (uint32_t)block);
       v[j] = x[(int64_t)r * block + off[j]];
     }
   }
@@ -101,13 +103,12 @@ extern "C" int yardstick_gather(const void* x, void* vals, void* offs, long long
                                 int block, int kb, unsigned int magic, int unroll,
                                 int threads, void* stream) {
   const uint32_t total = (uint32_t)(rows * kb);
-  const int drop = 32 - (__builtin_ffs(block) - 1);  // keep the top lg(B) bits
   const unsigned grid = (unsigned)(((long long)total + unroll * threads - 1) /
                                    (unroll * threads));
   cudaStream_t st = (cudaStream_t)stream;
 #define GATHER_LAUNCH(U)                                                              \
   yardstick_gather_kernel<U><<<grid, threads, 0, st>>>(                               \
-      (const float*)x, (float*)vals, (int32_t*)offs, total, block, kb, magic, drop)
+      (const float*)x, (float*)vals, (int32_t*)offs, total, block, kb, magic)
   switch (unroll) {
     case 1: GATHER_LAUNCH(1); break;
     case 4: GATHER_LAUNCH(4); break;

@@ -87,16 +87,22 @@ def randk_seeded_workers_ref(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
     """Per-worker seeded RandK: x3d (n, nblk, B) + seeds (n,) → values and
     int32 offsets, both (n, nblk, kb). Each worker's counters restart at 0."""
     n, nblk, B = x3d.shape
-    dev = x3d.device
+    offs = seeded_offsets_ref(seeds.to(x3d.device), nblk, B, kb)
+    vals = scale_values(torch.gather(x3d, 2, offs.to(torch.int64)), scale)
+    return vals, offs
+
+
+def seeded_offsets_ref(seeds: torch.Tensor, nblk: int, block: int, kb: int) -> torch.Tensor:
+    """(m,) seeds → (m, nblk, kb) int32 offsets in [0, block): the murmur3
+    counter stream ``b·kb + t`` of each seed, its counters restarting at 0
+    (the offsets the seeded RandK kernels sample), on the seeds' device."""
+    dev = seeds.device
     ctr = (
         torch.arange(kb, dtype=torch.int64, device=dev)[None, :]
         + (torch.arange(nblk, dtype=torch.int64, device=dev) * kb)[:, None]
     )
-    s = _as_u32_int64(seeds.to(dev)).view(n, 1, 1)
-    bits = murmur_bits_ref(s, ctr[None])
-    offs = (bits & (B - 1)).to(torch.int32)
-    vals = scale_values(torch.gather(x3d, 2, offs.to(torch.int64)), scale)
-    return vals, offs
+    bits = murmur_bits_ref(_as_u32_int64(seeds).view(-1, 1, 1), ctr[None])
+    return (bits & (block - 1)).to(torch.int32)
 
 
 def scatter_accum_ref(values: torch.Tensor, offsets: torch.Tensor,

@@ -11,8 +11,8 @@ bound: a gather whose offsets or pace of issue suit the memory better can
 beat it.
 
 * :func:`gather`: one load per flat index k < rows·kb inside row k // kb
-  (B f32 a row) at :func:`gather_ref`'s offsets, 8 bytes written a load (the
-  value and the offset), as ``randk_seeded_workers`` writes;
+  (B f32 a row, any B ≥ 2) at :func:`gather_ref`'s offsets, 8 bytes written
+  a load (the value and the offset), as ``randk_seeded_workers`` writes;
 * :func:`affine`: ``permk_seeded_workers``' gather done directly, the B/n
   slots of worker w at ``(a·t + c) & (B − 1)`` of row (w, b) (its values
   unscaled), where the kernel stages whole rows.
@@ -53,8 +53,7 @@ def gather_magic(rows: int, B: int, kb: int) -> int:
     """The multiply-high constant that finds row k // kb, after checking
     that the kernel's 32-bit flat index k and that division hold every
     k < rows·kb (0 for kb = 1)."""
-    _check_block(B)
-    if B < 2 or kb < 1 or rows * kb >= 2**31:
+    if B < 2 or B >= 2**31 or kb < 1 or rows * kb >= 2**31:
         raise ValueError(f"{rows}·{kb} gathers leave the yardstick's 32-bit index")
     if kb == 1:
         return 0
@@ -65,12 +64,12 @@ def gather_magic(rows: int, B: int, kb: int) -> int:
 
 
 def gather_offsets_ref(rows: int, B: int, kb: int, device=None) -> torch.Tensor:
-    """(rows, kb) int32 offsets: for k = r·kb + t the top lg(B) bits of
-    (k·k mod 2^32)·0x9E3779B9 mod 2^32."""
-    _check_block(B)
+    """(rows, kb) int32 offsets: for k = r·kb + t, ⌊h·B / 2^32⌋ of h =
+    (k·k mod 2^32)·0x9E3779B9 mod 2^32 (the top lg(B) bits of h where B is
+    a power of two)."""
     k = torch.arange(rows * kb, dtype=torch.int64, device=device)
     h = _ref._mul32((k * k) & 0xFFFFFFFF, _GOLDEN)  # k < 2^31: k·k fits int64
-    return (h >> (32 - (B.bit_length() - 1))).to(torch.int32).reshape(rows, kb)
+    return ((h * B) >> 32).to(torch.int32).reshape(rows, kb)  # h·B < 2^63
 
 
 def gather_ref(x2d: torch.Tensor, kb: int):

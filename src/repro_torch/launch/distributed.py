@@ -41,7 +41,11 @@ from repro_torch import prng
 from repro_torch.core import flat as flat_engine
 from repro_torch.core.marina import _FAULT_FOLD, _carry_refresh, _sync_faults, _uplink_faults
 from repro_torch.core.tree_util import tree_flatten, tree_map, tree_sub, tree_unflatten
-from repro_torch.launch.participation import build_pp_steps, pp_cohort_schedule  # noqa: F401
+from repro_torch.launch.participation import (  # noqa: F401
+    FLEET_ATTACKS,
+    build_pp_steps,
+    pp_cohort_schedule,
+)
 from repro_torch.launch.topology import Mesh, detect_topology, num_workers, worker_axis_names
 from repro_torch.launch.transport import make_transport
 from repro_torch.models import init_params, lm_loss
@@ -50,10 +54,6 @@ PyTree = Any
 
 BLOCK = 1024   # compression block width of the flat-PP engine and the sync buffer
 KB = 8         # retained coordinates a block → ζ/d = 1/128, ω = 127
-
-#: attacks whose rewrite of a row depends on other rows or on the stack's
-#: shape: applied to the whole fleet's rows where the workers span ranks
-_FLEET_ATTACKS = ("mean_shift", "garbage")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,7 +206,7 @@ def build_train_steps(
         stack's shape see all n rows where the workers span ranks."""
         if faults is None:
             return trees
-        if mesh.world == 1 or faults.attack not in _FLEET_ATTACKS:
+        if mesh.world == 1 or faults.attack not in FLEET_ATTACKS:
             return fn(faults, key, trees, list(rows), n)
         full = tree_map(lambda t: mesh.assemble_rows(t, n), trees)
         out = fn(faults, key, full, list(range(n)), n)
@@ -352,3 +352,7 @@ def build_train_steps(
         transport=transport,
     )
 
+
+# the serving assembly lives in launch/serve_steps.py; re-exported here, as
+# the reference does, so the launch layer has one import site
+from repro_torch.launch.serve_steps import build_serve_steps  # noqa: E402,F401

@@ -42,9 +42,7 @@ from repro_torch.models import (
     init_paged_cache,
     init_params,
     paged_copy_pages,
-    paged_decode_step,
     paged_gather_pages,
-    paged_prefill_chunk,
     paged_scatter_pages,
     prefill,
 )
@@ -114,33 +112,38 @@ def make_workload(cfg, pairs, seed: int = 1) -> list[Request]:
 def build_paged_steps(params, cfg, *, temperature: float = 0.0, seed: int = 0,
                       backend: str = "auto") -> dict:
     """The engine's step functions over ``params``: the paged prefill chunk
-    and decode step with their sampling, and the COW / swap page ops. One
-    set serves f32 and int8 caches and any number of engines (which then
-    share one key stream, as the reference's steps do). At ``temperature``
-    > 0 the key ``PRNGKey(seed)`` splits once per prefill chunk and decode
-    step; greedy steps never touch it. ``backend`` ``ref`` runs the kernels'
-    plain versions."""
-    dev = _device_of(params)
+    and decode step with their sampling (``serve_steps.paged_step_fns`` on
+    a mesh of this process alone), and the COW / swap page ops. One set
+    serves f32 and int8 caches and any number of engines (which then share
+    one key stream, as the reference's steps do). At ``temperature`` > 0
+    the key ``PRNGKey(seed)`` splits once per prefill chunk and decode
+    step; greedy steps never touch it. ``backend`` ``ref`` runs the
+    kernels' plain versions."""
+    from repro_torch.launch.serve_steps import paged_step_fns
+    from repro_torch.launch.topology import Mesh
+
+    mesh = Mesh(axis_names=("data",), sizes=(1,), device=_device_of(params))
+    decode, chunk = paged_step_fns(cfg, mesh, temperature=temperature, backend=backend)
+    return engine_form(params, decode, chunk, temperature=temperature, seed=seed)
+
+
+def engine_form(params, decode, chunk, *, temperature: float, seed: int) -> dict:
+    """Paged steps in the engine's form: ``decode(params, cache, token,
+    lens, tbl, key)`` and ``chunk(params, cache, tokens, start, row,
+    n_valid, key)`` with numpy tokens out, the key ``PRNGKey(seed)`` split
+    once per call at ``temperature`` > 0, and the COW / swap page ops."""
     keys = KeyStream(seed)
 
-    def tensor(a):
-        return torch.as_tensor(np.asarray(a), device=dev)
+    def key():
+        return keys.next() if temperature > 0 else None
 
-    def pick(logits):
-        key = keys.next() if temperature > 0 else None
-        return sample(logits, temperature, key, jitted=True).to(torch.int32).cpu().numpy()
-
-    @torch.inference_mode()
     def prefill_fn(cache, toks, start, row, nv):
-        logits, cache = paged_prefill_chunk(params, cfg, cache, tensor(toks), int(start),
-                                            tensor(row), int(nv), backend=backend)
-        return pick(logits), cache
+        tok, cache = chunk(params, cache, toks, start, row, nv, key())
+        return tok.cpu().numpy(), cache
 
-    @torch.inference_mode()
     def decode_fn(cache, toks, lengths, tables):
-        logits, cache = paged_decode_step(params, cfg, cache, tensor(toks), tensor(lengths),
-                                          tensor(tables), backend=backend)
-        return pick(logits), cache
+        tok, cache = decode(params, cache, toks, lengths, tables, key())
+        return tok.cpu().numpy(), cache
 
     @torch.inference_mode()
     def copy_fn(cache, src, dst):

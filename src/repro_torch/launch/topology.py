@@ -176,7 +176,11 @@ class Mesh:
     the bytes of this rank's rows that they carried: summed over the ranks,
     ×8 and ÷ n, a payload kind's bytes are the bits per worker the ledger
     books for it. The dense worker state a rank gathers whole
-    (:meth:`assemble_rows`) counts under its own kind, ``gather_state``."""
+    (:meth:`assemble_rows`) counts under its own kind, ``gather_state``.
+    ``op_counts`` / ``op_bytes`` count the same traffic by the collective
+    that carried it (``all-gather``, ``all-reduce``, ``broadcast``,
+    ``send``), which is what ``roofline.collective_stats_from_mesh``
+    prices."""
 
     axis_names: tuple
     sizes: tuple
@@ -186,6 +190,8 @@ class Mesh:
     world: int = 1
     collectives: dict = dataclasses.field(default_factory=dict)
     payload_bytes: dict = dataclasses.field(default_factory=dict)
+    op_counts: dict = dataclasses.field(default_factory=dict)
+    op_bytes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict:
@@ -212,14 +218,16 @@ class Mesh:
         per = n // self.world
         return range(self.rank * per, (self.rank + 1) * per)
 
-    def _count(self, kind: str, nbytes: int) -> None:
+    def _count(self, kind: str, nbytes: int, op: str) -> None:
         self.collectives[kind] = self.collectives.get(kind, 0) + 1
         self.payload_bytes[kind] = self.payload_bytes.get(kind, 0) + int(nbytes)
+        self.op_counts[op] = self.op_counts.get(op, 0) + 1
+        self.op_bytes[op] = self.op_bytes.get(op, 0) + int(nbytes)
 
     def reset_counts(self) -> None:
-        """Zero ``collectives`` and ``payload_bytes``."""
-        self.collectives.clear()
-        self.payload_bytes.clear()
+        """Zero the counts (by kind and by collective)."""
+        for counts in (self.collectives, self.payload_bytes, self.op_counts, self.op_bytes):
+            counts.clear()
 
     def gather_rows(self, local: torch.Tensor, n: int,
                     kind: str = "all_gather") -> torch.Tensor:
@@ -238,7 +246,7 @@ class Mesh:
         raw = src.view(torch.uint8)
         outs = [torch.empty_like(raw) for _ in range(self.world)]
         dist.all_gather(outs, raw, group=self.group)
-        self._count(kind, raw.numel())
+        self._count(kind, raw.numel(), "all-gather")
         full = outs[0] if self.world == 1 else torch.cat(outs)
         return full.view(src.dtype).reshape((n,) + tuple(local.shape[1:]))
 
@@ -261,7 +269,7 @@ class Mesh:
             w = self.workers(n)
             full[w.start:w.stop] = local
         dist.all_reduce(full, group=self.group)
-        self._count("all_reduce", local.numel() * local.element_size())
+        self._count("all_reduce", local.numel() * local.element_size(), "all-reduce")
         return full
 
     def assemble_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
@@ -271,6 +279,62 @@ class Mesh:
         if self.world == 1:
             return local
         return self.gather_rows(local, n, kind="gather_state")
+
+    def share_rows(self, local: torch.Tensor, owners, kind: str = "all_gather") -> torch.Tensor:
+        """All m rows of a stack whose row j lives on rank ``owners[j]``:
+        ``local`` holds this rank's rows in row order. One all-gather when
+        every rank holds as many rows, else one broadcast a row from its
+        owner; rows come out in row order on every rank, counted under
+        ``kind`` where they leave. Runs whenever the mesh has a group."""
+        owners = [int(o) for o in owners]
+        mine = [j for j, o in enumerate(owners) if o == self.rank]
+        if local.shape[0] != len(mine):
+            raise ValueError(f"{local.shape[0]} local rows for owners {owners}")
+        if self.group is None:
+            if len(mine) != len(owners):
+                raise ValueError(f"rows of ranks {set(owners)} without a process group")
+            return local
+        import torch.distributed as dist
+
+        shape, dtype = tuple(local.shape[1:]), local.dtype
+        counts = [owners.count(r) for r in range(self.world)]
+        if len(set(counts)) == 1:
+            got = self.gather_rows(local, len(owners), kind=kind)
+            order = [j for r in range(self.world) for j, o in enumerate(owners) if o == r]
+            if order == sorted(order):
+                return got
+            out = torch.empty_like(got)
+            out[torch.as_tensor(order, device=got.device)] = got
+            return out
+        out = torch.empty((len(owners),) + shape, dtype=dtype, device=local.device)
+        if mine:
+            out[torch.as_tensor(mine, device=out.device)] = local
+        for j, o in enumerate(owners):
+            raw = out[j:j + 1].view(torch.uint8)  # a view: receivers write in place
+            dist.broadcast(raw, src=o, group=self.group)
+            if o == self.rank:
+                self._count(kind, raw.numel(), "broadcast")
+        return out
+
+    def send_row(self, t: "torch.Tensor | None", src: int, dst: int, shape, dtype,
+                 kind: str = "gather_state") -> "torch.Tensor | None":
+        """Move one tensor from rank ``src`` to rank ``dst`` (point to point,
+        counted under ``kind`` at ``src``). Every rank calls it in the same
+        order; ``dst`` gets the tensor, ``src`` keeps ``t``, the others get
+        None. ``src == dst`` moves nothing."""
+        if src == dst or self.rank not in (src, dst):
+            return t if self.rank == src else None
+        import torch.distributed as dist
+
+        if self.rank == src:
+            raw = t.contiguous().view(torch.uint8).reshape(-1)
+            dist.send(raw, dst, group=self.group)
+            self._count(kind, raw.numel(), "send")
+            return t
+        buf = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+        raw = buf.view(torch.uint8).reshape(-1)
+        dist.recv(raw, src, group=self.group)
+        return buf
 
 
 def _make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:

@@ -558,7 +558,8 @@ def test_launch_phase_runs_at_a_tiny_width(monkeypatch):
     and nothing on its sync round, mp (flat PP) the flat engine's two RandK
     kernels once a compressed round; the plain runs launch nothing and end
     bit-equal; the payloads crossed the group (two all-gathers a leaf a
-    compressed round, one all-reduce a sync round); no group is left up."""
+    compressed ml round, one all-reduce a sync round, the cohort's payload
+    rows a compressed mp round); no group is left up."""
     import torch.distributed as dist
 
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
@@ -567,6 +568,12 @@ def test_launch_phase_runs_at_a_tiny_width(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, lambda *a: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     _count_plain_launches(monkeypatch)
+    # the mesh_serve phase runs on the same group: a small workload
+    monkeypatch.setattr(chip_smoke, "SERVE_SPEC", "12:5,5:3,9:4,3:2,7:6")
+    monkeypatch.setattr(chip_smoke, "SERVE_SLOTS", 2)
+    monkeypatch.setattr(chip_smoke, "SERVE_PAGE", 4)
+    monkeypatch.setattr(chip_smoke, "SERVE_CHUNK", 4)
+    monkeypatch.setattr(chip_smoke, "MESH_DENSE", (2, 8, 3))
     report = {}
     launches = chip_smoke.run_launch(report)
     kernels.reset_launch_counts()
@@ -588,9 +595,34 @@ def test_launch_phase_runs_at_a_tiny_width(monkeypatch):
         out["ml_auto"]["up_bits"]["compressed"]] * c
     assert [set(w) for w in out["ml_auto"]["wire_bytes_by_round"]] == (
         [{"all_reduce"}] + [{"all_gather"}] * c)
-    assert out["mp_auto"]["wire_bytes_by_round"] == [{"all_reduce": out["mp_auto"][
-        "wire_bytes_by_round"][0]["all_reduce"]}] + [{}] * chip_smoke.LAUNCH_PP_COMPRESSED
+    # mp: the cohort rows' payloads and seeds cross by all-gather, exactly
+    # the booked r·ζ/n (no dense state)
+    mp_wire = out["mp_auto"]["wire_bytes_by_round"]
+    assert set(mp_wire[0]) == {"all_reduce"}
+    assert [set(w) for w in mp_wire[1:]] == [{"all_gather"}] * chip_smoke.LAUNCH_PP_COMPRESSED
+    assert [w["all_gather"] * 8.0 / chip_smoke.LAUNCH_N for w in mp_wire[1:]] == [
+        out["mp_auto"]["up_bits_compressed"]] * chip_smoke.LAUNCH_PP_COMPRESSED
     assert out["ml_auto"]["ledger"] == out["ml_ref"]["ledger"]
+    # mesh_serve: the paged bundles' streams equal run_continuous's (checked
+    # in the phase), their launches are the serve paths', the exchanges
+    # carried every slot's K/V rows and token each decode step; the dense
+    # bundles hold to a teacher-forced forward; the ml round's roofline
+    ms = report["mesh_serve"]
+    f32, q8 = ms["mesh_serve_f32"], ms["mesh_serve_q8"]
+    assert launches["mesh_serve_f32"]["paged_attn_decode"] == f32["decode_steps"] > 0
+    assert launches["mesh_serve_q8"]["absmax_quant_rows"] == (
+        q8["prefill_chunks"] + q8["decode_steps"])
+    assert launches["mesh_serve_q8"]["absmax_dequant_rows"] == 2 * q8["decode_steps"]
+    assert f32["wire_bytes"]["tokens"] == f32["decode_steps"] * 2 * 4
+    assert f32["plain_diverged"] == [] == q8["plain_diverged"]
+    assert 0 < f32["floor_share"] and f32["median_bound_ms"] > 0
+    assert ms["dense"]["max_rel_logit_err"] <= chip_smoke.FAMILY_LOGIT_RTOL
+    assert len(ms["param_counts"]) == 10
+    ml = ms["ml_round"]
+    assert ml["model_flops"] == 6.0 * ms["param_counts"]["qwen1.5-0.5b"][1] * 4 * 8 * 256
+    assert ml["roofline"]["flops_per_device"] > 0 and ml["roofline"]["bytes_per_device"] > 0
+    assert ml["roofline"]["collective_bytes_per_device"] == 0.0  # one rank: no link
+    assert "device_busy_ms" not in ml  # no device on the CPU
 
 
 def init_params_meta():

@@ -125,7 +125,8 @@ def test_epilogues_on_card(dev, shape, xdtype):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("shape", [(7, 1024, 20), (40, 128, 1), (9, 256, 33)], ids=str)
+@pytest.mark.parametrize("shape", [(7, 1024, 20), (40, 128, 1), (9, 256, 33),
+                                   (300, 2816, 22), (5, 1001, 7)], ids=str)
 def test_gather_yardstick_matches_its_plain_version_on_card(dev, shape):
     from repro_torch.kernels import yardstick
 

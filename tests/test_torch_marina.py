@@ -264,14 +264,15 @@ def test_quantized_rounds_match_reference_round_by_round(data, wire_kind, method
     jdata, tdata = data
     jm, tm, mb = _quantized_pair(method, wire_kind, carry)
     steps = []  # one quantization step per QSGD payload of the port's round
-    payloads = tflat.FlatEngine._qsgd_payloads
+    encode = tflat.FlatEngine.encode_rows
 
-    def recording(self, key, bufs, n):
-        levels, norms = payloads(self, key, bufs, n)
-        steps.append(float(norms.max()) / (self.s * n))
-        return levels, norms
+    def recording(self, key, bufs, rows, n):
+        payload = encode(self, key, bufs, rows, n)
+        if "norms" in payload:
+            steps.append(float(payload["norms"].max()) / (self.s * n))
+        return payload
 
-    monkeypatch.setattr(tflat.FlatEngine, "_qsgd_payloads", recording)
+    monkeypatch.setattr(tflat.FlatEngine, "encode_rows", recording)
     jargs = (lambda k: (jdata, _minibatch(jdata, k))) if mb else (lambda k: (jdata,))
     targs = (lambda k: (tdata, _minibatch(tdata, k))) if mb else (lambda k: (tdata,))
     js = jm.init(jnp.zeros((D,)), jdata)

@@ -244,14 +244,15 @@ def test_lm_marina_quantized_carry_rounds_match_reference(jparams, tokens, wire_
     tm = Marina(_tgrad, tc, gamma=gamma, p=0.4, engine=teng, carry=True,
                 down_engine=tdown)
     steps = []
-    payloads = tflat.FlatEngine._qsgd_payloads
+    encode = tflat.FlatEngine.encode_rows
 
-    def recording(self, key, bufs, n):
-        levels, norms = payloads(self, key, bufs, n)
-        steps.append(float(norms.max()) / (self.s * n))
-        return levels, norms
+    def recording(self, key, bufs, rows, n):
+        payload = encode(self, key, bufs, rows, n)
+        if "norms" in payload:
+            steps.append(float(payload["norms"].max()) / (self.s * n))
+        return payload
 
-    monkeypatch.setattr(tflat.FlatEngine, "_qsgd_payloads", recording)
+    monkeypatch.setattr(tflat.FlatEngine, "encode_rows", recording)
     js = jax.jit(jm.init)(jparams, {"tokens": jnp.asarray(tokens[0])})
     jstep = jax.jit(jm.step)
     kinds, flagged, compared = set(), 0, 0

@@ -12,9 +12,10 @@ bring-up (``topology.spawn_local_cluster`` → ``init_from_env`` →
 Both run a sync round and three compressed grad-carry MARINA rounds (randk)
 on the same reduced Qwen1.5-0.5B and data, and print the trajectory, a
 digest of every byte of the final state, the booked bits and their tiers;
-then PP-MARINA rounds with the server's carry table (flat PP: cohort shard
-gradients assembled across ranks) and a robust trimmed-mean QSGD round
-under a mean-shift attack (which reads the whole fleet's rows).
+then flat PP-MARINA rounds with the server's carry table and without it
+(each cohort row forms on the rank that holds its group, and with the
+carry on the rank that owns its h row) and a robust trimmed-mean QSGD
+round under a mean-shift attack (which reads the whole fleet's rows).
 The assertions, as ``tests/test_multiproc.py``'s for the reference:
 
 1. the ranks of the 2-process run agree exactly;
@@ -25,7 +26,8 @@ The assertions, as ``tests/test_multiproc.py``'s for the reference:
    rtol 1e-5, whose gloo all-reduce reorders the sum);
 3. the same bits are booked, under "dcn" across processes and "loopback"
    in one, and the bytes the collectives carried, summed over the ranks,
-   ×8 ÷ n, are the booked bits of each round.
+   ×8 ÷ n, are the booked bits of each round — a flat-PP round's too, with
+   no dense state (``gather_state``) crossing for the test's cohorts.
 
 The crash twin: rank 1 hard-exits at the top of round 3; the resilient
 runner kills the hung survivor, and the recovery relaunch (one process, the
@@ -137,9 +139,50 @@ pp = build_train_steps(arch, mesh, False, global_batch=2 * N, seq_len=32, gamma=
                        dtype=torch.float32, grad_carry=True, participation=(2, "without"))
 assert pp.meta["cohort_compute"] and pp.meta["flat_pp"]
 x, g, h = pp.fns["sync_step"](params, g0, h0, batch)
+wire_pp = []
 for i, sel in enumerate(([1, 3], [2, 0])):
+    before = dict(mesh.payload_bytes)
     x, g, h = pp.fns["compressed_step"](x, g, h, batch, prng.PRNGKey(20 + i), sel)
+    wire_pp.append(wire_since(before))
 print("PP", digest(x, g, tree_map(lambda t: mesh.gather_rows(t, N), h)))
+print("WIREPP", wire_pp)
+print("UPPP", repr(pp.transport.ledger.total_bits(scope="compressed_step", direction="up")))
+# the recompute shape (no carry table): both gradients of each cohort row
+# form where the row's group lies
+ppr = build_train_steps(arch, mesh, False, global_batch=2 * N, seq_len=32, gamma=0.1,
+                        dtype=torch.float32, participation=(2, "without"))
+assert ppr.meta["cohort_compute"] and ppr.meta["flat_pp"]
+x, g = ppr.fns["sync_step"](params, g0, batch)
+wire_ppr = []
+for i, sel in enumerate(([1, 3], [2, 0])):
+    before = dict(mesh.payload_bytes)
+    x, g = ppr.fns["compressed_step"](x, g, batch, prng.PRNGKey(40 + i), sel)
+    wire_ppr.append(wire_since(before))
+print("PPR", digest(x, g))
+print("WIREPPR", wire_ppr)
+print("UPPPR", repr(ppr.transport.ledger.total_bits(scope="compressed_step", direction="up")))
+# cohorts spread unevenly over the ranks: [1, 0] and [3, 2] (a client's
+# gradient forms off its h row's rank and moves there), then r = 1 (the one
+# group spans both ranks: its partial sum moves on; for client 0 the row
+# then moves to its owner too)
+wire_ppu = []
+batch4 = {"tokens": torch.randint(0, cfg.vocab_size, (N, 4, 32),
+                                  generator=torch.Generator().manual_seed(2))}
+for r_u, sels, bt in ((2, ([1, 0], [3, 2]), batch), (1, ([2], [0]), batch4)):
+    ppu = build_train_steps(arch, mesh, False, global_batch=N * bt["tokens"].shape[1],
+                            seq_len=32, gamma=0.1, dtype=torch.float32, grad_carry=True,
+                            participation=(r_u, "without"))
+    assert ppu.meta["cohort_compute"]
+    x, g, h = ppu.fns["sync_step"](params, g0, h0, bt)
+    for i, sel in enumerate(sels):
+        before = dict(mesh.payload_bytes)
+        x, g, h = ppu.fns["compressed_step"](x, g, h, bt, prng.PRNGKey(50 + i), sel)
+        wire_ppu.append(wire_since(before))
+    print(f"PPU{r_u}", digest(x, g, tree_map(lambda t: mesh.gather_rows(t, N), h)))
+    print(f"UPPPU{r_u}", repr(ppu.transport.ledger.total_bits(scope="compressed_step",
+                                                              direction="up")))
+print("WIREPPU", wire_ppu)
+print("D", sum(t.numel() for t in tree_leaves(params)))
 rb = build_train_steps(arch, mesh, False, global_batch=2 * N, seq_len=32, gamma=0.1,
                        dtype=torch.float32, compression="qsgd", qsgd_s=7,
                        packed_payload=True, aggregator=ServerAggregator("trimmed_mean", f=1),
@@ -195,16 +238,19 @@ def _run(num_processes: int, devices_per_process: int, prog: str = _WORKER_PROG,
 def test_two_process_compressed_carry_equals_single_process():
     mp = _run(2, 2)
     sp = _run(1, 4)
-    for tag in ("TRAJ", "STATE", "UPBITS", "PP", "ROBUST"):
+    for tag in ("TRAJ", "STATE", "UPBITS", "PP", "PPR", "PPU2", "PPU1", "ROBUST"):
         assert _parse(mp[0].stdout, tag) == _parse(mp[1].stdout, tag), tag
     traj_mp = np.array([float(v) for v in _parse(mp[0].stdout, "TRAJ").split()])
     assert traj_mp.shape == (8,) and np.all(np.isfinite(traj_mp))
     # bit for bit: the state's every byte, not only the checksums
     assert _parse(mp[0].stdout, "TRAJ") == _parse(sp[0].stdout, "TRAJ")
     assert _parse(mp[0].stdout, "STATE") == _parse(sp[0].stdout, "STATE")
-    # PP with the carry table (all n rows of h gathered), and a robust round
-    # under a fleet-wide attack, bit for bit across the layouts too
+    # PP with the carry table and without it, and a robust round under a
+    # fleet-wide attack, bit for bit across the layouts too
     assert _parse(mp[0].stdout, "PP") == _parse(sp[0].stdout, "PP")
+    assert _parse(mp[0].stdout, "PPR") == _parse(sp[0].stdout, "PPR")
+    assert _parse(mp[0].stdout, "PPU2") == _parse(sp[0].stdout, "PPU2")
+    assert _parse(mp[0].stdout, "PPU1") == _parse(sp[0].stdout, "PPU1")
     assert _parse(mp[0].stdout, "ROBUST") == _parse(sp[0].stdout, "ROBUST")
     assert _parse(mp[0].stdout, "TIERS") == "dcn"
     assert _parse(sp[0].stdout, "TIERS") == "loopback"
@@ -227,6 +273,34 @@ def test_two_process_compressed_carry_equals_single_process():
                 assert kinds == {"all_reduce"} and bits == 32.0 * padded, (len(run), k)
             else:
                 assert kinds == {"all_gather"} and bits == up_comp, (len(run), k, bits)
+    # a compressed flat-PP round puts on the wire only what it books: the r
+    # cohort rows' payloads and seeds, all-gathered (bytes summed over the
+    # ranks, x8 / n, are the booked r·ζ/n), and no dense state: cohorts
+    # [1, 3] and [2, 0] each put one client on each rank's h rows
+    for tag, up_tag in (("WIREPP", "UPPP"), ("WIREPPR", "UPPPR")):
+        up_pp = float(_parse(sp[0].stdout, up_tag))
+        assert up_pp > 0 and float(_parse(mp[0].stdout, up_tag)) == up_pp
+        for run in (mp, sp):
+            wires = [eval(_parse(r.stdout, tag)) for r in run]
+            for k in range(2):
+                kinds = {kind for w in wires for kind in w[k]}
+                assert kinds == {"all_gather"}, (tag, len(run), k, kinds)
+                assert sum(w[k].get("gather_state", 0) for w in wires) == 0
+                bits = sum(sum(w[k].values()) for w in wires) * 8.0 / 4
+                assert bits == up_pp, (tag, len(run), k, bits, up_pp)
+    # uneven cohorts: the payloads still carry exactly the booked bits; the
+    # dense rows that cross are counted apart, 4·d bytes each (one moved
+    # gradient for [1, 0], [3, 2] and [2]; a partial sum and a moved
+    # gradient for [0] at r = 1); one process moves none
+    d = int(_parse(sp[0].stdout, "D"))
+    ups = [float(_parse(sp[0].stdout, t)) for t in ("UPPPU2",) * 2 + ("UPPPU1",) * 2]
+    for run, dense in ((mp, [1, 1, 1, 2]), (sp, [0, 0, 0, 0])):
+        wires = [eval(_parse(r.stdout, "WIREPPU")) for r in run]
+        for k in range(4):
+            state = sum(w[k].get("gather_state", 0) for w in wires)
+            assert state == dense[k] * 4 * d, (len(run), k, state)
+            bits = sum(w[k].get("all_gather", 0) for w in wires) * 8.0 / 4
+            assert bits == ups[k], (len(run), k, bits, ups[k])
 
 
 def _traj(stdout: str, k: int) -> str:

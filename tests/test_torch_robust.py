@@ -473,19 +473,20 @@ def _recording_steps(monkeypatch):
     level moves one worker's value by at most norm/s, a natural code by half
     its block scale — and a value of the rank window moves by no more."""
     steps = []
-    qsgd, natural = tflat.FlatEngine._qsgd_payloads, tflat.FlatEngine._natural_payloads
+    encode, natural = tflat.FlatEngine.encode_rows, tflat.FlatEngine._natural_payloads
 
-    def rec_qsgd(self, key, bufs, n):
-        levels, norms = qsgd(self, key, bufs, n)
-        steps.append(float(norms.max()) / self.s)
-        return levels, norms
+    def rec_qsgd(self, key, bufs, rows, n):
+        payload = encode(self, key, bufs, rows, n)
+        if "norms" in payload:
+            steps.append(float(payload["norms"].max()) / self.s)
+        return payload
 
     def rec_natural(self, key, bufs, n):
         codes, scales = natural(self, key, bufs, n)
         steps.append(float(scales.max()) / 2)
         return codes, scales
 
-    monkeypatch.setattr(tflat.FlatEngine, "_qsgd_payloads", rec_qsgd)
+    monkeypatch.setattr(tflat.FlatEngine, "encode_rows", rec_qsgd)
     monkeypatch.setattr(tflat.FlatEngine, "_natural_payloads", rec_natural)
     return steps
 

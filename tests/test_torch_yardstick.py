@@ -73,6 +73,32 @@ def test_gather_yardstick_offsets_spread_like_a_random_draw():
     assert _distinct(fib, 3) == kb
 
 
+@pytest.mark.parametrize("B", [2, 64, 1024, 2048])
+def test_gather_offsets_are_the_top_bits_at_a_power_of_two(B):
+    """The multiply-high ⌊h·B / 2^32⌋ is the top lg(B) bits of h where B is a
+    power of two: the offsets the row-1 and wire shapes have always used."""
+    k = np.arange(5000 * 7, dtype=np.uint64)
+    h = ((k * k) & 0xFFFFFFFF) * 0x9E3779B9 & 0xFFFFFFFF
+    top = (h >> np.uint64(32 - (B.bit_length() - 1))).reshape(5000, 7).astype(np.int64)
+    np.testing.assert_array_equal(yardstick.gather_offsets_ref(5000, B, 7).numpy(), top)
+
+
+def test_gather_yardstick_at_the_transport_width():
+    """Rows of 2816 f32 (the transport's Qwen1.5-0.5B MLP leaf, kb = 22):
+    offsets fill [0, 2816) and touch as many of a row's 352 sectors as a
+    random draw would, within 1 %."""
+    rows, B, kb = 20000, 2816, 22
+    offs = yardstick.gather_offsets_ref(rows, B, kb).numpy()
+    assert offs.min() == 0 and offs.max() == B - 1
+    assert yardstick.gather_magic(98_304, B, kb) > 0
+    for shift, cells in ((3, B // 8), (4, B // 16)):
+        drawn = cells * (1 - (1 - 1 / cells) ** kb)
+        assert _distinct(offs, shift) == pytest.approx(drawn, rel=0.01)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((5, B), dtype=np.float32))
+    v, o = yardstick.gather(x, kb)
+    np.testing.assert_array_equal(v.numpy(), np.take_along_axis(x.numpy(), o.numpy(), 1))
+
+
 def test_gather_yardstick_plain_version_and_its_refusals():
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((9, 256), dtype=np.float32))
     v, o = yardstick.gather(x, 33)  # CPU tensors: the plain version
