@@ -121,7 +121,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    1 sLSTM period).
 5. main paths — Qwen1.5-0.5B at full width, random init from a seed, through
    the port's ``Trainer``: n_workers = 4, batch 8 × 256 tokens per worker,
-   B = 1024, p = 0.5, 4 steps per path, both round shapes
+   B = 1024, p = 0.5, ``MAIN_STEPS`` = 2 steps per path (c_k = 1, 0: one
+   round of each type; cut from 4 to make room for phase 14), both
+   round shapes
    (``carry_grads=False`` / ``True``) of MARINA × block_randk (kb = 20),
    VR-MARINA × permk (minibatches 2 × 256), PP-MARINA × block_randk
    (r = 2), MARINA × block_qsgd (s = 7) and MARINA × block_natural, and
@@ -204,8 +206,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the same steps in float64: ``RECURRENT_F32_RTOL``), no kernel launched;
    the xLSTM decode state's bytes equal at max_len 256 and 4096;
    xlstm-350m trained on the MARINA × block_randk carry path (n = 4, 8 ×
-   256 tokens per worker, 4 steps): launches exactly
-   ``EXPECTED_LAUNCHES["marina_randk_carry"]``, c_k and the ledgers exact,
+   256 tokens per worker, ``MAIN_STEPS`` = 2 steps): launches exactly
+   ``MAIN_LAUNCHES["marina_randk_carry"]``, c_k and the ledgers exact,
    the same steps through the plain versions within rtol 1e-5 / atol 1e-6.
    Then sampling at T = 0.7, seed 0, on phase 9's model and ``SERVE_SPEC``:
    the continuous path (f32 pages) twice with identical streams, its
@@ -222,15 +224,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    whose data axis hosts all four workers on the one rank (tier
    ``loopback``). ``ml``: Qwen1.5-0.5B at full width and depth (seed 0, f32,
    14 leaves) through ``launch.distributed.build_train_steps`` (randk,
-   ``grad_carry``, 8 × 256 tokens a worker): one ``sync_step``, then 3
-   ``compressed_step``s, then the same rounds with
+   ``grad_carry``, 8 × 256 tokens a worker): one ``sync_step``, then
+   ``LAUNCH_COMPRESSED`` = 2 ``compressed_step``s (cut from 3), then the
+   same rounds with
    ``compression_backend="ref"``; params, g and h bit-equal between the
    two; a compressed round books 231,993,856 up-bits a worker (Σ R·kb·64
    over the leaves) and the dense broadcast down, a sync round 32·d up and
    down; ``randk_gather`` and ``scatter_accum`` launch once a leaf a
    compressed round (14 each) and nothing on the sync round. ``mp``: the
    flat-PP path (r = 2 of 4, cohort compute, no carry), one sync round and
-   2 compressed rounds through the kernels and the plain versions,
+   ``LAUNCH_PP_COMPRESSED`` = 1 compressed round (cut from 2) through the
+   kernels and the plain versions,
    bit-equal; rows 1 and 2 once a compressed round; r·ζ_Q/n booked, and
    read off the wire: the cohort rows' payloads and seeds all-gathered,
    ×8 ÷ n, equal it (no dense state crosses). Each
@@ -248,8 +252,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``launch.serve_steps.build_paged_serve_steps`` (8 slots, pages of 16,
    chunks of 128) driven by the engine (``serve_steps.engine_steps``), on
    f32 and int8 pages (``mesh_serve_f32`` / ``mesh_serve_q8`` in
-   ``launches_by_path``): streams bit-equal to ``run_continuous``'s,
-   launches ``serve_launches`` (rows 22–24), the exchanges' bytes every
+   ``launches_by_path``): streams bit-equal to ``run_continuous``'s (phase
+   9's streams, kept in its report; a phase-only run serves
+   them here), launches ``serve_launches`` (rows 22–24), the exchanges' bytes every
    slot's written K/V rows and token a decode step; then the same bundle
    through the plain versions, which may diverge only at phase 9's listed
    near ties. The median decode step (host clock) against its floor,
@@ -264,6 +269,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    one traced round. (d) ``roofline.analyze_step`` on one ``ml``
    compressed round: FLOPs, bytes, collective stats, peak memory, the
    dominant term.
+
+14. mesh_model — the model axis across ranks (``run_mesh_model``, ≤ 120 s):
+   two processes on the one card (``topology.spawn_local_cluster``, each
+   running ``mesh_model_rank``), a gloo group asked for by name and staged
+   through host memory (NCCL refuses two ranks on one device), a (4, 2)
+   ("data", "model") mesh: one worker group of all four workers, each rank
+   one model slice of every sharded leaf (``sharding.shard_tree``:
+   231,994,368 of Qwen1.5-0.5B's 463,987,712 parameters, f32, seed 0, full
+   width and depth). Rows 10 and 2 on the rank's columns of ``w_gate``'s
+   wire and row 24 at the rank's 8 / 8 heads against their plain versions;
+   then one sync round and two compressed randk rounds with the carry
+   (``MESH_MODEL_BATCH`` × ``MESH_MODEL_SEQ`` tokens a worker, no remat)
+   through the kernels and through the plain versions (bit-equal), against
+   the same rounds on one rank holding the whole model: c_k and the ledgers
+   equal, params and g within ``MESH_MODEL_RTOL`` of each leaf's scale, the
+   wire's bytes over both ranks ×8 ÷ n equal to the booked uplink every
+   round, 27 launches each of rows 10 and 2 a compressed round; then
+   ``SERVE_SPEC`` through ``build_paged_serve_steps`` on f32 pages (each
+   pool holds 8 of the 16 KV heads; chunks of ``MESH_MODEL_CHUNK``, one a
+   prompt): the streams equal one rank's up to the near-tie margins
+   (``plain_streams`` on rank 1 while rank 0 runs the one-rank rounds), row
+   24 launched 24 times a decode step on each rank. Prints each rank's parameter bytes and peak memory,
+   the bytes a round by kind (``model/...`` apart from the wire's), seconds
+   a round and the median decode-step ms, both on host-staged gloo, not
+   NVLink.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -428,6 +458,15 @@ EXPECTED_LAUNCHES = {
                                 "trimmed_delta_epilogue": _NC,
                                 "trimmed_sync_epilogue": _NS},
 }
+#: the main paths' steps, and the xLSTM training leg's: c_k = 1, 0, one round
+#: of each type (four until the mesh_model phase needed their time), so each
+#: path launches one of each EXPECTED_LAUNCHES entry where EXPECTED_C_K's four
+#: rounds launch two
+MAIN_STEPS = 2
+MAIN_C_K = EXPECTED_C_K[:MAIN_STEPS]
+assert _NC == _NS == 2 and MAIN_C_K.count(0) == MAIN_C_K.count(1) == 1
+MAIN_LAUNCHES = {path: {k: v // 2 for k, v in counts.items()}
+                 for path, counts in EXPECTED_LAUNCHES.items()}
 #: the resume phase: the main path it runs, the Dirichlet α of its token
 #: streams, and the steps of its first leg (A saves after step
 #: RESUME_SPLIT − 1; B resumes at RESUME_SPLIT)
@@ -577,7 +616,7 @@ RECURRENT_BUDGET_S = 120.0
 #: LAUNCH_PP, no carry), one sync round then LAUNCH_PP_COMPRESSED compressed
 #: rounds, again through the plain versions
 LAUNCH_N, LAUNCH_BATCH, LAUNCH_SEQ = 4, 8, 256
-LAUNCH_COMPRESSED, LAUNCH_PP, LAUNCH_PP_COMPRESSED = 3, (2, "without"), 2
+LAUNCH_COMPRESSED, LAUNCH_PP, LAUNCH_PP_COMPRESSED = 2, (2, "without"), 1
 LAUNCH_BUDGET_S = 120.0
 #: Qwen1.5-0.5B's d and the ml path's compressed uplink per worker: Σ over its
 #: 14 leaves of R·kb·64 bits (kb = max(1, L // 128) f32 values and int32
@@ -599,6 +638,34 @@ TRANSPORT_WIDTHS = {"qwen_mlp": (LAUNCH_N, 24 * 1024, 2816, 22),
 MESH_SERVE_PATHS = {"mesh_serve_f32": False, "mesh_serve_q8": True}
 MESH_DENSE = (8, 512, 8)
 MESH_SERVE_BUDGET_S = 120.0
+#: the mesh_model phase: two processes on the one card, a gloo group staged
+#: through host memory (NCCL refuses two ranks on one device), a
+#: (MESH_MODEL_N, 2) ("data", "model") mesh: one worker group of every worker,
+#: each rank one model slice of every sharded leaf. Qwen1.5-0.5B at full
+#: width and depth (MESH_MODEL_LAYERS None: no cut), randk + grad_carry,
+#: MESH_MODEL_BATCH × MESH_MODEL_SEQ tokens a worker: one sync round, then a
+#: train_step under each of MESH_MODEL_KEYS (c_k = 0 for p = MESH_MODEL_P),
+#: through the kernels and the plain versions, against one rank; then
+#: SERVE_SPEC through the paged bundle on f32 pages (row 24 at
+#: MESH_MODEL_PAGED: H / KV = 8 / 8 a rank)
+MESH_MODEL_ENV = "CHIP_SMOKE_MESH_MODEL"
+MESH_MODEL_ARCH, MESH_MODEL_LAYERS = "qwen1.5-0.5b", None
+MESH_MODEL_N, MESH_MODEL_BATCH, MESH_MODEL_SEQ = 4, 1, 256
+MESH_MODEL_KEYS, MESH_MODEL_P = (SEED + 44, SEED + 45), 1.0 / 128
+MESH_MODEL_PAGED = (8, 8, 8, 64, 16, 36)
+#: the phase's prefill chunk: a whole prompt of SERVE_SPEC (its longest is
+#: 512), so each request's prefill stages one set of model-axis sums
+MESH_MODEL_CHUNK = 512
+MESH_MODEL_BUDGET_S = 120.0
+#: the rounds' params and g against one rank's, of each leaf's scale: the
+#: autograd rule (1e-5 of a gradient: the row- and vocabulary-parallel sums
+#: add in another order) amplified by a compressed round's L/kb = 128, which
+#: scales the uplinked Δ = ∇f(x) − h, whose entries cancel to a fraction of g
+#: (ROADMAP C); the LM rule (1e-4) holds on the CPU ranks, not here
+MESH_MODEL_RTOL = 128 * 1e-5
+#: Qwen1.5-0.5B's parameters a rank at m = 2: every leaf halved but
+#: final_norm (1,024, replicated)
+QWEN_RANK_PARAMS = 231_994_368
 #: the reference's parameter counts (params, active) of three configs
 PARAM_COUNTS = {"deepseek-v3-671b": (682_636_457_984, 38_240_368_640),
                 "llama4-scout-17b-a16e": (107_769_873_408, 17_172_907_008),
@@ -1851,9 +1918,12 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
         v = randk.randk_gather(x, offsets, scale)
         require(bits_equal(v, ref.randk_block_compress_ref(x, offsets, scale)),
                 f"randk_gather ({xd}) differs from its plain version")
+        # and its 64-byte floor: each row's distinct segments of x read once,
+        # the offset read and the value written a slot
+        seg = {"segment_floor_ms": sector_floors(offsets, 4 + elt)["segment_floor_ms"]}
         timed("randk_gather", xd, lambda: randk.randk_gather(x, offsets, scale),
               lambda: ref.randk_block_compress_ref(x, offsets, scale), None,
-              slots * (4 + 2 * elt), slots, 0.0, **floor)
+              slots * (4 + 2 * elt), slots, 0.0, **floor, **seg)
         v, o = randk.randk_seeded(x, seed, kb, scale)
         vr, orf = ref.randk_seeded_ref(x, seed, kb, scale)
         require(torch.equal(o, orf), f"randk_seeded ({xd}): offsets differ")
@@ -2660,6 +2730,7 @@ def serve_paths(params, cfg, paths: dict, label: str) -> tuple[dict, dict]:
                     f"{path}: request {r.rid} stream {r.generated}")
         if quantized is not None:
             got = [r.generated for r in reqs]
+            rep["streams"] = got  # the mesh_serve phase holds its bundles to these
             want_streams, margins = plain_streams(params, cfg, pairs,
                                                   dict(kw, quantized=quantized))
             rep["diverged"] = compare_streams(path, got, want_streams,
@@ -2979,15 +3050,15 @@ def run_main_path(report: dict) -> dict:
     for path, (method, compressor, carry, downlink) in PATHS.items():
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        state, hist = train(cfg, params, carry, method=method, compressor=compressor,
-                            downlink=downlink, mb_per_worker=MB_PER_WORKER,
-                            **ROBUST.get(path, {}))
+        state, hist = train(cfg, params, carry, steps=MAIN_STEPS, method=method,
+                            compressor=compressor, downlink=downlink,
+                            mb_per_worker=MB_PER_WORKER, **ROBUST.get(path, {}))
         launches[path] = kernels.launch_counts()
-        want = {name: EXPECTED_LAUNCHES[path].get(name, 0) for name in kernels.KERNELS}
+        want = {name: MAIN_LAUNCHES[path].get(name, 0) for name in kernels.KERNELS}
         require(launches[path] == want,
                 f"{path} launches {launches[path]} != {want}")
-        require(hist.round_sync == EXPECTED_C_K,
-                f"{path}: c_k {hist.round_sync} != {EXPECTED_C_K}")
+        require(hist.round_sync == MAIN_C_K,
+                f"{path}: c_k {hist.round_sync} != {MAIN_C_K}")
         require(all(math.isfinite(v) for v in hist.loss), f"{path}: loss not finite")
         require(hist.skipped_cum[-1] == 0.0, f"{path}: a round was skipped")
         for c_k, bits, down in zip(hist.round_sync, hist.round_bits,
@@ -3311,8 +3382,8 @@ def state_bytes(cfg, B: int) -> dict:
 
 def run_recurrent_train(cfg, params) -> tuple[dict, dict]:
     """RECURRENT_TRAIN_ARCH through the trainer at full width on the MARINA
-    × block_randk carry path (n = 4, 8 × 256 tokens per worker, 4 steps):
-    launches exactly ``EXPECTED_LAUNCHES["marina_randk_carry"]``, c_k, the
+    × block_randk carry path (n = 4, 8 × 256 tokens per worker, MAIN_STEPS
+    steps): launches exactly ``MAIN_LAUNCHES["marina_randk_carry"]``, c_k, the
     up and down ledgers, finite losses; then the same steps through the
     plain versions (``backend="ref"``), parameters within rtol 1e-5 / atol
     1e-6. Returns (the run, its launches)."""
@@ -3328,12 +3399,12 @@ def run_recurrent_train(cfg, params) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    state, hist = train(cfg, params, True)
+    state, hist = train(cfg, params, True, steps=MAIN_STEPS)
     launched = kernels.launch_counts()
-    want = {name: EXPECTED_LAUNCHES["marina_randk_carry"].get(name, 0)
+    want = {name: MAIN_LAUNCHES["marina_randk_carry"].get(name, 0)
             for name in kernels.KERNELS}
     require(launched == want, f"{RECURRENT_TRAIN_PATH} launches {launched} != {want}")
-    require(hist.round_sync == EXPECTED_C_K, f"{RECURRENT_TRAIN_PATH}: c_k {hist.round_sync}")
+    require(hist.round_sync == MAIN_C_K, f"{RECURRENT_TRAIN_PATH}: c_k {hist.round_sync}")
     require(all(math.isfinite(v) for v in hist.loss) and hist.skipped_cum[-1] == 0.0,
             f"{RECURRENT_TRAIN_PATH}: loss {hist.loss}")
     for c_k, bits, down in zip(hist.round_sync, hist.round_bits, hist.round_down_bits):
@@ -3347,7 +3418,7 @@ def run_recurrent_train(cfg, params) -> tuple[dict, dict]:
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    s_r, h_r = train(cfg, params, True, backend="ref")
+    s_r, h_r = train(cfg, params, True, backend="ref", steps=MAIN_STEPS)
     require(h_r.round_sync == hist.round_sync and h_r.round_bits == hist.round_bits,
             f"{RECURRENT_TRAIN_PATH}: the plain run's c_k or ledger differ")
     worst = 0.0
@@ -3861,10 +3932,15 @@ def run_mesh_serve(report: dict) -> dict:
     pairs = serve.parse_requests(SERVE_SPEC)
     listed = report.get("serve_paths", {})
     for path, quantized in MESH_SERVE_PATHS.items():
-        want_reqs = serve.make_workload(cfg, pairs)
-        serve.run_continuous(params, cfg, want_reqs, quantized=quantized, slots=SERVE_SLOTS,
-                             page_size=SERVE_PAGE, chunk=SERVE_CHUNK)
-        want = [r.generated for r in want_reqs]
+        # run_continuous's streams: phase 9's, or here in a phase-only run
+        want = listed.get("serve_continuous_q8" if quantized else "serve_continuous",
+                          {}).get("streams")
+        if want is None:
+            want_reqs = serve.make_workload(cfg, pairs)
+            serve.run_continuous(params, cfg, want_reqs, quantized=quantized,
+                                 slots=SERVE_SLOTS, page_size=SERVE_PAGE, chunk=SERVE_CHUNK)
+            want = [r.generated for r in want_reqs]
+            del want_reqs
         got, rep, counts, rec, wire = mesh_paged_path(arch, params, mesh, quantized, "auto")
         require(got == want, f"{path}: streams differ from run_continuous's")
         exp = {name: serve_launches(quantized, rep).get(name, 0) for name in counts}
@@ -3900,7 +3976,6 @@ def run_mesh_serve(report: dict) -> dict:
               f"{steps} decode steps, {rep['prefill_chunks']} chunks, launches "
               f"{run['launches']}, exchanges {wire}, the plain run's divergences "
               f"{run['plain_diverged']} on {card}", flush=True)
-        del want_reqs
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4163,6 +4238,417 @@ def _launch_paths(report: dict) -> tuple:
                  for path, counts in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: mesh_model — the model axis across two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _mesh_model_spec() -> dict:
+    """What the two ranks run, read by ``mesh_model_rank`` from the
+    environment (the children import this file afresh)."""
+    return {"device": DEVICE, "arch": MESH_MODEL_ARCH, "layers": MESH_MODEL_LAYERS,
+            "n": MESH_MODEL_N, "batch": MESH_MODEL_BATCH, "seq": MESH_MODEL_SEQ,
+            "keys": list(MESH_MODEL_KEYS), "serve_spec": SERVE_SPEC, "slots": SERVE_SLOTS,
+            "page": SERVE_PAGE, "chunk": MESH_MODEL_CHUNK}
+
+
+def _mm_arch(spec: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import reduced
+
+    arch = get_arch(spec["arch"])
+    if spec["layers"]:
+        arch = dataclasses.replace(arch, model=reduced(arch.model, layers=spec["layers"],
+                                                       d_model=64))
+    return arch
+
+
+def _mm_rounds(fns: dict, state: tuple, batch: dict, keys: list, mesh) -> tuple:
+    """One ``sync_step`` (c_k = 1), then a round under each key as
+    ``train_step`` takes it (c_k ~ Be(p) from the key's first half; the
+    compressed round under its second), through the bundle's scoped steps
+    so the ledger books each round type under its own scope; each timed on
+    the host clock ending in a synchronize; launches and the bytes of the
+    mesh's collectives by round. Returns (state, c_k, seconds, launches,
+    bytes)."""
+    from repro_torch import kernels, prng
+
+    c_k, secs, per_round, wire = [], [], [], []
+    for i in range(len(keys) + 1):
+        kernels.reset_launch_counts()
+        before = dict(mesh.payload_bytes)
+        t0 = time.perf_counter()
+        if i == 0:
+            state = fns["sync_step"](*state, batch)
+            c_k.append(1)
+        else:
+            k_b, k_q = prng.split(prng.PRNGKey(keys[i - 1]))
+            c_k.append(int(bool(prng.bernoulli(k_b, MESH_MODEL_P))))
+            state = (fns["sync_step"](*state, batch) if c_k[-1]
+                     else fns["compressed_step"](*state, batch, k_q))
+        _sync()
+        secs.append(time.perf_counter() - t0)
+        per_round.append({k: v for k, v in kernels.launch_counts().items() if v})
+        wire.append({k: v - before.get(k, 0) for k, v in mesh.payload_bytes.items()
+                     if v != before.get(k, 0)})
+    return state, c_k, secs, per_round, wire
+
+
+def _mm_kernels(mesh, b) -> dict:
+    """Rows 10 and 2 on this rank's share of the MLP leaf ``w_gate``'s wire
+    (its columns; the offsets drawn as the transport draws them, the others
+    sent to the dropped column) and row 24 at this rank's heads, each
+    against its plain version."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.kernels import paged, randk, ref
+
+    dev = mesh.device
+    tr = b.transport
+    j = next(i for i, s in enumerate(tr.leaf_shapes) if tr.leaf_dims[i] == len(s) - 1
+             and len(s) == 3 and s[-1] != s[-2])      # w_gate: (layers, d, F), F split
+    shape = tr.leaf_shapes[j]
+    R, L = int(shape[0] * shape[1]), int(shape[2])
+    n = len(mesh.workers(b.n_workers))
+    _, mine, loc, kb, Ll = tr._cols_draw(prng.PRNGKey(SEED + 43), shape, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    x = torch.randn((n * R, Ll), generator=gen, device=dev)
+    o = loc.clamp(max=Ll - 1).reshape(n * R, kb).contiguous()
+    g_k, g_p = randk.randk_gather(x, o, L / kb), ref.randk_block_compress_ref(x, o, L / kb)
+    v = torch.where(mine, g_k.reshape(n, R, kb), torch.zeros_like(g_k.reshape(n, R, kb)))
+    s_k, s_p = randk.scatter_accum(v, loc, Ll + 1), ref.scatter_accum_ref(v, loc, Ll + 1)
+    out = {"leaf_shape": list(shape), "cols": Ll, "kb": kb, "mine_share": float(mine.float().mean()),
+           "randk_gather_err": float((g_k - g_p).abs().max()),
+           "scatter_accum_err": float((s_k - s_p).abs().max())}
+    require(bits_equal(g_k, g_p) and bits_equal(s_k, s_p),
+            f"mesh_model: rows 10 / 2 on the rank's columns differ from their plain versions "
+            f"({out})")
+    if DEVICE == "cuda":
+        out["randk_gather_b2b_ms"] = back_to_back_ms(lambda: randk.randk_gather(x, o, L / kb))
+        out["scatter_accum_b2b_ms"] = back_to_back_ms(lambda: randk.scatter_accum(v, loc, Ll + 1))
+    del x, o, v, g_k, g_p, s_k, s_p
+    S, H, KV, hd, P, maxp = MESH_MODEL_PAGED
+    q, kp, vp, tables, n_valid = paged_inputs(dev, gen, S, H, KV, hd, P, maxp, torch.float32)
+    got = paged.paged_attn_decode(q, kp, vp, tables, n_valid)
+    want = ref.paged_attn_decode_ref(q, kp, vp, tables, n_valid)
+    ok, err, limit, _ = paged_within_bound(got, want, vp)
+    require(ok, f"mesh_model: row 24 at {H} / {KV} heads off by {err} (bound {limit})")
+    out["paged_attn_decode_err"] = err
+    if DEVICE == "cuda":
+        out["paged_attn_decode_b2b_ms"] = back_to_back_ms(
+            lambda: paged.paged_attn_decode(q, kp, vp, tables, n_valid))
+    return out
+
+
+def mesh_model_rank() -> None:
+    """One rank of the mesh_model phase (module doc, phase 14): prints one
+    ``MESH_MODEL {json}`` line."""
+    import torch
+
+    from repro_torch.core.tree_util import tree_leaves, tree_map
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import topology as topo
+    from repro_torch.launch.distributed import build_train_steps
+    from repro_torch.launch.serve_steps import build_paged_serve_steps, engine_steps
+    from repro_torch.models import init_params
+
+    global DEVICE
+    spec = json.loads(os.environ[MESH_MODEL_ENV])
+    DEVICE = spec["device"]
+    pid, nproc = topo.init_from_env(device=DEVICE, backend="gloo")
+    # the two ranks share the host's cores: torch's host threads split
+    # between them (oversubscribed, the host-side ops and the staging stall)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * nproc)))
+    out: dict = {"rank": pid, "section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        _sync()
+        now = time.perf_counter()
+        out["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+
+    try:
+        arch = _mm_arch(spec)
+        cfg = arch.model
+        n = spec["n"]
+        mesh = topo.make_test_mesh(n, nproc, device=DEVICE)
+        require(mesh.model == nproc and mesh.world == 1
+                and mesh.staged == (DEVICE == "cuda"), f"mesh_model mesh {mesh}")
+        tier = topo.detect_topology(mesh).tier_for_axes(("model",))
+        require(tier == "dcn", f"model-axis tier {tier} under host-staged gloo")
+        full = init_params(SEED, cfg, torch.float32, device=DEVICE)
+        params = shd.shard_tree(full, mesh)
+        shapes = init_params(SEED, cfg, torch.float32, device="meta")
+        out["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        out["params"] = sum(t.numel() for t in tree_leaves(params))
+        gen = torch.Generator(device=mesh.device).manual_seed(SEED + 41)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (n, spec["batch"], spec["seq"]),
+                                         generator=gen, device=mesh.device)}
+        # no remat: its second forward would stage every layer's sums again
+        kw = dict(global_batch=n * spec["batch"], seq_len=spec["seq"], dtype=torch.float32,
+                  p=MESH_MODEL_P, grad_carry=True, remat=False)
+        keys = spec["keys"]
+        section("init")
+
+        def fresh(p):
+            return (p, tree_map(torch.zeros_like, p),
+                    tree_map(lambda t: t.new_zeros((n, *t.shape)), p))
+
+        runs, finals = {}, {}
+        for backend_k in ("auto", "ref"):
+            b = build_train_steps(arch, mesh, False, compression_backend=backend_k, **kw)
+            if backend_k == "auto":
+                out["kernels"] = _mm_kernels(mesh, b)
+            mesh.reset_counts()
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            state, c_k, secs, per_round, wire = _mm_rounds(b.fns, fresh(params), batch, keys,
+                                                            mesh)
+            runs[backend_k] = {"c_k": c_k, "seconds": secs, "launches": per_round,
+                               "wire": wire,
+                               "ledger": sorted([list(k), v] for k, v in
+                                                b.transport.ledger.bits.items())}
+            finals[backend_k] = state
+            del b
+            section(f"train_{backend_k}")
+        same = all(bits_equal(a, c) for a, c in zip(tree_leaves(finals["auto"]),
+                                                   tree_leaves(finals["ref"])))
+        require(same, "mesh_model: the kernel run's params, g and h differ from the plain run's")
+        out["train"] = runs
+        out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if DEVICE == "cuda" else 0.0)
+        x, g, _h = finals.pop("auto")
+        mine = tree_leaves(x) + tree_leaves(g)
+        del finals, x, g, _h
+        whole = scales = None
+        pairs = serve.parse_requests(spec["serve_spec"])
+        serve_kw = dict(slots=spec["slots"], page_size=spec["page"], chunk=spec["chunk"])
+        if pid == 1:
+            # one rank's serving, with each token's top-2 margin, while model
+            # rank 0 runs the one-rank rounds
+            want, margins = plain_streams(full, cfg, pairs, serve_kw)
+            out["plain"] = {"streams": want, "margins": [margins[r] for r in range(len(want))]}
+            section("one_rank_serve")
+        if pid == 0:
+            # the same rounds on one rank holding the whole model
+            solo = topo.Mesh(axis_names=("data", "model"), sizes=(n, nproc), device=mesh.device)
+            b = build_train_steps(arch, solo, False, **kw)
+            state, c_k, secs, _pr, _w = _mm_rounds(b.fns, fresh(full), batch, keys, solo)
+            whole = tree_leaves(state[0]) + tree_leaves(state[1])
+            scales = torch.tensor([float(c.abs().max()) or 1.0 for c in whole],
+                                  dtype=torch.float64, device=mesh.device)
+            out["one_rank"] = {"c_k": c_k, "seconds": secs,
+                               "ledger": sorted([list(k), v] for k, v in
+                                                b.transport.ledger.bits.items())}
+            del b, state
+            section("one_rank_train")
+        # each rank's slices of the one-rank state, sent from model rank 0
+        # (its own it keeps), held against the rank's own
+        scales = mesh.model_bcast(scales, (len(mine),), torch.float64)
+        dims = shd.model_dims(shapes, mesh) * 2
+        errs = []
+        for j, a in enumerate(mine):
+            want = None
+            for r in range(nproc):
+                part = None
+                if pid == 0:
+                    part = whole[j] if dims[j] is None else whole[j].chunk(nproc, dims[j])[r]
+                if r == 0:
+                    want = part if pid == 0 else want
+                    continue
+                got = mesh.model_bcast(None if part is None else part.contiguous(),
+                                       a.shape, a.dtype)
+                want = got if mesh.model_rank == r else want
+            errs.append(float((a - want).abs().max()) / float(scales[j]))
+        out["errs"] = errs
+        del whole, mine
+        section("held_to_one_rank")
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+        del full
+        # serving: SERVE_SPEC through the paged bundle, f32 pages, this rank's heads
+        reqs = serve.make_workload(cfg, pairs)
+        layout = serve.paged_layout(reqs, slots=spec["slots"], page_size=spec["page"])
+        b = build_paged_serve_steps(arch, mesh, n_slots=spec["slots"], npage=layout.npage,
+                                    page_size=spec["page"], max_pages=layout.max_pages,
+                                    chunk=spec["chunk"], dtype=torch.float32)
+        out["pool_heads"] = sorted({t.shape[3] for t in tree_leaves(b.meta["cache_shapes"])})
+        steps = engine_steps(b, params)
+        rec = []
+
+        def timed(cache, toks, lengths, tables, _fn=steps["decode"]):
+            t0 = time.perf_counter()
+            res = _fn(cache, toks, lengths, tables)
+            rec.append(time.perf_counter() - t0)
+            return res
+
+        steps["decode"] = timed
+        from repro_torch import kernels
+
+        mesh.reset_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = serve.run_continuous(params, cfg, reqs, steps=steps, slots=spec["slots"],
+                                   page_size=spec["page"], chunk=spec["chunk"]).to_dict()
+        _sync()
+        out["serve"] = {"seconds": time.perf_counter() - t0,
+                        "decode_steps": rep["decode_steps"],
+                        "prefill_chunks": rep["prefill_chunks"],
+                        "median_decode_step_ms": statistics.median(rec) * 1e3,
+                        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                        "bytes": dict(mesh.payload_bytes),
+                        "streams": [r.generated for r in reqs]}
+        del b, steps
+        section("serve")
+        out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9
+                                 if DEVICE == "cuda" else 0.0)
+    finally:
+        topo.shutdown()
+    print("MESH_MODEL " + json.dumps(out), flush=True)
+
+
+def run_mesh_model(report: dict) -> dict:
+    """Phase 14 (module doc): two ranks on the one card, sharded Qwen1.5-0.5B
+    trained and served on a (MESH_MODEL_N, 2) mesh, against one rank. Must
+    take at most MESH_MODEL_BUDGET_S."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.launch import topology as topo
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    card = report.get("card", "")
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        print(f"mesh_model: this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of "
+              "the card while its two ranks run", flush=True)
+    spec = _mesh_model_spec()
+    prog = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "chip_smoke.mesh_model_rank()")
+    res = topo.spawn_local_cluster(prog, num_processes=2, devices_per_process=1,
+                                   timeout=MESH_MODEL_BUDGET_S + 60,
+                                   extra_env={MESH_MODEL_ENV: json.dumps(spec)})
+    outs = []
+    for r in res:
+        sys.stdout.write("".join(line + "\n" for line in r.stdout.splitlines()
+                                 if not line.startswith("MESH_MODEL ")))
+        require(r.returncode == 0, f"mesh_model rank exited {r.returncode}: {r.stderr[-3000:]}")
+        outs += [json.loads(line[len("MESH_MODEL "):]) for line in r.stdout.splitlines()
+                 if line.startswith("MESH_MODEL ")]
+    require(len(outs) == 2, f"mesh_model: {len(outs)} rank reports")
+    outs.sort(key=lambda o: o["rank"])
+    lead = outs[0]
+    cfg = _mm_arch(spec).model
+    shapes = tree_leaves(init_params(SEED, cfg, device="meta"))
+    whole = sum(t.numel() for t in shapes)
+    out = {"ranks": 2, "mesh": [spec["n"], 2], "backend": "gloo (host-staged)",
+           "param_bytes": [o["param_bytes"] for o in outs], "whole_param_bytes": 4 * whole,
+           "peak_mem_gb": [o["peak_mem_gb"] for o in outs], "kernels": [o["kernels"] for o in outs]}
+    if spec["arch"] == "qwen1.5-0.5b" and not spec["layers"]:
+        require([o["params"] for o in outs] == [QWEN_RANK_PARAMS] * 2,
+                f"mesh_model: parameters a rank {[o['params'] for o in outs]}")
+    print(f"mesh_model: parameter bytes a rank {out['param_bytes']} of {4 * whole} "
+          f"({[round(b / 1e9, 3) for b in out['param_bytes']]} of {4 * whole / 1e9:.3f} GB); "
+          f"peak memory a rank {[round(g, 2) for g in out['peak_mem_gb']]} GB", flush=True)
+    # training: c_k, ledgers, the wire against the ledger, the LM rule
+    one = lead["one_rank"]
+    nleaf = len(shapes)
+    errs = [max(o["errs"][j] for o in outs) for j in range(2 * nleaf)]
+    one.update(params_errs=errs[:nleaf], g_errs=errs[nleaf:], params_err=max(errs[:nleaf]),
+               g_err=max(errs[nleaf:]))
+    out["section_s"] = [o["section_s"] for o in outs]
+    print(f"mesh_model: seconds by section a rank {out['section_s']}; against one rank, of "
+          f"each leaf's scale (leaves in tree order): params {one['params_errs']}, g "
+          f"{one['g_errs']}", flush=True)
+    for o in outs:
+        for bk in ("auto", "ref"):
+            run = o["train"][bk]
+            require(run["c_k"] == one["c_k"], f"mesh_model c_k {run['c_k']} != {one['c_k']}")
+            require(run["ledger"] == one["ledger"], f"mesh_model ledger {run['ledger']}")
+    require(max(one["params_err"], one["g_err"]) <= MESH_MODEL_RTOL,
+            f"mesh_model: params {one['params_err']}, g {one['g_err']} of a leaf's scale from "
+            f"one rank's (bound {MESH_MODEL_RTOL})")
+    n = spec["n"]
+    rounds = []
+    for i, c in enumerate(one["c_k"]):
+        by_kind: dict = {}
+        for o in outs:
+            for k, v in o["train"]["auto"]["wire"][i].items():
+                by_kind[k] = by_kind.get(k, 0) + v
+        wire_bits = sum(v for k, v in by_kind.items()
+                        if not k.startswith("model/")) * 8.0 / n
+        scope = "sync_step" if c else "compressed_step"
+        booked = sum(v for k, v in one["ledger"] if k[0] == scope and k[1] == "up")
+        require(wire_bits == booked, f"mesh_model round {i}: wire {wire_bits} bits a worker "
+                                     f"!= booked {booked} ({by_kind})")
+        launches: dict = {}
+        for o in outs:
+            for k, v in o["train"]["auto"]["launches"][i].items():
+                launches[k] = launches.get(k, 0) + v
+        secs = [o["train"]["auto"]["seconds"][i] for o in outs]
+        rounds.append({"c_k": c, "bytes": by_kind, "wire_up_bits": wire_bits,
+                       "booked_up_bits": booked, "launches": launches, "seconds": max(secs)})
+        print(f"mesh_model round {i} (c_k {c}): {max(secs):.3f} s on host-staged gloo (not "
+              f"NVLink), wire {wire_bits:.0f} bits a worker = booked, bytes by kind "
+              f"{by_kind}, launches {launches}", flush=True)
+    out["rounds"] = rounds
+    out["one_rank"] = {k: one[k] for k in ("c_k", "seconds", "params_err", "g_err",
+                                           "params_errs", "g_errs")}
+    if DEVICE == "cuda":
+        for r in rounds[1:]:
+            if r["c_k"] == 0:
+                # a leaf a rank, the replicated one (final_norm) on model rank 0 only
+                require(r["launches"] == {"randk_gather": 2 * nleaf - 1,
+                                          "scatter_accum": 2 * nleaf - 1},
+                        f"mesh_model compressed round launches {r['launches']}")
+    # serving
+    serve_rep = [o["serve"] for o in outs]
+    require(serve_rep[0]["streams"] == serve_rep[1]["streams"], "mesh_model: ranks' streams")
+    plain = outs[1]["plain"]
+    diverged = compare_streams("mesh_model serve (2 ranks vs 1)", serve_rep[0]["streams"],
+                               plain["streams"], plain["margins"])
+    require(all(o["pool_heads"] == [cfg.num_kv_heads // 2] for o in outs),
+            f"mesh_model pools hold {[o['pool_heads'] for o in outs]} KV heads")
+    sl: dict = {}
+    for s in serve_rep:
+        for k, v in s["launches"].items():
+            sl[k] = sl.get(k, 0) + v
+    steps = serve_rep[0]["decode_steps"]
+    if DEVICE == "cuda":
+        require(sl == {"paged_attn_decode": 2 * cfg.num_layers * steps},
+                f"mesh_model serve launches {sl}")
+    out["serve"] = {"decode_steps": steps, "prefill_chunks": serve_rep[0]["prefill_chunks"],
+                    "median_decode_step_ms": [s["median_decode_step_ms"] for s in serve_rep],
+                    "seconds": [s["seconds"] for s in serve_rep],
+                    "bytes": [s["bytes"] for s in serve_rep],
+                    "diverged": diverged, "launches": sl}
+    print(f"mesh_model serve: streams equal one rank's (divergences at near ties: "
+          f"{diverged}); median decode step "
+          f"{[round(s['median_decode_step_ms'], 3) for s in serve_rep]} ms on host-staged "
+          f"gloo (not NVLink); {steps} decode steps; launches {sl}; bytes by kind a rank "
+          f"{serve_rep[0]['bytes']}", flush=True)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    report["mesh_model"] = out
+    print(f"mesh_model phase: {secs:.1f} s (budget {MESH_MODEL_BUDGET_S:.0f}) on {card}",
+          flush=True)
+    require(secs <= MESH_MODEL_BUDGET_S, f"mesh_model phase took {secs:.1f} s")
+    names = kernels.KERNELS
+    return {"mesh_model_train": {k: sum(r["launches"].get(k, 0) for r in rounds)
+                                 for k in names},
+            "mesh_model_serve": {k: sl.get(k, 0) for k in names}}
+
+
 def _summed(per_round: list) -> dict:
     total: dict = {}
     for counts in per_round:
@@ -4216,6 +4702,7 @@ def main() -> int:
     launches.update(run_families(report))
     launches.update(run_recurrent(report))
     launches.update(run_launch(report))
+    launches.update(run_mesh_model(report))
 
     table = []
     for name, (source, replaces) in SOURCES.items():

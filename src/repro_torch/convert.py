@@ -2,8 +2,9 @@
 
 :func:`params_from_jax` turns any tree of numpy arrays (dicts, lists,
 tuples, NamedTuples — a parameter tree, a batch, an estimator or a
-worker-stacked carry) into the same tree of tensors; :func:`state_from_jax`
-does so for the fields of a ``MarinaState``. Taking numpy only keeps the
+worker-stacked carry) into the same tree of tensors (given a mesh whose
+model axis spans ranks, this rank's slices of it: ``sharding.shard_tree``);
+:func:`state_from_jax` does so for the fields of a ``MarinaState``. Taking numpy only keeps the
 port free of any JAX import: the caller converts with ``np.asarray``.
 bfloat16 arrays (numpy's ``ml_dtypes`` extension type) keep their bits.
 """
@@ -30,11 +31,19 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_jax(tree_of_numpy: PyTree, device=None) -> PyTree:
+def params_from_jax(tree_of_numpy: PyTree, device=None, mesh=None) -> PyTree:
     """Tree of numpy arrays → the same tree of tensors on ``device``
-    (``cuda`` unless it names another)."""
+    (``cuda`` unless it names another); with ``mesh``, a parameter tree cut
+    to this rank's slices on the mesh's model axis
+    (``launch.sharding.shard_tree``), so both packages start from the same
+    weights."""
     device = default_device(device)
-    return tree_map(lambda a: _tensor(a, device), tree_of_numpy)
+    tree = tree_map(lambda a: _tensor(a, device), tree_of_numpy)
+    if mesh is None:
+        return tree
+    from repro_torch.launch.sharding import shard_tree
+
+    return shard_tree(tree, mesh)
 
 
 def state_from_jax(params: PyTree, g: PyTree, step: int, h: PyTree = None,

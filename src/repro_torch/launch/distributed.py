@@ -19,15 +19,24 @@ through ``Transport.uplink_mean`` and ``Transport.downlink``) and
 ``train_step`` (c_k ~ Be(p) drawn on the host from the step key, as the
 reference draws it, choosing one of the two).
 
-GSPMD has no counterpart here; what it guarantees is kept. Each rank holds
-the whole model and computes the gradients of the workers it hosts
+GSPMD has no counterpart here; what it guarantees is kept. The ranks of a
+worker group compute the gradients of the workers it hosts
 (:meth:`Mesh.workers`); the step functions take the global (n,
 per_worker, S) batch on every rank, and ``h`` (with ``grad_carry``) as this
-rank's rows of the worker-stacked carry. A model axis wider than 1 without
-``replicate_params`` would shard the parameters (tensor and expert
-parallelism): that is ROADMAP A3b, and it raises ``NotImplementedError``.
-With ``replicate_params`` the model axis is within-worker data parallelism
-and the arithmetic is the reference's.
+rank's rows of the worker-stacked carry. Where the model axis spans ranks
+(``Mesh.model`` = m > 1) the parameters, the estimator g and the carry h
+are held as this rank's slices (``sharding.shard_tree``: tensor parallelism
+for attention, MLP and vocabulary, expert parallelism for MoE, every other
+sharded leaf gathered on use), the model's forward and backward run on the
+model group, and the transport ships each rank's share of every leaf's
+payload; a round computes what the one-rank port computes (to the
+autograd rule: the row- and vocabulary-parallel sums add in another
+order). In one process a model axis holds the whole model, as GSPMD's
+single-process layout does, with the reference's decisions for it (no
+flat sync, no flat PP). An fsdp inner axis (parameters over "data" on a
+multi-pod mesh whose workers are pods) is ROADMAP A3c and raises
+``NotImplementedError``. With ``replicate_params`` the model axis is
+within-worker data parallelism and the arithmetic is the reference's.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from repro_torch import prng
 from repro_torch.core import flat as flat_engine
 from repro_torch.core.marina import _FAULT_FOLD, _carry_refresh, _sync_faults, _uplink_faults
 from repro_torch.core.tree_util import tree_flatten, tree_map, tree_sub, tree_unflatten
+from repro_torch.launch import sharding as shd
 from repro_torch.launch.participation import (  # noqa: F401
     FLEET_ATTACKS,
     build_pp_steps,
@@ -61,8 +71,9 @@ class StepBundle:
     """A bundle of mesh steps for one (arch × mesh) combination.
     ``fns[name]`` is a plain callable with the reference's signature
     (``h`` with ``grad_carry``, a trailing ``sel`` under participation);
-    ``param_shapes`` are meta tensors (every rank holds the whole model, so
-    the reference's ``param_shardings`` have no counterpart)."""
+    ``param_shapes`` are the whole model's meta tensors; ``local_shapes``
+    this rank's slices of them (``sharding.shard_tree``; the whole shapes
+    where the rank holds the whole model)."""
 
     mesh: Any
     n_workers: int
@@ -70,15 +81,17 @@ class StepBundle:
     fns: dict
     meta: dict = dataclasses.field(default_factory=dict)
     transport: Any = None
+    local_shapes: PyTree = None
 
 
-def _grad_one(cfg):
-    """∇ of the LM loss of one worker's batch, by autograd."""
+def _grad_one(cfg, tp=None):
+    """∇ of the LM loss of one worker's batch, by autograd (on the model
+    group ``tp``: this rank's slices of it)."""
     def grad_one(params, one_batch):
         leaves, treedef = tree_flatten(params)
         leaves = [t.detach().requires_grad_(True) for t in leaves]
         loss = lm_loss(tree_unflatten(treedef, leaves), cfg, one_batch["tokens"],
-                       one_batch.get("prefix"))
+                       one_batch.get("prefix"), tp=tp)
         return tree_unflatten(treedef, torch.autograd.grad(loss, leaves))
     return grad_one
 
@@ -122,8 +135,7 @@ def build_train_steps(
     * topology         — the fabric the ledger tiers by (default: the
       runtime fabric, ``detect_topology``)
     * replicate_params — small-model mode: the model axis becomes
-      within-worker data parallelism (required for a model axis > 1:
-      sharded parameters are ROADMAP A3b)
+      within-worker data parallelism (a model axis inside the rank only)
     * grad_carry       — single-backprop compressed rounds: the carry holds
       per-worker h_i^k = ∇f_i(x^k); signatures become (params, g, h,
       batch[, key]) → (params, g, h)
@@ -161,17 +173,23 @@ def build_train_steps(
             "faults='drop' substitutes the carried h row for the missing "
             "upload — grad_carry=True is required (DESIGN.md §4.9)")
     waxes = worker_axis_names(multi_pod, arch.worker_axes)
-    sharded = [a for a in mesh.axis_names if a not in waxes and mesh.shape[a] > 1]
-    if sharded and not replicate_params:
+    fsdp = arch.fsdp and "data" not in waxes
+    if fsdp and mesh.shape.get("data", 1) > 1 and not replicate_params:
         raise NotImplementedError(
-            f"mesh axes {sharded} would shard the parameters (tensor / expert "
-            "parallelism): ROADMAP A3b. Pass replicate_params=True to run them "
-            "as within-worker data parallelism")
+            "an fsdp inner axis (the parameters sharded over 'data' on a multi-pod mesh "
+            "whose workers are pods) is ROADMAP A3c")
+    if replicate_params and mesh.model > 1:
+        raise ValueError("replicate_params runs the model axis inside a rank; this mesh's "
+                         f"model axis spans {mesh.model} ranks")
     n = num_workers(mesh, multi_pod, arch.worker_axes)
     per_worker = global_batch // n
     rows = mesh.workers(n)
+    tp = mesh if mesh.model > 1 else None
 
     param_shapes = init_params(0, cfg, dtype, device="meta")
+    local_shapes = param_shapes
+    if tp is not None:
+        local_shapes = shd.shard_tree(param_shapes, mesh)
 
     # size-1 axes shard nothing, so they neither disqualify the packed
     # exchange nor the flat-PP pipeline
@@ -184,9 +202,10 @@ def build_train_steps(
     transport = make_transport(
         mesh, topo, waxes, n, backend=compression_backend, compression=compression,
         qsgd_s=qsgd_s, packed_payload=packed_payload, shared_mask=shared_mask,
-        downlink=downlink, downlink_s=downlink_s, flat_sync=flat_sync, sync_layout=lay)
+        downlink=downlink, downlink_s=downlink_s, flat_sync=flat_sync, sync_layout=lay,
+        param_shapes=param_shapes)
 
-    grad_one = _grad_one(cfg)
+    grad_one = _grad_one(cfg, tp)
 
     def worker_grads(params, batch):
         """This rank's workers' gradients, stacked: (rows, *leaf) per leaf,
@@ -225,8 +244,8 @@ def build_train_steps(
     def robust_delta(key, diffs, rows_n, rows_sharded=True):
         """Robust compressed-round delta: per-worker dense payload rows →
         the rule (replaces the fused mean)."""
-        return aggregator.combine_stacked(
-            transport.worker_rows(key, diffs, rows_n, rows_sharded=rows_sharded))
+        return transport.combine(
+            aggregator, transport.worker_rows(key, diffs, rows_n, rows_sharded=rows_sharded))
 
     # dropped clients ride the collective as zero rows, but only the
     # surviving uploads bill: booked uplink == (n − f)·ζ_Q
@@ -308,6 +327,7 @@ def build_train_steps(
             shared_mask=shared_mask, compression=compression,
             compression_backend=compression_backend, qsgd_s=qsgd_s,
             replicate_params=replicate_params, inner=inner, param_shapes=param_shapes,
+            local_shapes=local_shapes,
             mesh=mesh, transport=transport, downlink=downlink, robust=robust,
             aggregator=aggregator, faults=faults, grad_carry=grad_carry,
             sync_step=sync_step, worker_grads=worker_grads, descend=descend,
@@ -350,6 +370,7 @@ def build_train_steps(
             **({"faults": faults.attack} if faults is not None else {}),
         },
         transport=transport,
+        local_shapes=local_shapes,
     )
 
 

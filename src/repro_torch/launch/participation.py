@@ -33,7 +33,10 @@ and trajectories stay bit-equal to the one-rank run and to core
 ``PPMarina``. Dense state crosses, under the mesh's ``gather_state`` kind,
 only for a group's partial sum across ranks, a carry client's gradient on
 its way to its owner, the diffs of a fleet-wide attack, and the per-leaf
-wire of permk where r does not divide the block (all r rows gathered).
+wire (a model axis that spans ranks, or permk where r does not divide the
+block) where the cohort's rows lie unevenly over the ranks (all r rows
+gathered); laid out as workers are (r/world rows a rank, in order), the
+per-leaf wire ships their payloads, as a full round does.
 """
 
 from __future__ import annotations
@@ -117,6 +120,7 @@ def cohort_plan(sel, *, n: int, r: int, world: int, cohort_compute: bool,
 def build_pp_steps(participation, *, n: int, per_worker: int, p: float, block: int, kb: int,
                    shared_mask: bool, compression: str, compression_backend: str, qsgd_s: int,
                    replicate_params: bool, inner: tuple, param_shapes, mesh, transport,
+                   local_shapes=None,
                    downlink: str, robust: bool, aggregator, faults, grad_carry: bool,
                    sync_step, worker_grads, descend, robust_delta):
     """Build the PP compressed and train steps over the shared round
@@ -149,7 +153,8 @@ def build_pp_steps(participation, *, n: int, per_worker: int, p: float, block: i
         flat_pp = False
     lo_hi = mesh.workers(n)
     per = len(lo_hi)
-    leaf_shapes, treedef = tree_flatten(param_shapes)
+    # this rank's leaves (its model slices where the model axis spans ranks)
+    leaf_shapes, treedef = tree_flatten(param_shapes if local_shapes is None else local_shapes)
 
     def stack(rows: list) -> list:
         """Per leaf, the rows' leaves stacked (0 rows: empty stacks)."""
@@ -281,9 +286,19 @@ def build_pp_steps(participation, *, n: int, per_worker: int, p: float, block: i
             del diffs
             delta = flat_engine.unpack(pp_eng.layout,
                                        flat_wire_delta(k_up, bufs, home, mine))
+        elif r_part % mesh.world == 0 and list(home) == [i // (r_part // mesh.world)
+                                                         for i in range(r_part)]:
+            # the per-leaf wire on the r-row payload stack, its rows laid out
+            # over the ranks as workers are: each rank encodes its own rows
+            # and the payloads cross, as in a full round
+            local = tree_unflatten(treedef, diffs)
+            if robust:
+                delta = robust_delta(k_up, local, r_part, rows_sharded=True)
+            else:
+                delta = transport.uplink_mean(k_up, local, rows_n=r_part, rows_sharded=True)
         else:
-            # the per-leaf wire on the r-row payload stack: the cohort's dense
-            # rows gathered on every rank first
+            # rows spread unevenly over the ranks: the cohort's dense rows
+            # gathered on every rank first
             full = tree_unflatten(treedef, [mesh.share_rows(t, home, kind="gather_state")
                                             for t in diffs])
             if robust:

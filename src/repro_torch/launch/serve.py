@@ -127,11 +127,14 @@ def build_paged_steps(params, cfg, *, temperature: float = 0.0, seed: int = 0,
     return engine_form(params, decode, chunk, temperature=temperature, seed=seed)
 
 
-def engine_form(params, decode, chunk, *, temperature: float, seed: int) -> dict:
+def engine_form(params, decode, chunk, *, temperature: float, seed: int,
+                model: int = 1) -> dict:
     """Paged steps in the engine's form: ``decode(params, cache, token,
     lens, tbl, key)`` and ``chunk(params, cache, tokens, start, row,
     n_valid, key)`` with numpy tokens out, the key ``PRNGKey(seed)`` split
-    once per call at ``temperature`` > 0, and the COW / swap page ops."""
+    once per call at ``temperature`` > 0, and the COW / swap page ops.
+    ``model``: the ranks of the model group the steps run on (the engine's
+    pool then holds this rank's KV heads)."""
     keys = KeyStream(seed)
 
     def key():
@@ -158,7 +161,7 @@ def engine_form(params, decode, chunk, *, temperature: float, seed: int) -> dict
         return paged_scatter_pages(cache, ids, snap)
 
     return {"prefill": prefill_fn, "decode": decode_fn, "copy": copy_fn,
-            "gather": gather_fn, "scatter": scatter_fn}
+            "gather": gather_fn, "scatter": scatter_fn, "model": model}
 
 
 def build_engine(params, cfg, layout: PagedLayout, *, chunk: int,
@@ -177,7 +180,7 @@ def build_engine(params, cfg, layout: PagedLayout, *, chunk: int,
     with torch.inference_mode():
         cache = init_paged_cache(cfg, layout.npage, layout.page_size,
                                  params["embed"].dtype, quantized=quantized,
-                                 device=_device_of(params))
+                                 device=_device_of(params), model=steps.get("model", 1))
     sched = ContinuousScheduler(layout, admission=admission, share_prefix=share_prefix)
     return ContinuousEngine(sched, cache, steps["prefill"], steps["decode"], chunk=chunk,
                             copy_fn=steps["copy"], gather_fn=steps["gather"],

@@ -4,8 +4,11 @@ table of ``repro.launch.sharding``, returning plain spec tuples.
 A spec is a tuple with one entry per tensor dimension: a mesh axis name, a
 tuple of axis names, or None (replicated) — what ``PartitionSpec`` holds in
 the reference. ``build_train_steps`` reads these to make the reference's
-decisions; applying them to tensors (tensor and expert parallelism across
-ranks) is ROADMAP A3b.
+decisions, and :func:`shard_tree` / :func:`gather_tree` apply them across the
+m ranks of a model axis (``Mesh.model``): each rank holds one of the m
+equal slices of every leaf along the dimension its spec gives the model
+axis, and the model's forward and backward gather or reduce across the
+model group (``models/layers.py``'s parallel primitives).
 
 Every rule is a *preference*; :func:`_fit` drops any axis that does not
 divide the corresponding dimension. Roles: ``M`` prefers the model axis,
@@ -19,7 +22,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from repro_torch.core.tree_util import tree_flatten_with_path
+from repro_torch.core.tree_util import tree_flatten, tree_flatten_with_path
 
 PyTree = Any
 
@@ -106,6 +109,59 @@ def param_sharding_tree(shapes: PyTree, mesh, fsdp: bool) -> PyTree:
     """A tree of :func:`param_spec` specs shaped like ``shapes``."""
     flat, treedef = tree_flatten_with_path(shapes)
     return treedef.unflatten([param_spec(p, leaf, mesh, fsdp) for p, leaf in flat])
+
+
+def model_dim(spec: tuple) -> Optional[int]:
+    """The dimension a spec gives the model axis (None: not on it)."""
+    for d, ax in enumerate(spec):
+        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+            return d
+    return None
+
+
+def _check_fsdp(fsdp: bool) -> None:
+    if fsdp:
+        raise NotImplementedError(
+            "an fsdp inner axis (parameters sharded over 'data' on a multi-pod mesh "
+            "whose workers are pods) is ROADMAP A3c")
+
+
+def model_dims(shapes: PyTree, mesh, fsdp: bool = False) -> list:
+    """Per leaf of ``shapes`` (full shapes, flattened order), the dimension
+    its slices split on across the mesh's model ranks, or None (held whole:
+    a replicated leaf, or a model axis inside one rank)."""
+    _check_fsdp(fsdp)
+    flat, _ = tree_flatten_with_path(shapes)
+    if getattr(mesh, "model", 1) == 1:
+        return [None] * len(flat)
+    return [model_dim(param_spec(p, leaf, mesh, fsdp)) for p, leaf in flat]
+
+
+def shard_tree(params: PyTree, mesh, fsdp: bool = False) -> PyTree:
+    """This rank's slices of a whole parameter tree (``Mesh.model_rank`` of
+    ``Mesh.model`` along each leaf's :func:`model_dim`; replicated leaves
+    whole), as contiguous copies so the whole tree can be freed."""
+    leaves, treedef = tree_flatten(params)
+    dims = model_dims(params, mesh, fsdp)
+    return treedef.unflatten([t if d is None else mesh.model_slice(t, d)
+                              for t, d in zip(leaves, dims)])
+
+
+def gather_tree(local: PyTree, mesh, shapes: PyTree, fsdp: bool = False) -> PyTree:
+    """Undo :func:`shard_tree`: the whole tree on every rank of the model
+    group (``shapes`` the whole leaves' shapes, e.g. meta tensors), for
+    checkpoints and comparisons."""
+    leaves, treedef = tree_flatten(local)
+    dims = model_dims(shapes, mesh, fsdp)
+    return treedef.unflatten([t if d is None else mesh.model_gather(t, d, kind="model/gather_tree")
+                              for t, d in zip(leaves, dims)])
+
+
+def local_shape(shape: tuple, d: Optional[int], m: int) -> tuple:
+    """A leaf's slice shape on one of m model ranks."""
+    if d is None:
+        return tuple(shape)
+    return tuple(s // m if i == d else s for i, s in enumerate(shape))
 
 
 # ---------------------------------------------------------------------------

@@ -13,19 +13,25 @@ hosted by one or more processes:
 
 2. **How do I get a mesh on it?** GSPMD has no counterpart here, so a
    :class:`Mesh` is a plain record: ordered axis names and sizes (``.shape``
-   and ``.axis_names`` as in JAX), the process group, and the device. The
-   workers of the worker axes are split into contiguous groups, one per
-   rank (:meth:`Mesh.workers`); each rank holds the whole model on its
-   device, and one rank may host all n workers (one process, one card).
+   and ``.axis_names`` as in JAX), the process groups, and the device. A
+   rank is a (worker group, model index) pair: the workers of the worker
+   axes are split into contiguous groups (:meth:`Mesh.workers`), and within
+   a group the m model indices are m ranks, each holding one slice of every
+   parameter the rule table shards (``launch/sharding.py``). The worker-axis
+   collectives run among the ranks of one model index; the model-axis ones
+   (``model_*``) among the m ranks of one worker group. One rank may host
+   all n workers and the whole model (one process, one card).
    :func:`detect_topology` classifies the axes against that layout: an axis
-   whose workers span processes is ``dcn`` on the CPU (gloo) and ``ici`` on
-   GPUs (nccl); an axis inside one process is ``loopback``, four workers on
-   one card included.
+   that spans processes is ``dcn`` under gloo and ``ici`` under nccl; an
+   axis inside one process is ``loopback``, four workers on one card
+   included.
 
 3. **How do multiple processes come up?** :func:`initialize_multiprocess`
    is ``torch.distributed.init_process_group`` with a TCP rendezvous —
-   ``nccl`` when the process runs on the card (the default), ``gloo`` only
-   when the caller asks for the CPU; nothing falls back quietly.
+   ``nccl`` when the process runs on the card (the default), ``gloo`` when
+   the caller asks for the CPU, or for gloo by name on the card (each
+   collective's tensors then staged through host memory: the way two ranks
+   share one card, which NCCL refuses); nothing falls back quietly.
    :func:`init_from_env` reads the reference's ``MARINA_MP_*`` contract and
    :func:`spawn_local_cluster` stands up an N-process local cluster in
    subprocesses, with the reference's crash and recovery helpers.
@@ -180,7 +186,17 @@ class Mesh:
     ``op_counts`` / ``op_bytes`` count the same traffic by the collective
     that carried it (``all-gather``, ``all-reduce``, ``broadcast``,
     ``send``), which is what ``roofline.collective_stats_from_mesh``
-    prices."""
+    prices.
+
+    ``rank`` / ``world`` are this rank's worker group and the number of
+    worker groups, and ``group`` the worker-axis group of this rank's model
+    index. ``model`` is the number of ranks along the model axis (1: the
+    rank holds the whole model), ``model_rank`` this rank's model index and
+    ``model_group`` the ranks of its worker group. The model-axis
+    collectives count under kinds of their own (``model/...``) and ops
+    prefixed ``model/``: the ledger books no bits for a reshard inside a
+    worker. ``staged``: a gloo group on the card, every collective's
+    tensors copied through host memory."""
 
     axis_names: tuple
     sizes: tuple
@@ -188,6 +204,10 @@ class Mesh:
     group: Any = None
     rank: int = 0
     world: int = 1
+    model: int = 1
+    model_rank: int = 0
+    model_group: Any = None
+    staged: bool = False
     collectives: dict = dataclasses.field(default_factory=dict)
     payload_bytes: dict = dataclasses.field(default_factory=dict)
     op_counts: dict = dataclasses.field(default_factory=dict)
@@ -210,6 +230,18 @@ class Mesh:
         import torch.distributed as dist
 
         return dist.get_backend(self.group)
+
+    def global_rank(self, group_rank: int) -> int:
+        """The process-group rank of worker group ``group_rank`` at this
+        rank's model index."""
+        return group_rank * self.model + self.model_rank
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as a collective takes it: on the host when staged."""
+        return t.cpu() if self.staged else t
+
+    def _back(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self.staged else t
 
     def workers(self, n: int) -> range:
         """The contiguous group of the n workers this rank hosts."""
@@ -243,11 +275,11 @@ class Mesh:
         import torch.distributed as dist
 
         src = local.contiguous()
-        raw = src.view(torch.uint8)
+        raw = self._out(src.view(torch.uint8))
         outs = [torch.empty_like(raw) for _ in range(self.world)]
         dist.all_gather(outs, raw, group=self.group)
         self._count(kind, raw.numel(), "all-gather")
-        full = outs[0] if self.world == 1 else torch.cat(outs)
+        full = self._back(outs[0] if self.world == 1 else torch.cat(outs))
         return full.view(src.dtype).reshape((n,) + tuple(local.shape[1:]))
 
     def sum_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
@@ -268,9 +300,10 @@ class Mesh:
                                device=local.device)
             w = self.workers(n)
             full[w.start:w.stop] = local
-        dist.all_reduce(full, group=self.group)
+        wire = self._out(full)
+        dist.all_reduce(wire, group=self.group)
         self._count("all_reduce", local.numel() * local.element_size(), "all-reduce")
-        return full
+        return self._back(wire) if self.staged else full
 
     def assemble_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
         """All n rows of dense worker state (per-worker gradients or decoded
@@ -311,7 +344,10 @@ class Mesh:
             out[torch.as_tensor(mine, device=out.device)] = local
         for j, o in enumerate(owners):
             raw = out[j:j + 1].view(torch.uint8)  # a view: receivers write in place
-            dist.broadcast(raw, src=o, group=self.group)
+            wire = self._out(raw)
+            dist.broadcast(wire, src=self.global_rank(o), group=self.group)
+            if self.staged:
+                raw.copy_(wire)
             if o == self.rank:
                 self._count(kind, raw.numel(), "broadcast")
         return out
@@ -327,31 +363,145 @@ class Mesh:
         import torch.distributed as dist
 
         if self.rank == src:
-            raw = t.contiguous().view(torch.uint8).reshape(-1)
-            dist.send(raw, dst, group=self.group)
+            raw = self._out(t.contiguous().view(torch.uint8).reshape(-1))
+            dist.send(raw, self.global_rank(dst), group=self.group)
             self._count(kind, raw.numel(), "send")
             return t
         buf = torch.empty(tuple(shape), dtype=dtype, device=self.device)
-        raw = buf.view(torch.uint8).reshape(-1)
-        dist.recv(raw, src, group=self.group)
+        raw = self._out(buf.view(torch.uint8).reshape(-1))
+        dist.recv(raw, self.global_rank(src), group=self.group)
+        if self.staged:
+            buf.view(torch.uint8).reshape(-1).copy_(raw)
         return buf
+
+    def gather_ragged(self, local: torch.Tensor, sizes, kind: str = "all_gather") -> list:
+        """Every worker group's 1-d ``local`` of ``sizes[g]`` elements (every
+        rank knows the sizes): one broadcast a group from its rank, counted
+        where it leaves, for payloads whose share differs from group to
+        group (a column-sharded leaf's offsets). Runs whenever the mesh has
+        a group; without one the local share is the only one."""
+        sizes = [int(k) for k in sizes]
+        if local.numel() != sizes[self.rank]:
+            raise ValueError(f"{local.numel()} local elements, sizes {sizes}")
+        if self.group is None:
+            return [local]
+        import torch.distributed as dist
+
+        out = []
+        for g, k in enumerate(sizes):
+            if g == self.rank:
+                buf = local.contiguous()
+                self._count(kind, buf.numel() * buf.element_size(), "broadcast")
+            else:
+                buf = torch.empty((k,), dtype=local.dtype, device=self.device)
+            if self.world > 1 and k:
+                raw = buf.view(torch.uint8)
+                wire = self._out(raw)
+                dist.broadcast(wire, src=self.global_rank(g), group=self.group)
+                if self.staged and g != self.rank:
+                    raw.copy_(wire)
+            out.append(buf)
+        return out
+
+    # -- the model axis: the m ranks of one worker group --------------------
+
+    def _model_count(self, kind: str, nbytes: int, op: str) -> None:
+        self._count(kind, nbytes, "model/" + op)
+
+    def model_gather(self, t: torch.Tensor, dim: int, kind: str = "model/gather") -> torch.Tensor:
+        """The m slices of ``t`` along ``dim``, in model-rank order."""
+        if self.model == 1:
+            return t
+        import torch.distributed as dist
+
+        src = t.contiguous()
+        raw = self._out(src.view(torch.uint8).reshape(-1))
+        outs = [torch.empty_like(raw) for _ in range(self.model)]
+        dist.all_gather(outs, raw, group=self.model_group)
+        self._model_count(kind, raw.numel(), "all-gather")
+        full = self._back(torch.cat(outs)).view(src.dtype).reshape((self.model, *src.shape))
+        return torch.cat(full.unbind(0), dim=dim)
+
+    def model_sum(self, t: torch.Tensor, kind: str = "model/sum") -> torch.Tensor:
+        """Σ over the model group of ``t``: the partials all-gathered and
+        added in model-rank order, so every rank holds the same bits (a ring
+        all-reduce promises no order)."""
+        if self.model == 1:
+            return t
+        parts = self.model_gather(t[None], 0, kind=kind)
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc
+
+    def model_bcast(self, t: "torch.Tensor | None", shape, dtype,
+                    kind: str = "model/broadcast") -> torch.Tensor:
+        """Model rank 0's ``t`` on every rank of the model group (the others
+        pass None and the shape and dtype)."""
+        if self.model == 1:
+            return t
+        import torch.distributed as dist
+
+        if self.model_rank == 0:
+            buf = t.contiguous()
+            self._model_count(kind, buf.numel() * buf.element_size(), "broadcast")
+        else:
+            buf = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+        raw = buf.view(torch.uint8).reshape(-1)
+        wire = self._out(raw)
+        dist.broadcast(wire, src=self.rank * self.model, group=self.model_group)
+        if self.staged and self.model_rank:
+            raw.copy_(wire)
+        return buf
+
+    def model_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of ``t`` along ``dim`` (no exchange)."""
+        if self.model == 1:
+            return t
+        return t.chunk(self.model, dim=dim)[self.model_rank].contiguous()
+
+
+#: set by :func:`initialize_multiprocess` when the caller asked for gloo on
+#: the card: the meshes over that group stage every collective through host
+#: memory
+_STAGED = {"on": False}
 
 
 def _make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
-    """A mesh over the initialized default process group (or none)."""
+    """A mesh over the initialized default process group (or none). A model
+    axis of m spans m ranks when the world is a multiple of m (ranks
+    ``g·m + i``: worker group g, model index i; one subgroup per worker
+    group and one per model index); in a world of one the rank holds the
+    whole model."""
     device = default_device(device)
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        backend = dist.get_backend()
-        if backend == "gloo" and device.type != "cpu":
-            raise ValueError("a gloo group stages CPU tensors only: the mesh must be on the CPU")
-        if backend == "nccl" and device.type != "cuda":
-            raise ValueError("an nccl group stages CUDA tensors only: the mesh must be on the card")
-        return Mesh(axis_names=tuple(axes), sizes=tuple(int(s) for s in shape), device=device,
-                    group=dist.group.WORLD, rank=dist.get_rank(),
-                    world=dist.get_world_size())
-    return Mesh(axis_names=tuple(axes), sizes=tuple(int(s) for s in shape), device=device)
+    axes, sizes = tuple(axes), tuple(int(s) for s in shape)
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh(axis_names=axes, sizes=sizes, device=device)
+    backend = dist.get_backend()
+    staged = backend == "gloo" and device.type == "cuda" and _STAGED["on"]
+    if backend == "gloo" and device.type != "cpu" and not staged:
+        raise ValueError("a gloo group stages CPU tensors only: the mesh must be on the CPU "
+                         "(or ask for gloo on the card by name: initialize_multiprocess("
+                         "backend='gloo'))")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("an nccl group stages CUDA tensors only: the mesh must be on the card")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    m = dict(zip(axes, sizes)).get("model", 1)
+    if world == 1 or m == 1:
+        return Mesh(axis_names=axes, sizes=sizes, device=device, group=dist.group.WORLD,
+                    rank=rank, world=world, staged=staged)
+    if world % m:
+        raise ValueError(f"a model axis of {m} does not split a world of {world} ranks")
+    groups = world // m
+    # every rank makes every subgroup, in the same order (new_group is collective)
+    model_groups = [dist.new_group(list(range(g * m, (g + 1) * m))) for g in range(groups)]
+    worker_groups = [dist.new_group(list(range(i, world, m))) for i in range(m)]
+    return Mesh(axis_names=axes, sizes=sizes, device=device,
+                group=worker_groups[rank % m], rank=rank // m, world=groups,
+                model=m, model_rank=rank % m, model_group=model_groups[rank // m],
+                staged=staged)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -412,23 +562,25 @@ def cohort_group_size(n: int, r: int) -> Optional[int]:
 def detect_topology(mesh: Mesh) -> Topology:
     """Classify a runtime mesh's axes against the process layout.
 
-    The ranks split the mesh's non-model slots (the worker index space, row
-    major over the non-model axes) into contiguous groups; the model axis
-    never leaves a rank, which holds the whole model. An axis along which
-    the rank changes spans processes: "dcn" on the CPU (gloo), "ici" on
-    GPUs (nccl). An axis inside one process is "loopback" on either. An
-    axis named "pod" is always "dcn", read from the mesh itself (the
-    reference's ``multi_pod`` argument is not needed)."""
+    The worker groups split the mesh's non-model slots (the worker index
+    space, row major over the non-model axes) into contiguous groups; the
+    model axis spans the m ranks of a group (``mesh.model``), or stays
+    inside the rank at m = 1. An axis along which the rank changes spans
+    processes: "dcn" under gloo (the CPU, or the card staged through the
+    host), "ici" under nccl. An axis inside one process is "loopback" on
+    either. An axis named "pod" is always "dcn", read from the mesh itself
+    (the reference's ``multi_pod`` argument is not needed)."""
     sizes = [s for a, s in zip(mesh.axis_names, mesh.sizes) if a != "model"]
     m = int(np.prod(sizes)) if sizes else 1
     if m % mesh.world:
         raise ValueError(f"{m} worker slots do not split over {mesh.world} ranks")
     ranks = (np.arange(m) // (m // mesh.world)).reshape(sizes or (1,))
-    cpu = mesh.device.type == "cpu"
+    slow = "dcn" if (mesh.device.type == "cpu" or mesh.staged) else "ici"
+    cpu = slow == "dcn"
     tiers, i = [], 0
     for axis in mesh.axis_names:
         if axis == "model":
-            tiers.append((axis, "loopback"))
+            tiers.append((axis, slow if mesh.model > 1 else "loopback"))
             continue
         along = np.moveaxis(ranks, i, 0)
         i += 1
@@ -440,7 +592,7 @@ def detect_topology(mesh: Mesh) -> Topology:
             tiers.append((axis, "loopback"))
     pod_devs = mesh.size // mesh.shape["pod"] if "pod" in mesh.axis_names else None
     return Topology(axis_tiers=tuple(tiers), n_devices=mesh.size,
-                    n_processes=mesh.world, devices_per_pod=pod_devs)
+                    n_processes=mesh.world * mesh.model, devices_per_pod=pod_devs)
 
 
 # ---------------------------------------------------------------------------
@@ -449,23 +601,33 @@ def detect_topology(mesh: Mesh) -> Topology:
 
 
 def initialize_multiprocess(coordinator_address: str, num_processes: int,
-                            process_id: int, *, device=None,
+                            process_id: int, *, device=None, backend: Optional[str] = None,
                             timeout_s: float = 120.0) -> torch.device:
     """``torch.distributed.init_process_group`` over a TCP rendezvous at
     ``coordinator_address`` ("host:port"): nccl on the card (the default;
     the process takes card ``process_id mod device_count``), gloo when
-    ``device`` asks for the CPU. Returns the device this process computes
-    on."""
+    ``device`` asks for the CPU. ``backend="gloo"`` on the card is asked for
+    by name only: the meshes then stage every collective's tensors through
+    host memory (two ranks on one card, which NCCL refuses). Returns the
+    device this process computes on."""
     import torch.distributed as dist
 
     device = default_device(device)
     kw = {}
+    _STAGED["on"] = False
     if device.type == "cuda":
-        backend = "nccl"
         device = torch.device("cuda", process_id % torch.cuda.device_count())
         torch.cuda.set_device(device)
-        kw["device_id"] = device
+        if backend in (None, "nccl"):
+            backend = "nccl"
+            kw["device_id"] = device
+        elif backend == "gloo":
+            _STAGED["on"] = True
+        else:
+            raise ValueError(f"no process-group backend {backend!r} on the card")
     elif device.type == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"no process-group backend {backend!r} on the CPU")
         backend = "gloo"
     else:
         raise ValueError(f"no process-group backend for device {device}")
@@ -476,11 +638,12 @@ def initialize_multiprocess(coordinator_address: str, num_processes: int,
     return device
 
 
-def init_from_env(device=None) -> tuple:
+def init_from_env(device=None, backend: Optional[str] = None) -> tuple:
     """Bring this process up from the ``MARINA_MP_*`` contract set by
     :func:`spawn_local_cluster` (no process group when the variables are
     absent). Returns ``(process_id, num_processes)``. On the card unless
-    ``device`` names the CPU (raises without a card)."""
+    ``device`` names the CPU (raises without a card); ``backend`` as
+    :func:`initialize_multiprocess`."""
     device = default_device(device)
     spec = os.environ.get(PROCESS_ENV)
     coord = os.environ.get(COORD_ENV)
@@ -488,7 +651,7 @@ def init_from_env(device=None) -> tuple:
         return (0, 1)
     pid_s, nproc_s = spec.split("/")
     pid, nproc = int(pid_s), int(nproc_s)
-    initialize_multiprocess(coord, nproc, pid, device=device)
+    initialize_multiprocess(coord, nproc, pid, device=device, backend=backend)
     return (pid, nproc)
 
 

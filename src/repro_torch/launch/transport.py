@@ -33,6 +33,34 @@ leaf in ``jax.tree.flatten`` order, then ``randint``, ``permutation`` or
 reference's. The gather along a leaf's last dimension and the
 scatter-mean are the ``randk_gather`` and ``scatter_accum`` kernels
 (through ``core.flat``'s backend-switched block primitives).
+
+On a model axis of m ranks (``Mesh.model``) each rank holds its slice of
+every leaf (``leaf_dims``: the dimension of each leaf's whole per-row
+``leaf_shapes`` its slices split, ``launch/sharding.py``) and ships only
+its share of the payload, so the wire's bytes, summed over all ranks, ×8
+÷ n, stay the booked bits. The draws are the whole leaf's on every rank;
+a rank keeps its share of them:
+
+* a leaf split on a leading dimension splits the (R, L) rows: every family
+  runs on the rank's rows (its offsets, dither or mask rows);
+* a leaf split on its last dimension splits L: under RandK a rank's share
+  of a row's kb offsets varies from row to row, so each worker group ships
+  the values (and offsets) that fall in its columns (a ragged exchange whose
+  sizes every rank regenerates from the key), and the scatter-mean runs at
+  the rank's width with the other offsets sent to a dropped column. Perm-K
+  ships each worker's lanes that fall in the rank's columns (ragged too:
+  the permutation is over the whole L). QSGD's row norm needs the whole
+  row: the rows are gathered over the model axis first, so the norm is
+  one rank's, bit for bit, and each rank ships its columns' levels, model
+  rank 0 the norms. Under the shared mask (and QSGD packed on columns that
+  split a 32-bit word) the leaf is gathered over the model axis, model
+  rank 0 ships its whole payload and broadcasts the decoded slice back;
+* a replicated leaf (bit-equal on every model rank) is shipped by model
+  rank 0 and its decoded delta broadcast over the model group.
+
+The decoded delta is the one-rank port's, bit for bit: the same offsets,
+values and worker order reach every coordinate. The model-axis traffic
+counts under ``model/...`` kinds, apart from the wire's.
 """
 
 from __future__ import annotations
@@ -66,6 +94,18 @@ def _leaf_dims(shape: tuple) -> tuple:
     L = int(shape[-1])
     R = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
     return R, L
+
+
+def _narrow_rows(t: torch.Tensor, ax: int, lead: tuple, d: Optional[int], m: int,
+                 i: int) -> torch.Tensor:
+    """A whole leaf's draw with its R = prod(``lead``) axis at ``ax`` → the
+    rows of slice i of m along ``lead``'s dimension ``d`` (None: all)."""
+    if d is None:
+        return t
+    v = t.reshape(*t.shape[:ax], *lead, *t.shape[ax + 1:])
+    k = lead[d] // m
+    v = v.narrow(ax + d, i * k, k)
+    return v.reshape(*t.shape[:ax], -1, *t.shape[ax + 1:])
 
 
 def _qsgd_quantize_rows(u: torch.Tensor, x: torch.Tensor, s: int):
@@ -181,6 +221,8 @@ class Transport:
     downlink_s: int = 7
     flat_sync: bool = False
     sync_layout: Any = None
+    leaf_shapes: Optional[list] = None
+    leaf_dims: Optional[list] = None
     ledger: wire.TierLedger = dataclasses.field(default_factory=wire.TierLedger)
     _scope: str = "unscoped"
     _booking: bool = True
@@ -313,6 +355,29 @@ class Transport:
         """The rows of an n-row stack this rank holds."""
         return self.mesh.workers(n) if rows_sharded else range(n)
 
+    def _leaf(self, j: int, leaf: torch.Tensor) -> tuple:
+        """(whole per-row shape, model dim in it or None) of leaf j of a
+        stack; the leaf's own shape on a rank that holds the whole model."""
+        if self.mesh.model == 1 or self.leaf_shapes is None:
+            return tuple(leaf.shape[1:]), None
+        return tuple(self.leaf_shapes[j]), self.leaf_dims[j]
+
+    def _family(self, L: int, n: int) -> str:
+        if self.compression == "permk" and L % n == 0:
+            return "permk"
+        if self.compression == "qsgd":
+            return "qsgd"
+        return "shared" if self.shared_mask else "randk"
+
+    def _cols(self, L: int) -> tuple:
+        """This rank's columns [c0, c0 + Ll) of a column-sharded leaf."""
+        Ll = L // self.mesh.model
+        return self.mesh.model_rank * Ll, Ll
+
+    def _whole(self, leaf: torch.Tensor, d: int, row_axis: bool = True) -> torch.Tensor:
+        """A sharded stack (or tree leaf) gathered over the model axis."""
+        return self.mesh.model_gather(leaf, d + (1 if row_axis else 0), kind="model/wire")
+
     # -- sync exchange ------------------------------------------------------
 
     def sync_mean(self, grads: PyTree) -> PyTree:
@@ -322,13 +387,40 @@ class Transport:
         leaf otherwise; rows summed in worker order, then ÷ n. Books 32d up
         and 32d down."""
         leaves, treedef = tree_flatten(grads)
-        self.book_sync([t[0] for t in leaves])
+        self.book_sync(self._row_shapes(leaves))
         n, mesh = self.n, self.mesh
         if self.flat_sync and mesh.group is not None:
             lay = self.sync_layout
             bufs = mesh.sum_rows(flat_engine.pack_stacked(lay, grads), n)
             return flat_engine.unpack(lay, mean_axis0(bufs))
-        return treedef.unflatten([mean_axis0(mesh.sum_rows(t, n)) for t in leaves])
+        out = []
+        for j, t in enumerate(leaves):
+            if mesh.model > 1 and self._leaf(j, t)[1] is None:
+                # a replicated leaf: model rank 0 ships it, then shares the mean
+                mean = mean_axis0(mesh.sum_rows(t, n)) if mesh.model_rank == 0 else None
+                out.append(mesh.model_bcast(mean, t.shape[1:], t.dtype))
+            else:
+                out.append(mean_axis0(mesh.sum_rows(t, n)))
+        return treedef.unflatten(out)
+
+    def _row_shapes(self, leaves: list) -> list:
+        """The whole per-row shapes of a stack's leaves (meta tensors)."""
+        return [torch.empty(self._leaf(j, t)[0], device="meta") for j, t in enumerate(leaves)]
+
+    def combine(self, aggregator, stacked: PyTree) -> PyTree:
+        """``aggregator.combine_stacked`` on this rank's slices of the
+        workers' rows: a coordinate-wise rule runs on the slices; a rule
+        that reads whole rows (Krum, norm clipping) runs on the rows
+        gathered over the model axis, and each rank keeps its slice."""
+        if self.mesh.model == 1 or aggregator.rule in ("trimmed_mean", "coordinate_median",
+                                                         "mean"):
+            return aggregator.combine_stacked(stacked)
+        leaves, treedef = tree_flatten(stacked)
+        dims = [self._leaf(j, t)[1] for j, t in enumerate(leaves)]
+        whole = [t if d is None else self._whole(t, d) for t, d in zip(leaves, dims)]
+        got, _ = tree_flatten(aggregator.combine_stacked(treedef.unflatten(whole)))
+        return treedef.unflatten([t if d is None else self.mesh.model_slice(t, d)
+                                  for t, d in zip(got, dims)])
 
     def sync_aggregate(self, grads: PyTree, aggregator=None) -> PyTree:
         """Sync-round server aggregation: the robust rule on the whole
@@ -336,9 +428,9 @@ class Transport:
         :meth:`sync_mean`; the wire cost is the same either way."""
         if aggregator is not None and aggregator.robust:
             leaves, treedef = tree_flatten(grads)
-            self.book_sync([t[0] for t in leaves])
+            self.book_sync(self._row_shapes(leaves))
             full = treedef.unflatten([self.mesh.assemble_rows(t, self.n) for t in leaves])
-            return aggregator.combine_stacked(full)
+            return self.combine(aggregator, full)
         return self.sync_mean(grads)
 
     # -- compressed uplink --------------------------------------------------
@@ -366,68 +458,218 @@ class Transport:
         n = self.n if rows_n is None else rows_n
         frac = self._up_fraction(n, uploaded_rows)
         rows = self._local(n, rows_sharded)
-        backend, packed = self.backend, self.packed_payload
-
-        def exchange(t: torch.Tensor) -> torch.Tensor:
-            return self.mesh.gather_rows(t, n) if rows_sharded else t
+        mesh = self.mesh
 
         leaves, treedef = tree_flatten(diffs)
         keys = prng.split(key, len(leaves))
         outs = []
-        for lk, leaf in zip(keys, leaves):
-            shape = tuple(leaf.shape[1:])
+        for j, (lk, leaf) in enumerate(zip(keys, leaves)):
+            shape, d = self._leaf(j, leaf)
             kind, bits = self._uplink_leaf_bits(n, shape, leaf.dtype)
             self.book("up", kind, bits * frac)
             R, L = _leaf_dims(shape)
-            kb = max(1, L // 128)
-            dev = leaf.device
-            x = leaf.reshape(len(rows), R, L)
-
-            if self.compression == "permk" and L % n == 0:
-                C = L // n
-                perm = torch.from_numpy(prng.permutation(lk, L)).to(dev)
-                idx = perm.reshape(n, 1, C)[rows.start:rows.stop].expand(len(rows), R, C)
-                vals = _gather_along_last(x, idx, float(n), backend)
-                sent = exchange(vals.to(torch.bfloat16) if packed else vals)
-                # (n, R, C) → (R, n·C): slot w·C + c holds worker w's c-th value
-                by_slot = sent.float().permute(1, 0, 2).reshape(R, L)
-                dense = (by_slot[:, torch.argsort(perm)] / n).to(leaf.dtype)
-            elif self.compression == "qsgd":
-                s = int(self.qsgd_s)
-                u = prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop]
-                q, norm = _qsgd_quantize_rows(u, x, s)
-                del u
-                if packed and s <= 7 and L % 8 == 0:
-                    words = kref.nibble_pack_ref(q.reshape(len(rows) * R, L))
-                    words = exchange(words.reshape(len(rows), R, L // 8))
-                    q = kref.nibble_unpack_ref(words.reshape(n * R, L // 8), L).reshape(n, R, L)
-                else:
-                    q = exchange(q)
-                norm = exchange(norm)
-                # dequantize and mean: worker-indexed accumulation into one
-                # (R, L) f32 buffer, in worker order
-                acc = torch.zeros((R, L), dtype=torch.float32, device=dev)
-                for w in range(n):
-                    acc = acc + q[w].float() * (norm[w] / s)
-                dense = (acc / n).to(leaf.dtype)
-            elif self.shared_mask:
-                idx = prng.randint(lk, (R, kb), 0, L, device=dev)
-                vals = _gather_along_last(x, idx.expand(len(rows), R, kb), L / kb, backend)
-                full = self.mesh.sum_rows(vals, n) if rows_sharded else vals
-                dense = _scatter_mean_last(mean_axis0(full)[None], idx[None], L,
-                                           backend).to(leaf.dtype)
+            fam = self._family(L, n)
+            if mesh.model == 1 or (d is not None and d < len(shape) - 1):
+                dense = self._uplink_leaf(lk, leaf, shape, d, n, rows, rows_sharded)
+            elif d is not None and fam == "randk":
+                dense = self._uplink_cols(lk, leaf, shape, n, rows, rows_sharded)
+            elif d is not None and fam == "permk":
+                dense = self._permk_cols(lk, leaf, shape, n, rows, rows_sharded)
+            elif d is not None and fam == "qsgd" and self._qsgd_cols_ok(L):
+                dense = self._qsgd_cols(lk, leaf, shape, n, rows, rows_sharded)
             else:
-                idx = prng.randint(lk, (n, R, kb), 0, L, device=dev)[rows.start:rows.stop]
-                vals = _gather_along_last(x, idx, L / kb, backend)
-                if packed:
-                    idx_wire = idx if L > 32767 else idx.to(torch.int16)
-                    vals = exchange(vals.to(torch.bfloat16)).to(leaf.dtype)
-                    idx = exchange(idx_wire).to(torch.int32)
+                # a replicated leaf, or a column-sharded one under the shared
+                # mask (or QSGD packed on columns that split a 32-bit word):
+                # model rank 0 ships the whole leaf's payload
+                whole = leaf if d is None else self._whole(leaf, d)
+                wshape = tuple(whole.shape[1:])
+                if not rows_sharded:
+                    dense = self._uplink_leaf(lk, whole, wshape, None, n, rows, False)
                 else:
-                    vals, idx = exchange(vals), exchange(idx)
-                dense = _scatter_mean_last(vals, idx, L, backend).to(leaf.dtype)
-            outs.append(dense.reshape(shape))
+                    dense = (self._uplink_leaf(lk, whole, wshape, None, n, rows, True)
+                             if mesh.model_rank == 0 else None)
+                    dense = mesh.model_bcast(dense, wshape, leaf.dtype)
+                if d is not None:
+                    dense = self.mesh.model_slice(dense, d)
+            outs.append(dense)
         return treedef.unflatten(outs)
+
+    def _uplink_leaf(self, lk, leaf: torch.Tensor, shape: tuple, d: Optional[int], n: int,
+                     rows: range, rows_sharded: bool) -> torch.Tensor:
+        """One leaf's exchange and dense mean (the one-rank arithmetic) on
+        this rank's rows of it: all of them, or where ``d`` names a leading
+        dimension the model slice's rows (the draws narrowed to them)."""
+        backend, packed, mesh = self.backend, self.packed_payload, self.mesh
+        lead = shape[:-1]
+        R, L = _leaf_dims(shape)
+        kb = max(1, L // 128)
+        dev = leaf.device
+        x = leaf.reshape(len(rows), -1, L)
+        Rl = x.shape[1]
+
+        def narrow(t: torch.Tensor, ax: int) -> torch.Tensor:
+            return _narrow_rows(t, ax, lead, d, mesh.model, mesh.model_rank)
+
+        def exchange(t: torch.Tensor) -> torch.Tensor:
+            return mesh.gather_rows(t, n) if rows_sharded else t
+
+        fam = self._family(L, n)
+        if fam == "permk":
+            C = L // n
+            perm = torch.from_numpy(prng.permutation(lk, L)).to(dev)
+            idx = perm.reshape(n, 1, C)[rows.start:rows.stop].expand(len(rows), Rl, C)
+            vals = _gather_along_last(x, idx, float(n), backend)
+            sent = exchange(vals.to(torch.bfloat16) if packed else vals)
+            # (n, R, C) → (R, n·C): slot w·C + c holds worker w's c-th value
+            by_slot = sent.float().permute(1, 0, 2).reshape(Rl, L)
+            dense = (by_slot[:, torch.argsort(perm)] / n).to(leaf.dtype)
+        elif fam == "qsgd":
+            s = int(self.qsgd_s)
+            u = narrow(prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop], 1)
+            q, norm = _qsgd_quantize_rows(u, x, s)
+            del u
+            if packed and s <= 7 and L % 8 == 0:
+                words = kref.nibble_pack_ref(q.reshape(len(rows) * Rl, L))
+                words = exchange(words.reshape(len(rows), Rl, L // 8))
+                q = kref.nibble_unpack_ref(words.reshape(n * Rl, L // 8), L).reshape(n, Rl, L)
+            else:
+                q = exchange(q)
+            norm = exchange(norm)
+            # dequantize and mean: worker-indexed accumulation into one
+            # (R, L) f32 buffer, in worker order
+            acc = torch.zeros((Rl, L), dtype=torch.float32, device=dev)
+            for w in range(n):
+                acc = acc + q[w].float() * (norm[w] / s)
+            dense = (acc / n).to(leaf.dtype)
+        elif fam == "shared":
+            idx = narrow(prng.randint(lk, (R, kb), 0, L, device=dev), 0)
+            vals = _gather_along_last(x, idx.expand(len(rows), Rl, kb), L / kb, backend)
+            full = mesh.sum_rows(vals, n) if rows_sharded else vals
+            dense = _scatter_mean_last(mean_axis0(full)[None], idx[None], L,
+                                       backend).to(leaf.dtype)
+        else:
+            idx = narrow(prng.randint(lk, (n, R, kb), 0, L, device=dev)[rows.start:rows.stop], 1)
+            vals = _gather_along_last(x, idx, L / kb, backend)
+            if packed:
+                idx_wire = idx if L > 32767 else idx.to(torch.int16)
+                vals = exchange(vals.to(torch.bfloat16)).to(leaf.dtype)
+                idx = exchange(idx_wire).to(torch.int32)
+            else:
+                vals, idx = exchange(vals), exchange(idx)
+            dense = _scatter_mean_last(vals, idx, L, backend).to(leaf.dtype)
+        return dense.reshape(leaf.shape[1:])
+
+    def _qsgd_cols_ok(self, L: int) -> bool:
+        """Whether a rank's columns pack to whole 4-bit words (or the wire
+        is unpacked int8)."""
+        packed = self.packed_payload and int(self.qsgd_s) <= 7 and L % 8 == 0
+        return not packed or (L // self.mesh.model) % 8 == 0
+
+    def _qsgd_cols(self, lk, leaf: torch.Tensor, shape: tuple, n: int, rows: range,
+                   rows_sharded: bool) -> torch.Tensor:
+        """QSGD on a column-sharded leaf: each worker's whole rows gathered
+        over the model axis, so the row norm is one rank's, bit for bit; each
+        rank ships its columns' levels, model rank 0 the norms (broadcast
+        over the model group); the dequantize and mean run in worker order
+        on the rank's columns."""
+        mesh, s = self.mesh, int(self.qsgd_s)
+        R, L = _leaf_dims(shape)
+        c0, Ll = self._cols(L)
+        dev = leaf.device
+        whole = self._whole(leaf.reshape(len(rows), R, Ll), 1).reshape(len(rows), R, L)
+        u = prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop]
+        q, norm = _qsgd_quantize_rows(u, whole, s)
+        del u, whole
+        q = q[..., c0:c0 + Ll].contiguous()
+
+        def exchange(t: torch.Tensor) -> torch.Tensor:
+            return mesh.gather_rows(t, n) if rows_sharded else t
+
+        if self.packed_payload and s <= 7 and L % 8 == 0:
+            words = kref.nibble_pack_ref(q.reshape(len(rows) * R, Ll))
+            words = exchange(words.reshape(len(rows), R, Ll // 8))
+            q = kref.nibble_unpack_ref(words.reshape(n * R, Ll // 8), Ll).reshape(n, R, Ll)
+        else:
+            q = exchange(q)
+        if rows_sharded:
+            norm = exchange(norm) if mesh.model_rank == 0 else None
+            norm = mesh.model_bcast(norm, (n, R, 1), torch.float32)
+        acc = torch.zeros((R, Ll), dtype=torch.float32, device=dev)
+        for w in range(n):
+            acc = acc + q[w].float() * (norm[w] / s)
+        return (acc / n).to(leaf.dtype).reshape(leaf.shape[1:])
+
+    def _permk_cols(self, lk, leaf: torch.Tensor, shape: tuple, n: int, rows: range,
+                    rows_sharded: bool) -> torch.Tensor:
+        """Perm-K on a column-sharded leaf: the permutation is over the whole
+        L, so worker w's C lanes fall in this rank's columns in a number
+        that differs from worker to worker; each rank gathers its workers'
+        values there and the worker groups ship them (ragged, sized from the
+        key), each lane decoded from its one worker."""
+        mesh, backend = self.mesh, self.backend
+        R, L = _leaf_dims(shape)
+        c0, Ll = self._cols(L)
+        dev = leaf.device
+        C = L // n
+        lanes = torch.from_numpy(prng.permutation(lk, L)).to(dev).reshape(n, C)
+        mine = [lanes[w][(lanes[w] >= c0) & (lanes[w] < c0 + Ll)] - c0 for w in range(n)]
+        x = leaf.reshape(len(rows), R, Ll)
+        vals = [_gather_along_last(x[i:i + 1], mine[w].to(torch.int32).expand(1, R, -1),
+                                   float(n), backend).reshape(-1)
+                for i, w in enumerate(rows)]
+        if self.packed_payload:
+            vals = [v.to(torch.bfloat16) for v in vals]
+        if rows_sharded:
+            per = n // mesh.world
+            sizes = [R * sum(len(mine[w]) for w in range(g * per, (g + 1) * per))
+                     for g in range(mesh.world)]
+            got = torch.cat(mesh.gather_ragged(torch.cat(vals), sizes))
+            vals = list(got.split([R * len(m) for m in mine]))
+        dense = torch.zeros((R, Ll), dtype=torch.float32, device=dev)
+        for w in range(n):
+            dense[:, mine[w]] = vals[w].float().reshape(R, -1)
+        return (dense / n).to(leaf.dtype).reshape(leaf.shape[1:])
+
+    def _cols_draw(self, lk, shape: tuple, n: int, dev) -> tuple:
+        """A column-sharded leaf's RandK draw: the whole (n, R, kb) offsets,
+        which of them fall in this rank's columns, and their offsets there
+        (the others sent to the dropped column Ll)."""
+        R, L = _leaf_dims(shape)
+        kb = max(1, L // 128)
+        c0, Ll = self._cols(L)
+        idx = prng.randint(lk, (n, R, kb), 0, L, device=dev)
+        mine = (idx >= c0) & (idx < c0 + Ll)
+        return idx, mine, torch.where(mine, idx - c0, torch.full_like(idx, Ll)), kb, Ll
+
+    def _uplink_cols(self, lk, leaf: torch.Tensor, shape: tuple, n: int, rows: range,
+                     rows_sharded: bool) -> torch.Tensor:
+        """RandK on a column-sharded leaf: this rank gathers its workers'
+        values at the offsets that fall in its columns, each worker group
+        ships those values and offsets (ragged: every rank knows the counts
+        from the key), and the scatter-mean runs at the rank's width."""
+        mesh, backend, packed = self.mesh, self.backend, self.packed_payload
+        R, L = _leaf_dims(shape)
+        dev = leaf.device
+        idx, mine, loc, kb, Ll = self._cols_draw(lk, shape, n, dev)
+        lo, hi = rows.start, rows.stop
+        x = leaf.reshape(len(rows), R, Ll)
+        vals = _gather_along_last(x, loc[lo:hi].clamp(max=Ll - 1), L / kb, backend)
+        if rows_sharded:
+            sel = mine[lo:hi]
+            send_v, send_i = vals[sel], idx[lo:hi][sel]
+            if packed:
+                send_v = send_v.to(torch.bfloat16)
+                send_i = send_i if L > 32767 else send_i.to(torch.int16)
+            per = n // mesh.world
+            sizes = [int(mine[g * per:(g + 1) * per].sum()) for g in range(mesh.world)]
+            got_v = torch.cat(mesh.gather_ragged(send_v, sizes))
+            mesh.gather_ragged(send_i, sizes)   # the offsets cross as the ledger books them
+            vals = torch.zeros((n, R, kb), dtype=leaf.dtype, device=dev)
+            vals[mine] = got_v.to(leaf.dtype)
+        else:
+            vals = torch.where(mine, vals, torch.zeros_like(vals))
+        dense = _scatter_mean_last(vals, loc, Ll + 1, backend)[:, :Ll]
+        return dense.to(leaf.dtype).reshape(leaf.shape[1:])
 
     def worker_rows(self, key, diffs: PyTree, rows_n: int, *,
                     uploaded_rows: Optional[int] = None,
@@ -442,33 +684,63 @@ class Transport:
         n = rows_n
         frac = self._up_fraction(n, uploaded_rows)
         rows = self._local(n, rows_sharded)
+        mesh = self.mesh
         leaves, treedef = tree_flatten(diffs)
         keys = prng.split(key, len(leaves))
         out = []
-        for lk, leaf in zip(keys, leaves):
-            shape = tuple(leaf.shape[1:])
+        for j, (lk, leaf) in enumerate(zip(keys, leaves)):
+            shape, d = self._leaf(j, leaf)
             self.book("up", "all-gather",
                       self._worker_rows_leaf_bits(n, shape, leaf.dtype) * frac)
             R, L = _leaf_dims(shape)
-            kb = max(1, L // 128)
-            dev = leaf.device
-            x = leaf.reshape(len(rows), R, L)
-            if self.compression == "qsgd":
-                s = int(self.qsgd_s)
-                u = prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop]
-                q, norm = _qsgd_quantize_rows(u, x, s)
-                if self.packed_payload and s <= 7 and L % 8 == 0:
-                    q = _nibble_roundtrip_rows(q)
-                dense = q.float() * (norm / s)
-            else:  # independent Block-RandK masks
-                idx = prng.randint(lk, (n, R, kb), 0, L, device=dev)[rows.start:rows.stop]
-                vals = _gather_along_last(x, idx, L / kb, self.backend)
-                dense = torch.stack([_scatter_mean_last(vals[i:i + 1], idx[i:i + 1], L,
-                                                        self.backend)
+            if d is not None and d == len(shape) - 1 and self.compression != "qsgd":
+                # RandK on a column-sharded leaf: each worker's offsets in
+                # this rank's columns, scattered at the rank's width
+                _, mine, loc, kb, Ll = self._cols_draw(lk, shape, n, leaf.device)
+                loc = loc[rows.start:rows.stop]
+                x = leaf.reshape(len(rows), R, Ll)
+                vals = _gather_along_last(x, loc.clamp(max=Ll - 1), L / kb, self.backend)
+                vals = torch.where(mine[rows.start:rows.stop], vals, torch.zeros_like(vals))
+                dense = torch.stack([_scatter_mean_last(vals[i:i + 1], loc[i:i + 1], Ll + 1,
+                                                        self.backend)[:, :Ll]
                                      for i in range(len(rows))])
-            dense = dense.reshape((len(rows),) + shape)
-            out.append(self.mesh.assemble_rows(dense, n) if rows_sharded else dense)
+            elif d is not None and d == len(shape) - 1:
+                # QSGD's row norm needs the whole row: decode the whole leaf
+                whole = self._whole(leaf, d)
+                dense = self.mesh.model_slice(self._worker_rows_leaf(
+                    lk, whole, tuple(whole.shape[1:]), None, n, rows).reshape(whole.shape), d + 1)
+            else:
+                dense = self._worker_rows_leaf(lk, leaf, shape, d, n, rows)
+            dense = dense.reshape(leaf.shape)
+            out.append(mesh.assemble_rows(dense, n) if rows_sharded else dense)
         return treedef.unflatten(out)
+
+    def _worker_rows_leaf(self, lk, leaf: torch.Tensor, shape: tuple, d: Optional[int],
+                          n: int, rows: range) -> torch.Tensor:
+        """One leaf's per-worker dense decode on this rank's rows of it (the
+        model slice's rows where ``d`` names a leading dimension)."""
+        mesh = self.mesh
+        lead = shape[:-1]
+        R, L = _leaf_dims(shape)
+        kb = max(1, L // 128)
+        dev = leaf.device
+        x = leaf.reshape(len(rows), -1, L)
+
+        def narrow(t: torch.Tensor, ax: int) -> torch.Tensor:
+            return _narrow_rows(t, ax, lead, d, mesh.model, mesh.model_rank)
+
+        if self.compression == "qsgd":
+            s = int(self.qsgd_s)
+            u = narrow(prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop], 1)
+            q, norm = _qsgd_quantize_rows(u, x, s)
+            if self.packed_payload and s <= 7 and L % 8 == 0:
+                q = _nibble_roundtrip_rows(q)
+            return q.float() * (norm / s)
+        # independent Block-RandK masks
+        idx = narrow(prng.randint(lk, (n, R, kb), 0, L, device=dev)[rows.start:rows.stop], 1)
+        vals = _gather_along_last(x, idx, L / kb, self.backend)
+        return torch.stack([_scatter_mean_last(vals[i:i + 1], idx[i:i + 1], L, self.backend)
+                            for i in range(len(rows))])
 
     # -- compressed downlink ------------------------------------------------
 
@@ -479,44 +751,62 @@ class Transport:
         quantization (4-bit nibbles with ``packed_payload`` and s ≤ 7);
         "randk": a seeded K-subsample (K = L/128 a row, values only);
         "none": the dense delta, booking the dense f32 broadcast."""
-        mode, s = self.downlink_mode, self.downlink_s
-        if mode == "none":
-            self.book_downlink(delta)
-            return delta
+        mode = self.downlink_mode
         leaves, treedef = tree_flatten(delta)
+        if mode == "none":
+            self.book_downlink([torch.empty(self._leaf(j, t[None])[0], device="meta")
+                                for j, t in enumerate(leaves)])
+            return delta
         keys = prng.split(key, len(leaves))
         outs = []
-        for lk, leaf in zip(keys, leaves):
-            self.book_downlink([leaf])
-            R, L = _leaf_dims(tuple(leaf.shape))
-            dev = leaf.device
-            x = leaf.reshape(R, L).float()
-            if mode == "qsgd":
-                q, norm = _qsgd_quantize_rows(prng.uniform(lk, (R, L), device=dev), x, s)
-                if self.packed_payload and s <= 7 and L % 8 == 0:
-                    q = _nibble_roundtrip_rows(q)
-                y = q.float() * (norm / s)
-            else:  # randk: plain PyTorch, as the reference's jnp
-                kb = max(1, L // 128)
-                idx = prng.randint(lk, (R, kb), 0, L, device=dev)
-                vals = kref.randk_block_compress_ref(x, idx, L / kb)
-                y = kref.scatter_accum_ref(vals[None], idx[None], L)
-            outs.append(y.reshape(leaf.shape).to(leaf.dtype))
+        for j, (lk, leaf) in enumerate(zip(keys, leaves)):
+            shape, d = self._leaf(j, leaf[None])
+            self.book_downlink([torch.empty(shape, device="meta")])
+            if d is None:
+                outs.append(self._downlink_leaf(lk, leaf))
+            else:
+                # the whole leaf's draw and row norms: compress it whole, keep the slice
+                whole = self._whole(leaf, d, row_axis=False)
+                outs.append(self.mesh.model_slice(self._downlink_leaf(lk, whole), d))
         return treedef.unflatten(outs)
+
+    def _downlink_leaf(self, lk, leaf: torch.Tensor) -> torch.Tensor:
+        mode, s = self.downlink_mode, self.downlink_s
+        R, L = _leaf_dims(tuple(leaf.shape))
+        dev = leaf.device
+        x = leaf.reshape(R, L).float()
+        if mode == "qsgd":
+            q, norm = _qsgd_quantize_rows(prng.uniform(lk, (R, L), device=dev), x, s)
+            if self.packed_payload and s <= 7 and L % 8 == 0:
+                q = _nibble_roundtrip_rows(q)
+            y = q.float() * (norm / s)
+        else:  # randk: plain PyTorch, as the reference's jnp
+            kb = max(1, L // 128)
+            idx = prng.randint(lk, (R, kb), 0, L, device=dev)
+            vals = kref.randk_block_compress_ref(x, idx, L / kb)
+            y = kref.scatter_accum_ref(vals[None], idx[None], L)
+        return y.reshape(leaf.shape).to(leaf.dtype)
 
 
 def make_transport(mesh: Mesh, topology: Topology, waxes: tuple, n: int, *,
                    backend: str = "auto", compression: str = "randk", qsgd_s: int = 15,
                    packed_payload: bool = False, shared_mask: bool = False,
                    downlink: str = "none", downlink_s: int = 7, flat_sync: bool = False,
-                   sync_layout=None) -> Transport:
+                   sync_layout=None, param_shapes=None, fsdp: bool = False) -> Transport:
     """Build the per-bundle :class:`Transport` (wire policy, sync-exchange
     layout, a fresh tier ledger). The reference's GSPMD pins
-    (``staged_payload``, ``sync_buf_shard``, ``param_shardings``) have no
-    counterpart: every rank stages its own workers' rows and holds the whole
-    model."""
+    (``staged_payload``, ``sync_buf_shard``) have no counterpart: every rank
+    stages its own workers' rows; ``param_shapes`` (whole meta shapes) give
+    each leaf's model-axis split (``sharding.model_dims``) where the mesh's
+    model axis spans ranks."""
+    shapes = dims = None
+    if param_shapes is not None and mesh.model > 1:
+        from repro_torch.launch.sharding import model_dims
+
+        shapes = [tuple(t.shape) for t in tree_leaves(param_shapes)]
+        dims = model_dims(param_shapes, mesh, fsdp)
     return Transport(mesh=mesh, topology=topology, waxes=tuple(waxes), n=n, backend=backend,
                      compression=compression, qsgd_s=qsgd_s, packed_payload=packed_payload,
                      shared_mask=shared_mask,
                      downlink_mode=downlink, downlink_s=downlink_s, flat_sync=flat_sync,
-                     sync_layout=sync_layout)
+                     sync_layout=sync_layout, leaf_shapes=shapes, leaf_dims=dims)

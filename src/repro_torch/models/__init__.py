@@ -14,6 +14,7 @@ from .model import (
     init_paged_cache,
     init_params,
     lm_loss,
+    logits_parallel,
     paged_copy_pages,
     paged_decode_step,
     paged_gather_pages,
@@ -26,7 +27,7 @@ from .model import (
 __all__ = [
     "LayerSpec", "MLAConfig", "MoEConfig", "ModelConfig", "Segment", "default_device",
     "dense_stack", "reduced", "decode_step", "forward", "init_cache",
-    "init_paged_cache", "init_params", "lm_loss", "paged_copy_pages",
+    "init_paged_cache", "init_params", "lm_loss", "logits_parallel", "paged_copy_pages",
     "paged_decode_step", "paged_gather_pages", "paged_prefill_chunk",
     "paged_scatter_pages", "param_count", "prefill",
 ]

@@ -19,10 +19,17 @@ keep the reference's ``(y, cache) = f(cache, ...)`` contract. The paged
 functions take the reference's ``backend``: ``auto`` runs the kernel
 wrappers (the kernels on CUDA tensors, their plain versions on CPU ones),
 ``ref`` the plain versions.
+
+On a model group (:func:`tp_plan`) a GQA layer runs this rank's H/m query
+heads, its ``wq`` / ``wk`` / ``wv`` (and biases) column-parallel and ``wo``
+row-parallel, so every function above runs unchanged on the rank's heads
+(and on its share of the cache or page pool) with a per-rank config. MLA
+gathers its leaves on use.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -33,7 +40,15 @@ from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref as kref
 
 from .config import MLAConfig, ModelConfig
-from .layers import init_dense, init_rmsnorm, rmsnorm, rope
+from .layers import (
+    active,
+    copy_to_group,
+    gather_tree_on_use,
+    init_dense,
+    init_rmsnorm,
+    rmsnorm,
+    rope,
+)
 
 PyTree = Any
 
@@ -159,6 +174,49 @@ def _qkv(p, cfg: ModelConfig, x, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+_TP_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def tp_plan(p, cfg: ModelConfig, full, tp):
+    """How one GQA layer runs on the model group ``tp``: ``(params, cfg',
+    parallel)``. Where ``wq``'s columns (and ``bq``) and ``wo``'s rows split
+    at head boundaries (H % m = 0), the rank runs its H/m query heads
+    (``parallel``: the caller enters with ``copy_to_group`` and leaves with
+    ``reduce_from_group``). The KV heads split with them when KV % m = 0;
+    otherwise ``wk`` / ``wv`` / ``bk`` / ``bv`` are gathered on use, their
+    gradient summed over the group, and expanded to the KV head of each of
+    the rank's query heads (cfg' then has H/m KV heads: a training-only
+    layout, the serving caches need the split). ``q_norm`` / ``k_norm`` act
+    on the rank's heads: gathered on use where sharded, their gradient summed
+    over the group. A layer whose query heads do not split runs whole, every
+    leaf gathered on use."""
+    if not active(tp):
+        return p, cfg, False
+    m, i = tp.model, tp.model_rank
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    Hl = H // m
+    q_split = (H % m == 0 and p["wq"].shape[-1] == Hl * hd and p["wo"].shape[-2] == Hl * hd
+               and ("bq" not in p or p["bq"].shape[-1] == Hl * hd))
+    if not q_split:
+        return gather_tree_on_use(p, full, tp), cfg, False
+    # the norms act on the rank's heads only: their gradient is summed back
+    out = {k: (v if k in _TP_LEAVES
+               else copy_to_group(gather_tree_on_use(v, full[k], tp), tp))
+           for k, v in p.items()}
+    kv_split = KV % m == 0 and all(p[k].shape[-1] == (KV // m) * hd
+                                   for k in ("wk", "wv", "bk", "bv") if k in p)
+    if kv_split:
+        return out, dataclasses.replace(cfg, num_heads=Hl, num_kv_heads=KV // m,
+                                        head_dim=hd), True
+    heads = torch.arange(i * Hl, (i + 1) * Hl, device=p["wq"].device) // (H // KV)
+    for k in ("wk", "wv", "bk", "bv"):
+        if k in p:
+            w = copy_to_group(gather_tree_on_use(p[k], full[k], tp), tp)
+            lead = tuple(w.shape[:-1])
+            out[k] = w.reshape(*lead, KV, hd)[..., heads, :].reshape(*lead, Hl * hd)
+    return out, dataclasses.replace(cfg, num_heads=Hl, num_kv_heads=Hl, head_dim=hd), True
 
 
 def attn_train(p, cfg: ModelConfig, x, positions, *, local: bool, chunk: int = 1024):

@@ -7,10 +7,20 @@ sliding-window layers, the latent cache for MLA, the O(1) state of a
 recurrent mixer), dense-cache decode, and the paged twins of both for the
 serving engine (global attention only, as in the reference: paging a ring
 or a recurrent state buys nothing).
+
+Every function takes ``tp``, the model group (``layers.py``): the layer's
+leaves are then this rank's slices, and :func:`_tp_layer` says how each
+part runs — GQA on the rank's heads (``attention.tp_plan``), the MLP and
+the shared experts tensor-parallel, the MoE experts split over the ranks,
+and every other sharded leaf (the norms, MLA, the recurrent mixers)
+gathered on use. Without a group it is the one-rank code, unchanged.
 """
 
 from __future__ import annotations
 
+import functools
+
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -19,7 +29,16 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .config import LayerSpec, ModelConfig
-from .layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from .layers import (
+    active,
+    copy_to_group,
+    gather_tree_on_use,
+    init_mlp,
+    init_rmsnorm,
+    mlp_tp,
+    reduce_from_group,
+    rmsnorm,
+)
 
 PyTree = Any
 
@@ -60,19 +79,61 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> PyTree:
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def layer_meta(cfg: ModelConfig, spec: LayerSpec) -> PyTree:
+    """One layer's whole leaves as meta tensors (their shapes)."""
+    return init_layer(None, cfg, spec, torch.float32, "meta")
+
+
+class _TP(NamedTuple):
+    """How a layer runs on a model group: its leaves as the mixer and the
+    norms use them, the mixer's (per-rank) config, whether the mixer is a
+    rank-local stretch (heads split), the FF's whole shapes, the group."""
+    p: dict
+    mcfg: ModelConfig
+    par: bool
+    ff_full: Any
+    tp: Any
+
+
+def _tp_layer(p: PyTree, cfg: ModelConfig, spec: LayerSpec, tp) -> _TP:
+    if not active(tp):
+        return _TP(p, cfg, False, None, None)
+    full = layer_meta(cfg, spec)
+    q = {k: gather_tree_on_use(p[k], full[k], tp) for k in ("ln1", "ln2") if k in p}
+    if spec.mixer in ("attn", "attn_local"):
+        q["mixer"], mcfg, par = attn.tp_plan(p["mixer"], cfg, full["mixer"], tp)
+    else:
+        q["mixer"], mcfg, par = gather_tree_on_use(p["mixer"], full["mixer"], tp), cfg, False
+    if "ff" in p:
+        q["ff"] = p["ff"]
+    return _TP(q, mcfg, par, full.get("ff"), tp)
+
+
+def _enter(t: _TP, h: torch.Tensor) -> torch.Tensor:
+    return copy_to_group(h, t.tp) if t.par else h
+
+
+def _leave(t: _TP, y: torch.Tensor) -> torch.Tensor:
+    return reduce_from_group(y, t.tp) if t.par else y
+
+
 def layer_train(p: PyTree, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                 positions: torch.Tensor, *, want_cache: bool = False,
-                cache_len: int | None = None):
+                cache_len: int | None = None, tp=None):
     """→ (x', aux_loss, cache-or-None)."""
+    t = _tp_layer(p, cfg, spec, tp)
+    p, mcfg = t.p, t.mcfg
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     cache = None
     cache_len = cache_len or x.shape[1]
     if spec.mixer in ("attn", "attn_local"):
         local = spec.mixer == "attn_local"
-        y = attn.attn_train(p["mixer"], cfg, h, positions, local=local,
-                            chunk=cfg.attn_chunk)
+        hin = _enter(t, h)
+        y = _leave(t, attn.attn_train(p["mixer"], mcfg, hin, positions, local=local,
+                                      chunk=cfg.attn_chunk))
         if want_cache:
-            cache = _attn_cache_from_prefill(p["mixer"], cfg, h, positions, local,
+            cache = _attn_cache_from_prefill(p["mixer"], mcfg, hin, positions, local,
                                              cache_len)
     elif spec.mixer == "mla":
         y = attn.mla_train(p["mixer"], cfg, h, positions, chunk=cfg.attn_chunk)
@@ -90,33 +151,39 @@ def layer_train(p: PyTree, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ff == "mlp":
-        x = x + mlp(p["ff"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+        x = x + mlp_tp(p["ff"], rmsnorm(x, p["ln2"], cfg.norm_eps), t.ff_full, t.tp)
     elif spec.ff == "moe":
-        y, aux = moe_mod.moe_ff(p["ff"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps))
+        y, aux = moe_mod.moe_ff(p["ff"], cfg, rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                t.tp, t.ff_full)
         x = x + y
     return x, aux, cache
 
 
 def layer_decode(p: PyTree, cfg: ModelConfig, spec: LayerSpec, cache: PyTree,
-                 x_t: torch.Tensor, pos: int):
+                 x_t: torch.Tensor, pos: int, tp=None):
+    t = _tp_layer(p, cfg, spec, tp)
+    p = t.p
     h = rmsnorm(x_t, p["ln1"], cfg.norm_eps)
     if spec.mixer in ("attn", "attn_local"):
-        y, cache = attn.attn_decode(p["mixer"], cfg, cache, h, pos,
+        y, cache = attn.attn_decode(p["mixer"], t.mcfg, cache, _enter(t, h), pos,
                                     local=spec.mixer == "attn_local")
+        y = _leave(t, y)
     elif spec.mixer == "mla":
         y, cache = attn.mla_decode(p["mixer"], cfg, cache, h, pos)
     elif spec.mixer in _RECURRENT:
         y, cache = _RECURRENT[spec.mixer].decode(p["mixer"], cfg, cache, h)
     else:
         raise ValueError(spec.mixer)
-    return _ff_decode(p, cfg, spec, x_t + y), cache
+    return _ff_decode(t, cfg, spec, x_t + y), cache
 
 
-def _ff_decode(p: PyTree, cfg: ModelConfig, spec: LayerSpec, x_t: torch.Tensor):
+def _ff_decode(t: _TP, cfg: ModelConfig, spec: LayerSpec, x_t: torch.Tensor):
+    p = t.p
     if spec.ff == "mlp":
-        return x_t + mlp(p["ff"], rmsnorm(x_t, p["ln2"], cfg.norm_eps))
+        return x_t + mlp_tp(p["ff"], rmsnorm(x_t, p["ln2"], cfg.norm_eps), t.ff_full, t.tp)
     if spec.ff == "moe":
-        y, _ = moe_mod.moe_ff(p["ff"], cfg, rmsnorm(x_t, p["ln2"], cfg.norm_eps))
+        y, _ = moe_mod.moe_ff(p["ff"], cfg, rmsnorm(x_t, p["ln2"], cfg.norm_eps),
+                              t.tp, t.ff_full)
         return x_t + y
     return x_t
 
@@ -129,25 +196,44 @@ def _check_paged(spec: LayerSpec) -> None:
 
 def layer_paged_decode(p: PyTree, cfg: ModelConfig, spec: LayerSpec, cache: PyTree,
                        x_t: torch.Tensor, lengths: torch.Tensor, tables: torch.Tensor,
-                       *, backend: str = "auto"):
+                       *, backend: str = "auto", tp=None):
     """Paged twin of :func:`layer_decode` — global-attention mixers only
     (paging a ring buffer or an O(1) recurrent state buys nothing)."""
     _check_paged(spec)
-    h = rmsnorm(x_t, p["ln1"], cfg.norm_eps)
-    y, cache = attn.paged_attn_decode(p["mixer"], cfg, cache, h, lengths, tables,
-                                      backend=backend)
-    return _ff_decode(p, cfg, spec, x_t + y), cache
+    t = _tp_layer(p, cfg, spec, tp)
+    h = rmsnorm(x_t, t.p["ln1"], cfg.norm_eps)
+    y, cache = attn.paged_attn_decode(t.p["mixer"], t.mcfg, cache, _enter(t, h), lengths,
+                                      tables, backend=backend)
+    return _ff_decode(t, cfg, spec, x_t + _leave(t, y)), cache
 
 
 def layer_paged_prefill(p: PyTree, cfg: ModelConfig, spec: LayerSpec, cache: PyTree,
                         x: torch.Tensor, start: int, table_row: torch.Tensor,
-                        n_valid: int, *, backend: str = "auto"):
+                        n_valid: int, *, backend: str = "auto", tp=None):
     """Paged twin of :func:`layer_train` for one request's prompt chunk."""
     _check_paged(spec)
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    y, cache = attn.paged_attn_prefill_chunk(p["mixer"], cfg, cache, h, start,
-                                             table_row, n_valid, backend=backend)
-    return _ff_decode(p, cfg, spec, x + y), cache
+    t = _tp_layer(p, cfg, spec, tp)
+    h = rmsnorm(x, t.p["ln1"], cfg.norm_eps)
+    y, cache = attn.paged_attn_prefill_chunk(t.p["mixer"], t.mcfg, cache, _enter(t, h),
+                                             start, table_row, n_valid, backend=backend)
+    return _ff_decode(t, cfg, spec, x + _leave(t, y)), cache
+
+
+def cache_cfg(cfg: ModelConfig, spec: LayerSpec, m: int) -> ModelConfig:
+    """The config a layer's serving cache is laid out by on a model group of
+    m ranks: a GQA layer holds its H/m heads' KV/m heads, which needs
+    H % m = KV % m = 0 (NotImplementedError otherwise: its gathered-KV
+    training layout is no cache layout); every other mixer runs whole and
+    holds its whole cache."""
+    if m == 1 or spec.mixer not in ("attn", "attn_local"):
+        return cfg
+    if cfg.num_heads % m or cfg.num_kv_heads % m:
+        raise NotImplementedError(
+            f"serving {cfg.name} on a model axis of {m}: its {cfg.num_heads} query / "
+            f"{cfg.num_kv_heads} KV heads do not split over the ranks")
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                               num_kv_heads=cfg.num_kv_heads // m,
+                               head_dim=cfg.resolved_head_dim)
 
 
 def init_layer_paged_cache(cfg: ModelConfig, spec: LayerSpec, npage: int,

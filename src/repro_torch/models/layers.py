@@ -5,6 +5,18 @@ Functional, as in ``repro.models.layers``: ``init_*`` builds parameter
 subtrees (dicts of tensors with the reference's names and shapes), the apply
 functions consume them. Random init draws from a ``torch.Generator`` on the
 target device; on the ``meta`` device only shapes are made.
+
+The model-parallel primitives take ``tp``, the model group: anything with
+``model`` (its size m), ``model_rank`` and the collectives ``model_gather``
+/ ``model_sum`` (``launch.topology.Mesh``). Activations between the blocks
+are replicated, bit for bit, on every rank of the group; a rank-local
+stretch starts at :func:`copy_to_group` (identity forward, the group's sum
+backward) and ends at :func:`reduce_from_group` (the sum forward, identity
+backward). :func:`gather_on_use` all-gathers a sharded leaf forward and
+returns this rank's slice of the (replicated) gradient backward. Sums over
+the group add the m partials in rank order, so every rank holds the same
+bits. The vocabulary-parallel embedding, logits and loss split the
+(V, d) table on V.
 """
 
 from __future__ import annotations
@@ -85,3 +97,147 @@ def init_mlp(gen, d: int, f: int, dtype, device):
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# model-parallel primitives
+# ---------------------------------------------------------------------------
+
+
+def active(tp) -> bool:
+    """Whether ``tp`` is a model group of more than one rank."""
+    return tp is not None and getattr(tp, "model", 1) > 1
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.model_sum(g.contiguous()), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.model_sum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.model_gather(x, dim, kind="model/gather_on_use")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.model_slice(g, ctx.dim), None, None
+
+
+def copy_to_group(x: torch.Tensor, tp) -> torch.Tensor:
+    """Identity forward; the group's sum of the gradient backward (enter a
+    rank-local stretch)."""
+    return _CopyToGroup.apply(x, tp) if active(tp) else x
+
+
+def reduce_from_group(x: torch.Tensor, tp) -> torch.Tensor:
+    """The group's sum of the partials forward (rank order); identity
+    backward (leave a rank-local stretch)."""
+    return _ReduceFromGroup.apply(x, tp) if active(tp) else x
+
+
+def gather_on_use(x: torch.Tensor, tp, dim: int) -> torch.Tensor:
+    """The whole leaf from this rank's slice along ``dim``; backward, this
+    rank's slice of the gradient, which is replicated wherever the leaf
+    feeds replicated compute."""
+    return _GatherOnUse.apply(x, tp, dim) if active(tp) else x
+
+
+def split_dim(local: tuple, full: tuple) -> "int | None":
+    """The dimension a slice's shape differs from its whole leaf's in."""
+    for d, (a, b) in enumerate(zip(local, full)):
+        if a != b:
+            return d
+    return None
+
+
+def gather_tree_on_use(p, full, tp):
+    """Every sharded leaf of a parameter subtree gathered on use (``full``:
+    the subtree's whole shapes, e.g. meta tensors)."""
+    if not active(tp):
+        return p
+    if isinstance(p, dict):
+        return {k: gather_tree_on_use(v, full[k], tp) for k, v in p.items()}
+    d = split_dim(tuple(p.shape), tuple(full.shape))
+    return p if d is None else gather_on_use(p, tp, d)
+
+
+def vocab_parallel(table: torch.Tensor, vocab: int, tp) -> bool:
+    """Whether ``table`` is this rank's (V/m, d) slice of a (V, d) table."""
+    return active(tp) and table.shape[0] * tp.model == vocab
+
+
+def embed_tp(table: torch.Tensor, ids: torch.Tensor, vocab: int, tp) -> torch.Tensor:
+    """:func:`embed` of a vocabulary-parallel table: each rank looks up the
+    ids in its range (zero rows elsewhere) and the group adds them, which is
+    exact (one nonzero a row). A table held otherwise is gathered on use."""
+    if not active(tp):
+        return embed(table, ids)
+    if not vocab_parallel(table, vocab, tp):
+        return embed(gather_on_use(table, tp, split_dim(tuple(table.shape),
+                                                        (vocab, table.shape[1])) or 0), ids)
+    vl = table.shape[0]
+    local = ids.long() - tp.model_rank * vl
+    ok = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)]
+    return reduce_from_group(torch.where(ok[..., None], rows, torch.zeros_like(rows)), tp)
+
+
+def unembed_tp(table: torch.Tensor, x: torch.Tensor, vocab: int, tp) -> torch.Tensor:
+    """:func:`unembed` of a vocabulary-parallel table: this rank's (…, V/m)
+    logits (copy-to-group on x); a table held otherwise is gathered on use
+    and the logits are whole."""
+    if not active(tp):
+        return unembed(table, x)
+    if not vocab_parallel(table, vocab, tp):
+        return unembed(gather_on_use(table, tp, split_dim(tuple(table.shape),
+                                                          (vocab, table.shape[1])) or 0), x)
+    return unembed(table, copy_to_group(x, tp))
+
+
+def nll_tp(logits: torch.Tensor, tgt: torch.Tensor, tp) -> torch.Tensor:
+    """Mean next-token NLL over vocabulary-parallel logits (this rank's
+    (…, V/m) slice): the max and the sum of exponentials combined over the
+    group in rank order, the target logit from the rank that holds it."""
+    lf = logits.float()
+    vl = lf.shape[-1]
+    m_loc = torch.amax(lf, dim=-1, keepdim=True).detach()
+    m = torch.amax(tp.model_gather(m_loc, -1, kind="model/max"), dim=-1, keepdim=True)
+    se = reduce_from_group(torch.sum(torch.exp(lf - m), dim=-1), tp)
+    local = tgt.long() - tp.model_rank * vl
+    ok = (local >= 0) & (local < vl)
+    picked = torch.gather(lf, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    t_logit = reduce_from_group(torch.where(ok, picked, torch.zeros_like(picked)), tp)
+    return torch.mean(m[..., 0] + torch.log(se) - t_logit)
+
+
+def mlp_tp(params, x: torch.Tensor, full, tp) -> torch.Tensor:
+    """The gated MLP with ``w_gate`` / ``w_up`` column-parallel and
+    ``w_down`` row-parallel (a slice of the hidden units a rank), the
+    partial outputs summed over the group; held otherwise (a hidden width
+    that does not split), its leaves gathered on use."""
+    if not active(tp):
+        return mlp(params, x)
+    f = full["w_gate"].shape[-1]
+    fl = f // tp.model
+    if (f % tp.model == 0 and params["w_gate"].shape[-1] == fl
+            and params["w_up"].shape[-1] == fl and params["w_down"].shape[-2] == fl):
+        return reduce_from_group(mlp(params, copy_to_group(x, tp)), tp)
+    return mlp(gather_tree_on_use(params, full, tp), x)

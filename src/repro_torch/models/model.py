@@ -15,6 +15,15 @@ Supports token inputs with an optional continuous ``prefix_embed`` (a
 frontend's output) before them, rotary or sinusoidal positions, tied or
 untied unembedding, the MoE load-balance losses summed over the layers, and
 DeepSeek-V3's MTP loss term.
+
+``forward``, ``lm_loss``, ``prefill``, ``decode_step``,
+``paged_decode_step`` and ``paged_prefill_chunk`` take ``tp``, the model
+group (``layers.py``): the parameters are then this rank's slices
+(``launch.sharding.shard_tree``), the embedding and the (tied or untied)
+unembedding vocabulary-parallel, and the logits this rank's (…, V/m) slice
+(``lm_loss`` combines them over the group). The caches of
+:func:`init_cache` / :func:`init_paged_cache` given ``model=m`` hold a GQA
+layer's KV/m heads. Without a group each is the one-rank code, unchanged.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from repro_torch.core.tree_util import tree_leaves, tree_map
 from repro_torch.device import default_device
 
 from .blocks import (
+    cache_cfg,
     init_layer,
     init_layer_cache,
     init_layer_paged_cache,
@@ -40,12 +50,17 @@ from .blocks import (
 from .config import ModelConfig
 from .layers import (
     _normal,
-    embed,
+    active,
+    embed_tp,
+    gather_on_use,
     init_embedding,
     init_rmsnorm,
+    nll_tp,
     rmsnorm,
     sinusoidal_pos,
-    unembed,
+    split_dim,
+    unembed_tp,
+    vocab_parallel,
 )
 
 PyTree = Any
@@ -107,10 +122,10 @@ def _slice(tree: PyTree, r: int) -> PyTree:
 
 
 def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-                  prefix_embed: torch.Tensor | None):
+                  prefix_embed: torch.Tensor | None, tp=None):
     """Token embeddings after the prefix, positions 0 … P+S−1 over both, and
     the sinusoids added where the config has them."""
-    x = embed(params["embed"], tokens)
+    x = embed_tp(params["embed"], tokens, cfg.vocab_size, tp)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -120,21 +135,30 @@ def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     return x, positions
 
 
+def _final_norm(params: PyTree, cfg: ModelConfig, x: torch.Tensor, tp) -> torch.Tensor:
+    scale = params["final_norm"]
+    if active(tp) and scale.shape[0] != cfg.d_model:
+        scale = gather_on_use(scale, tp, 0)
+    return rmsnorm(x, scale, cfg.norm_eps)
+
+
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_embed: torch.Tensor | None = None, *,
             want_cache: bool = False, cache_len: int | None = None,
-            last_logits_only: bool = False):
+            last_logits_only: bool = False, tp=None):
     """→ (logits (B,S,V) or (B,1,V), aux_loss, cache-or-None, hidden (B,S,d)).
 
     ``prefix_embed`` (B, P, d) goes before the tokens' embeddings, and
     positions run 0 … P+S−1 over both. ``last_logits_only`` computes the
-    unembedding for the final position only (the serving prefill)."""
-    x, positions = _embed_inputs(params, cfg, tokens, prefix_embed)
+    unembedding for the final position only (the serving prefill). On a
+    model group (``tp``) the logits are this rank's vocabulary slice where
+    the table is vocabulary-parallel (:func:`logits_parallel`)."""
+    x, positions = _embed_inputs(params, cfg, tokens, prefix_embed, tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     use_remat = cfg.remat and not want_cache and torch.is_grad_enabled()
 
     def apply_layer(pp, spec, x_c):
-        kw = dict(want_cache=want_cache, cache_len=cache_len)
+        kw = dict(want_cache=want_cache, cache_len=cache_len, tp=tp)
         if use_remat:
             return checkpoint(layer_train, pp, cfg, spec, x_c, positions,
                               use_reentrant=False, **kw)
@@ -150,41 +174,59 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 per_pos[i].append(cache)
         caches.append([_stack_trees(c) if want_cache else None for c in per_pos])
 
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, x[:, -1:, :] if last_logits_only else x)
+    x = _final_norm(params, cfg, x, tp)
+    logits = _logits(params, cfg, x[:, -1:, :] if last_logits_only else x, tp)
     return logits, aux_total, (caches if want_cache else None), x
 
 
-def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = unembed(table, x)
+def _table(params: PyTree, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_parallel(params: PyTree, cfg: ModelConfig, tp) -> bool:
+    """Whether the logits on model group ``tp`` are this rank's vocabulary
+    slice (columns [rank·V/m, (rank+1)·V/m)) rather than all V."""
+    return vocab_parallel(_table(params, cfg), cfg.vocab_size, tp)
+
+
+def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    logits = unembed_tp(_table(params, cfg), x, cfg.vocab_size, tp)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
 
 
 def lm_loss(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
-            prefix_embed: torch.Tensor | None = None) -> torch.Tensor:
+            prefix_embed: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """Next-token cross-entropy over token positions, the prefix excluded,
     + the MoE aux loss + the MTP term (0.3 × its NLL + its aux)."""
-    logits, aux, _, hidden = forward(params, cfg, tokens, prefix_embed)
+    logits, aux, _, hidden = forward(params, cfg, tokens, prefix_embed, tp=tp)
     P = 0 if prefix_embed is None else prefix_embed.shape[1]
     pred = logits[:, P:-1]
     tgt = tokens[:, 1:].long()
-    loss = _nll(pred, tgt) + aux
+    nll = nll_tp if logits_parallel(params, cfg, tp) else (lambda lg, t, _tp: _nll(lg, t))
+    loss = nll(pred, tgt, tp) + aux
     if cfg.mtp_depth > 0 and tokens.shape[1] > 2:
         # DeepSeek-V3-style MTP: hidden_t with embed(token_{t+1}) predicts
         # token_{t+2} through one extra layer
         h_in = hidden[:, P:, :][:, :-2, :]
-        e_next = embed(params["embed"], tokens[:, 1:-1])
-        z = torch.cat([h_in, e_next], dim=-1) @ params["mtp"]["proj"]
+        e_next = embed_tp(params["embed"], tokens[:, 1:-1], cfg.vocab_size, tp)
+        mtp = params["mtp"]
+        proj = mtp["proj"]
+        if active(tp) and tuple(proj.shape) != (2 * cfg.d_model, cfg.d_model):
+            proj = gather_on_use(proj, tp, split_dim(tuple(proj.shape),
+                                                     (2 * cfg.d_model, cfg.d_model)))
+        z = torch.cat([h_in, e_next], dim=-1) @ proj
         B, S2, _ = z.shape
         positions = torch.arange(S2, dtype=torch.int32, device=z.device).expand(B, S2)
         spec = cfg.segments[-1].period[-1]
-        z, mtp_aux, _ = layer_train(params["mtp"]["layer"], cfg, spec, z, positions)
-        z = rmsnorm(z, params["mtp"]["norm"], cfg.norm_eps)
-        table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        loss = loss + 0.3 * _nll(unembed(table, z), tokens[:, 2:].long()) + mtp_aux
+        z, mtp_aux, _ = layer_train(mtp["layer"], cfg, spec, z, positions, tp=tp)
+        norm = mtp["norm"]
+        if active(tp) and norm.shape[0] != cfg.d_model:
+            norm = gather_on_use(norm, tp, 0)
+        z = rmsnorm(z, norm, cfg.norm_eps)
+        loss = loss + 0.3 * nll(_logits(params, cfg, z, tp), tokens[:, 2:].long(), tp) \
+            + mtp_aux
     return loss
 
 
@@ -213,47 +255,52 @@ def _cache_tree(cfg: ModelConfig, make_one) -> PyTree:
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, dtype=torch.float32,
-               device=None) -> PyTree:
+               device=None, *, model: int = 1) -> PyTree:
     """Dense decode caches: (repeat, B, max_len, KV, hd) leaves (a ring
     layer's min(window, max_len) slots, MLA's latent rows), and a recurrent
-    mixer's O(1) state, whatever ``max_len``."""
+    mixer's O(1) state, whatever ``max_len``. ``model``: one rank's cache
+    on a model group of that many ranks (``blocks.cache_cfg``)."""
     device = default_device(device)
-    return _cache_tree(cfg, lambda spec: init_layer_cache(cfg, spec, B, max_len, dtype,
-                                                          device))
+    return _cache_tree(cfg, lambda spec: init_layer_cache(
+        cache_cfg(cfg, spec, model), spec, B, max_len, dtype, device))
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             prefix_embed: torch.Tensor | None = None, *, max_len: int | None = None,
-            last_logits_only: bool = False):
+            last_logits_only: bool = False, tp=None):
     """Serve prefill: one forward pass that also lays out the decode cache,
     sized for ``max_len`` positions. Returns (last logits (B,V), cache)."""
     logits, _, cache, _ = forward(params, cfg, tokens, prefix_embed, want_cache=True,
-                                  cache_len=max_len, last_logits_only=last_logits_only)
+                                  cache_len=max_len, last_logits_only=last_logits_only,
+                                  tp=tp)
     return logits[:, -1, :], cache
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree, token_t: torch.Tensor,
-                pos: int):
+                pos: int, tp=None):
     """One serve step: token_t (B,) at absolute position ``pos``, attending
     to the cache. Returns (logits (B,V), cache)."""
-    x = embed(params["embed"], token_t[:, None])
+    x = embed_tp(params["embed"], token_t[:, None], cfg.vocab_size, tp)
     if cfg.pos_emb == "sinusoidal":
         p = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
         x = x + sinusoidal_pos(p, cfg.d_model).to(x.dtype)
     for spec, pp, c in _layers(params, cfg, cache):
-        x, _ = layer_decode(pp, cfg, spec, c, x, pos)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, x)[:, 0, :], cache
+        x, _ = layer_decode(pp, cfg, spec, c, x, pos, tp=tp)
+    x = _final_norm(params, cfg, x, tp)
+    return _logits(params, cfg, x, tp)[:, 0, :], cache
 
 
 def init_paged_cache(cfg: ModelConfig, npage: int, page_size: int, dtype=torch.float32,
-                     *, quantized: bool = False, device=None) -> PyTree:
+                     *, quantized: bool = False, device=None, model: int = 1) -> PyTree:
     """Per-layer KV page pools with (repeat, npage, P, KV, hd) leaves: every
     layer owns its pool, all layers share ONE block table (core/paging.py).
-    Global-attention mixers only; page 0 is the reserved null page."""
+    Global-attention mixers only; page 0 is the reserved null page.
+    ``model``: one rank's pools on a model group of that many ranks (its
+    KV/m heads)."""
     device = default_device(device)
     return _cache_tree(cfg, lambda spec: init_layer_paged_cache(
-        cfg, spec, npage, page_size, dtype, quantized=quantized, device=device))
+        cache_cfg(cfg, spec, model), spec, npage, page_size, dtype, quantized=quantized,
+        device=device))
 
 
 def _ids(ids, device) -> torch.Tensor:
@@ -302,37 +349,38 @@ def paged_scatter_pages(cache: PyTree, ids, snap: PyTree) -> PyTree:
 
 def paged_decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree,
                       token_t: torch.Tensor, lengths: torch.Tensor, tables: torch.Tensor,
-                      *, backend: str = "auto"):
+                      *, backend: str = "auto", tp=None):
     """One continuous-batching decode step: slot s's token at position
     ``lengths[s]`` (idle slots carry length 0 and null tables; their logits
     are garbage the scheduler ignores). Returns (logits (S,V), cache)."""
-    x = embed(params["embed"], token_t[:, None])
+    x = embed_tp(params["embed"], token_t[:, None], cfg.vocab_size, tp)
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_pos(lengths[:, None].to(torch.int32), cfg.d_model).to(x.dtype)
     for spec, pp, c in _layers(params, cfg, cache):
-        x, _ = layer_paged_decode(pp, cfg, spec, c, x, lengths, tables, backend=backend)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, x)[:, 0, :], cache
+        x, _ = layer_paged_decode(pp, cfg, spec, c, x, lengths, tables, backend=backend,
+                                  tp=tp)
+    x = _final_norm(params, cfg, x, tp)
+    return _logits(params, cfg, x, tp)[:, 0, :], cache
 
 
 def paged_prefill_chunk(params: PyTree, cfg: ModelConfig, cache: PyTree,
                         tokens: torch.Tensor, start: int, table_row: torch.Tensor,
-                        n_valid: int, *, backend: str = "auto"):
+                        n_valid: int, *, backend: str = "auto", tp=None):
     """One chunked-prefill dispatch for ONE request: tokens (1, C) are prompt
     positions [start, start+C), the first ``n_valid`` real; table_row
     (max_pages,) int32. Writes their k/v rows into the request's pages and
     attends causally over its whole cached prefix. Returns (logits (V,) at
     the chunk's last valid position, cache)."""
-    x = embed(params["embed"], tokens)
+    x = embed_tp(params["embed"], tokens, cfg.vocab_size, tp)
     if cfg.pos_emb == "sinusoidal":
         pos = (start + torch.arange(tokens.shape[1], dtype=torch.int32,
                                     device=x.device))[None]
         x = x + sinusoidal_pos(pos, cfg.d_model).to(x.dtype)
     for spec, pp, c in _layers(params, cfg, cache):
         x, _ = layer_paged_prefill(pp, cfg, spec, c, x, start, table_row, n_valid,
-                                   backend=backend)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, x[:, n_valid - 1:n_valid, :])[0, 0], cache
+                                   backend=backend, tp=tp)
+    x = _final_norm(params, cfg, x, tp)
+    return _logits(params, cfg, x[:, n_valid - 1:n_valid, :], tp)[0, 0], cache
 
 
 def param_count(params: PyTree) -> int:

@@ -25,6 +25,15 @@ Three rules differ from a literal copy of the reference (ROADMAP C):
 ``moe_ff.drops``: set it to a zero int64 tensor on the layer's device to
 count the (token, k) pairs dropped by the capacity (added on the device,
 no host sync); None (the default) counts nothing.
+
+On a model group the experts split over the ranks (expert parallelism:
+``moe_gate`` / ``moe_up`` / ``moe_down`` hold E/m experts a rank). The
+router stays replicated, so every rank routes every token alike; each rank
+runs its own experts' C capacity rows, and the slot outputs are
+all-gathered, so the combine still adds each token's k outputs in top-k
+order (a sum over the ranks would not). The shared experts are a
+tensor-parallel MLP. Stacks that do not split by expert are gathered on
+use.
 """
 
 from __future__ import annotations
@@ -38,7 +47,17 @@ import torch.nn.functional as F
 from repro_torch.kernels import ref as kref
 
 from .config import ModelConfig, MoEConfig
-from .layers import _normal, init_dense, init_mlp, mlp
+from .layers import (
+    _normal,
+    active,
+    copy_to_group,
+    gather_on_use,
+    gather_tree_on_use,
+    init_dense,
+    init_mlp,
+    mlp,
+    mlp_tp,
+)
 
 PyTree = Any
 
@@ -93,12 +112,24 @@ def _combine(yg: torch.Tensor, pair_slot: torch.Tensor, w: torch.Tensor) -> torc
     return y
 
 
-def moe_ff(p, cfg: ModelConfig, x: torch.Tensor):
-    """x (B, S, d) → (y (B, S, d), aux_loss scalar)."""
+def moe_ff(p, cfg: ModelConfig, x: torch.Tensor, tp=None, full=None):
+    """x (B, S, d) → (y (B, S, d), aux_loss scalar). ``tp`` the model group
+    and ``full`` the layer's whole shapes (module doc)."""
     m: MoEConfig = cfg.moe
     B, S, d = x.shape
     T = B * S
     E, k = m.num_experts, m.top_k
+    e0, El = 0, E
+    if active(tp):
+        El = E // tp.model
+        ep = E % tp.model == 0 and all(p[n].shape[0] == El
+                                       for n in ("moe_gate", "moe_up", "moe_down"))
+        if ep:
+            e0 = tp.model_rank * El
+        else:
+            El = E
+        p = {n: (v if (ep and n.startswith("moe_")) or n == "shared"
+                 else gather_tree_on_use(v, full[n], tp)) for n, v in p.items()}
     x_flat = x.reshape(T, d)
     ids, w, aux = _route(p, m, x_flat)                           # (T, k)
     C = capacity(m, T)
@@ -123,16 +154,21 @@ def moe_ff(p, cfg: ModelConfig, x: torch.Tensor):
     token_for_slot = token_for_slot[:E * C]
 
     # --- expert compute: dense batched SwiGLU over (E, C, d) ---------------
-    x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))], dim=0)
-    xg = x_pad[token_for_slot].reshape(E, C, d)
+    # (this rank's experts e0 … e0+El−1 on a model group)
+    xe = copy_to_group(x_flat, tp) if El < E else x_flat
+    x_pad = torch.cat([xe, xe.new_zeros((1, d))], dim=0)
+    xg = x_pad[token_for_slot[e0 * C:(e0 + El) * C]].reshape(El, C, d)
     h = F.silu(torch.einsum("ecd,edf->ecf", xg, p["moe_gate"])) * torch.einsum(
         "ecd,edf->ecf", xg, p["moe_up"])
-    yg = torch.einsum("ecf,efd->ecd", h, p["moe_down"]).reshape(E * C, d)
+    yg = torch.einsum("ecf,efd->ecd", h, p["moe_down"]).reshape(El * C, d)
+    if El < E:
+        yg = gather_on_use(yg, tp, 0)
     yg = torch.cat([yg, yg.new_zeros((1, d))], dim=0)
 
     y = _combine(yg, pair_slot.reshape(T, k), w.to(x.dtype)).reshape(B, S, d)
     if m.num_shared:
-        y = y + mlp(p["shared"], x)
+        y = y + (mlp_tp(p["shared"], x, full["shared"], tp) if active(tp)
+                 else mlp(p["shared"], x))
     return y, aux
 
 

@@ -89,27 +89,32 @@ def mesh_counts(mesh) -> dict:
 def collective_stats_from_mesh(mesh, topology: Optional[Any] = None,
                                since: Optional[dict] = None) -> CollectiveStats:
     """The collectives the mesh counted (since the :func:`mesh_counts`
-    snapshot ``since``), priced per collective under the ring rule for a
-    group of ``mesh.world`` ranks; with a ``topology``, booked under the
-    tier of the mesh's worker axes (every axis but ``model``). A world of
-    one rank moves nothing over a link."""
+    snapshot ``since``), priced per collective under the ring rule: the
+    worker axes' for a group of ``mesh.world`` worker groups and, with a
+    ``topology``, booked under the tier of the worker axes (every axis but
+    ``model``); the model axis's (ops ``model/...``) for a group of the
+    ``mesh.model`` ranks of one worker group, under the model axis's tier.
+    A group of one rank moves nothing over a link."""
     stats = CollectiveStats()
-    g = mesh.world
-    if g <= 1:
-        return stats
     since = since or {}
-    tier = None
+    groups = {False: mesh.world, True: getattr(mesh, "model", 1)}
+    tiers = {False: None, True: None}
     if topology is not None:
-        tier = topology.tier_for_axes(tuple(a for a in mesh.axis_names if a != "model"))
+        tiers[False] = topology.tier_for_axes(tuple(a for a in mesh.axis_names if a != "model"))
+        if "model" in mesh.axis_names:
+            tiers[True] = topology.tier_for_axes(("model",))
     for op, (count, counted) in mesh_counts(mesh).items():
         c0, b0 = since.get(op, (0, 0))
         count, counted = count - c0, counted - b0
-        if count <= 0:
+        on_model = op.startswith("model/")
+        g = groups[on_model]
+        if count <= 0 or g <= 1:
             continue
-        wire = _RING[op](counted, g)
+        wire = _RING[op.removeprefix("model/")](counted, g)
         stats.per_device_bytes += wire
         stats.counts[op] = stats.counts.get(op, 0) + count
         stats.by_kind_bytes[op] = stats.by_kind_bytes.get(op, 0.0) + wire
+        tier = tiers[on_model]
         if tier is not None:
             stats.by_tier_bytes[tier] = stats.by_tier_bytes.get(tier, 0.0) + wire
             stats.by_tier_counts[tier] = stats.by_tier_counts.get(tier, 0) + count

@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s phases rehearsed on the CPU at a tiny size.
 
 The script's card run checks that each of its fourteen paths launches exactly
-``EXPECTED_LAUNCHES``, draws c_k = 1, 0, 1, 0 and books the wire formulas'
-up and down bits every round. Here ``run_main_path`` runs with a reduced
+``MAIN_LAUNCHES`` (one a round of ``EXPECTED_LAUNCHES``' four), draws c_k =
+1, 0 and books the wire formulas' up and down bits every round. Here ``run_main_path`` runs with a reduced
 dense LM on the CPU (``chip_smoke.DEVICE = "cpu"``; the profile phase and
 the device-memory counters stubbed), every kernel wrapper counting a launch
 where it returns its plain version, so a drift between those expectations
@@ -24,7 +24,8 @@ teacher-forced check, the report's keys and cuts; and the small-input
 families through the trainer with the carry path's exact launches. The
 recurrent phase's constants are checked here without running it (the mLSTM
 chunk rule, recurrentgemma's window, the ``xc`` path's launches); its
-rehearsal is ``tests/test_torch_chip_smoke_recurrent.py``. The launch
+rehearsal is ``tests/test_torch_chip_smoke_recurrent.py``. The mesh_model
+phase runs on two gloo CPU ranks at a reduced width. The launch
 phase runs its two paths on the tiny LM over a one-rank gloo group brought
 up through ``topology.init_from_env`` (the card's is nccl): launches by
 round, the ledgers, the collectives, the kernel and plain runs bit-equal,
@@ -87,9 +88,11 @@ def test_main_paths_launch_and_book_what_chip_smoke_expects(monkeypatch):
     kernels.reset_launch_counts()
     assert set(launches) == set(chip_smoke.PATHS)
     for path, counts in launches.items():
-        assert {k: v for k, v in counts.items() if v} == chip_smoke.EXPECTED_LAUNCHES[path]
+        assert {k: v for k, v in counts.items() if v} == chip_smoke.MAIN_LAUNCHES[path]
+        assert {k: 2 * v for k, v in chip_smoke.MAIN_LAUNCHES[path].items()} == (
+            chip_smoke.EXPECTED_LAUNCHES[path])
     runs = report["main_path"]["runs"]
-    assert all(run["c_k"] == chip_smoke.EXPECTED_C_K for run in runs.values())
+    assert all(run["c_k"] == chip_smoke.MAIN_C_K == [1, 0] for run in runs.values())
 
 
 def test_small_input_phase_runs_as_chip_smoke_expects(monkeypatch):
@@ -321,8 +324,8 @@ def test_compare_streams_accepts_only_near_ties():
 
 def test_wire_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     """The flat-wire kernel phase: full-width shapes cut to 3 blocks, the
-    edge inputs, bounds and table rows, with a host clock in place of the
-    CUDA events."""
+    edge inputs, bounds and table rows (row 10's 64-byte floor too), with a
+    host clock in place of the CUDA events."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
@@ -335,6 +338,11 @@ def test_wire_kernel_phase_runs_at_a_tiny_width(monkeypatch):
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
         assert row["max_abs_err"] == 0.0
     assert rows["randk_gather"]["bytes"] == 3 * chip_smoke.KB * 12
+    # row 10's 64-byte floor at the wire shape: each row's distinct 64-byte
+    # segments, at most one a slot, plus 8 bytes a slot
+    slots = 3 * chip_smoke.KB
+    seg = rows["randk_gather"]["segment_floor_ms"] * chip_smoke.HBM_BYTES_PER_S / 1e3
+    assert 3 * 64 + slots * 8 <= round(seg) <= slots * (64 + 8)
     assert rows["block_sumsq"]["library_ms"] == 1.0
     assert rows["randk_seeded"]["library_ms"] is None
     timed = {(t["kernel"], t["x"]) for t in report["kernels_wire"]}
@@ -526,8 +534,8 @@ def test_recurrent_phase_constants():
     over the prompt and FAMILY_TEACHER_STEPS tokens, the trainer's
     sequences) takes S ≤ 256 or a multiple of 256, the mLSTM chunk rule;
     recurrentgemma-2b's prompts run past its window, so the rings wrap; the
-    training leg (``xc``) launches the carry path's three kernels, two each
-    at c_k = 1, 0, 1, 0."""
+    training leg (``xc``) launches the carry path's three kernels, one each
+    at c_k = 1, 0 (``MAIN_STEPS``)."""
     from repro_torch.models import ssm
 
     def chunk_ok(S):
@@ -546,7 +554,9 @@ def test_recurrent_phase_constants():
     assert {l.mixer for s in xlstm.segments for l in s.period} == {"mlstm", "slstm"}
     assert chip_smoke.EXPECTED_LAUNCHES["marina_randk_carry"] == {
         "randk_seeded_workers": 2, "scatter_epilogue": 2, "mean_epilogue": 2}
-    assert chip_smoke.EXPECTED_C_K == [1, 0, 1, 0]
+    assert chip_smoke.MAIN_LAUNCHES["marina_randk_carry"] == {
+        "randk_seeded_workers": 1, "scatter_epilogue": 1, "mean_epilogue": 1}
+    assert chip_smoke.EXPECTED_C_K == [1, 0, 1, 0] and chip_smoke.MAIN_C_K == [1, 0]
     assert chip_smoke.RECURRENT_STATE_LENS == (256, 4096)
     assert chip_smoke.SMALL_RECURRENT == {"recurrentgemma-2b": 3, "xlstm-350m": 8}
     assert 0 < chip_smoke.SAMPLE_TEMPERATURE and chip_smoke.RECURRENT_BUDGET_S == 120.0
@@ -662,3 +672,41 @@ def test_transport_width_phase_runs_at_a_tiny_row_count(monkeypatch):
     n, R, L, kb = widths["qwen_mlp"]
     assert t["bytes"] == n * R * kb * 8 + R * L * 4 and t["bound_by"] == "bytes"
     assert rows["randk_gather"]["transport"]["shape"] == [n * R, L, kb]
+
+
+def test_mesh_model_phase_runs_on_two_cpu_ranks(monkeypatch, capsys):
+    """The mesh_model phase on two gloo ranks on the CPU (the card's group
+    is gloo too, staged through the host), at a reduced Qwen1.5-0.5B (2
+    layers, d_model 64) and a small workload: each rank holds half of every
+    sharded leaf (``final_norm`` whole), the rounds keep the one-rank c_k
+    and ledgers, their wire ×8 ÷ n is the booked uplink, the params and g
+    are within the LM rule of one rank's here (on the card within
+    ``MESH_MODEL_RTOL``: a compressed round's L/kb amplifies the sums'
+    order), the serve streams are one rank's
+    and each pool holds half the KV heads; the kernel checks ran at the
+    rank's columns and heads; the phase's budget line printed (120 s)."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_LAYERS", 2)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "MESH_MODEL_PAGED", (3, 2, 2, 64, 4, 5))
+    monkeypatch.setattr(chip_smoke, "SERVE_SPEC", "12:5,5:3,9:4,3:2,7:6")
+    monkeypatch.setattr(chip_smoke, "SERVE_SLOTS", 3)
+    monkeypatch.setattr(chip_smoke, "SERVE_PAGE", 4)
+    monkeypatch.setattr(chip_smoke, "SERVE_CHUNK", 4)
+    assert chip_smoke.MESH_MODEL_BUDGET_S == 120.0 and chip_smoke.MESH_MODEL_N == 4
+    report = {}
+    launches = chip_smoke.run_mesh_model(report)
+    assert set(launches) == {"mesh_model_train", "mesh_model_serve"}
+    mm = report["mesh_model"]
+    assert mm["ranks"] == 2 and mm["mesh"] == [4, 2]
+    assert mm["param_bytes"] == [(mm["whole_param_bytes"] + 4 * 64) // 2] * 2
+    assert [r["c_k"] for r in mm["rounds"]] == mm["one_rank"]["c_k"] == [1, 0, 0]
+    assert all(r["wire_up_bits"] == r["booked_up_bits"] > 0 for r in mm["rounds"])
+    assert all(any(k.startswith("model/") for k in r["bytes"]) for r in mm["rounds"])
+    assert mm["one_rank"]["params_err"] <= 1e-4 and mm["one_rank"]["g_err"] <= 1e-4
+    assert mm["serve"]["diverged"] == [] and mm["serve"]["decode_steps"] > 0
+    for k in mm["kernels"]:
+        assert k["randk_gather_err"] == k["scatter_accum_err"] == 0.0
+        assert k["cols"] * 2 == k["leaf_shape"][-1]
+    assert 0 < mm["seconds"] <= chip_smoke.MESH_MODEL_BUDGET_S
+    assert "mesh_model phase:" in capsys.readouterr().out

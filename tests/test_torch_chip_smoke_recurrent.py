@@ -7,7 +7,7 @@ kernel wrapper counting a launch where it returns its plain version):
   xLSTM of one mLSTM and one sLSTM layer: no launches, full streams, the
   teacher-forced check (xLSTM's again in float64), the xLSTM state's bytes
   equal at every length;
-* the xLSTM training leg: exactly ``EXPECTED_LAUNCHES["marina_randk_carry"]``
+* the xLSTM training leg: exactly ``MAIN_LAUNCHES["marina_randk_carry"]``
   under ``RECURRENT_TRAIN_PATH``, c_k, the ledgers, the plain run's params;
 * the reduced recurrent families through the trainer (the small-input
   phase's ``SMALL_RECURRENT``, recurrentgemma-2b here);
@@ -76,7 +76,7 @@ def test_recurrent_phase_runs_at_a_tiny_width(monkeypatch):
     launches = chip_smoke.run_recurrent(report)
     kernels.reset_launch_counts()
     assert set(launches) == {chip_smoke.RECURRENT_TRAIN_PATH, "sampled_serve_continuous"}
-    want = chip_smoke.EXPECTED_LAUNCHES["marina_randk_carry"]
+    want = chip_smoke.MAIN_LAUNCHES["marina_randk_carry"]
     assert {k: v for k, v in launches[chip_smoke.RECURRENT_TRAIN_PATH].items() if v} == want
     rec = report["recurrent"]
     for name in chip_smoke.RECURRENT_STATIC:
@@ -92,13 +92,13 @@ def test_recurrent_phase_runs_at_a_tiny_width(monkeypatch):
     assert xl["serve_static"]["teacher_forced"]["bound"] == \
         chip_smoke.RECURRENT_F32_RTOL["xlstm-350m"]
     train = xl["train"]
-    assert train["c_k"] == chip_smoke.EXPECTED_C_K and train["max_abs_param_diff"] == 0.0
+    assert train["c_k"] == chip_smoke.MAIN_C_K and train["max_abs_param_diff"] == 0.0
     assert set(train["median_step_s"]) == {"sync", "compressed"}
     chip_smoke.check_families_small_input(report, chip_smoke.SMALL_RECURRENT,
                                           "small_input_recurrent")
     kernels.reset_launch_counts()
     assert {name: run["launches"] for name, run in report["small_input_recurrent"].items()} \
-        == {"recurrentgemma-2b": want}
+        == {"recurrentgemma-2b": chip_smoke.EXPECTED_LAUNCHES["marina_randk_carry"]}
     samp = rec["sampling"]
     cont = samp["sampled_serve_continuous"]
     assert launches["sampled_serve_continuous"]["paged_attn_decode"] == \

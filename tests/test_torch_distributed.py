@@ -27,8 +27,9 @@ robust ``trimmed_mean`` with a ``nan`` client, and ``drop`` with carry;
 ``tests/test_pp.py``'s mesh test, in the same subprocess) and, as a second
 witness, the port's core ``PPMarina`` on the same flat sampler and keys; the
 refusals (robust × permk or shared mask, drop without carry: the
-reference's errors), a model axis > 1 without ``replicate_params``
-(``NotImplementedError`` naming A3b), and entry points that raise without a
+reference's errors), a model axis > 1 in one process (the rank holds the
+whole model, with the sharded model's decisions), the fsdp refusal
+(``NotImplementedError`` naming A3c), and entry points that raise without a
 card. The CLI twin ``python -m repro_torch.launch.train`` books the
 reference CLI's ledger on a reduced model, and ``scripts/check_async_torch.py``
 (the twin of ``scripts/check_async.py``) passes its two bitwise contracts.
@@ -324,17 +325,25 @@ def test_refusals_match_the_reference(arch, mesh):
 
 
 def test_model_axis_needs_replicate_params_and_the_card(arch):
-    """A model axis > 1 would shard the parameters: NotImplementedError
-    naming ROADMAP A3b, unless ``replicate_params``, which runs (the model
-    axis as within-worker data parallelism; the bundle's decisions are the
-    reference's: flat sync, flat PP). Without a card, every entry point
-    given no device raises."""
+    """A model axis > 1 shards the parameters across its ranks; in one
+    process the rank holds every slice, with the reference's decisions for a
+    sharded model axis (no flat sync, no flat PP). ``replicate_params`` runs
+    the model axis as within-worker data parallelism (flat sync, flat PP);
+    only an fsdp inner axis still raises, naming ROADMAP A3c. Without a
+    card, every entry point given no device raises."""
     m = topo.make_test_mesh(N, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3b"):
-        build_train_steps(arch, m, False, global_batch=8, seq_len=S)
+    assert m.model == 1
+    b = build_train_steps(arch, m, False, global_batch=8, seq_len=S,
+                          participation=(2, "without"))
+    assert not b.transport.flat_sync and not b.meta["flat_pp"]
     b = build_train_steps(arch, m, False, global_batch=8, seq_len=S, replicate_params=True,
                           participation=(2, "without"))
     assert b.transport.flat_sync and b.meta["flat_pp"]
+    pods = topo.make_federated_mesh(N, 1, device="cpu")
+    pods = dataclasses.replace(pods, axis_names=("pod", "data", "model"), sizes=(2, 2, 1))
+    fs = dataclasses.replace(arch, fsdp=True, worker_axes="pod")
+    with pytest.raises(NotImplementedError, match="A3c"):
+        build_train_steps(fs, pods, True, global_batch=8, seq_len=S)
     if not torch.cuda.is_available():
         for fn in (lambda: topo.make_test_mesh(N, 1), lambda: topo.init_from_env(),
                    lambda: topo.make_federated_mesh(N), lambda: params_from_jax({})):

@@ -179,6 +179,33 @@ def test_collective_stats_price_the_mesh_counts(world):
     assert ra.collective_stats_from_mesh(_mesh(1)).per_device_bytes == 0.0
 
 
+def test_collective_stats_price_the_model_axis_on_its_tier():
+    """A 2-rank round's counts (one worker group, two model ranks): the
+    worker-axis collectives run in a group of one and move nothing over a
+    link; the model-axis ones (``model/...``) are priced for the 2 ranks of
+    the model group, under the model axis's tier."""
+    m = topo.Mesh(axis_names=("data", "model"), sizes=(4, 2), device=torch.device("cpu"),
+                  world=1, model=2)
+    for kind, nbytes, op in (("all_gather", 26632, "all-gather"),
+                             ("model/sum", 3153792, "model/all-gather"),
+                             ("model/gather_on_use", 8192, "model/all-gather"),
+                             ("model/broadcast", 256, "model/broadcast")):
+        m._count(kind, nbytes, op)
+    t = topo.Topology(axis_tiers=(("data", "loopback"), ("model", "dcn")), n_devices=8,
+                      n_processes=2)
+    s = ra.collective_stats_from_mesh(m, t)
+    want = {"model/all-gather": (3153792 + 8192) * 1, "model/broadcast": 256.0}
+    assert s.by_kind_bytes == want
+    assert s.counts == {"model/all-gather": 2, "model/broadcast": 1}
+    assert s.by_tier_bytes == {"dcn": sum(want.values())} and s.by_tier_counts == {"dcn": 3}
+    # four ranks: two worker groups of two model ranks; both axes price
+    m.world = 2
+    s = ra.collective_stats_from_mesh(m, dataclasses.replace(
+        t, axis_tiers=(("data", "dcn"), ("model", "ici")), n_processes=4))
+    assert s.by_kind_bytes == {"all-gather": 26632.0 * 1, **want}
+    assert s.by_tier_bytes == {"dcn": 26632.0, "ici": sum(want.values())}
+
+
 def test_analyze_step_reads_only_the_calls_collectives():
     m = _mesh(2)
     m._count("all_gather", 1000, "all-gather")

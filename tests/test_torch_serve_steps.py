@@ -242,12 +242,17 @@ def test_engine_steps_give_run_continuous_streams(params):
 
 
 def test_model_axis_raises_and_split_rows():
+    """A model axis no longer raises: in one process the rank holds the
+    whole model (every slice), its cache and pool whole."""
     mesh = topo.make_test_mesh(2, 2, device="cpu")
-    for build, kw in ((ss.build_serve_steps, dict(batch=2, seq_len=8, mode="prefill")),
+    assert mesh.model == 1
+    for build, kw in ((ss.build_serve_steps, dict(batch=2, seq_len=8, mode="decode")),
                       (ss.build_paged_serve_steps, dict(n_slots=2, npage=5, page_size=4,
                                                         max_pages=2, chunk=4))):
-        with pytest.raises(NotImplementedError, match="A3"):
-            build(ARCH, mesh, **kw)
+        b = build(ARCH, mesh, **kw)
+        kv = {t.shape[3] for t in jax.tree.leaves(b.meta["cache_shapes"])
+              if len(t.shape) == 5}
+        assert kv == {ARCH.model.num_kv_heads}, kv
     # one process: every row on the rank, nothing crosses without a group
     b = ss.build_serve_steps(ARCH, topo.make_test_mesh(4, 1, device="cpu"), batch=4,
                              seq_len=8, mode="decode")
