@@ -279,7 +279,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    231,994,368 of Qwen1.5-0.5B's 463,987,712 parameters, f32, seed 0, full
    width and depth). Rows 10 and 2 on the rank's columns of ``w_gate``'s
    wire and row 24 at the rank's 8 / 8 heads against their plain versions;
-   then one sync round and two compressed randk rounds with the carry
+   then one sync round and one compressed randk round with the carry
    (``MESH_MODEL_BATCH`` × ``MESH_MODEL_SEQ`` tokens a worker, no remat)
    through the kernels and through the plain versions (bit-equal), against
    the same rounds on one rank holding the whole model: c_k and the ledgers
@@ -294,6 +294,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    the bytes a round by kind (``model/...`` apart from the wire's), seconds
    a round and the median decode-step ms, both on host-staged gloo, not
    NVLink.
+
+15. mesh_fsdp — the fsdp inner axis (``run_mesh_fsdp``, ≤ 120 s): four
+   processes on the one card over host-staged gloo, a (pod 2, data 2,
+   model 1) mesh laid out for fsdp (``topology.make_mesh(..., fsdp=True)``:
+   each pod a worker of two data ranks), Qwen1.5-0.5B at full width and
+   depth, f32, under the fsdp override (``worker_axes="pod"``,
+   ``fsdp=True``): 231,994,368 parameters a rank (every leaf halved by the
+   data axis but final_norm). One sync round and one compressed randk
+   round with the carry, one row of ``MESH_FSDP_SEQ`` tokens a data rank,
+   no remat, against the same rounds on one rank (rank 0): params and g
+   within ``MESH_MODEL_RTOL`` of each leaf's scale, the ledgers equal, the
+   wire's bytes over the four ranks ×8 ÷ n equal to the booked uplink,
+   rows 10 and 2 launched on each rank's share (2·(2·leaves − 1) each);
+   then ``MESH_FSDP_SERVE`` (2 requests, 8 new tokens each) through the
+   paged bundle on f32 pages and 4 slots, one a rank (split over the pods
+   and the data ranks, the slots' tokens and K/V rows crossing the data
+   group), every F leaf gathered on use: the streams equal one rank's up
+   to near-tie margins, row 24 launched. Prints each
+   rank's peak memory and the ``fsdp/...`` collectives a worker pass.
+
+16. dryrun — ``launch/dryrun.py`` and ``launch/perf.py`` on the card
+   (``run_dryrun``, ≤ 120 s), one device's share of the production program
+   on the stand-in mesh: qwen1.5-0.5b × train_4k × single (beside it the
+   reference's recorded XLA estimate, printed, not compared; its sync and
+   compressed steps), llama4-scout-17b-a16e × train_4k × multi (the fsdp
+   layout, 421,211,568 parameters a device; its sync step: the compressed
+   one, ~70 s on the card, is the CLI's record) and perf.py's
+   qwen1.5-0.5b × decode_32k × single × paged_decode; each step's peak
+   memory a device and roofline terms; rows 10 and 2 launched by qwen's
+   compressed step, row 24 by the paged decode.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -651,7 +681,8 @@ MESH_SERVE_BUDGET_S = 120.0
 MESH_MODEL_ENV = "CHIP_SMOKE_MESH_MODEL"
 MESH_MODEL_ARCH, MESH_MODEL_LAYERS = "qwen1.5-0.5b", None
 MESH_MODEL_N, MESH_MODEL_BATCH, MESH_MODEL_SEQ = 4, 1, 256
-MESH_MODEL_KEYS, MESH_MODEL_P = (SEED + 44, SEED + 45), 1.0 / 128
+#: one compressed round: the script's time
+MESH_MODEL_KEYS, MESH_MODEL_P = (SEED + 44,), 1.0 / 128
 MESH_MODEL_PAGED = (8, 8, 8, 64, 16, 36)
 #: the phase's prefill chunk: a whole prompt of SERVE_SPEC (its longest is
 #: 512), so each request's prefill stages one set of model-axis sums
@@ -663,6 +694,33 @@ MESH_MODEL_BUDGET_S = 120.0
 #: scales the uplinked Δ = ∇f(x) − h, whose entries cancel to a fraction of g
 #: (ROADMAP C); the LM rule (1e-4) holds on the CPU ranks, not here
 MESH_MODEL_RTOL = 128 * 1e-5
+#: the mesh_fsdp phase: four processes on the one card over host-staged
+#: gloo, a (pod 2, data 2, model 1) mesh laid out for fsdp (each pod a
+#: worker of two data ranks, every F leaf split between them): Qwen1.5-0.5B
+#: at full width and depth, f32, under the fsdp override (``worker_axes
+#: "pod"``, ``fsdp=True``, as the reference's ``workers_pod_data`` variant
+#: replaces its arch): a sync round and one compressed randk round with the
+#: carry, MESH_FSDP_SEQ tokens on each data rank's row, no remat, against
+#: one rank; then MESH_FSDP_SERVE through the paged bundle on f32 pages
+MESH_FSDP_ENV = "CHIP_SMOKE_MESH_FSDP"
+MESH_FSDP_LAYERS = None     # None: full depth (a CPU rehearsal reduces it)
+MESH_FSDP_SEQ, MESH_FSDP_KEY = 256, SEED + 46
+#: (8 new tokens, not 16: every decode step gathers each layer's data split
+#: through the host, ~3 s a step on a slow host, and the phase has 120 s)
+MESH_FSDP_SERVE = "64:8,32:8"
+MESH_FSDP_BUDGET_S = 120.0
+#: the dry-run phase's card entries (``launch/dryrun.py`` on the stand-in
+#: mesh, ``launch/perf.py``'s paged decode) and their budget
+DRYRUN_BUDGET_S = 120.0
+#: the reference's recorded XLA estimate for qwen1.5-0.5b × train_4k ×
+#: single, GB a device (argument + output + temp − alias of its
+#: ``memory_analysis``, ``experiments/dryrun/``): a compiler's estimate for
+#: the TPU program, printed beside the port's measured peak, not compared
+DRYRUN_REF_FILE = os.path.join(ROOT, "experiments", "dryrun",
+                               "qwen1.5-0.5b__train_4k__single.json")
+#: Llama-4-Scout's bf16 parameters a device of the (2, 16, 16) mesh with the
+#: fsdp split (``sharding.shard_tree``)
+LLAMA4_FSDP_DEVICE_PARAMS = 421_211_568
 #: Qwen1.5-0.5B's parameters a rank at m = 2: every leaf halved but
 #: final_norm (1,024, replicated)
 QWEN_RANK_PARAMS = 231_994_368
@@ -4308,12 +4366,12 @@ def _mm_kernels(mesh, b) -> dict:
 
     dev = mesh.device
     tr = b.transport
-    j = next(i for i, s in enumerate(tr.leaf_shapes) if tr.leaf_dims[i] == len(s) - 1
+    j = next(i for i, s in enumerate(tr.leaf_shapes) if tr.leaf_dims[i][1] == len(s) - 1
              and len(s) == 3 and s[-1] != s[-2])      # w_gate: (layers, d, F), F split
-    shape = tr.leaf_shapes[j]
+    shape, sp = tr._leaf(j, None)
     R, L = int(shape[0] * shape[1]), int(shape[2])
     n = len(mesh.workers(b.n_workers))
-    _, mine, loc, kb, Ll = tr._cols_draw(prng.PRNGKey(SEED + 43), shape, n, dev)
+    _, mine, loc, kb, Ll = tr._cols_draw(prng.PRNGKey(SEED + 43), shape, sp, n, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 43)
     x = torch.randn((n * R, Ll), generator=gen, device=dev)
     o = loc.clamp(max=Ll - 1).reshape(n * R, kb).contiguous()
@@ -4649,6 +4707,355 @@ def run_mesh_model(report: dict) -> dict:
             "mesh_model_serve": {k: sl.get(k, 0) for k in names}}
 
 
+def _mf_spec() -> dict:
+    return {"device": DEVICE, "layers": MESH_FSDP_LAYERS, "seq": MESH_FSDP_SEQ,
+            "key": MESH_FSDP_KEY, "serve": MESH_FSDP_SERVE, "slots": 4, "page": SERVE_PAGE,
+            "chunk": 64}
+
+
+def _mf_arch(spec: dict):
+    """Qwen1.5-0.5B under the fsdp override (reduced where ``spec`` says)."""
+    import dataclasses
+
+    arch = _mm_arch({"arch": "qwen1.5-0.5b", "layers": spec["layers"]})
+    return dataclasses.replace(arch, worker_axes="pod", fsdp=True)
+
+
+def mesh_fsdp_rank() -> None:
+    """One rank of the mesh_fsdp phase (module doc, phase 15): prints one
+    ``MESH_FSDP {json}`` line."""
+    import torch
+
+    from repro_torch import kernels, prng
+    from repro_torch.core.tree_util import tree_leaves, tree_map
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import topology as topo
+    from repro_torch.launch.distributed import build_train_steps
+    from repro_torch.launch.serve_steps import build_paged_serve_steps, engine_steps
+    from repro_torch.models import init_params
+
+    global DEVICE
+    spec = json.loads(os.environ[MESH_FSDP_ENV])
+    DEVICE = spec["device"]
+    pid, nproc = topo.init_from_env(device=DEVICE, backend="gloo")
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // (2 * nproc)))
+    out: dict = {"rank": pid, "section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        _sync()
+        now = time.perf_counter()
+        out["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+        print(f"mesh_fsdp rank {pid}: {name} {out['section_s'][name]:.2f} s", flush=True)
+
+    try:
+        arch = _mf_arch(spec)
+        cfg = arch.model
+        mesh = topo.make_mesh((2, 2, 1), ("pod", "data", "model"), device=DEVICE, fsdp=True)
+        require((mesh.world, mesh.fsdp, mesh.model) == (2, 2, 1)
+                and mesh.staged == (DEVICE == "cuda"), f"mesh_fsdp mesh {mesh}")
+        full = init_params(SEED, cfg, torch.float32, device=DEVICE)
+        params = shd.shard_tree(full, mesh, True)
+        shapes = init_params(SEED, cfg, torch.float32, device="meta")
+        out["params"] = sum(t.numel() for t in tree_leaves(params))
+        out["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        gen = torch.Generator(device=mesh.device).manual_seed(SEED + 47)
+        # two workers (the pods) × two rows: one row a data rank
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2, spec["seq"]),
+                                         generator=gen, device=mesh.device)}
+        kw = dict(global_batch=4, seq_len=spec["seq"], dtype=torch.float32, grad_carry=True,
+                  remat=False)
+        key = prng.PRNGKey(spec["key"])
+        section("init")
+
+        def rounds(m, p):
+            b = build_train_steps(arch, m, True, **kw)
+            state = (p, tree_map(torch.zeros_like, p),
+                     tree_map(lambda t: t.new_zeros((1, *t.shape)), p))
+            rec = []
+            for name in ("sync_step", "compressed_step"):
+                kernels.reset_launch_counts()
+                before, calls = dict(m.payload_bytes), dict(m.collectives)
+                t0 = time.perf_counter()
+                args = (*state, batch) if name == "sync_step" else (*state, batch, key)
+                state = b.fns[name](*args)
+                _sync()
+                rec.append({"seconds": time.perf_counter() - t0,
+                            "launches": {k: v for k, v in kernels.launch_counts().items()
+                                         if v},
+                            "wire": {k: v - before.get(k, 0) for k, v in
+                                     m.payload_bytes.items() if v != before.get(k, 0)},
+                            "calls": {k: v - calls.get(k, 0) for k, v in m.collectives.items()
+                                      if v != calls.get(k, 0)}})
+            return state, rec, sorted([list(k), v] for k, v in b.transport.ledger.bits.items())
+
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state, rec, led = rounds(mesh, params)
+        out["train"], out["ledger"] = rec, led
+        out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if DEVICE == "cuda" else 0.0)
+        section("train")
+        got = [shd.gather_tree(t, mesh, shapes, True) for t in state[:2]]
+        del state
+        if pid == 0:
+            solo = topo.Mesh(axis_names=("pod", "data", "model"), sizes=(2, 2, 1),
+                             device=mesh.device)
+            one, _rec, one_led = rounds(solo, full)
+            errs = []
+            for a, c in zip(tree_leaves(got), tree_leaves(one[:2])):
+                errs.append(float((a - c).abs().max()) / (float(c.abs().max()) or 1.0))
+            out["one_rank"] = {"errs": errs, "ledger": one_led}
+            del one
+            section("one_rank_train")
+        del got
+        pairs = serve.parse_requests(spec["serve"])
+        serve_kw = dict(slots=spec["slots"], page_size=spec["page"], chunk=spec["chunk"])
+        if pid == 1:
+            want, margins = plain_streams(full, cfg, pairs, serve_kw)
+            out["plain"] = {"streams": want, "margins": [margins[r] for r in range(len(want))]}
+            section("one_rank_serve")
+        del full
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        reqs = serve.make_workload(cfg, pairs)
+        layout = serve.paged_layout(reqs, slots=spec["slots"], page_size=spec["page"])
+        b = build_paged_serve_steps(arch, mesh, n_slots=spec["slots"], npage=layout.npage,
+                                    page_size=spec["page"], max_pages=layout.max_pages,
+                                    chunk=spec["chunk"], dtype=torch.float32)
+        steps = engine_steps(b, params)
+        mesh.reset_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = serve.run_continuous(params, cfg, reqs, steps=steps, **serve_kw).to_dict()
+        _sync()
+        out["serve"] = {"seconds": time.perf_counter() - t0,
+                        "decode_steps": rep["decode_steps"],
+                        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                        "bytes": dict(mesh.payload_bytes),
+                        "kinds": sorted(mesh.collectives),
+                        "streams": [r.generated for r in reqs]}
+        section("serve")
+        out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9
+                                 if DEVICE == "cuda" else 0.0)
+    finally:
+        topo.shutdown()
+    print("MESH_FSDP " + json.dumps(out), flush=True)
+
+
+def run_mesh_fsdp(report: dict) -> dict:
+    """Phase 15 (module doc): four ranks on the one card, Qwen1.5-0.5B under
+    the fsdp override on a (2, 2, 1) mesh, against one rank. Must take at
+    most MESH_FSDP_BUDGET_S."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.launch import topology as topo
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    card = report.get("card", "")
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    spec = _mf_spec()
+    prog = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "chip_smoke.mesh_fsdp_rank()")
+    res = topo.spawn_local_cluster(prog, num_processes=4, devices_per_process=1,
+                                   timeout=MESH_FSDP_BUDGET_S + 60,
+                                   extra_env={MESH_FSDP_ENV: json.dumps(spec)})
+    outs = []
+    for r in res:
+        sys.stdout.write("".join(line + "\n" for line in r.stdout.splitlines()
+                                 if not line.startswith("MESH_FSDP ")))
+        outs += [json.loads(line[len("MESH_FSDP "):]) for line in r.stdout.splitlines()
+                 if line.startswith("MESH_FSDP ")]
+    bad = [(i, r.returncode, r.stderr[-2500:]) for i, r in enumerate(res) if r.returncode]
+    require(not bad, "mesh_fsdp ranks exited nonzero: " + " | ".join(
+        f"rank {i} ({code}): {err}" for i, code, err in bad))
+    require(len(outs) == 4, f"mesh_fsdp: {len(outs)} rank reports")
+    outs.sort(key=lambda o: o["rank"])
+    lead = outs[0]
+    cfg = _mf_arch(spec).model
+    nleaf = len(tree_leaves(init_params(SEED, cfg, device="meta")))
+    if not spec["layers"]:
+        require([o["params"] for o in outs] == [QWEN_RANK_PARAMS] * 4,
+                f"mesh_fsdp: parameters a rank {[o['params'] for o in outs]}")
+    errs = lead["one_rank"]["errs"]
+    require(max(errs) <= MESH_MODEL_RTOL,
+            f"mesh_fsdp: params / g {max(errs)} of a leaf's scale from one rank's "
+            f"(bound {MESH_MODEL_RTOL})")
+    for o in outs:
+        require(o["ledger"] == lead["one_rank"]["ledger"], f"mesh_fsdp ledger {o['ledger']}")
+    out = {"ranks": 4, "mesh": [2, 2, 1], "backend": "gloo (host-staged)",
+           "params_a_rank": [o["params"] for o in outs],
+           "param_bytes": [o["param_bytes"] for o in outs],
+           "peak_mem_gb": [o["peak_mem_gb"] for o in outs],
+           "section_s": [o["section_s"] for o in outs], "one_rank_err": max(errs),
+           "rounds": []}
+    launches_total: dict = {}
+    for i, scope in enumerate(("sync_step", "compressed_step")):
+        by_kind, calls, launches = {}, {}, {}
+        for o in outs:
+            r = o["train"][i]
+            for d, src in ((by_kind, r["wire"]), (calls, r["calls"]),
+                           (launches, r["launches"])):
+                for k, v in src.items():
+                    d[k] = d.get(k, 0) + v
+        wire_bits = sum(v for k, v in by_kind.items()
+                        if not k.startswith(("model/", "fsdp/"))) * 8.0 / 2
+        booked = sum(v for k, v in lead["ledger"] if k[0] == scope and k[1] == "up")
+        require(wire_bits == booked, f"mesh_fsdp {scope}: wire {wire_bits} bits a worker != "
+                                     f"booked {booked} ({by_kind})")
+        fs_calls = sum(v for k, v in calls.items() if k.startswith("fsdp/")) // 2
+        secs = max(o["train"][i]["seconds"] for o in outs)
+        out["rounds"].append({"scope": scope, "seconds": secs, "wire_up_bits": wire_bits,
+                              "bytes": by_kind, "fsdp_calls_a_worker": fs_calls,
+                              "launches": launches})
+        for k, v in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        print(f"mesh_fsdp {scope}: {secs:.3f} s on host-staged gloo (not NVLink), wire "
+              f"{wire_bits:.0f} bits a worker = booked, fsdp/... collectives a worker pass "
+              f"{fs_calls}, bytes by kind {by_kind}, launches {launches}", flush=True)
+    if DEVICE == "cuda":
+        comp = out["rounds"][1]["launches"]
+        # rows 10 and 2 on each rank's share: every leaf a data-rank pair,
+        # final_norm (held whole over "data") on data rank 0 only
+        require(comp.get("randk_gather") == comp.get("scatter_accum") == 2 * (2 * nleaf - 1),
+                f"mesh_fsdp compressed round launches {comp}")
+    serve_rep = [o["serve"] for o in outs]
+    require(all(s["streams"] == serve_rep[0]["streams"] for s in serve_rep),
+            "mesh_fsdp: ranks' streams")
+    # one slot a rank: the slots' tokens and K/V rows crossed the data group
+    require(all({"fsdp/tokens", "fsdp/kv_rows"} <= set(s["kinds"]) for s in serve_rep),
+            f"mesh_fsdp serve kinds {serve_rep[0]['kinds']}")
+    plain = outs[1]["plain"]
+    diverged = compare_streams("mesh_fsdp serve (4 ranks vs 1)", serve_rep[0]["streams"],
+                               plain["streams"], plain["margins"])
+    sl: dict = {}
+    for s in serve_rep:
+        for k, v in s["launches"].items():
+            sl[k] = sl.get(k, 0) + v
+    if DEVICE == "cuda":
+        require(sl.get("paged_attn_decode", 0) > 0, f"mesh_fsdp serve launches {sl}")
+    out["serve"] = {"decode_steps": serve_rep[0]["decode_steps"], "launches": sl,
+                    "seconds": [s["seconds"] for s in serve_rep], "diverged": diverged,
+                    "bytes": serve_rep[0]["bytes"]}
+    print(f"mesh_fsdp: parameters a rank {out['params_a_rank']} "
+          f"({[round(b / 1e9, 3) for b in out['param_bytes']]} GB); peak memory a rank "
+          f"{[round(g, 2) for g in out['peak_mem_gb']]} GB; against one rank {max(errs):.3g} "
+          f"of a leaf's scale; serve streams equal one rank's (near ties {diverged}), "
+          f"launches {sl}; sections {out['section_s']}", flush=True)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    report["mesh_fsdp"] = out
+    print(f"mesh_fsdp phase: {secs:.1f} s (budget {MESH_FSDP_BUDGET_S:.0f}) on {card}",
+          flush=True)
+    require(secs <= MESH_FSDP_BUDGET_S, f"mesh_fsdp phase took {secs:.1f} s")
+    names = kernels.KERNELS
+    return {"mesh_fsdp_train": {k: launches_total.get(k, 0) for k in names},
+            "mesh_fsdp_serve": {k: sl.get(k, 0) for k in names}}
+
+
+def _roofline_line(entry: dict) -> str:
+    peak = entry.get("peak_memory_per_device")
+    return (f"peak {peak / 1e9:.3f} GB a device, " if peak is not None else "") + (
+        f"compute {entry['compute_s'] * 1e3:.2f} ms, memory {entry['memory_s'] * 1e3:.2f} "
+        f"ms, collective {entry['collective_s'] * 1e3:.2f} ms, dominant {entry['dominant']}, "
+        f"inputs {entry['arg_bytes_per_device'] / 1e9:.3f} GB")
+
+
+def run_dryrun(report: dict) -> dict:
+    """Phase 16 (module doc): the dry run's card entries on the stand-in
+    mesh. Must take at most DRYRUN_BUDGET_S."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun, perf
+
+    t_phase = time.perf_counter()
+    card = report.get("card", "")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, launches = {}, {}
+    with open(DRYRUN_REF_FILE) as f:
+        ref = json.load(f)
+    xla = {}
+    for name, s in ref["steps"].items():
+        ma = s["memory_analysis"]
+        xla[name] = (ma["argument_size_in_bytes"] + ma["output_size_in_bytes"]
+                     + ma["temp_size_in_bytes"] - ma["alias_size_in_bytes"]) / 1e9
+    # the steps the phase runs (the time): train_step repeats the compressed
+    # step here (c_k = 0 under the key); llama4's compressed step takes ~70 s
+    # on the card, so its sync step stands for the fsdp layout here and the
+    # CLI (``--device cuda``) records the rest
+    for arch, shape, mesh, steps in (
+            ("qwen1.5-0.5b", "train_4k", "single", ("sync_step", "compressed_step")),
+            ("llama4-scout-17b-a16e", "train_4k", "multi", ("sync_step",))):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = dryrun.run_one(arch, shape, mesh, device=DEVICE, steps=steps)
+        _sync()
+        key = f"{arch}__{shape}__{mesh}"
+        launches[key] = {k: v for k, v in kernels.launch_counts().items() if v}
+        for sname, s in res["steps"].items():
+            require(s.get("ok"), f"dryrun {key} {sname}: {s.get('error')}")
+            extra = (f"; the reference's XLA estimate {xla[sname]:.2f} GB a device (a "
+                     "compiler's estimate for the TPU program, not compared)"
+                     if arch == "qwen1.5-0.5b" else "")
+            print(f"dryrun {key} {sname}: {_roofline_line(s)}{extra}", flush=True)
+        out[key] = {"seconds": time.perf_counter() - t0, "launches": launches[key],
+                    "steps": {n: {k: s.get(k) for k in (
+                        "peak_memory_per_device", "compute_s", "memory_s", "collective_s",
+                        "dominant", "flops_per_device", "bytes_per_device",
+                        "collective_bytes_per_device", "arg_bytes_per_device", "run_s")}
+                        for n, s in res["steps"].items()}}
+        if arch.startswith("llama4"):
+            b = res.get("local_params")
+            require(b == LLAMA4_FSDP_DEVICE_PARAMS, f"dryrun llama4 parameters a device {b}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = perf.run_variant("qwen1.5-0.5b", "decode_32k", "single", "paged_decode",
+                           device=DEVICE)
+    _sync()
+    key = "qwen1.5-0.5b__decode_32k__single__paged_decode"
+    launches[key] = {k: v for k, v in kernels.launch_counts().items() if v}
+    for sname, s in res["steps"].items():
+        require(s.get("ok"), f"perf {key} {sname}: {s.get('error')}")
+        print(f"perf {key} {sname}: {_roofline_line(s)}", flush=True)
+    require(launches[key].get("paged_attn_decode", 0) > 0, f"perf {key} launches "
+                                                           f"{launches[key]}")
+    out[key] = {"seconds": time.perf_counter() - t0, "launches": launches[key],
+                "decode_bound": res["steps"]["paged_decode_step"].get("decode_bound"),
+                "steps": {n: {k: s.get(k) for k in (
+                    "peak_memory_per_device", "compute_s", "memory_s", "collective_s",
+                    "dominant", "arg_bytes_per_device", "run_s")}
+                    for n, s in res["steps"].items()}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    k = "qwen1.5-0.5b__train_4k__single"
+    require(launches[k].get("randk_gather", 0) > 0 and launches[k].get("scatter_accum", 0) > 0,
+            f"dryrun {k} launches {launches[k]}")
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    report["dryrun"] = out
+    print(f"dryrun phase: {secs:.1f} s (budget {DRYRUN_BUDGET_S:.0f}) on {card}; launches "
+          f"{launches}", flush=True)
+    require(secs <= DRYRUN_BUDGET_S, f"dryrun phase took {secs:.1f} s")
+    names = kernels.KERNELS
+    total: dict = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return {"dryrun": {k: total.get(k, 0) for k in names}}
+
+
 def _summed(per_round: list) -> dict:
     total: dict = {}
     for counts in per_round:
@@ -4703,6 +5110,8 @@ def main() -> int:
     launches.update(run_recurrent(report))
     launches.update(run_launch(report))
     launches.update(run_mesh_model(report))
+    launches.update(run_mesh_fsdp(report))
+    launches.update(run_dryrun(report))
 
     table = []
     for name, (source, replaces) in SOURCES.items():

@@ -31,19 +31,20 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_jax(tree_of_numpy: PyTree, device=None, mesh=None) -> PyTree:
+def params_from_jax(tree_of_numpy: PyTree, device=None, mesh=None,
+                    fsdp: bool = False) -> PyTree:
     """Tree of numpy arrays → the same tree of tensors on ``device``
     (``cuda`` unless it names another); with ``mesh``, a parameter tree cut
-    to this rank's slices on the mesh's model axis
-    (``launch.sharding.shard_tree``), so both packages start from the same
-    weights."""
+    to this rank's slices on the mesh's model axis and, with ``fsdp``, its
+    data axis (``launch.sharding.shard_tree``), so both packages start from
+    the same weights."""
     device = default_device(device)
     tree = tree_map(lambda a: _tensor(a, device), tree_of_numpy)
     if mesh is None:
         return tree
     from repro_torch.launch.sharding import shard_tree
 
-    return shard_tree(tree, mesh)
+    return shard_tree(tree, mesh, fsdp)
 
 
 def state_from_jax(params: PyTree, g: PyTree, step: int, h: PyTree = None,

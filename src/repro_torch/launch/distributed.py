@@ -33,10 +33,20 @@ payload; a round computes what the one-rank port computes (to the
 autograd rule: the row- and vocabulary-parallel sums add in another
 order). In one process a model axis holds the whole model, as GSPMD's
 single-process layout does, with the reference's decisions for it (no
-flat sync, no flat PP). An fsdp inner axis (parameters over "data" on a
-multi-pod mesh whose workers are pods) is ROADMAP A3c and raises
-``NotImplementedError``. With ``replicate_params`` the model axis is
+flat sync, no flat PP). With ``replicate_params`` the model axis is
 within-worker data parallelism and the arithmetic is the reference's.
+
+An fsdp arch (``arch.fsdp``: workers are pods, "data" an inner axis) on a
+mesh made with ``fsdp=True`` also splits the parameters over the D data
+ranks of each worker (``Mesh.fsdp``; the rule table's ``F`` role): params,
+g and h are the rank's slices on both axes, each data rank computes the
+gradient of its rows of the worker's batch (``sharding.data_rows``, the
+reference's inner batch axis) with every layer's data split gathered at its
+use, and ``worker_grads`` returns the data group's reduce-scattered sum —
+the worker's gradient, each rank its slice (a leaf the data axis leaves
+whole is summed over the group). The transport ships each rank's share.
+In one process the data axis stays inside the rank, as the model axis
+does.
 """
 
 from __future__ import annotations
@@ -49,7 +59,13 @@ import torch
 from repro_torch import prng
 from repro_torch.core import flat as flat_engine
 from repro_torch.core.marina import _FAULT_FOLD, _carry_refresh, _sync_faults, _uplink_faults
-from repro_torch.core.tree_util import tree_flatten, tree_map, tree_sub, tree_unflatten
+from repro_torch.core.tree_util import (
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_sub,
+    tree_unflatten,
+)
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.participation import (  # noqa: F401
     FLEET_ATTACKS,
@@ -59,6 +75,7 @@ from repro_torch.launch.participation import (  # noqa: F401
 from repro_torch.launch.topology import Mesh, detect_topology, num_workers, worker_axis_names
 from repro_torch.launch.transport import make_transport
 from repro_torch.models import init_params, lm_loss
+from repro_torch.models.layers import RowSplit
 
 PyTree = Any
 
@@ -84,15 +101,23 @@ class StepBundle:
     local_shapes: PyTree = None
 
 
-def _grad_one(cfg, tp=None):
+def _grad_one(cfg, tp=None, whole_over_data=None):
     """∇ of the LM loss of one worker's batch, by autograd (on the model
-    group ``tp``: this rank's slices of it)."""
+    group ``tp``: this rank's slices of it). On an fsdp mesh ``tp`` is a
+    ``RowSplit`` and the batch this data rank's rows; the leaves flagged in
+    ``whole_over_data`` (held whole over the data axis) have their partial
+    gradients summed over the data group, the others came back
+    reduce-scattered from their gathers."""
     def grad_one(params, one_batch):
         leaves, treedef = tree_flatten(params)
         leaves = [t.detach().requires_grad_(True) for t in leaves]
         loss = lm_loss(tree_unflatten(treedef, leaves), cfg, one_batch["tokens"],
                        one_batch.get("prefix"), tp=tp)
-        return tree_unflatten(treedef, torch.autograd.grad(loss, leaves))
+        grads = list(torch.autograd.grad(loss, leaves))
+        if whole_over_data is not None:
+            grads = [tp.fsdp_sum(g, kind="fsdp/grad_sum") if w else g
+                     for g, w in zip(grads, whole_over_data)]
+        return tree_unflatten(treedef, grads)
     return grad_one
 
 
@@ -174,22 +199,26 @@ def build_train_steps(
             "upload — grad_carry=True is required (DESIGN.md §4.9)")
     waxes = worker_axis_names(multi_pod, arch.worker_axes)
     fsdp = arch.fsdp and "data" not in waxes
-    if fsdp and mesh.shape.get("data", 1) > 1 and not replicate_params:
-        raise NotImplementedError(
-            "an fsdp inner axis (the parameters sharded over 'data' on a multi-pod mesh "
-            "whose workers are pods) is ROADMAP A3c")
-    if replicate_params and mesh.model > 1:
-        raise ValueError("replicate_params runs the model axis inside a rank; this mesh's "
-                         f"model axis spans {mesh.model} ranks")
+    if replicate_params and (mesh.model > 1 or mesh.fsdp > 1):
+        raise ValueError("replicate_params runs the inner axes inside a rank; this mesh's "
+                         f"model axis spans {mesh.model} ranks and its data axis {mesh.fsdp}")
+    if mesh.fsdp > 1 and not fsdp:
+        raise ValueError(f"a mesh laid out for fsdp, but {arch.model.name!r} on it has no "
+                         "data axis inside its workers")
     n = num_workers(mesh, multi_pod, arch.worker_axes)
     per_worker = global_batch // n
     rows = mesh.workers(n)
-    tp = mesh if mesh.model > 1 else None
+    shd.data_rows(per_worker, mesh)     # the worker's rows split over its data ranks
+    tp = mesh if (mesh.model > 1 or mesh.fsdp > 1) else None
 
     param_shapes = init_params(0, cfg, dtype, device="meta")
     local_shapes = param_shapes
+    whole_over_data = None
     if tp is not None:
-        local_shapes = shd.shard_tree(param_shapes, mesh)
+        local_shapes = shd.shard_tree(param_shapes, mesh, fsdp)
+    if mesh.fsdp > 1:
+        tp = RowSplit(mesh)
+        whole_over_data = [fd is None for fd, _md in shd.leaf_splits(param_shapes, mesh, fsdp)]
 
     # size-1 axes shard nothing, so they neither disqualify the packed
     # exchange nor the flat-PP pipeline
@@ -203,16 +232,20 @@ def build_train_steps(
         mesh, topo, waxes, n, backend=compression_backend, compression=compression,
         qsgd_s=qsgd_s, packed_payload=packed_payload, shared_mask=shared_mask,
         downlink=downlink, downlink_s=downlink_s, flat_sync=flat_sync, sync_layout=lay,
-        param_shapes=param_shapes)
+        param_shapes=param_shapes, fsdp=fsdp)
 
-    grad_one = _grad_one(cfg, tp)
+    grad_one = _grad_one(cfg, tp, whole_over_data)
 
     def worker_grads(params, batch):
         """This rank's workers' gradients, stacked: (rows, *leaf) per leaf,
-        from the global (n, per_worker, ...) batch."""
+        from the global (n, per_worker, ...) batch (on an fsdp mesh each
+        from this data rank's rows of the worker's, summed over the data
+        group: the rank's slices of the worker's gradient)."""
         out = None
+        drows = shd.data_rows(tree_leaves(batch)[0].shape[1], mesh)
         for i, w in enumerate(rows):
-            g = grad_one(params, tree_map(lambda t: t[w], batch))
+            g = grad_one(params, tree_map(
+                lambda t: t[w] if mesh.fsdp == 1 else t[w, drows.start:drows.stop], batch))
             if out is None:
                 out = tree_map(lambda t: t.new_empty((len(rows), *t.shape)), g)
             tree_map(lambda o, t: o[i].copy_(t), out, g)
@@ -337,21 +370,27 @@ def build_train_steps(
         """The step as a plain callable. The first call books ``bookings``
         under the entry's scope (the reference books once per trace, and
         ``train_step`` traces both round types); every call runs its
-        exchanges unbooked."""
+        exchanges unbooked. ``step.book()`` books without running, as the
+        reference's ``.lower()`` books without executing (once either
+        way)."""
         traced = []
+
+        def book():
+            if not traced:
+                traced.append(True)
+                with transport.scope(name):
+                    for b in bookings:
+                        b()
 
         def step(*args):
             with transport.quiet():
                 out = fn(*args)
-            if not traced:
-                traced.append(True)
-                with transport.scope(name):
-                    for book in bookings:
-                        book()
+            book()
             return out
 
         step.__name__ = name
         step.__doc__ = fn.__doc__
+        step.book = book
         return step
 
     fns = {
@@ -368,6 +407,7 @@ def build_train_steps(
             **pp_meta,
             **({"aggregator": aggregator.rule} if robust else {}),
             **({"faults": faults.attack} if faults is not None else {}),
+            **({"fsdp": mesh.fsdp} if mesh.fsdp > 1 else {}),
         },
         transport=transport,
         local_shapes=local_shapes,

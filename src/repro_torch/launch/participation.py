@@ -22,7 +22,8 @@ split the batch): every shard backprops its own batch and a client's row
 forms on its own rank.
 
 What crosses. Where packing cannot force a reshard (replicated parameters,
-or no model axis wider than 1) the payload pipeline is the core flat engine
+or no inner axis — model, or an fsdp mesh's data axis — wider than 1) the
+payload pipeline is the core flat engine
 split at the wire (:meth:`FlatEngine.encode_rows` /
 :meth:`FlatEngine.decode_mean`): each row is compressed where it forms,
 with the core's per-row key and seed derivation; the payloads (and the
@@ -33,8 +34,9 @@ and trajectories stay bit-equal to the one-rank run and to core
 ``PPMarina``. Dense state crosses, under the mesh's ``gather_state`` kind,
 only for a group's partial sum across ranks, a carry client's gradient on
 its way to its owner, the diffs of a fleet-wide attack, and the per-leaf
-wire (a model axis that spans ranks, or permk where r does not divide the
-block) where the cohort's rows lie unevenly over the ranks (all r rows
+wire (a model or data axis that spans ranks, each rank's rows of the leaves
+its slices; or permk where r does not divide the block) where the cohort's
+rows lie unevenly over the ranks (all r rows
 gathered); laid out as workers are (r/world rows a rank, in order), the
 per-leaf wire ships their payloads, as a full round does.
 """

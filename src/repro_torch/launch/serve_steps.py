@@ -13,7 +13,18 @@ rank's slices (``sharding.shard_tree``), a GQA layer runs its H/m heads on
 its KV/m heads' share of the cache or pool (``cache_leaf_spec``'s split of
 the KV-head dimension; an int8 pool's scales go with their codes), every
 other layer's cache is held whole, and the logits are vocabulary-parallel.
-Each step takes the GLOBAL inputs on every rank.
+An fsdp arch serves on a mesh laid out for it (``make_mesh(...,
+fsdp=True)``: ``Mesh.fsdp`` = D > 1) on any mesh whose "data" axis spans
+ranks, the single-pod mesh included, as the reference shards its serving
+parameters over "data" wherever the mesh has it: a rank holds the data
+split of every ``F`` leaf too, gathered on use one layer at a time,
+forward only. The rows (slots) then split over the worker groups and the
+data ranks as ``serve_batch_axes`` finds them dividing ("pod", then
+"data"): a rank computes its own rows (``layers.RowSplit``, the MoE
+dispatch over the data group's rows), and its outputs cross the data group
+(``fsdp/...`` kinds) before the worker groups. Where "data" does not
+divide them the data ranks compute the same rows. Each step takes the
+GLOBAL inputs on every rank.
 
 * Dense (``build_serve_steps``): a worker group prefills and decodes its
   own rows and holds their cache rows (the reference's batch-sharded
@@ -25,8 +36,9 @@ Each step takes the GLOBAL inputs on every rank.
   slots (its writes land in its own pool), samples their tokens, and then
   all-gathers the tokens (kind ``tokens``) and the K/V rows each slot wrote
   — one row of every layer's pool, in the pool's own dtype: int8 codes and
-  their f32 scales on int8 pages (kind ``kv_rows``) — and writes the other
-  groups' rows into its pool, so the pools stay equal across the groups. A
+  their f32 scales on int8 pages, every layer's in one exchange (kind
+  ``kv_rows``) — and writes the other groups' rows into its pool, so the
+  pools stay equal across the groups. A
   prefill chunk (one request) runs on every group and moves nothing over
   the worker axis. Sampling: the first index of the largest logit at
   ``temperature`` 0, else ``prng.categorical`` on logits × float32(1/T)
@@ -64,12 +76,32 @@ from repro_torch.models import (
     paged_prefill_chunk,
     prefill as model_prefill,
 )
+from repro_torch.models.layers import RowSplit
 
 
 def _tp(mesh):
-    """The model group the steps run on (None: the rank holds the whole
+    """The inner groups the steps run on (None: the rank holds the whole
     model)."""
-    return mesh if mesh.model > 1 else None
+    return mesh if (mesh.model > 1 or mesh.fsdp > 1) else None
+
+
+def _data_spans(mesh) -> bool:
+    """Whether the mesh's "data" axis (of more than one slot) spans ranks."""
+    data = mesh.shape.get("data", 1)
+    return data > 1 and mesh.world > mesh.size // (data * mesh.shape.get("model", 1))
+
+
+def _shapes(arch, mesh, dtype) -> tuple:
+    """(whole meta shapes, this rank's slices of them): the rule table's
+    split, with the data axis where the arch is fsdp."""
+    cfg = arch.model
+    param_shapes = init_params(0, cfg, dtype, device="meta")
+    if mesh.fsdp > 1 and not arch.fsdp:
+        raise ValueError(f"a mesh laid out for fsdp, but {cfg.name!r} is not an fsdp arch")
+    if arch.fsdp and mesh.fsdp == 1 and _data_spans(mesh):
+        raise ValueError(f"{cfg.name!r} splits its serving parameters over \"data\": lay the "
+                         "mesh out for fsdp (make_mesh(..., fsdp=True))")
+    return param_shapes, shd.shard_tree(param_shapes, mesh, arch.fsdp)
 
 
 def _whole_logits(mesh, params, cfg, logits: torch.Tensor) -> torch.Tensor:
@@ -79,16 +111,37 @@ def _whole_logits(mesh, params, cfg, logits: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _rows(mesh, B: int) -> range:
-    """The rows (slots) of a batch of B this rank computes."""
-    return mesh.workers(B) if shd.serve_batch_axes(mesh, B) else range(B)
+def _rows(mesh, B: int) -> tuple:
+    """(the rows (slots) of a batch of B this rank computes, whether the
+    data group splits them, whether their outputs cross the worker groups).
+    The worker groups cross on one rank too, whenever the mesh has a group
+    and the groups split the batch; not where every group computes every
+    row. On an fsdp mesh the rows are the reference's ``serve_batch_axes``
+    blocks, "pod" major: block g·d + j of the g-th worker group's j-th data
+    rank."""
+    axes = shd.serve_batch_axes(mesh, B) or ()
+    if mesh.fsdp == 1:
+        rows = mesh.workers(B) if axes else range(B)
+        return rows, False, mesh.group is not None and len(rows) * mesh.world == B
+    g = mesh.world if "pod" in axes else 1
+    d = mesh.fsdp if "data" in axes else 1
+    per = B // (g * d)
+    at = (mesh.rank if g > 1 else 0) * d + (mesh.fsdp_rank if d > 1 else 0)
+    return range(at * per, (at + 1) * per), d > 1, mesh.group is not None and "pod" in axes
 
 
-def _exchanges(mesh, rows: range, B: int) -> bool:
-    """Whether the rows' outputs cross the group: where the ranks split the
-    batch (on one rank too, whenever the mesh has a group), not where every
-    rank computes every row."""
-    return mesh.group is not None and len(rows) * mesh.world == B
+def _gather_out(mesh, x: torch.Tensor, B: int, over_data: bool, over_groups: bool,
+                kind: str) -> torch.Tensor:
+    """All B rows of an output from this rank's rows: over the data group
+    (kind ``fsdp/<kind>``), then over the worker groups (``kind``)."""
+    if over_data:
+        x = mesh.fsdp_gather(x.contiguous(), 0, kind=f"fsdp/{kind}")
+    return mesh.gather_rows(x, B, kind=kind) if over_groups else x
+
+
+def _row_tp(mesh, over_data: bool):
+    """The inner groups a step over this rank's rows runs on."""
+    return RowSplit(mesh, serving=True) if over_data else _tp(mesh)
 
 
 def _on(mesh, x, dtype=None) -> torch.Tensor:
@@ -105,14 +158,13 @@ def build_serve_steps(arch, mesh, *, batch: int, seq_len: int, mode: str,
     from repro_torch.launch.distributed import StepBundle
 
     cfg = arch.model
-    param_shapes = init_params(0, cfg, dtype, device="meta")
-    rows = _rows(mesh, batch)
-    split = _exchanges(mesh, rows, batch)
-    tp = _tp(mesh)
+    param_shapes, local_shapes = _shapes(arch, mesh, dtype)
+    rows, over_data, over_groups = _rows(mesh, batch)
+    tp = _row_tp(mesh, over_data)
 
     def gather(params, logits):
         logits = _whole_logits(mesh, params, cfg, logits)
-        return mesh.gather_rows(logits, batch, kind="logits") if split else logits
+        return _gather_out(mesh, logits, batch, over_data, over_groups, "logits")
 
     fns = {}
     if mode == "prefill":
@@ -137,7 +189,8 @@ def build_serve_steps(arch, mesh, *, batch: int, seq_len: int, mode: str,
         meta = {"cache_shapes": init_cache(cfg, len(rows), seq_len, dtype, device="meta",
                                            model=mesh.model)}
     return StepBundle(mesh=mesh, n_workers=1, param_shapes=param_shapes, fns=fns,
-                      meta={**meta, "rows": rows})
+                      meta={**meta, "rows": rows, "fsdp": arch.fsdp},
+                      local_shapes=local_shapes)
 
 
 def _written_rows(leaf: torch.Tensor, pages: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
@@ -190,24 +243,37 @@ def paged_step_fns(cfg, mesh, *, temperature: float = 0.0, backend: str = "auto"
         token, lens = _on(mesh, token), _on(mesh, lens, torch.int32)
         tbl = _on(mesh, tbl, torch.int32)
         n = token.shape[0]
-        rows = _rows(mesh, n)
+        rows, over_data, over_groups = _rows(mesh, n)
         lo, hi = rows.start, rows.stop
-        logits, cache = paged_decode_step(params, cfg, cache, token[lo:hi], lens[lo:hi],
-                                          tbl[lo:hi], backend=backend, tp=tp)
+        # copies, not views: a view of slots [lo, hi) starts lo rows in, and
+        # the paged kernel takes 16-byte aligned tensors
+        logits, cache = paged_decode_step(params, cfg, cache, token[lo:hi].clone(),
+                                          lens[lo:hi].clone(), tbl[lo:hi].clone(),
+                                          backend=backend, tp=_row_tp(mesh, over_data))
         toks = pick(params, logits, key, lo, hi, n).to(torch.int32)
-        if not _exchanges(mesh, rows, n):
+        if not (over_data or over_groups):
             return toks, cache
         page_size = tree_flatten(cache)[0][0].shape[2]
         pages = torch.gather(tbl, 1, (lens // page_size).long()[:, None])[:, 0].long()
         offs = (lens % page_size).long()
         others = [s for s in range(n) if s not in rows]
-        for leaf in tree_flatten(cache)[0]:
-            got = mesh.gather_rows(_written_rows(leaf, pages[lo:hi], offs[lo:hi]), n,
-                                   kind="kv_rows")
-            if others:
-                idx = torch.as_tensor(others, device=leaf.device)
-                leaf[:, pages[idx], offs[idx]] = got[idx].movedim(0, 1)
-        return mesh.gather_rows(toks, n, kind="tokens"), cache
+        # every layer's written rows in one exchange: each slot's rows of
+        # every pool leaf as bytes, side by side
+        leaves = tree_flatten(cache)[0]
+        mine = [_written_rows(leaf, pages[lo:hi], offs[lo:hi]) for leaf in leaves]
+        got = _gather_out(mesh, torch.cat([w.reshape(hi - lo, -1).view(torch.uint8)
+                                           for w in mine], 1), n,
+                          over_data, over_groups, "kv_rows")
+        if others:
+            idx = torch.as_tensor(others, device=got.device)
+            off = 0
+            for leaf, w in zip(leaves, mine):
+                nb = w[:1].numel() * w.element_size()
+                rows_w = got[idx, off:off + nb].contiguous().view(w.dtype)
+                leaf[:, pages[idx], offs[idx]] = rows_w.reshape(len(others),
+                                                                *w.shape[1:]).movedim(0, 1)
+                off += nb
+        return _gather_out(mesh, toks, n, over_data, over_groups, "tokens"), cache
 
     @torch.inference_mode()
     def prefill_fn(params, cache, tokens, start, table_row, n_valid, key=None):
@@ -240,33 +306,39 @@ def build_paged_serve_steps(arch, mesh, *, n_slots: int, npage: int, page_size: 
     from repro_torch.launch.distributed import StepBundle
 
     cfg = arch.model
-    param_shapes = init_params(0, cfg, dtype, device="meta")
+    param_shapes, local_shapes = _shapes(arch, mesh, dtype)
     cache_shapes = init_paged_cache(cfg, npage, page_size, dtype, quantized=quantized,
                                     device="meta", model=mesh.model)
     decode_fn, prefill_fn = paged_step_fns(cfg, mesh, temperature=temperature,
                                            backend=backend)
     return StepBundle(mesh=mesh, n_workers=1, param_shapes=param_shapes,
                       fns={"paged_decode_step": decode_fn, "paged_prefill_chunk": prefill_fn},
-                      meta={"cache_shapes": cache_shapes, "rows": _rows(mesh, n_slots),
-                            "cfg": cfg, "temperature": temperature})
+                      meta={"cache_shapes": cache_shapes, "rows": _rows(mesh, n_slots)[0],
+                            "cfg": cfg, "temperature": temperature, "fsdp": arch.fsdp},
+                      local_shapes=local_shapes)
 
 
 #: the norm scales a serving rank gathers once, not at every layer and step
 _NORMS = ("ln1", "ln2", "q_norm", "k_norm")
 
 
-def whole_norms(params, mesh, param_shapes):
+def whole_norms(params, mesh, param_shapes, fsdp: bool = False):
     """This rank's parameters with the sharded norm scales gathered once
-    over the model group (kind ``model/norms``): the model finds them whole
-    and gathers nothing on use."""
-    if mesh.model == 1:
+    over the model group (kind ``model/norms``) and the data group (kind
+    ``fsdp/norms``): the model finds them whole and gathers nothing on
+    use."""
+    if mesh.model == 1 and mesh.fsdp == 1:
         return params
     flat, treedef = tree_flatten_with_path(params)
-    dims = shd.model_dims(param_shapes, mesh)
-    return treedef.unflatten([
-        mesh.model_gather(t, d, kind="model/norms")
-        if d is not None and shd._leaf_name(path) in _NORMS else t
-        for (path, t), d in zip(flat, dims)])
+    out = []
+    for (path, t), (fd, md) in zip(flat, shd.leaf_splits(param_shapes, mesh, fsdp)):
+        if shd._leaf_name(path) in _NORMS:
+            if md is not None:
+                t = mesh.model_gather(t, md, kind="model/norms")
+            if fd is not None:
+                t = mesh.fsdp_gather(t, fd, kind="fsdp/norms")
+        out.append(t)
+    return treedef.unflatten(out)
 
 
 def engine_steps(bundle, params, *, seed: int = 0) -> dict:
@@ -276,7 +348,8 @@ def engine_steps(bundle, params, *, seed: int = 0) -> dict:
     per prefill chunk and decode step. The page ops are the single-process
     ones (every rank holds the pool). On a model group the norm scales are
     gathered once here (:func:`whole_norms`)."""
-    params = whole_norms(params, bundle.mesh, bundle.param_shapes)
+    params = whole_norms(params, bundle.mesh, bundle.param_shapes,
+                         bundle.meta.get("fsdp", False))
     return engine_form(params, bundle.fns["paged_decode_step"],
                        bundle.fns["paged_prefill_chunk"],
                        temperature=bundle.meta["temperature"], seed=seed,

@@ -5,10 +5,15 @@ A spec is a tuple with one entry per tensor dimension: a mesh axis name, a
 tuple of axis names, or None (replicated) — what ``PartitionSpec`` holds in
 the reference. ``build_train_steps`` reads these to make the reference's
 decisions, and :func:`shard_tree` / :func:`gather_tree` apply them across the
-m ranks of a model axis (``Mesh.model``): each rank holds one of the m
-equal slices of every leaf along the dimension its spec gives the model
-axis, and the model's forward and backward gather or reduce across the
-model group (``models/layers.py``'s parallel primitives).
+m ranks of a model axis (``Mesh.model``) and, on an fsdp mesh, the D ranks
+of the data axis inside a worker (``Mesh.fsdp``): each rank holds one of
+the D·m slices of every leaf, cut along the dimension its spec gives the
+data axis and the one it gives the model axis (:func:`leaf_splits`), and
+the model's forward and backward gather or reduce across the model group
+and gather the data split one layer at a time, at its use
+(``models/layers.py``'s parallel primitives). A data rank takes its rows
+of each worker's batch (:func:`data_rows`, the reference's inner batch
+axis of :func:`batch_spec`).
 
 Every rule is a *preference*; :func:`_fit` drops any axis that does not
 divide the corresponding dimension. Roles: ``M`` prefers the model axis,
@@ -18,11 +23,11 @@ replicates.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from repro_torch.core.tree_util import tree_flatten, tree_flatten_with_path
+from repro_torch.core.tree_util import DictKey, tree_flatten, tree_flatten_with_path
 
 PyTree = Any
 
@@ -111,50 +116,78 @@ def param_sharding_tree(shapes: PyTree, mesh, fsdp: bool) -> PyTree:
     return treedef.unflatten([param_spec(p, leaf, mesh, fsdp) for p, leaf in flat])
 
 
-def model_dim(spec: tuple) -> Optional[int]:
-    """The dimension a spec gives the model axis (None: not on it)."""
+def axis_dim(spec: tuple, axis: str) -> Optional[int]:
+    """The dimension a spec gives ``axis`` (None: not on it)."""
     for d, ax in enumerate(spec):
-        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+        if ax == axis or (isinstance(ax, tuple) and axis in ax):
             return d
     return None
 
 
-def _check_fsdp(fsdp: bool) -> None:
-    if fsdp:
-        raise NotImplementedError(
-            "an fsdp inner axis (parameters sharded over 'data' on a multi-pod mesh "
-            "whose workers are pods) is ROADMAP A3c")
+def model_dim(spec: tuple) -> Optional[int]:
+    """The dimension a spec gives the model axis (None: not on it)."""
+    return axis_dim(spec, "model")
+
+
+class _Shaped(NamedTuple):
+    shape: tuple
+
+
+def data_dim(name: str, shape: tuple, mesh) -> Optional[int]:
+    """The dimension the data axis splits a leaf named ``name`` of whole
+    ``shape`` on under fsdp (None: held whole over it). Allocates nothing
+    (it runs inside the model's forward, under the roofline's counters)."""
+    return axis_dim(param_spec((DictKey(name),), _Shaped(tuple(shape)), mesh, True), "data")
+
+
+def leaf_splits(shapes: PyTree, mesh, fsdp: bool = False) -> list:
+    """Per leaf of ``shapes`` (whole shapes, flattened order), ``(data dim,
+    model dim)``: the dimensions its slices split on across the data ranks
+    of an fsdp mesh and across the model ranks, each None where the leaf is
+    held whole along that axis (replicated, or the axis inside one rank)."""
+    flat, _ = tree_flatten_with_path(shapes)
+    D, m = getattr(mesh, "fsdp", 1), getattr(mesh, "model", 1)
+    if D == 1 and m == 1:
+        return [(None, None)] * len(flat)
+    out = []
+    for p, leaf in flat:
+        spec = param_spec(p, leaf, mesh, fsdp)
+        out.append((axis_dim(spec, "data") if D > 1 else None,
+                    model_dim(spec) if m > 1 else None))
+    return out
 
 
 def model_dims(shapes: PyTree, mesh, fsdp: bool = False) -> list:
-    """Per leaf of ``shapes`` (full shapes, flattened order), the dimension
-    its slices split on across the mesh's model ranks, or None (held whole:
-    a replicated leaf, or a model axis inside one rank)."""
-    _check_fsdp(fsdp)
-    flat, _ = tree_flatten_with_path(shapes)
-    if getattr(mesh, "model", 1) == 1:
-        return [None] * len(flat)
-    return [model_dim(param_spec(p, leaf, mesh, fsdp)) for p, leaf in flat]
+    """Per leaf of ``shapes``, the dimension its slices split on across the
+    mesh's model ranks, or None (:func:`leaf_splits`' model half)."""
+    return [md for _fd, md in leaf_splits(shapes, mesh, fsdp)]
 
 
 def shard_tree(params: PyTree, mesh, fsdp: bool = False) -> PyTree:
-    """This rank's slices of a whole parameter tree (``Mesh.model_rank`` of
-    ``Mesh.model`` along each leaf's :func:`model_dim`; replicated leaves
-    whole), as contiguous copies so the whole tree can be freed."""
+    """This rank's slices of a whole parameter tree (its data slice along
+    each leaf's data dimension, then its model slice along the model
+    dimension; replicated leaves whole), as contiguous copies so the whole
+    tree can be freed."""
     leaves, treedef = tree_flatten(params)
-    dims = model_dims(params, mesh, fsdp)
-    return treedef.unflatten([t if d is None else mesh.model_slice(t, d)
-                              for t, d in zip(leaves, dims)])
+    out = []
+    for t, (fd, md) in zip(leaves, leaf_splits(params, mesh, fsdp)):
+        if fd is not None:
+            t = mesh.fsdp_slice(t, fd)
+        out.append(t if md is None else mesh.model_slice(t, md))
+    return treedef.unflatten(out)
 
 
 def gather_tree(local: PyTree, mesh, shapes: PyTree, fsdp: bool = False) -> PyTree:
-    """Undo :func:`shard_tree`: the whole tree on every rank of the model
+    """Undo :func:`shard_tree`: the whole tree on every rank of the worker
     group (``shapes`` the whole leaves' shapes, e.g. meta tensors), for
     checkpoints and comparisons."""
     leaves, treedef = tree_flatten(local)
-    dims = model_dims(shapes, mesh, fsdp)
-    return treedef.unflatten([t if d is None else mesh.model_gather(t, d, kind="model/gather_tree")
-                              for t, d in zip(leaves, dims)])
+    out = []
+    for t, (fd, md) in zip(leaves, leaf_splits(shapes, mesh, fsdp)):
+        if md is not None:
+            t = mesh.model_gather(t, md, kind="model/gather_tree")
+        out.append(t if fd is None else mesh.fsdp_gather(t, fd, kind="fsdp/gather_tree"))
+    return treedef.unflatten(out)
 
 
 def local_shape(shape: tuple, d: Optional[int], m: int) -> tuple:
@@ -162,6 +195,18 @@ def local_shape(shape: tuple, d: Optional[int], m: int) -> tuple:
     if d is None:
         return tuple(shape)
     return tuple(s // m if i == d else s for i, s in enumerate(shape))
+
+
+def data_rows(per_worker: int, mesh) -> range:
+    """The rows of a worker's ``per_worker`` batch rows this data rank
+    takes: the reference's inner batch axis ("data" on dim 1 of
+    :func:`batch_spec`), contiguous, all of them where ``Mesh.fsdp`` is 1."""
+    D = getattr(mesh, "fsdp", 1)
+    if per_worker % D:
+        raise ValueError(f"{per_worker} rows a worker do not split over {D} data ranks")
+    k = per_worker // D
+    j = getattr(mesh, "fsdp_rank", 0)
+    return range(j * k, (j + 1) * k)
 
 
 # ---------------------------------------------------------------------------

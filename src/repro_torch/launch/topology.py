@@ -185,18 +185,28 @@ class Mesh:
     (:meth:`assemble_rows`) counts under its own kind, ``gather_state``.
     ``op_counts`` / ``op_bytes`` count the same traffic by the collective
     that carried it (``all-gather``, ``all-reduce``, ``broadcast``,
-    ``send``), which is what ``roofline.collective_stats_from_mesh``
-    prices.
+    ``send``, ``all-to-all``), which is what
+    ``roofline.collective_stats_from_mesh`` prices.
 
     ``rank`` / ``world`` are this rank's worker group and the number of
-    worker groups, and ``group`` the worker-axis group of this rank's model
-    index. ``model`` is the number of ranks along the model axis (1: the
-    rank holds the whole model), ``model_rank`` this rank's model index and
-    ``model_group`` the ranks of its worker group. The model-axis
-    collectives count under kinds of their own (``model/...``) and ops
-    prefixed ``model/``: the ledger books no bits for a reshard inside a
-    worker. ``staged``: a gloo group on the card, every collective's
-    tensors copied through host memory."""
+    worker groups, and ``group`` the worker-axis group of this rank's (data,
+    model) index. ``model`` is the number of ranks along the model axis (1:
+    the rank holds the whole model), ``model_rank`` this rank's model index
+    and ``model_group`` the ranks of its worker group and data index.
+    ``fsdp`` is the number of ranks along the data axis inside a worker (an
+    fsdp mesh: the parameters split over "data" too; 1 otherwise),
+    ``fsdp_rank`` this rank's data index and ``fsdp_group`` the ranks of
+    its worker group and model index. The model- and data-axis collectives
+    count under kinds of their own (``model/...``, ``fsdp/...``) and ops
+    prefixed ``model/`` / ``fsdp/``: the ledger books no bits for a reshard
+    inside a worker. ``staged``: a gloo group on the card, every
+    collective's tensors copied through host memory.
+
+    Every collective goes through six primitives (``_all_gather``,
+    ``_broadcast``, ``_all_reduce``, ``_all_to_all``, ``_send``,
+    ``_recv``), which a
+    stand-in mesh with no process group overrides
+    (``launch/dryrun.py``)."""
 
     axis_names: tuple
     sizes: tuple
@@ -207,6 +217,9 @@ class Mesh:
     model: int = 1
     model_rank: int = 0
     model_group: Any = None
+    fsdp: int = 1
+    fsdp_rank: int = 0
+    fsdp_group: Any = None
     staged: bool = False
     collectives: dict = dataclasses.field(default_factory=dict)
     payload_bytes: dict = dataclasses.field(default_factory=dict)
@@ -231,10 +244,45 @@ class Mesh:
 
         return dist.get_backend(self.group)
 
-    def global_rank(self, group_rank: int) -> int:
+    def global_rank(self, group_rank: int, fsdp_rank: Optional[int] = None,
+                    model_rank: Optional[int] = None) -> int:
         """The process-group rank of worker group ``group_rank`` at this
-        rank's model index."""
-        return group_rank * self.model + self.model_rank
+        rank's data and model index (or the ones given): g·(D·m) + j·m + i."""
+        j = self.fsdp_rank if fsdp_rank is None else fsdp_rank
+        i = self.model_rank if model_rank is None else model_rank
+        return (group_rank * self.fsdp + j) * self.model + i
+
+    # -- the primitives every collective goes through ------------------------
+
+    def _all_gather(self, outs: list, raw: torch.Tensor, group) -> None:
+        import torch.distributed as dist
+
+        dist.all_gather(outs, raw, group=group)
+
+    def _broadcast(self, raw: torch.Tensor, src: int, group) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast(raw, src=src, group=group)
+
+    def _all_reduce(self, raw: torch.Tensor, group) -> None:
+        import torch.distributed as dist
+
+        dist.all_reduce(raw, group=group)
+
+    def _all_to_all(self, out: torch.Tensor, raw: torch.Tensor, group) -> None:
+        import torch.distributed as dist
+
+        dist.all_to_all_single(out, raw, group=group)
+
+    def _send(self, raw: torch.Tensor, dst: int, group) -> None:
+        import torch.distributed as dist
+
+        dist.send(raw, dst, group=group)
+
+    def _recv(self, raw: torch.Tensor, src: int, group) -> None:
+        import torch.distributed as dist
+
+        dist.recv(raw, src, group=group)
 
     def _out(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` as a collective takes it: on the host when staged."""
@@ -272,12 +320,10 @@ class Mesh:
             if local.shape[0] != n:
                 raise ValueError(f"{local.shape[0]} local rows of {n} without a process group")
             return local
-        import torch.distributed as dist
-
         src = local.contiguous()
         raw = self._out(src.view(torch.uint8))
         outs = [torch.empty_like(raw) for _ in range(self.world)]
-        dist.all_gather(outs, raw, group=self.group)
+        self._all_gather(outs, raw, self.group)
         self._count(kind, raw.numel(), "all-gather")
         full = self._back(outs[0] if self.world == 1 else torch.cat(outs))
         return full.view(src.dtype).reshape((n,) + tuple(local.shape[1:]))
@@ -291,8 +337,6 @@ class Mesh:
             if local.shape[0] != n:
                 raise ValueError(f"{local.shape[0]} local rows of {n} without a process group")
             return local
-        import torch.distributed as dist
-
         if self.world == 1:
             full = local.contiguous()
         else:
@@ -301,7 +345,7 @@ class Mesh:
             w = self.workers(n)
             full[w.start:w.stop] = local
         wire = self._out(full)
-        dist.all_reduce(wire, group=self.group)
+        self._all_reduce(wire, self.group)
         self._count("all_reduce", local.numel() * local.element_size(), "all-reduce")
         return self._back(wire) if self.staged else full
 
@@ -327,7 +371,6 @@ class Mesh:
             if len(mine) != len(owners):
                 raise ValueError(f"rows of ranks {set(owners)} without a process group")
             return local
-        import torch.distributed as dist
 
         shape, dtype = tuple(local.shape[1:]), local.dtype
         counts = [owners.count(r) for r in range(self.world)]
@@ -345,7 +388,7 @@ class Mesh:
         for j, o in enumerate(owners):
             raw = out[j:j + 1].view(torch.uint8)  # a view: receivers write in place
             wire = self._out(raw)
-            dist.broadcast(wire, src=self.global_rank(o), group=self.group)
+            self._broadcast(wire, self.global_rank(o), self.group)
             if self.staged:
                 raw.copy_(wire)
             if o == self.rank:
@@ -360,16 +403,14 @@ class Mesh:
         None. ``src == dst`` moves nothing."""
         if src == dst or self.rank not in (src, dst):
             return t if self.rank == src else None
-        import torch.distributed as dist
-
         if self.rank == src:
             raw = self._out(t.contiguous().view(torch.uint8).reshape(-1))
-            dist.send(raw, self.global_rank(dst), group=self.group)
+            self._send(raw, self.global_rank(dst), self.group)
             self._count(kind, raw.numel(), "send")
             return t
         buf = torch.empty(tuple(shape), dtype=dtype, device=self.device)
         raw = self._out(buf.view(torch.uint8).reshape(-1))
-        dist.recv(raw, self.global_rank(src), group=self.group)
+        self._recv(raw, self.global_rank(src), self.group)
         if self.staged:
             buf.view(torch.uint8).reshape(-1).copy_(raw)
         return buf
@@ -385,8 +426,6 @@ class Mesh:
             raise ValueError(f"{local.numel()} local elements, sizes {sizes}")
         if self.group is None:
             return [local]
-        import torch.distributed as dist
-
         out = []
         for g, k in enumerate(sizes):
             if g == self.rank:
@@ -397,13 +436,25 @@ class Mesh:
             if self.world > 1 and k:
                 raw = buf.view(torch.uint8)
                 wire = self._out(raw)
-                dist.broadcast(wire, src=self.global_rank(g), group=self.group)
+                self._broadcast(wire, self.global_rank(g), self.group)
                 if self.staged and g != self.rank:
                     raw.copy_(wire)
             out.append(buf)
         return out
 
-    # -- the model axis: the m ranks of one worker group --------------------
+    # -- the model axis: the m ranks of one worker group and data index -----
+
+    def _gather_parts(self, t: torch.Tensor, parts: int, group, kind: str,
+                      op: str) -> torch.Tensor:
+        """The ``parts`` ranks' ``t`` of one inner group, stacked on a new
+        leading dimension in rank order (one all-gather as bytes, counted
+        under ``kind`` and ``op``)."""
+        src = t.contiguous()
+        raw = self._out(src.view(torch.uint8).reshape(-1))
+        outs = [torch.empty_like(raw) for _ in range(parts)]
+        self._all_gather(outs, raw, group)
+        self._count(kind, raw.numel(), op)
+        return self._back(torch.cat(outs)).view(src.dtype).reshape((parts, *src.shape))
 
     def _model_count(self, kind: str, nbytes: int, op: str) -> None:
         self._count(kind, nbytes, "model/" + op)
@@ -412,15 +463,8 @@ class Mesh:
         """The m slices of ``t`` along ``dim``, in model-rank order."""
         if self.model == 1:
             return t
-        import torch.distributed as dist
-
-        src = t.contiguous()
-        raw = self._out(src.view(torch.uint8).reshape(-1))
-        outs = [torch.empty_like(raw) for _ in range(self.model)]
-        dist.all_gather(outs, raw, group=self.model_group)
-        self._model_count(kind, raw.numel(), "all-gather")
-        full = self._back(torch.cat(outs)).view(src.dtype).reshape((self.model, *src.shape))
-        return torch.cat(full.unbind(0), dim=dim)
+        full = self._gather_parts(t, self.model, self.model_group, kind, "model/all-gather")
+        return _concat_parts(full, dim)
 
     def model_sum(self, t: torch.Tensor, kind: str = "model/sum") -> torch.Tensor:
         """Σ over the model group of ``t``: the partials all-gathered and
@@ -428,7 +472,7 @@ class Mesh:
         all-reduce promises no order)."""
         if self.model == 1:
             return t
-        parts = self.model_gather(t[None], 0, kind=kind)
+        parts = self._gather_parts(t, self.model, self.model_group, kind, "model/all-gather")
         acc = parts[0]
         for part in parts[1:]:
             acc = acc + part
@@ -440,17 +484,21 @@ class Mesh:
         pass None and the shape and dtype)."""
         if self.model == 1:
             return t
-        import torch.distributed as dist
+        return self._inner_bcast(t, shape, dtype, kind, self.model_rank == 0,
+                                 self.global_rank(self.rank, model_rank=0),
+                                 self.model_group, "model/broadcast")
 
-        if self.model_rank == 0:
+    def _inner_bcast(self, t, shape, dtype, kind: str, root: bool, src: int, group,
+                     op: str) -> torch.Tensor:
+        if root:
             buf = t.contiguous()
-            self._model_count(kind, buf.numel() * buf.element_size(), "broadcast")
+            self._count(kind, buf.numel() * buf.element_size(), op)
         else:
             buf = torch.empty(tuple(shape), dtype=dtype, device=self.device)
         raw = buf.view(torch.uint8).reshape(-1)
         wire = self._out(raw)
-        dist.broadcast(wire, src=self.rank * self.model, group=self.model_group)
-        if self.staged and self.model_rank:
+        self._broadcast(wire, src, group)
+        if self.staged and not root:
             raw.copy_(wire)
         return buf
 
@@ -460,6 +508,88 @@ class Mesh:
             return t
         return t.chunk(self.model, dim=dim)[self.model_rank].contiguous()
 
+    # -- the data axis inside a worker (fsdp): the D ranks of one worker
+    # group and model index ----------------------------------------------
+
+    def fsdp_gather(self, t: torch.Tensor, dim: int, kind: str = "fsdp/gather") -> torch.Tensor:
+        """The D slices of ``t`` along ``dim``, in data-rank order."""
+        if self.fsdp == 1:
+            return t
+        full = self._gather_parts(t, self.fsdp, self.fsdp_group, kind, "fsdp/all-gather")
+        return _concat_parts(full, dim)
+
+    def fsdp_sum(self, t: torch.Tensor, kind: str = "fsdp/sum") -> torch.Tensor:
+        """Σ over the data group of ``t``, added in data-rank order (every
+        rank the same bits)."""
+        if self.fsdp == 1:
+            return t
+        parts = self._gather_parts(t, self.fsdp, self.fsdp_group, kind, "fsdp/all-gather")
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc
+
+    def fsdp_reduce_scatter(self, t: torch.Tensor, dim: int,
+                            kind: str = "fsdp/reduce_scatter") -> torch.Tensor:
+        """This rank's slice along ``dim`` of Σ over the data group of
+        ``t``: each rank's D slices exchanged all-to-all (rank k receives
+        every rank's slice k), then added in data-rank order, so every run
+        gives the same bits; a rank moves (D − 1)/D of ``t``, where an
+        all-gather of the partials would move D − 1 times it."""
+        if self.fsdp == 1:
+            return t
+        D = self.fsdp
+        parts = torch.stack(t.chunk(D, dim=dim))
+        got = self.fsdp_all_to_all(parts.reshape(D, -1), kind=kind).reshape(parts.shape)
+        acc = got[0]
+        for k in range(1, D):
+            acc = acc + got[k]
+        return acc
+
+    def fsdp_all_to_all(self, parts: torch.Tensor, kind: str) -> torch.Tensor:
+        """(D, n) rows, row k sent to data rank k → the (D, n) rows every
+        data rank sent this one, in data-rank order."""
+        raw = self._out(parts.contiguous().view(torch.uint8))
+        got = torch.empty_like(raw)
+        self._all_to_all(got, raw, self.fsdp_group)
+        self._count(kind, raw.numel(), "fsdp/all-to-all")
+        return self._back(got).view(parts.dtype)
+
+    def fsdp_bcast(self, t: "torch.Tensor | None", shape, dtype,
+                   kind: str = "fsdp/broadcast") -> torch.Tensor:
+        """Data rank 0's ``t`` on every rank of the data group (the others
+        pass None and the shape and dtype)."""
+        if self.fsdp == 1:
+            return t
+        return self._inner_bcast(t, shape, dtype, kind, self.fsdp_rank == 0,
+                                 self.global_rank(self.rank, fsdp_rank=0),
+                                 self.fsdp_group, "fsdp/broadcast")
+
+    def fsdp_slice(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's data slice of ``t`` along ``dim`` (no exchange)."""
+        if self.fsdp == 1:
+            return t
+        return t.chunk(self.fsdp, dim=dim)[self.fsdp_rank].contiguous()
+
+    def fsdp_dim(self, name: str, shape: tuple) -> Optional[int]:
+        """The dimension of a whole leaf (named ``name``, of ``shape``) that
+        the data axis splits on this mesh (None: held whole over it), by the
+        rule table (``sharding.param_spec`` with fsdp on)."""
+        if self.fsdp == 1:
+            return None
+        from repro_torch.launch.sharding import data_dim
+
+        return data_dim(name, tuple(shape), self)
+
+
+def _concat_parts(full: torch.Tensor, dim: int) -> torch.Tensor:
+    """The (parts, *slice) stack of an all-gather joined along ``dim`` of
+    the slices: a view where ``dim`` is the leading one (no copy)."""
+    dim = dim % (full.dim() - 1)
+    if dim == 0:
+        return full.reshape((full.shape[0] * full.shape[1], *full.shape[2:]))
+    return torch.cat(full.unbind(0), dim=dim)
+
 
 #: set by :func:`initialize_multiprocess` when the caller asked for gloo on
 #: the card: the meshes over that group stage every collective through host
@@ -467,12 +597,15 @@ class Mesh:
 _STAGED = {"on": False}
 
 
-def _make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
+def make_mesh(shape: tuple, axes: tuple, device=None, *, fsdp: bool = False) -> Mesh:
     """A mesh over the initialized default process group (or none). A model
     axis of m spans m ranks when the world is a multiple of m (ranks
     ``g·m + i``: worker group g, model index i; one subgroup per worker
     group and one per model index); in a world of one the rank holds the
-    whole model."""
+    whole model. With ``fsdp`` (the parameters split over "data" inside a
+    worker, the data axis not a worker axis) the D data indices span ranks
+    too: rank ``g·(D·m) + j·m + i`` (data index j), one model group per
+    (g, j), one data group per (g, i) and one worker-axis group per (j, i)."""
     device = default_device(device)
     import torch.distributed as dist
 
@@ -489,27 +622,43 @@ def _make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
         raise ValueError("an nccl group stages CUDA tensors only: the mesh must be on the card")
     rank, world = dist.get_rank(), dist.get_world_size()
     m = dict(zip(axes, sizes)).get("model", 1)
-    if world == 1 or m == 1:
+    D = dict(zip(axes, sizes)).get("data", 1) if fsdp else 1
+    if world == 1 or m * D == 1:
         return Mesh(axis_names=axes, sizes=sizes, device=device, group=dist.group.WORLD,
                     rank=rank, world=world, staged=staged)
-    if world % m:
-        raise ValueError(f"a model axis of {m} does not split a world of {world} ranks")
-    groups = world // m
+    if world % (m * D):
+        raise ValueError(f"a model axis of {m} and a data axis of {D} inside a worker do not "
+                         f"split a world of {world} ranks")
+    groups = world // (m * D)
+
+    def at(g: int, j: int, i: int) -> int:
+        return (g * D + j) * m + i
+
     # every rank makes every subgroup, in the same order (new_group is collective)
-    model_groups = [dist.new_group(list(range(g * m, (g + 1) * m))) for g in range(groups)]
-    worker_groups = [dist.new_group(list(range(i, world, m))) for i in range(m)]
+    model_groups = {(g, j): dist.new_group([at(g, j, i) for i in range(m)])
+                    for g in range(groups) for j in range(D)} if m > 1 else {}
+    data_groups = {(g, i): dist.new_group([at(g, j, i) for j in range(D)])
+                   for g in range(groups) for i in range(m)} if D > 1 else {}
+    worker_groups = {(j, i): dist.new_group([at(g, j, i) for g in range(groups)])
+                     for j in range(D) for i in range(m)}
+    g, j, i = rank // (m * D), (rank // m) % D, rank % m
     return Mesh(axis_names=axes, sizes=sizes, device=device,
-                group=worker_groups[rank % m], rank=rank // m, world=groups,
-                model=m, model_rank=rank % m, model_group=model_groups[rank // m],
-                staged=staged)
+                group=worker_groups[(j, i)], rank=g, world=groups,
+                model=m, model_rank=i, model_group=model_groups.get((g, j)),
+                fsdp=D, fsdp_rank=j, fsdp_group=data_groups.get((g, i)), staged=staged)
+
+
+#: the production meshes' (shape, axes): 16×16 single-pod, 2×16×16 two-pod
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """16×16 single-pod or 2×16×16 two-pod mesh (the axes the rule table
-    and the tiers read; no program of the port runs on it)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _make_mesh(shape, axes, device)
+    and the tiers read; the dry run's one-device stand-in has them,
+    ``launch/dryrun.py``)."""
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
+    return make_mesh(shape, axes, device)
 
 
 def production_topology(*, multi_pod: bool = False) -> Topology:
@@ -528,13 +677,13 @@ def production_topology(*, multi_pod: bool = False) -> Topology:
 
 def make_test_mesh(data: int = 2, model: int = 1, device=None) -> Mesh:
     """A (data, model) mesh: ``data`` workers split over the ranks."""
-    return _make_mesh((data, model), ("data", "model"), device)
+    return make_mesh((data, model), ("data", "model"), device)
 
 
 def make_federated_mesh(clients: int, model: int = 1, device=None) -> Mesh:
     """Mesh for the federated PP scenario: the worker ("data") axis is the
     client fleet, the model axis within-client parallelism."""
-    return _make_mesh((clients, model), ("data", "model"), device)
+    return make_mesh((clients, model), ("data", "model"), device)
 
 
 def worker_axis_names(multi_pod: bool, worker_axes: str) -> tuple:
@@ -582,6 +731,10 @@ def detect_topology(mesh: Mesh) -> Topology:
         if axis == "model":
             tiers.append((axis, slow if mesh.model > 1 else "loopback"))
             continue
+        if axis == "data" and mesh.fsdp > 1:
+            tiers.append((axis, slow))
+            i += 1
+            continue
         along = np.moveaxis(ranks, i, 0)
         i += 1
         if axis == "pod":
@@ -592,7 +745,8 @@ def detect_topology(mesh: Mesh) -> Topology:
             tiers.append((axis, "loopback"))
     pod_devs = mesh.size // mesh.shape["pod"] if "pod" in mesh.axis_names else None
     return Topology(axis_tiers=tuple(tiers), n_devices=mesh.size,
-                    n_processes=mesh.world * mesh.model, devices_per_pod=pod_devs)
+                    n_processes=mesh.world * mesh.model * mesh.fsdp,
+                    devices_per_pod=pod_devs)
 
 
 # ---------------------------------------------------------------------------

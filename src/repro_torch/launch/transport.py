@@ -68,6 +68,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+from functools import partial
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -94,18 +95,6 @@ def _leaf_dims(shape: tuple) -> tuple:
     L = int(shape[-1])
     R = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
     return R, L
-
-
-def _narrow_rows(t: torch.Tensor, ax: int, lead: tuple, d: Optional[int], m: int,
-                 i: int) -> torch.Tensor:
-    """A whole leaf's draw with its R = prod(``lead``) axis at ``ax`` → the
-    rows of slice i of m along ``lead``'s dimension ``d`` (None: all)."""
-    if d is None:
-        return t
-    v = t.reshape(*t.shape[:ax], *lead, *t.shape[ax + 1:])
-    k = lead[d] // m
-    v = v.narrow(ax + d, i * k, k)
-    return v.reshape(*t.shape[:ax], -1, *t.shape[ax + 1:])
 
 
 def _qsgd_quantize_rows(u: torch.Tensor, x: torch.Tensor, s: int):
@@ -222,7 +211,7 @@ class Transport:
     flat_sync: bool = False
     sync_layout: Any = None
     leaf_shapes: Optional[list] = None
-    leaf_dims: Optional[list] = None
+    leaf_dims: Optional[list] = None    # per leaf (data dim, model dim)
     ledger: wire.TierLedger = dataclasses.field(default_factory=wire.TierLedger)
     _scope: str = "unscoped"
     _booking: bool = True
@@ -349,18 +338,48 @@ class Transport:
             else:
                 raise ValueError(f"unknown downlink {mode!r}")
 
-    # -- rows -----------------------------------------------------------------
+    # -- rows and splits ----------------------------------------------------
 
     def _local(self, n: int, rows_sharded: bool) -> range:
         """The rows of an n-row stack this rank holds."""
         return self.mesh.workers(n) if rows_sharded else range(n)
 
+    def _parts(self, ax: str) -> tuple:
+        """(ranks, this rank's index) along an inner axis ("model" / "fsdp")."""
+        if ax == "model":
+            return self.mesh.model, self.mesh.model_rank
+        return self.mesh.fsdp, self.mesh.fsdp_rank
+
     def _leaf(self, j: int, leaf: torch.Tensor) -> tuple:
-        """(whole per-row shape, model dim in it or None) of leaf j of a
-        stack; the leaf's own shape on a rank that holds the whole model."""
-        if self.mesh.model == 1 or self.leaf_shapes is None:
-            return tuple(leaf.shape[1:]), None
-        return tuple(self.leaf_shapes[j]), self.leaf_dims[j]
+        """(whole per-row shape, :class:`_Split`) of leaf j of a stack; the
+        leaf's own shape, held whole, on a rank that holds the whole model."""
+        if self.leaf_shapes is None:
+            return tuple(leaf.shape[1:]), _WHOLE
+        shape = tuple(self.leaf_shapes[j])
+        fd, md = self.leaf_dims[j]
+        rows, col, rep = [], None, []
+        for d, ax in ((fd, "fsdp"), (md, "model")):
+            if self._parts(ax)[0] == 1:
+                continue
+            if d is None:
+                rep.append(ax)
+            elif d == len(shape) - 1:
+                col = ax
+            else:
+                rows.append((d, ax))
+        return shape, _Split(tuple(rows), col, tuple(rep))
+
+    def _narrow(self, t: torch.Tensor, ax: int, lead: tuple, sp: "_Split") -> torch.Tensor:
+        """A whole leaf's draw with its R = prod(``lead``) axis at ``ax`` →
+        the rows of this rank's slices along the leading-dimension splits."""
+        if not sp.rows:
+            return t
+        v = t.reshape(*t.shape[:ax], *lead, *t.shape[ax + 1:])
+        for d, name in sp.rows:
+            parts, i = self._parts(name)
+            k = lead[d] // parts
+            v = v.narrow(ax + d, i * k, k)
+        return v.reshape(*t.shape[:ax], -1, *t.shape[ax + 1:])
 
     def _family(self, L: int, n: int) -> str:
         if self.compression == "permk" and L % n == 0:
@@ -369,14 +388,52 @@ class Transport:
             return "qsgd"
         return "shared" if self.shared_mask else "randk"
 
-    def _cols(self, L: int) -> tuple:
-        """This rank's columns [c0, c0 + Ll) of a column-sharded leaf."""
-        Ll = L // self.mesh.model
-        return self.mesh.model_rank * Ll, Ll
+    def _cols(self, L: int, ax: str) -> tuple:
+        """This rank's columns [c0, c0 + Ll) of a leaf whose last dimension
+        ``ax`` splits."""
+        parts, i = self._parts(ax)
+        Ll = L // parts
+        return i * Ll, Ll
 
-    def _whole(self, leaf: torch.Tensor, d: int, row_axis: bool = True) -> torch.Tensor:
-        """A sharded stack (or tree leaf) gathered over the model axis."""
-        return self.mesh.model_gather(leaf, d + (1 if row_axis else 0), kind="model/wire")
+    def _gather(self, ax: str, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return getattr(self.mesh, f"{ax}_gather")(t, dim, kind=f"{ax}/wire")
+
+    def _slice(self, ax: str, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return getattr(self.mesh, f"{ax}_slice")(t, dim)
+
+    def _whole(self, leaf: torch.Tensor, shape: tuple, sp: "_Split",
+               row_axis: bool = True) -> torch.Tensor:
+        """A sharded stack (or tree leaf) gathered over both inner axes."""
+        off = 1 if row_axis else 0
+        if sp.col is not None:
+            leaf = self._gather(sp.col, leaf, len(shape) - 1 + off)
+        for d, ax in sp.rows:
+            leaf = self._gather(ax, leaf, d + off)
+        return leaf
+
+    def _unwhole(self, t: torch.Tensor, shape: tuple, sp: "_Split",
+                 row_axis: bool = True) -> torch.Tensor:
+        """This rank's slices of a whole stack (or tree leaf)."""
+        off = 1 if row_axis else 0
+        if sp.col is not None:
+            t = self._slice(sp.col, t, len(shape) - 1 + off)
+        for d, ax in sp.rows:
+            t = self._slice(ax, t, d + off)
+        return t
+
+    def _from_root(self, axes: tuple, compute: Callable, shape, dtype) -> torch.Tensor:
+        """``compute()`` on the rank at index 0 of every axis in ``axes``
+        (inner axes along which the ranks hold the same thing), broadcast
+        over them: only that rank ships over the worker axis."""
+        if not axes:
+            return compute()
+        idx = {ax: self._parts(ax)[1] for ax in axes}
+        out = compute() if all(i == 0 for i in idx.values()) else None
+        for k, ax in enumerate(axes):
+            if all(idx[a] == 0 for a in axes[k + 1:]):
+                out = getattr(self.mesh, f"{ax}_bcast")(out, shape, dtype,
+                                                        kind=f"{ax}/broadcast")
+        return out
 
     # -- sync exchange ------------------------------------------------------
 
@@ -384,23 +441,38 @@ class Transport:
         """Dense worker mean of this rank's stacked gradients (its
         :meth:`Mesh.workers` rows): one all-reduce over the packed (n, nblk,
         B) flat buffer under ``flat_sync`` where the mesh has a group, one a
-        leaf otherwise; rows summed in worker order, then ÷ n. Books 32d up
-        and 32d down."""
+        leaf otherwise; rows summed in worker order, then ÷ n. A leaf the
+        ranks of an inner axis hold alike is shipped by index 0 of that axis
+        and its mean broadcast. Books 32d up and 32d down."""
         leaves, treedef = tree_flatten(grads)
         self.book_sync(self._row_shapes(leaves))
         n, mesh = self.n, self.mesh
         if self.flat_sync and mesh.group is not None:
             lay = self.sync_layout
-            bufs = mesh.sum_rows(flat_engine.pack_stacked(lay, grads), n)
-            return flat_engine.unpack(lay, mean_axis0(bufs))
+            if self.leaf_shapes is None:
+                bufs = mesh.sum_rows(flat_engine.pack_stacked(lay, grads), n)
+                return flat_engine.unpack(lay, mean_axis0(bufs))
+            # this rank's slices: the whole stacks gathered over the inner
+            # axes (what GSPMD's packing reshards), the buffer shipped by
+            # their index 0 and its mean broadcast back, each rank keeping
+            # its slices
+            splits = [self._leaf(j, t) for j, t in enumerate(leaves)]
+            whole = treedef.unflatten([self._whole(t, shape, sp)
+                                       for t, (shape, sp) in zip(leaves, splits)])
+            inner = tuple(a for a in ("fsdp", "model") if self._parts(a)[0] > 1)
+            mean = self._from_root(
+                inner, lambda: mean_axis0(mesh.sum_rows(flat_engine.pack_stacked(lay, whole),
+                                                        n)),
+                (lay.nblk, lay.block), lay.dtype)
+            del whole
+            got, _ = tree_flatten(flat_engine.unpack(lay, mean))
+            return treedef.unflatten([self._unwhole(t, shape, sp, row_axis=False)
+                                      for t, (shape, sp) in zip(got, splits)])
         out = []
         for j, t in enumerate(leaves):
-            if mesh.model > 1 and self._leaf(j, t)[1] is None:
-                # a replicated leaf: model rank 0 ships it, then shares the mean
-                mean = mean_axis0(mesh.sum_rows(t, n)) if mesh.model_rank == 0 else None
-                out.append(mesh.model_bcast(mean, t.shape[1:], t.dtype))
-            else:
-                out.append(mean_axis0(mesh.sum_rows(t, n)))
+            _shape, sp = self._leaf(j, t)
+            out.append(self._from_root(sp.rep, lambda t=t: mean_axis0(mesh.sum_rows(t, n)),
+                                       t.shape[1:], t.dtype))
         return treedef.unflatten(out)
 
     def _row_shapes(self, leaves: list) -> list:
@@ -411,16 +483,16 @@ class Transport:
         """``aggregator.combine_stacked`` on this rank's slices of the
         workers' rows: a coordinate-wise rule runs on the slices; a rule
         that reads whole rows (Krum, norm clipping) runs on the rows
-        gathered over the model axis, and each rank keeps its slice."""
-        if self.mesh.model == 1 or aggregator.rule in ("trimmed_mean", "coordinate_median",
-                                                         "mean"):
+        gathered over the inner axes, and each rank keeps its slices."""
+        if ((self.mesh.model == 1 and self.mesh.fsdp == 1)
+                or aggregator.rule in ("trimmed_mean", "coordinate_median", "mean")):
             return aggregator.combine_stacked(stacked)
         leaves, treedef = tree_flatten(stacked)
-        dims = [self._leaf(j, t)[1] for j, t in enumerate(leaves)]
-        whole = [t if d is None else self._whole(t, d) for t, d in zip(leaves, dims)]
+        splits = [self._leaf(j, t) for j, t in enumerate(leaves)]
+        whole = [self._whole(t, shape, sp) for t, (shape, sp) in zip(leaves, splits)]
         got, _ = tree_flatten(aggregator.combine_stacked(treedef.unflatten(whole)))
-        return treedef.unflatten([t if d is None else self.mesh.model_slice(t, d)
-                                  for t, d in zip(got, dims)])
+        return treedef.unflatten([self._unwhole(t, shape, sp, row_axis=False)
+                                  for t, (shape, sp) in zip(got, splits)])
 
     def sync_aggregate(self, grads: PyTree, aggregator=None) -> PyTree:
         """Sync-round server aggregation: the robust rule on the whole
@@ -458,47 +530,56 @@ class Transport:
         n = self.n if rows_n is None else rows_n
         frac = self._up_fraction(n, uploaded_rows)
         rows = self._local(n, rows_sharded)
-        mesh = self.mesh
 
         leaves, treedef = tree_flatten(diffs)
         keys = prng.split(key, len(leaves))
         outs = []
         for j, (lk, leaf) in enumerate(zip(keys, leaves)):
-            shape, d = self._leaf(j, leaf)
+            shape, sp = self._leaf(j, leaf)
             kind, bits = self._uplink_leaf_bits(n, shape, leaf.dtype)
             self.book("up", kind, bits * frac)
-            R, L = _leaf_dims(shape)
-            fam = self._family(L, n)
-            if mesh.model == 1 or (d is not None and d < len(shape) - 1):
-                dense = self._uplink_leaf(lk, leaf, shape, d, n, rows, rows_sharded)
-            elif d is not None and fam == "randk":
-                dense = self._uplink_cols(lk, leaf, shape, n, rows, rows_sharded)
-            elif d is not None and fam == "permk":
-                dense = self._permk_cols(lk, leaf, shape, n, rows, rows_sharded)
-            elif d is not None and fam == "qsgd" and self._qsgd_cols_ok(L):
-                dense = self._qsgd_cols(lk, leaf, shape, n, rows, rows_sharded)
-            else:
-                # a replicated leaf, or a column-sharded one under the shared
-                # mask (or QSGD packed on columns that split a 32-bit word):
-                # model rank 0 ships the whole leaf's payload
-                whole = leaf if d is None else self._whole(leaf, d)
-                wshape = tuple(whole.shape[1:])
-                if not rows_sharded:
-                    dense = self._uplink_leaf(lk, whole, wshape, None, n, rows, False)
-                else:
-                    dense = (self._uplink_leaf(lk, whole, wshape, None, n, rows, True)
-                             if mesh.model_rank == 0 else None)
-                    dense = mesh.model_bcast(dense, wshape, leaf.dtype)
-                if d is not None:
-                    dense = self.mesh.model_slice(dense, d)
-            outs.append(dense)
+            outs.append(self._uplink_split(lk, leaf, shape, sp, n, rows, rows_sharded))
         return treedef.unflatten(outs)
 
-    def _uplink_leaf(self, lk, leaf: torch.Tensor, shape: tuple, d: Optional[int], n: int,
+    def _uplink_split(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split", n: int,
+                      rows: range, rows_sharded: bool) -> torch.Tensor:
+        """One leaf's exchange on this rank's slices of it: leading-dimension
+        splits narrow the rows; a split of the last dimension runs its
+        family's column exchange; where the shared mask (or QSGD packed on
+        columns that split a 32-bit word) meets a column split, the leaf is
+        gathered over that axis first and its index 0 ships. The ranks of an
+        axis that holds the leaf whole ship from its index 0."""
+        R, L = _leaf_dims(shape)
+        fam = self._family(L, n)
+        rep, col = sp.rep, sp.col
+        if col is not None and fam == "randk":
+            compute = partial(self._uplink_cols, lk, leaf, shape, sp, n, rows, rows_sharded)
+        elif col is not None and fam == "permk":
+            compute = partial(self._permk_cols, lk, leaf, shape, sp, n, rows, rows_sharded)
+        elif col is not None and fam == "qsgd" and self._qsgd_cols_ok(L, col):
+            compute = partial(self._qsgd_cols, lk, leaf, shape, sp, n, rows, rows_sharded)
+        elif col is not None:
+            whole = self._gather(col, leaf, len(shape))
+            flat = _Split(sp.rows, None, sp.rep)
+            compute = partial(self._uplink_leaf, lk, whole, shape, flat, n, rows, rows_sharded)
+            rep = (col,) + rep
+        else:
+            compute = partial(self._uplink_leaf, lk, leaf, shape, sp, n, rows, rows_sharded)
+        if not rows_sharded:
+            dense = compute()
+        else:
+            lshape = leaf.shape[1:] if col is None or rep[:1] != (col,) else \
+                (*leaf.shape[1:-1], L)
+            dense = self._from_root(rep, compute, lshape, leaf.dtype)
+        if col is not None and rep[:1] == (col,):
+            dense = self._slice(col, dense, len(shape) - 1)
+        return dense
+
+    def _uplink_leaf(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split", n: int,
                      rows: range, rows_sharded: bool) -> torch.Tensor:
         """One leaf's exchange and dense mean (the one-rank arithmetic) on
-        this rank's rows of it: all of them, or where ``d`` names a leading
-        dimension the model slice's rows (the draws narrowed to them)."""
+        this rank's rows of it: all of them, or where leading dimensions
+        split the rows this rank's (the draws narrowed to them)."""
         backend, packed, mesh = self.backend, self.packed_payload, self.mesh
         lead = shape[:-1]
         R, L = _leaf_dims(shape)
@@ -508,7 +589,7 @@ class Transport:
         Rl = x.shape[1]
 
         def narrow(t: torch.Tensor, ax: int) -> torch.Tensor:
-            return _narrow_rows(t, ax, lead, d, mesh.model, mesh.model_rank)
+            return self._narrow(t, ax, lead, sp)
 
         def exchange(t: torch.Tensor) -> torch.Tensor:
             return mesh.gather_rows(t, n) if rows_sharded else t
@@ -559,25 +640,28 @@ class Transport:
             dense = _scatter_mean_last(vals, idx, L, backend).to(leaf.dtype)
         return dense.reshape(leaf.shape[1:])
 
-    def _qsgd_cols_ok(self, L: int) -> bool:
+    def _qsgd_cols_ok(self, L: int, col: str) -> bool:
         """Whether a rank's columns pack to whole 4-bit words (or the wire
         is unpacked int8)."""
         packed = self.packed_payload and int(self.qsgd_s) <= 7 and L % 8 == 0
-        return not packed or (L // self.mesh.model) % 8 == 0
+        return not packed or (L // self._parts(col)[0]) % 8 == 0
 
-    def _qsgd_cols(self, lk, leaf: torch.Tensor, shape: tuple, n: int, rows: range,
-                   rows_sharded: bool) -> torch.Tensor:
-        """QSGD on a column-sharded leaf: each worker's whole rows gathered
-        over the model axis, so the row norm is one rank's, bit for bit; each
-        rank ships its columns' levels, model rank 0 the norms (broadcast
-        over the model group); the dequantize and mean run in worker order
-        on the rank's columns."""
-        mesh, s = self.mesh, int(self.qsgd_s)
+    def _qsgd_cols(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split", n: int,
+                   rows: range, rows_sharded: bool) -> torch.Tensor:
+        """QSGD on a column-split leaf: each worker's whole rows gathered
+        over the column axis, so the row norm is one rank's, bit for bit;
+        each rank ships its columns' levels, the column axis's index 0 the
+        norms (broadcast over it); the dequantize and mean run in worker
+        order on the rank's columns."""
+        mesh, s, col = self.mesh, int(self.qsgd_s), sp.col
         R, L = _leaf_dims(shape)
-        c0, Ll = self._cols(L)
+        c0, Ll = self._cols(L, col)
         dev = leaf.device
-        whole = self._whole(leaf.reshape(len(rows), R, Ll), 1).reshape(len(rows), R, L)
-        u = prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop]
+        x = leaf.reshape(len(rows), -1, Ll)
+        Rl = x.shape[1]
+        whole = self._gather(col, x, 2)
+        u = self._narrow(prng.uniform(lk, (n, R, L), device=dev)[rows.start:rows.stop], 1,
+                         shape[:-1], sp)
         q, norm = _qsgd_quantize_rows(u, whole, s)
         del u, whole
         q = q[..., c0:c0 + Ll].contiguous()
@@ -586,73 +670,82 @@ class Transport:
             return mesh.gather_rows(t, n) if rows_sharded else t
 
         if self.packed_payload and s <= 7 and L % 8 == 0:
-            words = kref.nibble_pack_ref(q.reshape(len(rows) * R, Ll))
-            words = exchange(words.reshape(len(rows), R, Ll // 8))
-            q = kref.nibble_unpack_ref(words.reshape(n * R, Ll // 8), Ll).reshape(n, R, Ll)
+            words = kref.nibble_pack_ref(q.reshape(len(rows) * Rl, Ll))
+            words = exchange(words.reshape(len(rows), Rl, Ll // 8))
+            q = kref.nibble_unpack_ref(words.reshape(n * Rl, Ll // 8), Ll).reshape(n, Rl, Ll)
         else:
             q = exchange(q)
         if rows_sharded:
-            norm = exchange(norm) if mesh.model_rank == 0 else None
-            norm = mesh.model_bcast(norm, (n, R, 1), torch.float32)
-        acc = torch.zeros((R, Ll), dtype=torch.float32, device=dev)
+            norm = self._from_root((col,), lambda: exchange(norm), (n, Rl, 1), torch.float32)
+        acc = torch.zeros((Rl, Ll), dtype=torch.float32, device=dev)
         for w in range(n):
             acc = acc + q[w].float() * (norm[w] / s)
         return (acc / n).to(leaf.dtype).reshape(leaf.shape[1:])
 
-    def _permk_cols(self, lk, leaf: torch.Tensor, shape: tuple, n: int, rows: range,
-                    rows_sharded: bool) -> torch.Tensor:
-        """Perm-K on a column-sharded leaf: the permutation is over the whole
+    def _group_sizes(self, n: int, per_worker: Callable) -> list:
+        """Each worker group's element count of a ragged share, from the
+        per-worker counts ``per_worker(w)``."""
+        per = n // self.mesh.world
+        return [sum(per_worker(w) for w in range(g * per, (g + 1) * per))
+                for g in range(self.mesh.world)]
+
+    def _permk_cols(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split", n: int,
+                    rows: range, rows_sharded: bool) -> torch.Tensor:
+        """Perm-K on a column-split leaf: the permutation is over the whole
         L, so worker w's C lanes fall in this rank's columns in a number
         that differs from worker to worker; each rank gathers its workers'
         values there and the worker groups ship them (ragged, sized from the
         key), each lane decoded from its one worker."""
         mesh, backend = self.mesh, self.backend
         R, L = _leaf_dims(shape)
-        c0, Ll = self._cols(L)
+        c0, Ll = self._cols(L, sp.col)
         dev = leaf.device
         C = L // n
-        lanes = torch.from_numpy(prng.permutation(lk, L)).to(dev).reshape(n, C)
+        lanes = torch.from_numpy(prng.permutation(lk, L)).reshape(n, C)
         mine = [lanes[w][(lanes[w] >= c0) & (lanes[w] < c0 + Ll)] - c0 for w in range(n)]
-        x = leaf.reshape(len(rows), R, Ll)
-        vals = [_gather_along_last(x[i:i + 1], mine[w].to(torch.int32).expand(1, R, -1),
-                                   float(n), backend).reshape(-1)
+        x = leaf.reshape(len(rows), -1, Ll)
+        Rl = x.shape[1]
+        # a worker may have no lane in this rank's columns: nothing to gather
+        vals = [_gather_along_last(x[i:i + 1], mine[w].to(dev, torch.int32).expand(1, Rl, -1),
+                                   float(n), backend).reshape(-1) if len(mine[w])
+                else x.new_empty((0,))
                 for i, w in enumerate(rows)]
         if self.packed_payload:
             vals = [v.to(torch.bfloat16) for v in vals]
         if rows_sharded:
-            per = n // mesh.world
-            sizes = [R * sum(len(mine[w]) for w in range(g * per, (g + 1) * per))
-                     for g in range(mesh.world)]
+            sizes = self._group_sizes(n, lambda w: Rl * len(mine[w]))
             got = torch.cat(mesh.gather_ragged(torch.cat(vals), sizes))
-            vals = list(got.split([R * len(m) for m in mine]))
-        dense = torch.zeros((R, Ll), dtype=torch.float32, device=dev)
+            vals = list(got.split([Rl * len(m) for m in mine]))
+        dense = torch.zeros((Rl, Ll), dtype=torch.float32, device=dev)
         for w in range(n):
-            dense[:, mine[w]] = vals[w].float().reshape(R, -1)
+            dense[:, mine[w].to(dev)] = vals[w].float().reshape(Rl, -1)
         return (dense / n).to(leaf.dtype).reshape(leaf.shape[1:])
 
-    def _cols_draw(self, lk, shape: tuple, n: int, dev) -> tuple:
-        """A column-sharded leaf's RandK draw: the whole (n, R, kb) offsets,
-        which of them fall in this rank's columns, and their offsets there
-        (the others sent to the dropped column Ll)."""
+    def _cols_draw(self, lk, shape: tuple, sp: "_Split", n: int, dev) -> tuple:
+        """A column-split leaf's RandK draw: the (n, R, kb) offsets narrowed
+        to this rank's rows, which of them fall in its columns, and their
+        offsets there (the others sent to the dropped column Ll)."""
         R, L = _leaf_dims(shape)
         kb = max(1, L // 128)
-        c0, Ll = self._cols(L)
-        idx = prng.randint(lk, (n, R, kb), 0, L, device=dev)
+        c0, Ll = self._cols(L, sp.col)
+        idx = self._narrow(prng.randint(lk, (n, R, kb), 0, L, device=dev), 1, shape[:-1], sp)
         mine = (idx >= c0) & (idx < c0 + Ll)
         return idx, mine, torch.where(mine, idx - c0, torch.full_like(idx, Ll)), kb, Ll
 
-    def _uplink_cols(self, lk, leaf: torch.Tensor, shape: tuple, n: int, rows: range,
-                     rows_sharded: bool) -> torch.Tensor:
-        """RandK on a column-sharded leaf: this rank gathers its workers'
+    def _uplink_cols(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split", n: int,
+                     rows: range, rows_sharded: bool) -> torch.Tensor:
+        """RandK on a column-split leaf: this rank gathers its workers'
         values at the offsets that fall in its columns, each worker group
         ships those values and offsets (ragged: every rank knows the counts
         from the key), and the scatter-mean runs at the rank's width."""
         mesh, backend, packed = self.mesh, self.backend, self.packed_payload
         R, L = _leaf_dims(shape)
         dev = leaf.device
-        idx, mine, loc, kb, Ll = self._cols_draw(lk, shape, n, dev)
+        if dev.type == "meta":
+            return self._uplink_cols_meta(lk, leaf, shape, sp, n, rows, rows_sharded)
+        idx, mine, loc, kb, Ll = self._cols_draw(lk, shape, sp, n, dev)
         lo, hi = rows.start, rows.stop
-        x = leaf.reshape(len(rows), R, Ll)
+        x = leaf.reshape(len(rows), -1, Ll)
         vals = _gather_along_last(x, loc[lo:hi].clamp(max=Ll - 1), L / kb, backend)
         if rows_sharded:
             sel = mine[lo:hi]
@@ -660,16 +753,42 @@ class Transport:
             if packed:
                 send_v = send_v.to(torch.bfloat16)
                 send_i = send_i if L > 32767 else send_i.to(torch.int16)
-            per = n // mesh.world
-            sizes = [int(mine[g * per:(g + 1) * per].sum()) for g in range(mesh.world)]
+            counts = mine.reshape(n, -1).sum(1).tolist()
+            sizes = self._group_sizes(n, lambda w: counts[w])
             got_v = torch.cat(mesh.gather_ragged(send_v, sizes))
             mesh.gather_ragged(send_i, sizes)   # the offsets cross as the ledger books them
-            vals = torch.zeros((n, R, kb), dtype=leaf.dtype, device=dev)
+            vals = torch.zeros(mine.shape, dtype=leaf.dtype, device=dev)
             vals[mine] = got_v.to(leaf.dtype)
         else:
             vals = torch.where(mine, vals, torch.zeros_like(vals))
         dense = _scatter_mean_last(vals, loc, Ll + 1, backend)[:, :Ll]
         return dense.to(leaf.dtype).reshape(leaf.shape[1:])
+
+    def _uplink_cols_meta(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split", n: int,
+                          rows: range, rows_sharded: bool) -> torch.Tensor:
+        """:meth:`_uplink_cols` on meta tensors (the dry run's stand-in): the
+        ragged sizes are the key's, counted on the CPU (:func:`_cols_counts`),
+        the exchanges carry meta tensors of those sizes."""
+        mesh, packed = self.mesh, self.packed_payload
+        R, L = _leaf_dims(shape)
+        kb = max(1, L // 128)
+        if rows_sharded:
+            counts = _cols_counts(lk, shape, n, self._cols(L, sp.col),
+                                  [(d, *self._parts(ax)) for d, ax in sp.rows])
+            sizes = self._group_sizes(n, lambda w: counts[w])
+            vdt = torch.bfloat16 if packed else leaf.dtype
+            idt = torch.int32 if (not packed or L > 32767) else torch.int16
+            mine = sizes[mesh.rank]
+            mesh.gather_ragged(torch.empty((mine,), dtype=vdt, device="meta"), sizes)
+            mesh.gather_ragged(torch.empty((mine,), dtype=idt, device="meta"), sizes)
+        x = leaf.reshape(len(rows), -1, shape[-1] // self._parts(sp.col)[0])
+        vals = _gather_along_last(x, torch.empty((n, x.shape[1], kb), dtype=torch.int32,
+                                                 device="meta")[:len(rows)], L / kb, self.backend)
+        dense = _scatter_mean_last(torch.empty((n, *vals.shape[1:]), dtype=vals.dtype,
+                                               device="meta"),
+                                   torch.empty((n, *vals.shape[1:]), dtype=torch.int32,
+                                               device="meta"), x.shape[-1] + 1, self.backend)
+        return dense[:, :x.shape[-1]].to(leaf.dtype).reshape(leaf.shape[1:])
 
     def worker_rows(self, key, diffs: PyTree, rows_n: int, *,
                     uploaded_rows: Optional[int] = None,
@@ -689,14 +808,14 @@ class Transport:
         keys = prng.split(key, len(leaves))
         out = []
         for j, (lk, leaf) in enumerate(zip(keys, leaves)):
-            shape, d = self._leaf(j, leaf)
+            shape, sp = self._leaf(j, leaf)
             self.book("up", "all-gather",
                       self._worker_rows_leaf_bits(n, shape, leaf.dtype) * frac)
             R, L = _leaf_dims(shape)
-            if d is not None and d == len(shape) - 1 and self.compression != "qsgd":
+            if sp.col == "model" and sp.rows == () and self.compression != "qsgd":
                 # RandK on a column-sharded leaf: each worker's offsets in
                 # this rank's columns, scattered at the rank's width
-                _, mine, loc, kb, Ll = self._cols_draw(lk, shape, n, leaf.device)
+                _, mine, loc, kb, Ll = self._cols_draw(lk, shape, sp, n, leaf.device)
                 loc = loc[rows.start:rows.stop]
                 x = leaf.reshape(len(rows), R, Ll)
                 vals = _gather_along_last(x, loc.clamp(max=Ll - 1), L / kb, self.backend)
@@ -704,22 +823,22 @@ class Transport:
                 dense = torch.stack([_scatter_mean_last(vals[i:i + 1], loc[i:i + 1], Ll + 1,
                                                         self.backend)[:, :Ll]
                                      for i in range(len(rows))])
-            elif d is not None and d == len(shape) - 1:
-                # QSGD's row norm needs the whole row: decode the whole leaf
-                whole = self._whole(leaf, d)
-                dense = self.mesh.model_slice(self._worker_rows_leaf(
-                    lk, whole, tuple(whole.shape[1:]), None, n, rows).reshape(whole.shape), d + 1)
+            elif sp.col is not None:
+                # the row norm (or a split in two dimensions): decode the
+                # whole leaf, keep the slices
+                whole = self._whole(leaf, shape, sp)
+                dense = self._unwhole(self._worker_rows_leaf(
+                    lk, whole, shape, _WHOLE, n, rows).reshape(whole.shape), shape, sp)
             else:
-                dense = self._worker_rows_leaf(lk, leaf, shape, d, n, rows)
+                dense = self._worker_rows_leaf(lk, leaf, shape, sp, n, rows)
             dense = dense.reshape(leaf.shape)
             out.append(mesh.assemble_rows(dense, n) if rows_sharded else dense)
         return treedef.unflatten(out)
 
-    def _worker_rows_leaf(self, lk, leaf: torch.Tensor, shape: tuple, d: Optional[int],
+    def _worker_rows_leaf(self, lk, leaf: torch.Tensor, shape: tuple, sp: "_Split",
                           n: int, rows: range) -> torch.Tensor:
         """One leaf's per-worker dense decode on this rank's rows of it (the
-        model slice's rows where ``d`` names a leading dimension)."""
-        mesh = self.mesh
+        slices' rows where leading dimensions split it)."""
         lead = shape[:-1]
         R, L = _leaf_dims(shape)
         kb = max(1, L // 128)
@@ -727,7 +846,7 @@ class Transport:
         x = leaf.reshape(len(rows), -1, L)
 
         def narrow(t: torch.Tensor, ax: int) -> torch.Tensor:
-            return _narrow_rows(t, ax, lead, d, mesh.model, mesh.model_rank)
+            return self._narrow(t, ax, lead, sp)
 
         if self.compression == "qsgd":
             s = int(self.qsgd_s)
@@ -760,14 +879,15 @@ class Transport:
         keys = prng.split(key, len(leaves))
         outs = []
         for j, (lk, leaf) in enumerate(zip(keys, leaves)):
-            shape, d = self._leaf(j, leaf[None])
+            shape, sp = self._leaf(j, leaf[None])
             self.book_downlink([torch.empty(shape, device="meta")])
-            if d is None:
+            if sp.col is None and not sp.rows:
                 outs.append(self._downlink_leaf(lk, leaf))
             else:
-                # the whole leaf's draw and row norms: compress it whole, keep the slice
-                whole = self._whole(leaf, d, row_axis=False)
-                outs.append(self.mesh.model_slice(self._downlink_leaf(lk, whole), d))
+                # the whole leaf's draw and row norms: compress it whole, keep the slices
+                whole = self._whole(leaf, shape, sp, row_axis=False)
+                outs.append(self._unwhole(self._downlink_leaf(lk, whole), shape, sp,
+                                          row_axis=False))
         return treedef.unflatten(outs)
 
     def _downlink_leaf(self, lk, leaf: torch.Tensor) -> torch.Tensor:
@@ -788,6 +908,52 @@ class Transport:
         return y.reshape(leaf.shape).to(leaf.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """How a leaf's whole per-row shape splits over this rank's inner axes:
+    ``rows`` the leading-dimension splits ((dim, axis), …), ``col`` the axis
+    that splits the last dimension (or None), ``rep`` the axes of more than
+    one rank that hold it whole ("fsdp" before "model")."""
+
+    rows: tuple = ()
+    col: Optional[str] = None
+    rep: tuple = ()
+
+
+_WHOLE = _Split()
+
+
+def _cols_counts(lk, shape: tuple, n: int, cols: tuple, row_splits: list) -> list:
+    """Per worker, how many of a column-split leaf's RandK offsets (the
+    (n, R, kb) draw under ``lk``, narrowed to the rows of ``row_splits``
+    ((dim, parts, index), …)) fall in ``cols`` = (c0, Ll), for a run on meta
+    tensors: the offsets hashed again from the key in chunks of rows, on the
+    card where the process has one (the integer hash is exact anywhere; the
+    CPU takes minutes at a 671 B model's widths), else on the CPU."""
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    R, L = _leaf_dims(shape)
+    kb = max(1, L // 128)
+    c0, Ll = cols
+    lead = shape[:-1]
+    rows = torch.arange(R, dtype=torch.int64).reshape(lead if lead else (1,))
+    for d, parts, i in row_splits:
+        k = lead[d] // parts
+        rows = rows.narrow(d, i * k, k)
+    rows = rows.reshape(-1).to(dev)
+    lanes = torch.arange(kb, dtype=torch.int64, device=dev)
+    k1, k2 = prng.split(lk)
+    out = []
+    step = max(1, (1 << (26 if dev.type == "cuda" else 22)) // kb)   # rows a chunk
+    for w in range(n):
+        total = 0
+        for a in range(0, rows.numel(), step):
+            counters = ((rows[a:a + step, None] + w * R) * kb + lanes).reshape(-1)
+            idx = prng.randint_at(k1, k2, counters, 0, L)
+            total += int(((idx >= c0) & (idx < c0 + Ll)).sum())
+        out.append(total)
+    return out
+
+
 def make_transport(mesh: Mesh, topology: Topology, waxes: tuple, n: int, *,
                    backend: str = "auto", compression: str = "randk", qsgd_s: int = 15,
                    packed_payload: bool = False, shared_mask: bool = False,
@@ -797,14 +963,14 @@ def make_transport(mesh: Mesh, topology: Topology, waxes: tuple, n: int, *,
     layout, a fresh tier ledger). The reference's GSPMD pins
     (``staged_payload``, ``sync_buf_shard``) have no counterpart: every rank
     stages its own workers' rows; ``param_shapes`` (whole meta shapes) give
-    each leaf's model-axis split (``sharding.model_dims``) where the mesh's
-    model axis spans ranks."""
+    each leaf's data- and model-axis splits (``sharding.leaf_splits``) where
+    the mesh's inner axes span ranks."""
     shapes = dims = None
-    if param_shapes is not None and mesh.model > 1:
-        from repro_torch.launch.sharding import model_dims
+    if param_shapes is not None and (mesh.model > 1 or mesh.fsdp > 1):
+        from repro_torch.launch.sharding import leaf_splits
 
         shapes = [tuple(t.shape) for t in tree_leaves(param_shapes)]
-        dims = model_dims(param_shapes, mesh, fsdp)
+        dims = leaf_splits(param_shapes, mesh, fsdp)
     return Transport(mesh=mesh, topology=topology, waxes=tuple(waxes), n=n, backend=backend,
                      compression=compression, qsgd_s=qsgd_s, packed_payload=packed_payload,
                      shared_mask=shared_mask,

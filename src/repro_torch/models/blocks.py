@@ -98,7 +98,7 @@ class _TP(NamedTuple):
 
 def _tp_layer(p: PyTree, cfg: ModelConfig, spec: LayerSpec, tp) -> _TP:
     if not active(tp):
-        return _TP(p, cfg, False, None, None)
+        return _TP(p, cfg, False, None, tp)
     full = layer_meta(cfg, spec)
     q = {k: gather_tree_on_use(p[k], full[k], tp) for k in ("ln1", "ln2") if k in p}
     if spec.mixer in ("attn", "attn_local"):
@@ -221,18 +221,17 @@ def layer_paged_prefill(p: PyTree, cfg: ModelConfig, spec: LayerSpec, cache: PyT
 
 def cache_cfg(cfg: ModelConfig, spec: LayerSpec, m: int) -> ModelConfig:
     """The config a layer's serving cache is laid out by on a model group of
-    m ranks: a GQA layer holds its H/m heads' KV/m heads, which needs
-    H % m = KV % m = 0 (NotImplementedError otherwise: its gathered-KV
-    training layout is no cache layout); every other mixer runs whole and
-    holds its whole cache."""
-    if m == 1 or spec.mixer not in ("attn", "attn_local"):
+    m ranks, as ``attention.tp_plan`` runs the layer: a GQA layer whose H
+    and KV heads split holds its H/m heads' KV/m heads; one whose query
+    heads split but KV heads do not holds the KV of each of its H/m query
+    heads (the expanded layout ``tp_plan`` computes); one whose query heads
+    do not split runs whole and holds the whole cache, as every other mixer
+    does."""
+    if m == 1 or spec.mixer not in ("attn", "attn_local") or cfg.num_heads % m:
         return cfg
-    if cfg.num_heads % m or cfg.num_kv_heads % m:
-        raise NotImplementedError(
-            f"serving {cfg.name} on a model axis of {m}: its {cfg.num_heads} query / "
-            f"{cfg.num_kv_heads} KV heads do not split over the ranks")
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                               num_kv_heads=cfg.num_kv_heads // m,
+    hl = cfg.num_heads // m
+    return dataclasses.replace(cfg, num_heads=hl,
+                               num_kv_heads=hl if cfg.num_kv_heads % m else cfg.num_kv_heads // m,
                                head_dim=cfg.resolved_head_dim)
 
 

@@ -24,6 +24,20 @@ unembedding vocabulary-parallel, and the logits this rank's (…, V/m) slice
 (``lm_loss`` combines them over the group). The caches of
 :func:`init_cache` / :func:`init_paged_cache` given ``model=m`` hold a GQA
 layer's KV/m heads. Without a group each is the one-rank code, unchanged.
+
+On an fsdp mesh (``tp.fsdp`` = D > 1) the parameters are also this data
+rank's slices: each layer's are gathered over the data group where the
+layer runs (inside its remat checkpoint, so the recomputation and the
+backward gather again and a rank never holds a whole stacked leaf), the
+embedding, unembedding and MTP head where they are used. In training
+(``tp`` a ``layers.RowSplit``) each data rank holds its rows of the
+worker's batch: it adds its token losses ÷ the worker's token count, and
+the data group's reduce-scattered gradients add the shares up. In serving
+an embedding split on its d columns crosses the group as looked-up rows
+and the logits as partial sums over the columns (added in rank order), not
+as the table: always where every data rank runs the same rows, and where
+each runs its own (``RowSplit(mesh, serving=True)``) when the group's rows
+weigh less than the table (a decode step, not a long prefill).
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from repro_torch.device import default_device
 from .blocks import (
     cache_cfg,
     init_layer,
+    layer_meta,
     init_layer_cache,
     init_layer_paged_cache,
     layer_decode,
@@ -52,11 +67,18 @@ from .layers import (
     _normal,
     active,
     embed_tp,
+    fsdp_active,
+    fsdp_gather_on_use,
+    fsdp_layer,
+    fsdp_layer_local,
+    fsdp_leaf,
+    fsdp_tree,
     gather_on_use,
     init_embedding,
     init_rmsnorm,
     nll_tp,
     rmsnorm,
+    rows_split,
     sinusoidal_pos,
     split_dim,
     unembed_tp,
@@ -121,11 +143,62 @@ def _slice(tree: PyTree, r: int) -> PyTree:
     return tree[r]
 
 
+def _serve_cols(table: torch.Tensor, name: str, cfg: ModelConfig, tp, tokens: int) -> bool:
+    """Whether a serving rank holds ``table``'s data split on its d columns
+    and a lookup (or a logit) runs on the rank's columns, crossing the group
+    as rows, not as the table: always where every data rank serves the same
+    rows; where each serves its own ``tokens``, when the group's rows (D ×
+    ``tokens``, d wide in and V/m out) weigh less than the table's split."""
+    if not (fsdp_active(tp) and table.shape[1] != cfg.d_model
+            and tp.fsdp_dim(name, (cfg.vocab_size, cfg.d_model)) == 1):
+        return False
+    if not rows_split(tp):
+        return True
+    vl = table.shape[0]
+    return tp.serving and tp.fsdp * tokens * (cfg.d_model + vl) < vl * cfg.d_model
+
+
+def _embed(params: PyTree, cfg: ModelConfig, ids: torch.Tensor, tp) -> torch.Tensor:
+    table = params["embed"]
+    if _serve_cols(table, "embed", cfg, tp, ids.numel()):
+        dl = table.shape[1]
+        if not rows_split(tp):
+            # the ids' rows of this rank's columns, gathered: exactly the
+            # rows of the gathered table
+            return fsdp_gather_on_use(embed_tp(table, ids, cfg.vocab_size, tp, dl), tp, -1)
+        # every data rank's ids looked up on this rank's columns, each
+        # rank's rows sent back to it: its own rows, all d columns
+        mine = embed_tp(table, tp.fsdp_gather(ids.contiguous(), 0, kind="fsdp/ids"),
+                        cfg.vocab_size, tp, dl)
+        got = tp.fsdp_all_to_all(mine.reshape(tp.fsdp, -1), kind="fsdp/embed_rows")
+        return torch.cat(got.reshape(tp.fsdp, *ids.shape, dl).unbind(0), dim=-1)
+    table = fsdp_leaf(table, tp, "embed", (cfg.vocab_size, cfg.d_model))
+    return embed_tp(table, ids, cfg.vocab_size, tp, cfg.d_model)
+
+
+def _layer_params(pp, cfg: ModelConfig, spec, r: int, repeat: int, tp):
+    """Layer r of a stacked segment position: this rank's pieces (data
+    split gathered by :func:`_gathered`)."""
+    return fsdp_layer_local(pp, r, repeat, layer_meta(cfg, spec), tp)
+
+
+def _gathered(pieces, cfg: ModelConfig, spec, r: int, repeat: int, tp):
+    return fsdp_layer(pieces, r, repeat, layer_meta(cfg, spec), tp)
+
+
+def _layer_train_at(pieces, cfg: ModelConfig, spec, x, positions, r: int, repeat: int,
+                    tp=None, **kw):
+    """:func:`layer_train` of layer r from this rank's pieces of it (the data
+    split gathered here, inside remat's checkpoint)."""
+    return layer_train(_gathered(pieces, cfg, spec, r, repeat, tp), cfg, spec, x, positions,
+                       tp=tp, **kw)
+
+
 def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                   prefix_embed: torch.Tensor | None, tp=None):
     """Token embeddings after the prefix, positions 0 … P+S−1 over both, and
     the sinusoids added where the config has them."""
-    x = embed_tp(params["embed"], tokens, cfg.vocab_size, tp)
+    x = _embed(params, cfg, tokens, tp)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -157,19 +230,20 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     use_remat = cfg.remat and not want_cache and torch.is_grad_enabled()
 
-    def apply_layer(pp, spec, x_c):
+    def apply_layer(pp, spec, x_c, r, repeat):
         kw = dict(want_cache=want_cache, cache_len=cache_len, tp=tp)
         if use_remat:
-            return checkpoint(layer_train, pp, cfg, spec, x_c, positions,
+            return checkpoint(_layer_train_at, pp, cfg, spec, x_c, positions, r, repeat,
                               use_reentrant=False, **kw)
-        return layer_train(pp, cfg, spec, x_c, positions, **kw)
+        return _layer_train_at(pp, cfg, spec, x_c, positions, r, repeat, **kw)
 
     caches = []
     for seg, pos_params in zip(cfg.segments, params["segments"]):
         per_pos = [[] for _ in seg.period]
         for r in range(seg.repeat):
             for i, (spec, pp) in enumerate(zip(seg.period, pos_params)):
-                x, aux, cache = apply_layer(_slice(pp, r), spec, x)
+                x, aux, cache = apply_layer(_layer_params(pp, cfg, spec, r, seg.repeat, tp),
+                                            spec, x, r, seg.repeat)
                 aux_total = aux_total + aux
                 per_pos[i].append(cache)
         caches.append([_stack_trees(c) if want_cache else None for c in per_pos])
@@ -190,7 +264,22 @@ def logits_parallel(params: PyTree, cfg: ModelConfig, tp) -> bool:
 
 
 def _logits(params: PyTree, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
-    logits = unembed_tp(_table(params, cfg), x, cfg.vocab_size, tp)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    table = _table(params, cfg)
+    if _serve_cols(table, name, cfg, tp, x.shape[0] * x.shape[1]):
+        # serving: this rank's columns' partial logits, summed over the data
+        # group in rank order (the logits cross it, not the table); where
+        # the data ranks serve their own rows, of the group's rows, each
+        # rank keeping its own rows' sum
+        dl, j = table.shape[1], tp.fsdp_rank
+        rows = rows_split(tp)
+        xa = tp.fsdp_gather(x.contiguous(), 0, kind="fsdp/rows") if rows else x
+        part = unembed_tp(table, xa[..., j * dl:(j + 1) * dl].contiguous(), cfg.vocab_size, tp)
+        logits = (tp.fsdp_reduce_scatter(part, 0, kind="fsdp/partial_logits") if rows
+                  else tp.fsdp_sum(part, kind="fsdp/partial_logits"))
+    else:
+        table = fsdp_leaf(table, tp, name, (cfg.vocab_size, cfg.d_model))
+        logits = unembed_tp(table, x, cfg.vocab_size, tp)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -204,15 +293,23 @@ def lm_loss(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     P = 0 if prefix_embed is None else prefix_embed.shape[1]
     pred = logits[:, P:-1]
     tgt = tokens[:, 1:].long()
-    nll = nll_tp if logits_parallel(params, cfg, tp) else (lambda lg, t, _tp: _nll(lg, t))
+    nll_all = nll_tp if logits_parallel(params, cfg, tp) else (lambda lg, t, _tp: _nll(lg, t))
+    # a data rank's share of the worker's mean: its rows' mean × its rows ÷
+    # the worker's (equal rows a rank)
+    share = 1.0 / tp.fsdp if rows_split(tp) else None
+
+    def nll(lg, t, tp_):
+        v = nll_all(lg, t, tp_)
+        return v if share is None else v * share
+
     loss = nll(pred, tgt, tp) + aux
     if cfg.mtp_depth > 0 and tokens.shape[1] > 2:
         # DeepSeek-V3-style MTP: hidden_t with embed(token_{t+1}) predicts
         # token_{t+2} through one extra layer
         h_in = hidden[:, P:, :][:, :-2, :]
-        e_next = embed_tp(params["embed"], tokens[:, 1:-1], cfg.vocab_size, tp)
+        e_next = _embed(params, cfg, tokens[:, 1:-1], tp)
         mtp = params["mtp"]
-        proj = mtp["proj"]
+        proj = fsdp_leaf(mtp["proj"], tp, "proj", (2 * cfg.d_model, cfg.d_model))
         if active(tp) and tuple(proj.shape) != (2 * cfg.d_model, cfg.d_model):
             proj = gather_on_use(proj, tp, split_dim(tuple(proj.shape),
                                                      (2 * cfg.d_model, cfg.d_model)))
@@ -220,7 +317,8 @@ def lm_loss(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
         B, S2, _ = z.shape
         positions = torch.arange(S2, dtype=torch.int32, device=z.device).expand(B, S2)
         spec = cfg.segments[-1].period[-1]
-        z, mtp_aux, _ = layer_train(mtp["layer"], cfg, spec, z, positions, tp=tp)
+        z, mtp_aux, _ = layer_train(fsdp_tree(mtp["layer"], layer_meta(cfg, spec), tp), cfg,
+                                    spec, z, positions, tp=tp)
         norm = mtp["norm"]
         if active(tp) and norm.shape[0] != cfg.d_model:
             norm = gather_on_use(norm, tp, 0)
@@ -240,13 +338,15 @@ def _nll(logits: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _layers(params: PyTree, cfg: ModelConfig, cache: PyTree):
+def _layers(params: PyTree, cfg: ModelConfig, cache: PyTree, tp=None):
     """(spec, layer params, layer cache) in layer order: slices of the
-    stacked trees, so an in-place write to a layer's cache lands in ``cache``."""
+    stacked trees, so an in-place write to a layer's cache lands in ``cache``
+    (on an fsdp mesh the layer's data split gathered)."""
     for seg, pos_params, seg_cache in zip(cfg.segments, params["segments"], cache):
         for r in range(seg.repeat):
             for spec, pp, c in zip(seg.period, pos_params, seg_cache):
-                yield spec, _slice(pp, r), _slice(c, r)
+                pieces = _layer_params(pp, cfg, spec, r, seg.repeat, tp)
+                yield spec, _gathered(pieces, cfg, spec, r, seg.repeat, tp), _slice(c, r)
 
 
 def _cache_tree(cfg: ModelConfig, make_one) -> PyTree:
@@ -280,11 +380,11 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree, token_t: torch.
                 pos: int, tp=None):
     """One serve step: token_t (B,) at absolute position ``pos``, attending
     to the cache. Returns (logits (B,V), cache)."""
-    x = embed_tp(params["embed"], token_t[:, None], cfg.vocab_size, tp)
+    x = _embed(params, cfg, token_t[:, None], tp)
     if cfg.pos_emb == "sinusoidal":
         p = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
         x = x + sinusoidal_pos(p, cfg.d_model).to(x.dtype)
-    for spec, pp, c in _layers(params, cfg, cache):
+    for spec, pp, c in _layers(params, cfg, cache, tp):
         x, _ = layer_decode(pp, cfg, spec, c, x, pos, tp=tp)
     x = _final_norm(params, cfg, x, tp)
     return _logits(params, cfg, x, tp)[:, 0, :], cache
@@ -353,10 +453,10 @@ def paged_decode_step(params: PyTree, cfg: ModelConfig, cache: PyTree,
     """One continuous-batching decode step: slot s's token at position
     ``lengths[s]`` (idle slots carry length 0 and null tables; their logits
     are garbage the scheduler ignores). Returns (logits (S,V), cache)."""
-    x = embed_tp(params["embed"], token_t[:, None], cfg.vocab_size, tp)
+    x = _embed(params, cfg, token_t[:, None], tp)
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_pos(lengths[:, None].to(torch.int32), cfg.d_model).to(x.dtype)
-    for spec, pp, c in _layers(params, cfg, cache):
+    for spec, pp, c in _layers(params, cfg, cache, tp):
         x, _ = layer_paged_decode(pp, cfg, spec, c, x, lengths, tables, backend=backend,
                                   tp=tp)
     x = _final_norm(params, cfg, x, tp)
@@ -371,12 +471,12 @@ def paged_prefill_chunk(params: PyTree, cfg: ModelConfig, cache: PyTree,
     (max_pages,) int32. Writes their k/v rows into the request's pages and
     attends causally over its whole cached prefix. Returns (logits (V,) at
     the chunk's last valid position, cache)."""
-    x = embed_tp(params["embed"], tokens, cfg.vocab_size, tp)
+    x = _embed(params, cfg, tokens, tp)
     if cfg.pos_emb == "sinusoidal":
         pos = (start + torch.arange(tokens.shape[1], dtype=torch.int32,
                                     device=x.device))[None]
         x = x + sinusoidal_pos(pos, cfg.d_model).to(x.dtype)
-    for spec, pp, c in _layers(params, cfg, cache):
+    for spec, pp, c in _layers(params, cfg, cache, tp):
         x, _ = layer_paged_prefill(pp, cfg, spec, c, x, start, table_row, n_valid,
                                    backend=backend, tp=tp)
     x = _final_norm(params, cfg, x, tp)

@@ -34,6 +34,15 @@ all-gathered, so the combine still adds each token's k outputs in top-k
 order (a sum over the ranks would not). The shared experts are a
 tensor-parallel MLP. Stacks that do not split by expert are gathered on
 use.
+
+Where the data ranks of an fsdp mesh hold different rows of the worker's
+batch (training, ``layers.rows_split``) the dispatch is the whole batch's,
+as the reference's: C is sized from the worker's T = D·T_local tokens, a
+pair's rank in its expert counts the pairs of the data ranks before this
+one (an exclusive prefix of the per-rank counts, all-gathered over the data
+group), and the Switch loss's fractions and mean probabilities are the
+data group's sums ÷ T. Each rank runs its own kept pairs through a local
+(E, C_local) buffer, C_local = min(C, T_local·k).
 """
 
 from __future__ import annotations
@@ -51,12 +60,14 @@ from .layers import (
     _normal,
     active,
     copy_to_group,
+    data_sum,
     gather_on_use,
     gather_tree_on_use,
     init_dense,
     init_mlp,
     mlp,
     mlp_tp,
+    rows_split,
 )
 
 PyTree = Any
@@ -84,16 +95,23 @@ def _top_k(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(p, m: MoEConfig, x_flat: torch.Tensor):
-    """x_flat (T, d) → (expert_ids (T,k) int32, combine_w (T,k), aux_loss)."""
+def _route(p, m: MoEConfig, x_flat: torch.Tensor, tp=None):
+    """x_flat (T, d) → (expert_ids (T,k) int32, combine_w (T,k), aux_loss);
+    over the data group's rows where they split the batch."""
     logits = (x_flat @ p["router"]).float()                      # (T, E)
     probs = kref.softmax_ref(logits)
     scores = torch.sigmoid(logits) if m.router_score == "sigmoid" else probs
     w, ids = _top_k(scores, m.top_k)
     w = w / torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-9)
     # Switch load-balance loss: E · Σ_e fraction_e · router_prob_e
-    frac = torch.mean(F.one_hot(ids[:, 0], m.num_experts).float(), dim=0)
-    aux = m.num_experts * torch.sum(frac * torch.mean(probs, dim=0))
+    onehot = F.one_hot(ids[:, 0], m.num_experts).float()
+    if rows_split(tp):
+        T = x_flat.shape[0] * tp.fsdp
+        frac = data_sum(torch.sum(onehot, dim=0), tp) / T
+        mean_p = data_sum(torch.sum(probs, dim=0), tp) / T
+    else:
+        frac, mean_p = torch.mean(onehot, dim=0), torch.mean(probs, dim=0)
+    aux = m.num_experts * torch.sum(frac * mean_p)
     return ids.to(torch.int32), w, aux * m.aux_loss_coef
 
 
@@ -131,8 +149,9 @@ def moe_ff(p, cfg: ModelConfig, x: torch.Tensor, tp=None, full=None):
         p = {n: (v if (ep and n.startswith("moe_")) or n == "shared"
                  else gather_tree_on_use(v, full[n], tp)) for n, v in p.items()}
     x_flat = x.reshape(T, d)
-    ids, w, aux = _route(p, m, x_flat)                           # (T, k)
-    C = capacity(m, T)
+    ids, w, aux = _route(p, m, x_flat, tp)                       # (T, k)
+    whole = rows_split(tp)
+    C = capacity(m, T * tp.fsdp if whole else T)
 
     # --- pack: rank of each (token, k) pair within its expert --------------
     flat_e = ids.reshape(-1)                                     # (T·k,)
@@ -141,11 +160,21 @@ def moe_ff(p, cfg: ModelConfig, x: torch.Tensor, tp=None, full=None):
     group_start = torch.searchsorted(
         sorted_e, torch.arange(E, dtype=sorted_e.dtype, device=x.device))
     rank = torch.arange(T * k, device=x.device) - group_start[sorted_e.long()]
-    keep = rank < C
+    before = 0
+    if whole:
+        # the pairs of the data ranks before this one come first in the
+        # worker's batch: their counts per expert offset this rank's ranks
+        counts = torch.zeros((E,), dtype=torch.int64, device=x.device).scatter_add_(
+            0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.int64))
+        allc = tp.fsdp_gather(counts[None], 0, kind="fsdp/moe_counts")
+        before = allc[:tp.fsdp_rank].sum(0)[sorted_e.long()]
+    keep = rank + before < C
     if moe_ff.drops is not None:
         moe_ff.drops += (~keep).sum()
     # each kept pair's slot e·C + rank (distinct); a dropped pair reads the
-    # zero row E·C of the outputs
+    # zero row E·C of the outputs (a local buffer of C_local rows an expert
+    # where the data ranks split the batch)
+    C = min(C, T * k) if whole else C
     slot_sorted = torch.where(keep, sorted_e.long() * C + rank, E * C)
     pair_slot = torch.empty_like(slot_sorted)
     pair_slot[order] = slot_sorted                               # (token, k) order

@@ -220,8 +220,12 @@ def _threefry2x32_t(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
 
 def _bits_chunk(key, c0: int, c1: int, device) -> torch.Tensor:
     """``bits`` of the flat counters [c0, c1) as int64 uint32 values."""
+    return _bits_at(key, torch.arange(c0, c1, dtype=torch.int64, device=device))
+
+
+def _bits_at(key, idx: torch.Tensor) -> torch.Tensor:
+    """``bits`` of the flat counters ``idx`` (int64) as int64 uint32 values."""
     key = np.asarray(key, _U32)
-    idx = torch.arange(c0, c1, dtype=torch.int64, device=device)
     b1, b2 = _threefry2x32_t(int(key[0]), int(key[1]), idx >> 32, idx & _M32)
     return b1.bitwise_xor_(b2)
 
@@ -231,6 +235,8 @@ def _device_draw(key, shape: tuple, device, dtype, finish) -> torch.Tensor:
     to the output values."""
     shape = tuple(shape)
     n = math.prod(shape)
+    if torch.device(device).type == "meta":     # shapes only: nothing to hash
+        return torch.empty(shape, dtype=dtype, device=device)
     out = torch.empty((n,), dtype=dtype, device=device)
     for c0 in range(0, n, _CHUNK):
         c1 = min(n, c0 + _CHUNK)
@@ -259,17 +265,27 @@ def _mul32_t(x: torch.Tensor, c: int) -> torch.Tensor:
 def _device_randint(k1, k2, shape: tuple, minval: int, maxval: int, device):
     """:func:`randint` on ``device`` from its two subkeys."""
     n = math.prod(shape)
-    span = max(maxval - minval, 1)
-    m = 2**16 % span
-    mult = ((m * m) & _M32) % span
+    if torch.device(device).type == "meta":     # shapes only: nothing to hash
+        return torch.empty(shape, dtype=torch.int32, device=device)
     out = torch.empty((n,), dtype=torch.int32, device=device)
     for c0 in range(0, n, _CHUNK):
         c1 = min(n, c0 + _CHUNK)
-        hi = _bits_chunk(k1, c0, c1, device)
-        lo = _bits_chunk(k2, c0, c1, device)
-        off = ((_mul32_t(hi % span, mult) + lo % span) & _M32) % span
-        out[c0:c1] = ((off + minval + 2**31) % 2**32 - 2**31).to(torch.int32)
+        out[c0:c1] = randint_at(k1, k2, torch.arange(c0, c1, dtype=torch.int64,
+                                                     device=device), minval, maxval)
     return out.reshape(shape)
+
+
+def randint_at(k1, k2, counters: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """:func:`randint`'s int32 values at the flat ``counters`` (int64) of a
+    draw whose key splits into ``k1``, ``k2``, on the counters' device: a
+    draw's elements without the rest of it."""
+    span = max(maxval - minval, 1)
+    m = 2**16 % span
+    mult = ((m * m) & _M32) % span
+    hi = _bits_at(k1, counters)
+    lo = _bits_at(k2, counters)
+    off = ((_mul32_t(hi % span, mult) + lo % span) & _M32) % span
+    return ((off + minval + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
 def permutation(key, n: int) -> np.ndarray:

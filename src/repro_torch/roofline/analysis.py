@@ -77,6 +77,8 @@ _RING = {
     "all-reduce": lambda counted, g: 2.0 * counted * (g - 1),
     "broadcast": lambda counted, g: float(counted),
     "send": lambda counted, g: float(counted),
+    # each rank keeps 1/g of what it hands in and sends the rest
+    "all-to-all": lambda counted, g: counted * (g - 1) / g,
 }
 
 
@@ -92,29 +94,36 @@ def collective_stats_from_mesh(mesh, topology: Optional[Any] = None,
     snapshot ``since``), priced per collective under the ring rule: the
     worker axes' for a group of ``mesh.world`` worker groups and, with a
     ``topology``, booked under the tier of the worker axes (every axis but
-    ``model``); the model axis's (ops ``model/...``) for a group of the
-    ``mesh.model`` ranks of one worker group, under the model axis's tier.
-    A group of one rank moves nothing over a link."""
+    ``model``, and but ``data`` on an fsdp mesh); the model axis's (ops
+    ``model/...``) for a group of the ``mesh.model`` ranks of one worker
+    group, under the model axis's tier; the data axis's inside a worker
+    (ops ``fsdp/...``) for a group of ``mesh.fsdp`` ranks, under the data
+    axis's tier. A group of one rank moves nothing over a link."""
     stats = CollectiveStats()
     since = since or {}
-    groups = {False: mesh.world, True: getattr(mesh, "model", 1)}
-    tiers = {False: None, True: None}
+    inner = {"model/": ("model", getattr(mesh, "model", 1)),
+             "fsdp/": ("data", getattr(mesh, "fsdp", 1))}
+    inner_axes = {"model"} | ({"data"} if getattr(mesh, "fsdp", 1) > 1 else set())
+    worker_tier = None
     if topology is not None:
-        tiers[False] = topology.tier_for_axes(tuple(a for a in mesh.axis_names if a != "model"))
-        if "model" in mesh.axis_names:
-            tiers[True] = topology.tier_for_axes(("model",))
+        worker_tier = topology.tier_for_axes(
+            tuple(a for a in mesh.axis_names if a not in inner_axes))
     for op, (count, counted) in mesh_counts(mesh).items():
         c0, b0 = since.get(op, (0, 0))
         count, counted = count - c0, counted - b0
-        on_model = op.startswith("model/")
-        g = groups[on_model]
+        prefix = next((p for p in inner if op.startswith(p)), None)
+        if prefix is None:
+            g, tier = mesh.world, worker_tier
+        else:
+            axis, g = inner[prefix]
+            tier = (topology.tier_for_axes((axis,))
+                    if topology is not None and axis in mesh.axis_names else None)
         if count <= 0 or g <= 1:
             continue
-        wire = _RING[op.removeprefix("model/")](counted, g)
+        wire = _RING[op.removeprefix(prefix or "")](counted, g)
         stats.per_device_bytes += wire
         stats.counts[op] = stats.counts.get(op, 0) + count
         stats.by_kind_bytes[op] = stats.by_kind_bytes.get(op, 0.0) + wire
-        tier = tiers[on_model]
         if tier is not None:
             stats.by_tier_bytes[tier] = stats.by_tier_bytes.get(tier, 0.0) + wire
             stats.by_tier_counts[tier] = stats.by_tier_counts.get(tier, 0) + count
@@ -312,9 +321,15 @@ def _is_view(func) -> bool:
                for r in func._schema.returns)
 
 
+#: operators that only allocate: they read and write no bytes
+_ALLOCATORS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
+                         "new_empty_strided"})
+
+
 class ByteCounter(TorchDispatchMode):
     """Counts the bytes each operator reads and writes: every distinct
-    tensor input once, every tensor output once; views count nothing."""
+    tensor input once, every tensor output once; views and bare allocations
+    (``empty`` and its kin) count nothing."""
 
     def __init__(self):
         super().__init__()
@@ -322,7 +337,7 @@ class ByteCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not _is_view(func):
+        if not _is_view(func) and func.overloadpacket.__name__ not in _ALLOCATORS:
             seen = set()
             for t in _torch_tree_flatten((args, kwargs or {}))[0]:
                 if isinstance(t, torch.Tensor) and id(t) not in seen:

@@ -25,7 +25,8 @@ families through the trainer with the carry path's exact launches. The
 recurrent phase's constants are checked here without running it (the mLSTM
 chunk rule, recurrentgemma's window, the ``xc`` path's launches); its
 rehearsal is ``tests/test_torch_chip_smoke_recurrent.py``. The mesh_model
-phase runs on two gloo CPU ranks at a reduced width. The launch
+phase runs on two gloo CPU ranks at a reduced width, the mesh_fsdp phase on
+four. The launch
 phase runs its two paths on the tiny LM over a one-rank gloo group brought
 up through ``topology.init_from_env`` (the card's is nccl): launches by
 round, the ledgers, the collectives, the kernel and plain runs bit-equal,
@@ -700,7 +701,7 @@ def test_mesh_model_phase_runs_on_two_cpu_ranks(monkeypatch, capsys):
     mm = report["mesh_model"]
     assert mm["ranks"] == 2 and mm["mesh"] == [4, 2]
     assert mm["param_bytes"] == [(mm["whole_param_bytes"] + 4 * 64) // 2] * 2
-    assert [r["c_k"] for r in mm["rounds"]] == mm["one_rank"]["c_k"] == [1, 0, 0]
+    assert [r["c_k"] for r in mm["rounds"]] == mm["one_rank"]["c_k"] == [1, 0]
     assert all(r["wire_up_bits"] == r["booked_up_bits"] > 0 for r in mm["rounds"])
     assert all(any(k.startswith("model/") for k in r["bytes"]) for r in mm["rounds"])
     assert mm["one_rank"]["params_err"] <= 1e-4 and mm["one_rank"]["g_err"] <= 1e-4
@@ -710,3 +711,31 @@ def test_mesh_model_phase_runs_on_two_cpu_ranks(monkeypatch, capsys):
         assert k["cols"] * 2 == k["leaf_shape"][-1]
     assert 0 < mm["seconds"] <= chip_smoke.MESH_MODEL_BUDGET_S
     assert "mesh_model phase:" in capsys.readouterr().out
+
+
+def test_mesh_fsdp_phase_runs_on_four_cpu_ranks(monkeypatch, capsys):
+    """The mesh_fsdp phase on four gloo ranks on the CPU, a (2, 2, 1) mesh
+    laid out for fsdp, at a reduced Qwen1.5-0.5B (2 layers, d_model 64)
+    under the fsdp override: each rank holds half of every leaf but
+    ``final_norm``, the sync and compressed rounds' wire ×8 ÷ n is the
+    booked uplink and moves ``fsdp/...`` collectives, params and g within
+    the LM rule of one rank's, the serve streams one rank's; the budget
+    line printed."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "MESH_FSDP_LAYERS", 2)
+    monkeypatch.setattr(chip_smoke, "MESH_FSDP_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "MESH_FSDP_SERVE", "12:5,5:3")
+    monkeypatch.setattr(chip_smoke, "SERVE_PAGE", 4)
+    assert chip_smoke.MESH_FSDP_BUDGET_S == 120.0
+    report = {}
+    launches = chip_smoke.run_mesh_fsdp(report)
+    assert set(launches) == {"mesh_fsdp_train", "mesh_fsdp_serve"}
+    mf = report["mesh_fsdp"]
+    assert mf["ranks"] == 4 and mf["mesh"] == [2, 2, 1]
+    assert len(set(mf["params_a_rank"])) == 1
+    assert [r["scope"] for r in mf["rounds"]] == ["sync_step", "compressed_step"]
+    assert all(r["wire_up_bits"] > 0 and r["fsdp_calls_a_worker"] > 0 for r in mf["rounds"])
+    assert mf["one_rank_err"] <= 1e-4
+    assert mf["serve"]["diverged"] == [] and mf["serve"]["decode_steps"] > 0
+    assert 0 < mf["seconds"] <= chip_smoke.MESH_FSDP_BUDGET_S
+    assert "mesh_fsdp phase:" in capsys.readouterr().out

@@ -28,9 +28,9 @@ robust ``trimmed_mean`` with a ``nan`` client, and ``drop`` with carry;
 witness, the port's core ``PPMarina`` on the same flat sampler and keys; the
 refusals (robust × permk or shared mask, drop without carry: the
 reference's errors), a model axis > 1 in one process (the rank holds the
-whole model, with the sharded model's decisions), the fsdp refusal
-(``NotImplementedError`` naming A3c), and entry points that raise without a
-card. The CLI twin ``python -m repro_torch.launch.train`` books the
+whole model, with the sharded model's decisions), an fsdp arch in one
+process (the bundle builds, its data axis inside the rank), and entry points
+that raise without a card. The CLI twin ``python -m repro_torch.launch.train`` books the
 reference CLI's ledger on a reduced model, and ``scripts/check_async_torch.py``
 (the twin of ``scripts/check_async.py``) passes its two bitwise contracts.
 """
@@ -329,8 +329,9 @@ def test_model_axis_needs_replicate_params_and_the_card(arch):
     process the rank holds every slice, with the reference's decisions for a
     sharded model axis (no flat sync, no flat PP). ``replicate_params`` runs
     the model axis as within-worker data parallelism (flat sync, flat PP);
-    only an fsdp inner axis still raises, naming ROADMAP A3c. Without a
-    card, every entry point given no device raises."""
+    an fsdp arch whose workers are pods builds in one process, the data
+    axis inside the rank (no flat sync, no flat PP: "data" is an inner
+    axis). Without a card, every entry point given no device raises."""
     m = topo.make_test_mesh(N, 2, device="cpu")
     assert m.model == 1
     b = build_train_steps(arch, m, False, global_batch=8, seq_len=S,
@@ -342,8 +343,11 @@ def test_model_axis_needs_replicate_params_and_the_card(arch):
     pods = topo.make_federated_mesh(N, 1, device="cpu")
     pods = dataclasses.replace(pods, axis_names=("pod", "data", "model"), sizes=(2, 2, 1))
     fs = dataclasses.replace(arch, fsdp=True, worker_axes="pod")
-    with pytest.raises(NotImplementedError, match="A3c"):
-        build_train_steps(fs, pods, True, global_batch=8, seq_len=S)
+    b = build_train_steps(fs, pods, True, global_batch=8, seq_len=S,
+                          participation=(1, "without"))
+    assert b.n_workers == 2 and pods.fsdp == 1 and "fsdp" not in b.meta
+    assert not b.transport.flat_sync and not b.meta["flat_pp"]
+    assert b.local_shapes is b.param_shapes
     if not torch.cuda.is_available():
         for fn in (lambda: topo.make_test_mesh(N, 1), lambda: topo.init_from_env(),
                    lambda: topo.make_federated_mesh(N), lambda: params_from_jax({})):
