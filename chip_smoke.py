@@ -78,8 +78,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``gather_floor_ms``) and printed as ``gather yardstick …`` beside the
    byte bound and the 32- and 64-byte sector floors of the offsets those
    kernels gather, with each kernel's back-to-back time over the
-   yardstick's (``rule 2 …``: a redesign is due above 1.3×). The yardstick
-   is a bare gather, not a lower bound: a kernel may beat it.
+   yardstick's (``rule 2 …``: a redesign is due above 1.3×) and over its
+   32-byte sector floor. The yardstick is a bare gather, not a lower bound:
+   a kernel may beat it. The kernel lines of rows 1, 10 and 11 carry the L2
+   fetch granularity their launches ran under, read back from the runtime
+   (``fetch_granularity_bytes``; the port leaves the runtime's default),
+   and rows 1 and 10 ``torch.gather`` at the kernel's own offsets as their
+   library call (the gather alone, its int64 offsets converted beforehand:
+   ``library_call``).
    For the kernel, its plain version and, where one exists, the one PyTorch
    call that computes the same function: the median single-call time (CUDA
    events around each of 25 calls; 5 for the plain version) and the
@@ -737,7 +743,8 @@ TRANSPORT_GATHER_RULE2 = 2.0
 #: measured in the run: profiler device ms, the times at every (n, x dtype)
 #: of qsgd_epilogue and qsgd_dequant_mean, the page write's host µs per call,
 #: the gather yardstick's time at a gather's shape (check_gather_floors)
-TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire", "gather_floor_ms", "transport")
+TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire", "gather_floor_ms", "transport",
+               "fetch_granularity_bytes", "library_call")
 
 
 class SmokeFailure(Exception):
@@ -933,10 +940,12 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
             continue
 
         x = x32
+        o64 = o.long()  # the library call's int64 offsets, converted beforehand
         cells = {
             "randk_seeded_workers": (
                 lambda: randk.randk_seeded_workers(x3d, seeds, kb, scale),
-                lambda: ref.randk_seeded_workers_ref(x3d, seeds, kb, scale), None,
+                lambda: ref.randk_seeded_workers_ref(x3d, seeds, kb, scale),
+                lambda: torch.gather(x3d, 2, o64),
                 n * nb * kb * 12 + 4 * n, n * nb * kb),
             "scatter_accum": scatter_accum_cell(v, o, B),
             "scatter_epilogue": (
@@ -954,7 +963,8 @@ def check_kernels(nblk: int, card: str, report: dict) -> dict:
                           "max_abs_err": err[name], "bytes": nbytes}
             print(f"time {name}: {times_text(rows[name])}, bound {b_ms:.4f} ms ({b_by}) "
                   f"on {card}", flush=True)
-        del x3d, v, o, vr, orf, g, x32, x, cells
+        rows["randk_seeded_workers"].update(gather_row_extras())
+        del x3d, v, o, o64, vr, orf, g, x32, x, cells
         torch.cuda.empty_cache()
         rows["scatter_accum"]["wire"] = time_scatter_wire(nb, card)
         for at, t in (("production", rows["scatter_accum"]),
@@ -1965,6 +1975,7 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
             rows[name] = t
 
     offsets = ops.jittered_offsets(key, nblk, B, kb, device=dev)
+    offsets64 = offsets.long()  # the library call's int64 offsets, converted beforehand
     u2d = prng.uniform(prng.fold_in(key, 1), (nblk, B), device=dev)
     x32 = torch.randn((nblk, B), generator=gen, device=dev)
     seed = 2**31 + 99
@@ -1980,7 +1991,8 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
         # the offset read and the value written a slot
         seg = {"segment_floor_ms": sector_floors(offsets, 4 + elt)["segment_floor_ms"]}
         timed("randk_gather", xd, lambda: randk.randk_gather(x, offsets, scale),
-              lambda: ref.randk_block_compress_ref(x, offsets, scale), None,
+              lambda: ref.randk_block_compress_ref(x, offsets, scale),
+              lambda: torch.gather(x, 1, offsets64),
               slots * (4 + 2 * elt), slots, 0.0, **floor, **seg)
         v, o = randk.randk_seeded(x, seed, kb, scale)
         vr, orf = ref.randk_seeded_ref(x, seed, kb, scale)
@@ -2016,11 +2028,31 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
                   lambda: torch.mul(q, qscale), size * (1 + 4), size, 0.0)
         del x, sq, q
         torch.cuda.empty_cache()
-    del x32, u2d, offsets
+    for name in ("randk_gather", "randk_seeded"):
+        rows[name].update(gather_row_extras(library=name == "randk_gather"))
+    del x32, u2d, offsets, offsets64
     torch.cuda.empty_cache()
     check_wire_edges(dev)
     report["kernels_wire"] = timings
     return rows
+
+
+#: the library column of rows 1 and 10, marked on their kernel lines
+GATHER_LIBRARY = ("torch.gather alone, at the kernel's own offsets converted to int64 "
+                  "beforehand (the scale would be a second call)")
+
+
+def gather_row_extras(library: bool = True) -> dict:
+    """The kernel-line keys of a RandK gather's row: the L2 fetch
+    granularity its launches ran under, read back from the runtime (None
+    off the card), and where it has one, what its library column timed."""
+    from repro_torch.kernels import randk
+
+    out = {"fetch_granularity_bytes": randk.fetch_granularity()
+           if DEVICE == "cuda" else None}
+    if library:
+        out["library_call"] = GATHER_LIBRARY
+    return out
 
 
 def sector_floors(offs, write_bytes: int) -> dict:
@@ -2117,9 +2149,12 @@ def check_gather_floors(nblk: int, card: str, report: dict, rows: dict) -> None:
     for name in ("randk_seeded_workers", "randk_gather", "randk_seeded", "permk_seeded_workers"):
         t = rows[name]
         ratio = t["b2b_ms"] / t["gather_floor_ms"]
+        sector = t.get("sector_floor_ms")
+        over = "n/a" if sector is None else f"{t['b2b_ms'] / sector:.3f}×"
         print(f"rule 2 {name}: back-to-back {t['b2b_ms']:.4f} ms = {ratio:.3f}× the gather "
               f"yardstick's {t['gather_floor_ms']:.4f} ms (a redesign above 1.3×: "
-              f"{'due' if ratio > 1.3 else 'not due'}) on {card}", flush=True)
+              f"{'due' if ratio > 1.3 else 'not due'}), {over} its 32-byte sector floor "
+              f"on {card}", flush=True)
 
 
 def _sync() -> None:
@@ -3713,15 +3748,17 @@ def check_transport_widths(card: str, report: dict, rows: dict) -> None:
             print_target("scatter_accum", label, t, card)
             gbytes = n * R * kb * (4 + 4 + 4)  # offsets and sampled x read, values written
             b_ms, b_by = bound(gbytes, n * R * kb)
+            o64 = o2.long()  # the library call's int64 offsets, converted beforehand
             rows["randk_gather"]["transport"] = t = {
                 **times(lambda: randk.randk_gather(x, o2, L / kb),
-                        lambda: ref.randk_block_compress_ref(x, o2, L / kb)),
+                        lambda: ref.randk_block_compress_ref(x, o2, L / kb),
+                        lambda: torch.gather(x, 1, o64)),
                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0, "bytes": gbytes,
                 "shape": [n * R, L, kb]}
             print(f"time randk_gather at {label}: {times_text(t)}, bound {b_ms:.4f} ms "
                   f"({b_by}) on {card}", flush=True)
             t.update(transport_gather_floor(x, o2, kb, label, card))
-            del kern, plain, lib
+            del kern, plain, lib, o64
         del x, o, o2, v
         torch.cuda.empty_cache()
     report["transport_widths"] = out
@@ -3757,7 +3794,8 @@ def transport_gather_floor(x, o2, kb: int, label: str, card: str) -> dict:
           f"{ratio:.3f}× the yardstick's on {card}", flush=True)
     print(f"rule 2 randk_gather at {label}: {ratio:.3f}× the gather yardstick (a redesign "
           f"above {TRANSPORT_GATHER_RULE2:.1f}×: "
-          f"{'due' if ratio > TRANSPORT_GATHER_RULE2 else 'not due'}) on {card}", flush=True)
+          f"{'due' if ratio > TRANSPORT_GATHER_RULE2 else 'not due'}), "
+          f"{b2b / out['sector_floor_ms']:.3f}× its 32-byte sector floor on {card}", flush=True)
     return {"yardstick": out}
 
 

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_uint32
+_IP = ctypes.POINTER(ctypes.c_int)
 #: argtypes of every exported entry point (all return cudaError_t as int)
 SIGNATURES = {
     "randk": {
@@ -38,6 +39,8 @@ SIGNATURES = {
         **{f"randk_gather_{t}": (_P, _P, _P, _L, _I, _I, _F, _P) for t in ("f32", "bf16")},
         **{f"randk_seeded_{t}": (_P, _U, _P, _P, _L, _I, _I, _F, _P)
            for t in ("f32", "bf16")},
+        "l2_fetch_granularity": (_IP,),
+        "set_l2_fetch_granularity": (_I,),
     },
     "permk": {
         "permk_seeded_workers_f32": (_P, _U, _P, _P, _I, _L, _I, _P),

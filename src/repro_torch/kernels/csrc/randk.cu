@@ -15,8 +15,16 @@
 // randk_seeded take x in f32 or bf16 and multiply in f32, rounding the
 // product once to x's type, as the Pallas bodies do.
 //
+// How many bytes L2 fetches from device memory for one such random load is
+// the context's cudaLimitMaxL2FetchGranularity, which l2_fetch_granularity
+// reads back and set_l2_fetch_granularity asks for. The port leaves it at
+// the runtime's default (64 bytes on the H100): 32 bytes reads back as set
+// but moves neither gather nor a bare random gather (PERF.md), so it
+// is read and printed, never set, on the port's paths.
+//
 // C interface (loaded with ctypes): each entry point launches on the given
-// stream, does not synchronise, and returns cudaGetLastError().
+// stream, does not synchronise, and returns cudaGetLastError() (the limit's
+// two return the runtime call's error).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -259,4 +267,19 @@ extern "C" int randk_seeded_bf16(const void* x, uint32_t seed, void* vals, void*
                                  void* stream) {
   return launch_seeded<__nv_bfloat16>(x, seed, vals, offs, nblk, block, kb, scale,
                                       stream);
+}
+
+// The context's L2 fetch granularity (cudaLimitMaxL2FetchGranularity), in
+// bytes, as the runtime reads it back.
+extern "C" int l2_fetch_granularity(int* bytes) {
+  size_t v = 0;
+  const cudaError_t e = cudaDeviceGetLimit(&v, cudaLimitMaxL2FetchGranularity);
+  *bytes = (int)v;
+  return (int)e;
+}
+
+// Ask the runtime for an L2 fetch granularity of `bytes`, a hint it may
+// clamp or ignore (read it back with l2_fetch_granularity).
+extern "C" int set_l2_fetch_granularity(int bytes) {
+  return (int)cudaDeviceSetLimit(cudaLimitMaxL2FetchGranularity, (size_t)bytes);
 }

@@ -48,6 +48,21 @@ def _check_scatter_width(B: int) -> None:
                          "one f32 row must fit a CTA's shared memory")
 
 
+def fetch_granularity(device=None) -> int:
+    """The L2 fetch granularity of ``device``'s context (the current card
+    by default), in bytes, as the runtime reads back
+    ``cudaLimitMaxL2FetchGranularity``: how much device memory L2 fetches
+    for one random 4-byte load. The port leaves it at the runtime's default
+    (``csrc/randk.cu`` says why); raises on a CUDA error."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _build.entry("randk", "l2_fetch_granularity")(ctypes.byref(out))
+    _build.check(err, "cudaDeviceGetLimit(cudaLimitMaxL2FetchGranularity)")
+    return out.value
+
+
 def seeds_tensor(seeds, device) -> torch.Tensor:
     """uint32 seed values (a sequence, a numpy array or a tensor) → (n,)
     int32 tensor on ``device`` holding the same bit patterns."""

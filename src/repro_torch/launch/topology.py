@@ -50,6 +50,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import Any, Optional
 
@@ -977,33 +978,54 @@ def last_heartbeat(text: str) -> int:
 @dataclasses.dataclass
 class ClusterOutcome:
     """What :func:`run_resilient_cluster` observed: per-rank results, the
-    ranks that died on their own, and the last round every rank completed."""
+    ranks that died on their own, the last round every rank completed, and
+    the attempts it took (a bring-up that failed is launched again)."""
 
     results: list
     dead_ranks: tuple
     last_round: int
+    attempts: int = 1
 
     @property
     def crashed(self) -> bool:
         return bool(self.dead_ranks)
 
 
-def run_resilient_cluster(prog: str, *, num_processes: int = 2, devices_per_process: int = 2,
-                          timeout: float = 560.0, extra_env: Optional[dict] = None,
-                          poll_s: float = 0.2) -> ClusterOutcome:
-    """Like :func:`spawn_local_cluster`, but crash-aware: polls the
-    children, kills the survivors (hung in their next collective) as soon as
-    a rank exits nonzero, and reads the heartbeats back. ``timeout`` is the
-    hang backstop."""
-    procs = _launch_procs(prog, num_processes, devices_per_process, extra_env)
+def _first_death(procs: list, timeout: float) -> tuple:
+    """Wait until a child exits nonzero, every child has exited, or
+    ``timeout`` runs out; each child is reaped by a thread of its own the
+    moment it exits, so the exits are seen in the order they happen.
+    Returns the rank whose nonzero exit came first, as a 1-tuple (() when
+    none did): a peer that exits after it did not die on its own — gloo
+    throws a survivor out of the collective that its dead peer left, within
+    milliseconds, where the reference's survivor hangs."""
+    order = []
+    cond = threading.Condition()
+
+    def reap(rank: int, p) -> None:
+        code = p.wait()
+        with cond:
+            order.append((rank, code))
+            cond.notify()
+
+    for rank, p in enumerate(procs):
+        threading.Thread(target=reap, args=(rank, p), daemon=True).start()
     deadline = time.monotonic() + timeout
-    dead = ()
-    while time.monotonic() < deadline:
-        codes = [p.poll() for p in procs]
-        dead = tuple(i for i, c in enumerate(codes) if c is not None and c != 0)
-        if dead or all(c is not None for c in codes):
-            break
-        time.sleep(poll_s)
+    with cond:
+        while True:
+            failed = [rank for rank, code in order if code != 0]
+            if failed or len(order) == len(procs):
+                return tuple(failed[:1])
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return ()
+            cond.wait(left)
+
+
+def _resilient_attempt(prog: str, num_processes: int, devices_per_process: int,
+                       timeout: float, extra_env: Optional[dict]) -> ClusterOutcome:
+    procs = _launch_procs(prog, num_processes, devices_per_process, extra_env)
+    dead = _first_death(procs, timeout)
     for p in procs:
         if p.poll() is None:
             p.kill()
@@ -1016,16 +1038,52 @@ def run_resilient_cluster(prog: str, *, num_processes: int = 2, devices_per_proc
                           last_round=min(beats) if beats else -1)
 
 
+def bringup_failed(outcome: ClusterOutcome) -> bool:
+    """An attempt that did not end cleanly before any rank reported a round
+    complete: a rank died, or the hang backstop fired, in the rendezvous
+    (another process took the free port between :func:`_free_port` and the
+    bind) or before the first heartbeat."""
+    clean = all(r.returncode == 0 for r in outcome.results)
+    return not clean and all(last_heartbeat(r.stdout or "") < 0 for r in outcome.results)
+
+
+def run_resilient_cluster(prog: str, *, num_processes: int = 2, devices_per_process: int = 2,
+                          timeout: float = 560.0, extra_env: Optional[dict] = None,
+                          retry=None) -> ClusterOutcome:
+    """Like :func:`spawn_local_cluster`, but crash-aware: waits on the
+    children, kills the survivors (hung or failing in their next
+    collective) as soon as a rank exits nonzero, and reads the heartbeats
+    back. ``dead_ranks`` holds the rank that died on its own
+    (:func:`_first_death`). ``timeout`` is the hang backstop.
+
+    ``retry`` (a :class:`repro_torch.launch.transport.RetryPolicy`)
+    launches the cluster again — fresh port, fresh children, each attempt
+    given ``retry.timeout_s`` — after an attempt whose bring-up failed
+    (:func:`bringup_failed`), as :func:`spawn_local_cluster` does; the last
+    attempt's outcome is returned either way. A crash injected before the
+    first heartbeat is indistinguishable from a failed bring-up and is
+    retried too."""
+    attempts = 1 if retry is None else retry.retries + 1
+    for attempt in range(attempts):
+        outcome = _resilient_attempt(prog, num_processes, devices_per_process,
+                                     timeout if retry is None else retry.timeout_s, extra_env)
+        outcome.attempts = attempt + 1
+        if attempt + 1 == attempts or not bringup_failed(outcome):
+            return outcome
+        time.sleep(retry.backoff(attempt))
+
+
 def run_with_recovery(prog: str, *, num_processes: int = 2, devices_per_process: int = 2,
                       timeout: float = 560.0, extra_env: Optional[dict] = None,
                       retry=None) -> tuple:
     """Run ``prog`` crash-aware; if a rank dies, relaunch it as one process
     hosting every worker, the crashed rank's clients exported as the dead set
-    from the first incomplete round. Returns ``(outcome, recovery)``, the
-    recovery run's ``CompletedProcess`` or None."""
+    from the first incomplete round. ``retry`` relaunches a failed bring-up
+    of either run. Returns ``(outcome, recovery)``, the recovery run's
+    ``CompletedProcess`` or None."""
     outcome = run_resilient_cluster(prog, num_processes=num_processes,
                                     devices_per_process=devices_per_process,
-                                    timeout=timeout, extra_env=extra_env)
+                                    timeout=timeout, extra_env=extra_env, retry=retry)
     if not outcome.crashed:
         return outcome, None
     dead_clients = ()

@@ -61,6 +61,90 @@ def test_randk_and_scatter_accum_on_card(dev, shape):
     assert kernels.launch_counts()["scatter_accum"] == 1
 
 
+# -- the RandK gathers, rows 1 and 10: bit-equal to their plain versions at
+#    every worker count, row width and kb the paths give them (the
+#    transport's 2816-wide leaves for row 10), values and offsets, and the
+#    NaN of an out-of-range offset
+
+GATHER_NS = [1, 3, 4, 5]
+GATHER_WIDTHS = [128, 1024]
+GATHER_KBS = ["1", "20", "B"]
+
+
+def _kb(kb: str, B: int) -> int:
+    return B if kb == "B" else int(kb)
+
+
+@pytest.mark.parametrize("kb", GATHER_KBS)
+@pytest.mark.parametrize("B", GATHER_WIDTHS)
+@pytest.mark.parametrize("n", GATHER_NS)
+def test_randk_seeded_workers_bit_equal_on_card(dev, n, B, kb):
+    kb = _kb(kb, B)
+    nblk = 37 if kb < B else 5
+    x3d, _, _ = _inputs(dev, n, nblk, B, seed=n)
+    x3d[0, 0, :3] = torch.tensor([-0.0, float("inf"), float("nan")])
+    seeds = randk.seeds_tensor(np.array([5, 2**31 + 1, 2**32 - 1, 77, 0][:n], np.uint32), dev)
+    kernels.reset_launch_counts()
+    v, o = randk.randk_seeded_workers(x3d, seeds, kb, B / kb)
+    vr, orf = ref.randk_seeded_workers_ref(x3d, seeds, kb, B / kb)
+    assert torch.equal(o, orf)
+    assert torch.equal(_bits(v), _bits(vr))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["randk_seeded_workers"] == 1
+
+
+#: the bits of the NaN an out-of-range offset gives: the f32 quiet NaN
+#: 0x7fc00000, which the device's cvt.rn.bf16.f32 turns into 0x7fff
+GATHER_NAN_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FFF}
+
+
+def _gather_want_bits(x, offs, scale):
+    """The plain version's bits at the in-range offsets, the kernel's NaN
+    at the others."""
+    B = x.shape[1]
+    inside = (offs >= 0) & (offs < B)
+    want = _bits(ref.randk_block_compress_ref(x, torch.where(inside, offs, 0), scale))
+    return torch.where(inside, want, torch.full_like(want, GATHER_NAN_BITS[x.dtype]))
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kb", GATHER_KBS)
+@pytest.mark.parametrize("B", GATHER_WIDTHS + [2816])
+def test_randk_gather_bit_equal_on_card(dev, B, kb, xdtype):
+    kb = _kb(kb, B)
+    nblk = 41 if kb < B else 6
+    gen = torch.Generator(device=dev).manual_seed(B + kb)
+    x = torch.randn((nblk, B), generator=gen, device=dev).to(xdtype)
+    x[0, :3] = torch.tensor([-0.0, float("inf"), -float("inf")])
+    offs = torch.randint(0, B, (nblk, kb), generator=gen, device=dev, dtype=torch.int32)
+    kernels.reset_launch_counts()
+    got = randk.randk_gather(x, offs, B / kb)
+    assert torch.equal(_bits(got), _bits(ref.randk_block_compress_ref(x, offs, B / kb)))
+    # out-of-range offsets (a column split's dropped slots) give NaN and
+    # leave the others as they were
+    bad = torch.tensor([-1, B, B + 5, 2**31 - 1, -2**31], dtype=torch.int32, device=dev)
+    flat = offs.view(-1)
+    flat[::3] = bad.repeat(flat[::3].numel() // 5 + 1)[:flat[::3].numel()]
+    got = randk.randk_gather(x, offs, B / kb)
+    assert torch.equal(_bits(got), _gather_want_bits(x, offs, B / kb))
+    assert bool(torch.isnan(got.view(-1)[::3]).all())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["randk_gather"] == 2
+
+
+def test_gathers_leave_the_l2_fetch_granularity_as_it_was(dev):
+    """The port reads the context's L2 fetch granularity and never sets it:
+    rows 1, 10 and 11 leave it at the runtime's default."""
+    before = randk.fetch_granularity(dev)
+    assert before > 0
+    x3d, seeds, _ = _inputs(dev, 4, 37, 1024)
+    v, o = randk.randk_seeded_workers(x3d, seeds, 20, 1024 / 20)
+    randk.randk_gather(x3d[0], o[0], 1024 / 20)
+    randk.randk_seeded(x3d[0], 7, 20, 1024 / 20)
+    torch.cuda.synchronize()
+    assert randk.fetch_granularity(dev) == before
+
+
 #: scatter_accum's shapes beyond SHAPES: kb = B with n = 33 (a chunk of 32
 #: pairs a round, many rounds a block) at B = 1024 and below 128, where a
 #: warp's row is shorter than its 32 lanes' float4s, down to B = 2 and 1
