@@ -369,6 +369,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16, dense tensor cores
 RANDK_SEEDS = [1, 2**31 + 7, 2**32 - 1, 12345]  # the RandK kernels' worker seeds
 PERMK_SEED = 2**31 + 12345                      # the PermK kernel's shared seed
+PERMK_SUBSET = [3, 1]  # the rows a rank holds of PermK's fleet of 4 (row 12's workers mode)
 
 SOURCES = {
     "randk_seeded_workers": ("src/repro_torch/kernels/csrc/randk.cu",
@@ -614,6 +615,10 @@ FAMILY_BUDGET_S = 120.0
 #: multiple of 256)
 RECURRENT_STATIC = {"recurrentgemma-2b": (",".join(["2304:32"] * 4), 4),
                     "xlstm-350m": (",".join(["252:64"] * 8), 8)}
+#: the recurrent legs cut in depth only, at full width (arch → layers): the
+#: longest leg, xlstm-350m (55.4 s of the phase's 101.3 s on a slow host),
+#: keeps one whole 7 mLSTM : 1 sLSTM period of its three
+RECURRENT_DEPTH = {"xlstm-350m": 8}
 #: the float32 teacher-forced bound where FAMILY_LOGIT_RTOL is out of float32's
 #: reach, and the check then repeated in float64 at FAMILY_LOGIT_RTOL. xLSTM:
 #: the chunkwise forward's cumulative log-forget sums (|F| ≈ 177 over 256
@@ -678,7 +683,8 @@ MESH_SERVE_BUDGET_S = 120.0
 #: through host memory (NCCL refuses two ranks on one device), a
 #: (MESH_MODEL_N, 2) ("data", "model") mesh: one worker group of every worker,
 #: each rank one model slice of every sharded leaf. Qwen1.5-0.5B at full
-#: width and depth (MESH_MODEL_LAYERS None: no cut), randk + grad_carry,
+#: width, cut to MESH_MODEL_DEPTH of its 24 layers (MESH_MODEL_LAYERS: a CPU
+#: rehearsal's reduced width and depth instead), randk + grad_carry,
 #: MESH_MODEL_BATCH × MESH_MODEL_SEQ tokens a worker: one sync round, then a
 #: train_step under each of MESH_MODEL_KEYS (c_k = 0 for p = MESH_MODEL_P),
 #: through the kernels and the plain versions, against one rank; then
@@ -686,6 +692,9 @@ MESH_SERVE_BUDGET_S = 120.0
 #: MESH_MODEL_PAGED: H / KV = 8 / 8 a rank)
 MESH_MODEL_ENV = "CHIP_SMOKE_MESH_MODEL"
 MESH_MODEL_ARCH, MESH_MODEL_LAYERS = "qwen1.5-0.5b", None
+#: the depth cut at full width: the phase took 100.0 s of its 120 at 24
+#: layers on a slow host, and its time goes with the layers' staged sums
+MESH_MODEL_DEPTH = 12
 MESH_MODEL_N, MESH_MODEL_BATCH, MESH_MODEL_SEQ = 4, 1, 256
 #: one compressed round: the script's time
 MESH_MODEL_KEYS, MESH_MODEL_P = (SEED + 44,), 1.0 / 128
@@ -703,13 +712,15 @@ MESH_MODEL_RTOL = 128 * 1e-5
 #: the mesh_fsdp phase: four processes on the one card over host-staged
 #: gloo, a (pod 2, data 2, model 1) mesh laid out for fsdp (each pod a
 #: worker of two data ranks, every F leaf split between them): Qwen1.5-0.5B
-#: at full width and depth, f32, under the fsdp override (``worker_axes
+#: at full width cut to MESH_FSDP_DEPTH layers, f32, under the fsdp override (``worker_axes
 #: "pod"``, ``fsdp=True``, as the reference's ``workers_pod_data`` variant
 #: replaces its arch): a sync round and one compressed randk round with the
 #: carry, MESH_FSDP_SEQ tokens on each data rank's row, no remat, against
 #: one rank; then MESH_FSDP_SERVE through the paged bundle on f32 pages
 MESH_FSDP_ENV = "CHIP_SMOKE_MESH_FSDP"
-MESH_FSDP_LAYERS = None     # None: full depth (a CPU rehearsal reduces it)
+MESH_FSDP_LAYERS = None     # a CPU rehearsal's reduced width and depth
+#: the depth cut at full width (101.9 s of 120 at 24 layers on a slow host)
+MESH_FSDP_DEPTH = 12
 MESH_FSDP_SEQ, MESH_FSDP_KEY = 256, SEED + 46
 #: (8 new tokens, not 16: every decode step gathers each layer's data split
 #: through the host, ~3 s a step on a slow host, and the phase has 120 s)
@@ -727,9 +738,6 @@ DRYRUN_REF_FILE = os.path.join(ROOT, "experiments", "dryrun",
 #: Llama-4-Scout's bf16 parameters a device of the (2, 16, 16) mesh with the
 #: fsdp split (``sharding.shard_tree``)
 LLAMA4_FSDP_DEVICE_PARAMS = 421_211_568
-#: Qwen1.5-0.5B's parameters a rank at m = 2: every leaf halved but
-#: final_norm (1,024, replicated)
-QWEN_RANK_PARAMS = 231_994_368
 #: the reference's parameter counts (params, active) of three configs
 PARAM_COUNTS = {"deepseek-v3-671b": (682_636_457_984, 38_240_368_640),
                 "llama4-scout-17b-a16e": (107_769_873_408, 17_172_907_008),
@@ -742,9 +750,10 @@ TRANSPORT_GATHER_RULE2 = 2.0
 #: keys a kernel's row adds to the kernel line where it has them, each
 #: measured in the run: profiler device ms, the times at every (n, x dtype)
 #: of qsgd_epilogue and qsgd_dequant_mean, the page write's host µs per call,
-#: the gather yardstick's time at a gather's shape (check_gather_floors)
+#: the gather yardstick's time at a gather's shape (check_gather_floors),
+#: row 12's times in the main path's modes (offsets=False, a rank's workers)
 TABLE_EXTRA = ("device_ms", "at_n", "host_us", "wire", "gather_floor_ms", "transport",
-               "fetch_granularity_bytes", "library_call")
+               "fetch_granularity_bytes", "library_call", "modes")
 
 
 class SmokeFailure(Exception):
@@ -1046,10 +1055,25 @@ def report_at_n(rows: dict, timings: list, name: str, card: str) -> None:
 NO_LIBRARY = "none (no single PyTorch call computes this function)"
 
 
+def permk_bytes(r: int, nblk: int, n: int, elt: int, offsets: bool) -> tuple:
+    """Row 12's bytes for r stacked rows of a fleet of n: what the function
+    must move (one x value a slot read, its value and offset written) and
+    what the design moves (every staged row of x read in full)."""
+    slots = r * nblk * (BLOCK // n)
+    out = slots * (elt + (4 if offsets else 0))
+    return slots * elt + out, r * nblk * BLOCK * elt + out
+
+
 def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
     """The PermK uplink at n = 2, 4, 8 and the delta epilogue, x f32 and
-    bf16, each against its plain version and timed; the table's row is the
-    production shape (n = 4, x f32)."""
+    bf16, each against its plain version and timed; the uplink in every
+    mode beside ``torch.gather`` at the kernel's own offsets (int64,
+    converted beforehand) and, at n = 4, in the main path's modes too
+    (``offsets=False``; ``workers`` = PERMK_SUBSET of 4 without offsets),
+    bit-equal in each, with its byte bound and design floor. Then the plain PermK decode
+    (``permk_concat_mean_ref``, every backend's) timed once at the
+    production shape. The table's row is the production shape with offsets
+    (n = 4, x f32); its ``modes`` hold the other two."""
     import torch
 
     from repro_torch.kernels import epilogue, permk, ref
@@ -1058,6 +1082,23 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, timings = {}, []
     seed = PERMK_SEED
+
+    def timed(x3d, n, kw, label, lib, err):
+        r, elt = x3d.shape[0], x3d.element_size()
+        nbytes, design = permk_bytes(r, nblk, n, elt, kw.get("offsets", True))
+        b_ms, b_by = bound(nbytes, r * nblk * (BLOCK // n))
+        t = {"kernel": "permk_seeded_workers", "n": n, "x": str(x3d.dtype), "mode": label,
+             **times(lambda: permk.permk_seeded_workers(x3d, seed, **kw),
+                     lambda: ref.permk_seeded_workers_ref(x3d, seed, **kw), lib),
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+             "floor_ms": design / HBM_BYTES_PER_S * 1e3, "max_abs_err": err}
+        timings.append(t)
+        print(f"time permk_seeded_workers n={n} x {x3d.dtype} {label}: {times_text(t)}, "
+              f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e9:.3f} GB), design floor "
+              f"{t['floor_ms']:.4f} ms ({design / 1e9:.3f} GB) on {card}",
+              flush=True)
+        return t
+
     for n in (N_WORKERS, 2, 8):
         x32 = torch.randn((n, nblk, BLOCK), generator=gen, device=dev)
         for xd in (torch.float32, torch.bfloat16):
@@ -1068,24 +1109,36 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
             require(torch.equal(v, vr), f"permk n={n} {xd}: values differ")
             err = float((v.float() - vr.float()).abs().max())
             del vr, orf
-            elt = x3d.element_size()
-            # must touch: one x value per slot, the values and int32 offsets
-            b_ms, b_by = bound(nblk * BLOCK * (2 * elt + 4), nblk * BLOCK)
-            t = {"kernel": "permk_seeded_workers", "n": n, "x": str(xd),
-                 **times(lambda: permk.permk_seeded_workers(x3d, seed),
-                         lambda: ref.permk_seeded_workers_ref(x3d, seed)),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 # what this design moves: every staged row of x read in full
-                 "floor_ms": (x3d.numel() * elt + nblk * BLOCK * (elt + 4))
-                 / HBM_BYTES_PER_S * 1e3, "max_abs_err": err}
-            timings.append(t)
-            print(f"time permk_seeded_workers n={n} x {xd}: {times_text(t)}, "
-                  f"bound {b_ms:.4f} ms ({b_by}), "
-                  f"floor {t['floor_ms']:.4f} ms, library {NO_LIBRARY} on {card}",
-                  flush=True)
-            if n == N_WORKERS and xd == torch.float32:
-                rows["permk_seeded_workers"] = t
-            del x3d, v, o
+            o64 = o.long()  # the library call's offsets, converted beforehand
+            t = timed(x3d, n, {}, "offsets", lambda: torch.gather(x3d, 2, o64), err)
+            if n == N_WORKERS:
+                xs = x3d[PERMK_SUBSET].contiguous()
+                sub = {"workers": PERMK_SUBSET, "n": n}
+                for offsets in (True, False):
+                    sv, so = permk.permk_seeded_workers(xs, seed, offsets=offsets, **sub)
+                    require(torch.equal(sv, v[PERMK_SUBSET]) and (
+                        so is None if not offsets else torch.equal(so, o[PERMK_SUBSET])),
+                        f"permk workers {PERMK_SUBSET} of {n} {xd} offsets={offsets}: "
+                        "differ from the whole fleet's rows")
+                nv, no = permk.permk_seeded_workers(x3d, seed, offsets=False)
+                require(no is None and torch.equal(nv, v), f"permk offsets=False {xd} differs")
+                del sv, so, nv
+                o64s = o64[PERMK_SUBSET]  # the subset's own offsets, for its library call
+                modes = {
+                    "no_offsets": timed(x3d, n, {"offsets": False}, "offsets=False",
+                                        lambda: torch.gather(x3d, 2, o64), 0.0),
+                    "workers": timed(xs, n, {**sub, "offsets": False},
+                                     f"workers={PERMK_SUBSET} of {n}, offsets=False",
+                                     lambda: torch.gather(xs, 2, o64s), 0.0)}
+                # on the kernel line: the measured times of each mode
+                t["modes"] = {k: {m: mt[m] for m in ("ms", "b2b_ms", "plain_ms", "plain_b2b_ms",
+                                                     "library_ms", "library_b2b_ms")}
+                              for k, mt in modes.items()}
+                del xs, o64s
+                if xd == torch.float32:
+                    rows["permk_seeded_workers"] = dict(t, library_call=GATHER_LIBRARY)
+                    report["permk_concat_mean"] = time_permk_concat_mean(v, nblk, card)
+            del x3d, v, o, o64
         del x32
         torch.cuda.empty_cache()
 
@@ -1116,6 +1169,40 @@ def check_permk_delta(nblk: int, card: str, report: dict) -> dict:
     torch.cuda.empty_cache()
     report["kernels_permk_delta"] = timings
     return rows
+
+
+def time_permk_concat_mean(values, nblk: int, card: str) -> dict:
+    """The plain PermK decode (``permk_concat_mean_ref``: the payloads
+    concatenated in slot order, gathered through the inverse permutation;
+    every backend runs it, as the reference does) on the production
+    payloads: its single-call and back-to-back ms, and the peak memory it
+    adds, of which its int64 (nblk, B) slot index is the largest part. A
+    measurement: no kernel replaces it."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    def call():
+        return ref.permk_concat_mean_ref(values, PERMK_SEED, BLOCK)
+
+    out = call()
+    require(tuple(out.shape) == (nblk, BLOCK) and bool(torch.isfinite(out).all()),
+            "permk_concat_mean_ref: not a finite (nblk, B) mean")
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    t = {"ms": median_ms(call, 5), "b2b_ms": back_to_back_ms(call, 10),
+         "peak_added_gb": peak, "index_gb": nblk * BLOCK * 8 / 1e9,
+         "bytes_bound_ms": bound(values.numel() * 4 + nblk * BLOCK * 4, 0)[0]}
+    print(f"time permk_concat_mean_ref (n={values.shape[0]}, nblk={nblk}, B={BLOCK}, f32): "
+          f"{t['ms']:.4f} ms (back-to-back {t['b2b_ms']:.4f}), peak memory added "
+          f"{peak:.3f} GB, of it the int64 slot index {t['index_gb']:.3f} GB; byte bound "
+          f"{t['bytes_bound_ms']:.4f} ms on {card}", flush=True)
+    return t
 
 
 def worker_counts(compressor: str, downlink: str) -> dict:
@@ -1998,10 +2085,13 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
         vr, orf = ref.randk_seeded_ref(x, seed, kb, scale)
         require(torch.equal(o, orf), f"randk_seeded ({xd}): offsets differ")
         require(bits_equal(v, vr), f"randk_seeded ({xd}): values differ")
+        seeded64 = o.long()  # its library call's offsets, converted beforehand
         del v, o, vr, orf
         timed("randk_seeded", xd, lambda: randk.randk_seeded(x, seed, kb, scale),
-              lambda: ref.randk_seeded_ref(x, seed, kb, scale), None,
+              lambda: ref.randk_seeded_ref(x, seed, kb, scale),
+              lambda: torch.gather(x, 1, seeded64),
               slots * (4 + 2 * elt), slots, 0.0, **floor)
+        del seeded64
 
         sq = quantize.block_sumsq(x)
         require(bits_equal(sq, ref.block_sumsq_ref(x)), f"block_sumsq ({xd}) differs")
@@ -2029,7 +2119,7 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
         del x, sq, q
         torch.cuda.empty_cache()
     for name in ("randk_gather", "randk_seeded"):
-        rows[name].update(gather_row_extras(library=name == "randk_gather"))
+        rows[name].update(gather_row_extras())
     del x32, u2d, offsets, offsets64
     torch.cuda.empty_cache()
     check_wire_edges(dev)
@@ -2037,22 +2127,20 @@ def check_wire_kernels(nblk: int, card: str, report: dict) -> dict:
     return rows
 
 
-#: the library column of rows 1 and 10, marked on their kernel lines
+#: the library column of the gathers (rows 1, 10, 11 and 12), marked on
+#: their kernel lines
 GATHER_LIBRARY = ("torch.gather alone, at the kernel's own offsets converted to int64 "
                   "beforehand (the scale would be a second call)")
 
 
-def gather_row_extras(library: bool = True) -> dict:
+def gather_row_extras() -> dict:
     """The kernel-line keys of a RandK gather's row: the L2 fetch
     granularity its launches ran under, read back from the runtime (None
-    off the card), and where it has one, what its library column timed."""
+    off the card), and what its library column timed."""
     from repro_torch.kernels import randk
 
-    out = {"fetch_granularity_bytes": randk.fetch_granularity()
-           if DEVICE == "cuda" else None}
-    if library:
-        out["library_call"] = GATHER_LIBRARY
-    return out
+    return {"fetch_granularity_bytes": randk.fetch_granularity()
+            if DEVICE == "cuda" else None, "library_call": GATHER_LIBRARY}
 
 
 def sector_floors(offs, write_bytes: int) -> dict:
@@ -3252,6 +3340,24 @@ def family_cfg(name: str):
     return cut, reduced
 
 
+def depth_cut(cfg, layers: int):
+    """``cfg`` at full width with its first ``layers`` layers (whole periods
+    of its segments, in order), and the cut as a line of ``reduced``."""
+    import dataclasses
+
+    segs, left = [], layers
+    for seg in cfg.segments:
+        if left <= 0:
+            break
+        rep = min(seg.repeat, left // len(seg.period))
+        require(rep * len(seg.period) == min(left, seg.num_layers),
+                f"{cfg.name}: {layers} layers are not whole periods")
+        segs.append(dataclasses.replace(seg, repeat=rep))
+        left -= rep * len(seg.period)
+    cut = dataclasses.replace(cfg, segments=tuple(segs))
+    return cut, f"layers {cfg.num_layers} -> {cut.num_layers} (depth only, full width)"
+
+
 def teacher_forced_check(params, cfg, reqs, rtol: float = FAMILY_LOGIT_RTOL,
                          served: bool = True) -> dict:
     """Each request's prompt prefilled and its first FAMILY_TEACHER_STEPS
@@ -3662,13 +3768,17 @@ def run_recurrent(report: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = get_arch(name).model
+        cfg, cuts = get_arch(name).model, []
+        if cfg.num_layers > RECURRENT_DEPTH.get(name, cfg.num_layers):
+            cfg, cut = depth_cut(cfg, RECURRENT_DEPTH[name])
+            cuts.append(cut)
         params = init_params(SEED, cfg, device=DEVICE)
         torch.cuda.synchronize()
-        leg = {"reduced": [], "layers": cfg.num_layers,
+        leg = {"reduced": cuts, "layers": cfg.num_layers,
                "params_b": param_count(params) / 1e9, "init_s": time.perf_counter() - t0}
         print(f"recurrent {name}: {leg['params_b']:.3f} B parameters (f32), "
-              f"{cfg.num_layers} layers, no cuts, init {leg['init_s']:.1f} s", flush=True)
+              f"{cfg.num_layers} layers, cuts {cuts or 'none'}, init {leg['init_s']:.1f} s",
+              flush=True)
         leg["serve_static"], reqs = static_leg(params, cfg, spec, batch,
                                                f"recurrent {name}",
                                                RECURRENT_F32_RTOL.get(name, FAMILY_LOGIT_RTOL))
@@ -4343,6 +4453,7 @@ def _mesh_model_spec() -> dict:
     """What the two ranks run, read by ``mesh_model_rank`` from the
     environment (the children import this file afresh)."""
     return {"device": DEVICE, "arch": MESH_MODEL_ARCH, "layers": MESH_MODEL_LAYERS,
+            "depth": MESH_MODEL_DEPTH,
             "n": MESH_MODEL_N, "batch": MESH_MODEL_BATCH, "seq": MESH_MODEL_SEQ,
             "keys": list(MESH_MODEL_KEYS), "serve_spec": SERVE_SPEC, "slots": SERVE_SLOTS,
             "page": SERVE_PAGE, "chunk": MESH_MODEL_CHUNK}
@@ -4358,7 +4469,31 @@ def _mm_arch(spec: dict):
     if spec["layers"]:
         arch = dataclasses.replace(arch, model=reduced(arch.model, layers=spec["layers"],
                                                        d_model=64))
+    elif spec["depth"]:
+        arch = dataclasses.replace(arch, model=depth_cut(arch.model, spec["depth"])[0])
     return arch
+
+
+def mesh_cuts(spec: dict) -> list:
+    """The depth cut of a mesh phase's Qwen1.5-0.5B as ``reduced`` lists it
+    (none for a CPU rehearsal's reduced config, which reports its own)."""
+    from repro_torch.configs import get_arch
+
+    if spec["layers"] or not spec["depth"]:
+        return []
+    cut = depth_cut(get_arch(spec.get("arch", "qwen1.5-0.5b")).model, spec["depth"])[1]
+    print(f"mesh phase cut: {cut}", flush=True)
+    return [cut]
+
+
+def split_params(cfg) -> int:
+    """Qwen1.5-0.5B's parameters a rank when every leaf is halved but
+    ``final_norm`` (d_model, replicated): 231,994,368 at full depth."""
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import init_params
+
+    whole = sum(t.numel() for t in tree_leaves(init_params(SEED, cfg, device="meta")))
+    return (whole - cfg.d_model) // 2 + cfg.d_model
 
 
 def _mm_rounds(fns: dict, state: tuple, batch: dict, keys: list, mesh) -> tuple:
@@ -4649,9 +4784,10 @@ def run_mesh_model(report: dict) -> dict:
     whole = sum(t.numel() for t in shapes)
     out = {"ranks": 2, "mesh": [spec["n"], 2], "backend": "gloo (host-staged)",
            "param_bytes": [o["param_bytes"] for o in outs], "whole_param_bytes": 4 * whole,
-           "peak_mem_gb": [o["peak_mem_gb"] for o in outs], "kernels": [o["kernels"] for o in outs]}
+           "peak_mem_gb": [o["peak_mem_gb"] for o in outs], "kernels": [o["kernels"] for o in outs],
+           "reduced": mesh_cuts(spec)}
     if spec["arch"] == "qwen1.5-0.5b" and not spec["layers"]:
-        require([o["params"] for o in outs] == [QWEN_RANK_PARAMS] * 2,
+        require([o["params"] for o in outs] == [split_params(cfg)] * 2,
                 f"mesh_model: parameters a rank {[o['params'] for o in outs]}")
     print(f"mesh_model: parameter bytes a rank {out['param_bytes']} of {4 * whole} "
           f"({[round(b / 1e9, 3) for b in out['param_bytes']]} of {4 * whole / 1e9:.3f} GB); "
@@ -4746,7 +4882,8 @@ def run_mesh_model(report: dict) -> dict:
 
 
 def _mf_spec() -> dict:
-    return {"device": DEVICE, "layers": MESH_FSDP_LAYERS, "seq": MESH_FSDP_SEQ,
+    return {"device": DEVICE, "layers": MESH_FSDP_LAYERS, "depth": MESH_FSDP_DEPTH,
+            "seq": MESH_FSDP_SEQ,
             "key": MESH_FSDP_KEY, "serve": MESH_FSDP_SERVE, "slots": 4, "page": SERVE_PAGE,
             "chunk": 64}
 
@@ -4755,7 +4892,7 @@ def _mf_arch(spec: dict):
     """Qwen1.5-0.5B under the fsdp override (reduced where ``spec`` says)."""
     import dataclasses
 
-    arch = _mm_arch({"arch": "qwen1.5-0.5b", "layers": spec["layers"]})
+    arch = _mm_arch({"arch": "qwen1.5-0.5b", "layers": spec["layers"], "depth": spec["depth"]})
     return dataclasses.replace(arch, worker_axes="pod", fsdp=True)
 
 
@@ -4921,7 +5058,7 @@ def run_mesh_fsdp(report: dict) -> dict:
     cfg = _mf_arch(spec).model
     nleaf = len(tree_leaves(init_params(SEED, cfg, device="meta")))
     if not spec["layers"]:
-        require([o["params"] for o in outs] == [QWEN_RANK_PARAMS] * 4,
+        require([o["params"] for o in outs] == [split_params(cfg)] * 4,
                 f"mesh_fsdp: parameters a rank {[o['params'] for o in outs]}")
     errs = lead["one_rank"]["errs"]
     require(max(errs) <= MESH_MODEL_RTOL,
@@ -4930,7 +5067,7 @@ def run_mesh_fsdp(report: dict) -> dict:
     for o in outs:
         require(o["ledger"] == lead["one_rank"]["ledger"], f"mesh_fsdp ledger {o['ledger']}")
     out = {"ranks": 4, "mesh": [2, 2, 1], "backend": "gloo (host-staged)",
-           "params_a_rank": [o["params"] for o in outs],
+           "reduced": mesh_cuts(spec), "params_a_rank": [o["params"] for o in outs],
            "param_bytes": [o["param_bytes"] for o in outs],
            "peak_mem_gb": [o["peak_mem_gb"] for o in outs],
            "section_s": [o["section_s"] for o in outs], "one_rank_err": max(errs),

@@ -31,6 +31,10 @@ all) picks:
   the same nblk, B = 1024, kb = 20), and beside it, where the checkout has
   ``kernels/yardstick.py``, the gather yardstick's time at that shape (the
   fastest over ``yardstick.SWEEP``, back to back);
+* ``permk``: ``permk_seeded_workers`` at the production shape (n = 4, the
+  same nblk, B = 1024), x f32 and bf16, with offsets; and where the
+  checkout's wrapper takes them, with ``offsets=False`` and on a rank's
+  rows (``chip_smoke.PERMK_SUBSET`` of the 4 workers) without offsets;
 * ``serve``: the int8-page serve path of ``chip_smoke.py`` (full-width
   Qwen1.5-0.5B, ``SERVE_SPEC``, 8 slots, pages of 16, chunks of 128):
   median decode-step ms and tokens/s;
@@ -68,7 +72,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 PARTS = ("paged", "dequant", "write", "qsgd", "natural", "scatter", "dequant_mean",
-         "randk_workers", "serve", "gathers")
+         "randk_workers", "permk", "serve", "gathers")
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -218,6 +222,32 @@ def time_randk_workers(res, dev, gen) -> None:
         res["gather_floor"] = chip_smoke.sweep_floor(
             lambda u, t: lambda: yardstick.gather(x2d, kb, u, t))
     del x3d
+    torch.cuda.empty_cache()
+
+
+def time_permk(res, dev, gen) -> None:
+    import inspect
+
+    import torch
+
+    from repro_torch.kernels import permk
+
+    n, nblk, B = chip_smoke.N_WORKERS, full_width_nblk(), chip_smoke.BLOCK
+    seed, sub = chip_smoke.PERMK_SEED, chip_smoke.PERMK_SUBSET
+    modes = "offsets" in inspect.signature(permk.permk_seeded_workers).parameters
+    x32 = torch.randn((n, nblk, B), generator=gen, device=dev)
+    for xd in (torch.float32, torch.bfloat16):
+        x3d, tag = x32.to(xd), str(xd)[6:]
+        res[f"permk_{tag}"] = timings(lambda: permk.permk_seeded_workers(x3d, seed))
+        if modes:
+            res[f"permk_no_offsets_{tag}"] = timings(
+                lambda: permk.permk_seeded_workers(x3d, seed, offsets=False))
+            xs = x3d[sub].contiguous()
+            res[f"permk_workers_{tag}"] = timings(
+                lambda: permk.permk_seeded_workers(xs, seed, workers=sub, n=n, offsets=False))
+            del xs
+        del x3d
+    del x32
     torch.cuda.empty_cache()
 
 
@@ -390,6 +420,7 @@ def main() -> int:
     timers = {"paged": time_paged, "dequant": time_dequant, "write": time_write,
               "qsgd": time_qsgd, "natural": time_natural, "scatter": time_scatter,
               "dequant_mean": time_dequant_mean, "randk_workers": time_randk_workers,
+              "permk": time_permk,
               "serve": time_serve, "gathers": time_gathers}
     for part in PARTS:
         if part in parts:

@@ -462,18 +462,13 @@ class FlatEngine:
             vals, offs = self.compress_stacked(seeds, bufs)
             return {"values": vals, "seeds": seeds_t, "offsets": offs}
         if self.sampler == "permk":
-            # the kernel numbers the shares by row: a part of the stack sits
-            # at its rows of an n-row stack (zeros elsewhere: those rows are
-            # computed and dropped)
-            every = rows == list(range(n))
-            full = bufs
-            if not every:
-                full = bufs.new_zeros((n,) + tuple(bufs.shape[1:]))
-                full[rows] = bufs
+            # each held row gathers its own worker's share; the receiver
+            # rebuilds the offsets from the seed, so none are written
             fn = (_ref.permk_seeded_workers_ref if self._plain(bufs)
                   else _permk.permk_seeded_workers)
-            vals, _ = fn(full, int(seeds[0]))
-            return {"values": vals if every else vals[rows], "seeds": seeds_t}
+            vals, _ = fn(bufs, int(seeds[0]), workers=None if rows == list(range(n)) else rows,
+                         n=n, offsets=False)
+            return {"values": vals, "seeds": seeds_t}
         fn = (_ref.qsgd_block_workers_ref if self._plain(bufs)
               else _quant.qsgd_block_workers)
         levels, norms = fn(bufs, seeds_t, self.s)

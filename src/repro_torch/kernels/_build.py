@@ -43,8 +43,8 @@ SIGNATURES = {
         "set_l2_fetch_granularity": (_I,),
     },
     "permk": {
-        "permk_seeded_workers_f32": (_P, _U, _P, _P, _I, _L, _I, _P),
-        "permk_seeded_workers_bf16": (_P, _U, _P, _P, _I, _L, _I, _P),
+        "permk_seeded_workers_f32": (_P, _U, _P, _P, _P, _I, _I, _L, _I, _P),
+        "permk_seeded_workers_bf16": (_P, _U, _P, _P, _P, _I, _I, _L, _I, _P),
     },
     "quantize": {
         "qsgd_block_workers_f32": (_P, _P, _P, _P, _I, _L, _I, _I, _P),

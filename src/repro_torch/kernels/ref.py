@@ -162,14 +162,64 @@ def permk_offsets_ref(seed, nblk: int, block: int, n: int, wid: int,
     return ((a[:, None] * t[None, :] + c[:, None]) & (block - 1)).to(torch.int32)
 
 
-def permk_seeded_workers_ref(x3d: torch.Tensor, seed):
-    """PermK uplink with one shared seed: x3d (n, nblk, B) → values in x's
-    dtype (scaled by n) and int32 offsets, both (n, nblk, B/n)."""
-    n, nblk, B = x3d.shape
-    offs = torch.stack([permk_offsets_ref(seed, nblk, B, n, w, x3d.device)
-                        for w in range(n)])
-    vals = torch.gather(x3d, 2, offs.to(torch.int64))
-    return vals * torch.tensor(float(n), dtype=x3d.dtype, device=x3d.device), offs
+def permk_worker_rows(x3d: torch.Tensor, workers=None, n=None) -> tuple:
+    """The worker index of each stacked row of x3d (r, nblk, B), as an int32
+    tensor on x3d's device (None with neither argument: the rows 0..r−1 of
+    a fleet of r), and the fleet's worker count n. ``workers`` is a list or
+    an integer tensor on x3d's device, length r, each in [0, n), under an
+    explicit ``n``; a tensor is used where it lies, its range checked with
+    one read of a flag. Raises on what the uplink does not take (n must
+    divide B)."""
+    r, _, B = x3d.shape
+    if workers is None:
+        if n is not None and int(n) != r:
+            raise ValueError(f"{r} stacked rows without workers= are a fleet of {r}, not {n}")
+        wid, n = None, r
+    else:
+        if n is None:
+            raise ValueError("workers= needs the fleet's worker count n")
+        n = int(n)
+        if isinstance(workers, torch.Tensor):
+            if workers.device != x3d.device:
+                raise ValueError(f"workers on {workers.device}, x3d on {x3d.device}")
+            if workers.is_floating_point() or workers.is_complex():
+                raise ValueError("workers must be integers")
+            wid = workers.reshape(-1)
+            bad = bool(((wid < 0) | (wid >= n)).any())
+            wid = wid.to(torch.int32).contiguous()
+        else:
+            ids = [int(w) for w in workers]
+            bad = any(not 0 <= w < n for w in ids)
+            wid = torch.tensor(ids, dtype=torch.int32, device=x3d.device)
+        if wid.numel() != r:
+            raise ValueError(f"{wid.numel()} worker indices for {r} stacked rows")
+        if bad:
+            raise ValueError(f"worker indices outside [0, {n})")
+    if n < 1 or B % n:
+        raise ValueError(f"worker count {n} must divide the block width {B}")
+    return wid, n
+
+
+def permk_seeded_workers_ref(x3d: torch.Tensor, seed, *, workers=None, n=None,
+                             offsets: bool = True):
+    """PermK uplink with one shared seed: x3d (r, nblk, B), row i worker
+    ``workers[i]`` of a fleet of n (default: rows 0..n−1, n = r) → values in
+    x's dtype (scaled by n) and int32 offsets, both (r, nblk, B/n): row i
+    gathers its worker's permuted slots [w·B/n, (w+1)·B/n). ``offsets=False``
+    returns (values, None)."""
+    wid, n = permk_worker_rows(x3d, workers, n)
+    r, nblk, B = x3d.shape
+    chunk = B // n
+    a, c = affine_perm_params_ref(seed, nblk, B, x3d.device)
+    w = (torch.arange(r, dtype=torch.int64, device=x3d.device) if wid is None
+         else wid.to(torch.int64))
+    t = w[:, None] * chunk + torch.arange(chunk, dtype=torch.int64,
+                                          device=x3d.device)  # (r, B/n) slots
+    off = a[None, :, None] * t[:, None, :]  # (r, nblk, B/n) int64, updated in place
+    off.add_(c[None, :, None]).bitwise_and_(B - 1)
+    vals = torch.gather(x3d, 2, off)
+    vals = vals * torch.tensor(float(n), dtype=x3d.dtype, device=x3d.device)
+    return vals, (off.to(torch.int32) if offsets else None)
 
 
 def permk_concat_mean_ref(values: torch.Tensor, seed, block: int) -> torch.Tensor:

@@ -345,10 +345,77 @@ def test_wire_kernel_phase_runs_at_a_tiny_width(monkeypatch):
     seg = rows["randk_gather"]["segment_floor_ms"] * chip_smoke.HBM_BYTES_PER_S / 1e3
     assert 3 * 64 + slots * 8 <= round(seg) <= slots * (64 + 8)
     assert rows["block_sumsq"]["library_ms"] == 1.0
-    assert rows["randk_seeded"]["library_ms"] is None
+    # rows 10 and 11: torch.gather at the kernel's own offsets
+    assert rows["randk_gather"]["library_ms"] == rows["randk_seeded"]["library_ms"] == 1.0
+    assert rows["randk_seeded"]["library_call"] == chip_smoke.GATHER_LIBRARY
     timed = {(t["kernel"], t["x"]) for t in report["kernels_wire"]}
     assert len(timed) == 9  # the dequantize reads int8 levels: timed once
     assert set(chip_smoke.SOURCES) == set(kernels.KERNELS)
+
+
+def test_permk_kernel_phase_runs_at_a_tiny_width(monkeypatch):
+    """Row 12's kernel phase at 5 blocks: n = 4, 2, 8 with offsets beside
+    ``torch.gather`` at its own offsets, the main path's modes at n = 4
+    (offsets=False, a rank's PERMK_SUBSET rows), each with its byte bound
+    and design floor, the plain decode's timing, and the delta epilogue,
+    with a host clock in place of the CUDA events."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, reps: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "back_to_back_ms", lambda fn, n=25: (fn(), 1.0)[1])
+    for name in ("empty_cache", "synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    report = {}
+    rows = chip_smoke.check_permk_delta(5, "cpu", report)
+    assert set(rows) == {"permk_seeded_workers", "delta_epilogue"}
+    row = rows["permk_seeded_workers"]
+    assert (row["n"], row["x"], row["mode"]) == (4, "torch.float32", "offsets")
+    assert row["library_ms"] == 1.0 and row["library_call"] == chip_smoke.GATHER_LIBRARY
+    assert set(row["modes"]) == {"no_offsets", "workers"}
+    assert set(row["modes"]["workers"]) == {"ms", "b2b_ms", "plain_ms", "plain_b2b_ms",
+                                            "library_ms", "library_b2b_ms"}
+    # each mode beside torch.gather at its own offsets, which writes no offsets
+    assert all(m["library_ms"] == m["library_b2b_ms"] == 1.0 for m in row["modes"].values())
+    slots = 5 * chip_smoke.BLOCK
+    by_mode = {(t["x"], t["mode"]): t for t in report["kernels_permk_delta"]
+               if t["kernel"] == "permk_seeded_workers" and t["n"] == 4}
+    f32 = "torch.float32"
+    # must touch: one x value a slot, its value and (with offsets) its offset;
+    # the design: every staged row read in full
+    assert by_mode[f32, "offsets"]["bytes"] == slots * 12
+    assert by_mode[f32, "offsets=False"]["bytes"] == slots * 8
+    workers = next(t for (x, m), t in by_mode.items() if x == f32 and m.startswith("workers"))
+    assert workers["bytes"] == slots * 8 // 2
+    for t, design in ((by_mode[f32, "offsets"], 4 * slots * 4 + slots * 8),
+                      (by_mode[f32, "offsets=False"], 4 * slots * 4 + slots * 4),
+                      (workers, 2 * slots * 4 + slots * 2)):
+        assert t["floor_ms"] == pytest.approx(design / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert len(report["kernels_permk_delta"]) == 3 * 2 + 2 * 2 + 2
+    cm = report["permk_concat_mean"]
+    assert cm["ms"] == cm["b2b_ms"] == 1.0 and cm["index_gb"] == slots * 8 / 1e9
+
+
+def test_depth_cuts_keep_whole_periods():
+    """The depth cuts of the recurrent and mesh phases: full width, the
+    first whole periods, and the parameters a rank of the halved Qwen
+    (231,994,368 at full depth)."""
+    qwen = configs.get_arch("qwen1.5-0.5b").model
+    cut, text = chip_smoke.depth_cut(qwen, chip_smoke.MESH_MODEL_DEPTH)
+    assert cut.num_layers == 12 == chip_smoke.MESH_FSDP_DEPTH and cut.d_model == qwen.d_model
+    assert text == "layers 24 -> 12 (depth only, full width)"
+    assert chip_smoke.split_params(qwen) == 231_994_368
+    assert chip_smoke.split_params(cut) < 231_994_368
+    xlstm = configs.get_arch("xlstm-350m").model
+    cut, _ = chip_smoke.depth_cut(xlstm, chip_smoke.RECURRENT_DEPTH["xlstm-350m"])
+    assert cut.num_layers == 8 and cut.d_model == xlstm.d_model
+    assert [l.mixer for s in cut.segments for l in s.period] == ["mlstm"] * 7 + ["slstm"]
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.depth_cut(xlstm, 12)  # not a whole period
+    spec = {"arch": "qwen1.5-0.5b", "layers": None, "depth": 12}
+    assert chip_smoke.mesh_cuts(spec) == [text]
+    assert chip_smoke.mesh_cuts(dict(spec, layers=2)) == []
+    assert chip_smoke._mm_arch(spec).model.num_layers == 12
 
 
 def test_gather_floor_phase_runs_at_a_tiny_width(monkeypatch):

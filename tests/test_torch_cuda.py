@@ -252,25 +252,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(4, 37, 1024), (8, 5, 1024), (2, 9, 128), (1, 3, 256),
-                                   (64, 2, 1024)], ids=str)
+                                   (64, 2, 1024), (4, 1321, 1024), (2, 7, 4)], ids=str)
 def test_permk_seeded_workers_on_card(dev, shape, xdtype):
-    """Bit-equal offsets and values (the ×n scale is exact), including a
-    fleet whose rows are staged in several passes (n = 64)."""
+    """Bit-equal offsets and values (the ×n scale is exact) in every mode —
+    with offsets, ``offsets=False``, and ``workers`` subsets of the fleet
+    (a list and a device tensor) — including a fleet whose rows are staged
+    in several passes (n = 64), an nblk that leaves the persistent grid's
+    last wave partly empty (1321 blocks), rows under 16 bytes (B = 4 in bf16) and an
+    unaligned view (both staged element by element); one launch a call."""
     n, nblk, B = shape
     x3d = _inputs(dev, n, nblk, B, seed=2)[0].to(xdtype)
+    sub = list(dict.fromkeys([n - 1, n // 2 - 1 if n > 1 else 0, 0]))
+    xs = x3d[sub].contiguous()
     kernels.reset_launch_counts()
+    calls = 0
     for seed in (0, 2**31 + 7, 2**32 - 1):
         v, o = permk.permk_seeded_workers(x3d, seed)
         vr, orf = ref.permk_seeded_workers_ref(x3d, seed)
         assert v.dtype == xdtype and torch.equal(o, orf) and torch.equal(v, vr)
-    # an unaligned view takes the kernel's 4-byte staging path
+        nv, no = permk.permk_seeded_workers(x3d, seed, offsets=False)
+        assert no is None and torch.equal(nv, vr)
+        for workers in (sub, torch.tensor(sub, dtype=torch.int32, device=dev)):
+            for offsets in (True, False):
+                sv, so = permk.permk_seeded_workers(xs, seed, workers=workers, n=n,
+                                                    offsets=offsets)
+                svr, sor = ref.permk_seeded_workers_ref(xs, seed, workers=sub, n=n,
+                                                        offsets=offsets)
+                assert torch.equal(sv, svr) and torch.equal(sv, vr[sub])
+                assert (so is None and sor is None) if not offsets else (
+                    torch.equal(so, sor) and torch.equal(so, orf[sub]))
+        calls += 6
+    # an unaligned view takes the kernel's element-by-element staging path
     flat = torch.empty(x3d.numel() + 1, dtype=xdtype, device=dev)
     xv = flat[1:].view(x3d.shape)
     xv.copy_(x3d)
     assert torch.equal(permk.permk_seeded_workers(xv, 5)[0],
                        ref.permk_seeded_workers_ref(xv, 5)[0])
+    assert torch.equal(permk.permk_seeded_workers(xv, 5, offsets=False)[0],
+                       ref.permk_seeded_workers_ref(xv, 5)[0])
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["permk_seeded_workers"] == 4
+    assert kernels.launch_counts()["permk_seeded_workers"] == calls + 2
 
 
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -295,6 +316,10 @@ def test_permk_and_delta_wrappers_refuse_what_the_kernels_do_not_take(dev):
         permk.permk_seeded_workers(x3d[:3], 1)  # 3 workers do not divide 128
     with pytest.raises(ValueError):
         permk.permk_seeded_workers(torch.zeros(4, 3, 256, device=dev)[..., ::2], 1)
+    for kw in ({"workers": [0, 4], "n": 4}, {"workers": [0, 1], "n": 3},
+               {"workers": torch.tensor([0, 1]), "n": 4}):  # indices on the host
+        with pytest.raises(ValueError):
+            permk.permk_seeded_workers(x3d[:2].contiguous(), 1, **kw)
     g = torch.zeros(3, 128, device=dev)
     with pytest.raises(ValueError):
         epilogue.delta_epilogue(g.double(), g, g, 0.1)

@@ -180,6 +180,28 @@ def test_permk_engine_aggregate_and_bits_equal_reference(n):
         teng.omega  # PermK's ω belongs to the collection
 
 
+@pytest.mark.parametrize("rows", [[3, 1], [0], [2, 0, 3]], ids=str)
+def test_permk_encode_rows_of_a_part_equals_reference_rows(rows, monkeypatch):
+    """A rank that holds r < n rows encodes each row's share straight from
+    its own r-row stack: the payload equals those rows of the reference's
+    n-row uplink, and no n-row stack is built (``new_zeros`` unreached)."""
+    n, nblk, B = 4, 6, 128
+    jeng, teng = _permk_engines(nblk, B)
+    bufs = np.random.default_rng(31).standard_normal((n, nblk, B), dtype=np.float32)
+    key, tkey = jax.random.PRNGKey(12), prng.PRNGKey(12)
+    jv, _ = jflat.block_permk_workers(jnp.asarray(bufs), jeng._shared_seed(key), "ref")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("encode_rows built a zero-filled stack")
+
+    whole = teng.encode_rows(tkey, torch.from_numpy(bufs), range(n), n)["values"]
+    monkeypatch.setattr(torch.Tensor, "new_zeros", refuse)
+    pay = teng.encode_rows(tkey, torch.from_numpy(bufs[rows]), rows, n)
+    np.testing.assert_array_equal(pay["values"].numpy(), np.asarray(jv)[rows])
+    assert torch.equal(pay["values"], whole[rows])
+    assert (pay["seeds"].numpy().view(np.uint32) == teng._shared_seed(tkey)).all()
+
+
 @pytest.mark.parametrize("xdtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
 def test_permk_fused_round_equals_reference(xdtype):
     n, nblk, B = 4, 5, 128

@@ -185,6 +185,39 @@ def test_permk_seeded_workers_bit_equal(n, nblk, B, xdtype):
                            torch.arange(B, dtype=torch.int32).expand(nblk, B))
         wv, wo = tk.permk.permk_seeded_workers(tx, seed)
         assert torch.equal(wv, tv) and torch.equal(wo, to)
+        # offsets=False: the same values, no offsets
+        for fn in (tref.permk_seeded_workers_ref, tk.permk.permk_seeded_workers):
+            nv, no = fn(tx, seed, offsets=False)
+            assert no is None and torch.equal(nv, tv)
+        # a subset of the fleet's rows, unsorted, the last worker first: each
+        # row is its worker's row of the reference's n-row output
+        sub = list(dict.fromkeys([n - 1, n // 2 - 1 if n > 1 else 0, 0]))
+        for workers in (sub, torch.tensor(sub, dtype=torch.int32)):
+            for fn in (tref.permk_seeded_workers_ref, tk.permk.permk_seeded_workers):
+                sv, so = fn(tx[sub], seed, workers=workers, n=n)
+                np.testing.assert_array_equal(so.numpy(), np.asarray(jo)[sub])
+                np.testing.assert_array_equal(to_np(sv), to_np(jv)[sub])
+                sv2, so2 = fn(tx[sub], seed, workers=workers, n=n, offsets=False)
+                assert so2 is None and torch.equal(sv2, sv)
+
+
+def test_permk_seeded_workers_refuses_bad_rows():
+    """A worker index outside [0, n), an n that does not divide B (or a
+    missing one), a count of indices other than the rows', and a workers
+    tensor on another device than x are refused by the plain version and
+    the wrapper alike."""
+    x = torch.zeros((2, 3, 128))
+    for fn in (tref.permk_seeded_workers_ref, tk.permk.permk_seeded_workers):
+        for kw in ({"workers": [0, 4], "n": 4}, {"workers": [-1, 1], "n": 4},
+                   {"workers": [0, 1], "n": 3}, {"workers": [0, 1]},
+                   {"workers": [0], "n": 4}, {"n": 4},
+                   {"workers": torch.tensor([0, 1], device="meta"), "n": 4}):
+            with pytest.raises(ValueError):
+                fn(x, 7, **kw)
+        with pytest.raises(ValueError):
+            fn(torch.zeros((3, 3, 128)), 7)  # 3 workers do not divide 128
+    v, o = tref.permk_seeded_workers_ref(x, 7, workers=torch.tensor([3, 0]), n=4)
+    assert v.shape == o.shape == (2, 3, 32)
 
 
 @pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
