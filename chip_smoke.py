@@ -328,8 +328,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    layout, 421,211,568 parameters a device; its sync step: the compressed
    one, ~70 s on the card, is the CLI's record) and perf.py's
    qwen1.5-0.5b × decode_32k × single × paged_decode; each step's peak
-   memory a device and roofline terms; rows 10 and 2 launched by qwen's
-   compressed step, row 24 by the paged decode.
+   memory a device and roofline terms, and its collectives by op (count
+   and priced bytes) beside those of the all-gather sums
+   (``DRYRUN_ALL_GATHER_SUMS``); every train step's model-axis sums (m =
+   16) through the rank-ordered reduce-scatter + all-gather; rows 10 and 2
+   launched by qwen's compressed step, row 24 by the paged decode.
 
 The output ends with a JSON report of every phase, the kernel table (one
 JSON line; ``launches`` sums the paths, ``launches_by_path`` splits them),
@@ -735,6 +738,26 @@ DRYRUN_BUDGET_S = 120.0
 #: the TPU program, printed beside the port's measured peak, not compared
 DRYRUN_REF_FILE = os.path.join(ROOT, "experiments", "dryrun",
                                "qwen1.5-0.5b__train_4k__single.json")
+#: the dry-run phase's steps as the card recorded them while the model- and
+#: data-axis sums all-gathered the partials (``experiments/dryrun_torch/card/``
+#: then): peak bytes a device and ``{op: (collectives, priced bytes)}``,
+#: printed beside this run's figures
+DRYRUN_ALL_GATHER_SUMS = {
+    "qwen1.5-0.5b__train_4k__single": {
+        "sync_step": (13_930_090_496, {"model/all-gather": (221, 245_630_420_160),
+                                       "all-reduce": (14, 1_740_011_520),
+                                       "model/broadcast": (1, 2_048)}),
+        "compressed_step": (14_021_760_000, {"model/all-gather": (442, 491_260_840_320),
+                                             "model/broadcast": (1, 2_048),
+                                             "all-gather": (8, 10_985_040),
+                                             "broadcast": (20, 627_336)})},
+    "llama4-scout-17b-a16e__train_4k__multi": {
+        "sync_step": (77_063_222_784, {"fsdp/all-gather": (387, 25_032_222_720),
+                                       "model/all-gather": (1013, 1_229_358_288_480),
+                                       "fsdp/all-to-all": (50, 12_637_079_040),
+                                       "all-reduce": (18, 1_684_846_272),
+                                       "fsdp/broadcast": (1, 10_240),
+                                       "model/broadcast": (2, 501_760)})}}
 #: Llama-4-Scout's bf16 parameters a device of the (2, 16, 16) mesh with the
 #: fsdp split (``sharding.shard_tree``)
 LLAMA4_FSDP_DEVICE_PARAMS = 421_211_568
@@ -4501,15 +4524,15 @@ def _mm_rounds(fns: dict, state: tuple, batch: dict, keys: list, mesh) -> tuple:
     ``train_step`` takes it (c_k ~ Be(p) from the key's first half; the
     compressed round under its second), through the bundle's scoped steps
     so the ledger books each round type under its own scope; each timed on
-    the host clock ending in a synchronize; launches and the bytes of the
-    mesh's collectives by round. Returns (state, c_k, seconds, launches,
-    bytes)."""
+    the host clock ending in a synchronize; launches, the bytes of the
+    mesh's collectives and their count by op, by round. Returns (state, c_k,
+    seconds, launches, bytes, ops)."""
     from repro_torch import kernels, prng
 
-    c_k, secs, per_round, wire = [], [], [], []
+    c_k, secs, per_round, wire, ops = [], [], [], [], []
     for i in range(len(keys) + 1):
         kernels.reset_launch_counts()
-        before = dict(mesh.payload_bytes)
+        before, before_ops = dict(mesh.payload_bytes), dict(mesh.op_counts)
         t0 = time.perf_counter()
         if i == 0:
             state = fns["sync_step"](*state, batch)
@@ -4524,7 +4547,9 @@ def _mm_rounds(fns: dict, state: tuple, batch: dict, keys: list, mesh) -> tuple:
         per_round.append({k: v for k, v in kernels.launch_counts().items() if v})
         wire.append({k: v - before.get(k, 0) for k, v in mesh.payload_bytes.items()
                      if v != before.get(k, 0)})
-    return state, c_k, secs, per_round, wire
+        ops.append({k: v - before_ops.get(k, 0) for k, v in mesh.op_counts.items()
+                    if v != before_ops.get(k, 0)})
+    return state, c_k, secs, per_round, wire, ops
 
 
 def _mm_kernels(mesh, b) -> dict:
@@ -4638,10 +4663,10 @@ def mesh_model_rank() -> None:
             mesh.reset_counts()
             if DEVICE == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            state, c_k, secs, per_round, wire = _mm_rounds(b.fns, fresh(params), batch, keys,
-                                                            mesh)
+            state, c_k, secs, per_round, wire, ops = _mm_rounds(b.fns, fresh(params), batch,
+                                                                 keys, mesh)
             runs[backend_k] = {"c_k": c_k, "seconds": secs, "launches": per_round,
-                               "wire": wire,
+                               "wire": wire, "ops": ops,
                                "ledger": sorted([list(k), v] for k, v in
                                                 b.transport.ledger.bits.items())}
             finals[backend_k] = state
@@ -4669,7 +4694,7 @@ def mesh_model_rank() -> None:
             # the same rounds on one rank holding the whole model
             solo = topo.Mesh(axis_names=("data", "model"), sizes=(n, nproc), device=mesh.device)
             b = build_train_steps(arch, solo, False, **kw)
-            state, c_k, secs, _pr, _w = _mm_rounds(b.fns, fresh(full), batch, keys, solo)
+            state, c_k, secs, _pr, _w, _o = _mm_rounds(b.fns, fresh(full), batch, keys, solo)
             whole = tree_leaves(state[0]) + tree_leaves(state[1])
             scales = torch.tensor([float(c.abs().max()) or 1.0 for c in whole],
                                   dtype=torch.float64, device=mesh.device)
@@ -4813,10 +4838,12 @@ def run_mesh_model(report: dict) -> dict:
     n = spec["n"]
     rounds = []
     for i, c in enumerate(one["c_k"]):
-        by_kind: dict = {}
+        by_kind, by_op = {}, {}
         for o in outs:
             for k, v in o["train"]["auto"]["wire"][i].items():
                 by_kind[k] = by_kind.get(k, 0) + v
+            for k, v in o["train"]["auto"]["ops"][i].items():
+                by_op[k] = by_op.get(k, 0) + v
         wire_bits = sum(v for k, v in by_kind.items()
                         if not k.startswith("model/")) * 8.0 / n
         scope = "sync_step" if c else "compressed_step"
@@ -4828,11 +4855,12 @@ def run_mesh_model(report: dict) -> dict:
             for k, v in o["train"]["auto"]["launches"][i].items():
                 launches[k] = launches.get(k, 0) + v
         secs = [o["train"]["auto"]["seconds"][i] for o in outs]
-        rounds.append({"c_k": c, "bytes": by_kind, "wire_up_bits": wire_bits,
-                       "booked_up_bits": booked, "launches": launches, "seconds": max(secs)})
+        rounds.append({"c_k": c, "bytes": by_kind, "collectives": by_op,
+                       "wire_up_bits": wire_bits, "booked_up_bits": booked,
+                       "launches": launches, "seconds": max(secs)})
         print(f"mesh_model round {i} (c_k {c}): {max(secs):.3f} s on host-staged gloo (not "
               f"NVLink), wire {wire_bits:.0f} bits a worker = booked, bytes by kind "
-              f"{by_kind}, launches {launches}", flush=True)
+              f"{by_kind}, collectives by op {by_op}, launches {launches}", flush=True)
     out["rounds"] = rounds
     out["one_rank"] = {k: one[k] for k in ("c_k", "seconds", "params_err", "g_err",
                                            "params_errs", "g_errs")}
@@ -5144,6 +5172,23 @@ def _roofline_line(entry: dict) -> str:
         f"inputs {entry['arg_bytes_per_device'] / 1e9:.3f} GB")
 
 
+def _collectives_line(entry: dict, before: tuple) -> str:
+    """A step's collectives by op (count × priced GB) and peak memory, each
+    beside the all-gather sums' figures (``DRYRUN_ALL_GATHER_SUMS``)."""
+    peak0, ops0 = before
+    counts, wire = entry["collective_counts"], entry["collective_by_kind_bytes"]
+    ops = ", ".join(
+        f"{op} {counts.get(op, 0)} × {wire.get(op, 0) / 1e9:.4f} GB (before "
+        f"{ops0[op][0]} × {ops0[op][1] / 1e9:.4f})" if op in ops0 else
+        f"{op} {counts[op]} × {wire[op] / 1e9:.4f} GB (before none)"
+        for op in sorted(set(counts) | set(ops0)))
+    peak = entry.get("peak_memory_per_device")
+    total0 = sum(b for _c, b in ops0.values())
+    return (f"collectives {entry['collective_bytes_per_device'] / 1e9:.4f} GB a device "
+            f"(before {total0 / 1e9:.4f}), collective {entry['collective_s']:.4f} s; {ops}; "
+            f"peak {peak / 1e9:.3f} GB (before {peak0 / 1e9:.3f})")
+
+
 def run_dryrun(report: dict) -> dict:
     """Phase 16 (module doc): the dry run's card entries on the stand-in
     mesh. Must take at most DRYRUN_BUDGET_S."""
@@ -5183,11 +5228,19 @@ def run_dryrun(report: dict) -> dict:
                      "compiler's estimate for the TPU program, not compared)"
                      if arch == "qwen1.5-0.5b" else "")
             print(f"dryrun {key} {sname}: {_roofline_line(s)}{extra}", flush=True)
+            print(f"dryrun {key} {sname}: "
+                  f"{_collectives_line(s, DRYRUN_ALL_GATHER_SUMS[key][sname])}", flush=True)
+            # every sum of the step over a group of 16 ran as a rank-ordered
+            # reduce-scatter (an all-to-all) then an all-gather
+            sums = s["collective_counts"].get("model/all-to-all", 0)
+            require(sums > 0, f"dryrun {key} {sname}: no model-axis sum went through the "
+                              f"reduce-scatter ({s['collective_counts']})")
         out[key] = {"seconds": time.perf_counter() - t0, "launches": launches[key],
                     "steps": {n: {k: s.get(k) for k in (
                         "peak_memory_per_device", "compute_s", "memory_s", "collective_s",
                         "dominant", "flops_per_device", "bytes_per_device",
-                        "collective_bytes_per_device", "arg_bytes_per_device", "run_s")}
+                        "collective_bytes_per_device", "arg_bytes_per_device", "run_s",
+                        "collective_counts", "collective_by_kind_bytes")}
                         for n, s in res["steps"].items()}}
         if arch.startswith("llama4"):
             b = res.get("local_params")

@@ -457,6 +457,56 @@ class Mesh:
         self._count(kind, raw.numel(), op)
         return self._back(torch.cat(outs)).view(src.dtype).reshape((parts, *src.shape))
 
+    def _exchange_parts(self, parts: torch.Tensor, group, kind: str, op: str) -> torch.Tensor:
+        """(g, n) rows of an inner group of g ranks, row k sent to the
+        group's rank k → the (g, n) rows every rank of the group sent this
+        one, in rank order (one all-to-all as bytes, counted under ``kind``
+        and ``op``)."""
+        raw = self._out(parts.contiguous().view(torch.uint8))
+        got = torch.empty_like(raw)
+        self._all_to_all(got, raw, group)
+        self._count(kind, raw.numel(), op)
+        return self._back(got).view(parts.dtype)
+
+    def _reduce_parts(self, parts: torch.Tensor, group, kind: str,
+                      prefix: str) -> torch.Tensor:
+        """This rank's row k of Σ over an inner group of the (g, n) ``parts``
+        each rank holds: the rows exchanged all-to-all, then added in rank
+        order (``acc = got[0]``, then ``acc + got[j]`` for j = 1 … g − 1), so
+        every element is the same sequence of adds on every run."""
+        got = self._exchange_parts(parts, group, kind, prefix + "all-to-all")
+        acc = got[0]
+        for j in range(1, got.shape[0]):
+            acc = acc + got[j]
+        return acc
+
+    def _group_sum(self, t: torch.Tensor, parts: int, group, kind: str,
+                   prefix: str) -> torch.Tensor:
+        """Σ over an inner group of ``parts`` ranks of ``t``, added in rank
+        order: ``t`` flattened and padded with zeros to ``parts`` rows of L,
+        reduced to this rank's row (:meth:`_reduce_parts`), the rows'
+        sums all-gathered, the padding dropped. Each element is added in the
+        same order as an all-gather of the partials followed by a
+        rank-ordered add, so the bits are the same; a rank moves 2(g − 1)/g
+        of ``t`` (the all-to-all's (g − 1)/g out, the all-gather's (g − 1)/g
+        back) and holds about 2 × ``t``, where the all-gather moves g − 1
+        times it and holds 2g × ``t`` (the g gathered buffers and their
+        concatenation). At g = 2 both move ``t`` once, and
+        the all-gather alone is one collective where this takes two, so a
+        group of two keeps it: the lesser traffic, not a setting."""
+        if parts == 2:
+            both = self._gather_parts(t, 2, group, kind, prefix + "all-gather")
+            return both[0] + both[1]
+        flat = t.contiguous().reshape(-1)
+        n = flat.numel()
+        L = -(-n // parts)
+        if parts * L != n:
+            flat = torch.cat([flat, flat.new_zeros(parts * L - n)])
+        mine = self._reduce_parts(flat.view(parts, L), group, kind, prefix)
+        del flat  # a padded copy is not held through the all-gather
+        full = self._gather_parts(mine, parts, group, kind, prefix + "all-gather")
+        return full.reshape(-1)[:n].view(t.shape)
+
     def _model_count(self, kind: str, nbytes: int, op: str) -> None:
         self._count(kind, nbytes, "model/" + op)
 
@@ -468,16 +518,12 @@ class Mesh:
         return _concat_parts(full, dim)
 
     def model_sum(self, t: torch.Tensor, kind: str = "model/sum") -> torch.Tensor:
-        """Σ over the model group of ``t``: the partials all-gathered and
-        added in model-rank order, so every rank holds the same bits (a ring
-        all-reduce promises no order)."""
+        """Σ over the model group of ``t``, added in model-rank order, so
+        every rank holds the same bits (a ring all-reduce promises no
+        order): :meth:`_group_sum`."""
         if self.model == 1:
             return t
-        parts = self._gather_parts(t, self.model, self.model_group, kind, "model/all-gather")
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = acc + part
-        return acc
+        return self._group_sum(t, self.model, self.model_group, kind, "model/")
 
     def model_bcast(self, t: "torch.Tensor | None", shape, dtype,
                     kind: str = "model/broadcast") -> torch.Tensor:
@@ -521,14 +567,10 @@ class Mesh:
 
     def fsdp_sum(self, t: torch.Tensor, kind: str = "fsdp/sum") -> torch.Tensor:
         """Σ over the data group of ``t``, added in data-rank order (every
-        rank the same bits)."""
+        rank the same bits): :meth:`_group_sum`."""
         if self.fsdp == 1:
             return t
-        parts = self._gather_parts(t, self.fsdp, self.fsdp_group, kind, "fsdp/all-gather")
-        acc = parts[0]
-        for part in parts[1:]:
-            acc = acc + part
-        return acc
+        return self._group_sum(t, self.fsdp, self.fsdp_group, kind, "fsdp/")
 
     def fsdp_reduce_scatter(self, t: torch.Tensor, dim: int,
                             kind: str = "fsdp/reduce_scatter") -> torch.Tensor:
@@ -539,22 +581,19 @@ class Mesh:
         all-gather of the partials would move D − 1 times it."""
         if self.fsdp == 1:
             return t
-        D = self.fsdp
-        parts = torch.stack(t.chunk(D, dim=dim))
-        got = self.fsdp_all_to_all(parts.reshape(D, -1), kind=kind).reshape(parts.shape)
-        acc = got[0]
-        for k in range(1, D):
-            acc = acc + got[k]
-        return acc
+        parts = torch.stack(t.chunk(self.fsdp, dim=dim))
+        return self.fsdp_reduce_rows(parts.reshape(self.fsdp, -1),
+                                     kind=kind).reshape(parts.shape[1:])
+
+    def fsdp_reduce_rows(self, parts: torch.Tensor, kind: str) -> torch.Tensor:
+        """(D, n) rows, row k bound for data rank k → this rank's row of
+        their sum over the data group, added in data-rank order."""
+        return self._reduce_parts(parts, self.fsdp_group, kind, "fsdp/")
 
     def fsdp_all_to_all(self, parts: torch.Tensor, kind: str) -> torch.Tensor:
         """(D, n) rows, row k sent to data rank k → the (D, n) rows every
         data rank sent this one, in data-rank order."""
-        raw = self._out(parts.contiguous().view(torch.uint8))
-        got = torch.empty_like(raw)
-        self._all_to_all(got, raw, self.fsdp_group)
-        self._count(kind, raw.numel(), "fsdp/all-to-all")
-        return self._back(got).view(parts.dtype)
+        return self._exchange_parts(parts, self.fsdp_group, kind, "fsdp/all-to-all")
 
     def fsdp_bcast(self, t: "torch.Tensor | None", shape, dtype,
                    kind: str = "fsdp/broadcast") -> torch.Tensor:

@@ -370,10 +370,7 @@ class _FsdpGatherMany(torch.autograd.Function):
             whole[d] *= D
             g = g if g is not None else torch.zeros(whole, dtype=ctx.dtype, device=tp.device)
             send.append(torch.stack(g.chunk(D, dim=d)).reshape(D, -1))
-        got = tp.fsdp_all_to_all(torch.cat(send, dim=1), kind="fsdp/reduce_scatter")
-        acc = got[0]
-        for k in range(1, D):
-            acc = acc + got[k]
+        acc = tp.fsdp_reduce_rows(torch.cat(send, dim=1), kind="fsdp/reduce_scatter")
         grads, off = [], 0
         for shape in ctx.shapes:
             n = int(np.prod(shape))

@@ -751,7 +751,8 @@ def test_mesh_model_phase_runs_on_two_cpu_ranks(monkeypatch, capsys):
     are within the LM rule of one rank's here (on the card within
     ``MESH_MODEL_RTOL``: a compressed round's L/kb amplifies the sums'
     order), the serve streams are one rank's
-    and each pool holds half the KV heads; the kernel checks ran at the
+    and each pool holds half the KV heads; the model-axis sums of a group
+    of two are one all-gather each (no all-to-all); the kernel checks ran at the
     rank's columns and heads; the phase's budget line printed (120 s)."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "MESH_MODEL_LAYERS", 2)
@@ -771,6 +772,9 @@ def test_mesh_model_phase_runs_on_two_cpu_ranks(monkeypatch, capsys):
     assert [r["c_k"] for r in mm["rounds"]] == mm["one_rank"]["c_k"] == [1, 0]
     assert all(r["wire_up_bits"] == r["booked_up_bits"] > 0 for r in mm["rounds"])
     assert all(any(k.startswith("model/") for k in r["bytes"]) for r in mm["rounds"])
+    # a model group of two sums by one all-gather, no reduce-scatter
+    assert all(r["collectives"].get("model/all-gather", 0) > 0
+               and "model/all-to-all" not in r["collectives"] for r in mm["rounds"])
     assert mm["one_rank"]["params_err"] <= 1e-4 and mm["one_rank"]["g_err"] <= 1e-4
     assert mm["serve"]["diverged"] == [] and mm["serve"]["decode_steps"] > 0
     for k in mm["kernels"]:
