@@ -328,8 +328,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    layout, 421,211,568 parameters a device; its sync step: the compressed
    one, ~70 s on the card, is the CLI's record) and perf.py's
    qwen1.5-0.5b × decode_32k × single × paged_decode; each step's peak
-   memory a device and roofline terms, and its collectives by op (count
-   and priced bytes) beside those of the all-gather sums
+   memory a device and roofline terms, its counted memory
+   (``roofline.memory.MemoryCounter``: peak, temp, argument, output, the
+   operator at the peak) beside the allocator's peak less what it held at
+   entry beyond the step's arguments, the gap (allocator − counted)
+   required within [−1, 128] MiB, and its collectives by op (count and
+   priced bytes) beside those of the all-gather sums
    (``DRYRUN_ALL_GATHER_SUMS``); every train step's model-axis sums (m =
    16) through the rank-ordered reduce-scatter + all-gather; rows 10 and 2
    launched by qwen's compressed step, row 24 by the paged decode.
@@ -738,6 +742,10 @@ DRYRUN_BUDGET_S = 120.0
 #: the TPU program, printed beside the port's measured peak, not compared
 DRYRUN_REF_FILE = os.path.join(ROOT, "experiments", "dryrun",
                                "qwen1.5-0.5b__train_4k__single.json")
+#: what the phase's report keeps of a step's counted memory
+#: (``roofline.memory.MemoryCounter``) and its comparison with the allocator
+DRYRUN_MEMORY_KEYS = ("memory_analysis", "peak_memory_op", "allocated_at_entry",
+                      "memory_vs_allocator")
 #: the dry-run phase's steps as the card recorded them while the model- and
 #: data-axis sums all-gathered the partials (``experiments/dryrun_torch/card/``
 #: then): peak bytes a device and ``{op: (collectives, priced bytes)}``,
@@ -5164,6 +5172,33 @@ def run_mesh_fsdp(report: dict) -> dict:
             "mesh_fsdp_serve": {k: sl.get(k, 0) for k in names}}
 
 
+def _memory_line(entry: dict) -> str:
+    """A card step's counted memory (``roofline.memory.MemoryCounter``:
+    peak, temp, argument, output, the operator at the peak) beside the
+    allocator's peak less what it held at entry beyond the arguments."""
+    ma, cmp = entry["memory_analysis"], entry["memory_vs_allocator"]
+    return (f"memory counted peak {cmp['counted'] / 1e9:.3f} GB at {entry['peak_memory_op']} "
+            f"(temp {ma['temp_size_in_bytes'] / 1e9:.3f}, argument "
+            f"{ma['argument_size_in_bytes'] / 1e9:.3f}, output "
+            f"{ma['output_size_in_bytes'] / 1e9:.3f}, alias {ma['alias_size_in_bytes'] / 1e9:.3f}"
+            f" GB); allocator peak {cmp['allocator'] / 1e9:.3f} GB beyond what it held at entry "
+            f"({entry['peak_memory_per_device'] / 1e9:.3f} raw, "
+            f"{entry['allocated_at_entry'] / 1e9:.3f} at entry): gap {cmp['gap'] / 1e9:+.3f} GB "
+            f"({cmp['gap'] / cmp['allocator'] * 100:+.2f} %), allowed "
+            f"{cmp['tolerance'][0] / 2**20:+.0f} to {cmp['tolerance'][1] / 2**20:+.0f} MiB")
+
+
+def _check_memory(what: str, entry: dict) -> None:
+    """Print a card step's counted memory beside the allocator's and
+    require the gap within tolerance."""
+    cmp = entry.get("memory_vs_allocator")
+    require(cmp is not None, f"{what}: no counted memory ({entry.get('memory_analysis')})")
+    print(f"{what}: {_memory_line(entry)}", flush=True)
+    require(cmp["within"], f"{what}: counted peak {cmp['counted']:.0f} B against the "
+                           f"allocator's {cmp['allocator']:.0f} B: gap {cmp['gap']:+.0f} B outside "
+                           f"{cmp['tolerance']}")
+
+
 def _roofline_line(entry: dict) -> str:
     peak = entry.get("peak_memory_per_device")
     return (f"peak {peak / 1e9:.3f} GB a device, " if peak is not None else "") + (
@@ -5228,6 +5263,7 @@ def run_dryrun(report: dict) -> dict:
                      "compiler's estimate for the TPU program, not compared)"
                      if arch == "qwen1.5-0.5b" else "")
             print(f"dryrun {key} {sname}: {_roofline_line(s)}{extra}", flush=True)
+            _check_memory(f"dryrun {key} {sname}", s)
             print(f"dryrun {key} {sname}: "
                   f"{_collectives_line(s, DRYRUN_ALL_GATHER_SUMS[key][sname])}", flush=True)
             # every sum of the step over a group of 16 ran as a rank-ordered
@@ -5240,7 +5276,7 @@ def run_dryrun(report: dict) -> dict:
                         "peak_memory_per_device", "compute_s", "memory_s", "collective_s",
                         "dominant", "flops_per_device", "bytes_per_device",
                         "collective_bytes_per_device", "arg_bytes_per_device", "run_s",
-                        "collective_counts", "collective_by_kind_bytes")}
+                        "collective_counts", "collective_by_kind_bytes", *DRYRUN_MEMORY_KEYS)}
                         for n, s in res["steps"].items()}}
         if arch.startswith("llama4"):
             b = res.get("local_params")
@@ -5257,13 +5293,14 @@ def run_dryrun(report: dict) -> dict:
     for sname, s in res["steps"].items():
         require(s.get("ok"), f"perf {key} {sname}: {s.get('error')}")
         print(f"perf {key} {sname}: {_roofline_line(s)}", flush=True)
+        _check_memory(f"perf {key} {sname}", s)
     require(launches[key].get("paged_attn_decode", 0) > 0, f"perf {key} launches "
                                                            f"{launches[key]}")
     out[key] = {"seconds": time.perf_counter() - t0, "launches": launches[key],
                 "decode_bound": res["steps"]["paged_decode_step"].get("decode_bound"),
                 "steps": {n: {k: s.get(k) for k in (
                     "peak_memory_per_device", "compute_s", "memory_s", "collective_s",
-                    "dominant", "arg_bytes_per_device", "run_s")}
+                    "dominant", "arg_bytes_per_device", "run_s", *DRYRUN_MEMORY_KEYS)}
                     for n, s in res["steps"].items()}}
     gc.collect()
     torch.cuda.empty_cache()

@@ -13,12 +13,20 @@ every step both have:
   (the reduce-scatter half) and one ``model/all-gather``, and nothing else
   on that axis is an all-to-all, so the all-to-alls count the sums; their
   mean priced GB a sum; beside them the reference's all-reduces, their
-  count and mean priced GB.
+  count and mean priced GB;
+* each side's ``memory_analysis`` (argument, output, temp, alias) and the
+  peak they give (temp + argument + output − alias), the port's with the
+  operator at its peak and, in a card record, the allocator's peak beside
+  it. The port counts its eager program's live bytes; the reference's are
+  XLA's buffer assignment.
 
 With ``--sums`` it first runs the combination's steps on meta
 (``repro_torch.launch.dryrun.run_one``; minutes) and prints the inner
 groups' sums they issue (``Mesh._group_sum``), by axis and kind: their
-count, total and largest bytes of the summed tensor.
+count, total and largest bytes of the summed tensor. With ``--peak`` it
+runs them on meta and prints, for each step, what is live at the counted
+peak by the operator that allocated it (the step's ``peak_memory_by_op``).
+Neither writes a record.
 
 The two counts do not count the same thing: the reference's record prices
 each collective line of its compiled HLO once
@@ -30,6 +38,7 @@ counts; it reads JSON only.
 Usage: python scripts/dryrun_vs_reference.py --arch qwen1.5-0.5b
            --shape train_4k --mesh single [--card]
        PYTHONPATH=src python scripts/dryrun_vs_reference.py ... --sums [--steps sync_step]
+       PYTHONPATH=src python scripts/dryrun_vs_reference.py ... --peak [--steps sync_step]
 """
 
 from __future__ import annotations
@@ -73,6 +82,36 @@ def compare(port: dict, ref: dict) -> list:
             gb = r["collective_by_kind_bytes"]["all-reduce"] / 1e9
             lines.append(f"  reference all-reduces {n}: {gb:.4f} GB priced, {gb / n:.4f} GB "
                          "an all-reduce")
+        lines.extend(memory_lines(p, r))
+    return lines
+
+
+def _peak(ma: dict) -> float:
+    return (ma["temp_size_in_bytes"] + ma["argument_size_in_bytes"]
+            + ma["output_size_in_bytes"] - ma["alias_size_in_bytes"])
+
+
+def _memory(ma: dict) -> str:
+    return (f"peak {_peak(ma) / 1e9:.3f} GB = temp {ma['temp_size_in_bytes'] / 1e9:.3f} + argument "
+            f"{ma['argument_size_in_bytes']:.0f} B + output {ma['output_size_in_bytes']:.0f} B"
+            f" − alias {ma['alias_size_in_bytes']:.0f} B")
+
+
+def memory_lines(p: dict, r: dict) -> list:
+    """The two sides' ``memory_analysis`` (module doc), where each has one."""
+    lines = []
+    if p.get("memory_analysis"):
+        card = p.get("memory_vs_allocator")
+        lines.append(f"  port memory: {_memory(p['memory_analysis'])}, at "
+                     f"{p.get('peak_memory_op')}" + (
+                         "" if card is None else
+                         f"; the allocator's peak {card['allocator'] / 1e9:.3f} GB "
+                         f"(gap {card['gap'] / 1e9:+.3f} GB)"))
+    if r.get("memory_analysis"):
+        lines.append(f"  reference memory: {_memory(r['memory_analysis'])}")
+        if p.get("memory_analysis"):
+            ratio = _peak(p["memory_analysis"]) / _peak(r["memory_analysis"])
+            lines.append(f"  counted peak port / reference: {ratio:.2f}×")
     return lines
 
 
@@ -97,6 +136,26 @@ def summed_tensors(arch: str, shape: str, mesh: str, steps=None) -> list:
             f"largest {max(b)} B" for (_p, kind, g), b in sorted(seen.items())]
 
 
+def peak_breakdown(arch: str, shape: str, mesh: str, steps=None, top: int = 8) -> list:
+    """Lines of what is live at each step's counted peak, by allocating
+    operator, from one meta run of the combination (module doc)."""
+    from repro_torch.launch import dryrun
+
+    res = dryrun.run_one(arch, shape, mesh, steps=steps)
+    lines = []
+    for name, s in res["steps"].items():
+        if not s.get("ok"):
+            lines.append(f"  {name}: {s.get('error')}")
+            continue
+        ops = sorted(s["peak_memory_by_op"].items(), key=lambda kv: -kv[1])[:top]
+        lines.append(f"  {name}: peak {s['peak_memory_per_device'] / 1e9:.3f} GB at "
+                     f"{s['peak_memory_op']}; arguments "
+                     f"{s['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f} GB; live by "
+                     "allocating operator: "
+                     + ", ".join(f"{op} {b / 1e9:.3f}" for op, b in ops) + " GB")
+    return lines
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")
@@ -106,7 +165,9 @@ def main() -> None:
                     help="read the port's card record (experiments/dryrun_torch/card/)")
     ap.add_argument("--sums", action="store_true",
                     help="run the steps on meta and count the inner groups' sums")
-    ap.add_argument("--steps", default=None, help="comma-separated step names (--sums)")
+    ap.add_argument("--peak", action="store_true",
+                    help="run the steps on meta and break each counted peak down by operator")
+    ap.add_argument("--steps", default=None, help="comma-separated step names (--sums, --peak)")
     args = ap.parse_args()
     combo = f"{args.arch}__{args.shape}__{args.mesh}.json"
     sub = os.path.join("dryrun_torch", "card") if args.card else "dryrun_torch"
@@ -123,6 +184,10 @@ def main() -> None:
         steps = tuple(args.steps.split(",")) if args.steps else None
         print(f"the inner groups' sums of one meta run ({', '.join(steps or ('every step',))}):")
         print("\n".join(summed_tensors(args.arch, args.shape, args.mesh, steps)))
+    if args.peak:
+        steps = tuple(args.steps.split(",")) if args.steps else None
+        print(f"the counted peaks of one meta run ({', '.join(steps or ('every step',))}):")
+        print("\n".join(peak_breakdown(args.arch, args.shape, args.mesh, steps)))
 
 
 if __name__ == "__main__":

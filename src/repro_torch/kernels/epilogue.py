@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.roofline.memory import kernel_call
+
 from . import _build
 from . import ref as _ref
 from .quantize import (
@@ -49,6 +51,7 @@ def _neg_gamma(gamma: float) -> float:
     return float(np.float32(-gamma))
 
 
+@kernel_call
 def scatter_epilogue(values: torch.Tensor, offsets: torch.Tensor,
                      g2d: torch.Tensor, x2d: torch.Tensor, gamma: float):
     """Payloads (n, nblk, kb) ×2 + g (nblk, B) f32 + x (nblk, B) →
@@ -77,6 +80,7 @@ def scatter_epilogue(values: torch.Tensor, offsets: torch.Tensor,
 scatter_epilogue.launches = 0
 
 
+@kernel_call
 def delta_epilogue(delta2d: torch.Tensor, g2d: torch.Tensor, x2d: torch.Tensor,
                    gamma: float):
     """Dense round delta (nblk, B) f32 + g (nblk, B) f32 + x (nblk, B) →
@@ -103,6 +107,7 @@ def delta_epilogue(delta2d: torch.Tensor, g2d: torch.Tensor, x2d: torch.Tensor,
 delta_epilogue.launches = 0
 
 
+@kernel_call
 def mean_epilogue(gbufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
     """Packed worker gradients (n, nblk, B) f32 + x (nblk, B) →
     (g' = worker mean f32, x' x.dtype)."""
@@ -130,6 +135,7 @@ def mean_epilogue(gbufs: torch.Tensor, x2d: torch.Tensor, gamma: float):
 mean_epilogue.launches = 0
 
 
+@kernel_call
 def qsgd_epilogue(levels: torch.Tensor, norms: torch.Tensor, g2d: torch.Tensor,
                   x2d: torch.Tensor, gamma: float, s: int):
     """QSGD payloads (n, nblk, B) int8 + (n, nblk) f32 + g (nblk, B) f32 + x
@@ -157,6 +163,7 @@ def qsgd_epilogue(levels: torch.Tensor, norms: torch.Tensor, g2d: torch.Tensor,
 qsgd_epilogue.launches = 0
 
 
+@kernel_call
 def natural_epilogue(codes: torch.Tensor, scales: torch.Tensor, g2d: torch.Tensor,
                      x2d: torch.Tensor, gamma: float):
     """Natural payloads (n, nblk, B) int8 + (n, nblk) f32 + g (nblk, B) f32 +
@@ -204,6 +211,7 @@ def _check_trimmed(bufs: torch.Tensor, x2d: torch.Tensor, lo: int, hi: int) -> s
     return f"{_X_SUFFIX[bufs.dtype]}_{_X_SUFFIX[x2d.dtype]}"
 
 
+@kernel_call
 def trimmed_delta_epilogue(bufs: torch.Tensor, g2d: torch.Tensor, x2d: torch.Tensor,
                            gamma: float, lo: int, hi: int):
     """Per-worker dense rows (n, nblk, B) f32 or bf16 + g (nblk, B) f32 + x →
@@ -228,6 +236,7 @@ def trimmed_delta_epilogue(bufs: torch.Tensor, g2d: torch.Tensor, x2d: torch.Ten
 trimmed_delta_epilogue.launches = 0
 
 
+@kernel_call
 def trimmed_sync_epilogue(bufs: torch.Tensor, x2d: torch.Tensor, gamma: float,
                           lo: int, hi: int):
     """Packed worker gradients (n, nblk, B) f32 or bf16 + x (nblk, B) →

@@ -24,6 +24,8 @@ import functools
 
 import torch
 
+from repro_torch.roofline.memory import kernel_call
+
 from . import _build
 from . import quantize
 from . import ref as _ref
@@ -120,6 +122,7 @@ def check_paged_shapes(q, kpages, vpages, tables, n_valid) -> None:
     launch_plan(S, KV, hd, H // KV, P, tables.shape[1], q.element_size())
 
 
+@kernel_call
 def paged_attn_decode(q: torch.Tensor, kpages: torch.Tensor, vpages: torch.Tensor,
                       tables: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """Block-table-gather single-query attention: q (S, H, hd); pages (npage,

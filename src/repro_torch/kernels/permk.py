@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.roofline.memory import kernel_call
+
 from . import _build
 from . import ref as _ref
 from .randk import _check_block, _stream
@@ -17,6 +19,7 @@ from .randk import _check_block, _stream
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+@kernel_call
 def permk_seeded_workers(x3d: torch.Tensor, seed: int, *, workers=None, n=None,
                          offsets: bool = True):
     """PermK with one shared uint32 seed: (r, nblk, B) f32 or bf16 → values

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.roofline.memory import kernel_call
+
 from . import _build
 from . import ref as _ref
 from .randk import X_SUFFIX as _X_SUFFIX
@@ -70,6 +72,7 @@ def check_natural_block(B: int, nblk: int) -> None:
     check_qsgd_block(B, nblk, 1)
 
 
+@kernel_call
 def qsgd_block_workers(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
     """Per-worker blockwise QSGD: (n, nblk, B) f32 or bf16 + (n,) int32 seeds
     → levels (n, nblk, B) int8 and norms (n, nblk) f32."""
@@ -97,6 +100,7 @@ def qsgd_block_workers(x3d: torch.Tensor, seeds: torch.Tensor, s: int):
 qsgd_block_workers.launches = 0
 
 
+@kernel_call
 def qsgd_dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torch.Tensor:
     """Dequantize-and-mean of n QSGD payloads: (n, nblk, B) int8 + (n, nblk)
     f32 → (nblk, B) f32."""
@@ -118,6 +122,7 @@ def qsgd_dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int) -> torc
 qsgd_dequant_mean.launches = 0
 
 
+@kernel_call
 def nibble_pack(q2d: torch.Tensor) -> torch.Tensor:
     """(rows, B) int8 levels in [−8, 7] → (rows, B/8) words (uint32 bit
     patterns in int32), level t of each 8 at bits [4t, 4t+4)."""
@@ -140,6 +145,7 @@ def nibble_pack(q2d: torch.Tensor) -> torch.Tensor:
 nibble_pack.launches = 0
 
 
+@kernel_call
 def nibble_unpack(words: torch.Tensor, block: int) -> torch.Tensor:
     """(rows, B/8) words → (rows, B) int8, each nibble sign-extended; the
     inverse of :func:`nibble_pack` on levels in [−8, 7]."""
@@ -162,6 +168,7 @@ def nibble_unpack(words: torch.Tensor, block: int) -> torch.Tensor:
 nibble_unpack.launches = 0
 
 
+@kernel_call
 def natural_block_workers(x3d: torch.Tensor, seeds: torch.Tensor):
     """Per-worker blockwise natural compression: (n, nblk, B) f32 or bf16 +
     (n,) int32 seeds → codes (n, nblk, B) int8 and scales (n, nblk) f32."""
@@ -189,6 +196,7 @@ def natural_block_workers(x3d: torch.Tensor, seeds: torch.Tensor):
 natural_block_workers.launches = 0
 
 
+@kernel_call
 def natural_dequant_mean(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Decode-and-mean of n natural payloads: (n, nblk, B) int8 + (n, nblk)
     f32 → (nblk, B) f32."""
@@ -214,6 +222,7 @@ natural_dequant_mean.launches = 0
 ABSMAX_WIDTHS = (32, 64, 128, 256)
 
 
+@kernel_call
 def absmax_quant_rows(x2d: torch.Tensor):
     """Per-row symmetric absmax int8: (R, W) f32 or bf16 → codes int8 (R, W)
     and scales f32 (R,), bit-equal to the plain version (the int8 KV-page
@@ -245,6 +254,7 @@ absmax_quant_rows.launches = 0
 _POOL_DTYPES = (torch.int8, torch.int8, torch.float32, torch.float32)
 
 
+@kernel_call
 def absmax_quant_write_pages(k_rows: torch.Tensor, v_rows: torch.Tensor, cache: dict,
                              page: torch.Tensor, row: torch.Tensor) -> None:
     """The int8 KV-page write of one layer, in place and in one launch: k
@@ -302,6 +312,7 @@ def absmax_quant_write_pages(k_rows: torch.Tensor, v_rows: torch.Tensor, cache: 
     absmax_quant_rows.launches += 1
 
 
+@kernel_call
 def absmax_dequant_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(R, W) int8 codes + (R,) f32 scales → (R, W) f32 rows, code·scale
     (the int8 KV-page read). Called once per k and v, layer and decode step,
@@ -350,6 +361,7 @@ def _check_flat_qsgd(x2d: torch.Tensor, s: "int | None" = None) -> None:
         raise ValueError(f"s={s} does not fit the int8 levels (|level| ≤ s + 1)")
 
 
+@kernel_call
 def block_sumsq(x2d: torch.Tensor) -> torch.Tensor:
     """Σx² of every block: (nblk, B) f32 or bf16 → (nblk,) f32, in the order
     of the blockwise norm (pass 1 of the global-norm QSGD)."""
@@ -373,6 +385,7 @@ def block_sumsq(x2d: torch.Tensor) -> torch.Tensor:
 block_sumsq.launches = 0
 
 
+@kernel_call
 def qsgd_quantize(x2d: torch.Tensor, u2d: torch.Tensor, norm: torch.Tensor,
                   s: int) -> torch.Tensor:
     """Pass 2: (nblk, B) f32 or bf16 x, (nblk, B) f32 dither u and the global
@@ -401,6 +414,7 @@ def qsgd_quantize(x2d: torch.Tensor, u2d: torch.Tensor, norm: torch.Tensor,
 qsgd_quantize.launches = 0
 
 
+@kernel_call
 def qsgd_dequantize(q2d: torch.Tensor, norm: torch.Tensor, s: int) -> torch.Tensor:
     """(nblk, B) int8 levels and the global norm (0-d f32) → (nblk, B) f32
     ``level·(norm / s)``."""

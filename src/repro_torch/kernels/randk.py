@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.roofline.memory import kernel_call
+
 from . import _build
 from . import ref as _ref
 
@@ -72,6 +74,7 @@ def seeds_tensor(seeds, device) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+@kernel_call
 def randk_seeded_workers(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
                          scale: float):
     """Per-worker seeded RandK: (n, nblk, B) f32 + (n,) int32 seeds →
@@ -101,6 +104,7 @@ def randk_seeded_workers(x3d: torch.Tensor, seeds: torch.Tensor, kb: int,
 randk_seeded_workers.launches = 0
 
 
+@kernel_call
 def scatter_accum(values: torch.Tensor, offsets: torch.Tensor,
                   block: int) -> torch.Tensor:
     """(n, nblk, kb) f32 values + int32 offsets → (nblk, block) f32 mean over
@@ -143,6 +147,7 @@ def _check_gather(x2d: torch.Tensor, kb: int) -> None:
         raise ValueError("the RandK gathers take an f32 or bf16 buffer")
 
 
+@kernel_call
 def randk_gather(x2d: torch.Tensor, offsets: torch.Tensor, scale: float) -> torch.Tensor:
     """Gather host-supplied offsets and scale: (nblk, B) f32 or bf16 +
     (nblk, kb) int32 offsets in [0, B) → (nblk, kb) ``x[b, off]·scale`` in
@@ -170,6 +175,7 @@ def randk_gather(x2d: torch.Tensor, offsets: torch.Tensor, scale: float) -> torc
 randk_gather.launches = 0
 
 
+@kernel_call
 def randk_seeded(x2d: torch.Tensor, seed: int, kb: int, scale: float):
     """Seeded RandK over one (nblk, B) f32 or bf16 buffer under one uint32
     seed: offsets ``murmur3(seed, b·kb + t) & (B − 1)`` (int32) and values

@@ -19,25 +19,32 @@ step functions of ``build_train_steps``, ``build_serve_steps`` and
 ``launch/perf.py`` build one; no training or serving path reaches it.
 
 * ``--device meta`` (the default): FLOPs (``FlopCounterMode``), bytes
-  (``roofline.ByteCounter``) and collectives, nothing allocated; the
-  kernels' plain versions stand in for the ctypes kernels, and the one
-  value a step reads on the host (the ragged sizes of a column-split
-  leaf's RandK exchange) is counted on the CPU from the same key
-  (``transport._cols_counts``).
-* ``--device cuda``: the same on the card, plus ``peak_memory_per_device``
-  (``torch.cuda.max_memory_allocated``) where the share fits; an
-  out-of-memory is that step's recorded error, as the reference records a
-  failed compile.
+  (``roofline.ByteCounter``), the device's memory
+  (``roofline.memory.MemoryCounter``: XLA's ``memory_analysis`` keys, the
+  peak as ``peak_memory_per_device``, the operator at it as
+  ``peak_memory_op`` and the bytes live there by allocating operator as
+  ``peak_memory_by_op``) and collectives, nothing allocated; the kernels'
+  plain versions stand in for the ctypes kernels (counted at what the
+  kernels allocate, their outputs), and the one value a step reads on the
+  host (the ragged sizes of a column-split leaf's RandK exchange) is
+  counted on the CPU from the same key (``transport._cols_counts``).
+* ``--device cuda``: the same on the card where the share fits, with
+  ``peak_memory_per_device`` the allocator's
+  (``torch.cuda.max_memory_allocated``), ``allocated_at_entry`` and the
+  counted peak against it (``memory_vs_allocator``); an out-of-memory is
+  that step's recorded error, as the reference records a failed
+  compile.
 
 Each entry has the reference's keys (``arch``, ``shape``, ``mesh``,
 ``n_devices``, ``n_workers``, ``params``, ``active_params``, ``steps``,
-``wall_s``; each step the roofline report's ``to_dict()``, ``ok`` and
-``error`` / ``traceback``), ``local_params`` (the parameters device 0
-holds) and, in place of XLA's ``memory_analysis``,
+``wall_s``; each step the roofline report's ``to_dict()`` with
+``memory_analysis``, ``ok`` and ``error`` / ``traceback``),
+``local_params`` (the parameters device 0 holds),
 ``arg_bytes_per_device`` (the bytes of the device's inputs: its parameter,
-estimator and carry slices, its cache or pool, its batch rows), ``run_s``
-(the step's wall time, counting modes on) and ``device`` ("meta", or the
-card's name and power limit).
+estimator and carry slices, its cache or pool, its batch rows; the
+counter's ``argument_size_in_bytes``), ``run_s`` (the step's wall time,
+counting modes on) and ``device`` ("meta", or the card's name and power
+limit).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k --mesh single
@@ -68,6 +75,7 @@ from repro_torch.launch.topology import (
     worker_axis_names,
 )
 from repro_torch.roofline import analyze_step
+from repro_torch.roofline.memory import against_allocator, counted_peak
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
                        "dryrun_torch")
@@ -187,9 +195,10 @@ def _bytes(tree) -> int:
 
 
 def train_inputs(bundle, arch, spec: dict, device, grad_carry: bool = False) -> tuple:
-    """(args by step name, the device's input bytes by step name) of a
-    train bundle on the stand-in: this device's parameter and estimator
-    slices (and its carry rows), the GLOBAL batch the steps take."""
+    """(args, the device's input bytes, the share of each argument the
+    device holds; each by step name) of a train bundle on the stand-in:
+    this device's parameter and estimator slices (and its carry rows), the
+    GLOBAL batch the steps take, of which the device holds its rows."""
     mesh, cfg = bundle.mesh, arch.model
     n = bundle.n_workers
     per_worker = spec["global_batch"] // n
@@ -218,13 +227,15 @@ def train_inputs(bundle, arch, spec: dict, device, grad_carry: bool = False) -> 
     state = (params, g) if h is None else (params, g, h)
     args = {"sync_step": (*state, batch), "compressed_step": (*state, batch, key),
             "train_step": (*state, batch, key)}
-    return args, {k: in_bytes for k in args}
+    shares = {k: (1.0,) * len(state) + (share,) + (1.0,) * (len(a) - len(state) - 1)
+              for k, a in args.items()}
+    return args, {k: in_bytes for k in args}, shares
 
 
 def serve_inputs(bundle, arch, spec: dict, device) -> tuple:
-    """(args by step name, input bytes by step name) of a dense serve
-    bundle on the stand-in: the parameter slices, the GLOBAL tokens, the
-    device's cache rows (decode)."""
+    """(args, input bytes, argument shares; each by step name) of a dense
+    serve bundle on the stand-in: the parameter slices, the GLOBAL tokens
+    (the device holds its rows), the device's cache rows (decode)."""
     from repro_torch.models import init_cache
 
     mesh, cfg = bundle.mesh, arch.model
@@ -246,29 +257,35 @@ def serve_inputs(bundle, arch, spec: dict, device) -> tuple:
                                     device="meta"), device)
             args.append(pre)
             in_bytes += int(_bytes(pre) * share)
-        return {"prefill_step": tuple(args)}, {"prefill_step": in_bytes}
+        return ({"prefill_step": tuple(args)}, {"prefill_step": in_bytes},
+                {"prefill_step": (1.0,) + (share,) * (len(args) - 1)})
     dt = next(iter(tree_leaves(params))).dtype
     cache = init_cache(cfg, len(rows), S, dt, device=device, model=mesh.model)
     token = (torch.empty((B,), dtype=torch.int32, device="meta") if meta_dev
              else torch.zeros((B,), dtype=torch.int32, device=device))
     pos = S - 1
     in_bytes = _bytes(params) + _bytes(cache) + int(_bytes(token) * len(rows) / B)
-    return {"decode_step": (params, cache, token, pos)}, {"decode_step": in_bytes}
+    return ({"decode_step": (params, cache, token, pos)}, {"decode_step": in_bytes},
+            {"decode_step": (1.0, 1.0, len(rows) / B, 1.0)})
 
 
-def step_entry(fn, args, *, in_bytes: int, step_mf: float, topo, mesh, device) -> dict:
+def step_entry(fn, args, *, in_bytes: int, step_mf: float, topo, mesh, device,
+               shares=None) -> dict:
     """One step run on the stand-in under the roofline's counting modes: its
-    report, the device's input bytes, the wall time, or the error."""
+    report (``shares``: the share of each argument the device holds), the
+    device's input bytes, the wall time, or the error."""
     entry = {}
     dev = torch.device(device)
     try:
         t1 = time.time()
         rep = analyze_step(fn, *args, n_devices=topo.n_devices, model_flops_total=step_mf,
-                           topology=topo, mesh=mesh,
+                           topology=topo, mesh=mesh, arg_shares=shares,
                            device=dev if dev.type == "cuda" else None)
         entry["run_s"] = time.time() - t1
         entry.update(rep.to_dict())
         entry["arg_bytes_per_device"] = float(in_bytes)
+        if dev.type == "cuda":
+            entry["memory_vs_allocator"] = against_allocator(entry)
         entry["ok"] = True
     except Exception as e:  # noqa: BLE001 — a failed step is the entry's record
         entry["ok"] = False
@@ -314,8 +331,8 @@ def run_one(arch_name: str, shape_name: str, mesh_name: str, overrides=None,
                 **overrides,
             )
             tokens = spec["global_batch"] * spec["seq_len"]
-            args, in_bytes = train_inputs(bundle, arch, spec, device,
-                                          overrides.get("grad_carry", False))
+            args, in_bytes, shares = train_inputs(bundle, arch, spec, device,
+                                                  overrides.get("grad_carry", False))
         else:
             bundle = build_serve_steps(
                 arch, mesh, batch=spec["global_batch"], seq_len=spec["seq_len"],
@@ -323,7 +340,7 @@ def run_one(arch_name: str, shape_name: str, mesh_name: str, overrides=None,
             )
             tokens = (spec["global_batch"] * spec["seq_len"] if spec["kind"] == "prefill"
                       else spec["global_batch"])
-            args, in_bytes = serve_inputs(bundle, arch, spec, device)
+            args, in_bytes, shares = serve_inputs(bundle, arch, spec, device)
     except Exception as e:  # noqa: BLE001 — the reference records a failed build per step
         err = {"ok": False, "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-4000:], "device": device_label(device)}
@@ -354,11 +371,26 @@ def run_one(arch_name: str, shape_name: str, mesh_name: str, overrides=None,
         if steps is not None and name not in steps:
             continue
         entry = step_entry(fn, args[name], in_bytes=in_bytes[name],
-                           step_mf=step_flops(mf, name), topo=topo, mesh=mesh, device=device)
+                           step_mf=step_flops(mf, name), topo=topo, mesh=mesh, device=device,
+                           shares=shares[name])
         entry["device"] = label
         result["steps"][name] = entry
     result["wall_s"] = time.time() - t0
     return result
+
+
+def peak_text(s: dict) -> str:
+    """A step entry's counted peak memory and the operator at it, and on
+    the card the allocator's beside it."""
+    out = ""
+    if s.get("memory_analysis") is not None:
+        out = (f" peak={counted_peak(s['memory_analysis']) / 1e9:.3f}GB"
+               f" at {s.get('peak_memory_op')}")
+    cmp = s.get("memory_vs_allocator")
+    if cmp is not None:
+        out += (f" allocator={cmp['allocator'] / 1e9:.3f}GB"
+                f" (gap {cmp['gap'] / 1e9:+.3f}GB)")
+    return out
 
 
 def print_table():
@@ -370,19 +402,23 @@ def print_table():
             r = json.load(fh)
         for sname, s in r["steps"].items():
             if not s.get("ok"):
-                rows.append((r["arch"], r["shape"], r["mesh"], sname, "FAIL", "", "", "", ""))
+                rows.append((r["arch"], r["shape"], r["mesh"], sname, "FAIL", "", "", "", "",
+                             ""))
                 continue
+            peak = s.get("peak_memory_per_device")
             rows.append((
                 r["arch"], r["shape"], r["mesh"], sname, s.get("dominant", ""),
                 f"{s['compute_s']*1e3:9.2f}",
                 f"{s['memory_s']*1e3:9.2f}",
                 f"{s['collective_s']*1e3:9.2f}",
                 f"{(s.get('useful_ratio') or 0):5.2f}",
+                "" if peak is None else f"{peak / 1e9:8.2f}",
             ))
-    hdr = ("arch", "shape", "mesh", "step", "dom", "comp_ms", "mem_ms", "coll_ms", "useful")
-    print(("{:<24}{:<12}{:<7}{:<17}{:<11}{:>10}{:>10}{:>10}{:>7}").format(*hdr))
+    hdr = ("arch", "shape", "mesh", "step", "dom", "comp_ms", "mem_ms", "coll_ms", "useful",
+           "peak_GB")
+    print(("{:<24}{:<12}{:<7}{:<17}{:<11}{:>10}{:>10}{:>10}{:>7}{:>9}").format(*hdr))
     for row in rows:
-        print("{:<24}{:<12}{:<7}{:<17}{:<11}{:>10}{:>10}{:>10}{:>7}".format(*row))
+        print("{:<24}{:<12}{:<7}{:<17}{:<11}{:>10}{:>10}{:>10}{:>7}{:>9}".format(*row))
 
 
 def main():
@@ -394,7 +430,7 @@ def main():
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--table", action="store_true")
     ap.add_argument("--device", default="meta",
-                    help="meta (counts only, the default) or cuda (peak memory too)")
+                    help="meta (the default) or cuda (the allocator's peak memory too)")
     ap.add_argument("--out", default=None, help=f"where the JSONs go (default {OUT_DIR})")
     args = ap.parse_args()
 
@@ -423,9 +459,8 @@ def main():
             extra = ""
             if s.get("ok"):
                 extra = (f" dom={s['dominant']} comp={s['compute_s']*1e3:.1f}ms"
-                         f" mem={s['memory_s']*1e3:.1f}ms coll={s['collective_s']*1e3:.1f}ms")
-                if s.get("peak_memory_per_device") is not None:
-                    extra += f" peak={s['peak_memory_per_device'] / 1e9:.3f}GB"
+                         f" mem={s['memory_s']*1e3:.1f}ms coll={s['collective_s']*1e3:.1f}ms"
+                         + peak_text(s))
             print(f"  {sname}: {status}{extra}", flush=True)
 
 

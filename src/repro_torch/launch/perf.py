@@ -1,9 +1,9 @@
 """The §Perf variant runner (port of ``repro.launch.perf``): one (arch ×
 shape × mesh) of the dry run with one named variant applied, recorded as
 ``launch/dryrun.py`` records a step — one device's share of the
-production program on the dry run's stand-in mesh (its roofline terms and,
-on the card, its peak memory), plus the transport's bits-by-link-tier
-ledger (``wire_by_tier``).
+production program on the dry run's stand-in mesh (its roofline terms and
+its counted memory; on the card the allocator's peak beside it), plus the
+transport's bits-by-link-tier ledger (``wire_by_tier``).
 
 Every name of the reference's ``VARIANTS`` is kept and mapped to the
 port's dials. Three set a GSPMD sharding constraint the port does not have
@@ -40,6 +40,7 @@ from repro_torch.launch.dryrun import (
     SHAPES,
     _like,
     device_label,
+    peak_text,
     serve_inputs,
     stand_in_mesh,
     step_entry,
@@ -164,8 +165,8 @@ def run_variant(arch_name, shape_name, mesh_name, variant, device="meta"):
         )
         tokens = spec["global_batch"] * spec["seq_len"]
         mf = param_math.model_flops(arch.model, tokens)
-        args, in_bytes = train_inputs(bundle, arch, spec, device,
-                                      overrides.get("grad_carry", False))
+        args, in_bytes, shares = train_inputs(bundle, arch, spec, device,
+                                              overrides.get("grad_carry", False))
     elif overrides.get("paged"):
         from repro_torch.launch.serve_steps import build_paged_serve_steps
 
@@ -186,6 +187,7 @@ def run_variant(arch_name, shape_name, mesh_name, variant, device="meta"):
         paged_pool = (npage, page_size, max_pages, n_slots)
         args = _paged_inputs(bundle, arch, paged_pool, device)
         in_bytes = {k: args["_bytes"] for k in bundle.fns}
+        shares = dict.fromkeys(bundle.fns)   # the device holds all of its inputs
     else:
         serve_over = {k: v for k, v in overrides.items() if k in ("dtype", "last_logits")}
         bundle = build_serve_steps(
@@ -195,7 +197,7 @@ def run_variant(arch_name, shape_name, mesh_name, variant, device="meta"):
         tokens = (spec["global_batch"] * spec["seq_len"] if spec["kind"] == "prefill"
                   else spec["global_batch"])
         mf = param_math.model_flops(arch.model, tokens) / 3.0
-        args, in_bytes = serve_inputs(bundle, arch, spec, device)
+        args, in_bytes, shares = serve_inputs(bundle, arch, spec, device)
 
     result = {
         "arch": arch_name, "shape": shape_name, "mesh": mesh_name,
@@ -221,7 +223,8 @@ def run_variant(arch_name, shape_name, mesh_name, variant, device="meta"):
     for name, fn in bundle.fns.items():
         t0 = time.time()
         entry = step_entry(fn, args[name], in_bytes=in_bytes[name],
-                           step_mf=step_flops(mf, name), topo=topo, mesh=mesh, device=device)
+                           step_mf=step_flops(mf, name), topo=topo, mesh=mesh, device=device,
+                           shares=shares[name])
         entry["device"] = label
         if entry.get("ok") and paged_pool is not None and name == "paged_decode_step":
             # analytic streaming floor for the step: the paged pool's live
@@ -290,7 +293,7 @@ def main():
     ap.add_argument("--variant", required=True, choices=list(VARIANTS))
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="meta",
-                    help="meta (counts only, the default) or cuda (peak memory too)")
+                    help="meta (the default) or cuda (the allocator's peak memory too)")
     ap.add_argument("--out", default=PERF_DIR, help=f"where the JSON goes (default {PERF_DIR})")
     args = ap.parse_args()
 
@@ -305,11 +308,9 @@ def main():
         json.dump(res, f, indent=1)
     for sname, s in res["steps"].items():
         if s.get("ok"):
-            extra = ""
-            if s.get("peak_memory_per_device") is not None:
-                extra = f" peak={s['peak_memory_per_device'] / 1e9:.3f}GB"
             print(f"{sname}: comp={s['compute_s']*1e3:.1f}ms mem={s['memory_s']*1e3:.1f}ms "
-                  f"coll={s['collective_s']*1e3:.1f}ms dom={s['dominant']}{extra}", flush=True)
+                  f"coll={s['collective_s']*1e3:.1f}ms dom={s['dominant']}{peak_text(s)}",
+                  flush=True)
         else:
             print(f"{sname}: FAIL {s['error'][:300]}")
 

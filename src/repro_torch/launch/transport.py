@@ -80,6 +80,7 @@ from repro_torch.core import wire
 from repro_torch.core.tree_util import mean_axis0, tree_flatten, tree_leaves
 from repro_torch.kernels import ref as kref
 from repro_torch.launch.topology import Mesh, Topology
+from repro_torch.roofline.memory import shapes_only
 
 PyTree = Any
 
@@ -88,6 +89,12 @@ def _bits(shape, dtype) -> float:
     """Wire bits of one staged array of ``shape`` and ``dtype``."""
     info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
     return float(int(np.prod(shape)) * info.bits)
+
+
+def _shape(shape) -> torch.Tensor:
+    """A meta tensor that carries ``shape`` only (what the ledger books)."""
+    with shapes_only():
+        return torch.empty(shape, device="meta")
 
 
 def _leaf_dims(shape: tuple) -> tuple:
@@ -477,7 +484,7 @@ class Transport:
 
     def _row_shapes(self, leaves: list) -> list:
         """The whole per-row shapes of a stack's leaves (meta tensors)."""
-        return [torch.empty(self._leaf(j, t)[0], device="meta") for j, t in enumerate(leaves)]
+        return [_shape(self._leaf(j, t)[0]) for j, t in enumerate(leaves)]
 
     def combine(self, aggregator, stacked: PyTree) -> PyTree:
         """``aggregator.combine_stacked`` on this rank's slices of the
@@ -873,14 +880,14 @@ class Transport:
         mode = self.downlink_mode
         leaves, treedef = tree_flatten(delta)
         if mode == "none":
-            self.book_downlink([torch.empty(self._leaf(j, t[None])[0], device="meta")
+            self.book_downlink([_shape(self._leaf(j, t[None])[0])
                                 for j, t in enumerate(leaves)])
             return delta
         keys = prng.split(key, len(leaves))
         outs = []
         for j, (lk, leaf) in enumerate(zip(keys, leaves)):
             shape, sp = self._leaf(j, leaf[None])
-            self.book_downlink([torch.empty(shape, device="meta")])
+            self.book_downlink([_shape(shape)])
             if sp.col is None and not sp.rows:
                 outs.append(self._downlink_leaf(lk, leaf))
             else:

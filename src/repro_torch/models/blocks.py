@@ -25,6 +25,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.roofline.memory import shapes_only
+
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -80,6 +82,7 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, dtype, device) -> PyTree:
 
 
 @functools.lru_cache(maxsize=None)
+@shapes_only()
 def layer_meta(cfg: ModelConfig, spec: LayerSpec) -> PyTree:
     """One layer's whole leaves as meta tensors (their shapes)."""
     return init_layer(None, cfg, spec, torch.float32, "meta")

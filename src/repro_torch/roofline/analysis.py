@@ -21,9 +21,12 @@ nor HLO, so that parser has no counterpart here. Its two uses map to:
 * :func:`analyze_step` — runs one call of a step: FLOPs from
   ``torch.utils.flop_counter.FlopCounterMode``, bytes from a dispatch mode
   that counts each operator's tensor inputs read once and its outputs
-  written once (views move nothing and count nothing), peak device memory
-  from ``torch.cuda.max_memory_allocated`` (None on the CPU), collectives
-  from the mesh.
+  written once (views move nothing and count nothing), the device memory
+  the call holds from :class:`~repro_torch.roofline.memory.MemoryCounter`
+  (XLA's ``memory_analysis`` keys; its peak is the report's peak on meta
+  and the CPU, while on the card the peak stays
+  ``torch.cuda.max_memory_allocated``'s and the count sits beside it),
+  collectives from the mesh.
 
 :class:`HW` holds the H100 SXM's published figures (NVIDIA's data sheet):
 989 TFLOP/s dense bf16, 3.35 TB/s HBM, and NVLink 4's 450 GB/s a direction
@@ -44,6 +47,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten as _torch_tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
+
+from .memory import MemoryCounter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +145,13 @@ class RooflineReport:
     model_flops_total: Optional[float] = None
     peak_memory_per_device: Optional[float] = None
     topology: Optional[Any] = None  # launch.topology.Topology (α–β model)
+    # the counted memory (``MemoryCounter.analysis``), the operator at its
+    # peak, the bytes live there by allocating operator and, on the card,
+    # the bytes the allocator held at entry
+    memory_analysis: Optional[dict] = None
+    peak_memory_op: Optional[str] = None
+    peak_memory_by_op: Optional[dict] = None
+    allocated_at_entry: Optional[float] = None
 
     @property
     def compute_s(self) -> float:
@@ -220,6 +232,9 @@ class RooflineReport:
             "useful_ratio": self.useful_ratio,
             "peak_memory_per_device": self.peak_memory_per_device,
             "n_devices": self.n_devices,
+            **{k: getattr(self, k) for k in ("memory_analysis", "peak_memory_op",
+                                             "peak_memory_by_op", "allocated_at_entry")
+               if getattr(self, k) is not None},
         }
 
 
@@ -351,22 +366,30 @@ class ByteCounter(TorchDispatchMode):
 
 def analyze_step(fn, *args, n_devices: int = 1, model_flops_total: Optional[float] = None,
                  topology: Optional[Any] = None, mesh=None, hw: Optional[HW] = None,
-                 device=None):
+                 device=None, arg_shares=None):
     """Run ``fn(*args)`` once (its output is dropped) and return its
     :class:`RooflineReport`: FLOPs counted by ``FlopCounterMode``, bytes by
-    :class:`ByteCounter`, the collectives ``mesh`` counted during the call
-    (:func:`collective_stats_from_mesh`), and the peak memory the call
-    allocated on the card (``device`` a CUDA device; None on the CPU)."""
+    :class:`ByteCounter`, the device memory by :class:`MemoryCounter`
+    (``arg_shares``: the share of each argument the device holds), the
+    collectives ``mesh`` counted during the call
+    (:func:`collective_stats_from_mesh`). The peak memory is the counted
+    one, or with ``device`` a CUDA device the allocator's, beside what it
+    held at entry."""
     on_card = device is not None and torch.device(device).type == "cuda"
+    at_entry = None
     if on_card:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
+        at_entry = float(torch.cuda.memory_allocated(device))
     before = mesh_counts(mesh) if mesh is not None else None
     flops = FlopCounterMode(display=False)
     byts = ByteCounter()
-    with flops, byts:
-        fn(*args)
-    peak = None
+    mem = MemoryCounter(args, arg_shares)
+    with flops, byts, mem:
+        out = fn(*args)
+    analysis = mem.analysis(out)
+    del out
+    peak = float(mem.peak)
     if on_card:
         torch.cuda.synchronize(device)
         peak = float(torch.cuda.max_memory_allocated(device))
@@ -381,4 +404,8 @@ def analyze_step(fn, *args, n_devices: int = 1, model_flops_total: Optional[floa
         model_flops_total=model_flops_total,
         peak_memory_per_device=peak,
         topology=topology,
+        memory_analysis=analysis,
+        peak_memory_op=mem.peak_op,
+        peak_memory_by_op=mem.peak_by_op,
+        allocated_at_entry=at_entry,
     )

@@ -88,3 +88,46 @@ def port_cfg(j) -> ModelConfig:
     kw["mla"] = None if j.mla is None else MLAConfig(**dataclasses.asdict(j.mla))
     kw["moe"] = None if j.moe is None else MoEConfig(**dataclasses.asdict(j.moe))
     return ModelConfig(**kw)
+
+
+#: the small steps of the memory counter's tests: a reduced Qwen1.5-0.5B
+#: (2 layers, d_model 128: head width 32, which the paged kernel takes) on a
+#: dry-run stand-in of a (2, m) mesh; global batch 8 × 64 tokens, the paged
+#: pool at perf.py's 50 % occupancy: 2 slots of up to 4 pages of 4, 4 pages
+MEMORY_STEP_NAMES = ("sync_step", "compressed_step", "paged_decode_step",
+                     "paged_prefill_chunk")
+
+
+def memory_steps(device, model: int = 2) -> dict:
+    """``dryrun.train_inputs`` and ``perf._paged_inputs``' steps at a small
+    width on ``device``: name → (step, args, the device's share of each
+    argument, the device's input bytes). The paged steps' host-side inputs
+    (token, lengths, tables) are moved to the device, so that meta and the
+    CPU hold the same arguments."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch.distributed import build_train_steps
+    from repro_torch.launch.serve_steps import build_paged_serve_steps
+    from repro_torch.launch.topology import production_topology
+    from repro_torch.models import reduced
+
+    arch = get_arch("qwen1.5-0.5b")
+    arch = dataclasses.replace(arch, model=reduced(arch.model, layers=2, d_model=128))
+    mesh = dryrun.StandInMesh(axis_names=("data", "model"), sizes=(2, model),
+                              device=torch.device(device), group="stand-in", world=2,
+                              model=model)
+    torch.manual_seed(0)
+    spec = dict(kind="train", seq_len=64, global_batch=8)
+    b = build_train_steps(arch, mesh, False, global_batch=8, seq_len=64,
+                          topology=production_topology())
+    args, in_bytes, shares = dryrun.train_inputs(b, arch, spec, device)
+    out = {n: (b.fns[n], args[n], shares[n], in_bytes[n]) for n in MEMORY_STEP_NAMES[:2]}
+    pool = (5, 4, 4, 2)   # npage (the null page and 4), page size, pages a slot, slots
+    pb = build_paged_serve_steps(arch, mesh, n_slots=2, npage=5, page_size=4, max_pages=4,
+                                 chunk=4)
+    pargs = perf._paged_inputs(pb, arch, pool, device)
+    for n in MEMORY_STEP_NAMES[2:]:
+        a = tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, pargs[n])
+        out[n] = (pb.fns[n], a, None, dryrun._bytes(a))
+    return out

@@ -1148,3 +1148,36 @@ def test_moe_ff_is_run_to_run_identical_on_card(dev):
         moe.moe_ff.drops = None
     assert int(drops) > 0
     assert torch.equal(y1.view(torch.int32), y2.view(torch.int32)) and torch.equal(a1, a2)
+
+
+# -- the memory counter (``roofline/memory.py``) on the card: the dry run's
+#    small steps (``_torch_parity.memory_steps``: a reduced Qwen1.5-0.5B
+#    train step, sync and compressed, the paged decode and prefill steps on
+#    a stand-in of a (2, m) mesh) counted within the tolerance of the
+#    caching allocator's peak, and counted on the card as on meta
+
+def _counted(device, model):
+    from _torch_parity import memory_steps
+    from repro_torch.roofline import analyze_step
+
+    return {name: analyze_step(fn, *args, arg_shares=shares,
+                               device=device if device.type == "cuda" else None).to_dict()
+            for name, (fn, args, shares, _b) in memory_steps(device, model).items()}
+
+
+@pytest.mark.parametrize("model", [1, 2])
+def test_memory_counter_within_tolerance_of_the_allocator_on_card(dev, model):
+    from repro_torch.roofline.memory import against_allocator
+
+    for name, entry in _counted(dev, model).items():
+        cmp = against_allocator(entry)
+        assert cmp is not None and cmp["within"], (name, cmp)
+        assert entry["allocated_at_entry"] >= entry["memory_analysis"]["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("model", [1, 2])
+def test_memory_counter_counts_on_card_as_on_meta(dev, model):
+    card, meta = _counted(dev, model), _counted(torch.device("meta"), model)
+    for name, entry in card.items():
+        assert entry["memory_analysis"] == meta[name]["memory_analysis"], name
+        assert entry["peak_memory_op"] == meta[name]["peak_memory_op"], name

@@ -23,7 +23,8 @@ production device.
   products);
 * a whole grid entry on meta (a reduced config has no entry, so
   ``run_one``'s own path at xlstm-350m × long_500k × single is the cheap
-  one): every step ``ok``, the reference's JSON keys.
+  one): every step ``ok``, the reference's JSON keys, the counted memory
+  (its argument the entry's input bytes, its peak the entry's).
 """
 
 import json
@@ -37,6 +38,7 @@ import torch
 from _torch_parity import one_torch_thread  # noqa: F401
 from repro_torch.launch import dryrun, perf
 from repro_torch.launch.topology import spawn_local_cluster
+from repro_torch.roofline.memory import counted_peak
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -232,8 +234,11 @@ def test_one_grid_entry_on_meta():
     assert res["n_devices"] == 256
     for name, s in res["steps"].items():
         assert s["ok"], (name, s.get("error"))
-        assert s["device"] == "meta" and s["peak_memory_per_device"] is None
-        assert s["flops_per_device"] > 0 and s["arg_bytes_per_device"] > 0
+        assert s["device"] == "meta" and s["flops_per_device"] > 0
+        ma = s["memory_analysis"]
+        assert ma["argument_size_in_bytes"] == s["arg_bytes_per_device"] > 0
+        assert s["peak_memory_per_device"] == counted_peak(ma) > s["arg_bytes_per_device"]
+        assert s["peak_memory_op"] and "memory_vs_allocator" not in s
 
 
 def test_permk_column_share_may_be_empty():

@@ -6,7 +6,8 @@
   reference's bit for bit given the same inputs and the same ``HW``
   values; the port's ``HW`` defaults are the H100 SXM's published figures;
 * ``analyze_step``'s counters, exactly: one matmul is 2·M·N·K FLOPs and
-  its inputs plus its output in bytes (a transposed view adds nothing);
+  its inputs plus its output in bytes (a transposed view adds nothing),
+  and its output's bytes of memory at its peak;
   a reduced Qwen1.5-0.5B's forward and backward count 6·D·(N − the norm
   and bias parameters) plus the attention's 12·L·B·S²·H·hd FLOPs (remat
   off), and with remat on the recomputed forward puts ``model_flops`` at
@@ -111,7 +112,10 @@ def test_one_matmul_counts_exactly():
     rep = ra.analyze_step(lambda: x @ w.t())
     assert rep.flops_per_device == 2 * M * N * K
     assert rep.bytes_per_device == 4 * (M * K + K * N + M * N)
-    assert rep.peak_memory_per_device is None and rep.collective.per_device_bytes == 0
+    # the counted memory: no argument, the (M, N) output live at return
+    assert rep.peak_memory_per_device == 4 * M * N and rep.collective.per_device_bytes == 0
+    assert rep.memory_analysis["output_size_in_bytes"] == 4 * M * N
+    assert rep.memory_analysis["temp_size_in_bytes"] == 0 and rep.peak_memory_op == "mm"
     rep2 = ra.analyze_step(lambda a, b: torch.add(a, b, alpha=2.0), x, x)
     assert rep2.flops_per_device == 0 and rep2.bytes_per_device == 4 * 2 * M * K
 
